@@ -1,0 +1,599 @@
+"""Drive the PyTorch/CUDA port (wukong_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--scale 640] [--cross-scale 40] [--seed 0] [--out PATH]
+
+Phases (any failure exits nonzero, and no result line is printed):
+  1. device: the card's name and power limit; build the CUDA kernels from
+     wukong_tpu_torch/csrc with nvcc and print the build time;
+  2. kernels: each hand-written kernel (K1 probe, K2 stream emit, K3 m-hot
+     stream emit) against its plain PyTorch version on the card, exactly, on
+     adversarial cases;
+  3. store: synthesize LUBM-<scale> from the seed, build the partition, and
+     stage every segment the seven LUBM shapes touch on the card;
+  4. serve: the seven LUBM shapes through Proxy.serve_query (rows, median
+     latency of 5 runs) and the index-origin shapes through
+     Proxy.serve_batch_index in replicate mode; every per-qid count must equal
+     the single-query row count, and every kernel's launch count must rise.
+     The kernels are then held against their plain versions on the inputs
+     this phase gave them, and timed there (CUDA events, median of 25 runs);
+  5. cross-check: at LUBM-<cross-scale> the seven shapes through
+     Proxy(device="cpu") (plain versions) and Proxy(device="cuda") must give
+     equal row multisets.
+The line before the last is one JSON object {"kernels": [...]}; the last is
+{"ok": true, "device": {...}}. The script needs the repository around it and
+a CUDA GPU; it imports nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+# the kernels do integer work on the CUDA cores; the data sheet gives no
+# int32 rate, so the float32 rate outside the tensor cores stands for it (an
+# upper bound on the integer rate, so the time bound stays a lower bound)
+CORE_OPS_PER_S = 67e12
+
+PREFIX = """
+PREFIX rdf: <http://www.w3.org/1999/02/22-rdf-syntax-ns#>
+PREFIX ub: <http://swat.cse.lehigh.edu/onto/univ-bench.owl#>
+"""
+# the LUBM basic-suite shapes (Wukong's lubm_q1..q7)
+QUERIES = {
+    "lubm_q1": PREFIX + """SELECT ?X ?Y ?Z WHERE {
+        ?X rdf:type ub:GraduateStudent . ?Y rdf:type ub:University .
+        ?Z rdf:type ub:Department . ?X ub:memberOf ?Z .
+        ?Z ub:subOrganizationOf ?Y . ?X ub:undergraduateDegreeFrom ?Y . }""",
+    "lubm_q2": PREFIX + """SELECT ?X ?Y ?Z WHERE {
+        ?X rdf:type ub:UndergraduateStudent . ?Y rdf:type ub:FullProfessor .
+        ?Z rdf:type ub:Course . ?X ub:advisor ?Y . ?Y ub:teacherOf ?Z .
+        ?X ub:takesCourse ?Z . }""",
+    "lubm_q3": PREFIX + """SELECT ?X WHERE {
+        ?X rdf:type ub:GraduateStudent .
+        ?X ub:takesCourse
+        <http://www.Department0.University0.edu/GraduateCourse0> . }""",
+    "lubm_q4": PREFIX + """SELECT ?X ?Y1 ?Y2 WHERE {
+        ?X ub:worksFor <http://www.Department0.University0.edu> .
+        ?X rdf:type ub:FullProfessor . ?X ub:name ?Y1 .
+        ?X ub:emailAddress ?Y2 . }""",
+    "lubm_q5": PREFIX + """SELECT ?X WHERE {
+        ?X ub:memberOf <http://www.Department0.University0.edu> . }""",
+    "lubm_q6": PREFIX + """SELECT ?X WHERE {
+        ?X rdf:type ub:GraduateStudent . }""",
+    "lubm_q7": PREFIX + """SELECT ?X ?Y WHERE {
+        ?X rdf:type ub:UndergraduateStudent . ?Y rdf:type ub:Course .
+        <http://www.Department0.University0.edu/AssociateProfessor0>
+        ub:teacherOf ?Y . ?X ub:takesCourse ?Y . }""",
+}
+
+KERNELS = {
+    "probe_kernel": ("wukong_tpu_torch/csrc/probe.cu",
+                     "wukong_tpu/engine/tpu_kernels.py:93"),
+    "stream_emit": ("wukong_tpu_torch/csrc/stream_emit.cu",
+                    "wukong_tpu/engine/tpu_stream.py:399"),
+    "stream_emit_m": ("wukong_tpu_torch/csrc/stream_emit.cu",
+                      "wukong_tpu/engine/tpu_stream.py:575"),
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+    """Median device time of fn() in ms (CUDA events around each run)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def max_abs_diff(xs, ys) -> int:
+    """Largest |x - y| over paired outputs (shapes must agree)."""
+    worst = 0
+    for x, y in zip(xs, ys):
+        check(tuple(x.shape) == tuple(y.shape),
+              f"shape mismatch {tuple(x.shape)} vs {tuple(y.shape)}")
+        if x.numel():
+            d = (x.long().cpu() - y.long().cpu()).abs().max().item()
+            worst = max(worst, int(d))
+    return worst
+
+
+class Capture:
+    """Wraps a kernel's module-level entry to keep the inputs of its largest
+    main-path call (by frontier or edge count). While wrapped, the kernel
+    function counts its launches on the module attribute, i.e. on the
+    wrapper; restore() adds them to the kernel function's own count."""
+
+    def __init__(self, module, attr: str, size_of):
+        self.module, self.attr, self.size_of = module, attr, size_of
+        self.orig = getattr(module, attr)
+        self.best = None
+        self.best_size = -1
+
+        def wrapped(*args, **kw):
+            size = size_of(args)
+            if size > self.best_size:
+                self.best, self.best_size = (args, kw), size
+            return self.orig(*args, **kw)
+
+        wrapped.launches = 0
+        self.wrapped = wrapped
+        setattr(module, attr, wrapped)
+
+    def restore(self) -> None:
+        setattr(self.module, self.attr, self.orig)
+        self.orig.launches += self.wrapped.launches
+
+
+# ---------------------------------------------------------------------------
+# phase 2: adversarial kernel checks
+# ---------------------------------------------------------------------------
+
+
+def kernel_cases(errs: dict) -> None:
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.engine import tpu_kernels as K
+    from wukong_tpu_torch.engine import tpu_stream as S
+    from wukong_tpu_torch.engine.device_store import build_hash_table
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1234)
+
+    def t(a, d=dev):
+        return torch.from_numpy(np.array(a)).to(d)
+
+    def cmp(name, kern, plain, what):
+        err = max_abs_diff(kern, plain)
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} != plain on {what} (max abs err {err})")
+
+    # K1: a random table, then a table whose keys all share one home bucket
+    keys = np.sort(rng.choice(1 << 28, 300_000, replace=False)) + (1 << 17)
+    offs = np.concatenate([[0], np.cumsum(rng.integers(1, 9, len(keys)))])
+    tables = [build_hash_table(keys, offs)]
+    cand = np.arange(1 << 17, (1 << 17) + 40_000, dtype=np.int64)
+    home = (cand.astype(np.uint32) * np.uint32(2654435761)) & np.uint32(7)
+    tables.append(build_hash_table(np.sort(cand[home == 0][:40]),
+                                   np.arange(41, dtype=np.int64) * 2, 8))
+    check(tables[1][3] >= 4, "multi-round probe case has too few rounds")
+    for ti, (bkey, bstart, bdeg, max_probe) in enumerate(tables):
+        tk = [t(a.reshape(-1)) for a in (bkey, bstart, bdeg)]
+        live = bkey[bkey >= 0]
+        for C, n, mix in ((1 << 16, 1 << 16, 0.5), (1000, 1000, 0.9),
+                          (4096, 0, 0.5), (8192, 8192, 0.0),
+                          (1 << 16, (1 << 16) - 77, 0.7)):
+            cur = np.where(rng.random(C) < mix, rng.choice(live, C),
+                           rng.integers(1 << 29, 1 << 30, C)).astype(np.int32)
+            cur[:3] = [-1, 0, 2**31 - 1]  # empty-slot key, zero, the pad
+            ct = t(cur)
+            cmp("probe_kernel", K.probe_kernel(*tk, ct, n, max_probe),
+                K.probe_plain(*tk, ct, n, max_probe),
+                f"table {ti}, C={C}, n={n}, hits~{mix}")
+
+    # K2 / K3 emits on raw delta channels: disjoint runs, a run spanning
+    # many tiles, random deltas with negative prefixes and wrapping
+    # parents, overflow past cap_out, ragged lengths
+    for E in (1, 1023, 5000, 1 << 20):
+        edges = rng.integers(0, 2**31 - 1, E).astype(np.int32)
+        cases = []
+        starts = np.sort(rng.choice(E, max(E // 10, 1), replace=False))
+        ends = np.minimum(starts + rng.integers(1, 12, len(starts)), E)
+        ends = np.minimum(ends, np.append(starts[1:], E))
+        dsel = np.zeros(E + 1, np.int32)
+        np.add.at(dsel, starts, 1)
+        np.add.at(dsel, ends, -1)
+        dpar = np.zeros(E + 1, np.int32)
+        dpar[starts] = np.diff(np.concatenate([[0], rng.integers(0, 1 << 20,
+                                                                 len(starts))]))
+        cases.append(("runs", dsel[:E], dpar[:E]))
+        big = np.zeros(E, np.int32)
+        big[0] = 1
+        cases.append(("one run", big, rng.integers(-5, 5, E).astype(np.int32)))
+        cases.append(("random deltas",
+                      rng.choice([-1, 0, 0, 1], E).astype(np.int32),
+                      rng.integers(-2**31, 2**31 - 1, E).astype(np.int32)))
+        cases.append(("empty", np.zeros(E, np.int32), np.zeros(E, np.int32)))
+        for what, ds, dp in cases:
+            for cap in (1024, max(E // 3, 1), 2 * E + 1024):
+                args = (t(edges), t(ds), t(dp), cap)
+                cmp("stream_emit", S.stream_emit(*args),
+                    S.stream_emit_plain(*args), f"{what}, E={E}, cap={cap}")
+                mult = ds.copy()
+                mult[::97] += rng.integers(0, 3, len(mult[::97])).astype(
+                    np.int32)
+                args = (t(edges), t(mult), t(dp), cap)
+                cmp("stream_emit_m", S.stream_emit_m(*args),
+                    S.stream_emit_m_plain(*args),
+                    f"m-hot {what}, E={E}, cap={cap}")
+
+    # stream_expand end to end: duplicate anchors at multiplicity 1..mdup go
+    # through K3, above mdup through the gather arm (no K3 launch); the card
+    # must equal the CPU (plain) bit for bit in every arm
+    nkeys = 20_000
+    skeys = np.sort(rng.choice(1 << 24, nkeys, replace=False)).astype(np.int32)
+    degs = rng.integers(0, 12, nkeys)
+    soffs = np.concatenate([[0], np.cumsum(degs)])
+    E = int(soffs[-1])
+    Kp, Ep = 1 << (nkeys - 1).bit_length(), 1 << (E - 1).bit_length()
+    seg = [np.full(Kp, 2**31 - 1, np.int32), np.zeros(Kp, np.int32),
+           np.zeros(Kp, np.int32), np.full(Ep, 2**31 - 1, np.int32)]
+    seg[0][:nkeys], seg[1][:nkeys], seg[2][:nkeys] = skeys, soffs[:-1], degs
+    seg[3][:E] = rng.integers(0, 2**31 - 1, E)
+    mdup = S.stream_mdup()
+    for mult in [1] + list(range(2, mdup + 2)):
+        C = 1 << 15
+        picks = rng.choice(skeys, C // (mult + 1), replace=False)
+        anchors = np.repeat(picks, mult)
+        rng.shuffle(anchors)
+        cur = np.full(C, 2**31 - 1, np.int32)
+        cur[:len(anchors)] = anchors
+        livem = rng.random(C) < 0.95
+        n = len(anchors)
+        before = S.stream_emit_m.launches
+        outs = {}
+        for d in ("cuda", "cpu"):
+            outs[d] = S.stream_expand(
+                *(t(a, d) for a in seg), t(cur, d), K.as_count(n, d),
+                t(livem, d), cap_out=1 << 17, mhot=True, mdup=mdup)
+        arm = "stream_emit" if mult == 1 else "stream_emit_m"
+        err = max_abs_diff(outs["cuda"], outs["cpu"])
+        errs[arm] = max(errs[arm], err)
+        check(err == 0, f"stream_expand cuda != cpu at multiplicity {mult}")
+        launched = S.stream_emit_m.launches > before
+        check(launched == (2 <= mult <= mdup),
+              f"multiplicity {mult}: K3 launched={launched}, mdup={mdup}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4 timing: each kernel on its captured main-path inputs
+# ---------------------------------------------------------------------------
+
+
+def probe_work(args) -> tuple:
+    """(bytes, operations, what) K1 needs for these inputs. Bytes: the live
+    frontier rows (i < n) and n read once (rows past n are never read), the
+    three outputs written once over all C rows, each distinct bucket row
+    that some probe round reaches read once (32 B; a live row probes round r
+    unless found before it), and start/deg of each distinct hit key.
+    Operations: per live row the hash (multiply, mask), per probe round an
+    add, a mask and 8 compares."""
+    import torch
+
+    from wukong_tpu_torch.engine import tpu_kernels as K
+
+    bkey, bstart, bdeg, cur, n, max_probe = args
+    C = cur.shape[0]
+    live = torch.arange(C, device=cur.device) < K.as_count(n, cur.device)
+    bmask = bkey.shape[0] // K.BUCKET - 1
+    hb = K._hash_bucket(cur, bmask)
+    found = torch.zeros_like(live)
+    reached, probes = [], 0
+    for r in range(max_probe):
+        active = live & ~found
+        reached.append(((hb + r) & bmask)[active])
+        probes += int(active.sum())
+        found = K.probe_plain(bkey, bstart, bdeg, cur, n, r + 1)[0]
+    buckets = int(torch.unique(torch.cat(reached)).numel())
+    hits = int(torch.unique(cur[found]).numel())
+    n_live = int(live.sum())
+    nbytes = n_live * 4 + 4 + buckets * 32 + hits * 8 + C * (1 + 4 + 4)
+    return (nbytes, n_live * 2 + probes * 10,
+            {"C": C, "live_rows": n_live, "buckets": buckets, "hits": hits})
+
+
+def emit_work(args, mhot: bool = False) -> tuple:
+    """(bytes, operations, what) K2 (or K3, with mhot) needs: both delta
+    channels read over all E edges (their running sums need every element),
+    edges read only where an edge emits a row below cap_out, val and par
+    written once over cap_out, the total; per edge two running sums and a
+    select, per output row its position."""
+    import torch
+
+    edges, dsel, _dpar, cap_out = args
+    E = edges.shape[0]
+    csel = torch.cumsum(dsel.long(), 0)
+    m = csel.clamp(min=0) if mhot else (csel > 0).long()
+    pos = torch.cumsum(m, 0) - m
+    read = int(((m > 0) & (pos < cap_out)).sum())
+    total = int(m.sum())
+    nbytes = E * 8 + read * 4 + cap_out * 8 + 8
+    return (nbytes, E * 3 + cap_out,
+            {"E": E, "edges_read": read, "rows": total, "cap_out": cap_out})
+
+
+def measure(name: str, cap: Capture, kern, plain, work_of, errs: dict,
+            launches: int, inputs: dict) -> dict:
+    check(cap.best is not None, f"{name}: no main-path call captured")
+    args, kw = cap.best
+    err = max_abs_diff(kern(*args, **kw), plain(*args, **kw))
+    errs[name] = max(errs[name], err)
+    check(err == 0, f"{name} != plain on its main-path inputs ({err})")
+    nbytes, ops, what = work_of(args)
+    inputs[name] = what
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / CORE_OPS_PER_S * 1e3
+    src, replaces = KERNELS[name]
+    row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+           "launches": launches, "max_abs_err": errs[name],
+           "ms": time_ms(lambda: kern(*args, **kw)),
+           "plain_ms": time_ms(lambda: plain(*args, **kw), reps=20),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": None}
+    log(f"  {name}: main-path input {what}  bytes {nbytes:,}  "
+        f"ops {ops:,}  ms {row['ms']:.4f}  bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']})  plain {row['plain_ms']:.4f}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5
+# ---------------------------------------------------------------------------
+
+
+def build_world(scale: int, seed: int):
+    from wukong_tpu_torch.loader.lubm import VirtualLubmStrings, generate_lubm
+    from wukong_tpu_torch.store.gstore import build_partition
+
+    t0 = time.perf_counter()
+    triples, _ = generate_lubm(scale, seed=seed)
+    t1 = time.perf_counter()
+    g = build_partition(triples, 0, 1)
+    t2 = time.perf_counter()
+    log(f"store: LUBM-{scale} seed {seed}: {len(triples):,} triples "
+        f"(synthesis {t1 - t0:.1f} s, partition {t2 - t1:.1f} s)")
+    return g, VirtualLubmStrings(scale, seed=seed), len(triples)
+
+
+def stage_all(proxy) -> int:
+    """Stage, on the card, every segment and list the seven shapes' single
+    and batch chains read."""
+    from wukong_tpu_torch.engine.tpu import _is_index_start
+
+    ds = proxy.engine.dstore
+    merge = proxy.engine.merge
+    for text in QUERIES.values():
+        q = proxy.parse(text)
+        pats = q.pattern_group.patterns
+        for k, p in enumerate(pats):
+            if k == 0 and _is_index_start(p):
+                ds.index_list(p.subject, p.direction)
+            else:
+                ds.segment(p.predicate, p.direction)
+        if q.start_from_index():
+            folds = merge._plan_folds(pats)
+            for _k, pat, kind, fold in merge.classify(pats, folds):
+                pid, d = pat.predicate, pat.direction
+                if kind == "expand" and fold is not None:
+                    ds.filtered_merge_segment(pid, d, fold[0])
+                    ds.filtered_segment(pid, d, fold[0])
+                elif kind == "k2c":
+                    ds.const_list(pid, d, pat.object)
+                else:
+                    ds.merge_segment(pid, d)
+    import torch
+
+    torch.cuda.synchronize()
+    return ds.bytes_used
+
+
+def batch_sizes(proxy, text: str, mdup: int) -> list:
+    """Replicate batch sizes for one index-origin shape: 1, and the largest
+    B <= mdup whose start rows and every step's learned capacity at B=1
+    (a power of two at or above the step's true total), times B, stay
+    within table_capacity_max."""
+    eng = proxy.engine
+    q = proxy.parse(text)
+    p0 = q.pattern_group.patterns[0]
+    peak = max([len(proxy.g.get_index(p0.subject, p0.direction))]
+               + [co for _k, _kind, _ci, co in eng.merge.walk_caps(q, 1)])
+    return sorted({1, min(mdup, max(eng.cap_max // max(peak, 1), 1))})
+
+
+def serve(proxy, heavy: tuple, mdup: int, results: dict) -> None:
+    """Phase 4's main path: the seven shapes one at a time, then the
+    index-origin shapes in replicate batches (B=1 first, which also learns
+    the capacities that size the larger B)."""
+    import torch
+
+    rows = {}
+    for name, text in QUERIES.items():
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            q = proxy.serve_query(text)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            check(q.result.status_code == 0,
+                  f"{name}: status {q.result.status_code!r}")
+        rows[name] = q.result.nrows
+        results["queries"][name] = {"rows": rows[name],
+                                    "median_ms": statistics.median(lat),
+                                    "runs_ms": lat}
+        log(f"  {name}: {rows[name]:,} rows, median {statistics.median(lat):.2f}"
+            f" ms over 5 runs (first {lat[0]:.2f} ms)")
+    for name in heavy:
+        text = QUERIES[name]
+        proxy.serve_batch_index(text, 1)
+        for B in batch_sizes(proxy, text, mdup):
+            lat = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                counts = proxy.serve_batch_index(text, B)
+                lat.append((time.perf_counter() - t0) * 1e3)
+                check(counts.tolist() == [rows[name]] * B,
+                      f"{name} B={B}: per-qid counts {counts.tolist()} != "
+                      f"single-query rows {rows[name]}")
+            med = statistics.median(lat)
+            caps = [(k, kind, ci, co) for k, kind, ci, co in
+                    proxy.engine.merge.walk_caps(proxy.parse(text), B)]
+            results["batches"][f"{name}@B={B}"] = {
+                "median_ms": med, "runs_ms": lat,
+                "queries_per_s": B / med * 1e3, "caps": caps}
+            log(f"  {name} x B={B}: counts ok, median {med:.2f} ms "
+                f"({B / med * 1e3:.2f} queries/s); caps {caps}")
+
+
+def rows_multiset(q):
+    return sorted(map(tuple, q.result.table.tolist()))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scale", type=int, default=640,
+                    help="LUBM universities for the serve phase")
+    ap.add_argument("--cross-scale", type=int, default=40,
+                    help="LUBM universities for the CPU/GPU cross-check")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="also write the measurements to this JSON file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from wukong_tpu_torch.engine import cuda_lib
+    from wukong_tpu_torch.engine import tpu_kernels as K
+    from wukong_tpu_torch.engine import tpu_stream as S
+    from wukong_tpu_torch.runtime.proxy import Proxy
+
+    t_start = time.perf_counter()
+    # ---- 1. device ------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    build_s = cuda_lib.build_all()
+    log(f"build: {len(cuda_lib.SOURCES)} CUDA sources with nvcc in "
+        f"{build_s:.1f} s")
+    results = {"card": card, "kind": kind, "build_s": build_s,
+               "scale": args.scale, "seed": args.seed, "queries": {},
+               "batches": {}}
+
+    # ---- 2. kernels on adversarial cases ---------------------------------
+    errs = {name: 0 for name in KERNELS}
+    t0 = time.perf_counter()
+    kernel_cases(errs)
+    torch.cuda.synchronize()
+    log(f"kernels: adversarial cases agree with the plain versions "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- 3. store -------------------------------------------------------
+    g, ss, ntriples = build_world(args.scale, args.seed)
+    proxy = Proxy(g, ss, device="cuda", budget_bytes=60 << 30)
+    t0 = time.perf_counter()
+    resident = stage_all(proxy)
+    log(f"store: staged {resident:,} bytes on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    results.update(triples=ntriples, resident_bytes=resident)
+
+    # ---- 4. serve (the main path) ----------------------------------------
+    captures = {
+        "probe_kernel": Capture(K, "probe_kernel", lambda a: a[3].shape[0]),
+        "stream_emit": Capture(S, "stream_emit", lambda a: a[0].shape[0]),
+        "stream_emit_m": Capture(S, "stream_emit_m", lambda a: a[0].shape[0]),
+    }
+    kernel_fns = {"probe_kernel": (captures["probe_kernel"].orig, K.probe_plain,
+                                   probe_work),
+                  "stream_emit": (captures["stream_emit"].orig,
+                                  S.stream_emit_plain, emit_work),
+                  "stream_emit_m": (captures["stream_emit_m"].orig,
+                                    S.stream_emit_m_plain,
+                                    lambda a: emit_work(a, mhot=True))}
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    log(f"serve: LUBM-{args.scale} on {kind}")
+    try:
+        serve(proxy, ("lubm_q1", "lubm_q2", "lubm_q6"), S.stream_mdup(),
+              results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    log(f"serve: kernel launches on the main path {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched on the main path")
+
+    inputs = {}
+    rows = [measure(name, captures[name], fn, plain, work_of, errs,
+                    launches[name], inputs)
+            for name, (fn, plain, work_of) in kernel_fns.items()]
+    results["kernels"] = rows
+    results["kernel_inputs"] = inputs
+
+    # ---- 5. cross-check -------------------------------------------------
+    gx, ssx, _ = build_world(args.cross_scale, args.seed)
+    on_cpu = Proxy(gx, ssx, device="cpu")
+    on_gpu = Proxy(gx, ssx, device="cuda")
+    for name, text in QUERIES.items():
+        a, b = on_cpu.serve_query(text), on_gpu.serve_query(text)
+        check(a.result.status_code == b.result.status_code == 0,
+              f"cross-check {name}: status")
+        check(rows_multiset(a) == rows_multiset(b),
+              f"cross-check {name}: cpu {a.result.nrows} rows vs cuda "
+              f"{b.result.nrows} rows")
+        log(f"  cross-check LUBM-{args.cross_scale} {name}: "
+            f"{a.result.nrows:,} rows equal on cpu and cuda")
+    results["cross_scale"] = args.cross_scale
+    results["total_s"] = time.perf_counter() - t_start
+    log(f"done in {results['total_s']:.1f} s")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(results, f, indent=1)
+
+    print(card)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,109 @@
+"""The port's store against the JAX package's: the JAX partition carried over
+with gstore_from_numpy stages element-for-element the same device arrays,
+and the port's own synthesis and build give the same partition."""
+
+import numpy as np
+import pytest
+import torch
+
+from wukong_tpu.engine.device_store import DeviceStore as JDeviceStore
+from wukong_tpu.loader.lubm import generate_lubm
+from wukong_tpu.store.gstore import build_partition
+from wukong_tpu.types import IN, OUT, TYPE_ID
+from wukong_tpu_torch.engine.device_store import DeviceStore
+from wukong_tpu_torch.loader import lubm as port_lubm
+from wukong_tpu_torch.store import gstore as port_gstore
+
+# the suite runs several test processes side by side: keep torch's own
+# thread pool small so it does not starve their timing-sensitive tests
+torch.set_num_threads(2)
+
+
+def _carry(g):
+    return port_gstore.gstore_from_numpy(
+        {k: (s.keys, s.offsets, s.edges) for k, s in g.segments.items()},
+        dict(g.index), type_ids=g.type_ids, v_set=g.v_set, t_set=g.t_set,
+        p_set=g.p_set)
+
+
+@pytest.fixture(scope="module")
+def stores():
+    triples, _ = generate_lubm(1, seed=42)
+    g = build_partition(triples, 0, 1)
+    return g, _carry(g)
+
+
+def _same(jarr, tarr):
+    assert isinstance(tarr, torch.Tensor) and tarr.dtype == torch.int32
+    assert np.array_equal(np.asarray(jarr), tarr.numpy())
+
+
+def test_staged_segments_equal(stores):
+    g, pg = stores
+    jds, tds = JDeviceStore(g), DeviceStore(pg, device="cpu")
+    keys = sorted(g.segments) + [(TYPE_ID, IN)]
+    for pid, d in keys:
+        js, ts = jds.segment(pid, d), tds.segment(pid, d)
+        for name in ("bkey", "bstart", "bdeg", "edges"):
+            _same(getattr(js, name), getattr(ts, name))
+        assert (js.num_keys, js.num_edges, js.max_probe, js.max_deg_log2) == \
+            (ts.num_keys, ts.num_edges, ts.max_probe, ts.max_deg_log2)
+        jm, tm = jds.merge_segment(pid, d), tds.merge_segment(pid, d)
+        for name in ("skey", "sstart", "sdeg", "edges", "ekey"):
+            _same(getattr(jm, name), getattr(tm, name))
+
+
+def test_staged_lists_equal(stores):
+    from wukong_tpu.loader.lubm import P, T
+
+    g, pg = stores
+    jds, tds = JDeviceStore(g), DeviceStore(pg, device="cpu")
+    for key in list(g.index)[:40]:
+        ja, jn = jds.index_list(*key)
+        ta, tn = tds.index_list(*key)
+        assert jn == tn
+        _same(ja, ta)
+    for (pid, d, c) in ((TYPE_ID, OUT, T["GraduateStudent"]),
+                        (P["memberOf"], OUT, int(g.segments[(P["memberOf"],
+                                                              IN)].keys[0]))):
+        ja, jn = jds.const_list(pid, d, c)
+        ta, tn = tds.const_list(pid, d, c)
+        assert jn == tn > 0
+        _same(ja, ta)
+    f = [(TYPE_ID, OUT, T["Department"])]
+    jf = jds.filtered_merge_segment(P["memberOf"], OUT, f)
+    tf = tds.filtered_merge_segment(P["memberOf"], OUT, f)
+    for name in ("skey", "sstart", "sdeg", "edges", "ekey"):
+        _same(getattr(jf, name), getattr(tf, name))
+
+
+def test_port_synthesis_and_build_match(stores):
+    g, _ = stores
+    triples, _ = port_lubm.generate_lubm(1, seed=42)
+    jt, _ = generate_lubm(1, seed=42)
+    assert np.array_equal(triples, jt)
+    pg = port_gstore.build_partition(triples, 0, 1)
+    assert set(pg.segments) == set(g.segments)
+    for k, s in g.segments.items():
+        ps = pg.segments[k]
+        for name in ("keys", "offsets", "edges"):
+            assert np.array_equal(getattr(s, name), getattr(ps, name)), k
+    assert set(pg.index) == set(g.index) and pg.type_ids == g.type_ids
+    for k, v in g.index.items():
+        assert np.array_equal(v, pg.index[k]), k
+    for name in ("v_set", "t_set", "p_set"):
+        assert np.array_equal(getattr(g, name), getattr(pg, name))
+
+
+def test_budget_eviction_respects_pins(stores):
+    from wukong_tpu.loader.lubm import P
+
+    _, pg = stores
+    ds = DeviceStore(pg, budget_bytes=1 << 16, device="cpu")
+    key = (P["memberOf"], OUT)
+    ds.pin([key])
+    ds.segment(*key)
+    ds.merge_segment(P["takesCourse"], OUT)
+    assert key in ds._cache  # pinned: kept over budget
+    ds.unpin([key])
+    assert ds.bytes_used <= 1 << 16 or not ds._lru

@@ -1,0 +1,11 @@
+"""wukong_tpu_torch: the PyTorch/CUDA port of wukong_tpu for NVIDIA Hopper.
+
+Same file layout and public names as the JAX package (``wukong_tpu``), which
+stays the reference; the port imports none of it. Entry points
+(``runtime.proxy.Proxy``, ``engine.tpu.GPUEngine``,
+``engine.device_store.DeviceStore``) run on the card by default and on the
+CPU only when the caller passes ``device="cpu"``. The hand-written kernels
+live in ``csrc/`` and build at first use into ``build/``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,1 @@
+"""Port subpackage (see wukong_tpu_torch/__init__.py)."""

@@ -1,0 +1,392 @@
+"""Device-resident CSR segment store — the GPUCache analogue.
+
+The port of the JAX package's engine/device_store.py. Host CSR segments are
+staged on demand as int32 torch tensors on the store's device, padded to
+power-of-two lengths, and cached by key under a byte budget with LRU
+eviction; a query pins the segments of its chain (`pin`/`unpin`), as in the
+reference's conflict-aware eviction (core/gpu/gpu_cache.hpp).
+
+Two staged forms per (pid, dir):
+- DeviceSegment: an 8-way bucketized hash table over the keys (probed by
+  K1) plus the edge array;
+- MergeSegment: sorted key/start/deg arrays plus per-edge (key, neighbor)
+  pairs, for the sort-merge kernels and the stream emitters.
+Bucket placement (`build_hash_table`) is bit-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from wukong_tpu_torch.types import IN, OUT, PREDICATE_ID, TYPE_ID
+from wukong_tpu_torch.utils.device import resolve_device
+
+INT32_MAX = np.iinfo(np.int32).max
+BUCKET = 8  # 8-way associative buckets — one bucket row = one 32 B load
+_HASH_MULT = np.uint32(2654435761)  # Knuth multiplicative hashing
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+@dataclass
+class DeviceSegment:
+    """One (pid, dir) CSR segment staged on device, keyed by a flat [NB*8]
+    bucketized hash table (the reference probes 8-slot buckets for the same
+    locality reason — gstore.hpp:55-120, gpu_hash.cu:149-260)."""
+
+    bkey: torch.Tensor  # int32 [NB*8] bucket keys; empty = -1
+    bstart: torch.Tensor  # int32 [NB*8] edge range start
+    bdeg: torch.Tensor  # int32 [NB*8] edge range length
+    edges: torch.Tensor  # int32 [E_pad], padded with INT32_MAX
+    num_keys: int
+    num_edges: int
+    max_probe: int  # probe-round bound
+    max_deg_log2: int  # binary-search depth for membership tests
+
+    @property
+    def nbytes(self) -> int:
+        return (self.bkey.numel() + self.bstart.numel() + self.bdeg.numel()
+                + self.edges.numel()) * 4
+
+
+@dataclass
+class MergeSegment:
+    """One (pid, dir) CSR segment staged for the sort-merge kernels: sorted
+    key/start/deg arrays (padded with INT32_MAX / 0) plus the per-edge
+    lex-sorted (key, neighbor) pairs."""
+
+    skey: torch.Tensor  # int32 [K_pad] sorted keys, pad INT32_MAX
+    sstart: torch.Tensor  # int32 [K_pad] edge range starts, pad 0
+    sdeg: torch.Tensor  # int32 [K_pad] edge range lengths, pad 0
+    edges: torch.Tensor  # int32 [E_pad]
+    ekey: torch.Tensor  # int32 [E_pad] per-edge key
+    num_keys: int
+    num_edges: int
+
+    @property
+    def nbytes(self) -> int:
+        return (self.skey.numel() * 3 + self.edges.numel()
+                + self.ekey.numel()) * 4
+
+
+def fold_key(filters) -> tuple:
+    """Canonical cache-key form of a fold's (pid, dir, const) filter list."""
+    return tuple(sorted((int(p), int(dd), int(c)) for (p, dd, c) in filters))
+
+
+def type_index_csr(g):
+    """(keys, offsets, edges) of a partition's type index as one CSR keyed by
+    type id."""
+    pairs = [(t, g.index[(t, IN)]) for t in sorted(g.type_ids)]
+    if not pairs:
+        return (np.empty(0, np.int64), np.zeros(1, np.int64),
+                np.empty(0, np.int64))
+    keys = np.asarray([t for t, _ in pairs], dtype=np.int64)
+    counts = np.asarray([len(v) for _, v in pairs], dtype=np.int64)
+    offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    edges = np.concatenate([v for _, v in pairs])
+    return keys, offsets, edges
+
+
+def build_hash_table(keys: np.ndarray, offsets: np.ndarray,
+                     num_buckets: int | None = None):
+    """Host-side bucketized table build (vectorized placement rounds).
+
+    Returns (bkey [NB,8], bstart, bdeg, max_probe). Bucket count is sized for
+    <=50% load so nearly all keys land in their home bucket (max_probe 1-2).
+    Round r places every pending key whose bucket (hb + r) has a free lane,
+    in key order within a bucket.
+    """
+    K = len(keys)
+    NB = num_buckets or max(_next_pow2((K + BUCKET // 2 - 1) // (BUCKET // 2)), 2)
+    bmask = np.uint32(NB - 1)
+    bkey = np.full((NB, BUCKET), -1, dtype=np.int32)
+    bstart = np.zeros((NB, BUCKET), dtype=np.int32)
+    bdeg = np.zeros((NB, BUCKET), dtype=np.int32)
+    if K == 0:
+        return bkey, bstart, bdeg, 1
+    starts = offsets[:-1].astype(np.int64)
+    degs = (offsets[1:] - offsets[:-1]).astype(np.int64)
+    hb = (keys.astype(np.uint32) * _HASH_MULT) & bmask
+    used = np.zeros(NB, dtype=np.int64)
+    pending = np.arange(K)
+    round_ = 0
+    while len(pending):
+        tb = ((hb[pending] + np.uint32(round_)) & bmask).astype(np.int64)
+        order = np.argsort(tb, kind="stable")
+        tbs = tb[order]
+        # rank within each same-bucket group this round
+        idx = np.arange(len(tbs))
+        begins = np.flatnonzero(np.concatenate([[True], tbs[1:] != tbs[:-1]]))
+        group_id = np.cumsum(np.concatenate([[0], (tbs[1:] != tbs[:-1]).astype(int)]))
+        rank = idx - begins[group_id]
+        lane = used[tbs] + rank
+        ok = lane < BUCKET
+        rows = tbs[ok]
+        lanes = lane[ok]
+        kidx = pending[order[ok]]
+        bkey[rows, lanes] = keys[kidx]
+        bstart[rows, lanes] = starts[kidx]
+        bdeg[rows, lanes] = degs[kidx]
+        np.add.at(used, rows, 1)
+        placed = np.zeros(len(pending), dtype=bool)
+        placed[order[ok]] = True
+        pending = pending[~placed]
+        round_ += 1
+        if round_ > NB:
+            raise RuntimeError("bucket hash build failed to converge")
+    return bkey, bstart, bdeg, max(round_, 1)
+
+
+class DeviceStore:
+    """Stages host CSR segments into device memory on demand."""
+
+    def __init__(self, gstore, budget_bytes: int | None = None,
+                 device="cuda"):
+        self.g = gstore
+        self.device = resolve_device(device)
+        self.budget = budget_bytes
+        self._cache: dict = {}  # segment key -> DeviceSegment | MergeSegment
+        self._index_cache: dict = {}  # ("idx"|"rev", ...) -> (tensor, real_len)
+        self._lru: list = []
+        self._pinned: set = set()
+        self._fcsr_memo: dict = {}  # filtered host CSRs, per (pid, d, fkey)
+        self.bytes_used = 0
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+            self.device)
+
+    # ---- segment staging -------------------------------------------------
+    def _host_csr(self, pid: int, d: int):
+        """(keys, offsets, edges) of a (pid, dir) host CSR, or None;
+        TYPE_ID IN resolves to the type index CSR."""
+        if int(pid) == TYPE_ID and int(d) == IN:
+            keys, offsets, edges = type_index_csr(self.g)
+            return (keys, offsets, edges) if len(keys) else None
+        host = self.g.segments.get((int(pid), int(d)))
+        if host is None:
+            return None
+        return host.keys, host.offsets, host.edges
+
+    def _cached(self, key, build):
+        if key in self._cache:
+            self._touch(key)
+            return self._cache[key]
+        seg = build()
+        if seg is not None:
+            self._insert(key, seg)
+        return seg
+
+    def segment(self, pid: int, d: int) -> DeviceSegment | None:
+        """Stage (pid, dir) in bucket form; TYPE_ID IN resolves to the type
+        index CSR."""
+        def build():
+            csr = self._host_csr(pid, d)
+            return None if csr is None else self._stage(*csr)
+        return self._cached((int(pid), int(d)), build)
+
+    def merge_segment(self, pid: int, d: int) -> MergeSegment | None:
+        """Stage (pid, dir) for the sort-merge kernels."""
+        def build():
+            csr = self._host_csr(pid, d)
+            return None if csr is None else self._stage_merge(*csr)
+        return self._cached(("mrg", int(pid), int(d)), build)
+
+    def filtered_merge_segment(self, pid: int, d: int,
+                               filters: list) -> MergeSegment | None:
+        """Merge segment of (pid, d) with edges restricted to targets that
+        satisfy every (fpid, fd, fconst) k2c filter — an expand followed by
+        `?v type T` membership becomes ONE expand over the pre-intersected
+        segment (the reference planner's type-centric pruning)."""
+        fkey = fold_key(filters)
+
+        def build():
+            csr = self._filtered_host_csr(pid, d, fkey)
+            return None if csr is None else self._stage_merge(*csr)
+        return self._cached(("mrgf", int(pid), int(d), fkey), build)
+
+    def filtered_segment(self, pid: int, d: int,
+                         filters: list) -> DeviceSegment | None:
+        """Bucket-form twin of filtered_merge_segment (probe-lookup path)."""
+        fkey = fold_key(filters)
+
+        def build():
+            csr = self._filtered_host_csr(pid, d, fkey)
+            return None if csr is None else self._stage(*csr)
+        return self._cached(("segf", int(pid), int(d), fkey), build)
+
+    def _filtered_host_csr(self, pid: int, d: int, fkey: tuple):
+        memo_key = (int(pid), int(d), fkey)
+        if memo_key not in self._fcsr_memo:
+            if len(self._fcsr_memo) > 64:  # bound the host-side copies
+                self._fcsr_memo.clear()
+            self._fcsr_memo[memo_key] = self._filtered_host_csr_build(
+                pid, d, fkey)
+        return self._fcsr_memo[memo_key]
+
+    def _filtered_host_csr_build(self, pid: int, d: int, fkey: tuple):
+        csr = self._host_csr(pid, d)
+        if csr is None:
+            return None
+        keys, offsets, edges = csr
+        edges = np.asarray(edges)
+        mask = np.ones(len(edges), dtype=bool)
+        for (fp, fd, fc) in fkey:
+            allowed = self._const_members(fp, fd, fc)
+            if len(allowed) == 0:
+                mask[:] = False
+                break
+            # allowed is sorted: O(E log M) membership
+            pos = np.clip(np.searchsorted(allowed, edges), 0, len(allowed) - 1)
+            mask &= allowed[pos] == edges
+        csum = np.concatenate([[0], np.cumsum(mask)])
+        new_deg = csum[offsets[1:]] - csum[offsets[:-1]]
+        keep_key = new_deg > 0
+        fkeys = np.asarray(keys)[keep_key]
+        foffs = np.zeros(len(fkeys) + 1, dtype=np.int64)
+        np.cumsum(new_deg[keep_key], out=foffs[1:])
+        return fkeys, foffs, edges[mask]
+
+    def host_num_keys(self, pid: int, d: int) -> int:
+        """Key count of a (pid, dir) segment from HOST metadata only."""
+        if int(pid) == TYPE_ID and int(d) == IN:
+            return len(self.g.type_ids)
+        host = self.g.segments.get((int(pid), int(d)))
+        return host.num_keys if host is not None else 0
+
+    def host_num_edges(self, pid: int, d: int) -> int:
+        """Edge count of a (pid, dir) segment from HOST metadata only."""
+        if int(pid) == TYPE_ID and int(d) == IN:
+            return sum(len(self.g.get_index(t, IN)) for t in self.g.type_ids)
+        host = self.g.segments.get((int(pid), int(d)))
+        return host.num_edges if host is not None else 0
+
+    # ---- lists -----------------------------------------------------------
+    def index_list(self, tpid: int, d: int):
+        """Index edge list (type members / pred subjects-objects) on device:
+        (tensor padded with INT32_MAX, real length)."""
+        key = ("idx", int(tpid), int(d))
+        if key in self._index_cache:
+            self._touch(key)
+            return self._index_cache[key]
+        return self._stage_list(key, np.asarray(self.g.get_index(tpid, d)))
+
+    def _const_members(self, pid: int, d: int, const: int) -> np.ndarray:
+        """Host-side sorted { x : const ∈ adj(x, pid, d) }."""
+        pid, d, const = int(pid), int(d), int(const)
+        if pid == TYPE_ID and d == OUT:
+            host = self.g.get_index(const, IN)
+        elif pid == TYPE_ID and d == IN:
+            host = self.g.get_triples(const, TYPE_ID, OUT)
+        elif pid == PREDICATE_ID:
+            host = self.g.get_index(const, IN if d == OUT else OUT)
+        else:
+            host = self.g.get_triples(const, pid, IN if d == OUT else OUT)
+        return np.sort(np.asarray(host, dtype=np.int64))
+
+    def const_list(self, pid: int, d: int, const: int):
+        """Sorted set { x : const ∈ adj(x, pid, d) } staged on device — the
+        k2c merge relation. Returns (tensor, real_len)."""
+        key = ("rev", int(pid), int(d), int(const))
+        if key in self._index_cache:
+            self._touch(key)
+            return self._index_cache[key]
+        return self._stage_list(key, self._const_members(pid, d, const))
+
+    def _stage_list(self, key, arr: np.ndarray):
+        padded = np.full(_next_pow2(len(arr)), INT32_MAX, dtype=np.int32)
+        padded[: len(arr)] = arr
+        entry = (self._dev(padded), len(arr))
+        self._index_cache[key] = entry
+        self._lru.append(key)
+        self.bytes_used += padded.nbytes
+        self._enforce_budget()
+        return entry
+
+    # ---- builders --------------------------------------------------------
+    def _stage(self, keys, offsets, edges) -> DeviceSegment:
+        K, E = len(keys), len(edges)
+        e = np.full(_next_pow2(E), INT32_MAX, dtype=np.int32)
+        e[:E] = edges
+        bkey, bstart, bdeg, max_probe = build_hash_table(
+            np.asarray(keys), np.asarray(offsets))
+        max_deg = int((offsets[1:] - offsets[:-1]).max()) if K else 1
+        return DeviceSegment(
+            bkey=self._dev(bkey.reshape(-1)),
+            bstart=self._dev(bstart.reshape(-1)),
+            bdeg=self._dev(bdeg.reshape(-1)),
+            edges=self._dev(e), num_keys=K, num_edges=E, max_probe=max_probe,
+            max_deg_log2=max(int(max_deg).bit_length(), 1))
+
+    def _stage_merge(self, keys, offsets, edges) -> MergeSegment:
+        K, E = len(keys), len(edges)
+        Kp, Ep = _next_pow2(K), _next_pow2(E)
+        degs = offsets[1:] - offsets[:-1]
+        sk = np.full(Kp, INT32_MAX, dtype=np.int32)
+        sk[:K] = keys
+        ss = np.zeros(Kp, dtype=np.int32)
+        ss[:K] = offsets[:-1]
+        sd = np.zeros(Kp, dtype=np.int32)
+        sd[:K] = degs
+        e = np.full(Ep, INT32_MAX, dtype=np.int32)
+        e[:E] = edges
+        ek = np.full(Ep, INT32_MAX, dtype=np.int32)
+        ek[:E] = np.repeat(np.asarray(keys, dtype=np.int32),
+                           np.asarray(degs, dtype=np.int64))
+        return MergeSegment(skey=self._dev(sk), sstart=self._dev(ss),
+                            sdeg=self._dev(sd), edges=self._dev(e),
+                            ekey=self._dev(ek), num_keys=K, num_edges=E)
+
+    # ---- cache management ------------------------------------------------
+    def _insert(self, key, seg) -> None:
+        self._cache[key] = seg
+        self._lru.append(key)
+        self.bytes_used += seg.nbytes
+        self._enforce_budget()
+
+    def _enforce_budget(self) -> None:
+        if self.budget is None:
+            return
+        while self.bytes_used > self.budget:
+            victims = [k for k in self._lru if k not in self._pinned]
+            if not victims:
+                return
+            self._evict(victims[0])
+
+    def _evict(self, key) -> None:
+        if key in self._cache:
+            self.bytes_used -= self._cache.pop(key).nbytes
+        else:
+            dev, _ = self._index_cache.pop(key)
+            self.bytes_used -= dev.numel() * 4
+        self._lru.remove(key)
+
+    def _touch(self, key) -> None:
+        if key in self._lru:
+            self._lru.remove(key)
+            self._lru.append(key)
+
+    @staticmethod
+    def _pin_key(k):
+        # (pid, d) pins the bucket staging; string-tagged keys pin as-is
+        return k if isinstance(k[0], str) else (int(k[0]), int(k[1]))
+
+    def pin(self, keys) -> None:
+        self._pinned.update(self._pin_key(k) for k in keys)
+
+    def unpin(self, keys) -> None:
+        for k in keys:
+            self._pinned.discard(self._pin_key(k))
+        self._enforce_budget()  # pins may have deferred evictions
+
+    def prefetch(self, patterns) -> None:
+        """Stage the bucket segments of upcoming pattern steps."""
+        for p in patterns:
+            self.segment(p.predicate, p.direction)

@@ -1,0 +1,416 @@
+"""Sort-merge batch executor — the device chain for replicate index batches.
+
+The port of the JAX package's engine/tpu_merge.py (``run_batch_index`` in
+replicate mode). The chain keeps, per expansion level, only (vals, parent):
+`vals` is the new column in the current row space, `parent` maps each row to
+its producer one level down (the reference's result_table regrow,
+query.hpp:536-558, priced lazily). A column is materialized only when a later
+step anchors on it; membership filters fold into the NEXT expand's degree
+vector instead of paying a compaction, unless a learned capacity says that
+shrinking the capacity class wins.
+
+Each expand chooses one of three arms on host metadata (``_dispatch``):
+- probe: the frontier is far smaller than the segment's key set — K1 probes
+  the bucket table (``probe_expand``);
+- stream: the expansion is dense in the segment — K2 / K3 stream the edge
+  array (``tpu_stream.stream_expand``);
+- merge: otherwise the sort-merge lookup + scatter/gather emit.
+Capacity overflow: true totals ride along, one sync at the end, retry with
+exact classes; a per-(query, B) capacity memo makes the retry a one-time
+cost per process.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from wukong_tpu_torch.engine import tpu_kernels as K
+from wukong_tpu_torch.engine import tpu_stream
+from wukong_tpu_torch.engine.device_store import fold_key
+from wukong_tpu_torch.sparql.ir import SPARQLQuery
+from wukong_tpu_torch.utils.errors import ErrorCode, WukongError, assert_ec
+from wukong_tpu_torch.utils.lru import LRUCache
+
+
+class _Level:
+    """One expansion level: new column values + parent map into the level
+    below (parent is None at the root)."""
+
+    __slots__ = ("var", "vals", "parent")
+
+    def __init__(self, var, vals, parent):
+        self.var = var
+        self.vals = vals
+        self.parent = parent
+
+
+class _MergeState:
+    """Chain state: levels + deferred filter mask + overflow totals."""
+
+    def __init__(self):
+        self.levels: list[_Level] = []
+        self.n = None  # device scalar live rows at current level
+        self.live = None  # deferred-filter mask at current level (or None)
+        self.totals: list = []  # (step, device_total, cap)
+        self.var_level: dict[int, int] = {}  # var -> level index
+        self.est_rows = 1.0  # host-side live-row estimate (NOT capacity)
+
+    @property
+    def cap(self) -> int:
+        return int(self.levels[-1].vals.shape[0])
+
+    def live_mask(self):
+        if self.live is None:
+            return torch.ones(self.cap, dtype=torch.bool,
+                              device=self.levels[-1].vals.device)
+        return self.live
+
+    def materialize(self, var: int):
+        """Column of `var` in the current row space: walk parent maps down to
+        its level (one gather per hop)."""
+        lv = self.var_level[var]
+        top = len(self.levels) - 1
+        if lv == top:
+            return self.levels[top].vals
+        idx = self.levels[top].parent
+        for k in range(top - 1, lv, -1):
+            idx = K.gather_col(self.levels[k].parent, idx)
+        return K.gather_col(self.levels[lv].vals, idx)
+
+    def pos0(self):
+        """Space-0 position of every current row (for qid recovery)."""
+        top = len(self.levels) - 1
+        idx = None
+        for k in range(top, -1, -1):
+            p = self.levels[k].parent
+            if p is None:
+                continue
+            idx = p if idx is None else K.gather_col(p, idx)
+        if idx is None:
+            return torch.arange(self.cap, dtype=torch.int32,
+                                device=self.levels[-1].vals.device)
+        return idx
+
+
+class MergeExecutor:
+    """Batched blind execution over merge kernels. Owned by GPUEngine."""
+
+    # frontier-vs-segment lookup dispatch: the merge lookup sorts the whole
+    # key array with the frontier per call, the bucket probe reads a few
+    # bucket rows per frontier row. The probe arm is taken when the key set
+    # is at least this many times the frontier capacity (16 on the card, as
+    # the JAX package chose for its accelerator; 2 on the CPU, as it chose
+    # for its CPU backend, where sorts are the expensive side).
+    PROBE_LOOKUP_FACTOR = 16
+
+    def __init__(self, engine):
+        self.eng = engine  # GPUEngine: dstore, g, cap bounds
+        self._cap_memo = LRUCache(4096)  # (patterns key, B, mode) -> caps
+        self.total_retries = 0  # cumulative overflow-retry chains
+
+    @staticmethod
+    def _key(pats, B: int, mode: str):
+        return (tuple((p.subject, p.predicate, int(p.direction), p.object)
+                      for p in pats), B, mode)
+
+    # ------------------------------------------------------------------
+    def run_batch_index(self, q: SPARQLQuery, B: int) -> np.ndarray:
+        """B replicate instances of an index-origin chain; per-qid counts."""
+        eng = self.eng
+        pats = q.pattern_group.patterns
+        edges, real = eng.dstore.index_list(pats[0].subject, pats[0].direction)
+        total0 = real * B
+        assert_ec(total0 <= eng.cap_max, ErrorCode.UNKNOWN_PATTERN,
+                  f"batch-index start ({total0:,} rows) exceeds "
+                  f"table_capacity_max ({eng.cap_max:,})")
+        memo_key = self._key(pats, B, "rep")
+        cap_override = dict(self._cap_memo.get(memo_key, {}))
+        folds = self._plan_folds(pats)
+        pins = self._chain_pins(pats, folds)
+        eng.dstore.pin(pins)
+        try:
+            for _attempt in range(8):
+                state = _MergeState()
+                self._init_index(state, pats, edges, real, B, total0)
+                for k, pat, _kind, fold in self.classify(pats, folds):
+                    self._dispatch(pat, k, state, cap_override, fold)
+                counts = K.qid_counts_pos0(state.pos0(), state.n,
+                                           state.live_mask(), B=B, r=real)
+                totals = (torch.stack([t for (_, t, _) in state.totals])
+                          .tolist() if state.totals else [])
+                host_counts = counts.cpu().numpy()
+                over = False
+                for (s, _, c), t in zip(state.totals, totals):
+                    exact = K.next_capacity(t, eng.cap_min, eng.cap_max)
+                    if t > c:
+                        if t > eng.cap_max:
+                            raise WukongError(
+                                ErrorCode.UNKNOWN_PATTERN,
+                                f"batch intermediate ({t:,} rows) "
+                                f"exceeds capacity ({eng.cap_max:,})")
+                        cap_override[s] = exact
+                        over = True
+                    else:
+                        # learn downward too: the next call starts tight
+                        cap_override.setdefault(s, exact)
+                if not over:
+                    self._cap_memo.put(memo_key, dict(cap_override))
+                    return host_counts
+                self.total_retries += 1
+            raise WukongError(ErrorCode.UNKNOWN_PATTERN,
+                              "batch capacity retry limit exceeded")
+        finally:
+            eng.dstore.unpin(pins)
+
+    def _init_index(self, state: _MergeState, pats, edges, real: int, B: int,
+                    total0: int) -> None:
+        eng = self.eng
+        cap0 = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
+        tab, n = K.init_batch_index(edges, real, B=B, cap=cap0)
+        state.levels.append(_Level(pats[0].object, tab[1], None))
+        state.var_level[pats[0].object] = 0
+        state.n = n
+        state.est_rows = max(total0, 1)
+
+    @staticmethod
+    def classify(pats, folds):
+        """THE single classification of a planned chain's executable steps:
+        yields (step, pat, kind, fold) for every non-folded step after the
+        index start, kind in {"expand", "k2k", "k2c"}, walking the bound set
+        exactly the way the executor binds it."""
+        if not pats:
+            return
+        vars_bound = {pats[0].object}
+        skip = folds.get("skip", ())
+        for k in range(1, len(pats)):
+            pat = pats[k]
+            end = pat.object
+            if k in skip:
+                assert end > 0, "folded step must be a k2c (const object)"
+                continue
+            if end < 0 and end not in vars_bound:
+                vars_bound.add(end)
+                yield k, pat, "expand", folds.get(k)
+            elif end < 0:
+                yield k, pat, "k2k", None
+            else:
+                yield k, pat, "k2c", None
+
+    def _lookup_factor(self) -> int:
+        f = self.PROBE_LOOKUP_FACTOR
+        if self.eng.dstore.device.type != "cuda":
+            f = f // 8
+        return f
+
+    def _probe_lookup_wins(self, cap_in: int, pid: int, d: int) -> bool:
+        """Host metadata only — deciding never stages a segment."""
+        return (self.eng.dstore.host_num_keys(pid, d)
+                >= cap_in * self._lookup_factor())
+
+    def _probe_member_wins(self, cap_in: int, pid: int, d: int) -> bool:
+        """Membership twin: merge_member_pairs sorts the per-EDGE pairs."""
+        return (self.eng.dstore.host_num_edges(pid, d)
+                >= cap_in * self._lookup_factor())
+
+    def walk_caps(self, q: SPARQLQuery, B: int):
+        """The chain walk with capacity evolution, for reporting: yields
+        (step, kind, cap_in, cap_out) mirroring _dispatch's transitions
+        (memo-first, else estimate-driven)."""
+        eng = self.eng
+        pats = q.pattern_group.patterns
+        folds = self._plan_folds(pats)
+        memo = self._cap_memo.get(self._key(pats, B, "rep"), {})
+        p0 = pats[0]
+        total0 = len(eng.g.get_index(p0.subject, p0.direction)) * B
+        cap = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
+        est_rows = float(max(total0, 1))
+        for k, pat, kind, fold in self.classify(pats, folds):
+            if kind == "expand":
+                est = self._expand_est(pat, est_rows)
+                cap_out = self._expand_cap(k, est, memo)
+                est_rows = max(min(est, cap_out), 1.0)
+                yield k, kind, cap, cap_out
+                cap = cap_out
+            else:
+                cap_new = memo.get(k)
+                if cap_new is not None and cap_new < cap:
+                    yield k, kind, cap, cap_new
+                    cap = cap_new
+                    est_rows = max(min(est_rows, cap_new), 1.0)
+                else:
+                    yield k, kind, cap, cap
+
+    @classmethod
+    def _chain_pins(cls, pats, folds) -> list:
+        """The DeviceStore keys the planned chain may stage: folded expands
+        use filtered segments, k2c membership uses const lists; expands pin
+        both the merge and the bucket form (the sort-vs-probe decision runs
+        on the live capacity)."""
+        pins = []
+        for _k, pat, kind, fold in cls.classify(pats, folds):
+            pid, d, end = int(pat.predicate), int(pat.direction), pat.object
+            if kind == "expand" and fold is not None:
+                fkey = fold_key(fold[0])
+                keys = [("mrgf", pid, d, fkey), ("segf", pid, d, fkey)]
+            elif kind in ("expand", "k2k"):
+                keys = [("mrg", pid, d), (pid, d)]
+            else:
+                keys = [("rev", pid, d, int(end))]
+            pins.extend(k for k in keys if k not in pins)
+        return pins
+
+    @staticmethod
+    def _plan_folds(pats) -> dict:
+        """Fold k2c membership steps into their producing expand: the
+        `(?v, fp, fd, const)` steps on a variable an expand binds become edge
+        pre-filtering of that expand's segment (conjunctive semantics make
+        the early filter exact). Returns {expand_step: ([(fp, fd, fconst),
+        ...], last_folded_step), "skip": {folded steps}}."""
+        folds: dict = {}
+        skip: set = set()
+        bound: set = set()
+        if pats:
+            bound.add(pats[0].subject)
+            # the init consumes pattern 0 and pre-binds its object
+            if pats[0].object < 0:
+                bound.add(pats[0].object)
+        for k, pat in enumerate(pats):
+            is_expand = (pat.predicate >= 0 and pat.object < 0
+                         and pat.object not in bound)
+            if pat.object < 0:
+                bound.add(pat.object)
+            if not is_expand:
+                continue
+            v = pat.object
+            fl = []
+            last = k
+            consec = True
+            for j in range(k + 1, len(pats)):
+                nxt = pats[j]
+                if (nxt.subject == v and nxt.predicate >= 0
+                        and nxt.object > 0 and j not in skip):
+                    fl.append((nxt.predicate, int(nxt.direction),
+                               nxt.object))
+                    skip.add(j)
+                    if consec:
+                        last = j
+                else:
+                    consec = False
+            if fl:
+                folds[k] = (fl, last)
+        folds["skip"] = skip
+        return folds
+
+    # ------------------------------------------------------------------
+    # the capacity-transition policy (shared by _dispatch and walk_caps)
+    def _expand_est(self, pat, est_rows: float) -> float:
+        """Live-row estimate for an expand step, fanout-propagated."""
+        return est_rows * self.eng._fanout(pat)
+
+    def _expand_cap(self, step: int, est: float, cap_override) -> int:
+        eng = self.eng
+        return cap_override.get(step) or K.next_capacity(
+            max(int(min(est * eng.EST_SAFETY, eng.cap_max)), eng.cap_min),
+            eng.cap_min, eng.cap_max)
+
+    # ------------------------------------------------------------------
+    def _dispatch(self, pat, step: int, state: _MergeState,
+                  cap_override: dict, fold_filters=None) -> None:
+        eng = self.eng
+        dev = eng.device
+        start, pid, d, end = (pat.subject, pat.predicate, pat.direction,
+                              pat.object)
+        if start not in state.var_level:
+            raise WukongError(ErrorCode.UNKNOWN_PATTERN,
+                              "merge chain step lacks a bound anchor")
+        cur = state.materialize(start)
+
+        e_known = end < 0 and end in state.var_level
+        if end < 0 and not e_known:  # expand
+            use_probe = self._probe_lookup_wins(state.cap, pid, d)
+            if use_probe:
+                seg = (eng.dstore.filtered_segment(pid, d, fold_filters[0])
+                       if fold_filters is not None
+                       else eng.dstore.segment(pid, d))
+            elif fold_filters is not None:
+                seg = eng.dstore.filtered_merge_segment(pid, d,
+                                                        fold_filters[0])
+            else:
+                seg = eng.dstore.merge_segment(pid, d)
+            if seg is None or seg.num_edges == 0:
+                zeros = torch.zeros(state.cap, dtype=torch.int32, device=dev)
+                state.levels.append(_Level(end, zeros, zeros))
+                state.var_level[end] = len(state.levels) - 1
+                state.n = K.as_count(0, dev)
+                state.live = None
+                return
+            est = self._expand_est(pat, state.est_rows)
+            cap_out = self._expand_cap(step, est, cap_override)
+            state.est_rows = max(min(est, cap_out), 1.0)
+            if use_probe:
+                vals, parent, n, total = K.probe_expand(
+                    seg.bkey, seg.bstart, seg.bdeg, seg.edges, cur,
+                    state.n, state.live_mask(), cap_out=cap_out,
+                    max_probe=seg.max_probe)
+            elif tpu_stream.want_stream(est, int(seg.edges.shape[0]),
+                                        cap_out):
+                vals, parent, n, total = tpu_stream.stream_expand(
+                    seg.skey, seg.sstart, seg.sdeg, seg.edges, cur, state.n,
+                    state.live_mask(), cap_out=cap_out,
+                    mhot=tpu_stream.mhot_enabled(),
+                    mdup=tpu_stream.stream_mdup())
+            else:
+                vals, parent, n, total = K.merge_expand(
+                    seg.skey, seg.sstart, seg.sdeg, seg.edges, cur, state.n,
+                    state.live_mask(), cap_out=cap_out)
+            state.levels.append(_Level(end, vals, parent))
+            state.var_level[end] = len(state.levels) - 1
+            state.n = n
+            state.live = None  # filters before this step are consumed
+            state.totals.append((step, total, cap_out))
+            return
+
+        # membership: known_to_const / known_to_known — each with its own
+        # small-frontier arm
+        if e_known:
+            if self._probe_member_wins(state.cap, pid, d):
+                seg = eng.dstore.segment(pid, d)
+                if seg is None:
+                    keep = torch.zeros(state.cap, dtype=torch.bool, device=dev)
+                else:
+                    keep = K.member_mask_known(
+                        cur[None, :], state.n, state.materialize(end),
+                        seg.bkey, seg.bstart, seg.bdeg, seg.edges, col=0,
+                        max_probe=seg.max_probe,
+                        depth=seg.max_deg_log2) & state.live_mask()
+            else:
+                seg = eng.dstore.merge_segment(pid, d)
+                if seg is None:
+                    keep = torch.zeros(state.cap, dtype=torch.bool, device=dev)
+                else:
+                    keep = K.merge_member_pairs(
+                        seg.ekey, seg.edges, seg.num_edges, cur,
+                        state.materialize(end), state.n, state.live_mask())
+        else:
+            rev, real = eng.dstore.const_list(pid, d, end)
+            if real >= state.cap * self._lookup_factor():
+                keep = K.member_list_binsearch(rev, real, cur, state.n,
+                                               state.live_mask())
+            else:
+                keep = K.merge_member_list(rev, real, cur, state.n,
+                                           state.live_mask())
+        cap_new = cap_override.get(step)
+        if cap_new is not None and cap_new < state.cap:
+            top = state.levels[-1]
+            parent = top.parent if top.parent is not None else torch.arange(
+                state.cap, dtype=torch.int32, device=dev)
+            vals, parent, n, total = K.merge_compact(top.vals, parent, keep,
+                                                     state.n, cap_new)
+            state.levels[-1] = _Level(top.var, vals, parent)
+            state.n = n
+            state.live = None
+            state.totals.append((step, total, cap_new))
+            state.est_rows = max(min(state.est_rows, cap_new), 1.0)
+        else:
+            state.live = keep  # defer: fold into the next expand's degrees

@@ -1,0 +1,566 @@
+"""Deterministic, vectorized LUBM dataset synthesizer (ID-triples native).
+
+The reference consumes LUBM datasets produced by the external UBA generator plus
+``datagen/generate_data.cpp`` (NT -> ID-triples + string tables). We cannot ship UBA,
+so this module synthesizes LUBM(N) *directly in ID space* with the standard UBA-1.7
+cardinalities, deterministically from (n_univ, seed):
+
+- Entity ids are laid out in *formulaic blocks* (universities first, then a shared
+  literal pool, then per-department blocks whose bases are prefix sums of the
+  per-department entity counts). Because the counts are a pure function of
+  (n_univ, seed), the full string<->id mapping can be recomputed on demand —
+  ``VirtualLubmStrings`` below — which plays the role of the reference's
+  memory-frugal bitrie string server (utils/bitrie.hpp) without materializing
+  multi-GB ``str_normal`` files.
+ID conventions match datagen/generate_data.cpp:112-123: __PREDICATE__=0, rdf:type=1,
+predicates+types take index ids from 2, normal vertices start at 2^17.
+
+The port's copy of the JAX package's loader/lubm.py (synthesis and the virtual
+string table only): the same (n_univ, seed) gives the same triples and ids in
+both packages, so they query one store.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from wukong_tpu_torch.types import NORMAL_ID_START, PREDICATE_ID, TYPE_ID
+
+UB = "http://swat.cse.lehigh.edu/onto/univ-bench.owl#"
+RDF_TYPE_STR = "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type>"
+
+# index-id assignment order (ids 2..): predicates first, then classes
+PRED_NAMES = [
+    "advisor", "doctoralDegreeFrom", "emailAddress", "headOf", "mastersDegreeFrom",
+    "memberOf", "name", "publicationAuthor", "researchInterest", "subOrganizationOf",
+    "takesCourse", "teacherOf", "telephone", "undergraduateDegreeFrom", "worksFor",
+]
+TYPE_NAMES = [
+    "University", "Department", "FullProfessor", "AssociateProfessor",
+    "AssistantProfessor", "Lecturer", "UndergraduateStudent", "GraduateStudent",
+    "Course", "GraduateCourse", "ResearchGroup", "Publication",
+]
+
+P = {name: 2 + i for i, name in enumerate(PRED_NAMES)}
+T = {name: 2 + len(PRED_NAMES) + i for i, name in enumerate(TYPE_NAMES)}
+
+# attribute predicates (typed literals — datagen/add_attribute.cpp analogue):
+# id space continues after types; value types per utils/variant.hpp tags
+ATTR_NAMES = [("age", 1), ("id", 1)]  # (name, INT_t)
+A = {name: 2 + len(PRED_NAMES) + len(TYPE_NAMES) + i
+     for i, (name, _t) in enumerate(ATTR_NAMES)}
+ATTR_TYPE = {A[name]: t for (name, t) in ATTR_NAMES}
+
+NUM_RESEARCH = 30  # researchInterest literal pool ("Research0".."Research29")
+
+FACULTY_CLASSES = ["FullProfessor", "AssociateProfessor", "AssistantProfessor", "Lecturer"]
+
+
+def index_strings() -> list[tuple[str, int]]:
+    """(string, id) rows of the str_index table (predicates, types, reserved ids)."""
+    rows = [("__PREDICATE__", PREDICATE_ID), (RDF_TYPE_STR, TYPE_ID)]
+    for name in PRED_NAMES:
+        rows.append((f"<{UB}{name}>", P[name]))
+    for name in TYPE_NAMES:
+        rows.append((f"<{UB}{name}>", T[name]))
+    return rows
+
+
+def attr_index_strings() -> list[tuple[str, int, int]]:
+    """(string, id, value-type) rows of str_attr_index."""
+    return [(f"<{UB}{name}>", A[name], t) for (name, t) in ATTR_NAMES]
+
+
+# ---------------------------------------------------------------------------
+# Cardinalities (UBA 1.7 profile)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LubmCounts:
+    n_univ: int
+    seed: int
+    ndept: np.ndarray  # [n_univ]
+    dept_univ: np.ndarray  # [D] owning university index
+    n_fp: np.ndarray  # [D] full professors
+    n_ap: np.ndarray
+    n_assi: np.ndarray
+    n_lec: np.ndarray
+    n_course: np.ndarray  # [D]
+    n_gcourse: np.ndarray
+    n_ug: np.ndarray
+    n_gs: np.ndarray
+    n_rg: np.ndarray
+    n_pub: np.ndarray
+    fac_courses: np.ndarray  # [F_total] courses taught per faculty
+    fac_gcourses: np.ndarray
+    fac_pubs: np.ndarray  # [F_total]
+
+    @property
+    def n_fac(self) -> np.ndarray:
+        return self.n_fp + self.n_ap + self.n_assi + self.n_lec
+
+    @property
+    def D(self) -> int:
+        return len(self.dept_univ)
+
+
+def lubm_counts(n_univ: int, seed: int = 0) -> LubmCounts:
+    rng = np.random.default_rng(seed)
+    ndept = rng.integers(15, 26, n_univ)
+    D = int(ndept.sum())
+    dept_univ = np.repeat(np.arange(n_univ), ndept)
+    n_fp = rng.integers(7, 11, D)
+    n_ap = rng.integers(10, 15, D)
+    n_assi = rng.integers(8, 12, D)
+    n_lec = rng.integers(5, 8, D)
+    n_fac = n_fp + n_ap + n_assi + n_lec
+    F = int(n_fac.sum())
+    fac_courses = rng.integers(1, 3, F)
+    fac_gcourses = rng.integers(1, 3, F)
+    # per-dept course counts = segment sums of per-faculty teaching loads
+    dept_of_fac = np.repeat(np.arange(D), n_fac)
+    n_course = np.bincount(dept_of_fac, weights=fac_courses, minlength=D).astype(np.int64)
+    n_gcourse = np.bincount(dept_of_fac, weights=fac_gcourses, minlength=D).astype(np.int64)
+    n_ug = n_fac * rng.integers(8, 15, D)
+    n_gs = n_fac * rng.integers(3, 5, D)
+    n_rg = rng.integers(10, 21, D)
+    # publications per faculty by rank (UBA: FP 15-18, AP 10-18, AssiP 5-10, Lec 0-5)
+    fac_rank = _faculty_rank(n_fp, n_ap, n_assi, n_lec)
+    lo = np.array([15, 10, 5, 0])[fac_rank]
+    hi = np.array([19, 19, 11, 6])[fac_rank]
+    fac_pubs = rng.integers(lo, hi)
+    n_pub = np.bincount(dept_of_fac, weights=fac_pubs, minlength=D).astype(np.int64)
+    return LubmCounts(
+        n_univ=n_univ, seed=seed, ndept=ndept, dept_univ=dept_univ,
+        n_fp=n_fp, n_ap=n_ap, n_assi=n_assi, n_lec=n_lec,
+        n_course=n_course, n_gcourse=n_gcourse, n_ug=n_ug, n_gs=n_gs,
+        n_rg=n_rg, n_pub=n_pub,
+        fac_courses=fac_courses, fac_gcourses=fac_gcourses, fac_pubs=fac_pubs,
+    )
+
+
+def _faculty_rank(n_fp, n_ap, n_assi, n_lec) -> np.ndarray:
+    """[F_total] rank tag per faculty: 0=FP 1=AP 2=AssiP 3=Lec, dept-major order."""
+    D = len(n_fp)
+    per_dept = np.stack([n_fp, n_ap, n_assi, n_lec], axis=1)  # [D,4]
+    return np.repeat(np.tile(np.arange(4), D), per_dept.reshape(-1))
+
+
+def _faculty_rank_local(c: "LubmCounts") -> np.ndarray:
+    """[F_total] index within each (dept, rank) segment — the digits of each
+    faculty member's name literal. Single source for name emission AND the
+    ub:id attribute value, so the two can never drift."""
+    return _seg_local_index(
+        np.stack([c.n_fp, c.n_ap, c.n_assi, c.n_lec], 1).reshape(-1))
+
+
+def _dept_local(c: "LubmCounts") -> np.ndarray:
+    """[D] department index local to its university ("Department{j}")."""
+    return _seg_local_index(c.ndept)
+
+
+# ---------------------------------------------------------------------------
+# ID layout
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LubmLayout:
+    """Formulaic id-block layout. All *_base arrays are [D] absolute ids."""
+
+    counts: LubmCounts
+    univ_base: int  # universities: univ_base + i
+    tel_id: int  # single shared "xxx-xxx-xxxx" literal
+    research_base: int  # + r, r < NUM_RESEARCH
+    name_pool_base: dict  # class name -> base id; + k for "Class{k}" literal
+    name_pool_size: dict
+    dept_id: np.ndarray  # [D]
+    fac_base: np.ndarray  # [D]; ranks laid out FP|AP|AssiP|Lec contiguously
+    course_base: np.ndarray
+    gcourse_base: np.ndarray
+    ug_base: np.ndarray
+    gs_base: np.ndarray
+    rg_base: np.ndarray
+    pub_base: np.ndarray
+    email_base: np.ndarray  # [D]; order: faculty, UG, GS
+    id_end: int
+
+    def dept_of_id(self, vid: int) -> int:
+        return int(np.searchsorted(self.dept_id, vid, side="right") - 1)
+
+
+def lubm_layout(c: LubmCounts) -> LubmLayout:
+    cur = NORMAL_ID_START
+    univ_base = cur
+    cur += c.n_univ
+    tel_id = cur
+    cur += 1
+    research_base = cur
+    cur += NUM_RESEARCH
+    # shared name-literal pools, sized by the max per-dept count of each class
+    # ("University{u}" / "Department{j}" names are emitted too — the UBA
+    # generator gives every org a name, and the reference optional/union
+    # suites look "University0" up by literal)
+    name_pool_base, name_pool_size = {}, {}
+    pools = {
+        "University": int(c.n_univ),
+        "Department": int(c.ndept.max()),
+        "FullProfessor": int(c.n_fp.max()),
+        "AssociateProfessor": int(c.n_ap.max()),
+        "AssistantProfessor": int(c.n_assi.max()),
+        "Lecturer": int(c.n_lec.max()),
+        "UndergraduateStudent": int(c.n_ug.max()),
+        "GraduateStudent": int(c.n_gs.max()),
+        "Course": int(c.n_course.max()),
+        "GraduateCourse": int(c.n_gcourse.max()),
+        "Publication": int(c.n_pub.max()),
+    }
+    for k, sz in pools.items():
+        name_pool_base[k] = cur
+        name_pool_size[k] = sz
+        cur += sz
+
+    n_fac = c.n_fac
+    n_email = n_fac + c.n_ug + c.n_gs
+    block = 1 + n_fac + c.n_course + c.n_gcourse + c.n_ug + c.n_gs + c.n_rg + c.n_pub + n_email
+    dept_start = cur + np.concatenate([[0], np.cumsum(block)[:-1]])
+    dept_id = dept_start
+    fac_base = dept_start + 1
+    course_base = fac_base + n_fac
+    gcourse_base = course_base + c.n_course
+    ug_base = gcourse_base + c.n_gcourse
+    gs_base = ug_base + c.n_ug
+    rg_base = gs_base + c.n_gs
+    pub_base = rg_base + c.n_rg
+    email_base = pub_base + c.n_pub
+    id_end = int(cur + block.sum())
+    return LubmLayout(
+        counts=c, univ_base=univ_base, tel_id=tel_id, research_base=research_base,
+        name_pool_base=name_pool_base, name_pool_size=name_pool_size,
+        dept_id=dept_id, fac_base=fac_base, course_base=course_base,
+        gcourse_base=gcourse_base, ug_base=ug_base, gs_base=gs_base,
+        rg_base=rg_base, pub_base=pub_base, email_base=email_base, id_end=id_end,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Triple synthesis (vectorized)
+# ---------------------------------------------------------------------------
+
+
+def _seg_local_index(seg_sizes: np.ndarray) -> np.ndarray:
+    """[sum(seg_sizes)] 0-based index within each segment (vectorized ragged arange)."""
+    total = int(seg_sizes.sum())
+    out = np.ones(total, dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(seg_sizes)[:-1]])
+    out[starts] = np.concatenate([[0], 1 - seg_sizes[:-1]])
+    return np.cumsum(out)
+
+
+def _rand_in_segment(rng, dept_of_row: np.ndarray, seg_size: np.ndarray) -> np.ndarray:
+    """For each row, a uniform int in [0, seg_size[dept_of_row])."""
+    sz = seg_size[dept_of_row]
+    return (rng.random(len(dept_of_row)) * sz).astype(np.int64)
+
+
+def generate_lubm(n_univ: int, seed: int = 0):
+    """Return ([M,3] int64 triples, LubmLayout). Deterministic in (n_univ, seed)."""
+    c = lubm_counts(n_univ, seed)
+    lay = lubm_layout(c)
+    rng = np.random.default_rng([seed, 1])  # separate stream from counts
+    D = c.D
+    n_fac = c.n_fac
+    F = int(n_fac.sum())
+    dept_of_fac = np.repeat(np.arange(D), n_fac)
+    fac_rank = _faculty_rank(c.n_fp, c.n_ap, c.n_assi, c.n_lec)
+    fac_id = lay.fac_base[dept_of_fac] + _seg_local_index(n_fac)
+    univ_of_dept = lay.univ_base + c.dept_univ
+
+    out_s, out_p, out_o = [], [], []
+
+    def emit(s, p, o):
+        s = np.asarray(s, dtype=np.int64)
+        o = np.asarray(o, dtype=np.int64)
+        if np.isscalar(p) or np.ndim(p) == 0:
+            p = np.full(len(s), p, dtype=np.int64)
+        out_s.append(s)
+        out_p.append(np.asarray(p, dtype=np.int64))
+        out_o.append(o)
+
+    # universities
+    univs = lay.univ_base + np.arange(n_univ)
+    emit(univs, TYPE_ID, np.full(n_univ, T["University"]))
+    emit(univs, P["name"], lay.name_pool_base["University"] + np.arange(n_univ))
+
+    # departments ("Department{j}" with j local to the university)
+    emit(lay.dept_id, TYPE_ID, np.full(D, T["Department"]))
+    emit(lay.dept_id, P["subOrganizationOf"], univ_of_dept)
+    emit(lay.dept_id, P["name"],
+         lay.name_pool_base["Department"] + _dept_local(c))
+
+    # faculty
+    rank_type = np.array([T[x] for x in FACULTY_CLASSES])[fac_rank]
+    emit(fac_id, TYPE_ID, rank_type)
+    emit(fac_id, P["worksFor"], lay.dept_id[dept_of_fac])
+    for pred in ("undergraduateDegreeFrom", "mastersDegreeFrom", "doctoralDegreeFrom"):
+        emit(fac_id, P[pred], lay.univ_base + rng.integers(0, n_univ, F))
+    # head of department = first FullProfessor
+    emit(lay.fac_base, P["headOf"], lay.dept_id)
+    # name literal: "Class{k}" where k = rank-local index
+    rank_local = _faculty_rank_local(c)
+    fac_name = np.array([lay.name_pool_base[x] for x in FACULTY_CLASSES])[fac_rank] + rank_local
+    emit(fac_id, P["name"], fac_name)
+    emit(fac_id, P["emailAddress"], lay.email_base[dept_of_fac] + _seg_local_index(n_fac))
+    emit(fac_id, P["telephone"], np.full(F, lay.tel_id))
+    emit(fac_id, P["researchInterest"], lay.research_base + rng.integers(0, NUM_RESEARCH, F))
+    # teacherOf: per-faculty 1-2 courses + 1-2 graduate courses (course ids assigned
+    # contiguously within the dept in faculty order — unique teacher per course)
+    crs_teacher = np.repeat(fac_id, c.fac_courses)
+    crs_dept = np.repeat(dept_of_fac, c.fac_courses)
+    crs_id = lay.course_base[crs_dept] + _seg_local_index(c.n_course)
+    emit(crs_teacher, P["teacherOf"], crs_id)
+    gcrs_teacher = np.repeat(fac_id, c.fac_gcourses)
+    gcrs_dept = np.repeat(dept_of_fac, c.fac_gcourses)
+    gcrs_id = lay.gcourse_base[gcrs_dept] + _seg_local_index(c.n_gcourse)
+    emit(gcrs_teacher, P["teacherOf"], gcrs_id)
+
+    # courses
+    NC, NGC = int(c.n_course.sum()), int(c.n_gcourse.sum())
+    dept_of_crs = np.repeat(np.arange(D), c.n_course)
+    all_crs = lay.course_base[dept_of_crs] + _seg_local_index(c.n_course)
+    emit(all_crs, TYPE_ID, np.full(NC, T["Course"]))
+    emit(all_crs, P["name"], lay.name_pool_base["Course"] + _seg_local_index(c.n_course))
+    dept_of_gcrs = np.repeat(np.arange(D), c.n_gcourse)
+    all_gcrs = lay.gcourse_base[dept_of_gcrs] + _seg_local_index(c.n_gcourse)
+    emit(all_gcrs, TYPE_ID, np.full(NGC, T["GraduateCourse"]))
+    emit(all_gcrs, P["name"], lay.name_pool_base["GraduateCourse"] + _seg_local_index(c.n_gcourse))
+
+    # undergraduate students
+    NU = int(c.n_ug.sum())
+    dept_of_ug = np.repeat(np.arange(D), c.n_ug)
+    ug_id = lay.ug_base[dept_of_ug] + _seg_local_index(c.n_ug)
+    emit(ug_id, TYPE_ID, np.full(NU, T["UndergraduateStudent"]))
+    emit(ug_id, P["memberOf"], lay.dept_id[dept_of_ug])
+    emit(ug_id, P["name"], lay.name_pool_base["UndergraduateStudent"] + _seg_local_index(c.n_ug))
+    emit(ug_id, P["emailAddress"],
+         lay.email_base[dept_of_ug] + n_fac[dept_of_ug] + _seg_local_index(c.n_ug))
+    emit(ug_id, P["telephone"], np.full(NU, lay.tel_id))
+    # takesCourse: 2-4 distinct dept courses (sampled w/ replacement, dups dropped)
+    s_tc, o_tc = _sample_courses(rng, ug_id, dept_of_ug, lay.course_base, c.n_course, 2, 4)
+    emit(s_tc, P["takesCourse"], o_tc)
+    # 1/5 of undergrads have an advisor (any faculty of the dept)
+    adv_mask = rng.random(NU) < 0.2
+    adv_fac = lay.fac_base[dept_of_ug[adv_mask]] + _rand_in_segment(
+        rng, dept_of_ug[adv_mask], n_fac)
+    emit(ug_id[adv_mask], P["advisor"], adv_fac)
+
+    # graduate students
+    NG = int(c.n_gs.sum())
+    dept_of_gs = np.repeat(np.arange(D), c.n_gs)
+    gs_id = lay.gs_base[dept_of_gs] + _seg_local_index(c.n_gs)
+    emit(gs_id, TYPE_ID, np.full(NG, T["GraduateStudent"]))
+    emit(gs_id, P["memberOf"], lay.dept_id[dept_of_gs])
+    emit(gs_id, P["name"], lay.name_pool_base["GraduateStudent"] + _seg_local_index(c.n_gs))
+    emit(gs_id, P["emailAddress"],
+         lay.email_base[dept_of_gs] + n_fac[dept_of_gs] + c.n_ug[dept_of_gs]
+         + _seg_local_index(c.n_gs))
+    emit(gs_id, P["telephone"], np.full(NG, lay.tel_id))
+    emit(gs_id, P["undergraduateDegreeFrom"], lay.univ_base + rng.integers(0, n_univ, NG))
+    # advisor: a professor (FP/AP/AssiP — not Lecturer) of the dept
+    n_prof = c.n_fp + c.n_ap + c.n_assi
+    emit(gs_id, P["advisor"],
+         lay.fac_base[dept_of_gs] + _rand_in_segment(rng, dept_of_gs, n_prof))
+    s_gtc, o_gtc = _sample_courses(rng, gs_id, dept_of_gs, lay.gcourse_base, c.n_gcourse, 1, 3)
+    emit(s_gtc, P["takesCourse"], o_gtc)
+
+    # research groups
+    NR = int(c.n_rg.sum())
+    dept_of_rg = np.repeat(np.arange(D), c.n_rg)
+    rg_id = lay.rg_base[dept_of_rg] + _seg_local_index(c.n_rg)
+    emit(rg_id, TYPE_ID, np.full(NR, T["ResearchGroup"]))
+    emit(rg_id, P["subOrganizationOf"], lay.dept_id[dept_of_rg])
+
+    # publications (author = owning faculty)
+    NP = int(c.n_pub.sum())
+    if NP:
+        dept_of_pub = np.repeat(dept_of_fac, c.fac_pubs)
+        pub_id = lay.pub_base[dept_of_pub] + _seg_local_index(c.n_pub)
+        emit(pub_id, TYPE_ID, np.full(NP, T["Publication"]))
+        emit(pub_id, P["publicationAuthor"], np.repeat(fac_id, c.fac_pubs))
+        emit(pub_id, P["name"],
+             lay.name_pool_base["Publication"] + _seg_local_index(c.n_pub))
+
+    triples = np.stack(
+        [np.concatenate(out_s), np.concatenate(out_p), np.concatenate(out_o)], axis=1
+    )
+    return triples, lay
+
+def _sample_courses(rng, student_id, dept_of_student, base, seg_size, lo, hi):
+    """Sample lo..hi dept-local courses per student; duplicates dropped.
+
+    Truncate to the first k draws *before* sorting (sorting first would keep the
+    k smallest of hi draws, biasing selection toward low course indexes); the
+    sort after masking only serves adjacent-duplicate detection.
+    """
+    n = len(student_id)
+    k = rng.integers(lo, hi + 1, n)
+    picks = (rng.random((n, hi)) * seg_size[dept_of_student][:, None]).astype(np.int64)
+    picks[np.arange(hi)[None, :] >= k[:, None]] = -1  # drop beyond-k draws
+    picks.sort(axis=1)
+    keep = picks != -1
+    keep[:, 1:] &= picks[:, 1:] != picks[:, :-1]
+    s = np.repeat(student_id, keep.sum(axis=1))
+    o = (base[dept_of_student][:, None] + picks)[keep]
+    return s, o
+
+
+# ---------------------------------------------------------------------------
+# Virtual string server backend
+# ---------------------------------------------------------------------------
+
+
+class VirtualLubmStrings:
+    """O(1)-memory string<->id mapping for a synthesized LUBM dataset.
+
+    Equivalent role to the reference's bitrie-backed StringServer
+    (string_server.hpp:42-57): resolve query constants and render results
+    without loading a str_normal table.
+    """
+
+    def __init__(self, n_univ: int, seed: int = 0):
+        self.n_univ = n_univ
+        self.seed = seed
+        self.counts = lubm_counts(n_univ, seed)
+        self.lay = lubm_layout(self.counts)
+        self._index_s2i = {s: i for s, i in index_strings()}
+        self._index_i2s = {i: s for s, i in index_strings()}
+        for s, i, _t in attr_index_strings():
+            self._index_s2i[s] = i
+            self._index_i2s[i] = s
+        self.pid2type = dict(ATTR_TYPE)  # attr predicate -> value-type tag
+
+    # -- helpers -----------------------------------------------------------
+    def _dept_univ_local(self, d: int) -> tuple[int, int]:
+        u = int(self.counts.dept_univ[d])
+        first = int(np.searchsorted(self.counts.dept_univ, u))
+        return u, d - first
+
+    # -- id -> string ------------------------------------------------------
+    def id2str(self, vid: int) -> str:
+        vid = int(vid)
+        if vid in self._index_i2s:
+            return self._index_i2s[vid]
+        lay, c = self.lay, self.counts
+        if lay.univ_base <= vid < lay.univ_base + self.n_univ:
+            return f"<http://www.University{vid - lay.univ_base}.edu>"
+        if vid == lay.tel_id:
+            return '"xxx-xxx-xxxx"'
+        if lay.research_base <= vid < lay.research_base + NUM_RESEARCH:
+            return f'"Research{vid - lay.research_base}"'
+        for cls, base in lay.name_pool_base.items():
+            if base <= vid < base + lay.name_pool_size[cls]:
+                return f'"{cls}{vid - base}"'
+        d = lay.dept_of_id(vid)
+        if d < 0 or vid >= lay.id_end:
+            raise KeyError(vid)
+        u, j = self._dept_univ_local(d)
+        dept = f"Department{j}.University{u}.edu"
+        off = vid - int(lay.dept_id[d])
+        if off == 0:
+            return f"<http://www.{dept}>"
+        nf = int(c.n_fac[d])
+        cuts = np.cumsum([1, nf, c.n_course[d], c.n_gcourse[d], c.n_ug[d],
+                          c.n_gs[d], c.n_rg[d], c.n_pub[d]])
+        if off < cuts[1]:
+            k = off - 1
+            ranks = [int(c.n_fp[d]), int(c.n_ap[d]), int(c.n_assi[d]), int(c.n_lec[d])]
+            for cls, nr in zip(FACULTY_CLASSES, ranks):
+                if k < nr:
+                    return f"<http://www.{dept}/{cls}{k}>"
+                k -= nr
+        if off < cuts[2]:
+            return f"<http://www.{dept}/Course{off - cuts[1]}>"
+        if off < cuts[3]:
+            return f"<http://www.{dept}/GraduateCourse{off - cuts[2]}>"
+        if off < cuts[4]:
+            return f"<http://www.{dept}/UndergraduateStudent{off - cuts[3]}>"
+        if off < cuts[5]:
+            return f"<http://www.{dept}/GraduateStudent{off - cuts[4]}>"
+        if off < cuts[6]:
+            return f"<http://www.{dept}/ResearchGroup{off - cuts[5]}>"
+        if off < cuts[7]:
+            return f"<http://www.{dept}/Publication{off - cuts[6]}>"
+        # email block: faculty, UG, GS order
+        k = off - cuts[7]
+        return f'"email{k}@{dept}"'
+
+    # -- string -> id ------------------------------------------------------
+    def str2id(self, s: str) -> int:
+        if s in self._index_s2i:
+            return self._index_s2i[s]
+        lay, c = self.lay, self.counts
+        import re
+
+        m = re.fullmatch(r"<http://www\.University(\d+)\.edu>", s)
+        if m:
+            u = int(m.group(1))
+            if u >= self.n_univ:
+                raise KeyError(s)
+            return lay.univ_base + u
+        m = re.fullmatch(
+            r"<http://www\.Department(\d+)\.University(\d+)\.edu(?:/([A-Za-z]+)(\d+))?>", s)
+        if m:
+            j, u = int(m.group(1)), int(m.group(2))
+            if u >= self.n_univ:
+                raise KeyError(s)
+            first = int(np.searchsorted(c.dept_univ, u))
+            if j >= int(c.ndept[u]):
+                raise KeyError(s)
+            d = first + j
+            if m.group(3) is None:
+                return int(lay.dept_id[d])
+            cls, k = m.group(3), int(m.group(4))
+            nf = int(c.n_fac[d])
+            if cls in FACULTY_CLASSES:
+                ranks = [int(c.n_fp[d]), int(c.n_ap[d]), int(c.n_assi[d]), int(c.n_lec[d])]
+                idx = FACULTY_CLASSES.index(cls)
+                if k >= ranks[idx]:
+                    raise KeyError(s)
+                return int(lay.fac_base[d]) + sum(ranks[:idx]) + k
+            bases = {
+                "Course": (lay.course_base, c.n_course),
+                "GraduateCourse": (lay.gcourse_base, c.n_gcourse),
+                "UndergraduateStudent": (lay.ug_base, c.n_ug),
+                "GraduateStudent": (lay.gs_base, c.n_gs),
+                "ResearchGroup": (lay.rg_base, c.n_rg),
+                "Publication": (lay.pub_base, c.n_pub),
+            }
+            if cls not in bases or k >= int(bases[cls][1][d]):
+                raise KeyError(s)
+            return int(bases[cls][0][d]) + k
+        if s == '"xxx-xxx-xxxx"':
+            return lay.tel_id
+        m = re.fullmatch(r'"Research(\d+)"', s)
+        if m and int(m.group(1)) < NUM_RESEARCH:
+            return lay.research_base + int(m.group(1))
+        m = re.fullmatch(r'"([A-Za-z]+)(\d+)"', s)
+        if m and m.group(1) in lay.name_pool_base:
+            cls, k = m.group(1), int(m.group(2))
+            if k < lay.name_pool_size[cls]:
+                return lay.name_pool_base[cls] + k
+        m = re.fullmatch(r'"email(\d+)@Department(\d+)\.University(\d+)\.edu"', s)
+        if m:
+            k, j, u = int(m.group(1)), int(m.group(2)), int(m.group(3))
+            if u >= self.n_univ or j >= int(c.ndept[u]):
+                raise KeyError(s)
+            d = int(np.searchsorted(c.dept_univ, u)) + j
+            n_email = int(c.n_fac[d] + c.n_ug[d] + c.n_gs[d])
+            if k >= n_email:
+                raise KeyError(s)
+            return int(lay.email_base[d]) + k
+        raise KeyError(s)
+
+

@@ -1,0 +1,69 @@
+"""CSR segment: the TPU-native replacement for the reference's hash-table store.
+
+The reference stores edges in a cluster-chaining hash table keyed by
+(vid, pid, dir) (core/store/gstore.hpp:55-120) and probes it per row. Pointer
+chasing is hostile to a vector unit, so we keep the reference's *segment*
+abstraction (one segment per (pid, dir) — core/store/meta.hpp:78-142) but encode
+each segment as CSR: a sorted unique key array + offsets + edge array. Lookup is
+a binary search (host: np.searchsorted; device: vectorized searchsorted/gather),
+which is what the reference's GPU engine approximates with block-mapped hash
+probes (core/gpu/gpu_hash.cu:149-260).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass
+class CSRSegment:
+    keys: np.ndarray  # [K] sorted unique vertex ids
+    offsets: np.ndarray  # [K+1] int64 prefix offsets into edges
+    edges: np.ndarray  # [E] neighbor ids, sorted within each key's range
+
+    @staticmethod
+    def empty(dtype=np.int64) -> "CSRSegment":
+        return CSRSegment(
+            keys=np.empty(0, dtype=dtype),
+            offsets=np.zeros(1, dtype=np.int64),
+            edges=np.empty(0, dtype=dtype),
+        )
+
+    @staticmethod
+    def from_pairs(k: np.ndarray, v: np.ndarray) -> "CSRSegment":
+        """Build from parallel (key, value) arrays; sorts by (key, value), dedups pairs."""
+        if len(k) == 0:
+            return CSRSegment.empty(k.dtype if len(k) else np.int64)
+        order = np.lexsort((v, k))
+        return CSRSegment.from_sorted_pairs(k[order], v[order])
+
+    @staticmethod
+    def from_sorted_pairs(k: np.ndarray, v: np.ndarray) -> "CSRSegment":
+        """Build from arrays already sorted by (key, value); dedups pairs."""
+        if len(k) == 0:
+            return CSRSegment.empty(np.int64)
+        # drop duplicate (k, v) pairs (the reference dedups at insert for some paths)
+        keep = np.ones(len(k), dtype=bool)
+        keep[1:] = (k[1:] != k[:-1]) | (v[1:] != v[:-1])
+        k, v = k[keep], v[keep]
+        keys, counts = np.unique(k, return_counts=True)
+        offsets = np.zeros(len(keys) + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return CSRSegment(keys=keys, offsets=offsets, edges=v)
+
+    @property
+    def num_keys(self) -> int:
+        return len(self.keys)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.edges)
+
+    def lookup(self, vid: int) -> np.ndarray:
+        """Edge list of one key (empty if absent) — GStore::get_edges analogue."""
+        i = np.searchsorted(self.keys, vid)
+        if i < len(self.keys) and self.keys[i] == vid:
+            return self.edges[self.offsets[i]:self.offsets[i + 1]]
+        return self.edges[0:0]
