@@ -7,7 +7,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      wukong_tpu_torch/csrc with nvcc and print the build time;
   2. kernels: each hand-written kernel (K1 probe, K2 stream emit, K3 m-hot
      stream emit) against its plain PyTorch version on the card, exactly, on
-     adversarial cases;
+     adversarial cases; K2/K3 also on look-back stress cases (2^25 edges,
+     ragged lengths, cap_out cuts), each run 10 times with identical bits;
   3. store: synthesize LUBM-<scale> from the seed, build the partition, and
      stage every segment the seven LUBM shapes touch on the card;
   4. serve: the seven LUBM shapes through Proxy.serve_query (rows, median
@@ -15,7 +16,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      Proxy.serve_batch_index in replicate mode; every per-qid count must equal
      the single-query row count, and every kernel's launch count must rise.
      The kernels are then held against their plain versions on the inputs
-     this phase gave them, and timed there (CUDA events, median of 25 runs);
+     this phase gave them, and timed there (CUDA events around 25 calls made
+     back to back, per call, the median of 3 such runs);
   5. cross-check: at LUBM-<cross-scale> the seven shapes through
      Proxy(device="cpu") (plain versions) and Proxy(device="cuda") must give
      equal row multisets.
@@ -100,32 +102,37 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median device time of fn() in ms (CUDA events around each run)."""
+def time_ms(fn, reps: int = 25, warm: int = 3, runs: int = 3) -> float:
+    """Device time of one fn() in ms: CUDA events around ``reps`` calls
+    made back to back, over reps, the median of ``runs`` such runs. Back to
+    back, the host enqueues the next call while the card runs this one, so
+    the host's own time is not counted where the card's is longer."""
     import torch
 
     for _ in range(warm):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
 def max_abs_diff(xs, ys) -> int:
-    """Largest |x - y| over paired outputs (shapes must agree)."""
+    """Largest |x - y| over paired outputs (shapes must agree), computed on
+    the first output's device."""
     worst = 0
     for x, y in zip(xs, ys):
         check(tuple(x.shape) == tuple(y.shape),
               f"shape mismatch {tuple(x.shape)} vs {tuple(y.shape)}")
         if x.numel():
-            d = (x.long().cpu() - y.long().cpu()).abs().max().item()
+            d = (x.long() - y.to(x.device).long()).abs().max().item()
             worst = max(worst, int(d))
     return worst
 
@@ -278,6 +285,91 @@ def kernel_cases(errs: dict) -> None:
               f"multiplicity {mult}: K3 launched={launched}, mdup={mdup}")
 
 
+def emit_stress_cases(errs: dict, reps: int = 10) -> int:
+    """K2/K3 cases aimed at the single-pass look-back scan: E = 2^25 (8,192
+    tiles) with one run over every tile and with multiplicities up to 16,
+    edge counts off the 16 B vector and the tile, and cap_out cuts inside a
+    tile and inside one edge's copies. Each case runs ``reps`` times: every
+    run must give the same bits, and those must equal the plain version.
+    Returns the number of cases."""
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.engine import cuda_lib
+    from wukong_tpu_torch.engine import tpu_stream as S
+
+    T = S.EMIT_TILE
+    tile = cuda_lib.library("stream_emit.cu").wk_stream_tile()
+    check(tile == T, f"kernel tile {tile} != EMIT_TILE {T}")
+    rng = np.random.default_rng(99)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def k3_caps(mult: np.ndarray) -> list:
+        """cap_out at the total, past it, inside a tile, and (where some
+        edge has two or more copies) just after the first copy of a middle
+        such edge."""
+        m = np.maximum(np.cumsum(mult, dtype=np.int64), 0)
+        end = np.cumsum(m)
+        total = int(end[-1])
+        caps = [total, total + 4099, total // 2 + 1]
+        multi = np.flatnonzero(m >= 2)
+        if len(multi):
+            e = int(multi[len(multi) // 2])
+            caps.append(int(end[e] - m[e] + 1))
+        return caps
+
+    def hold(name, fn, plain, args, what):
+        first = fn(*args)
+        for _ in range(reps - 1):
+            again = fn(*args)
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"{name} gave different outputs on repeated runs: {what}")
+        err = max_abs_diff(first, plain(*args))
+        errs[name] = max(errs[name], err)
+        check(err == 0, f"{name} != plain on {what} (max abs err {err})")
+
+    def full(E):
+        return rng.integers(-2**31, 2**31 - 1, E).astype(np.int32)
+
+    cases = []  # (what, E, K2 dsel, dpar, K2 caps, K3 dsel)
+    E = 1 << 25
+    one = np.zeros(E, np.int32)
+    one[0] = 1
+    cases.append(("one run over all tiles", E, one, full(E),
+                  (E, E - 777, 5 * T + 1234, 2 * E), 3 * one))
+    # a piecewise-constant level in 0..16 with random breakpoints: K2 emits
+    # where it is positive, K3 that many copies
+    cuts = np.sort(rng.choice(np.arange(1, E), 4095, replace=False))
+    levels = rng.integers(0, 17, len(cuts) + 1).astype(np.int32)
+    steps = np.zeros(E, np.int32)
+    steps[0] = levels[0]
+    steps[cuts] = np.diff(levels)
+    cases.append(("multiplicities 0..16 over all tiles", E, steps, full(E),
+                  (E // 2 + 3, 2 * E), steps))
+    for E in (1, 3, 5, T - 1, T, T + 1, 3 * T + 5, 7 * T + 2):
+        # random walks: negative carries, long stretches of nothing
+        sparse = rng.integers(-2, 4, E).astype(np.int32) * (
+            rng.random(E) < 0.05)
+        cases.append((f"ragged E={E}", E,
+                      rng.choice([-1, 0, 0, 1], E).astype(np.int32), full(E),
+                      (1024, max(E // 3, 1), 2 * E + 1024), sparse))
+    n = 0
+    for what, E, ds, dp, caps, mult in cases:
+        edges = t(rng.integers(0, 2**31 - 1, E).astype(np.int32))
+        ds_t, dp_t, mult_t = t(ds), t(dp), t(mult)
+        for cap in caps:
+            hold("stream_emit", S.stream_emit, S.stream_emit_plain,
+                 (edges, ds_t, dp_t, cap), f"{what}, cap={cap}")
+            n += 1
+        for cap in k3_caps(mult):
+            hold("stream_emit_m", S.stream_emit_m, S.stream_emit_m_plain,
+                 (edges, mult_t, dp_t, cap), f"m-hot {what}, cap={cap}")
+            n += 1
+    return n
+
+
 # ---------------------------------------------------------------------------
 # phase 4 timing: each kernel on its captured main-path inputs
 # ---------------------------------------------------------------------------
@@ -323,6 +415,8 @@ def emit_work(args, mhot: bool = False) -> tuple:
     select, per output row its position."""
     import torch
 
+    from wukong_tpu_torch.engine.tpu_stream import EMIT_TILE
+
     edges, dsel, _dpar, cap_out = args
     E = edges.shape[0]
     csel = torch.cumsum(dsel.long(), 0)
@@ -331,8 +425,16 @@ def emit_work(args, mhot: bool = False) -> tuple:
     read = int(((m > 0) & (pos < cap_out)).sum())
     total = int(m.sum())
     nbytes = E * 8 + read * 4 + cap_out * 8 + 8
+    # rows below cap_out in each of the CUDA kernel's tiles: a tile with more
+    # than EMIT_TILE of them writes them one stage at a time
+    G = -(-E // EMIT_TILE)
+    per = torch.zeros(G * EMIT_TILE, dtype=torch.long, device=m.device)
+    per[:E] = (torch.clamp(pos + m, max=cap_out) - pos).clamp(min=0)
+    per = per.view(G, EMIT_TILE).sum(1)
     return (nbytes, E * 3 + cap_out,
-            {"E": E, "edges_read": read, "rows": total, "cap_out": cap_out})
+            {"E": E, "edges_read": read, "rows": total, "cap_out": cap_out,
+             "tiles": G, "tiles_with_rows": int((per > 0).sum()),
+             "tiles_over_one_stage": int((per > EMIT_TILE).sum())})
 
 
 def measure(name: str, cap: Capture, kern, plain, work_of, errs: dict,
@@ -350,7 +452,7 @@ def measure(name: str, cap: Capture, kern, plain, work_of, errs: dict,
     row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
            "launches": launches, "max_abs_err": errs[name],
            "ms": time_ms(lambda: kern(*args, **kw)),
-           "plain_ms": time_ms(lambda: plain(*args, **kw), reps=20),
+           "plain_ms": time_ms(lambda: plain(*args, **kw), reps=5),
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "library_ms": None}
@@ -517,6 +619,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"kernels: adversarial cases agree with the plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n = emit_stress_cases(errs)
+    torch.cuda.synchronize()
+    log(f"kernels: {n} K2/K3 look-back stress cases, 10 runs each, identical "
+        f"and equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3. store -------------------------------------------------------
     g, ss, ntriples = build_world(args.scale, args.seed)

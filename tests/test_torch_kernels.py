@@ -299,6 +299,83 @@ def test_emit_plain_matches_definition(mhot):
     assert np.array_equal(v.numpy(), rv) and np.array_equal(p.numpy(), rp)
 
 
+def _tile_edge_deltas(kind, E, rng):
+    """(dsel, dpar) for the CUDA emit's cross-tile cases."""
+    if kind == "runs":  # disjoint runs with ascending parents (the K2 path)
+        starts = np.sort(rng.choice(E, max(E // 16, 1), replace=False))
+        ends = np.minimum(starts + rng.integers(1, 40, len(starts)),
+                          np.append(starts[1:], E))
+        dsel = np.zeros(E + 1, np.int32)
+        np.add.at(dsel, starts, 1)
+        np.add.at(dsel, ends, -1)
+        dpar = np.zeros(E + 1, np.int32)
+        dpar[starts] = np.diff(np.concatenate(
+            [[0], rng.integers(0, 1 << 20, len(starts))]))
+        return dsel[:E], dpar[:E]
+    dpar = rng.integers(-2**31, 2**31 - 1, E).astype(np.int32)  # wraps
+    if kind == "one_run":  # one run spanning every tile
+        dsel = np.zeros(E, np.int32)
+        dsel[0] = 1
+    elif kind == "negative":  # a random walk with negative carries
+        dsel = rng.choice([-1, 0, 0, 1], E).astype(np.int32)
+        dsel[0] = -3
+    else:  # "mhot16": piecewise-constant multiplicities 0..16
+        cuts = np.sort(rng.choice(np.arange(1, E), E // 50, replace=False))
+        levels = rng.integers(0, 17, len(cuts) + 1).astype(np.int32)
+        dsel = np.zeros(E, np.int32)
+        dsel[0] = levels[0]
+        dsel[cuts] = np.diff(levels)
+    return dsel, dpar
+
+
+@pytest.mark.parametrize("E", [S.EMIT_TILE - 1, S.EMIT_TILE, S.EMIT_TILE + 1,
+                               3 * S.EMIT_TILE, 3 * S.EMIT_TILE + 5])
+@pytest.mark.parametrize("kind", ["runs", "one_run", "negative", "mhot16"])
+def test_emit_tile_edges(kind, E):
+    """K2 and K3 around the CUDA kernel's tile (EMIT_TILE edges): runs
+    across tiles, a run over all of them, negative carries and K3
+    multiplicities up to 16, with cap_out cutting inside a tile and inside
+    one edge's copies, held against the loop definition. Where the JAX
+    kernels take the shape (E a multiple of 256, cap_out of 128, K3
+    multiplicity <= 16), also against _stream_emit / _stream_emit_m in
+    interpret mode, over the rows below min(total, cap_out)."""
+    rng = np.random.default_rng(E + len(kind))
+    edges = rng.integers(0, 2**31 - 1, E).astype(np.int32)
+    dsel, dpar = _tile_edge_deltas(kind, E, rng)
+    csel = np.cumsum(dsel, dtype=np.int64)
+    for mhot in (False, True):
+        m = np.maximum(csel, 0) if mhot else (csel > 0).astype(np.int64)
+        total = int(m.sum())
+        past = (total // 128 + 1) * 128
+        rv, rp, rt = _emit_reference(edges, dsel, dpar, past, mhot)
+        assert rt == total
+        caps = [past, total // 2 + 1, max(total // 256 * 128, 128)]
+        multi = np.flatnonzero(m >= 2)
+        if len(multi):  # just after the first copy of a middle edge
+            e = int(multi[len(multi) // 2])
+            caps.append(int(m[:e].sum()) + 1)
+        fn = S.stream_emit_m if mhot else S.stream_emit
+        for cap in caps:
+            v, p, tot = fn(_t(edges), _t(dsel), _t(dpar), cap)
+            assert int(tot) == total
+            assert np.array_equal(v.numpy(), rv[:cap])
+            assert np.array_equal(p.numpy(), rp[:cap])
+        cap = caps[2]
+        if E % 256 or (mhot and m.max() > 16):
+            continue
+        G = E // 256
+        ins = [jnp.asarray(a).reshape(G, 256) for a in (edges, dsel, dpar)]
+        if mhot:
+            jv, jp, jt = JS._stream_emit_m(*ins, cap_out=cap, interpret=True,
+                                           mdup=16)
+        else:
+            jv, jp, jt = JS._stream_emit(*ins, cap_out=cap, interpret=True)
+        n = min(total, cap)
+        assert int(np.asarray(jt).reshape(-1)[0]) == total
+        assert np.array_equal(np.asarray(jv)[:n, 0], rv[:n])
+        assert np.array_equal(np.asarray(jp)[:n, 0], rp[:n])
+
+
 # ---------------------------------------------------------------------------
 # plain pattern / merge kernels vs the jitted JAX functions
 # ---------------------------------------------------------------------------

@@ -38,10 +38,13 @@ _SIGNATURES = {
     },
     "stream_emit.cu": {
         "wk_stream_tile": [],
+        "wk_stream_scratch_bytes": [_LL],
         "wk_stream_emit": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P],
         "wk_stream_emit_m": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P],
     },
 }
+# return types other than c_int
+_RESTYPES = {"wk_stream_scratch_bytes": _LL}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -103,14 +106,21 @@ def library(src: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(src)
         if lib is None:
-            lib = ctypes.CDLL(str(_target(src)))
-            for name, argtypes in _SIGNATURES[src].items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.wk_error_string.argtypes = [ctypes.c_int]
-            lib.wk_error_string.restype = ctypes.c_char_p
+            lib = bind(ctypes.CDLL(str(_target(src))), src)
             _libs[src] = lib
+    return lib
+
+
+def bind(lib: ctypes.CDLL, src: str, names=None) -> ctypes.CDLL:
+    """Declare the C signatures of ``src``'s entry points (all of them, or
+    ``names``) and of wk_error_string on a loaded library."""
+    for name, argtypes in _SIGNATURES[src].items():
+        if names is None or name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    lib.wk_error_string.argtypes = [ctypes.c_int]
+    lib.wk_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -125,6 +135,15 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_aligned(what: str, *tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary (the
+    kernels' 16 B vector loads and stores)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensor data at {t.data_ptr():#x} is not "
+                             "16-byte aligned")
 
 
 def require_cuda(what: str, *tensors) -> None:

@@ -43,6 +43,8 @@ from wukong_tpu_torch.engine.tpu_kernels import (
 
 TILE = 256  # density-gate granularity (the JAX package's tile; the CUDA
 #             kernels tile internally and take any edge count)
+EMIT_TILE = 4096  # edges one block of csrc/stream_emit.cu takes
+#                   (wk_stream_tile); the edge cases of its tests sit here
 MDUP = 4  # default m-hot multiplicity cap (WUKONG_STREAM_MDUP overrides)
 
 
@@ -119,25 +121,31 @@ def _launch_emit(fn_name: str, what: str, edges, dsel, dpar, cap_out: int):
             raise ValueError(f"{what}: three int32 arrays of one length "
                              "expected")
     dev = edges.device
-    val = torch.zeros(cap_out, dtype=I32, device=dev)
-    par = torch.zeros(cap_out, dtype=I32, device=dev)
+    # the kernel writes every output row once (emitted rows, then the zero
+    # tail), so nothing is pre-zeroed
+    val = torch.empty(cap_out, dtype=I32, device=dev)
+    par = torch.empty(cap_out, dtype=I32, device=dev)
     total = torch.empty((), dtype=torch.int64, device=dev)
+    cuda_lib.require_aligned(what, edges, dsel, dpar, val, par)
     lib = cuda_lib.library("stream_emit.cu")
-    G = -(-E // lib.wk_stream_tile())
-    scratch = torch.empty(6 * max(G, 1), dtype=torch.int64, device=dev)
-    rc = getattr(lib, fn_name)(edges.data_ptr(), dsel.data_ptr(),
-                               dpar.data_ptr(), E, cap_out, val.data_ptr(),
-                               par.data_ptr(), total.data_ptr(),
-                               scratch.data_ptr(), cuda_lib.stream_ptr(edges))
+    scratch = torch.empty(lib.wk_stream_scratch_bytes(E), dtype=torch.uint8,
+                          device=dev)
+    with torch.cuda.device(dev):  # the launch sizes its grid for this card
+        rc = getattr(lib, fn_name)(edges.data_ptr(), dsel.data_ptr(),
+                                   dpar.data_ptr(), E, cap_out, val.data_ptr(),
+                                   par.data_ptr(), total.data_ptr(),
+                                   scratch.data_ptr(),
+                                   cuda_lib.stream_ptr(edges))
     cuda_lib.check(lib, rc, what)
     return val, par, total
 
 
 def stream_emit(edges, dsel, dpar, cap_out: int):
     """K2: replaces wukong_tpu/engine/tpu_stream.py:_stream_emit. CUDA
-    tensors launch csrc/stream_emit.cu (wk_stream_emit); CPU tensors run
-    stream_emit_plain. Bound: bytes — 12 B read per edge, 8 B written per
-    row (see the source note)."""
+    tensors launch csrc/stream_emit.cu (wk_stream_emit, one single-pass
+    look-back scan and a zero-tail fill); CPU tensors run stream_emit_plain.
+    Bound: bytes — 8 B read per edge, 4 B per emitted edge, 8 B written per
+    output row (see the source note)."""
     if edges.device.type == "cpu":
         return stream_emit_plain(edges, dsel, dpar, cap_out)
     out = _launch_emit("wk_stream_emit", "stream_emit", edges, dsel, dpar,
