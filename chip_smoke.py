@@ -9,19 +9,32 @@ Phases (any failure exits nonzero, and no result line is printed):
      stream emit) against its plain PyTorch version on the card, exactly, on
      adversarial cases; K2/K3 also on look-back stress cases (2^25 edges,
      ragged lengths, cap_out cuts), each run 10 times with identical bits;
-  3. store: synthesize LUBM-<scale> from the seed, build the partition, and
-     stage every segment the seven LUBM shapes touch on the card;
+  3. store: synthesize LUBM-<scale> and its attributes from the seed, build
+     the partition, and stage every segment the seven LUBM shapes touch on
+     the card;
   4. serve: the seven LUBM shapes through Proxy.serve_query (rows, median
      latency of 5 runs) and the index-origin shapes through
      Proxy.serve_batch_index in replicate mode; every per-qid count must equal
      the single-query row count, and every kernel's launch count must rise.
-     The kernels are then held against their plain versions on the inputs
-     this phase gave them, and timed there (CUDA events around 25 calls made
-     back to back, per call, the median of 3 such runs);
-  5. cross-check: at LUBM-<cross-scale> the seven shapes through
-     Proxy(device="cpu") (plain versions) and Proxy(device="cuda") must give
-     equal row multisets.
-The line before the last is one JSON object {"kernels": [...]}; the last is
+     Each kernel is then held against its plain version on the largest
+     input this phase gave it, and timed there (CUDA events around 25 calls
+     made back to back, per call, the median of 3 such runs);
+  5. extended: the extended suite (OPTIONAL, UNION, FILTER, ORDER BY,
+     attributes, variable predicates) through Proxy.serve_query, each shape
+     with status 0 and rows, the median of 5 runs split on the host clock
+     into the device chain (the engine's device prefixes, seeded children
+     included, each ending in its sync) and the host stages (StageClock);
+     K1 must probe the combined (versatile) segment, which must stay
+     resident on the card, and each kernel is held against its plain
+     version and timed on the largest input of each class of its calls in
+     this phase (K1: predicate segments, the combined segment);
+  6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
+     suite through Proxy(device="cpu") (plain versions) and
+     Proxy(device="cuda") must give equal row multisets and attribute
+     tables, and equal row order where ORDER BY fixes it.
+The line before the last is one JSON object {"kernels": [...]}, a row for
+each kernel and class of its calls in phases 4 and 5, with that class's
+launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it and
 a CUDA GPU; it imports nothing of JAX or of the JAX package.
 """
@@ -73,6 +86,46 @@ QUERIES = {
         <http://www.Department0.University0.edu/AssociateProfessor0>
         ub:teacherOf ?Y . ?X ub:takesCourse ?Y . }""",
 }
+
+DEPT0 = "<http://www.Department0.University0.edu>"
+UNIV0 = "<http://www.University0.edu>"
+# the extended suite: every query shape beyond the basic one that the JAX
+# engine answers on one partition, modelled on Wukong's LUBM optional, union
+# and attr suites (scripts/sparql_query/lubm/{optional,union,attr} upstream)
+EXT_QUERIES = {
+    "x_opt_light": PREFIX + f"""SELECT * WHERE {{
+        ?X ub:memberOf {DEPT0} . OPTIONAL {{ ?X ub:advisor ?Y }} }}""",
+    "x_opt_heavy": PREFIX + """SELECT ?S ?UG ?DOC WHERE {
+        ?S ub:undergraduateDegreeFrom ?UG .
+        OPTIONAL { ?S ub:doctoralDegreeFrom ?DOC } .
+        FILTER (!bound(?DOC)) }""",
+    "x_union": PREFIX + f"""SELECT ?X ?Z WHERE {{
+        ?X ub:memberOf {DEPT0} .
+        {{ ?X ub:undergraduateDegreeFrom ?Z }}
+        UNION {{ ?X ub:mastersDegreeFrom ?Z }} }}""",
+    "x_union_index": PREFIX + """SELECT ?X WHERE {
+        { ?X rdf:type ub:FullProfessor } UNION { ?X rdf:type ub:Lecturer } }""",
+    "x_filter": PREFIX + f"""SELECT ?X ?Y ?U ?D WHERE {{
+        ?X ub:memberOf {DEPT0} . ?X ub:advisor ?Y .
+        ?X ub:undergraduateDegreeFrom ?U . ?Y ub:doctoralDegreeFrom ?D .
+        FILTER (?U != ?D) }}""",
+    "x_order": PREFIX + f"""SELECT ?X ?N WHERE {{
+        ?X ub:worksFor {DEPT0} . ?X ub:name ?N }}
+        ORDER BY ?N LIMIT 3 OFFSET 1""",
+    "x_attr": PREFIX + f"""SELECT ?X ?A WHERE {{
+        ?X ub:memberOf {DEPT0} . ?X ub:age ?A . FILTER (?A > 20) }}""",
+    "x_vers_kuu": PREFIX + f"""SELECT ?X ?P ?Y WHERE {{
+        ?X ub:worksFor {DEPT0} . ?X ?P ?Y }}""",
+    "x_vers_const": PREFIX + f"""SELECT ?P ?Y WHERE {{ {DEPT0} ?P ?Y }}""",
+    "x_vers_const2": PREFIX + f"""SELECT ?P WHERE {{ {DEPT0} ?P {UNIV0} }}""",
+    "x_vers_kuc": PREFIX + f"""SELECT ?X ?P WHERE {{
+        ?X rdf:type ub:FullProfessor . ?X ?P {UNIV0} }}""",
+    # the planner starts x_vers_kuc at its const object, so the equality
+    # fold of expand2 needs a const start elsewhere in the chain
+    "x_vers_kuc_fold": PREFIX + f"""SELECT ?X ?P WHERE {{
+        ?X ub:worksFor {DEPT0} . ?X ?P {DEPT0} }}""",
+}
+ORDERED = ("x_order",)  # shapes whose row order the query fixes
 
 KERNELS = {
     "probe_kernel": ("wukong_tpu_torch/csrc/probe.cu",
@@ -138,22 +191,28 @@ def max_abs_diff(xs, ys) -> int:
 
 
 class Capture:
-    """Wraps a kernel's module-level entry to keep the inputs of its largest
-    main-path call (by frontier or edge count). While wrapped, the kernel
+    """Wraps a kernel's module-level entry to keep, for each class of its
+    main-path calls (``class_of``), the launches and the inputs of the
+    largest call (by frontier or edge count). While wrapped, the kernel
     function counts its launches on the module attribute, i.e. on the
     wrapper; restore() adds them to the kernel function's own count."""
 
-    def __init__(self, module, attr: str, size_of):
-        self.module, self.attr, self.size_of = module, attr, size_of
+    def __init__(self, module, attr: str, size_of, class_of=lambda a: ""):
+        self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
-        self.best = None
-        self.best_size = -1
+        self.best: dict = {}  # class -> (size, args, kw)
+        self.launches: dict = {}  # class -> launches
 
         def wrapped(*args, **kw):
-            size = size_of(args)
-            if size > self.best_size:
-                self.best, self.best_size = (args, kw), size
-            return self.orig(*args, **kw)
+            cls, size = class_of(args), size_of(args)
+            if size > self.best.get(cls, (-1,))[0]:
+                self.best[cls] = (size, args, kw)
+            before = wrapped.launches
+            try:
+                return self.orig(*args, **kw)
+            finally:
+                self.launches[cls] = (self.launches.get(cls, 0)
+                                      + wrapped.launches - before)
 
         wrapped.launches = 0
         self.wrapped = wrapped
@@ -437,29 +496,46 @@ def emit_work(args, mhot: bool = False) -> tuple:
              "tiles_over_one_stage": int((per > EMIT_TILE).sum())})
 
 
-def measure(name: str, cap: Capture, kern, plain, work_of, errs: dict,
-            launches: int, inputs: dict) -> dict:
-    check(cap.best is not None, f"{name}: no main-path call captured")
-    args, kw = cap.best
+def measure(name: str, phase: str, best: tuple, launches: int, kern, plain,
+            work_of, errs: dict) -> dict:
+    """One row of the kernels line: the kernel held against its plain version
+    on the largest call of one class of a phase's calls, timed there, with
+    that input's bound and that class's launches."""
+    _size, args, kw = best
     err = max_abs_diff(kern(*args, **kw), plain(*args, **kw))
     errs[name] = max(errs[name], err)
-    check(err == 0, f"{name} != plain on its main-path inputs ({err})")
+    check(err == 0, f"{name} != plain on its {phase} inputs ({err})")
     nbytes, ops, what = work_of(args)
-    inputs[name] = what
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / CORE_OPS_PER_S * 1e3
     src, replaces = KERNELS[name]
     row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-           "launches": launches, "max_abs_err": errs[name],
+           "launches": launches, "max_abs_err": err,
            "ms": time_ms(lambda: kern(*args, **kw)),
            "plain_ms": time_ms(lambda: plain(*args, **kw), reps=5),
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None}
-    log(f"  {name}: main-path input {what}  bytes {nbytes:,}  "
-        f"ops {ops:,}  ms {row['ms']:.4f}  bound {row['bound_ms']:.4f} "
-        f"({row['bound_by']})  plain {row['plain_ms']:.4f}")
+           "library_ms": None, "phase": phase, "input": what}
+    log(f"  {name} [{phase}]: {launches} launches; largest input {what}  "
+        f"bytes {nbytes:,}  ops {ops:,}  ms {row['ms']:.4f}  bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})  plain "
+        f"{row['plain_ms']:.4f}")
     return row
+
+
+def captured_rows(captures: dict, phase: str, kernel_fns: dict,
+                  errs: dict) -> list:
+    """A kernels-line row for every class of calls each kernel made in one
+    phase (a kernel the phase never launched has none)."""
+    rows = []
+    for name, cap in captures.items():
+        fn, plain, work_of = kernel_fns[name]
+        for cls, best in sorted(cap.best.items()):
+            if cap.launches.get(cls, 0):
+                rows.append(measure(name, phase + cls, best,
+                                    cap.launches[cls], fn, plain, work_of,
+                                    errs))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -468,16 +544,22 @@ def measure(name: str, cap: Capture, kern, plain, work_of, errs: dict,
 
 
 def build_world(scale: int, seed: int):
-    from wukong_tpu_torch.loader.lubm import VirtualLubmStrings, generate_lubm
+    from wukong_tpu_torch.loader.lubm import (
+        VirtualLubmStrings,
+        generate_lubm,
+        generate_lubm_attrs,
+    )
     from wukong_tpu_torch.store.gstore import build_partition
 
     t0 = time.perf_counter()
     triples, _ = generate_lubm(scale, seed=seed)
+    attrs = generate_lubm_attrs(scale, seed=seed)
     t1 = time.perf_counter()
-    g = build_partition(triples, 0, 1)
+    g = build_partition(triples, 0, 1, attr_triples=attrs)
     t2 = time.perf_counter()
-    log(f"store: LUBM-{scale} seed {seed}: {len(triples):,} triples "
-        f"(synthesis {t1 - t0:.1f} s, partition {t2 - t1:.1f} s)")
+    log(f"store: LUBM-{scale} seed {seed}: {len(triples):,} triples, "
+        f"{len(attrs[0]):,} attributes (synthesis {t1 - t0:.1f} s, "
+        f"partition {t2 - t1:.1f} s)")
     return g, VirtualLubmStrings(scale, seed=seed), len(triples)
 
 
@@ -570,8 +652,92 @@ def serve(proxy, heavy: tuple, mdup: int, results: dict) -> None:
                 f"({B / med * 1e3:.2f} queries/s); caps {caps}")
 
 
+class StageClock:
+    """Host-clock ms of one serve by stage, while in a ``with`` block.
+    "device chain" is the engine's device prefixes (each chain on the card,
+    seeded children included, ending in its one sync); the host stages are
+    parse and plan, the host engine's pattern steps, the UNION merge, the
+    OPTIONAL join, FILTER and the final stage, each net of the stages it
+    runs inside it. The rest of a serve ("other": the proxy and engine
+    dispatch between stages, the closing synchronize) is what the caller's
+    own clock has beyond their sum."""
+
+    STAGES = (("proxy", "parse", "parse+plan"),
+              ("engine", "_run_device_prefix", "device chain"),
+              ("cpu", "_execute_one_pattern", "host steps"),
+              ("cpu", "_execute_unions", "union"),
+              ("engine", "_execute_optional", "optional"),
+              ("cpu", "_execute_filters", "filter"),
+              ("cpu", "_final_process", "final"))
+
+    def __init__(self, proxy):
+        self.owners = {"proxy": proxy, "engine": proxy.engine,
+                       "cpu": proxy.engine.cpu}
+        self.ms: dict = {}
+        self._nested: list = []
+
+    def __enter__(self):
+        # instance attributes shadow the class's methods until __exit__
+        for owner, attr, stage in self.STAGES:
+            obj = self.owners[owner]
+            setattr(obj, attr, self._timed(getattr(obj, attr), stage))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, attr, _stage in self.STAGES:
+            delattr(self.owners[owner], attr)
+
+    def _timed(self, inner, stage: str):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            self._nested.append(0.0)
+            try:
+                return inner(*args, **kw)
+            finally:
+                dt = (time.perf_counter() - t0) * 1e3
+                self.ms[stage] = self.ms.get(stage, 0.0) + dt - \
+                    self._nested.pop()
+                if self._nested:
+                    self._nested[-1] += dt
+        return timed
+
+
+def serve_extended(proxy, results: dict) -> None:
+    """Phase 5: the extended suite, each shape 5 times."""
+    import torch
+
+    for name, text in EXT_QUERIES.items():
+        lat, stages = [], []
+        for _ in range(5):
+            with StageClock(proxy) as clock:
+                t0 = time.perf_counter()
+                q = proxy.serve_query(text)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            run = dict(clock.ms)
+            run["other"] = lat[-1] - sum(run.values())
+            stages.append(run)
+            check(q.result.status_code == 0,
+                  f"{name}: status {q.result.status_code!r}")
+        check(q.result.nrows > 0, f"{name}: no rows")
+        mid = lat.index(statistics.median_low(lat))
+        dev = stages[mid].get("device chain", 0.0)
+        row = {"rows": q.result.nrows, "median_ms": lat[mid],
+               "device_chain_ms": dev, "host_ms": lat[mid] - dev,
+               "stages_ms": stages[mid], "runs_ms": lat}
+        results["extended"][name] = row
+        split = ", ".join(f"{k} {v:.2f}" for k, v in stages[mid].items()
+                          if k != "device chain" and v >= 0.01)
+        log(f"  {name}: {row['rows']:,} rows, median {row['median_ms']:.2f} "
+            f"ms: device chain {dev:.2f}, host {row['host_ms']:.2f} "
+            f"({split}); first run {lat[0]:.2f} ms")
+
+
 def rows_multiset(q):
-    return sorted(map(tuple, q.result.table.tolist()))
+    rows = q.result.table.tolist()
+    if q.result.attr_table.size:
+        rows = [r + a for r, a in zip(rows, q.result.attr_table.tolist())]
+    return sorted(map(tuple, rows))
 
 
 def main(argv=None) -> int:
@@ -610,7 +776,7 @@ def main(argv=None) -> int:
         f"{build_s:.1f} s")
     results = {"card": card, "kind": kind, "build_s": build_s,
                "scale": args.scale, "seed": args.seed, "queries": {},
-               "batches": {}}
+               "batches": {}, "extended": {}}
 
     # ---- 2. kernels on adversarial cases ---------------------------------
     errs = {name: 0 for name in KERNELS}
@@ -635,11 +801,15 @@ def main(argv=None) -> int:
     results.update(triples=ntriples, resident_bytes=resident)
 
     # ---- 4. serve (the main path) ----------------------------------------
-    captures = {
-        "probe_kernel": Capture(K, "probe_kernel", lambda a: a[3].shape[0]),
-        "stream_emit": Capture(S, "stream_emit", lambda a: a[0].shape[0]),
-        "stream_emit_m": Capture(S, "stream_emit_m", lambda a: a[0].shape[0]),
-    }
+    def capture_all(probe_class=lambda a: ""):
+        return {"probe_kernel": Capture(K, "probe_kernel",
+                                        lambda a: a[3].shape[0], probe_class),
+                "stream_emit": Capture(S, "stream_emit",
+                                       lambda a: a[0].shape[0]),
+                "stream_emit_m": Capture(S, "stream_emit_m",
+                                         lambda a: a[0].shape[0])}
+
+    captures = capture_all()
     kernel_fns = {"probe_kernel": (captures["probe_kernel"].orig, K.probe_plain,
                                    probe_work),
                   "stream_emit": (captures["stream_emit"].orig,
@@ -661,25 +831,66 @@ def main(argv=None) -> int:
     log(f"serve: kernel launches on the main path {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
+    rows = captured_rows(captures, "4 basic suite", kernel_fns, errs)
 
-    inputs = {}
-    rows = [measure(name, captures[name], fn, plain, work_of, errs,
-                    launches[name], inputs)
-            for name, (fn, plain, work_of) in kernel_fns.items()]
+    # ---- 5. extended suite (the main path's second part) ------------------
+    from wukong_tpu_torch.types import OUT
+
+    cache = proxy.engine.dstore._cache
+
+    def probe_class(a) -> str:
+        """K1's calls on a combined (versatile) segment, apart from its
+        calls on predicate segments."""
+        combined = any(k[0] == "vpv" and seg is not None
+                       and seg.bkey.data_ptr() == a[0].data_ptr()
+                       for k, seg in list(cache.items()))
+        return ", combined segment" if combined else ", predicate segments"
+
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    log(f"extended: LUBM-{args.scale} on {kind}")
+    captures = capture_all(probe_class)
+    try:
+        serve_extended(proxy, results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    ext = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    log(f"extended: kernel launches {ext}, K1 by class "
+        f"{captures['probe_kernel'].launches}")
+    check(captures["probe_kernel"].launches.get(", combined segment", 0) > 0,
+          "probe_kernel never probed the combined segment in the extended "
+          "suite")
+    rows += captured_rows(captures, "5 extended suite", kernel_fns, errs)
+    check(sum(r["launches"] for r in rows if r["name"] == "probe_kernel")
+          == launches["probe_kernel"] + ext["probe_kernel"],
+          "K1's launches by class do not add up to its count")
+    vseg = proxy.engine.dstore._cache.get(("vpv", int(OUT)))
+    check(vseg is not None and vseg.edges2 is not None
+          and vseg.bkey.device.type == "cuda",
+          "the OUT combined segment is not resident on the card")
+    log(f"extended: OUT combined segment resident, {vseg.num_keys:,} keys, "
+        f"{vseg.num_edges:,} edges, {vseg.nbytes:,} bytes")
+    results["extended_launches"] = ext
+    for row in rows:  # every check of a kernel: phase 2 and every phase row
+        row["max_abs_err"] = errs[row["name"]]
     results["kernels"] = rows
-    results["kernel_inputs"] = inputs
 
-    # ---- 5. cross-check -------------------------------------------------
+    # ---- 6. cross-check -------------------------------------------------
     gx, ssx, _ = build_world(args.cross_scale, args.seed)
     on_cpu = Proxy(gx, ssx, device="cpu")
     on_gpu = Proxy(gx, ssx, device="cuda")
-    for name, text in QUERIES.items():
+    for name, text in list(QUERIES.items()) + list(EXT_QUERIES.items()):
         a, b = on_cpu.serve_query(text), on_gpu.serve_query(text)
         check(a.result.status_code == b.result.status_code == 0,
               f"cross-check {name}: status")
         check(rows_multiset(a) == rows_multiset(b),
               f"cross-check {name}: cpu {a.result.nrows} rows vs cuda "
               f"{b.result.nrows} rows")
+        if name in ORDERED:
+            check(a.result.table.tolist() == b.result.table.tolist(),
+                  f"cross-check {name}: row order differs")
         log(f"  cross-check LUBM-{args.cross_scale} {name}: "
             f"{a.result.nrows:,} rows equal on cpu and cuda")
     results["cross_scale"] = args.cross_scale

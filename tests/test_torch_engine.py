@@ -2,7 +2,9 @@
 the JAX package's TPUEngine and CPUEngine on LUBM-1: the seven inline LUBM
 shapes give equal row multisets, replicate batches give exactly the JAX
 per-qid counts (with the stream arms forced on in both packages), a forced
-tiny capacity retries to the same rows, and unsupported shapes raise."""
+tiny capacity retries to the same rows, and the shapes the first slices
+refused (OPTIONAL, UNION, FILTER, variable predicates, ORDER BY) give the
+JAX engines' rows."""
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ from wukong_tpu_torch.engine import tpu_stream as S
 from wukong_tpu_torch.loader import lubm as port_lubm
 from wukong_tpu_torch.runtime.proxy import Proxy
 from wukong_tpu_torch.store.gstore import build_partition as port_build
-from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
+from wukong_tpu_torch.utils.errors import ErrorCode
 
 # the suite runs several test processes side by side: keep torch's own
 # thread pool small so it does not starve their timing-sensitive tests
@@ -158,22 +160,32 @@ def test_distinct_limit_offset(world):
         assert sorted(map(tuple, q.result.table.tolist())) == want
 
 
-@pytest.mark.parametrize("body", [
-    "?X ub:memberOf ?Y . OPTIONAL { ?X ub:advisor ?Z . }",
-    "{ ?X ub:memberOf ?Y . } UNION { ?X ub:worksFor ?Y . }",
-    "?X ub:memberOf ?Y . FILTER(?X != ?Y)",
-    "<http://www.Department0.University0.edu> ?P ?X .",
-])
-def test_unsupported_shapes_raise(world, body):
-    proxy = world[2]
-    with pytest.raises(WukongError) as ei:
-        proxy.serve_query(LUBM_PREFIX + f"SELECT * WHERE {{ {body} }}")
-    assert ei.value.code == ErrorCode.UNKNOWN_PATTERN
-
-
-def test_order_by_raises(world):
-    proxy = world[2]
-    with pytest.raises(WukongError):
-        proxy.serve_query(LUBM_PREFIX + "SELECT ?X WHERE { ?X ub:memberOf "
-                          "<http://www.Department0.University0.edu> . } "
-                          "ORDER BY ?X")
+@pytest.mark.parametrize("text", [
+    LUBM_PREFIX + "SELECT * WHERE { ?X ub:memberOf ?Y . "
+    "OPTIONAL { ?X ub:advisor ?Z . } }",
+    LUBM_PREFIX + "SELECT * WHERE { { ?X ub:memberOf ?Y . } "
+    "UNION { ?X ub:worksFor ?Y . } }",
+    LUBM_PREFIX + "SELECT * WHERE { ?X ub:memberOf ?Y . FILTER(?X != ?Y) }",
+    LUBM_PREFIX + "SELECT * WHERE { "
+    "<http://www.Department0.University0.edu> ?P ?X . }",
+    LUBM_PREFIX + "SELECT ?X WHERE { ?X ub:memberOf "
+    "<http://www.Department0.University0.edu> . } ORDER BY ?X",
+], ids=["optional", "union", "filter", "variable_predicate", "order_by"])
+def test_formerly_refused_shapes_match_jax(world, text):
+    """Shapes the port raised UNKNOWN_PATTERN on before it had a host
+    engine; ORDER BY fixes the row order, so it is compared exactly."""
+    g, ss, proxy, cpu, tpu = world
+    q = proxy.serve_query(text)
+    assert q.result.status_code == ErrorCode.SUCCESS
+    got = q.result.table.tolist()
+    for eng in (cpu, tpu):
+        want = Parser(ss).parse(text)
+        heuristic_plan(want)
+        eng.execute(want)
+        assert want.result.status_code == 0
+        rows = want.result.table.tolist()
+        if "ORDER BY" in text:
+            assert got == rows
+        else:
+            assert sorted(map(tuple, got)) == sorted(map(tuple, rows))
+    assert len(got) > 0

@@ -418,6 +418,28 @@ def test_expand_and_member_mask_known(seg, table):
     assert 0 < int(b.sum()) < len(vals)
 
 
+def test_expand2_matches_jax(table):
+    """expand2 over the staged OUT combined segment: a cap_out that cuts
+    the expansion, then one that holds it, bit for bit with the JAX
+    function; rows past n and anchors with no edges expand to nothing."""
+    triples, _ = generate_lubm(1, seed=42)
+    v = JDeviceStore(build_partition(triples, 0, 1)).versatile_segment(OUT)
+    js = (v.bkey, v.bstart, v.bdeg, v.edges2, v.edges)
+    ts = tuple(_t(np.asarray(a)) for a in js)
+    C = table.shape[1]
+    n = C - 30
+    total = None
+    for cap in (1024, 8192):
+        a = JK.expand2(jnp.asarray(table), jnp.int32(n), *js, col=1,
+                       cap_out=cap, max_probe=v.max_probe)
+        b = K.expand2(_t(table), K.as_count(n, "cpu"), *ts, col=1,
+                      cap_out=cap, max_probe=v.max_probe)
+        for x, y in zip(a, b):
+            _eq(x, y)
+        total = int(b[2])
+    assert 1024 < total <= 8192  # the first capacity cut the expansion
+
+
 def test_compact_init_and_list_kernels(table):
     rng = np.random.default_rng(4)
     C = table.shape[1]

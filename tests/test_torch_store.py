@@ -1,16 +1,19 @@
 """The port's store against the JAX package's: the JAX partition carried over
 with gstore_from_numpy stages element-for-element the same device arrays,
-and the port's own synthesis and build give the same partition."""
+the port's own synthesis and build give the same partition, attribute
+segments and combined (versatile) adjacency."""
 
 import numpy as np
 import pytest
 import torch
 
 from wukong_tpu.engine.device_store import DeviceStore as JDeviceStore
-from wukong_tpu.loader.lubm import generate_lubm
+from wukong_tpu.engine.device_store import combined_adjacency as j_combined
+from wukong_tpu.loader.lubm import generate_lubm, generate_lubm_attrs
 from wukong_tpu.store.gstore import build_partition
 from wukong_tpu.types import IN, OUT, TYPE_ID
 from wukong_tpu_torch.engine.device_store import DeviceStore
+from wukong_tpu_torch.engine.device_store import combined_adjacency
 from wukong_tpu_torch.loader import lubm as port_lubm
 from wukong_tpu_torch.store import gstore as port_gstore
 
@@ -93,6 +96,45 @@ def test_port_synthesis_and_build_match(stores):
         assert np.array_equal(v, pg.index[k]), k
     for name in ("v_set", "t_set", "p_set"):
         assert np.array_equal(getattr(g, name), getattr(pg, name))
+
+
+@pytest.mark.parametrize("workers", [1, 3])
+def test_attr_segments_equal(workers):
+    """generate_lubm_attrs gives the JAX rows as columns, and every
+    partition's AttrSegments equal the JAX ones key for key and value for
+    value (int64 values, so equality is exact)."""
+    triples, _ = generate_lubm(1, seed=42)
+    jattrs = generate_lubm_attrs(1, seed=42)
+    cols = port_lubm.generate_lubm_attrs(1, seed=42)
+    assert np.array_equal(np.asarray(jattrs, dtype=np.int64),
+                          np.stack(cols, axis=1))
+    for sid in range(workers):
+        jg = build_partition(triples, sid, workers, attr_triples=jattrs)
+        pg = port_gstore.build_partition(triples, sid, workers,
+                                         attr_triples=cols)
+        assert set(pg.attrs) == set(jg.attrs) and jg.attrs
+        for aid, ja in jg.attrs.items():
+            pa = pg.attrs[aid]
+            assert pa.type == ja.type
+            for name in ("keys", "values"):
+                a, b = getattr(ja, name), getattr(pa, name)
+                assert a.dtype == b.dtype and np.array_equal(a, b), name
+        vid = int(jg.attrs[next(iter(jg.attrs))].keys[0])
+        assert pg.get_attr(vid, next(iter(jg.attrs))) == \
+            jg.get_attr(vid, next(iter(jg.attrs)))
+
+
+@pytest.mark.parametrize("d", [IN, OUT])
+def test_combined_adjacency_and_versatile_segment_equal(stores, d):
+    g, pg = stores
+    for ja, ta in zip(j_combined(g, d), combined_adjacency(pg, d)):
+        assert ja.dtype == ta.dtype and np.array_equal(ja, ta)
+    js = JDeviceStore(g).versatile_segment(d)
+    ts = DeviceStore(pg, device="cpu").versatile_segment(d)
+    for name in ("bkey", "bstart", "bdeg", "edges", "edges2"):
+        _same(getattr(js, name), getattr(ts, name))
+    assert (js.num_keys, js.num_edges, js.max_probe, js.max_deg_log2) == \
+        (ts.num_keys, ts.num_edges, ts.max_probe, ts.max_deg_log2)
 
 
 def test_budget_eviction_respects_pins(stores):

@@ -8,7 +8,9 @@ reference's conflict-aware eviction (core/gpu/gpu_cache.hpp).
 
 Two staged forms per (pid, dir):
 - DeviceSegment: an 8-way bucketized hash table over the keys (probed by
-  K1) plus the edge array;
+  K1) plus the edge array; the VERSATILE combined segment of a direction
+  (key ("vpv", d)) is one more DeviceSegment whose edges are every
+  (predicate, neighbor) pair, with the predicates in ``edges2``;
 - MergeSegment: sorted key/start/deg arrays plus per-edge (key, neighbor)
   pairs, for the sort-merge kernels and the stream emitters.
 Bucket placement (`build_hash_table`) is bit-identical to the JAX package's.
@@ -47,11 +49,17 @@ class DeviceSegment:
     num_edges: int
     max_probe: int  # probe-round bound
     max_deg_log2: int  # binary-search depth for membership tests
+    # combined segments only: per-edge predicate ids aligned with edges
+    # (padded with INT32_MAX); expand2 gathers both
+    edges2: torch.Tensor | None = None
 
     @property
     def nbytes(self) -> int:
-        return (self.bkey.numel() + self.bstart.numel() + self.bdeg.numel()
-                + self.edges.numel()) * 4
+        n = (self.bkey.numel() + self.bstart.numel() + self.bdeg.numel()
+             + self.edges.numel()) * 4
+        if self.edges2 is not None:
+            n += self.edges2.numel() * 4
+        return n
 
 
 @dataclass
@@ -77,6 +85,33 @@ class MergeSegment:
 def fold_key(filters) -> tuple:
     """Canonical cache-key form of a fold's (pid, dir, const) filter list."""
     return tuple(sorted((int(p), int(dd), int(c)) for (p, dd, c) in filters))
+
+
+def combined_adjacency(g, d: int):
+    """(keys, offsets, vals, pids) of one partition's COMBINED adjacency in
+    direction d: every (predicate, neighbor) edge keyed by vid, predicate-
+    ordered within each vid (stable sort; per-predicate parts are appended
+    pid-ascending). OUT includes rdf:type edges, IN excludes them, as the
+    host vp lists do (gstore.py)."""
+    parts_v, parts_p, parts_w = [], [], []
+    for (pid, dd), host in sorted(g.segments.items()):
+        if int(dd) != int(d) or len(host.edges) == 0:
+            continue
+        degs = host.offsets[1:] - host.offsets[:-1]
+        parts_v.append(np.repeat(np.asarray(host.keys, np.int64), degs))
+        parts_p.append(np.full(len(host.edges), int(pid), np.int64))
+        parts_w.append(np.asarray(host.edges, np.int64))
+    if not parts_v:
+        return (np.empty(0, np.int64), np.zeros(1, np.int64),
+                np.empty(0, np.int64), np.empty(0, np.int64))
+    v = np.concatenate(parts_v)
+    p = np.concatenate(parts_p)
+    w = np.concatenate(parts_w)
+    order = np.argsort(v, kind="stable")
+    v, p, w = v[order], p[order], w[order]
+    keys, counts = np.unique(v, return_counts=True)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    return keys, offsets, w, p
 
 
 def type_index_csr(g):
@@ -191,6 +226,22 @@ class DeviceStore:
             csr = self._host_csr(pid, d)
             return None if csr is None else self._stage(*csr)
         return self._cached((int(pid), int(d)), build)
+
+    def versatile_segment(self, d: int) -> DeviceSegment | None:
+        """Stage the COMBINED adjacency of direction d: one CSR keyed by vid
+        whose edges are every (predicate, neighbor) pair, the device form of
+        the VERSATILE per-vid predicate lists (gstore.hpp:890-903). expand2
+        probes it (K1) and binds both the predicate and the neighbor."""
+        def build():
+            keys, offsets, w, p = combined_adjacency(self.g, d)
+            if len(keys) == 0:
+                return None
+            seg = self._stage(keys, offsets, w)
+            p_pad = np.full(seg.edges.shape[0], INT32_MAX, dtype=np.int32)
+            p_pad[: len(p)] = p
+            seg.edges2 = self._dev(p_pad)
+            return seg
+        return self._cached(("vpv", int(d)), build)
 
     def merge_segment(self, pid: int, d: int) -> MergeSegment | None:
         """Stage (pid, dir) for the sort-merge kernels."""
@@ -387,6 +438,10 @@ class DeviceStore:
         self._enforce_budget()  # pins may have deferred evictions
 
     def prefetch(self, patterns) -> None:
-        """Stage the bucket segments of upcoming pattern steps."""
+        """Stage the bucket segments of upcoming pattern steps (the combined
+        segment for a variable predicate, the largest staging of a chain)."""
         for p in patterns:
-            self.segment(p.predicate, p.direction)
+            if p.predicate >= 0:
+                self.segment(p.predicate, p.direction)
+            else:
+                self.versatile_segment(p.direction)

@@ -12,11 +12,17 @@ totals together. If a step overflowed its capacity class, the whole chain
 re-runs with exact capacities (inputs are immutable, so the retry is safe and
 rows are never lost).
 
-Scope: basic graph patterns of constant SID predicates — index starts, const
-starts, known_to_unknown, known_to_known and known_to_const — with
-projection, DISTINCT, LIMIT and OFFSET. Every other shape (attribute
-patterns, variable predicates, OPTIONAL, UNION, FILTER, ORDER BY) raises
-WukongError(UNKNOWN_PATTERN): the port has no host engine to hand it to.
+Scope: every shape the JAX engine answers on one partition, through its
+state machine PATTERN -> UNION -> OPTIONAL -> FILTER -> FINAL. The longest
+device-supported prefix of the pattern chain runs on the card: index and
+const starts, known_to_unknown/known/const, and the VERSATILE shapes with an
+unbound predicate (known_unknown_unknown and known_unknown_const through
+expand2 over the combined-adjacency segment, const_unknown_* from a host CSR
+init). The rest runs in the host engine (engine/cpu.py) exactly where the
+JAX package runs it on the host: attribute and bound-predicate steps, the
+UNION merge, the OPTIONAL left join, FILTERs and the final stage. UNION
+branches and shared-variable OPTIONAL groups come back through this engine
+as seeded children, so their BGPs ride the device chain too.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import torch
 
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.engine import tpu_kernels as K
+from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.device_store import DeviceStore
+from wukong_tpu_torch.engine.optional_join import execute_optional_leftjoin
 from wukong_tpu_torch.sparql.ir import NO_RESULT, PGType, SPARQLQuery
 from wukong_tpu_torch.types import PREDICATE_ID, TYPE_ID, AttrType
 from wukong_tpu_torch.utils.errors import (
@@ -49,6 +57,7 @@ class GPUEngine:
         self.dstore = DeviceStore(gstore, budget_bytes=budget_bytes,
                                   device=device)
         self.device = self.dstore.device
+        self.cpu = CPUEngine(gstore, str_server)
         self.cap_min = Global.table_capacity_min
         self.cap_max = Global.table_capacity_max
         self._last_attempts = 0  # chain attempts of the last query
@@ -65,88 +74,112 @@ class GPUEngine:
 
     # ------------------------------------------------------------------
     def execute(self, q: SPARQLQuery, from_proxy: bool = True) -> SPARQLQuery:
-        """Run q's pattern chain on the device (and its projection when
-        ``from_proxy``). Unsupported shapes raise; runtime failures such as
-        a capacity ceiling land on ``q.result.status_code``."""
-        self.check_supported(q)
+        """Run q through the state machine (its projection and modifiers
+        too when ``from_proxy``). Failures, an unsupported shape among them,
+        land on ``q.result.status_code`` with the JAX engine's code."""
         try:
             if q.planner_empty and Global.enable_empty_shortcircuit:
-                self._short_circuit_empty(q)
-            elif q.has_pattern and not q.done_patterns():
+                # planner-proved empty (planner.hpp:1505-1509): no device work
+                self.cpu.short_circuit_empty(q)
+                if from_proxy:
+                    self.cpu._final_process(q)
+                return q
+            self.cpu._knn_pre(q)
+            if q.has_pattern and not q.done_patterns():
                 self._run_pattern_chain(q)
+            if q.pattern_group.unions and not q.union_done:
+                # children route back through THIS engine, so a branch BGP
+                # rides the device chain (seeded upload init) when supported
+                self.cpu._execute_unions(
+                    q, child_exec=lambda c: self.execute(c, from_proxy=False))
+            while q.optional_step < len(q.pattern_group.optional):
+                self._execute_optional(q)
+            if q.pattern_group.filters:
+                self.cpu._execute_filters(q)
             if from_proxy:
-                _final_process(q)
+                self.cpu._final_process(q)
         except WukongError as e:
             q.result.status_code = e.code
         return q
 
-    def check_supported(self, q: SPARQLQuery) -> None:
-        pg = q.pattern_group
-        for what, present in (("UNION", pg.unions), ("OPTIONAL", pg.optional),
-                              ("FILTER", pg.filters), ("ORDER BY", q.orders)):
-            if present:
-                raise WukongError(ErrorCode.UNKNOWN_PATTERN,
-                                  f"{what} is not supported by the GPU engine")
-        probe = _MetaResult(q.result)
-        for i in range(q.pattern_step, len(pg.patterns)):
-            pat = q.get_pattern(i)
-            if not self._device_supported(q, pat, probe, i == q.pattern_step):
-                raise WukongError(ErrorCode.UNKNOWN_PATTERN,
-                                  f"pattern {pat!r} is not supported by the "
-                                  "GPU engine")
-            probe.bind(pat)
-
-    def _device_supported(self, q, pat, probe, is_first: bool) -> bool:
-        if q.pg_type == PGType.OPTIONAL:
-            return False
-        if pat.pred_type != int(AttrType.SID_t) or pat.predicate < 0:
-            return False
-        if is_first and q.pattern_step == 0 and q.start_from_index():
-            return probe.width == 0 and probe.col_of(pat.object) is None
-        s_known = pat.subject > 0 or probe.col_of(pat.subject) is not None
-        if is_first and probe.width == 0:
-            return pat.subject > 0  # const start
-        return s_known and pat.subject < 0
-
-    @staticmethod
-    def _short_circuit_empty(q: SPARQLQuery) -> None:
-        """A provably empty result: bind every pattern var over zero rows."""
+    def _execute_optional(self, q: SPARQLQuery) -> None:
+        """The next OPTIONAL group: a dedup-seeded child on the device chain
+        plus a host left join when it shares a bound variable with the
+        parent; else (optional-only queries, attribute columns, a parent-
+        bound predicate var, which no seeded child can carry) the host
+        engine's in-place formulation."""
         res = q.result
-        for pat in q.pattern_group.patterns:
-            for var in (pat.subject, pat.predicate, pat.object):
-                if var < 0 and res.var2col(var) == NO_RESULT:
-                    res.add_var2col(var, res.col_num)
-                    res.col_num += 1
-        res.set_table(np.empty((0, res.col_num), dtype=np.int64))
-        q.pattern_step = len(q.pattern_group.patterns)
+        group = q.pattern_group.optional[q.optional_step]
+        shares = any(v < 0 and res.var2col(v) != NO_RESULT
+                     for p in group.patterns for v in (p.subject, p.object))
+        pred_bound = any(p.predicate < 0 and res.var2col(p.predicate)
+                         != NO_RESULT for p in group.patterns)
+        if res.attr_col_num == 0 and shares and not pred_bound:
+            execute_optional_leftjoin(
+                q, self.cpu,
+                run_child=lambda c: self.execute(c, from_proxy=False),
+                str_server=self.str_server)
+        else:
+            self.cpu._execute_optional(q)
 
     # ------------------------------------------------------------------
     # chain execution with deferred overflow handling
     # ------------------------------------------------------------------
     def _run_pattern_chain(self, q: SPARQLQuery) -> None:
-        steps = range(q.pattern_step, len(q.pattern_group.patterns))
+        """The longest device-supported prefix of the remaining steps on the
+        card, then any remaining steps in the host engine."""
+        device_steps = 0
+        probe = _MetaResult(q.result)
+        for i in range(q.pattern_step, len(q.pattern_group.patterns)):
+            pat = q.get_pattern(i)
+            if not self._device_supported(q, pat, probe, i == q.pattern_step):
+                break
+            probe.bind(pat)
+            device_steps += 1
+        if device_steps:
+            self._run_device_prefix(q, device_steps)
+        while not q.done_patterns():
+            self.cpu._execute_one_pattern(q)
+
+    def _run_device_prefix(self, q: SPARQLQuery, device_steps: int) -> None:
+        # a versatile CONST start is one host CSR walk: staging the whole
+        # combined segment for it would be the largest staging of the chain
+        # for a single lookup, so it is neither pinned nor prefetched (like
+        # an index-origin start, which reads an index list)
+        first = q.get_pattern(q.pattern_step)
+        vlo = q.pattern_step
+        if q.result.col_num == 0 and first.predicate < 0 and first.subject > 0:
+            vlo += 1
+        end = q.pattern_step + device_steps
         pins = [(q.get_pattern(i).predicate, q.get_pattern(i).direction)
-                for i in steps]
+                for i in range(q.pattern_step, end)
+                if q.get_pattern(i).predicate > 0]
+        pins += [("vpv", int(q.get_pattern(i).direction))
+                 for i in range(vlo, end) if q.get_pattern(i).predicate < 0]
         self.dstore.pin(pins)
         try:
             if Global.gpu_enable_pipeline:
-                # stage every chain segment up front; an index-origin START
-                # consumes an index list, not a segment
-                lo = q.pattern_step
+                lo = max(q.pattern_step, vlo)
                 if lo == 0 and q.start_from_index() \
                         and _is_index_start(q.get_pattern(0)):
                     lo = 1
-                self.dstore.prefetch(q.get_pattern(i) for i in
-                                     range(lo, len(q.pattern_group.patterns)))
-            self._chain_attempts(q, len(steps))
+                self.dstore.prefetch(q.get_pattern(i) for i in range(lo, end))
+            self._chain_attempts(q, device_steps)
         finally:
             self.dstore.unpin(pins)
 
     def _chain_attempts(self, q: SPARQLQuery, device_steps: int) -> None:
         """Dispatch the chain, sync once, and re-run it at exact capacities
         while any step overflowed its class."""
-        # blind queries only need the row count: the table stays on device
-        blind = q.result.blind
+        # a blind query with nothing after the device chain only needs the
+        # row count: the table stays on the card (the reference's silent
+        # mode never ships result tables, proxy.hpp blind)
+        blind_ok = (q.result.blind
+                    and q.pattern_step + device_steps
+                    == len(q.pattern_group.patterns)
+                    and not q.pattern_group.unions
+                    and not q.pattern_group.optional
+                    and not q.pattern_group.filters)
         cap_override: dict[int, int] = {}
         self._last_attempts = 0
         for attempt in range(8):
@@ -156,7 +189,7 @@ class GPUEngine:
                 step = q.pattern_step + k
                 self._dispatch_one(q, q.get_pattern(step), step, state,
                                    cap_override)
-            host_table, n, totals = state.sync(blind=blind)
+            host_table, n, totals = state.sync(blind=blind_ok)
             over = [(s, t) for s, t, c in totals if t > c]
             if not over:
                 break
@@ -171,7 +204,7 @@ class GPUEngine:
             raise WukongError(ErrorCode.UNKNOWN_PATTERN,
                               "capacity retry limit exceeded")
         res = q.result
-        if blind:
+        if blind_ok:
             res.nrows = n
         else:
             res.set_table(host_table[:n].astype(np.int64))
@@ -187,6 +220,26 @@ class GPUEngine:
                       anchor_col: int | None = None) -> None:
         start, pid, d, end = pat.subject, pat.predicate, pat.direction, pat.object
 
+        if state.table is None and state.width > 0:
+            # seeded chain (a UNION branch or OPTIONAL child over the
+            # parent's binding table): upload the host table once, then
+            # dispatch this pattern as a normal anchored step. The upload
+            # capacity is exact, so it never takes part in the overflow
+            # retry. int32 narrowing as in the JAX engine: a BLANK_ID seed
+            # (2^32 - 1) wraps to -1, which matches no key's edges.
+            host_t = q.result.table
+            n0 = len(host_t)
+            assert_ec(n0 <= self.cap_max, ErrorCode.UNKNOWN_PATTERN,
+                      f"seed table ({n0:,} rows) exceeds "
+                      f"table_capacity_max ({self.cap_max:,})")
+            cap = K.next_capacity(max(n0, 1), self.cap_min, self.cap_max)
+            pad = np.zeros((state.width, cap), dtype=np.int32)
+            if host_t.size:
+                pad[:, :n0] = host_t.T
+            state.table = torch.from_numpy(pad).to(self.device)
+            state.n = self._count(n0)
+            state.est_rows = max(n0, 1)
+
         if state.table is None:
             if q.start_from_index() and step == q.pattern_step == 0 \
                     and _is_index_start(pat):
@@ -196,6 +249,9 @@ class GPUEngine:
                 table, nn = K.init_from_list(edges, real, cap)
                 state.begin(table, nn, end, est_rows=real)
                 state.local_var = end
+                return
+            if pid < 0:
+                self._versatile_const_start(q, pat, step, state, cap_override)
                 return
             # const_to_unknown start: one host CSR lookup
             assert_ec(q.result.col_num == 0 and state.width == 0,
@@ -211,6 +267,9 @@ class GPUEngine:
 
         col = anchor_col if anchor_col is not None else state.col_of(start)
         assert_ec(col is not None, ErrorCode.VERTEX_INVALID)
+        if pid < 0:
+            self._versatile_expand(pat, step, state, cap_override, col)
+            return
         seg = self.dstore.segment(pid, d)
         e_col = state.col_of(end) if end < 0 else None
         e_known = end < 0 and e_col is not None
@@ -252,6 +311,78 @@ class GPUEngine:
         else:
             out, nn = K.compact(state.table, keep)
             state.advance_filter(out, nn)
+
+    def _versatile_const_start(self, q: SPARQLQuery, pat, step: int,
+                               state: "_ChainState",
+                               cap_override: dict) -> None:
+        """CONST ?p ?y / CONST1 ?p CONST2 (sparql.hpp:246-290's
+        const_unknown_*): the const's combined adjacency is one host CSR
+        walk, so the table is built on the host and the device chain goes
+        on from it. A const object keeps the matching pairs and binds only
+        the predicate column."""
+        start, pid, d, end = pat.subject, pat.predicate, pat.direction, pat.object
+        assert_ec(q.result.col_num == 0 and state.width == 0,
+                  ErrorCode.FIRST_PATTERN_ERROR)
+        prs, vls = [], []
+        for p in self.g.get_triples(start, PREDICATE_ID, d):
+            nb = self.g.get_triples(start, int(p), d)
+            prs.extend([int(p)] * len(nb))
+            vls.extend(int(v) for v in nb)
+        prs = np.asarray(prs, dtype=np.int64)
+        vls = np.asarray(vls, dtype=np.int64)
+        if end > 0:
+            cols_data, bind = [prs[vls == end]], [pid]
+        else:
+            cols_data, bind = [prs, vls], [pid, end]
+        real = len(cols_data[0])
+        assert_ec(real <= self.cap_max, ErrorCode.UNKNOWN_PATTERN,
+                  f"versatile const start ({real:,} pairs) exceeds "
+                  f"table_capacity_max ({self.cap_max:,})")
+        cap = cap_override.get(step) or K.next_capacity(
+            max(real, 1), self.cap_min, self.cap_max)
+        pad = np.zeros((len(cols_data), cap), dtype=np.int32)
+        for r, cd in enumerate(cols_data):
+            pad[r, :real] = cd
+        state.table = torch.from_numpy(pad).to(self.device)
+        state.n = self._count(real)
+        for v in bind:
+            state.bind_col(v)
+        state.est_rows = max(real, 1)
+
+    def _versatile_expand(self, pat, step: int, state: "_ChainState",
+                          cap_override: dict, col: int) -> None:
+        """known_unknown_unknown (?x ?p ?y, x bound) through expand2 over
+        the combined segment of the pattern's direction; known_unknown_const
+        (?x ?p CONST, sparql.hpp:651-699) keeps the expanded pairs whose
+        value is the const and drops the value row, so the table binds only
+        the predicate column (the host kernel's layout)."""
+        pid, end = pat.predicate, pat.object
+        vseg = self.dstore.versatile_segment(pat.direction)
+        if vseg is None:
+            state.append_empty_col(pid)
+            if end < 0:
+                state.append_empty_col(end)
+            return
+        fan = max(1.0, vseg.num_edges / max(vseg.num_keys, 1)) * 2
+        est = min(int(state.est_rows * fan) or 1, self.cap_max)
+        cap_out = cap_override.get(step) or K.next_capacity(
+            max(est, self.cap_min), self.cap_min, self.cap_max)
+        out, nn, total = K.expand2(
+            state.table, state.n, vseg.bkey, vseg.bstart, vseg.bdeg,
+            vseg.edges2, vseg.edges, col=col, cap_out=cap_out,
+            max_probe=vseg.max_probe)
+        if end > 0:
+            state.totals.append((step, total, cap_out))
+            keep = (K._arange(cap_out, out) < nn) & (out[-1] == int(end))
+            out, nn = K.compact(out, keep)
+            state.table, state.n = out[:-1], nn
+            state.bind_col(pid)
+            # the fold only shrinks the expansion, so the expand estimate is
+            # a safe (over-)estimate for downstream capacity sizing
+            state.est_rows = max(min(est, cap_out), 1)
+            return
+        state.advance_expand2(out, nn, pid, end, total, cap_out, step,
+                              est_rows=min(est, cap_out))
 
     # ------------------------------------------------------------------
     # batched execution of an index-origin (heavy) query
@@ -355,6 +486,40 @@ class GPUEngine:
         est = int(min(state.est_rows * self._fanout(pat, seg), self.cap_max))
         return max(est, 1)
 
+    def _device_supported(self, q: SPARQLQuery, pat, probe,
+                          is_first: bool) -> bool:
+        """May this step run on the card (the JAX engine's rule,
+        tpu.py:836-869)? Attribute steps, bound-predicate versatiles and
+        steps of an in-place OPTIONAL child stay on the host."""
+        if q.pg_type == PGType.OPTIONAL:
+            return False
+        if pat.pred_type != int(AttrType.SID_t):
+            return False
+        if pat.predicate < 0:
+            # VERSATILE: known_unknown_unknown / known_unknown_const via
+            # expand2, const_unknown_* via a host CSR init. A bound
+            # predicate var has no device kernel: the host engine's
+            # known_unknown_* steps take it, as in the JAX package.
+            if probe.col_of(pat.predicate) is not None:
+                return False
+            if is_first and probe.width == 0:
+                return pat.subject > 0  # const versatile start
+            if not (pat.subject < 0
+                    and probe.col_of(pat.subject) is not None):
+                return False
+            if pat.object < 0:
+                return probe.col_of(pat.object) is None
+            return True  # const object: expand2 + equality fold
+        if is_first and q.pattern_step == 0 and q.start_from_index():
+            # index_to_known is host-only, and a seeded (width > 0) table
+            # cannot consume an index start (the host kernel raises
+            # FIRST_PATTERN_ERROR)
+            return probe.width == 0 and probe.col_of(pat.object) is None
+        s_known = pat.subject > 0 or probe.col_of(pat.subject) is not None
+        if is_first and probe.width == 0:
+            return pat.subject > 0  # const start
+        return s_known and pat.subject < 0
+
 
 def _is_index_start(pat) -> bool:
     return pat.predicate in (PREDICATE_ID, TYPE_ID)
@@ -372,9 +537,15 @@ class _MetaResult:
         return c if c is not None and c != NO_RESULT else None
 
     def bind(self, pat) -> None:
-        if self.width == 0:
+        if self.width == 0 and pat.predicate >= 0:
             self.cols[pat.object], self.width = 0, 1
             return
+        # a versatile step binds its predicate var first (the pid column
+        # precedes the value column, as in the host kernels); a const
+        # versatile start puts the pid at column 0
+        if pat.predicate < 0 and self.col_of(pat.predicate) is None:
+            self.cols[pat.predicate] = self.width
+            self.width += 1
         if pat.object < 0 and self.col_of(pat.object) is None:
             self.cols[pat.object] = self.width
             self.width += 1
@@ -415,6 +586,22 @@ class _ChainState:
         self.totals.append((step, total, cap))
         self.est_rows = max(est_rows, 1)
 
+    def advance_expand2(self, table, n, pred_var: int, end_var: int, total,
+                        cap: int, step: int, est_rows: int) -> None:
+        """Versatile expand: binds the predicate column, then the value."""
+        self.table = table
+        self.n = n
+        self.bind_col(pred_var)
+        self.bind_col(end_var)
+        self.totals.append((step, total, cap))
+        self.est_rows = max(est_rows, 1)
+
+    def bind_col(self, var: int) -> None:
+        """Bind var to the next column of the table."""
+        self.cols[var] = self.width
+        self.new_cols.append((var, self.width))
+        self.width += 1
+
     def advance_filter(self, table, n) -> None:
         self.table = table
         self.n = n
@@ -446,39 +633,3 @@ def _qid_counts(table, n, B: int):
     live = torch.arange(C, dtype=torch.int32, device=table.device) < n
     qid = torch.where(live, table[0], B)
     return torch.bincount(qid.long(), minlength=B + 1)[:B]
-
-
-def _final_process(q: SPARQLQuery) -> None:
-    """Projection, DISTINCT, OFFSET and LIMIT on the host table (the CPU
-    engine's final stage, engine/cpu.py:_final_process in the JAX package,
-    without ORDER BY and attribute columns)."""
-    res = q.result
-    if res.blind or res.table.size == 0:
-        if not res.blind and res.table.size == 0 and res.required_vars:
-            res.col_num = len(res.required_vars)
-            res.table = np.empty((0, res.col_num), dtype=np.int64)
-        return
-    assert_ec(len(res.required_vars) > 0, ErrorCode.NO_REQUIRED_VAR)
-    table = res.table
-    cols = [res.var2col(v) for v in res.required_vars]
-    assert_ec(all(c != NO_RESULT for c in cols), ErrorCode.NO_REQUIRED_VAR,
-              "projection references an unbound variable")
-    if q.distinct:
-        # sort by the projected columns first so adjacent-dedup is a true
-        # DISTINCT
-        rest = [c for c in range(table.shape[1]) if c not in cols]
-        keys = [table[:, c] for c in reversed(rest)] + \
-            [table[:, c] for c in reversed(cols)]
-        table = table[np.lexsort(keys)]
-        proj = table[:, cols]
-        keep = np.ones(len(table), dtype=bool)
-        if len(table) > 1:
-            keep[1:] = (proj[1:] != proj[:-1]).any(axis=1)
-        table = table[keep]
-    if q.offset > 0:
-        table = table[q.offset:]
-    if q.limit >= 0:
-        table = table[:q.limit]
-    res.set_table(table[:, cols])
-    res.col_num = len(cols)
-    res.v2c_map = {v: i for i, v in enumerate(res.required_vars)}

@@ -202,6 +202,28 @@ def _cumsum(x) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=torch.int64)
 
 
+def _expand_plan(table, n, bkey, bstart, bdeg, col: int, cap_out: int,
+                 max_probe: int):
+    """The row plan of an expansion step, shared by expand and expand2: K1
+    probes the anchor column, each live row's id is scattered at its output
+    start and a running max fills the gaps. Returns (srcc, eidx, out_valid,
+    total): each output slot's source row, its edge index, whether it holds
+    a row, and the exact (saturated) total."""
+    W, C = table.shape
+    rows = _arange(C, table)
+    _found, start, deg = _probe(bkey, bstart, bdeg, table[col], n, max_probe)
+    cum = _cumsum(deg)
+    total = _saturate_total(cum)
+    starts_excl = cum - deg
+    park = torch.where(deg > 0, starts_excl, cap_out)
+    marks = _scatter_max(cap_out, park, rows + 1)
+    src = _cummax(marks) - 1
+    srcc = src.clamp(0, C - 1).long()
+    j = _arange(cap_out, table)
+    eidx = start[srcc] + (j - starts_excl[srcc])
+    return srcc, eidx, (j < total) & (src >= 0), total
+
+
 def expand(table, n, bkey, bstart, bdeg, edges, col: int, cap_out: int,
            max_probe: int):
     """known_to_unknown: expand each live row by its neighbor list.
@@ -209,24 +231,28 @@ def expand(table, n, bkey, bstart, bdeg, edges, col: int, cap_out: int,
     table: [W, C]. Returns (out [W+1, cap_out], out_n, total) — total may
     exceed cap_out; the host checks it at the end-of-chain sync and retries
     at an exact capacity class (rows are never silently dropped)."""
-    W, C = table.shape
-    rows = _arange(C, table)
-    cur = table[col]
-    _found, start, deg = _probe(bkey, bstart, bdeg, cur, n, max_probe)
-    cum = _cumsum(deg)
-    total = _saturate_total(cum)
-    starts_excl = cum - deg
-    # scatter each live row's id at its output start; running max fills gaps
-    park = torch.where(deg > 0, starts_excl, cap_out)
-    marks = _scatter_max(cap_out, park, rows + 1)
-    src = _cummax(marks) - 1
-    srcc = src.clamp(0, C - 1).long()
-    j = _arange(cap_out, table)
-    eidx = start[srcc] + (j - starts_excl[srcc])
-    E = edges.shape[0]
-    val = edges[eidx.clamp(0, E - 1)]
-    out_valid = (j < total) & (src >= 0)
+    srcc, eidx, out_valid, total = _expand_plan(
+        table, n, bkey, bstart, bdeg, col, cap_out, max_probe)
+    val = edges[eidx.clamp(0, edges.shape[0] - 1)]
     out = torch.cat([table[:, srcc], val[None, :]], 0)
+    out = torch.where(out_valid[None, :], out, 0)
+    return out, torch.clamp(total, max=cap_out), total
+
+
+def expand2(table, n, bkey, bstart, bdeg, edges_pid, edges_val, col: int,
+            cap_out: int, max_probe: int):
+    """VERSATILE known_unknown_unknown (?x ?p ?y with x bound,
+    sparql.hpp:601-650): expand each live row by its COMBINED adjacency,
+    every (predicate, neighbor) pair, binding two new columns. expand's
+    machinery plus one gather of the aligned predicate array.
+
+    Returns (out [W+2, cap_out] with the pid row then the value row, out_n,
+    total)."""
+    srcc, eidx, out_valid, total = _expand_plan(
+        table, n, bkey, bstart, bdeg, col, cap_out, max_probe)
+    eidx = eidx.clamp(0, edges_val.shape[0] - 1)
+    out = torch.cat([table[:, srcc], edges_pid[eidx][None, :],
+                     edges_val[eidx][None, :]], 0)
     out = torch.where(out_valid[None, :], out, 0)
     return out, torch.clamp(total, max=cap_out), total
 

@@ -398,6 +398,48 @@ def generate_lubm(n_univ: int, seed: int = 0):
     )
     return triples, lay
 
+
+def generate_lubm_attrs(n_univ: int, seed: int = 0):
+    """Attribute triples as int64 columns (subjects, attribute ids,
+    value-type tags, values): the rows of the JAX package's
+    generate_lubm_attrs, in its order and from the same seed.
+
+    - every undergraduate gets an int `age`
+    - every named entity gets an int `id` = the digits of its name literal
+      (what the reference's datagen/add_attribute.cpp:118-124 appends for
+      each ub:name triple; the attr suite queries ub:id)."""
+    c = lubm_counts(n_univ, seed)
+    lay = lubm_layout(c)
+    rng = np.random.Generator(np.random.PCG64([seed, 2]))
+    D = c.D
+    dept_of_ug = np.repeat(np.arange(D), c.n_ug)
+    ug_id = lay.ug_base[dept_of_ug] + _seg_local_index(c.n_ug)
+    ages = rng.integers(17, 24, len(ug_id))
+    subj, aids, vals = [ug_id], [np.full(len(ug_id), A["age"])], [ages]
+
+    def add(ids, ks):
+        subj.append(np.asarray(ids))
+        aids.append(np.full(len(subj[-1]), A["id"]))
+        vals.append(np.asarray(ks))
+
+    add(lay.univ_base + np.arange(n_univ), np.arange(n_univ))
+    add(lay.dept_id, _dept_local(c))
+    dept_of_fac = np.repeat(np.arange(D), c.n_fac)
+    add(lay.fac_base[dept_of_fac] + _seg_local_index(c.n_fac),
+        _faculty_rank_local(c))
+    for base, sizes in ((lay.course_base, c.n_course),
+                        (lay.gcourse_base, c.n_gcourse),
+                        (lay.ug_base, c.n_ug),
+                        (lay.gs_base, c.n_gs),
+                        (lay.pub_base, c.n_pub)):
+        dept_of = np.repeat(np.arange(D), sizes)
+        add(base[dept_of] + _seg_local_index(sizes), _seg_local_index(sizes))
+    s = np.concatenate(subj).astype(np.int64)
+    return (s, np.concatenate(aids).astype(np.int64),
+            np.full(len(s), 1, dtype=np.int64),
+            np.concatenate(vals).astype(np.int64))
+
+
 def _sample_courses(rng, student_id, dept_of_student, base, seg_size, lo, hi):
     """Sample lo..hi dept-local courses per student; duplicates dropped.
 
@@ -563,4 +605,9 @@ class VirtualLubmStrings:
             return int(lay.email_base[d]) + k
         raise KeyError(s)
 
-
+    def exist_id(self, i: int) -> bool:
+        try:
+            self.id2str(i)
+            return True
+        except (KeyError, IndexError):
+            return False

@@ -4,6 +4,12 @@ A slim counterpart of the JAX package's runtime/proxy.py: ``serve_query``
 answers one SPARQL text, ``serve_batch_index`` answers B replicate
 instances of an index-origin (heavy) text in one device chain. Admission,
 SLOs, tracing, the batcher and the console are not ported yet.
+
+``serve_query`` answers every shape the JAX engine answers on one
+partition: basic graph patterns, variable predicates, attribute patterns,
+OPTIONAL, UNION, FILTER and ORDER BY / DISTINCT / LIMIT / OFFSET. The device
+prefix of each chain and every seeded UNION/OPTIONAL child run on the card;
+the host engine does the rest.
 """
 
 from __future__ import annotations
@@ -36,7 +42,8 @@ class Proxy:
 
     def serve_query(self, text: str, blind: bool = False) -> SPARQLQuery:
         """Run one query; the reply is ``q.result`` (table, or only the row
-        count when ``blind``)."""
+        count when ``blind``; ``attr_table`` for attribute variables). A
+        shape no engine can run ends on ``q.result.status_code``."""
         q = self.parse(text)
         q.result.blind = blind
         return self.engine.execute(q)

@@ -96,6 +96,7 @@ class Result:
         self.col_num = 0
         self.attr_col_num = 0
         self.table = np.empty((0, 0), dtype=np.int64)  # [rows, col_num]
+        # attribute values, row-aligned with table (attr_v2c_map columns)
         self.attr_table = np.empty((0, 0), dtype=np.float64)
         self.v2c_map: dict[int, int] = {}  # var ssid -> column
         self.attr_v2c_map: dict[int, tuple[int, int]] = {}  # var -> (col, type)
@@ -103,6 +104,9 @@ class Result:
         self.blind = False
         self.status_code = ErrorCode.SUCCESS
         self.nrows = 0  # meaningful even when blind/table cleared
+        # OPTIONAL row mask (query.hpp:782-813): rows still matched by the
+        # group being executed in place
+        self.optional_matched_rows: np.ndarray | None = None
 
     def var2col(self, var: int) -> int:
         return self.v2c_map.get(var, NO_RESULT)
@@ -115,12 +119,14 @@ class Result:
             if var not in self.attr_v2c_map:
                 self.attr_v2c_map[var] = (col, vtype)
 
+    def is_attr_var(self, var: int) -> bool:
+        return var in self.attr_v2c_map
+
     def set_table(self, table: np.ndarray) -> None:
         self.table = table
         if table.ndim == 2:  # empty tables still carry their column count
             self.col_num = table.shape[1]
         self.nrows = len(table)
-
 
 
 class PGType(enum.IntEnum):

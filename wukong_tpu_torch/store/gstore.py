@@ -13,6 +13,7 @@ segment for segment. Semantics, as in the reference (core/store/gstore.hpp):
   pidx_out[p] = local objects under p (from IN keys).
 - VERSATILE: per-vertex predicate lists (v, PREDICATE_ID, OUT/IN) plus the
   v/t/p sets (all local entities / types / predicates).
+- Attributes: per-attribute sorted (subject -> typed value) maps.
 """
 
 from __future__ import annotations
@@ -25,6 +26,19 @@ from wukong_tpu_torch.store.segment import CSRSegment
 from wukong_tpu_torch.types import IN, NORMAL_ID_START, OUT, PREDICATE_ID, TYPE_ID
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.mathutil import hash_mod
+
+
+@dataclass
+class AttrSegment:
+    keys: np.ndarray  # sorted subject ids
+    values: np.ndarray  # typed values (int64 or float64)
+    type: int  # AttrType tag
+
+    def lookup(self, vid: int):
+        i = np.searchsorted(self.keys, vid)
+        if i < len(self.keys) and self.keys[i] == vid:
+            return self.values[i], True
+        return None, False
 
 
 @dataclass
@@ -45,6 +59,8 @@ class GStore:
     v_set: np.ndarray = field(default_factory=lambda: np.empty(0, dtype=np.int64))
     t_set: np.ndarray = field(default_factory=lambda: np.empty(0, dtype=np.int64))
     p_set: np.ndarray = field(default_factory=lambda: np.empty(0, dtype=np.int64))
+    # attribute segments: aid -> AttrSegment
+    attrs: dict = field(default_factory=dict)
     # which index ids are type ids (objects of rdf:type) vs predicates
     type_ids: set = field(default_factory=set)
 
@@ -67,6 +83,12 @@ class GStore:
         if tpid == PREDICATE_ID and int(d) == OUT:
             return self.p_set
         return self.index.get((int(tpid), int(d)), np.empty(0, dtype=np.int64))
+
+    def get_attr(self, vid: int, aid: int, d: int = OUT):
+        seg = self.attrs.get(int(aid))
+        if seg is None:
+            return None, False
+        return seg.lookup(vid)
 
 
 def check_vid_range(triples: np.ndarray) -> None:
@@ -94,10 +116,12 @@ def _pred_runs(p_sorted: np.ndarray, k_sorted: np.ndarray, v_sorted: np.ndarray)
 
 
 def build_partition(triples: np.ndarray, sid: int, num_workers: int,
-                    versatile: bool = True) -> GStore:
+                    attr_triples=None, versatile: bool = True) -> GStore:
     """Build worker `sid`'s GStore from the full [M,3] triple array, one
     direction at a time (slice -> sort -> segments -> free) to bound peak
-    host memory."""
+    host memory. ``attr_triples`` is the column tuple (subjects, attribute
+    ids, value-type tags, values) that ``loader.lubm.generate_lubm_attrs``
+    returns."""
     g = GStore(sid=sid, num_workers=num_workers)
     check_vid_range(triples)
     s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
@@ -149,7 +173,24 @@ def build_partition(triples: np.ndarray, sid: int, num_workers: int,
         g.t_set = (np.unique(tseg.edges) if tseg is not None
                    else np.empty(0, dtype=np.int64))
         g.p_set = np.union1d(p_out, pi)
+    if attr_triples is not None:
+        _build_attrs(g, attr_triples)
     return g
+
+
+def _build_attrs(g: GStore, attr_triples) -> None:
+    """One AttrSegment per attribute id over this worker's subjects, rows
+    ordered by (subject, type, value) and typed by the first row's tag."""
+    s, aid, at, av = (np.asarray(c) for c in attr_triples)
+    mine = hash_mod(s, g.num_workers) == g.sid
+    s, aid, at, av = s[mine], aid[mine], at[mine], av[mine]
+    order = np.lexsort((av, at, s, aid))
+    s, aid, at, av = s[order], aid[order], at[order], av[order]
+    for a, ks, sl in _pred_runs(aid, s, np.arange(len(s))):
+        t = int(at[sl[0]])
+        dtype = np.float64 if t in (2, 3) else np.int64
+        g.attrs[a] = AttrSegment(keys=ks.astype(np.int64),
+                                 values=av[sl].astype(dtype), type=t)
 
 
 def gstore_from_numpy(segments: dict, index: dict, type_ids=None,
@@ -161,7 +202,9 @@ def gstore_from_numpy(segments: dict, index: dict, type_ids=None,
     maps (tpid, dir) -> sorted vid array, all plain numpy (the JAX package's
     GStore fields converted). ``type_ids`` defaults to the distinct objects
     of the (TYPE_ID, OUT) segment. The VERSATILE per-vertex predicate lists
-    are not carried: the port serves no versatile pattern yet.
+    and the attributes are not carried, so a host-engine versatile or
+    attribute step over such a store sees no edges; the device's combined
+    adjacency is built from the segments and needs neither.
     """
     g = GStore(sid=sid, num_workers=num_workers)
     for (pid, d), (keys, offsets, edges) in segments.items():

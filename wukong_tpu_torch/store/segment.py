@@ -67,3 +67,37 @@ class CSRSegment:
         if i < len(self.keys) and self.keys[i] == vid:
             return self.edges[self.offsets[i]:self.offsets[i + 1]]
         return self.edges[0:0]
+
+    def lookup_many(self, vids: np.ndarray):
+        """Vectorized lookup: (start, degree) per query vid (0 deg if absent)."""
+        if len(self.keys) == 0:
+            z = np.zeros(len(vids), dtype=np.int64)
+            return z, z.copy()
+        idx = np.searchsorted(self.keys, vids)
+        idx_c = np.clip(idx, 0, len(self.keys) - 1)
+        found = (idx < len(self.keys)) & (self.keys[idx_c] == vids)
+        start = np.where(found, self.offsets[idx_c], 0)
+        deg = np.where(found, self.offsets[idx_c + 1] - self.offsets[idx_c], 0)
+        return start, deg
+
+    def contains_pair(self, vids: np.ndarray, vals: np.ndarray) -> np.ndarray:
+        """Is ``vals[i]`` among the edges of ``vids[i]``? A branchless lower
+        bound over each row's sorted edge range (the k2k/k2c membership
+        kernel, sparql.hpp:416-483)."""
+        start, deg = self.lookup_many(vids)
+        lo = start.astype(np.int64)
+        end = (start + deg).astype(np.int64)
+        hi = end.copy()
+        if len(self.edges) == 0:
+            return np.zeros(len(vids), dtype=bool)
+        while True:
+            active = lo < hi
+            if not active.any():
+                break
+            mid = (lo + hi) // 2
+            mv = self.edges[np.clip(mid, 0, len(self.edges) - 1)]
+            less = mv < vals
+            lo = np.where(active & less, mid + 1, lo)
+            hi = np.where(active & ~less, mid, hi)
+        inb = lo < end
+        return inb & (self.edges[np.clip(lo, 0, len(self.edges) - 1)] == vals)
