@@ -7,7 +7,10 @@ Phases (any failure exits nonzero, and no result line is printed):
      wukong_tpu_torch/csrc with nvcc and print the build time;
   2. kernels: each hand-written kernel (K1 probe, K2 stream emit, K3 m-hot
      stream emit) against its plain PyTorch version on the card, exactly, on
-     adversarial cases; K2/K3 also on look-back stress cases (2^25 edges,
+     adversarial cases; K1 also on probe stress cases (a dense frontier of
+     2^21 rows all hitting, about four a bucket; keys of -1 against empty
+     lanes; three and more probe rounds; ragged and misaligned frontiers; n
+     at 0, 1, C - 1 and C) and K2/K3 on look-back stress cases (2^25 edges,
      ragged lengths, cap_out cuts), each run 10 times with identical bits;
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
@@ -223,6 +226,25 @@ class Capture:
         self.orig.launches += self.wrapped.launches
 
 
+def probe_size(args) -> int:
+    """K1's call size for Capture: the frontier's length C."""
+    return args[2].shape[0]
+
+
+def probe_class_of(proxy):
+    """Capture's class of a K1 call: on a combined (versatile) segment of
+    ``proxy``'s store, or on predicate segments."""
+    cache = proxy.engine.dstore._cache
+
+    def probe_class(a) -> str:
+        combined = any(k[0] == "vpv" and seg is not None
+                       and seg.bline.data_ptr() == a[0].data_ptr()
+                       for k, seg in list(cache.items()))
+        return ", combined segment" if combined else ", predicate segments"
+
+    return probe_class
+
+
 # ---------------------------------------------------------------------------
 # phase 2: adversarial kernel checks
 # ---------------------------------------------------------------------------
@@ -234,7 +256,8 @@ def kernel_cases(errs: dict) -> None:
 
     from wukong_tpu_torch.engine import tpu_kernels as K
     from wukong_tpu_torch.engine import tpu_stream as S
-    from wukong_tpu_torch.engine.device_store import build_hash_table
+    from wukong_tpu_torch.engine.device_store import (build_hash_table,
+                                                      line_table)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1234)
@@ -257,7 +280,7 @@ def kernel_cases(errs: dict) -> None:
                                    np.arange(41, dtype=np.int64) * 2, 8))
     check(tables[1][3] >= 4, "multi-round probe case has too few rounds")
     for ti, (bkey, bstart, bdeg, max_probe) in enumerate(tables):
-        tk = [t(a.reshape(-1)) for a in (bkey, bstart, bdeg)]
+        tk = [t(a) for a in line_table(bkey, bstart, bdeg)]
         live = bkey[bkey >= 0]
         for C, n, mix in ((1 << 16, 1 << 16, 0.5), (1000, 1000, 0.9),
                           (4096, 0, 0.5), (8192, 8192, 0.0),
@@ -344,6 +367,96 @@ def kernel_cases(errs: dict) -> None:
               f"multiplicity {mult}: K3 launched={launched}, mdup={mdup}")
 
 
+def hold_repeated(errs: dict, name: str, fn, plain, args, what: str,
+                  reps: int) -> None:
+    """Run fn(*args) ``reps`` times: every run must give the same bits, and
+    those must equal plain(*args)."""
+    import torch
+
+    first = fn(*args)
+    for _ in range(reps - 1):
+        again = fn(*args)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"{name} gave different outputs on repeated runs: {what}")
+    err = max_abs_diff(first, plain(*args))
+    errs[name] = max(errs[name], err)
+    check(err == 0, f"{name} != plain on {what} (max abs err {err})")
+
+
+def probe_stress_cases(errs: dict, reps: int = 10) -> int:
+    """K1 cases aimed at the grouped probe (a thread owns several rows): a
+    dense frontier of 2^21 distinct keys, all hitting, about four a bucket
+    (x_opt_heavy's child); keys of -1 against buckets with empty lanes; a
+    table whose keys share one home bucket (four and more probe rounds);
+    frontier lengths off the row group, and a frontier that starts off the
+    16 B boundary; n at 0, 1, C - 1 and C, as an int and as the 0-d device
+    tensor a chain carries. Each case runs ``reps`` times: every run must
+    give the same bits, and those must equal the plain version. Returns the
+    number of cases."""
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.engine import tpu_kernels as K
+    from wukong_tpu_torch.engine.device_store import (build_hash_table,
+                                                      line_table)
+
+    rng = np.random.default_rng(4321)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    def table(keys, offs, nb=None):
+        bkey, bstart, bdeg, max_probe = build_hash_table(keys, offs, nb)
+        bline, bhi = line_table(bkey, bstart, bdeg)
+        return t(bline), t(bhi), max_probe
+
+    cases = []  # (what, bline, bhi, cur, n, max_probe)
+    K_dense = 1 << 21
+    keys = np.sort(rng.choice(1 << 30, K_dense, replace=False))
+    offs = np.concatenate([[0], np.cumsum(rng.integers(0, 9, K_dense))])
+    bline, bhi, mp = table(keys, offs)
+    check(bline.shape[0] * 4 == K_dense,
+          "dense case is not four keys a bucket")
+    check(bool((bline[:, 4:8] >= 0).any()),
+          "dense case has no key in lanes 4-7")
+    cur = t(keys.astype(np.int32))
+    C = K_dense
+    for n in (C, C - 1, 1, 0):
+        cases.append((f"dense, C={C}, n={n}", bline, bhi, cur, n, mp))
+    cases.append((f"dense, C={C}, n=C-1 as a device count", bline, bhi, cur,
+                  K.as_count(C - 1, "cuda"), mp))
+    for C in ((1 << 16) + 3, 4093):  # -1 and the INT32_MAX pad
+        c = rng.choice(keys, C).astype(np.int32)
+        c[rng.random(C) < 0.4] = -1
+        c[rng.random(C) < 0.1] = 2**31 - 1
+        cases.append((f"keys of -1, C={C}, n=C", bline, bhi, t(c), C, mp))
+    cand = np.arange(1 << 17, (1 << 17) + 40_000, dtype=np.int64)
+    home = (cand.astype(np.uint32) * np.uint32(2654435761)) & np.uint32(7)
+    spill = np.sort(cand[home == 0][:40])
+    sk, ssd, smp = table(spill, np.arange(41, dtype=np.int64) * 2, 8)
+    check(smp >= 4, "multi-round probe case has too few rounds")
+    c = np.concatenate([spill, spill + 1, [-1]] * 30).astype(np.int32)
+    for C in (1000, 1001, 7):
+        for n in (C, C - 1):
+            cases.append((f"{smp} probe rounds, C={C}, n={n}", sk, ssd,
+                          t(c[:C]), n, smp))
+    full = t(np.where(rng.random((1 << 16) + 8) < 0.7,
+                      rng.choice(keys, (1 << 16) + 8),
+                      rng.integers(1 << 30, 2**31 - 1, (1 << 16) + 8)
+                      ).astype(np.int32))
+    for off in (1, 2, 3):  # cur starts 4, 8, 12 B past a 16 B boundary
+        C = (1 << 16) + 8 - off - 1
+        for n in (C, C - 5, 1):
+            cases.append((f"misaligned by {4 * off} B, C={C}, n={n}", bline,
+                          bhi, full[off:off + C], n, mp))
+    for C in (1, 2, 3, 5, 9, 17):
+        cases.append((f"tiny C={C}", bline, bhi, full[:C], C, mp))
+    for what, *args in cases:
+        hold_repeated(errs, "probe_kernel", K.probe_kernel, K.probe_plain,
+                      args, what, reps)
+    return len(cases)
+
+
 def emit_stress_cases(errs: dict, reps: int = 10) -> int:
     """K2/K3 cases aimed at the single-pass look-back scan: E = 2^25 (8,192
     tiles) with one run over every tile and with multiplicities up to 16,
@@ -379,16 +492,6 @@ def emit_stress_cases(errs: dict, reps: int = 10) -> int:
             caps.append(int(end[e] - m[e] + 1))
         return caps
 
-    def hold(name, fn, plain, args, what):
-        first = fn(*args)
-        for _ in range(reps - 1):
-            again = fn(*args)
-            check(all(torch.equal(a, b) for a, b in zip(first, again)),
-                  f"{name} gave different outputs on repeated runs: {what}")
-        err = max_abs_diff(first, plain(*args))
-        errs[name] = max(errs[name], err)
-        check(err == 0, f"{name} != plain on {what} (max abs err {err})")
-
     def full(E):
         return rng.integers(-2**31, 2**31 - 1, E).astype(np.int32)
 
@@ -419,12 +522,14 @@ def emit_stress_cases(errs: dict, reps: int = 10) -> int:
         edges = t(rng.integers(0, 2**31 - 1, E).astype(np.int32))
         ds_t, dp_t, mult_t = t(ds), t(dp), t(mult)
         for cap in caps:
-            hold("stream_emit", S.stream_emit, S.stream_emit_plain,
-                 (edges, ds_t, dp_t, cap), f"{what}, cap={cap}")
+            hold_repeated(errs, "stream_emit", S.stream_emit,
+                          S.stream_emit_plain, (edges, ds_t, dp_t, cap),
+                          f"{what}, cap={cap}", reps)
             n += 1
         for cap in k3_caps(mult):
-            hold("stream_emit_m", S.stream_emit_m, S.stream_emit_m_plain,
-                 (edges, mult_t, dp_t, cap), f"m-hot {what}, cap={cap}")
+            hold_repeated(errs, "stream_emit_m", S.stream_emit_m,
+                          S.stream_emit_m_plain, (edges, mult_t, dp_t, cap),
+                          f"m-hot {what}, cap={cap}", reps)
             n += 1
     return n
 
@@ -446,10 +551,10 @@ def probe_work(args) -> tuple:
 
     from wukong_tpu_torch.engine import tpu_kernels as K
 
-    bkey, bstart, bdeg, cur, n, max_probe = args
+    bline, bhi, cur, n, max_probe = args
     C = cur.shape[0]
     live = torch.arange(C, device=cur.device) < K.as_count(n, cur.device)
-    bmask = bkey.shape[0] // K.BUCKET - 1
+    bmask = bline.shape[0] - 1
     hb = K._hash_bucket(cur, bmask)
     found = torch.zeros_like(live)
     reached, probes = [], 0
@@ -457,7 +562,7 @@ def probe_work(args) -> tuple:
         active = live & ~found
         reached.append(((hb + r) & bmask)[active])
         probes += int(active.sum())
-        found = K.probe_plain(bkey, bstart, bdeg, cur, n, r + 1)[0]
+        found = K.probe_plain(bline, bhi, cur, n, r + 1)[0]
     buckets = int(torch.unique(torch.cat(reached)).numel())
     hits = int(torch.unique(cur[found]).numel())
     n_live = int(live.sum())
@@ -786,6 +891,11 @@ def main(argv=None) -> int:
     log(f"kernels: adversarial cases agree with the plain versions "
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
+    n = probe_stress_cases(errs)
+    torch.cuda.synchronize()
+    log(f"kernels: {n} K1 probe stress cases, 10 runs each, identical and "
+        f"equal to the plain version ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
     n = emit_stress_cases(errs)
     torch.cuda.synchronize()
     log(f"kernels: {n} K2/K3 look-back stress cases, 10 runs each, identical "
@@ -802,8 +912,8 @@ def main(argv=None) -> int:
 
     # ---- 4. serve (the main path) ----------------------------------------
     def capture_all(probe_class=lambda a: ""):
-        return {"probe_kernel": Capture(K, "probe_kernel",
-                                        lambda a: a[3].shape[0], probe_class),
+        return {"probe_kernel": Capture(K, "probe_kernel", probe_size,
+                                        probe_class),
                 "stream_emit": Capture(S, "stream_emit",
                                        lambda a: a[0].shape[0]),
                 "stream_emit_m": Capture(S, "stream_emit_m",
@@ -836,20 +946,10 @@ def main(argv=None) -> int:
     # ---- 5. extended suite (the main path's second part) ------------------
     from wukong_tpu_torch.types import OUT
 
-    cache = proxy.engine.dstore._cache
-
-    def probe_class(a) -> str:
-        """K1's calls on a combined (versatile) segment, apart from its
-        calls on predicate segments."""
-        combined = any(k[0] == "vpv" and seg is not None
-                       and seg.bkey.data_ptr() == a[0].data_ptr()
-                       for k, seg in list(cache.items()))
-        return ", combined segment" if combined else ", predicate segments"
-
     for fn, _plain, _b in kernel_fns.values():
         fn.launches = 0
     log(f"extended: LUBM-{args.scale} on {kind}")
-    captures = capture_all(probe_class)
+    captures = capture_all(probe_class_of(proxy))
     try:
         serve_extended(proxy, results)
     finally:
@@ -868,7 +968,7 @@ def main(argv=None) -> int:
           "K1's launches by class do not add up to its count")
     vseg = proxy.engine.dstore._cache.get(("vpv", int(OUT)))
     check(vseg is not None and vseg.edges2 is not None
-          and vseg.bkey.device.type == "cuda",
+          and vseg.bline.device.type == "cuda",
           "the OUT combined segment is not resident on the card")
     log(f"extended: OUT combined segment resident, {vseg.num_keys:,} keys, "
         f"{vseg.num_edges:,} edges, {vseg.nbytes:,} bytes")

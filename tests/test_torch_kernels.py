@@ -24,6 +24,7 @@ from wukong_tpu.store.gstore import build_partition
 from wukong_tpu.types import OUT
 from wukong_tpu_torch.engine import tpu_kernels as K
 from wukong_tpu_torch.engine import tpu_stream as S
+from wukong_tpu_torch.engine.device_store import line_table
 
 # the suite runs several test processes side by side: keep torch's own
 # thread pool small so it does not starve their timing-sensitive tests
@@ -34,6 +35,13 @@ INT32_MAX = 2**31 - 1
 
 def _t(a):
     return torch.from_numpy(np.array(a))
+
+
+def _lines(bkey, bstart, bdeg):
+    """The JAX package's flat bucket arrays as the port stages them
+    (line_table: bline [NB, 16], bhi [NB*4, 2]), as torch tensors."""
+    return tuple(_t(a) for a in line_table(
+        *(np.asarray(x).reshape(-1, 8) for x in (bkey, bstart, bdeg))))
 
 
 def _eq(jax_out, torch_out):
@@ -71,12 +79,11 @@ def test_probe_plain_matches_hash_find_and_pallas(seg, case):
                              ).astype(np.int32)
         rng.shuffle(cur)
     n = {"empty": 0, "dead_tail": C - 17}.get(case, C)
-    bkey, bstart, bdeg = (np.asarray(a) for a in (s.bkey, s.bstart, s.bdeg))
     fx, sx, dx = JK._hash_find(s.bkey, s.bstart, s.bdeg, jnp.asarray(cur),
                                jnp.arange(C) < n, s.max_probe)
     fp, sp, dp = JK.pallas_probe(s.bkey, s.bstart, s.bdeg, jnp.asarray(cur),
                                  jnp.int32(n), s.max_probe, interpret=True)
-    ft, st, dt = K.probe_kernel(_t(bkey), _t(bstart), _t(bdeg), _t(cur), n,
+    ft, st, dt = K.probe_kernel(*_lines(s.bkey, s.bstart, s.bdeg), _t(cur), n,
                                 s.max_probe)
     for j, p, t in ((fx, fp, ft), (sx, sp, st), (dx, dp, dt)):
         _eq(j, t)
@@ -102,7 +109,7 @@ def test_probe_multi_round_buckets():
     args = [a.reshape(-1) for a in (bkey, bstart, bdeg)]
     fj, sj, dj = JK._hash_find(*(jnp.asarray(a) for a in args),
                                jnp.asarray(cur), jnp.ones(C, bool), max_probe)
-    ft, st, dt = K.probe_kernel(*(_t(a) for a in args), _t(cur), C, max_probe)
+    ft, st, dt = K.probe_kernel(*_lines(*args), _t(cur), C, max_probe)
     for j, t in ((fj, ft), (sj, st), (dj, dt)):
         _eq(j, t)
     assert int(ft[:len(keys)].sum()) == len(keys)
@@ -398,7 +405,7 @@ def test_expand_and_member_mask_known(seg, table):
     C = table.shape[1]
     n = C - 30
     js = (s.bkey, s.bstart, s.bdeg, s.edges)
-    ts = tuple(_t(np.asarray(a)) for a in js)
+    ts = (*_lines(s.bkey, s.bstart, s.bdeg), _t(np.asarray(s.edges)))
     for cap in (1024, 4096):  # overflow, then exact
         a = JK.expand(jnp.asarray(table), jnp.int32(n), *js, col=1,
                       cap_out=cap, max_probe=s.max_probe)
@@ -425,7 +432,8 @@ def test_expand2_matches_jax(table):
     triples, _ = generate_lubm(1, seed=42)
     v = JDeviceStore(build_partition(triples, 0, 1)).versatile_segment(OUT)
     js = (v.bkey, v.bstart, v.bdeg, v.edges2, v.edges)
-    ts = tuple(_t(np.asarray(a)) for a in js)
+    ts = (*_lines(v.bkey, v.bstart, v.bdeg), _t(np.asarray(v.edges2)),
+          _t(np.asarray(v.edges)))
     C = table.shape[1]
     n = C - 30
     total = None
@@ -501,9 +509,9 @@ def test_merge_kernels(seg):
         a = JK.probe_expand(s.bkey, s.bstart, s.bdeg, s.edges,
                             jnp.asarray(cur), jnp.int32(n), jnp.asarray(live),
                             cap_out=cap, max_probe=s.max_probe)
-        b = K.probe_expand(*(_t(np.asarray(x)) for x in
-                             (s.bkey, s.bstart, s.bdeg, s.edges)),
-                           _t(cur), nn, _t(live), cap, s.max_probe)
+        b = K.probe_expand(*_lines(s.bkey, s.bstart, s.bdeg),
+                           _t(np.asarray(s.edges)), _t(cur), nn, _t(live),
+                           cap, s.max_probe)
         for x, y in zip(a, b):
             _eq(x, y)
     vals = np.asarray(a[0]).copy()

@@ -41,16 +41,31 @@ def _same(jarr, tarr):
     assert np.array_equal(np.asarray(jarr), tarr.numpy())
 
 
+def _same_bucket_segment(js, ts):
+    """A staged bucket segment equals the JAX one: the edge arrays element
+    for element; bline the JAX bucket keys, then the (bstart, bdeg) pairs
+    of lanes 0-3, and bhi the pairs of lanes 4-7; nbytes the bytes of every
+    staged array, the same as the JAX segment's."""
+    names = ["edges"] + (["edges2"] if ts.edges2 is not None else [])
+    for name in names:
+        _same(getattr(js, name), getattr(ts, name))
+    k = np.asarray(js.bkey).reshape(-1, 8)
+    sd = np.stack([np.asarray(js.bstart).reshape(-1, 8),
+                   np.asarray(js.bdeg).reshape(-1, 8)], -1)
+    _same(np.concatenate([k, sd[:, :4].reshape(-1, 8)], 1), ts.bline)
+    _same(sd[:, 4:].reshape(-1, 2), ts.bhi)
+    assert (js.num_keys, js.num_edges, js.max_probe, js.max_deg_log2) == \
+        (ts.num_keys, ts.num_edges, ts.max_probe, ts.max_deg_log2)
+    assert ts.nbytes == 4 * sum(np.asarray(getattr(js, name)).size for name in
+                                names + ["bkey", "bstart", "bdeg"])
+
+
 def test_staged_segments_equal(stores):
     g, pg = stores
     jds, tds = JDeviceStore(g), DeviceStore(pg, device="cpu")
     keys = sorted(g.segments) + [(TYPE_ID, IN)]
     for pid, d in keys:
-        js, ts = jds.segment(pid, d), tds.segment(pid, d)
-        for name in ("bkey", "bstart", "bdeg", "edges"):
-            _same(getattr(js, name), getattr(ts, name))
-        assert (js.num_keys, js.num_edges, js.max_probe, js.max_deg_log2) == \
-            (ts.num_keys, ts.num_edges, ts.max_probe, ts.max_deg_log2)
+        _same_bucket_segment(jds.segment(pid, d), tds.segment(pid, d))
         jm, tm = jds.merge_segment(pid, d), tds.merge_segment(pid, d)
         for name in ("skey", "sstart", "sdeg", "edges", "ekey"):
             _same(getattr(jm, name), getattr(tm, name))
@@ -129,12 +144,8 @@ def test_combined_adjacency_and_versatile_segment_equal(stores, d):
     g, pg = stores
     for ja, ta in zip(j_combined(g, d), combined_adjacency(pg, d)):
         assert ja.dtype == ta.dtype and np.array_equal(ja, ta)
-    js = JDeviceStore(g).versatile_segment(d)
-    ts = DeviceStore(pg, device="cpu").versatile_segment(d)
-    for name in ("bkey", "bstart", "bdeg", "edges", "edges2"):
-        _same(getattr(js, name), getattr(ts, name))
-    assert (js.num_keys, js.num_edges, js.max_probe, js.max_deg_log2) == \
-        (ts.num_keys, ts.num_edges, ts.max_probe, ts.max_deg_log2)
+    _same_bucket_segment(JDeviceStore(g).versatile_segment(d),
+                         DeviceStore(pg, device="cpu").versatile_segment(d))
 
 
 def test_budget_eviction_respects_pins(stores):

@@ -34,7 +34,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: every pointer and the stream as c_void_p, ints as c_int
 _SIGNATURES = {
     "probe.cu": {
-        "wk_probe": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+        "wk_probe": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     },
     "stream_emit.cu": {
         "wk_stream_tile": [],
@@ -131,10 +131,11 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """The raw handle of the current CUDA stream of ``t``'s device."""
+    """The raw handle of the current CUDA stream of ``t``'s device, read
+    without building a torch.cuda.Stream object (a cost on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def require_aligned(what: str, *tensors) -> None:

@@ -282,7 +282,7 @@ class GPUEngine:
             cap_out = cap_override.get(step) or K.next_capacity(
                 max(est, self.cap_min), self.cap_min, self.cap_max)
             out, nn, total = K.expand(
-                state.table, state.n, seg.bkey, seg.bstart, seg.bdeg,
+                state.table, state.n, seg.bline, seg.bhi,
                 seg.edges, col=col, cap_out=cap_out, max_probe=seg.max_probe)
             state.advance_expand(out, nn, end, total, cap_out, step,
                                  est_rows=min(est, cap_out))
@@ -298,7 +298,7 @@ class GPUEngine:
                 vals = torch.full((C,), int(end), dtype=torch.int32,
                                   device=self.device)
             keep = K.member_mask_known(
-                state.table, state.n, vals, seg.bkey, seg.bstart, seg.bdeg,
+                state.table, state.n, vals, seg.bline, seg.bhi,
                 seg.edges, col=col, max_probe=seg.max_probe,
                 depth=seg.max_deg_log2)
         cap_new = cap_override.get(step)
@@ -368,7 +368,7 @@ class GPUEngine:
         cap_out = cap_override.get(step) or K.next_capacity(
             max(est, self.cap_min), self.cap_min, self.cap_max)
         out, nn, total = K.expand2(
-            state.table, state.n, vseg.bkey, vseg.bstart, vseg.bdeg,
+            state.table, state.n, vseg.bline, vseg.bhi,
             vseg.edges2, vseg.edges, col=col, cap_out=cap_out,
             max_probe=vseg.max_probe)
         if end > 0:

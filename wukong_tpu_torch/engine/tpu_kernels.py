@@ -95,68 +95,95 @@ def _hash_bucket(cur: torch.Tensor, bmask: int) -> torch.Tensor:
     return (lo * (_HASH_MULT & 0x7FFFFFFF)) & bmask
 
 
-def _hash_find(bkey, bstart, bdeg, cur, valid, max_probe: int):
-    """(found, start, degree) per cur[i]; bkey/bstart/bdeg are flat [NB*8].
-    The plain version of K1: the first matching lane, in round order then
-    lane order, wins; rows with valid False give (False, 0, 0)."""
-    NB = bkey.shape[0] // BUCKET
+def _hash_find(bline, bhi, cur, valid, max_probe: int):
+    """(found, start, degree) per cur[i] over a table in bucket-line form
+    (device_store.line_table): bline [NB, 16] holds a bucket's 8 keys, then
+    the (start, degree) pairs of lanes 0-3; bhi [NB*4, 2] the pairs of
+    lanes 4-7. The plain version of K1: the first matching lane, in round
+    order then lane order, wins; rows with valid False give (False, 0, 0)."""
+    NB = bline.shape[0]
     bmask = NB - 1
     C = cur.shape[0]
     hb = _hash_bucket(cur, bmask)
     found = torch.zeros(C, dtype=torch.bool, device=cur.device)
     start = torch.zeros_like(cur)
     deg = torch.zeros_like(cur)
-    lanes = torch.arange(BUCKET, device=cur.device)
     for r in range(max_probe):
-        idx = ((hb + r) & bmask)[:, None] * BUCKET + lanes  # [C, 8]
-        hit = bkey[idx] == cur[:, None]
-        ss = bstart[idx]
-        dd = bdeg[idx]
+        row = (hb + r) & bmask
+        line = bline[row]  # [C, 16]: keys, then lanes 0-3's pairs
+        hi = bhi.reshape(NB, 8)[row]  # [C, 8]: lanes 4-7's pairs
+        hit = line[:, :BUCKET] == cur[:, None]
         for lane in range(BUCKET):
+            src, col = (line, 8 + 2 * lane) if lane < 4 else \
+                (hi, 2 * (lane - 4))
             pick = hit[:, lane] & ~found
-            start = torch.where(pick, ss[:, lane], start)
-            deg = torch.where(pick, dd[:, lane], deg)
+            start = torch.where(pick, src[:, col], start)
+            deg = torch.where(pick, src[:, col + 1], deg)
             found = found | pick
     ok = valid & found
     return ok, torch.where(ok, start, 0), torch.where(ok, deg, 0)
 
 
-def probe_plain(bkey, bstart, bdeg, cur, n, max_probe: int):
+def probe_plain(bline, bhi, cur, n, max_probe: int):
     """K1's plain version with the kernel's signature (row validity from n)."""
     valid = _arange(cur.shape[0], cur) < as_count(n, cur.device)
-    return _hash_find(bkey, bstart, bdeg, cur, valid, max_probe)
+    return _hash_find(bline, bhi, cur, valid, max_probe)
 
 
-def probe_kernel(bkey, bstart, bdeg, cur, n, max_probe: int):
+def check_table(bline, bhi) -> None:
+    """Raise unless (bline, bhi) is a table K1 takes: contiguous int32, bline
+    [NB, 16] with NB a power of two, bhi [NB*4, 2], and on the card both
+    16 B aligned. DeviceStore checks each table once, as it stages it;
+    probe_kernel takes the tables as they are."""
+    NB = bline.shape[0]
+    if (bline.dtype != I32 or bhi.dtype != I32 or NB & (NB - 1)
+            or tuple(bline.shape) != (NB, 2 * BUCKET)
+            or tuple(bhi.shape) != (NB * 4, 2)
+            or not bline.is_contiguous() or not bhi.is_contiguous()):
+        raise ValueError("probe_kernel: expected contiguous int32 bline "
+                         "[NB, 16] with NB a power of two and bhi [NB*4, 2], "
+                         f"got {bline.dtype} {tuple(bline.shape)}, "
+                         f"{bhi.dtype} {tuple(bhi.shape)}")
+    if bline.is_cuda:
+        cuda_lib.require_aligned("probe_kernel", bline, bhi)
+
+
+_wk_probe = None  # the bound C entry point, set at the first launch
+
+
+def probe_kernel(bline, bhi, cur, n, max_probe: int):
     """(found bool, start, deg) per frontier row — the _hash_find contract.
 
     Replaces wukong_tpu/engine/tpu_kernels.py:pallas_probe. CUDA tensors
-    launch csrc/probe.cu (one thread per row, two 16 B loads per bucket
-    row); CPU tensors run the plain version. Bound: bytes (see the source
-    note)."""
+    launch csrc/probe.cu (a thread a pair of rows, both bucket-line loads
+    of a pair in flight at once, a key and most pairs in one 64 B line);
+    CPU tensors run the plain version. Bound: bytes (see the source note).
+    The tables are a staged segment's (checked by check_table as it was
+    staged); ``n`` is best the 0-d int32 tensor on cur's device that the
+    chain carries: it is then passed on as it is."""
+    global _wk_probe
     if cur.device.type == "cpu":
-        return probe_plain(bkey, bstart, bdeg, cur, n, max_probe)
-    cuda_lib.require_cuda("probe_kernel", bkey, bstart, bdeg, cur)
-    for t in (bkey, bstart, bdeg, cur):
-        if t.dtype != I32:
-            raise TypeError(f"probe_kernel: int32 expected, got {t.dtype}")
-    if bkey.shape[0] % BUCKET or bkey.data_ptr() % 16:
-        raise ValueError("probe_kernel: bucket table must be [NB*8] and "
-                         "16-byte aligned")
+        return probe_plain(bline, bhi, cur, n, max_probe)
+    if (not cur.is_cuda or cur.dtype != I32 or cur.dim() != 1
+            or not cur.is_contiguous() or cur.data_ptr() % 4):
+        raise ValueError("probe_kernel: cur must be a contiguous CUDA int32 "
+                         f"vector, got {cur.dtype} {tuple(cur.shape)}")
+    n = as_count(n, cur.device)
     C = cur.shape[0]
-    n_dev = as_count(n, cur.device)
+    # start and deg from one allocation, each row on a 16 B boundary
+    sd = torch.empty((2, -(-C // 4) * 4), dtype=I32, device=cur.device)
+    start, deg = (sd[:, :C] if C % 4 else sd).unbind(0)
     found = torch.empty(C, dtype=torch.bool, device=cur.device)
-    start = torch.empty(C, dtype=I32, device=cur.device)
-    deg = torch.empty(C, dtype=I32, device=cur.device)
     if C == 0:
         return found, start, deg
-    lib = cuda_lib.library("probe.cu")
-    rc = lib.wk_probe(bkey.data_ptr(), bstart.data_ptr(), bdeg.data_ptr(),
-                      cur.data_ptr(), n_dev.data_ptr(), C,
-                      bkey.shape[0] // BUCKET, int(max_probe),
-                      found.data_ptr(), start.data_ptr(), deg.data_ptr(),
-                      cuda_lib.stream_ptr(cur))
-    cuda_lib.check(lib, rc, "probe")
+    if _wk_probe is None:
+        _wk_probe = cuda_lib.library("probe.cu").wk_probe
+    rc = _wk_probe(bline.data_ptr(), bhi.data_ptr(), cur.data_ptr(),
+                   n.data_ptr(), C, bline.shape[0], max_probe,
+                   found.data_ptr(), start.data_ptr(), deg.data_ptr(),
+                   cur.get_device(), cuda_lib.stream_ptr(cur))
+    if rc:
+        cuda_lib.check(cuda_lib.library("probe.cu"), rc, "probe")
     probe_kernel.launches += 1
     return found, start, deg
 
@@ -164,10 +191,10 @@ def probe_kernel(bkey, bstart, bdeg, cur, n, max_probe: int):
 probe_kernel.launches = 0
 
 
-def _probe(bkey, bstart, bdeg, cur, n, max_probe: int):
+def _probe(bline, bhi, cur, n, max_probe: int):
     """Probe dispatch: every segment, every size, goes through K1 (there is
     no residency budget on the card as there was for the TPU's VMEM)."""
-    return probe_kernel(bkey, bstart, bdeg, cur, n, max_probe)
+    return probe_kernel(bline, bhi, cur, n, max_probe)
 
 
 def _range_member(edges, lo, hi, vals, depth: int):
@@ -202,7 +229,7 @@ def _cumsum(x) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=torch.int64)
 
 
-def _expand_plan(table, n, bkey, bstart, bdeg, col: int, cap_out: int,
+def _expand_plan(table, n, bline, bhi, col: int, cap_out: int,
                  max_probe: int):
     """The row plan of an expansion step, shared by expand and expand2: K1
     probes the anchor column, each live row's id is scattered at its output
@@ -211,7 +238,7 @@ def _expand_plan(table, n, bkey, bstart, bdeg, col: int, cap_out: int,
     a row, and the exact (saturated) total."""
     W, C = table.shape
     rows = _arange(C, table)
-    _found, start, deg = _probe(bkey, bstart, bdeg, table[col], n, max_probe)
+    _found, start, deg = _probe(bline, bhi, table[col], n, max_probe)
     cum = _cumsum(deg)
     total = _saturate_total(cum)
     starts_excl = cum - deg
@@ -224,7 +251,7 @@ def _expand_plan(table, n, bkey, bstart, bdeg, col: int, cap_out: int,
     return srcc, eidx, (j < total) & (src >= 0), total
 
 
-def expand(table, n, bkey, bstart, bdeg, edges, col: int, cap_out: int,
+def expand(table, n, bline, bhi, edges, col: int, cap_out: int,
            max_probe: int):
     """known_to_unknown: expand each live row by its neighbor list.
 
@@ -232,14 +259,14 @@ def expand(table, n, bkey, bstart, bdeg, edges, col: int, cap_out: int,
     exceed cap_out; the host checks it at the end-of-chain sync and retries
     at an exact capacity class (rows are never silently dropped)."""
     srcc, eidx, out_valid, total = _expand_plan(
-        table, n, bkey, bstart, bdeg, col, cap_out, max_probe)
+        table, n, bline, bhi, col, cap_out, max_probe)
     val = edges[eidx.clamp(0, edges.shape[0] - 1)]
     out = torch.cat([table[:, srcc], val[None, :]], 0)
     out = torch.where(out_valid[None, :], out, 0)
     return out, torch.clamp(total, max=cap_out), total
 
 
-def expand2(table, n, bkey, bstart, bdeg, edges_pid, edges_val, col: int,
+def expand2(table, n, bline, bhi, edges_pid, edges_val, col: int,
             cap_out: int, max_probe: int):
     """VERSATILE known_unknown_unknown (?x ?p ?y with x bound,
     sparql.hpp:601-650): expand each live row by its COMBINED adjacency,
@@ -249,7 +276,7 @@ def expand2(table, n, bkey, bstart, bdeg, edges_pid, edges_val, col: int,
     Returns (out [W+2, cap_out] with the pid row then the value row, out_n,
     total)."""
     srcc, eidx, out_valid, total = _expand_plan(
-        table, n, bkey, bstart, bdeg, col, cap_out, max_probe)
+        table, n, bline, bhi, col, cap_out, max_probe)
     eidx = eidx.clamp(0, edges_val.shape[0] - 1)
     out = torch.cat([table[:, srcc], edges_pid[eidx][None, :],
                      edges_val[eidx][None, :]], 0)
@@ -257,14 +284,14 @@ def expand2(table, n, bkey, bstart, bdeg, edges_pid, edges_val, col: int,
     return out, torch.clamp(total, max=cap_out), total
 
 
-def member_mask_known(table, n, vals, bkey, bstart, bdeg, edges, col: int,
+def member_mask_known(table, n, vals, bline, bhi, edges, col: int,
                       max_probe: int, depth: int):
     """known_to_known / known_to_const: per-row membership of vals[i] in
     adj(cur[i]). table: [W, C]; vals: [C]."""
     W, C = table.shape
     valid = _arange(C, table) < n
     cur = table[col]
-    found, start, deg = _probe(bkey, bstart, bdeg, cur, n, max_probe)
+    found, start, deg = _probe(bline, bhi, cur, n, max_probe)
     ok = _range_member(edges, start, start + deg, vals, depth)
     return valid & found & ok
 
@@ -373,7 +400,7 @@ def _emit_gather(ts, S: int, start, deg, st_ex, edges, total, cap_out: int):
     return torch.where(out_ok, val, 0), torch.where(out_ok, parent, 0)
 
 
-def probe_expand(bkey, bstart, bdeg, edges, cur, n, live, cap_out: int,
+def probe_expand(bline, bhi, edges, cur, n, live, cap_out: int,
                  max_probe: int):
     """known_to_unknown for the merge chain when the frontier is far smaller
     than the segment: an O(C) hash probe (K1) + the shared scatter-emit.
@@ -384,7 +411,7 @@ def probe_expand(bkey, bstart, bdeg, edges, cur, n, live, cap_out: int,
     ok_row = (rows < n) & live
     # bucket pads are -1, so INT32_MAX-masked rows can never match one
     curm = torch.where(ok_row, cur, INT32_MAX)
-    found, start, deg = _probe(bkey, bstart, bdeg, curm, n, max_probe)
+    found, start, deg = _probe(bline, bhi, curm, n, max_probe)
     deg = torch.where(ok_row & found, deg, 0)
     cum = _cumsum(deg)
     total = _saturate_total(cum)

@@ -350,7 +350,7 @@ class MergeExecutor:
             state.est_rows = max(min(est, cap_out), 1.0)
             if use_probe:
                 vals, parent, n, total = K.probe_expand(
-                    seg.bkey, seg.bstart, seg.bdeg, seg.edges, cur,
+                    seg.bline, seg.bhi, seg.edges, cur,
                     state.n, state.live_mask(), cap_out=cap_out,
                     max_probe=seg.max_probe)
             elif tpu_stream.want_stream(est, int(seg.edges.shape[0]),
@@ -381,7 +381,7 @@ class MergeExecutor:
                 else:
                     keep = K.member_mask_known(
                         cur[None, :], state.n, state.materialize(end),
-                        seg.bkey, seg.bstart, seg.bdeg, seg.edges, col=0,
+                        seg.bline, seg.bhi, seg.edges, col=0,
                         max_probe=seg.max_probe,
                         depth=seg.max_deg_log2) & state.live_mask()
             else:
