@@ -31,15 +31,31 @@ Phases (any failure exits nonzero, and no result line is printed):
      resident on the card, and each kernel is held against its plain
      version and timed on the largest input of each class of its calls in
      this phase (K1: predicate segments, the combined segment);
+  7. batched serving (run after 5, on phase 3's store): Stats.generate over
+     the same triples (timed) and the type-centric planner on the proxy and
+     its engine; each shape's plan beside the heuristic's; the seven shapes
+     single under the planner (rows as in phase 4); the light TEMPLATES
+     (placeholders filled from the type index, B = Global.device_batch
+     constants drawn from the seed) through execute_batch, the in-flight
+     window execute_batch_many (K = 8) and one execute_batch_mixed flight,
+     with queries/s, host syncs a flight, and 64 constants a template held
+     against their single queries; the index-origin shapes through
+     execute_batch_index in replicate mode (suggest_index_batch's B), its
+     window (K = 2) and slice mode (heavy_index_batch's B and 8), replicate
+     counts equal to the single rows and slice counts summing to them. K1
+     must be launched by the slice batches; each kernel the phase launched
+     is held against its plain version and timed on its largest input;
   6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
      suite through Proxy(device="cpu") (plain versions) and
      Proxy(device="cuda") must give equal row multisets and attribute
-     tables, and equal row order where ORDER BY fixes it.
+     tables, and equal row order where ORDER BY fixes it; then, both under
+     the planner, equal per-qid counts from every batched entry point.
 The line before the last is one JSON object {"kernels": [...]}, a row for
-each kernel and class of its calls in phases 4 and 5, with that class's
-launches, input ("phase", "input"), bound and times; the last is
-{"ok": true, "device": {...}}. The script needs the repository around it and
-a CUDA GPU; it imports nothing of JAX or of the JAX package.
+each kernel and class of its calls in phases 4 and 5 and for each kernel in
+phase 7, with that row's launches, input ("phase", "input"), bound and
+times; the last is {"ok": true, "device": {...}}. The script needs the
+repository around it and a CUDA GPU; it imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -129,6 +145,24 @@ EXT_QUERIES = {
         ?X ub:worksFor {DEPT0} . ?X ?P {DEPT0} }}""",
 }
 ORDERED = ("x_order",)  # shapes whose row order the query fixes
+
+# light templates: the basic suite's const-start shapes with their constant
+# turned into a %placeholder, as Wukong's sparql-emu templates do
+TEMPLATES = {
+    "lubm_q3": PREFIX + """SELECT ?X WHERE {
+        ?X rdf:type ub:GraduateStudent .
+        ?X ub:takesCourse %ub:GraduateCourse . }""",
+    "lubm_q4": PREFIX + """SELECT ?X ?Y1 ?Y2 WHERE {
+        ?X ub:worksFor %ub:Department .
+        ?X rdf:type ub:FullProfessor . ?X ub:name ?Y1 .
+        ?X ub:emailAddress ?Y2 . }""",
+    "lubm_q5": PREFIX + """SELECT ?X WHERE {
+        ?X ub:memberOf %ub:Department . }""",
+    "lubm_q7": PREFIX + """SELECT ?X ?Y WHERE {
+        ?X rdf:type ub:UndergraduateStudent . ?Y rdf:type ub:Course .
+        %ub:AssociateProfessor ub:teacherOf ?Y . ?X ub:takesCourse ?Y . }""",
+}
+HEAVY = ("lubm_q1", "lubm_q2", "lubm_q6")  # the index-origin shapes
 
 KERNELS = {
     "probe_kernel": ("wukong_tpu_torch/csrc/probe.cu",
@@ -665,7 +699,7 @@ def build_world(scale: int, seed: int):
     log(f"store: LUBM-{scale} seed {seed}: {len(triples):,} triples, "
         f"{len(attrs[0]):,} attributes (synthesis {t1 - t0:.1f} s, "
         f"partition {t2 - t1:.1f} s)")
-    return g, VirtualLubmStrings(scale, seed=seed), len(triples)
+    return g, VirtualLubmStrings(scale, seed=seed), triples
 
 
 def stage_all(proxy) -> int:
@@ -684,8 +718,8 @@ def stage_all(proxy) -> int:
             else:
                 ds.segment(p.predicate, p.direction)
         if q.start_from_index():
-            folds = merge._plan_folds(pats)
-            for _k, pat, kind, fold in merge.classify(pats, folds):
+            folds = merge._plan_folds(pats, index_mode=True)
+            for _k, pat, kind, fold in merge.classify(pats, folds, True):
                 pid, d = pat.predicate, pat.direction
                 if kind == "expand" and fold is not None:
                     ds.filtered_merge_segment(pid, d, fold[0])
@@ -700,6 +734,17 @@ def stage_all(proxy) -> int:
     return ds.bytes_used
 
 
+def walk_caps(proxy, q, B: int) -> list:
+    """(step, kind, cap_in, cap_out) of each step of q's replicate batch of
+    B, as the merge executor would size them now (learned capacities
+    first)."""
+    merge = proxy.engine.merge
+    pats = q.pattern_group.patterns
+    folds = merge._plan_folds(pats, index_mode=True)
+    return [(k, kind, ci, co) for k, _p, kind, _f, ci, co
+            in merge._walk_caps(pats, folds, True, B, "rep")]
+
+
 def batch_sizes(proxy, text: str, mdup: int) -> list:
     """Replicate batch sizes for one index-origin shape: 1, and the largest
     B <= mdup whose start rows and every step's learned capacity at B=1
@@ -709,17 +754,18 @@ def batch_sizes(proxy, text: str, mdup: int) -> list:
     q = proxy.parse(text)
     p0 = q.pattern_group.patterns[0]
     peak = max([len(proxy.g.get_index(p0.subject, p0.direction))]
-               + [co for _k, _kind, _ci, co in eng.merge.walk_caps(q, 1)])
+               + [co for _k, _kind, _ci, co in walk_caps(proxy, q, 1)])
     return sorted({1, min(mdup, max(eng.cap_max // max(peak, 1), 1))})
 
 
-def serve(proxy, heavy: tuple, mdup: int, results: dict) -> None:
+def serve(proxy, heavy: tuple, mdup: int, results: dict) -> dict:
     """Phase 4's main path: the seven shapes one at a time, then the
     index-origin shapes in replicate batches (B=1 first, which also learns
-    the capacities that size the larger B)."""
+    the capacities that size the larger B). Returns each shape's rows
+    (sorted_table)."""
     import torch
 
-    rows = {}
+    rows, tables = {}, {}
     for name, text in QUERIES.items():
         lat = []
         for _ in range(5):
@@ -730,6 +776,7 @@ def serve(proxy, heavy: tuple, mdup: int, results: dict) -> None:
             check(q.result.status_code == 0,
                   f"{name}: status {q.result.status_code!r}")
         rows[name] = q.result.nrows
+        tables[name] = sorted_table(q)
         results["queries"][name] = {"rows": rows[name],
                                     "median_ms": statistics.median(lat),
                                     "runs_ms": lat}
@@ -748,13 +795,13 @@ def serve(proxy, heavy: tuple, mdup: int, results: dict) -> None:
                       f"{name} B={B}: per-qid counts {counts.tolist()} != "
                       f"single-query rows {rows[name]}")
             med = statistics.median(lat)
-            caps = [(k, kind, ci, co) for k, kind, ci, co in
-                    proxy.engine.merge.walk_caps(proxy.parse(text), B)]
+            caps = walk_caps(proxy, proxy.parse(text), B)
             results["batches"][f"{name}@B={B}"] = {
                 "median_ms": med, "runs_ms": lat,
                 "queries_per_s": B / med * 1e3, "caps": caps}
             log(f"  {name} x B={B}: counts ok, median {med:.2f} ms "
                 f"({B / med * 1e3:.2f} queries/s); caps {caps}")
+    return tables
 
 
 class StageClock:
@@ -838,6 +885,342 @@ def serve_extended(proxy, results: dict) -> None:
             f"({split}); first run {lat[0]:.2f} ms")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: batched serving under the planner
+# ---------------------------------------------------------------------------
+
+
+def sorted_table(q):
+    """q's result rows sorted lexicographically: two plans' results are the
+    same multiset of rows exactly when these arrays are equal (the final
+    stage puts the columns in projection order)."""
+    import numpy as np
+
+    t = np.asarray(q.result.table)
+    if t.ndim != 2 or not len(t):
+        return t
+    return t[np.lexsort(t.T[::-1])]
+
+
+def plan_text(pg) -> str:
+    """A pattern group's plan on one line, UNION and OPTIONAL groups
+    included."""
+    parts = [" ".join(repr(p) for p in pg.patterns)]
+    parts += [f"UNION {{{plan_text(u)}}}" for u in pg.unions]
+    parts += [f"OPTIONAL {{{plan_text(o)}}}" for o in pg.optional]
+    return " ".join(x for x in parts if x)
+
+
+def timed_runs(fn, runs: int) -> tuple:
+    """(last result, host ms of each run): fn's results are host arrays,
+    so each run ends in the engine's own host read."""
+    import torch
+
+    lat, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return out, lat
+
+
+def count_syncs(fn) -> tuple:
+    """Host syncs that fn() makes on the card (torch's sync debug mode:
+    every synchronizing CUDA call, a copy to pageable host memory or a
+    read of a device value among them, warns once): (count, {"file:line"
+    of the Python call that synced: count})."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            at = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[at] = sites.get(at, 0) + 1
+    return sum(sites.values()), sites
+
+
+def template_job(proxy, name: str, rng, B: int):
+    """One light template: parsed, filled, instantiated and planned; with
+    B x 8 constants drawn from its placeholder's candidates. None when the
+    plan does not start from the placeholder's constant (the emulator's
+    batchable rule), since a batch would then substitute the wrong slot."""
+    import numpy as np
+
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    tmpl = Parser(proxy.str_server).parse_template(TEMPLATES[name])
+    proxy.fill_template(tmpl)
+    q = tmpl.instantiate(rng)
+    pi, fld = tmpl.pos[0]
+    inst = getattr(q.pattern_group.patterns[pi], fld)
+    proxy._plan(q)
+    pats = q.pattern_group.patterns
+    if not (len(tmpl.pos) == 1 and pats and pats[0].subject == inst
+            and pats[0].predicate > 0):
+        return None
+    cand = tmpl.candidates[0]
+    draws = [np.asarray(cand[rng.integers(0, len(cand), B)], dtype=np.int64)
+             for _ in range(8)]
+    return tmpl, q, draws
+
+
+def single_rows(proxy, tmpl, const) -> int:
+    """Rows of the template's query with its placeholder set to const,
+    planned and served alone."""
+    import copy
+
+    q = copy.deepcopy(tmpl.query)
+    pi, fld = tmpl.pos[0]
+    setattr(q.pattern_group.patterns[pi], fld, int(const))
+    proxy._plan(q)
+    q.result.blind = True
+    proxy.engine.execute(q)
+    check(q.result.status_code == 0, f"single instance: status "
+          f"{q.result.status_code!r}")
+    return q.result.nrows
+
+
+def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
+                  results: dict) -> None:
+    """Phase 7: statistics and the planner, the basic shapes single under
+    it, light templates in const batches and their windows, heavy shapes
+    in replicate and slice batches. ``entry["name"]`` names the entry point
+    being driven (the class of each kernel call Capture keeps)."""
+    import numpy as np
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.planner.heuristic import heuristic_plan
+    from wukong_tpu_torch.planner.optimizer import Planner
+    from wukong_tpu_torch.planner.stats import Stats
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    out = results["batched"]
+    eng = proxy.engine
+    t0 = time.perf_counter()
+    stats = Stats.generate(triples)
+    out["stats_generate_s"] = time.perf_counter() - t0
+    log(f"  Stats.generate over {len(triples):,} triples: "
+        f"{out['stats_generate_s']:.1f} s")
+    proxy.planner = Planner(stats)
+    eng.stats = stats
+    out["plans"] = {}
+    for name, text in {**QUERIES, **EXT_QUERIES}.items():
+        h = Parser(proxy.str_server).parse(text)
+        heuristic_plan(h)
+        o = proxy.parse(text)
+        out["plans"][name] = {"planner": plan_text(o.pattern_group),
+                              "heuristic": plan_text(h.pattern_group),
+                              "planner_empty": o.planner_empty}
+        log(f"  plan {name}: planner [{plan_text(o.pattern_group)}]"
+            f"{' (planner-empty)' if o.planner_empty else ''}; heuristic "
+            f"[{plan_text(h.pattern_group)}]")
+
+    entry["name"] = "single"
+    rows = {}
+    out["single"] = {}
+    for name, text in QUERIES.items():
+        q, lat = timed_runs(lambda: proxy.serve_query(text), 5)
+        check(q.result.status_code == 0, f"{name} planned: status "
+              f"{q.result.status_code!r}")
+        check(np.array_equal(sorted_table(q), phase4[name]),
+              f"{name} planned: rows differ from phase 4's heuristic plan")
+        rows[name] = q.result.nrows
+        med = statistics.median(lat)
+        out["single"][name] = {"rows": rows[name], "median_ms": med,
+                               "runs_ms": lat}
+        log(f"  {name} planned: {rows[name]:,} rows (as phase 4), median "
+            f"{med:.2f} ms over 5 runs (first {lat[0]:.2f} ms)")
+
+    B = Global.device_batch
+    rng = np.random.default_rng(seed)
+    out["const"], jobs = {}, []
+    # the counter's own first use, with no work: what it reports here is
+    # not the engine's
+    base, sites = count_syncs(lambda: None)
+    out["syncs_baseline"] = {"syncs": base, "sites": sites}
+    log(f"  host-sync counter with no work: {base} ({sites})")
+    for name in TEMPLATES:
+        job = template_job(proxy, name, rng, B)
+        if job is None:
+            log(f"  template {name}: the plan does not start from its "
+                f"placeholder; skipped, as the emulator skips it")
+            continue
+        tmpl, q, draws = job
+        entry["name"] = "execute_batch"
+        want = eng.execute_batch(q, draws[0])  # learns the capacities
+        counts, lat = timed_runs(lambda: eng.execute_batch(q, draws[0]), 5)
+        check(counts.tolist() == want.tolist(), f"{name}: counts moved")
+        entry["name"] = "execute_batch_many"
+        eng.execute_batch_many(q, draws)  # learns every draw's capacities
+        many, lat_many = timed_runs(lambda: eng.execute_batch_many(q, draws),
+                                    3)
+        check(many[0].tolist() == want.tolist(),
+              f"{name}: execute_batch_many counts != execute_batch's")
+        syncs, sites = count_syncs(lambda: eng.execute_batch_many(q, draws))
+        syncs_one, _ = count_syncs(lambda: eng.execute_batch(q, draws[0]))
+        entry["name"] = "single"
+        for i, c in enumerate(draws[0][:64]):
+            got = single_rows(proxy, tmpl, c)
+            check(int(want[i]) == got, f"{name}: qid {i} (const {int(c)}) "
+                  f"counts {int(want[i])}, served alone {got}")
+        med, med_many = statistics.median(lat), statistics.median(lat_many)
+        out["const"][name] = {
+            "plan": plan_text(q.pattern_group), "B": B,
+            "rows": int(want.sum()), "median_ms": med, "runs_ms": lat,
+            "queries_per_s": B / med * 1e3,
+            "many_K": len(draws), "many_median_ms": med_many,
+            "many_runs_ms": lat_many,
+            "many_queries_per_s": B * len(draws) / med_many * 1e3,
+            "syncs_per_flight": syncs, "sync_sites": sites,
+            "syncs_execute_batch": syncs_one}
+        log(f"  template {name} [{plan_text(q.pattern_group)}]: B={B}, "
+            f"{int(want.sum()):,} rows; execute_batch median {med:.2f} ms "
+            f"({B / med * 1e3:,.0f} queries/s); execute_batch_many K=8 "
+            f"median {med_many:.2f} ms ({B * 8 / med_many * 1e3:,.0f} "
+            f"queries/s); host syncs: {syncs} a flight of 8 ({sites}), "
+            f"{syncs_one} a batch; 64 constants equal their single queries")
+        jobs.append((name, q, draws[0], want))
+    check(jobs, "no light template was batchable")
+    entry["name"] = "execute_batch_mixed"
+    mixed = [(q, c) for _n, q, c, _w in jobs]
+    eng.execute_batch_mixed(mixed)
+    res, lat = timed_runs(lambda: eng.execute_batch_mixed(mixed), 3)
+    for (name, _q, _c, want), got in zip(jobs, res):
+        check(got.tolist() == want.tolist(),
+              f"{name}: execute_batch_mixed counts != execute_batch's")
+    med = statistics.median(lat)
+    nq = B * len(jobs)
+    syncs, sites = count_syncs(lambda: eng.execute_batch_mixed(mixed))
+    out["mixed"] = {"templates": [j[0] for j in jobs], "queries": nq,
+                    "median_ms": med, "runs_ms": lat,
+                    "queries_per_s": nq / med * 1e3,
+                    "syncs_per_flight": syncs, "sync_sites": sites}
+    log(f"  execute_batch_mixed over {len(jobs)} templates: {nq} queries, "
+        f"median {med:.2f} ms ({nq / med * 1e3:,.0f} queries/s), {syncs} "
+        f"host syncs a flight ({sites})")
+
+    out["heavy"] = {}
+    for name in HEAVY:
+        q = proxy.parse(QUERIES[name])
+        single = rows[name]
+        runs = []
+        Br = eng.suggest_index_batch(q)
+        entry["name"] = "execute_batch_index (replicate)"
+        eng.execute_batch_index(q, Br)
+        counts, lat = timed_runs(lambda: eng.execute_batch_index(q, Br), 3)
+        check(counts.tolist() == [single] * Br,
+              f"{name} replicate B={Br}: counts != single rows {single}")
+        runs.append(("replicate", Br, 1, lat))
+        entry["name"] = "execute_batch_index_many"
+        eng.execute_batch_index_many(q, Br, 2)
+        many, lat = timed_runs(
+            lambda: eng.execute_batch_index_many(q, Br, 2), 3)
+        check(all(c.tolist() == [single] * Br for c in many),
+              f"{name} replicate window: counts != single rows {single}")
+        runs.append(("replicate window", Br, 2, lat))
+        entry["name"] = "execute_batch_index (slice)"
+        for Bs in sorted({proxy.heavy_index_batch(q), 8}):
+            eng.execute_batch_index(q, Bs, slice_mode=True)
+            counts, lat = timed_runs(
+                lambda: eng.execute_batch_index(q, Bs, slice_mode=True), 3)
+            check(int(counts.sum()) == single,
+                  f"{name} slice B={Bs}: counts sum {int(counts.sum())} != "
+                  f"single rows {single}")
+            runs.append(("slice", Bs, 1, lat))
+        out["heavy"][name] = {"caps": walk_caps(proxy, q, Br)}
+        log(f"  {name} replicate B={Br} caps {out['heavy'][name]['caps']}")
+        for mode, b, k, lat in runs:
+            med = statistics.median(lat)
+            # a slice batch answers one query; replicate answers b (x k)
+            nq = 1 if mode == "slice" else b * k
+            out["heavy"][name][f"{mode} B={b}"] = {
+                "median_ms": med, "runs_ms": lat,
+                "queries_per_s": nq / med * 1e3}
+            log(f"  {name} {mode} B={b}{f' K={k}' if k > 1 else ''}: "
+                f"median {med:.2f} ms ({nq / med * 1e3:,.2f} queries/s)")
+
+
+def merged_rows(captures: dict, phase: str, kernel_fns: dict,
+                errs: dict) -> list:
+    """One kernels-line row per kernel a phase launched: held and timed on
+    its largest input over every class of its calls, with the launches of
+    all of them."""
+    rows = []
+    for name, cap in captures.items():
+        n = sum(cap.launches.values())
+        if n:
+            fn, plain, work_of = kernel_fns[name]
+            best = max(cap.best.values(), key=lambda b: b[0])
+            rows.append(measure(name, phase, best, n, fn, plain, work_of,
+                                errs))
+    return rows
+
+
+def cross_check_batched(on_cpu, on_gpu, triples, seed: int) -> None:
+    """Phase 6's batched half: both proxies under one planner's statistics
+    give identical per-qid counts from every batched entry point."""
+    import numpy as np
+
+    from wukong_tpu_torch.planner.optimizer import Planner
+    from wukong_tpu_torch.planner.stats import Stats
+
+    stats = Stats.generate(triples)
+    for p in (on_cpu, on_gpu):
+        p.planner, p.engine.stats = Planner(stats), stats
+
+    def same(what, a, b):
+        a = [np.asarray(x).tolist() for x in a]
+        b = [np.asarray(x).tolist() for x in b]
+        check(a == b, f"cross-check {what}: cpu {a} != cuda {b}")
+
+    B = 256
+    jobs = {}
+    for name in TEMPLATES:
+        pair = [template_job(p, name, np.random.default_rng(seed), B)
+                for p in (on_cpu, on_gpu)]
+        if pair[0] is None or pair[1] is None:
+            check(pair[0] is None and pair[1] is None,
+                  f"cross-check {name}: batchable on one device only")
+            continue
+        (_t, qa, da), (_t2, qb, db) = pair
+        check(all(np.array_equal(x, y) for x, y in zip(da, db)),
+              f"cross-check {name}: draws differ")
+        for p, q in ((on_cpu, qa), (on_gpu, qb)):
+            jobs.setdefault(p, []).append((q, da[0]))
+        ea, eb = on_cpu.engine, on_gpu.engine
+        same(f"{name} execute_batch", [ea.execute_batch(qa, da[0])],
+             [eb.execute_batch(qb, da[0])])
+        same(f"{name} execute_batch_many", ea.execute_batch_many(qa, da[:2]),
+             eb.execute_batch_many(qb, da[:2]))
+    same("execute_batch_mixed",
+         on_cpu.engine.execute_batch_mixed(jobs[on_cpu]),
+         on_gpu.engine.execute_batch_mixed(jobs[on_gpu]))
+    for name in HEAVY:
+        qa, qb = on_cpu.parse(QUERIES[name]), on_gpu.parse(QUERIES[name])
+        ea, eb = on_cpu.engine, on_gpu.engine
+        same(f"{name} execute_batch_index", [ea.execute_batch_index(qa, 4)],
+             [eb.execute_batch_index(qb, 4)])
+        same(f"{name} execute_batch_index slice",
+             [ea.execute_batch_index(qa, 8, slice_mode=True)],
+             [eb.execute_batch_index(qb, 8, slice_mode=True)])
+        same(f"{name} execute_batch_index_many",
+             ea.execute_batch_index_many(qa, 4, 2),
+             eb.execute_batch_index_many(qb, 4, 2))
+    log(f"  cross-check: every batched entry point gives equal per-qid "
+        f"counts on cpu and cuda ({len(jobs[on_cpu])} templates x "
+        f"{B} constants, {len(HEAVY)} heavy shapes)")
+
+
 def rows_multiset(q):
     rows = q.result.table.tolist()
     if q.result.attr_table.size:
@@ -881,7 +1264,7 @@ def main(argv=None) -> int:
         f"{build_s:.1f} s")
     results = {"card": card, "kind": kind, "build_s": build_s,
                "scale": args.scale, "seed": args.seed, "queries": {},
-               "batches": {}, "extended": {}}
+               "batches": {}, "extended": {}, "batched": {}}
 
     # ---- 2. kernels on adversarial cases ---------------------------------
     errs = {name: 0 for name in KERNELS}
@@ -902,7 +1285,8 @@ def main(argv=None) -> int:
         f"and equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3. store -------------------------------------------------------
-    g, ss, ntriples = build_world(args.scale, args.seed)
+    g, ss, triples = build_world(args.scale, args.seed)
+    ntriples = len(triples)
     proxy = Proxy(g, ss, device="cuda", budget_bytes=60 << 30)
     t0 = time.perf_counter()
     resident = stage_all(proxy)
@@ -911,13 +1295,14 @@ def main(argv=None) -> int:
     results.update(triples=ntriples, resident_bytes=resident)
 
     # ---- 4. serve (the main path) ----------------------------------------
-    def capture_all(probe_class=lambda a: ""):
+    def capture_all(probe_class=lambda a: "", emit_class=lambda a: ""):
         return {"probe_kernel": Capture(K, "probe_kernel", probe_size,
                                         probe_class),
                 "stream_emit": Capture(S, "stream_emit",
-                                       lambda a: a[0].shape[0]),
+                                       lambda a: a[0].shape[0], emit_class),
                 "stream_emit_m": Capture(S, "stream_emit_m",
-                                         lambda a: a[0].shape[0])}
+                                         lambda a: a[0].shape[0],
+                                         emit_class)}
 
     captures = capture_all()
     kernel_fns = {"probe_kernel": (captures["probe_kernel"].orig, K.probe_plain,
@@ -931,8 +1316,7 @@ def main(argv=None) -> int:
         fn.launches = 0
     log(f"serve: LUBM-{args.scale} on {kind}")
     try:
-        serve(proxy, ("lubm_q1", "lubm_q2", "lubm_q6"), S.stream_mdup(),
-              results)
+        phase4 = serve(proxy, HEAVY, S.stream_mdup(), results)
     finally:
         for c in captures.values():
             c.restore()
@@ -973,12 +1357,34 @@ def main(argv=None) -> int:
     log(f"extended: OUT combined segment resident, {vseg.num_keys:,} keys, "
         f"{vseg.num_edges:,} edges, {vseg.nbytes:,} bytes")
     results["extended_launches"] = ext
+
+    # ---- 7. batched serving under the planner (the main path's third part)
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    log(f"batched: LUBM-{args.scale} on {kind}, planner and batches")
+    entry = {"name": ""}
+    captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    try:
+        serve_batched(proxy, triples, phase4, args.seed, entry, results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    bat = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    by_entry = {name: dict(c.launches) for name, c in captures.items()}
+    log(f"batched: kernel launches {bat}; by entry point {by_entry}")
+    check(captures["probe_kernel"].launches.get(
+        "execute_batch_index (slice)", 0) > 0,
+        "probe_kernel was never launched by the slice-mode batches")
+    results["batched"]["launches"] = by_entry
+    rows += merged_rows(captures, "7 batched serving", kernel_fns, errs)
     for row in rows:  # every check of a kernel: phase 2 and every phase row
         row["max_abs_err"] = errs[row["name"]]
     results["kernels"] = rows
 
-    # ---- 6. cross-check -------------------------------------------------
-    gx, ssx, _ = build_world(args.cross_scale, args.seed)
+    # ---- 6. cross-check (after phase 7, which reuses phase 3's store) ---
+    del proxy, triples
+    gx, ssx, tx = build_world(args.cross_scale, args.seed)
     on_cpu = Proxy(gx, ssx, device="cpu")
     on_gpu = Proxy(gx, ssx, device="cuda")
     for name, text in list(QUERIES.items()) + list(EXT_QUERIES.items()):
@@ -993,6 +1399,7 @@ def main(argv=None) -> int:
                   f"cross-check {name}: row order differs")
         log(f"  cross-check LUBM-{args.cross_scale} {name}: "
             f"{a.result.nrows:,} rows equal on cpu and cuda")
+    cross_check_batched(on_cpu, on_gpu, tx, args.seed)
     results["cross_scale"] = args.cross_scale
     results["total_s"] = time.perf_counter() - t_start
     log(f"done in {results['total_s']:.1f} s")

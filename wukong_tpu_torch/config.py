@@ -29,6 +29,14 @@ class _Global:
     enable_empty_shortcircuit: bool = True
     # stage every segment of a chain before its first step runs
     gpu_enable_pipeline: bool = True
+    # the proxy plans with its cost-based planner when it has one (else a
+    # user plan, else the greedy heuristic)
+    enable_planner: bool = True
+    # const-start instances answered together by one execute_batch
+    device_batch: int = 1024
+    # ceiling on the slice count suggest_index_batch may pick for a heavy
+    # (index-origin) query
+    heavy_batch_max: int = 64
 
 
 Global = _Global()

@@ -6,11 +6,21 @@ of the kernels in tpu_kernels.py against segments staged by DeviceStore, and
 the result is copied to the host only at the end (gpu_engine_cuda.hpp:189-196).
 
 Execution discipline: the chain never reads device values mid-query. Output
-capacities are estimated from host CSR metadata, per-step true totals ride
-along as device scalars, and ONE sync at the end fetches table, row count and
-totals together. If a step overflowed its capacity class, the whole chain
-re-runs with exact capacities (inputs are immutable, so the retry is safe and
-rows are never lost).
+capacities are estimated from the planner's per-step estimates when the
+engine has statistics (``stats=``), else from host CSR metadata; per-step
+true totals ride along as device scalars, and ONE sync at the end fetches
+table, row count and totals together. If a step overflowed its capacity
+class, the whole chain re-runs with exact capacities (inputs are immutable,
+so the retry is safe and rows are never lost).
+
+Batched entry points answer B instances of a planned query in one chain and
+return per-instance row counts: ``execute_batch`` (a const start, B
+constants), ``execute_batch_index`` (an index start, B replicate copies or B
+slices of the index), and their in-flight windows ``execute_batch_many``,
+``execute_batch_mixed`` and ``execute_batch_index_many``, which dispatch
+several chains and read them back in one transfer. Supported shapes run
+through the sort-merge executor (engine/tpu_merge.py); the rest, and slice
+mode, through the eager chain here with a qid column.
 
 Scope: every shape the JAX engine answers on one partition, through its
 state machine PATTERN -> UNION -> OPTIONAL -> FILTER -> FINAL. The longest
@@ -36,22 +46,24 @@ from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.device_store import DeviceStore
 from wukong_tpu_torch.engine.optional_join import execute_optional_leftjoin
 from wukong_tpu_torch.sparql.ir import NO_RESULT, PGType, SPARQLQuery
-from wukong_tpu_torch.types import PREDICATE_ID, TYPE_ID, AttrType
+from wukong_tpu_torch.types import OUT, PREDICATE_ID, TYPE_ID, AttrType
 from wukong_tpu_torch.utils.errors import (
     CapacityExceeded,
     ErrorCode,
     WukongError,
     assert_ec,
 )
+from wukong_tpu_torch.utils.lru import LRUCache
 
 
 class GPUEngine:
     """Executes one SPARQL query with device-resident pattern matching."""
 
     def __init__(self, gstore, str_server=None, device="cuda",
-                 budget_bytes: int | None = None):
+                 budget_bytes: int | None = None, stats=None):
         self.g = gstore
         self.str_server = str_server
+        self.stats = stats  # optional planner Stats for capacity estimation
         if budget_bytes is None:
             budget_bytes = Global.tpu_mem_cache_gb << 30
         self.dstore = DeviceStore(gstore, budget_bytes=budget_bytes,
@@ -60,6 +72,9 @@ class GPUEngine:
         self.cpu = CPUEngine(gstore, str_server)
         self.cap_min = Global.table_capacity_min
         self.cap_max = Global.table_capacity_max
+        self._est_planner = None  # lazy Planner over self.stats
+        # pattern tuple -> {step: rows}; bounded LRU
+        self._est_cache = LRUCache(4096)
         self._last_attempts = 0  # chain attempts of the last query
         from wukong_tpu_torch.engine.tpu_merge import MergeExecutor
 
@@ -71,6 +86,32 @@ class GPUEngine:
 
     def _count(self, n) -> torch.Tensor:
         return K.as_count(n, self.device)
+
+    def _chain_estimates(self, patterns) -> dict[int, float]:
+        """Per-step row estimates {step: rows} from the planner's joint
+        type-table walk (optimizer.estimate_chain); empty when stats are
+        absent or the chain shape defeats estimation. Memoized per pattern
+        list — the emulator re-dispatches the same template thousands of
+        times."""
+        if self.stats is None:
+            return {}
+        key = tuple((p.subject, p.predicate, int(p.direction), p.object)
+                    for p in patterns)
+        cached = self._est_cache.get(key)
+        if cached is not None:
+            return cached
+        if self._est_planner is None:
+            from wukong_tpu_torch.planner.optimizer import Planner
+
+            self._est_planner = Planner(self.stats)
+        try:
+            ests = self._est_planner.estimate_chain(list(patterns))
+        except Exception:
+            ests = None
+        out = ({} if ests is None
+               else {k: max(float(e), 1.0) for k, e in enumerate(ests)})
+        self._est_cache.put(key, out)
+        return out
 
     # ------------------------------------------------------------------
     def execute(self, q: SPARQLQuery, from_proxy: bool = True) -> SPARQLQuery:
@@ -181,10 +222,13 @@ class GPUEngine:
                     and not q.pattern_group.optional
                     and not q.pattern_group.filters)
         cap_override: dict[int, int] = {}
+        step_est = (self._chain_estimates(q.pattern_group.patterns)
+                    if q.pattern_step == 0 else {})
         self._last_attempts = 0
         for attempt in range(8):
             self._last_attempts = attempt + 1
             state = _ChainState(q.result)
+            state.step_est = step_est
             for k in range(device_steps):
                 step = q.pattern_step + k
                 self._dispatch_one(q, q.get_pattern(step), step, state,
@@ -236,7 +280,7 @@ class GPUEngine:
             pad = np.zeros((state.width, cap), dtype=np.int32)
             if host_t.size:
                 pad[:, :n0] = host_t.T
-            state.table = torch.from_numpy(pad).to(self.device)
+            state.table = K.upload(pad, self.device)
             state.n = self._count(n0)
             state.est_rows = max(n0, 1)
 
@@ -244,6 +288,9 @@ class GPUEngine:
             if q.start_from_index() and step == q.pattern_step == 0 \
                     and _is_index_start(pat):
                 edges, real = self.dstore.index_list(start, d)
+                if q.mt_factor > 1:
+                    lo, hi = _mt_slice(real, q.mt_factor, q.mt_tid)
+                    edges, real = edges[lo:hi], hi - lo
                 cap = cap_override.get(step) or K.next_capacity(
                     real, self.cap_min, self.cap_max)
                 table, nn = K.init_from_list(edges, real, cap)
@@ -261,7 +308,7 @@ class GPUEngine:
                 len(vids), self.cap_min, self.cap_max)
             pad = np.zeros((1, cap), dtype=np.int32)  # [width=1, capacity]
             pad[0, : len(vids)] = vids
-            state.begin(torch.from_numpy(pad).to(self.device),
+            state.begin(K.upload(pad, self.device),
                         self._count(len(vids)), end, est_rows=len(vids))
             return
 
@@ -278,7 +325,7 @@ class GPUEngine:
             if seg is None:
                 state.append_empty_col(end)
                 return
-            est = self._estimate_rows(state, pat, seg)
+            est = self._estimate_rows(state, pat, seg, step=step)
             cap_out = cap_override.get(step) or K.next_capacity(
                 max(est, self.cap_min), self.cap_min, self.cap_max)
             out, nn, total = K.expand(
@@ -301,10 +348,15 @@ class GPUEngine:
                 state.table, state.n, vals, seg.bline, seg.bhi,
                 seg.edges, col=col, max_probe=seg.max_probe,
                 depth=seg.max_deg_log2)
+        se = state.step_est.get(step)
         cap_new = cap_override.get(step)
+        if cap_new is None and se is not None:
+            cap_new = K.next_capacity(
+                max(int(se * self.EST_SAFETY), self.cap_min),
+                self.cap_min, self.cap_max)
         if cap_new is not None and cap_new < C:
-            # learned shrink: totals ride along so an underestimate retries
-            # the chain, never drops rows
+            # estimate-driven or learned shrink: totals ride along so an
+            # underestimate retries the chain, never drops rows
             out, nn, total = K.compact_to(state.table, keep, cap_new)
             state.advance_filter(out, nn)
             state.totals.append((step, total, cap_new))
@@ -343,7 +395,7 @@ class GPUEngine:
         pad = np.zeros((len(cols_data), cap), dtype=np.int32)
         for r, cd in enumerate(cols_data):
             pad[r, :real] = cd
-        state.table = torch.from_numpy(pad).to(self.device)
+        state.table = K.upload(pad, self.device)
         state.n = self._count(real)
         for v in bind:
             state.bind_col(v)
@@ -385,36 +437,148 @@ class GPUEngine:
                               est_rows=min(est, cap_out))
 
     # ------------------------------------------------------------------
-    # batched execution of an index-origin (heavy) query
+    # batched execution: one chain answers B instances of a planned query
+    # (the emulator's win — a batch of 1024 instances of one template is
+    # one chain; SURVEY §7.6)
     # ------------------------------------------------------------------
-    def execute_batch_index(self, q: SPARQLQuery, B: int) -> np.ndarray:
-        """Replicate mode: B independent full instances of an index-origin
-        query in one chain (the qid dimension amortizes the end-of-chain
-        sync across B queries). Returns per-qid result row counts (blind
-        semantics)."""
+    def execute_batch(self, q: SPARQLQuery, consts: np.ndarray) -> np.ndarray:
+        """Run a planned const-start query for B different start constants.
+
+        The binding table carries a qid column; all steps run once for the
+        whole batch; returns per-query result row counts (blind semantics).
+        """
+        pats = q.pattern_group.patterns
+        self._check_batch_const(q)
+        B = len(consts)
+        if q.planner_empty and Global.enable_empty_shortcircuit:
+            return np.zeros(B, dtype=np.int64)
+        if Global.enable_merge_join and self.merge.supports(q):
+            return self.merge.run_batch_const(q, consts)
+
+        def make_init(state: "_ChainState", cap_override: dict) -> int:
+            # init: [2, cap] — row 0 qid, row 1 the per-instance start constant
+            cap0 = K.next_capacity(B, self.cap_min)
+            init = np.zeros((2, cap0), dtype=np.int32)  # [width, capacity]
+            init[0, :B] = np.arange(B)
+            init[1, :B] = consts
+            state.table = K.upload(init, self.device)
+            state.n = self._count(B)
+            state.width = 2
+            state.cols[pats[0].subject] = 1  # start consts act as a known col
+            state.est_rows = B
+            return 0  # dispatch every pattern (the const col pre-binds step 0)
+
+        return self._run_batch_chain(q, B, make_init, est_mult=float(B))
+
+    def _check_batch_const(self, q: SPARQLQuery) -> None:
+        """Shared validation for the const-batch entry points: every step
+        must be device-supported (the start constant column counts as known
+        for steps that re-anchor on it — the reference plans such shapes as
+        known_to_*)."""
+        pats = q.pattern_group.patterns
+        assert_ec(len(pats) > 0 and pats[0].subject > 0,
+                  ErrorCode.UNKNOWN_PLAN, "batch execution needs a const start")
+        probe = _MetaResult(q.result)
+        probe.cols[pats[0].subject] = 1
+        probe.width = 2
+        for k, pat in enumerate(pats):
+            assert_ec(pat.pred_type == int(AttrType.SID_t)
+                      and pat.predicate >= 0, ErrorCode.UNKNOWN_PATTERN,
+                      "batch steps must have const SID predicates")
+            if k > 0:
+                assert_ec(probe.col_of(pat.subject) is not None,
+                          ErrorCode.UNKNOWN_PATTERN,
+                          "batch steps must anchor on a bound column")
+            probe.bind(pat)
+
+    def execute_batch_many(self, q: SPARQLQuery, consts_list: list) -> list:
+        """K const-batches with as few device syncs as the active path
+        allows (the emulator's in-flight window). Applies the same guards
+        as execute_batch: planner-proved-empty classes answer instantly,
+        the merge path dispatches all K batches back-to-back and syncs
+        ONCE (run_batch_const_many), anything else degrades to a per-batch
+        loop — callers never need routing knowledge."""
+        self._check_batch_const(q)
+        if q.planner_empty and Global.enable_empty_shortcircuit:
+            return [np.zeros(len(c), dtype=np.int64) for c in consts_list]
+        if Global.enable_merge_join and self.merge.supports(q):
+            return self.merge.run_batch_const_many(q, consts_list)
+        return [self.execute_batch(q, c) for c in consts_list]
+
+    def execute_batch_mixed(self, jobs: list) -> list:
+        """One device flight across MULTIPLE const-start templates (the
+        cross-class window): jobs = [(query, consts), ...]. Planner-empty
+        jobs answer instantly; merge-supported jobs share ONE sync via
+        run_batch_const_mixed; the rest degrade to per-job execute_batch.
+        Returns per-job count arrays in input order."""
+        out: list = [None] * len(jobs)
+        mixed = []
+        for i, (q, consts) in enumerate(jobs):
+            self._check_batch_const(q)
+            if q.planner_empty and Global.enable_empty_shortcircuit:
+                out[i] = np.zeros(len(consts), dtype=np.int64)
+            elif Global.enable_merge_join and self.merge.supports(q):
+                mixed.append(i)
+            else:
+                out[i] = self.execute_batch(q, consts)
+        if mixed:
+            res = self.merge.run_batch_const_mixed([jobs[i] for i in mixed])
+            for i, r in zip(mixed, res):
+                out[i] = r
+        return out
+
+    def execute_batch_index(self, q: SPARQLQuery, B: int,
+                            slice_mode: bool = False) -> np.ndarray:
+        """Batched execution of an index-origin (heavy) query.
+
+        replicate mode: B independent full instances — the qid dimension
+        amortizes the end-of-chain device sync across B queries (the
+        reference's 'at batch' heavy throughput). slice mode: the index scan
+        is split into B contiguous slices (qid = slice), the single-card
+        analogue of fanning a heavy query out to num_servers x mt_factor
+        engines (sparql.hpp:98-108, 1064-1088); per-qid counts sum to the
+        query total. Returns per-qid result row counts (blind semantics).
+
+        ``q.mt_factor > 1`` pre-slices the index list to this copy's mt
+        range before batching (the heavy-lane split: one dispatch fans out
+        as mt_factor carrier copies; per-part counts sum to the full
+        query's total).
+        """
         pats = q.pattern_group.patterns
         self._check_batch_index(q)
         if q.planner_empty and Global.enable_empty_shortcircuit:
             return np.zeros(B, dtype=np.int64)
-        if Global.enable_merge_join:
-            return self.merge.run_batch_index(q, B)
+        if Global.enable_merge_join and self.merge.supports(q) \
+                and q.mt_factor <= 1 and not slice_mode:
+            # merge only for REPLICATE mode, where the shared sort amortizes
+            # over B copies; slice mode runs the chain once at 1/B
+            # granularity, and mt-sliced carriers need the index pre-slicing
+            return self.merge.run_batch_index(q, B, slice_mode)
         edges, real = self.dstore.index_list(pats[0].subject, pats[0].direction)
-        total0 = real * B
+        if q.mt_factor > 1:
+            lo, hi = _mt_slice(real, q.mt_factor, q.mt_tid)
+            edges, real = edges[lo:hi], hi - lo
+        total0 = real if slice_mode else real * B
         assert_ec(total0 <= self.cap_max, ErrorCode.UNKNOWN_PATTERN,
                   f"batch-index start ({total0:,} rows) exceeds "
                   f"table_capacity_max ({self.cap_max:,})")
 
-        def make_init(state: "_ChainState") -> None:
+        def make_init(state: "_ChainState", cap_override: dict) -> int:
+            # total0 <= cap_max was asserted above, so cap0 always suffices
+            # (the init step does not take part in the overflow retry)
             cap0 = K.next_capacity(max(total0, 1), self.cap_min, self.cap_max)
-            state.table, state.n = K.init_batch_index(edges, real, B=B,
-                                                      cap=cap0)
+            state.table, state.n = K.init_batch_index(
+                edges, real, B=B, cap=cap0, slice_mode=slice_mode)
             state.width = 2
             state.cols[pats[0].object] = 1
             state.est_rows = max(total0, 1)
+            return 1  # pattern 0 is consumed by the init
 
-        return self._run_batch_chain(q, B, make_init)
+        return self._run_batch_chain(q, B, make_init,
+                                     est_mult=1.0 if slice_mode else float(B))
 
     def _check_batch_index(self, q: SPARQLQuery) -> None:
+        """Shared validation for the index-origin batch entry points."""
         pats = q.pattern_group.patterns
         assert_ec(len(pats) > 0 and q.start_from_index()
                   and _is_index_start(pats[0]) and pats[0].object < 0,
@@ -433,25 +597,47 @@ class GPUEngine:
                           "batch steps must anchor on a bound column")
                 probe.bind(pat)
 
-    def _run_batch_chain(self, q: SPARQLQuery, B: int, make_init) -> np.ndarray:
+    def execute_batch_index_many(self, q: SPARQLQuery, B: int,
+                                 K_batches: int) -> list:
+        """K replicate-mode heavy batches with as few device syncs as the
+        active path allows (the heavy-class in-flight window) — same guard
+        structure as execute_batch_many."""
+        self._check_batch_index(q)
+        if q.planner_empty and Global.enable_empty_shortcircuit:
+            return [np.zeros(B, dtype=np.int64) for _ in range(K_batches)]
+        if Global.enable_merge_join and self.merge.supports(q):
+            return self.merge.run_batch_index_many(q, B, K_batches)
+        return [self.execute_batch_index(q, B) for _ in range(K_batches)]
+
+    def _run_batch_chain(self, q: SPARQLQuery, B: int, make_init,
+                         est_mult: float = 1.0) -> np.ndarray:
+        """The eager chain with a qid column: ``make_init(state,
+        cap_override)`` builds the start table and returns the first step
+        to dispatch; one host read at the end fetches the per-qid counts
+        and every step's total, and an overflow re-runs the chain at exact
+        capacities."""
         pats = q.pattern_group.patterns
+        step_est = {k: e * est_mult
+                    for k, e in self._chain_estimates(pats).items()}
         pins = [(p.predicate, p.direction) for p in pats if p.predicate > 0]
         self.dstore.pin(pins)
         try:
             if Global.gpu_enable_pipeline:
-                self.dstore.prefetch(pats[1:])  # pattern 0 is an index start
+                # skip an index-origin start: it consumes an index list
+                skip0 = q.start_from_index() and _is_index_start(pats[0])
+                self.dstore.prefetch(pats[1:] if skip0 else pats)
             cap_override: dict[int, int] = {}
             for _attempt in range(8):
                 state = _ChainState(q.result)
-                make_init(state)
-                for k in range(1, len(pats)):
+                state.step_est = step_est
+                first = make_init(state, cap_override)
+                for k in range(first, len(pats)):
                     pat = q.get_pattern(k)
                     self._dispatch_one(q, pat, k, state, cap_override,
                                        anchor_col=state.col_of(pat.subject))
                 counts = _qid_counts(state.table, state.n, B)
-                totals = torch.stack([t for (_, t, _) in state.totals]
-                                     ).tolist() if state.totals else []
-                host_counts = counts.cpu().numpy()
+                [(host_counts, totals)] = K.fetch_counts(
+                    [(counts, [t for (_, t, _) in state.totals])])
                 over = False
                 for (s, _, c), t in zip(state.totals, totals):
                     if t > c:
@@ -470,9 +656,45 @@ class GPUEngine:
         finally:
             self.dstore.unpin(pins)
 
+    def suggest_index_batch(self, q: SPARQLQuery, cap: int = 1024) -> int:
+        """Largest power-of-two B (<= cap) whose replicated batch is estimated
+        to fit the capacity ceiling at every chain step."""
+        pats = q.pattern_group.patterns
+        if not pats or not q.start_from_index():
+            return 1
+        ests = self._chain_estimates(pats)
+        if ests:
+            peak = max(max(ests.values()),
+                       len(self.g.get_index(pats[0].subject,
+                                            pats[0].direction)), 1)
+        else:
+            peak = est = max(len(self.g.get_index(pats[0].subject,
+                                                  pats[0].direction)), 1)
+            bound = {pats[0].object}
+            for pat in pats[1:]:
+                if pat.object < 0 and pat.object not in bound \
+                        and pat.subject in bound:
+                    # a genuine expansion; member/k2k steps only shrink
+                    est = int(est * self._fanout(pat)) or 1
+                    peak = max(peak, est)
+                    bound.add(pat.object)
+        B = 1
+        while B < cap and 2 * B * peak * self.EST_SAFETY <= self.cap_max:
+            B *= 2
+        return B
+
     def _fanout(self, pat, seg=None) -> float:
-        """Per-row expansion factor estimate: segment average degree x2 (the
-        JAX package's stats-free rule; planner stats are not ported yet)."""
+        """Per-row expansion factor estimate — the single source for both
+        capacity estimation (_estimate_rows) and batch sizing, so the two
+        can never drift. Stats-based when available (pred edges / anchor
+        population, x1.5 safety), else segment average degree x2."""
+        if self.stats is not None:
+            pe = self.stats.pred_edges.get(pat.predicate)
+            if pe:
+                anchors = (self.stats.distinct_subj if pat.direction == OUT
+                           else self.stats.distinct_obj
+                           ).get(pat.predicate, 0) or 1
+                return pe / anchors * 1.5
         if seg is not None:
             return max(1.0, seg.num_edges / max(seg.num_keys, 1)) * 2
         host = self.g.segments.get((pat.predicate, pat.direction))
@@ -480,9 +702,16 @@ class GPUEngine:
             return 1.0
         return max(1.0, host.num_edges / max(len(host.keys), 1)) * 2
 
-    def _estimate_rows(self, state, pat, seg) -> int:
-        """Expected output rows of an expansion step. A wrong estimate costs
-        one chain retry, never correctness."""
+    def _estimate_rows(self, state, pat, seg, step=None) -> int:
+        """Expected output rows of an expansion step.
+
+        Prefers the planner's joint-type-table per-step estimate
+        (state.step_est) with EST_SAFETY headroom; falls back to the shared
+        _fanout estimate. A wrong estimate costs one chain retry, never
+        correctness."""
+        se = state.step_est.get(step) if step is not None else None
+        if se is not None:
+            return max(min(int(se * self.EST_SAFETY), self.cap_max), 1)
         est = int(min(state.est_rows * self._fanout(pat, seg), self.cap_max))
         return max(est, 1)
 
@@ -525,6 +754,14 @@ def _is_index_start(pat) -> bool:
     return pat.predicate in (PREDICATE_ID, TYPE_ID)
 
 
+def _mt_slice(total: int, mt_factor: int, mt_tid: int):
+    mt = mt_tid % mt_factor
+    length = total // mt_factor
+    lo = mt * length
+    hi = (mt + 1) * length if mt != mt_factor - 1 else total
+    return lo, hi
+
+
 class _MetaResult:
     """Host-side shadow of column bindings for chain planning (no device data)."""
 
@@ -562,6 +799,7 @@ class _ChainState:
         self.new_cols: list = []
         self.totals: list = []  # (step, device_total, cap)
         self.est_rows = 1
+        self.step_est: dict = {}  # {step: planner row estimate}
         self.local_var = 0
 
     def col_of(self, var: int):
@@ -631,5 +869,4 @@ def _qid_counts(table, n, B: int):
     """Per-query row counts from the qid column (device-side bincount)."""
     C = table.shape[1]
     live = torch.arange(C, dtype=torch.int32, device=table.device) < n
-    qid = torch.where(live, table[0], B)
-    return torch.bincount(qid.long(), minlength=B + 1)[:B]
+    return K.qid_bincount(torch.where(live, table[0], B), B)

@@ -36,10 +36,21 @@ I32 = torch.int32
 
 
 def as_count(n, device) -> torch.Tensor:
-    """A live-row count as the 0-d int32 device tensor the kernels take."""
+    """A live-row count as the 0-d int32 device tensor the kernels take
+    (from a host int, a fill on the card: no copy, so no host sync)."""
     if isinstance(n, torch.Tensor):
         return n.to(device=device, dtype=I32).reshape(())
-    return torch.tensor(int(n), dtype=I32, device=device)
+    return torch.full((), int(n), dtype=I32, device=device)
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host numpy table on ``device``. To the card it goes through pinned
+    memory asynchronously, so the host does not wait for the work already
+    queued (a pageable copy synchronizes the stream)."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -314,27 +325,47 @@ def compact(table, keep):
     return out, n
 
 
+def _gather_clamped(edge_list, pos):
+    """edge_list[clip(pos, 0, E - 1)]; zeros for an empty list (an mt
+    carrier's share of a short index), where the JAX gather reads no row."""
+    if edge_list.shape[0] == 0:
+        return torch.zeros_like(pos)
+    return edge_list[pos.clamp(0, edge_list.shape[0] - 1)]
+
+
 def init_from_list(edge_list, real_len: int, cap: int):
     """index/const start: one-row table [1, cap] from an edge list."""
     j = _arange(cap, edge_list)
-    E = edge_list.shape[0]
-    vals = edge_list[j.clamp(0, E - 1)]
+    vals = _gather_clamped(edge_list, j)
     valid = j < real_len
     table = torch.where(valid, vals, 0)[None, :]
     return table, as_count(min(real_len, cap), edge_list.device)
 
 
-def init_batch_index(edge_list, real_len: int, B: int, cap: int):
-    """Batched index-origin start in replicate mode: [2, cap] table (qid
-    row, value row) holding B full copies of the index list — B independent
-    instances of the query."""
+def init_batch_index(edge_list, real_len: int, B: int, cap: int,
+                     slice_mode: bool = False):
+    """Batched index-origin start: [2, cap] table with a qid row.
+
+    replicate mode (slice_mode=False): B full copies of the index list —
+    B independent instances of the query (throughput batching; amortizes the
+    end-of-chain sync across B queries).
+    slice mode (slice_mode=True): the index split into B contiguous slices,
+    qid = slice id — the reference's mt_factor index-scan slicing
+    (sparql.hpp:98-108) as a batch dimension; per-qid counts sum to the
+    full query's total.
+    """
     j = _arange(cap, edge_list)
-    E = edge_list.shape[0]
-    r = max(real_len, 1)
-    qid = torch.div(j, r, rounding_mode="floor")
-    pos = j - qid * r
-    total = real_len * B
-    vals = edge_list[pos.clamp(0, E - 1)]
+    if slice_mode:
+        per = max((real_len + B - 1) // B, 1)
+        qid = torch.clamp(torch.div(j, per, rounding_mode="floor"), max=B - 1)
+        pos = j
+        total = real_len
+    else:
+        r = max(real_len, 1)
+        qid = torch.div(j, r, rounding_mode="floor")
+        pos = j - qid * r
+        total = real_len * B
+    vals = _gather_clamped(edge_list, pos)
     valid = j < total
     table = torch.stack([torch.where(valid, qid, 0),
                          torch.where(valid, vals, 0)])
@@ -532,14 +563,51 @@ def merge_compact(vals, parent, keep, n, cap_out: int):
             torch.clamp(total, max=cap_out), total)
 
 
-def qid_counts_pos0(pos0, n, live, B: int, r: int):
-    """Per-qid surviving row counts from composed space-0 positions in
-    replicate mode: qid = pos0 // r (r = real index length)."""
+def qid_counts_pos0(pos0, n, live, B: int, r: int, slice_mode: bool = False):
+    """Per-qid surviving row counts from composed space-0 positions.
+
+    replicate mode: qid = pos0 // r (r = real index length); slice mode:
+    qid = min(pos0 // r, B-1) (r = ceil(len / B)). Blind-mode finish."""
     C = pos0.shape[0]
     ok = (_arange(C, pos0) < n) & live
     qid = torch.div(pos0, max(r, 1), rounding_mode="floor")
-    qid = torch.where(ok, qid, B)
-    return torch.bincount(qid.long(), minlength=B + 1)[:B]
+    if slice_mode:
+        qid = torch.clamp(qid, max=B - 1)
+    return qid_bincount(torch.where(ok, qid, B), B)
+
+
+_QID_LANES = 128  # private counters a qid in qid_bincount
+
+
+def qid_bincount(qid, B: int):
+    """jnp.bincount(qid, length=B + 1)[:B] without a host read: values
+    outside [0, B) are dropped. (torch.bincount on a CUDA tensor reads the
+    input's maximum back to the host to size its output.) Each qid counts
+    into _QID_LANES private slots, chosen by row, which are then summed:
+    one slot a qid would serialize every row of a qid on one atomic."""
+    idx = torch.where((qid >= 0) & (qid < B), qid.long(), B)
+    lane = torch.arange(qid.shape[0], device=qid.device) % _QID_LANES
+    out = torch.zeros((B + 1) * _QID_LANES, dtype=torch.int64,
+                      device=qid.device)
+    out.index_add_(0, idx * _QID_LANES + lane, torch.ones_like(idx))
+    return out.view(B + 1, _QID_LANES).sum(1)[:B]
+
+
+def fetch_counts(parts: list) -> list:
+    """One device-to-host read for a whole flight: ``parts`` holds, per
+    chain, its per-qid counts and its list of 0-d step totals; returns
+    [(counts as numpy int64, totals as ints), ...] in the same order."""
+    flat = [c.reshape(-1).long() for c, _ in parts]
+    flat += [t.reshape(1).long() for _, tot in parts for t in tot]
+    host = torch.cat(flat).cpu().numpy()
+    out, base, off = [], 0, sum(c.numel() for c, _ in parts)
+    for c, tot in parts:
+        n = c.numel()
+        out.append((host[base:base + n].copy(),
+                    [int(x) for x in host[off:off + len(tot)]]))
+        base += n
+        off += len(tot)
+    return out
 
 
 def next_capacity(total: int, cap_min: int = 1024,

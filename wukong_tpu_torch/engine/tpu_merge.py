@@ -1,13 +1,14 @@
-"""Sort-merge batch executor — the device chain for replicate index batches.
+"""Sort-merge batch executor — the device chain for batched queries.
 
-The port of the JAX package's engine/tpu_merge.py (``run_batch_index`` in
-replicate mode). The chain keeps, per expansion level, only (vals, parent):
-`vals` is the new column in the current row space, `parent` maps each row to
-its producer one level down (the reference's result_table regrow,
-query.hpp:536-558, priced lazily). A column is materialized only when a later
-step anchors on it; membership filters fold into the NEXT expand's degree
-vector instead of paying a compaction, unless a learned capacity says that
-shrinking the capacity class wins.
+The port of the JAX package's engine/tpu_merge.py: ``execute_batch`` (const
+starts), ``execute_batch_index`` (index starts, replicate or slice mode) and
+their in-flight windows. The chain keeps, per expansion level, only (vals,
+parent): `vals` is the new column in the current row space, `parent` maps
+each row to its producer one level down (the reference's result_table
+regrow, query.hpp:536-558, priced lazily). A column is materialized only when
+a later step anchors on it; membership filters fold into the NEXT expand's
+degree vector instead of paying a compaction, unless the planner estimate or
+a learned capacity says that shrinking the capacity class wins.
 
 Each expand chooses one of three arms on host metadata (``_dispatch``):
 - probe: the frontier is far smaller than the segment's key set — K1 probes
@@ -15,12 +16,18 @@ Each expand chooses one of three arms on host metadata (``_dispatch``):
 - stream: the expansion is dense in the segment — K2 / K3 stream the edge
   array (``tpu_stream.stream_expand``);
 - merge: otherwise the sort-merge lookup + scatter/gather emit.
-Capacity overflow: true totals ride along, one sync at the end, retry with
-exact classes; a per-(query, B) capacity memo makes the retry a one-time
-cost per process.
+Capacity overflow: true totals ride along, one host read at the end, retry
+with exact classes; a per-(query, B, mode) capacity memo, learned downward
+too, makes the retry a one-time cost per process. A flight (``_flight``)
+dispatches K chains back to back and reads all their counts and totals in
+one transfer.
 """
 
 from __future__ import annotations
+
+import ast
+import json
+import os
 
 import numpy as np
 import torch
@@ -105,9 +112,46 @@ class MergeExecutor:
     PROBE_LOOKUP_FACTOR = 16
 
     def __init__(self, engine):
-        self.eng = engine  # GPUEngine: dstore, g, cap bounds
+        self.eng = engine  # GPUEngine: dstore, g, stats, cap bounds
         self._cap_memo = LRUCache(4096)  # (patterns key, B, mode) -> caps
         self.total_retries = 0  # cumulative overflow-retry chains
+
+    # ------------------------------------------------------------------
+    def load_cap_memo(self, path: str) -> None:
+        """Seed the capacity memo from a JSON file written by a previous
+        process, so a process that re-runs a batch it ran before pays no
+        overflow-retry chain. A missing or corrupt file only costs the
+        retries it would have saved."""
+        try:
+            with open(path) as f:
+                raw = json.load(f)
+            for k, caps in raw.items():
+                self._cap_memo.put(ast.literal_eval(k), {
+                    int(s): int(c) for s, c in caps.items()})
+        except (OSError, ValueError, SyntaxError, AttributeError):
+            pass
+
+    def save_cap_memo(self, path: str) -> None:
+        """Merge this process's capacity memo into the JSON file at path
+        (written atomically through a temporary file)."""
+        try:
+            merged = {}
+            if os.path.exists(path):
+                with open(path) as f:
+                    merged = json.load(f)
+            merged.update({repr(k): v for k, v in self._cap_memo.items()})
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(merged, f)
+            os.replace(tmp, path)
+        except (OSError, ValueError):
+            pass
+
+    # ------------------------------------------------------------------
+    def supports(self, q: SPARQLQuery) -> bool:
+        """Merge scope == the batch paths' validated shapes; VERSATILE
+        (predicate vars) and attr patterns are out (host handles them)."""
+        return all(p.predicate >= 0 for p in q.pattern_group.patterns)
 
     @staticmethod
     def _key(pats, B: int, mode: str):
@@ -115,8 +159,61 @@ class MergeExecutor:
                       for p in pats), B, mode)
 
     # ------------------------------------------------------------------
-    def run_batch_index(self, q: SPARQLQuery, B: int) -> np.ndarray:
-        """B replicate instances of an index-origin chain; per-qid counts."""
+    def run_batch_index(self, q: SPARQLQuery, B: int,
+                        slice_mode: bool = False) -> np.ndarray:
+        """B instances of an index-origin chain (replicate: B full copies;
+        slice: the index cut into B contiguous slices); per-qid counts."""
+        eng = self.eng
+        pats = q.pattern_group.patterns
+        edges, real = eng.dstore.index_list(pats[0].subject, pats[0].direction)
+        if slice_mode:
+            r = max((real + B - 1) // B, 1)
+            total0 = real
+        else:
+            r = max(real, 1)
+            total0 = real * B
+        assert_ec(total0 <= eng.cap_max, ErrorCode.UNKNOWN_PATTERN,
+                  f"batch-index start ({total0:,} rows) exceeds "
+                  f"table_capacity_max ({eng.cap_max:,})")
+
+        def init(state: _MergeState) -> None:
+            self._init_index(state, pats, edges, real, B, slice_mode, total0)
+
+        return self._run(q, pats, init, B, r, slice_mode,
+                         mode="slice" if slice_mode else "rep")
+
+    def _init_index(self, state: _MergeState, pats, edges, real: int, B: int,
+                    slice_mode: bool, total0: int) -> None:
+        eng = self.eng
+        cap0 = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
+        if slice_mode:
+            vals, n = K.init_from_list(edges, real, cap0)
+        else:
+            tab, n = K.init_batch_index(edges, real, B=B, cap=cap0)
+            vals = tab[1:2]
+        state.levels.append(_Level(pats[0].object, vals[0], None))
+        state.var_level[pats[0].object] = 0
+        state.n = n
+        state.est_rows = max(total0, 1)
+
+    def run_batch_const(self, q: SPARQLQuery,
+                        consts: np.ndarray) -> np.ndarray:
+        pats = q.pattern_group.patterns
+        B = len(consts)
+
+        def init(state: _MergeState) -> None:
+            # the start consts pre-bind step 0's subject only
+            self._init_const(state, pats, consts)
+
+        return self._run(q, pats, init, B, 1, False, mode="const")
+
+    def run_batch_index_many(self, q: SPARQLQuery, B: int,
+                             K_batches: int) -> list:
+        """Dispatch K replicate-mode index batches back-to-back and read
+        ONCE — the heavy-class in-flight window. Each batch is an
+        independent chain at the same learned capacities, so throughput
+        scales with K without growing any chain's capacity class. Batches
+        that still overflow re-run individually (slow path)."""
         eng = self.eng
         pats = q.pattern_group.patterns
         edges, real = eng.dstore.index_list(pats[0].subject, pats[0].direction)
@@ -124,22 +221,140 @@ class MergeExecutor:
         assert_ec(total0 <= eng.cap_max, ErrorCode.UNKNOWN_PATTERN,
                   f"batch-index start ({total0:,} rows) exceeds "
                   f"table_capacity_max ({eng.cap_max:,})")
-        memo_key = self._key(pats, B, "rep")
+
+        def dispatch_one(_spec, folds):
+            state = _MergeState()
+            self._init_index(state, pats, edges, real, B, False, total0)
+            return self._dispatch_chain(pats, state, folds, True, B, "rep",
+                                        max(real, 1))
+
+        return self._run_many(pats, True, list(range(K_batches)),
+                              dispatch_one,
+                              lambda _spec: self.run_batch_index(q, B, False))
+
+    def run_batch_const_many(self, q: SPARQLQuery,
+                             consts_list: list) -> list:
+        """Dispatch K const-batches back-to-back and read ONCE — the
+        open-loop emulator's in-flight window (proxy.hpp:477-525) on a
+        device: the end-of-chain sync amortizes over every batch in the
+        window. Requires learned capacities (a prior run_batch_const);
+        batches that still overflow re-run individually."""
+        pats = q.pattern_group.patterns
+        return self._run_many(
+            pats, False, consts_list,
+            lambda consts, folds: self._const_chain(pats, consts, folds),
+            lambda consts: self.run_batch_const(q, consts))
+
+    def run_batch_const_mixed(self, jobs: list) -> list:
+        """ONE device flight spanning MULTIPLE const-start templates — the
+        cross-CLASS in-flight window (proxy.hpp:477-525's open loop
+        interleaves classes freely). Segments shared between templates are
+        pinned/staged once. Requires learned capacities per (query, B) —
+        batches that still overflow re-run individually through
+        run_batch_const."""
+        per = []
+        pin_set = []
+        for q, consts in jobs:
+            pats = q.pattern_group.patterns
+            folds = self._plan_folds(pats, index_mode=False)
+            pin_set.extend(self._chain_pins(pats, folds, index_mode=False))
+            per.append((q, consts, pats, folds))
+        return self._flight(
+            pin_set,
+            [lambda c=c, p=p, f=f: self._const_chain(p, c, f)
+             for (_q, c, p, f) in per],
+            [lambda q=q, c=c: self.run_batch_const(q, c)
+             for (q, c, _p, _f) in per])
+
+    def _const_chain(self, pats, consts, folds):
+        """A flight's const-start chain: (counts, totals)."""
+        state = _MergeState()
+        self._init_const(state, pats, consts)
+        return self._dispatch_chain(pats, state, folds, False, len(consts),
+                                    "const", 1)
+
+    def _dispatch_chain(self, pats, state: _MergeState, folds,
+                        index_mode: bool, B: int, mode: str, r: int):
+        """A flight's chain at the memoized capacities (no planner
+        estimates: learned classes or the fanout rule): (counts, totals)."""
+        cap_override = dict(self._cap_memo.get(self._key(pats, B, mode), {}))
+        for k, pat, _kind, fold in self.classify(pats, folds, index_mode):
+            self._dispatch(pat, k, state, cap_override, {}, fold)
+        counts = K.qid_counts_pos0(state.pos0(), state.n, state.live_mask(),
+                                   B=B, r=r)
+        return counts, state.totals
+
+    def _flight(self, pin_set, thunks, slows) -> list:
+        """THE single in-flight-window protocol: pin, dispatch every chain
+        back-to-back, read the whole flight in ONE transfer, redo
+        overflowing entries via their slow thunk (which retries internally
+        and re-learns capacities for later windows)."""
+        eng = self.eng
+        eng.dstore.pin(pin_set)
+        try:
+            flight = [t() for t in thunks]
+            host = K.fetch_counts(
+                [(c, [t for (_, t, _) in tot]) for c, tot in flight])
+        finally:
+            eng.dstore.unpin(pin_set)
+        out = []
+        for slow, (host_counts, totals), (_, tot) in zip(slows, host, flight):
+            if any(t > c for (_, _, c), t in zip(tot, totals)):
+                out.append(slow())
+            else:
+                out.append(host_counts)
+        return out
+
+    def _run_many(self, pats, index_mode: bool, specs: list, dispatch_one,
+                  slow_one) -> list:
+        """Single-template in-flight window over the shared _flight
+        protocol: one pin set, one folds plan, K batches of one chain."""
+        folds = self._plan_folds(pats, index_mode=index_mode)
+        pins = self._chain_pins(pats, folds, index_mode=index_mode)
+        return self._flight(
+            pins,
+            [lambda spec=spec: dispatch_one(spec, folds) for spec in specs],
+            [lambda spec=spec: slow_one(spec) for spec in specs])
+
+    def _init_const(self, state: _MergeState, pats, consts) -> None:
+        eng = self.eng
+        B = len(consts)
+        cap0 = K.next_capacity(B, eng.cap_min)
+        pad = np.zeros(cap0, dtype=np.int32)
+        pad[:B] = consts
+        state.levels.append(_Level(pats[0].subject,
+                                   K.upload(pad, eng.device), None))
+        state.var_level[pats[0].subject] = 0
+        state.n = K.as_count(B, eng.device)
+        state.est_rows = B
+
+    # ------------------------------------------------------------------
+    def _run(self, q, pats, init, B: int, r: int, slice_mode: bool,
+             mode: str) -> np.ndarray:
+        """One batch chain (mode "const", "rep" or "slice") with the
+        overflow retry; the capacities it ends on, learned downward too,
+        are memoized for the next call of the same (query, B, mode)."""
+        eng = self.eng
+        index_mode = mode != "const"
+        memo_key = self._key(pats, B, mode)
         cap_override = dict(self._cap_memo.get(memo_key, {}))
-        folds = self._plan_folds(pats)
-        pins = self._chain_pins(pats, folds)
+        step_est = self._step_est(pats, B, mode)
+        folds = self._plan_folds(pats, index_mode=index_mode)
+        pins = self._chain_pins(pats, folds, index_mode=index_mode)
         eng.dstore.pin(pins)
         try:
             for _attempt in range(8):
                 state = _MergeState()
-                self._init_index(state, pats, edges, real, B, total0)
-                for k, pat, _kind, fold in self.classify(pats, folds):
-                    self._dispatch(pat, k, state, cap_override, fold)
+                init(state)
+                for k, pat, _kind, fold in self.classify(pats, folds,
+                                                         index_mode):
+                    self._dispatch(pat, k, state, cap_override, step_est,
+                                   fold)
                 counts = K.qid_counts_pos0(state.pos0(), state.n,
-                                           state.live_mask(), B=B, r=real)
-                totals = (torch.stack([t for (_, t, _) in state.totals])
-                          .tolist() if state.totals else [])
-                host_counts = counts.cpu().numpy()
+                                           state.live_mask(), B=B, r=r,
+                                           slice_mode=slice_mode)
+                [(host_counts, totals)] = K.fetch_counts(
+                    [(counts, [t for (_, t, _) in state.totals])])
                 over = False
                 for (s, _, c), t in zip(state.totals, totals):
                     exact = K.next_capacity(t, eng.cap_min, eng.cap_max)
@@ -157,33 +372,27 @@ class MergeExecutor:
                 if not over:
                     self._cap_memo.put(memo_key, dict(cap_override))
                     return host_counts
-                self.total_retries += 1
+                self.total_retries += 1  # one re-run of the whole chain
             raise WukongError(ErrorCode.UNKNOWN_PATTERN,
                               "batch capacity retry limit exceeded")
         finally:
             eng.dstore.unpin(pins)
 
-    def _init_index(self, state: _MergeState, pats, edges, real: int, B: int,
-                    total0: int) -> None:
-        eng = self.eng
-        cap0 = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
-        tab, n = K.init_batch_index(edges, real, B=B, cap=cap0)
-        state.levels.append(_Level(pats[0].object, tab[1], None))
-        state.var_level[pats[0].object] = 0
-        state.n = n
-        state.est_rows = max(total0, 1)
-
     @staticmethod
-    def classify(pats, folds):
+    def classify(pats, folds, index_mode: bool):
         """THE single classification of a planned chain's executable steps:
-        yields (step, pat, kind, fold) for every non-folded step after the
-        index start, kind in {"expand", "k2k", "k2c"}, walking the bound set
-        exactly the way the executor binds it."""
+        yields (step, pat, kind, fold) for every non-folded step, kind in
+        {"expand", "k2k", "k2c"}, walking the bound set exactly the way the
+        executor binds it. Pins and the dispatch loops derive from this one
+        walk."""
         if not pats:
             return
-        vars_bound = {pats[0].object}
+        vars_bound = {pats[0].object if index_mode else pats[0].subject}
+        # index mode: init consumes pattern 0; const mode: step 0 runs as a
+        # real expand below
+        first = 1 if index_mode else 0
         skip = folds.get("skip", ())
-        for k in range(1, len(pats)):
+        for k in range(first, len(pats)):
             pat = pats[k]
             end = pat.object
             if k in skip:
@@ -213,42 +422,47 @@ class MergeExecutor:
         return (self.eng.dstore.host_num_edges(pid, d)
                 >= cap_in * self._lookup_factor())
 
-    def walk_caps(self, q: SPARQLQuery, B: int):
-        """The chain walk with capacity evolution, for reporting: yields
-        (step, kind, cap_in, cap_out) mirroring _dispatch's transitions
-        (memo-first, else estimate-driven)."""
+    def _walk_caps(self, pats, folds, index_mode: bool, B: int, mode: str):
+        """THE shared chain walk with capacity evolution: yields
+        (step, pat, kind, fold, cap_in, cap_out) mirroring _dispatch's
+        transitions exactly (same _expand_est/_expand_cap/_member_cap
+        helpers, memo-first). cap_out == cap_in for non-compacting steps."""
         eng = self.eng
-        pats = q.pattern_group.patterns
-        folds = self._plan_folds(pats)
-        memo = self._cap_memo.get(self._key(pats, B, "rep"), {})
-        p0 = pats[0]
-        total0 = len(eng.g.get_index(p0.subject, p0.direction)) * B
-        cap = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
-        est_rows = float(max(total0, 1))
-        for k, pat, kind, fold in self.classify(pats, folds):
+        memo = self._cap_memo.get(self._key(pats, B, mode), {})
+        step_est = self._step_est(pats, B, mode)
+        if index_mode:
+            p0 = pats[0]
+            real = len(eng.g.get_index(p0.subject, p0.direction))
+            total0 = real if mode == "slice" else real * B
+            cap = K.next_capacity(max(total0, 1), eng.cap_min, eng.cap_max)
+            est_rows = float(max(total0, 1))
+        else:
+            cap = K.next_capacity(B, eng.cap_min)
+            est_rows = float(B)
+        for k, pat, kind, fold in self.classify(pats, folds, index_mode):
             if kind == "expand":
-                est = self._expand_est(pat, est_rows)
+                est = self._expand_est(pat, k, fold, step_est, est_rows)
                 cap_out = self._expand_cap(k, est, memo)
                 est_rows = max(min(est, cap_out), 1.0)
-                yield k, kind, cap, cap_out
+                yield k, pat, kind, fold, cap, cap_out
                 cap = cap_out
             else:
-                cap_new = memo.get(k)
+                cap_new = self._member_cap(k, step_est, memo)
                 if cap_new is not None and cap_new < cap:
-                    yield k, kind, cap, cap_new
+                    yield k, pat, kind, fold, cap, cap_new
                     cap = cap_new
                     est_rows = max(min(est_rows, cap_new), 1.0)
                 else:
-                    yield k, kind, cap, cap
+                    yield k, pat, kind, fold, cap, cap
 
     @classmethod
-    def _chain_pins(cls, pats, folds) -> list:
+    def _chain_pins(cls, pats, folds, index_mode: bool) -> list:
         """The DeviceStore keys the planned chain may stage: folded expands
         use filtered segments, k2c membership uses const lists; expands pin
         both the merge and the bucket form (the sort-vs-probe decision runs
         on the live capacity)."""
         pins = []
-        for _k, pat, kind, fold in cls.classify(pats, folds):
+        for _k, pat, kind, fold in cls.classify(pats, folds, index_mode):
             pid, d, end = int(pat.predicate), int(pat.direction), pat.object
             if kind == "expand" and fold is not None:
                 fkey = fold_key(fold[0])
@@ -261,7 +475,7 @@ class MergeExecutor:
         return pins
 
     @staticmethod
-    def _plan_folds(pats) -> dict:
+    def _plan_folds(pats, index_mode: bool = True) -> dict:
         """Fold k2c membership steps into their producing expand: the
         `(?v, fp, fd, const)` steps on a variable an expand binds become edge
         pre-filtering of that expand's segment (conjunctive semantics make
@@ -272,8 +486,10 @@ class MergeExecutor:
         bound: set = set()
         if pats:
             bound.add(pats[0].subject)
-            # the init consumes pattern 0 and pre-binds its object
-            if pats[0].object < 0:
+            # index mode: init consumes pattern 0 and pre-binds its object
+            # (a step-0 fold would never execute). const mode: step 0 runs
+            # as a real expand, so its object must stay foldable.
+            if index_mode and pats[0].object < 0:
                 bound.add(pats[0].object)
         for k, pat in enumerate(pats):
             is_expand = (pat.predicate >= 0 and pat.object < 0
@@ -290,6 +506,9 @@ class MergeExecutor:
                 nxt = pats[j]
                 if (nxt.subject == v and nxt.predicate >= 0
                         and nxt.object > 0 and j not in skip):
+                    # conjunctive semantics: ANY later k2c on v folds into
+                    # the producing expand; only a CONSECUTIVE run's last
+                    # step keeps a meaningful post-filter row estimate
                     fl.append((nxt.predicate, int(nxt.direction),
                                nxt.object))
                     skip.add(j)
@@ -303,31 +522,63 @@ class MergeExecutor:
         return folds
 
     # ------------------------------------------------------------------
-    # the capacity-transition policy (shared by _dispatch and walk_caps)
-    def _expand_est(self, pat, est_rows: float) -> float:
-        """Live-row estimate for an expand step, fanout-propagated."""
-        return est_rows * self.eng._fanout(pat)
+    # THE single capacity-transition policy, shared by _dispatch (what the
+    # executor allocates) and _walk_caps (what is reported)
+    def _step_est(self, pats, B: int, mode: str) -> dict:
+        """The planner's per-step row estimates for the whole batch: B
+        instances' worth, except in slice mode (one query cut in B)."""
+        mult = 1.0 if mode == "slice" else float(B)
+        return {k: e * mult
+                for k, e in self.eng._chain_estimates(pats).items()}
 
-    def _expand_cap(self, step: int, est: float, cap_override) -> int:
+    def _expand_est(self, pat, step: int, fold, step_est: dict,
+                    est_rows: float) -> float:
+        """Live-row estimate for an expand step: the planner's (post-fold)
+        step estimate when present, else fanout-propagated."""
+        est = step_est.get(fold[1] if fold is not None else step)
+        if est is None:
+            est = est_rows * self.eng._fanout(pat)
+        return est
+
+    def _expand_cap(self, step: int, est: float, cap_override: dict) -> int:
+        """Output capacity class of an expand: learned/memoized first, else
+        safety-margined estimate."""
         eng = self.eng
         return cap_override.get(step) or K.next_capacity(
             max(int(min(est * eng.EST_SAFETY, eng.cap_max)), eng.cap_min),
             eng.cap_min, eng.cap_max)
 
+    def _member_cap(self, step: int, step_est: dict,
+                    cap_override: dict) -> int | None:
+        """Post-membership compaction capacity (None = defer the filter)."""
+        eng = self.eng
+        cap_new = cap_override.get(step)
+        if cap_new is None:
+            se = step_est.get(step)
+            if se is not None:
+                cap_new = K.next_capacity(
+                    max(int(se * eng.EST_SAFETY), eng.cap_min),
+                    eng.cap_min, eng.cap_max)
+        return cap_new
+
     # ------------------------------------------------------------------
     def _dispatch(self, pat, step: int, state: _MergeState,
-                  cap_override: dict, fold_filters=None) -> None:
+                  cap_override: dict, step_est: dict,
+                  fold_filters=None) -> None:
         eng = self.eng
         dev = eng.device
         start, pid, d, end = (pat.subject, pat.predicate, pat.direction,
                               pat.object)
         if start not in state.var_level:
+            # batch validation anchors every step on a bound column (a
+            # const-batch start const is bound at level 0)
             raise WukongError(ErrorCode.UNKNOWN_PATTERN,
                               "merge chain step lacks a bound anchor")
         cur = state.materialize(start)
 
         e_known = end < 0 and end in state.var_level
         if end < 0 and not e_known:  # expand
+            # sort-vs-probe lookup dispatch on the LIVE frontier capacity
             use_probe = self._probe_lookup_wins(state.cap, pid, d)
             if use_probe:
                 seg = (eng.dstore.filtered_segment(pid, d, fold_filters[0])
@@ -345,7 +596,11 @@ class MergeExecutor:
                 state.n = K.as_count(0, dev)
                 state.live = None
                 return
-            est = self._expand_est(pat, state.est_rows)
+            # folded filters make the POST-filter estimate (the last folded
+            # step's) the capacity driver; a live-row estimate, never a
+            # capacity (capacity compounds geometrically)
+            est = self._expand_est(pat, step, fold_filters, step_est,
+                                   state.est_rows)
             cap_out = self._expand_cap(step, est, cap_override)
             state.est_rows = max(min(est, cap_out), 1.0)
             if use_probe:
@@ -400,7 +655,7 @@ class MergeExecutor:
             else:
                 keep = K.merge_member_list(rev, real, cur, state.n,
                                            state.live_mask())
-        cap_new = cap_override.get(step)
+        cap_new = self._member_cap(step, step_est, cap_override)
         if cap_new is not None and cap_new < state.cap:
             top = state.levels[-1]
             parent = top.parent if top.parent is not None else torch.arange(

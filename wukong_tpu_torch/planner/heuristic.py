@@ -1,5 +1,5 @@
-"""Greedy planner (the port's only planner; the cost-based optimizer is not
-ported yet).
+"""Greedy fallback planner (used until/unless the cost-based optimizer,
+planner/optimizer.py, runs).
 
 Produces a valid execution plan: orders patterns so every step starts from a
 CONST or KNOWN endpoint, orienting directions (and rewriting the first pattern

@@ -1,0 +1,529 @@
+"""Type-centric cost-based query optimizer.
+
+Mirrors the reference Planner's structure (core/planner.hpp:218-874): DFS
+enumeration of pattern orderings with branch-and-bound on estimated cost,
+cardinalities derived from the type-centric statistics (stats.py), index-origin
+rewriting of the chosen start pattern (the dummy __PREDICATE__ / rdf:type
+pattern, planner.hpp:1647-1679), and a final fallback to the greedy heuristic
+when estimation fails.
+
+Cardinality model: the reference's **type table** — the JOINT distribution of
+variable types as rows of (count, type-per-bound-var) (planner.hpp type_table,
+stats.hpp:46-75). Each step transforms the table:
+
+- expansion: every row splits by the anchor type's fine_type neighbor
+  distribution (planner.hpp add_type_table rows);
+- a type filter keeps exactly the rows whose anchor type contains the target
+  — correlations between variables survive, which is what the earlier
+  per-var-marginal model lost (it admitted ~3x misestimates on q1/q7);
+- membership steps scale each row by an edge-density selectivity conditioned
+  on BOTH endpoint types.
+
+Rows are pruned to a bounded table (mass-preserving rescale) the way the
+reference merges rare types (stats.hpp merge_type). Cost constants play the
+role of planner.hpp:23-29 (AA_full/AA_early/BB_ifor/CC_*), retuned for the
+TPU kernel profile where expansion rows dominate and membership filters are
+comparatively cheap.
+
+The port's copy of the JAX package's planner/optimizer.py: the same plans,
+step for step, and the same estimates from the same statistics (its dicts
+are walked in the same insertion order, so float sums and tie-breaks agree).
+The execution-strategy choosers (``choose_strategy``, ``choose_join_route``)
+wait for the port of the tensor-join engine.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass
+
+from wukong_tpu_torch.planner.heuristic import heuristic_plan
+from wukong_tpu_torch.planner.stats import Stats
+from wukong_tpu_torch.sparql.ir import Pattern, PatternGroup, SPARQLQuery
+from wukong_tpu_torch.types import IN, NORMAL_ID_START, OUT, PREDICATE_ID, TYPE_ID, is_tpid
+
+# cost weights (planner.hpp:23-29 analogues, TPU-tuned): per scanned row,
+# per produced row, per membership probe
+COST_SCAN = 1.0
+COST_PRODUCE = 2.0
+COST_PROBE = 0.5
+INIT_COST = 64.0  # per-step fixed dispatch cost
+
+MAX_TTAB_ROWS = 256  # joint-table row cap (reference merges rare types)
+
+
+@dataclass
+class _State:
+    rows: float
+    vars: tuple  # bound vars, in type-table column order
+    ttab: dict  # {(t_1, ..., t_k): count} joint type distribution
+    cost: float
+    plan: list
+    # some executed subset of patterns has EXACTLY zero mass under the
+    # (complete) type statistics — the whole conjunction is provably empty
+    # (reference is_empty, planner.hpp:1505-1509). Rows are floored for
+    # cost arithmetic, so emptiness rides as a separate flag.
+    empty: bool = False
+    # emptiness proofs are only sound while the joint table is exact as a
+    # SET of type combinations: _prune truncation drops combos whose types
+    # might survive a later filter, so it clears this and disables proofs
+    exact: bool = True
+
+
+def _prune(ttab: dict) -> dict:
+    """Bound the joint table, preserving total mass (merge_type analogue)."""
+    if len(ttab) <= MAX_TTAB_ROWS:
+        return ttab
+    items = sorted(ttab.items(), key=lambda kv: -kv[1])
+    kept = dict(items[:MAX_TTAB_ROWS])
+    total = sum(ttab.values())
+    kept_total = sum(kept.values()) or 1.0
+    scale = total / kept_total
+    return {k: v * scale for k, v in kept.items()}
+
+
+class Planner:
+    """generate_plan(q) reorders q's patterns by estimated cost (True on success)."""
+
+    def __init__(self, stats: Stats, max_branch: int = 6):
+        self.stats = stats
+        self.max_branch = max_branch
+
+    # ------------------------------------------------------------------
+    def generate_plan(self, q: SPARQLQuery) -> bool:
+        pg = q.pattern_group
+        if not pg.patterns:
+            return True
+        try:
+            best = self._plan_group(pg)
+        except Exception:
+            best = None
+        if best is None:
+            heuristic_plan(q)
+            return True
+        pg.patterns[:] = [pat for (pat, _src) in best]
+        # provably-empty conjunction (reference "identified empty result
+        # query", planner.hpp:1505-1509): engines may skip execution. Sound
+        # with filters (only remove rows) and OPTIONAL (left join keeps only
+        # parent rows), but NOT with UNION — a branch starting from its own
+        # index explores independently of the (empty) parent table.
+        q.planner_empty = bool(self._best_state is not None
+                               and self._best_state.empty
+                               and not pg.unions)
+        from wukong_tpu_torch.planner.heuristic import bound_vars, plan_seeded_group
+
+        parent_bound = bound_vars(pg)
+        for u in pg.unions:
+            # anchored branches execute seeded with the parent table, so
+            # they order from those bindings; disjoint branches get their
+            # own cost-based plan
+            if not plan_seeded_group(u, parent_bound):
+                sub = SPARQLQuery()
+                sub.pattern_group = u
+                self.generate_plan(sub)
+        return True
+
+    # ------------------------------------------------------------------
+    def _plan_group(self, pg: PatternGroup) -> list | None:
+        pats = list(pg.patterns)
+        self._best_cost = float("inf")
+        self._best_plan = None
+        self._best_state = None
+        for start_state in self._start_candidates(pats):
+            self._dfs(start_state, pats)
+        return self._best_plan
+
+    def _dfs(self, state: _State, pats: list) -> None:
+        if state.cost >= self._best_cost:  # branch and bound
+            return
+        remaining = [p for p in pats if not self._picked(state, p)]
+        if not remaining:
+            self._best_cost = state.cost
+            self._best_plan = state.plan
+            self._best_state = state
+            return
+        cands = []
+        for p in remaining:
+            step = self._estimate_step(state, p)
+            if step is not None:
+                cands.append(step)
+        cands.sort(key=lambda s: s.cost)
+        for nxt in cands[: self.max_branch]:
+            self._dfs(nxt, pats)
+
+    def _picked(self, state: _State, p: Pattern) -> bool:
+        return any(src is p for (_, src) in state.plan)
+
+    # ------------------------------------------------------------------
+    # start candidates (const start / type index / predicate index)
+    # ------------------------------------------------------------------
+    def _start_candidates(self, pats: list):
+        out = []
+        for p in pats:
+            if p.predicate < 0:
+                # versatile start from a const endpoint
+                if p.subject >= NORMAL_ID_START:
+                    out.append(self._mk_start(
+                        Pattern(p.subject, p.predicate, OUT, p.object), p,
+                        var=p.object, dist={0: 8.0}))
+                elif p.object >= NORMAL_ID_START:
+                    out.append(self._mk_start(
+                        Pattern(p.object, p.predicate, IN, p.subject), p,
+                        var=p.subject, dist={0: 8.0}))
+                continue
+            if p.predicate == TYPE_ID and p.subject < 0 and is_tpid(p.object):
+                # type-index start: ?X rdf:type T  ->  (T, rdf:type, IN, ?X)
+                out.append(self._mk_start(
+                    Pattern(p.object, TYPE_ID, IN, p.subject), p,
+                    var=p.subject, dist=self._type_index_dist(p.object)))
+                continue
+            if p.subject >= NORMAL_ID_START and p.object < 0:
+                out.append(self._mk_start(
+                    Pattern(p.subject, p.predicate, OUT, p.object,
+                            p.pred_type), p,
+                    var=p.object,
+                    dist=self._const_start_dist(p.subject, p.predicate, OUT)))
+            if p.object >= NORMAL_ID_START and p.subject < 0:
+                out.append(self._mk_start(
+                    Pattern(p.object, p.predicate, IN, p.subject,
+                            p.pred_type), p,
+                    var=p.subject,
+                    dist=self._const_start_dist(p.object, p.predicate, IN)))
+            if p.subject < 0 and p.object < 0 and p.predicate > 1:
+                # predicate-index start (both sides): dummy __PREDICATE__
+                out.append(self._mk_start(
+                    Pattern(p.predicate, PREDICATE_ID, IN, p.subject), None,
+                    var=p.subject,
+                    dist=self._pred_index_dist(p.predicate, IN, norm=False)))
+        return out
+
+    # start-distribution builders shared by _start_candidates (DFS over
+    # parser-form patterns) and estimate_chain (fixed engine-form plans) —
+    # the cardinality model must not drift between the two
+    def _type_index_dist(self, tpid: int) -> dict:
+        st = self.stats
+        return {t: float(st.tyscount.get(t, 0))
+                for t in st.types_containing(tpid)}
+
+    def _pred_index_dist(self, pid: int, d: int, norm: bool = True) -> dict:
+        """Type distribution of a predicate-index scan's bound var. With
+        norm=True the mass is rescaled to the distinct anchor count (the
+        engine's index list length); norm=False keeps raw edge counts (the
+        DFS treats the scan as producing one row per edge endpoint)."""
+        st = self.stats
+        dist = {t: float(c) for t, c in
+                (st.pstype if d == IN else st.potype).get(pid, {}).items()}
+        if not norm:
+            return dist
+        n = float((st.distinct_subj if d == IN
+                   else st.distinct_obj).get(pid, 0)) or 1.0
+        return self._norm(dist, n) if dist else {0: n}
+
+    def _const_start_dist(self, const: int, pid: int, d: int) -> dict:
+        """Neighbor-type distribution of one constant's expansion: the
+        const's actual type via fine_type, falling back to the predicate's
+        endpoint histogram; mass = the const's average fanout."""
+        st = self.stats
+        deg = self._const_fanout(pid, d)
+        ct = st.type_of(const)
+        dist = dict(st.fine_type.get((ct, pid, d), {})) or \
+            {t: c for t, c in
+             (st.potype if d == OUT else st.pstype).get(pid, {}).items()}
+        return self._norm(dist, deg)
+
+    def _mk_start(self, pat: Pattern, consumes, var: int, dist):
+        # an exactly-empty start distribution (type with no entities /
+        # predicate with no edges) already proves the query empty — the
+        # stats enumerate every (type, pred, dir) that occurs in the graph
+        empty = not any(c > 0 for c in (dist or {}).values())
+        dist = {t: c for t, c in (dist or {}).items() if c > 0} or {0: 1.0}
+        rows = sum(dist.values())
+        return _State(rows=max(rows, 1.0), vars=(var,),
+                      ttab={(t,): c for t, c in dist.items()},
+                      cost=INIT_COST + rows * COST_PRODUCE,
+                      plan=[(pat, consumes)], empty=empty)
+
+    def _const_fanout(self, pid: int, d: int) -> float:
+        """Average neighbor count of one constant: edges / distinct anchors
+        (the anchored side is the object for IN starts, subject for OUT)."""
+        st = self.stats
+        total = float(st.pred_edges.get(pid, 1))
+        anchors = float((st.distinct_obj if d == IN else
+                         st.distinct_subj).get(pid, 1)) or 1.0
+        return max(total / anchors, 1.0)
+
+    @staticmethod
+    def _norm(dist: dict, rows: float) -> dict:
+        tot = sum(dist.values()) or 1.0
+        return {t: c / tot * rows for t, c in dist.items()}
+
+    # ------------------------------------------------------------------
+    # step estimation over the joint type table (planner.hpp:218-874)
+    # ------------------------------------------------------------------
+    def _estimate_step(self, state: _State, p: Pattern,
+                       pre_oriented: bool = False) -> _State | None:
+        """pre_oriented=True: p is already in engine form (anchor in subject,
+        direction selecting the adjacency side) — estimate_chain's case; the
+        DFS passes parser-form patterns that _orient normalizes."""
+        st = self.stats
+        s_var_b = p.subject < 0 and p.subject in state.vars
+        o_var_b = p.object < 0 and p.object in state.vars
+        if p.predicate < 0:
+            if not (s_var_b or o_var_b or p.subject > 0 or p.object > 0):
+                return None
+            # versatile expansion: pessimistic constant fanout, untyped var
+            rows = state.rows * 8.0
+            nvars = tuple(v for v in (p.subject, p.predicate, p.object)
+                          if v < 0 and v not in state.vars)
+            ttab = {types + (0,) * len(nvars): c * 8.0
+                    for types, c in state.ttab.items()}
+            return _State(rows, state.vars + nvars, ttab,
+                          state.cost + INIT_COST + state.rows * COST_SCAN
+                          + rows * COST_PRODUCE,
+                          state.plan + [(self._orient(state, p), p)],
+                          empty=state.empty, exact=state.exact)
+        if not (s_var_b or o_var_b):
+            return None
+        oriented = p if pre_oriented else self._orient(state, p)
+        d = oriented.direction
+        if oriented.subject > 0:
+            # const anchor mid-plan: only membership on a bound object is
+            # executable (const_to_known); the const's own type conditions
+            # the per-row selectivity
+            if not (oriented.object < 0 and oriented.object in state.vars):
+                return None
+            const_t = st.type_of(oriented.subject)
+            ia = None
+        else:
+            if oriented.subject not in state.vars:
+                # pre-oriented chains can anchor on an unbound subject (e.g.
+                # user plan_text plans); unestimable, per the None contract
+                return None
+            const_t = 0
+            ia = state.vars.index(oriented.subject)
+
+        def anchor_type(types):
+            return const_t if ia is None else types[ia]
+
+        if oriented.predicate == TYPE_ID and oriented.object > 0 \
+                and ia is not None:
+            # type filter: KEEP exactly the joint rows whose anchor type
+            # contains the target — the joint table's whole point: no
+            # independence assumption, correlations survive
+            keep = set(st.types_containing(oriented.object))
+            ttab = {types: c for types, c in state.ttab.items()
+                    if types[ia] in keep}
+            # zero surviving mass with an exact table = no binding of the
+            # anchor var can have the target type -> provably empty. Rows
+            # with anchor type 0 (versatile vars of unknown type) could
+            # still match, so they void the proof.
+            empty = state.empty or (
+                state.exact and not ttab
+                and all(types[ia] != 0 for types in state.ttab))
+            rows = max(sum(ttab.values()), 0.01)
+            return _State(rows, state.vars, ttab or {(0,) * len(state.vars): rows},
+                          state.cost + INIT_COST + state.rows * COST_PROBE,
+                          state.plan + [(oriented, p)],
+                          empty=empty, exact=state.exact)
+
+        if oriented.object < 0 and oriented.object not in state.vars:
+            if oriented.predicate in (TYPE_ID, PREDICATE_ID):
+                # meta-predicate expansion (?x rdf:type ?t, __PREDICATE__):
+                # fine_type deliberately excludes rdf:type edges, so a
+                # missing entry must NOT read as "no edges" — every typed
+                # entity has them. The new var holds type/pred ids (type 0).
+                fan = 1.5 if oriented.predicate == TYPE_ID else 8.0
+                rows_out = state.rows * fan
+                ttab = {types + (0,): c * fan
+                        for types, c in state.ttab.items()}
+                return _State(rows_out, state.vars + (oriented.object,),
+                              ttab,
+                              state.cost + INIT_COST + state.rows * COST_SCAN
+                              + rows_out * COST_PRODUCE,
+                              state.plan + [(oriented, p)],
+                              empty=state.empty, exact=state.exact)
+            # expansion: each joint row splits by the anchor type's fine_type
+            # neighbor distribution
+            ttab: dict[tuple, float] = {}
+            rows_out = 0.0
+            for types, c in state.ttab.items():
+                t = types[ia]
+                ft = st.fine_type.get((t, oriented.predicate, d), {})
+                t_pop = float(st.tyscount.get(t, 1)) or 1.0
+                if not ft:
+                    # untyped anchor (e.g. versatile var): global pred fanout
+                    fan = self._const_fanout(oriented.predicate, d) \
+                        if t == 0 else 0.0
+                    if fan > 0:
+                        key = types + (0,)
+                        ttab[key] = ttab.get(key, 0.0) + c * fan
+                        rows_out += c * fan
+                    continue
+                for nt, ec in ft.items():
+                    share = c * (ec / t_pop)
+                    key = types + (nt,)
+                    ttab[key] = ttab.get(key, 0.0) + share
+                    rows_out += share
+            # zero produced mass is exact: fine_type enumerates every
+            # (type, pred, dir) with edges, and untyped anchors (t == 0)
+            # contribute a positive fallback fanout, never a false zero
+            empty = state.empty or (state.exact and rows_out == 0.0)
+            pruned = len(ttab) > MAX_TTAB_ROWS
+            rows_out = max(rows_out, 0.0)
+            return _State(rows_out, state.vars + (oriented.object,),
+                          _prune(ttab) or {(0,) * (len(state.vars) + 1): 0.01},
+                          state.cost + INIT_COST + state.rows * COST_SCAN
+                          + rows_out * COST_PRODUCE,
+                          state.plan + [(oriented, p)],
+                          empty=empty, exact=state.exact and not pruned)
+
+        # membership (k2k / k2c): per-row selectivity conditioned on the
+        # anchor row's type (and the other endpoint's type for k2k)
+        pe = float(st.pred_edges.get(oriented.predicate, 1))
+        sp = float(st.distinct_subj.get(oriented.predicate, 1)) or 1.0
+        op = float(st.distinct_obj.get(oriented.predicate, 1)) or 1.0
+        ttab: dict[tuple, float] = {}
+        rows = 0.0
+        for types, c in state.ttab.items():
+            t = anchor_type(types)
+            ft = st.fine_type.get((t, oriented.predicate, d), {})
+            t_pop = float(st.tyscount.get(t, 1)) or 1.0
+            if oriented.object > 0:  # k2c: edge to THE specific const
+                if not ft:  # untyped anchor: global density per const
+                    sel = (pe / op) / sp
+                else:
+                    ct = st.type_of(oriented.object)
+                    targets = {ct} if ct else set(ft)
+                    ec = sum(v for nt, v in ft.items() if nt in targets)
+                    pop = float(sum(st.tyscount.get(nt, 1)
+                                    for nt in targets)) or 1.0
+                    sel = (ec / t_pop) / pop
+            else:  # k2k: edge to the row's specific o-instance
+                io = state.vars.index(oriented.object)
+                to = types[io]
+                if not ft or to == 0:  # untyped endpoint: global density
+                    # (to == 0 must not yield an exact 0 — the endpoint's
+                    # type is unknown, so a 0 here would be a false
+                    # emptiness proof downstream)
+                    sel = pe / (sp * op)
+                else:
+                    ec = float(ft.get(to, 0))
+                    pop = float(st.tyscount.get(to, 1)) or 1.0
+                    sel = (ec / t_pop) / pop
+            sel = min(sel, 1.0)
+            if c * sel > 0:
+                ttab[types] = ttab.get(types, 0.0) + c * sel
+                rows += c * sel
+        # zero mass is exact here too: the untyped branches above always
+        # yield positive densities, so sel == 0 only comes from exhaustive
+        # fine_type entries (no edges of this pred between these types)
+        empty = state.empty or (state.exact and rows == 0.0)
+        rows = max(rows, 0.01)
+        return _State(rows, state.vars,
+                      ttab or {(0,) * len(state.vars): rows},
+                      state.cost + INIT_COST + state.rows * COST_PROBE,
+                      state.plan + [(oriented, p)],
+                      empty=empty, exact=state.exact)
+
+    # ------------------------------------------------------------------
+    def _walk_chain(self, patterns: list) -> list | None:
+        """Step-by-step _State list for an ALREADY-ORDERED pattern list (the
+        plan the engine will execute), or None when the chain shape cannot
+        be walked. Shared by estimate_chain (capacity sizing) and
+        explain_steps (EXPLAIN estimate capture) so the cardinality model
+        never drifts between the two consumers."""
+        if not patterns:
+            return None
+        p0 = patterns[0]
+        state = None
+        if p0.predicate == TYPE_ID and is_tpid(p0.subject) and p0.object < 0:
+            # engine-form type-index start: (T, rdf:type, IN, ?X)
+            state = self._mk_start(p0, p0, var=p0.object,
+                                   dist=self._type_index_dist(p0.subject))
+        elif p0.predicate == PREDICATE_ID and p0.object < 0:
+            # predicate-index start: rows = distinct anchors of the predicate
+            state = self._mk_start(
+                p0, p0, var=p0.object,
+                dist=self._pred_index_dist(p0.subject, p0.direction))
+        elif p0.subject >= NORMAL_ID_START and p0.object < 0:
+            state = self._mk_start(
+                p0, p0, var=p0.object,
+                dist=self._const_start_dist(p0.subject, p0.predicate,
+                                            p0.direction))
+        if state is None:
+            return None
+        states = [state]
+        for p in patterns[1:]:
+            nxt = self._estimate_step(state, p, pre_oriented=True)
+            if nxt is None:
+                return None
+            state = nxt
+            states.append(state)
+        return states
+
+    def estimate_chain(self, patterns: list) -> list | None:
+        """Per-step output-row estimates for an already-ordered pattern list.
+
+        Returns [rows_after_step_k for k in range(len(patterns))], or None if
+        the chain shape cannot be walked. This is the joint-type-table model
+        of _estimate_step applied to a fixed order — the engine uses it to
+        size device binding-table capacities tightly instead of compounding
+        per-step fanout safety margins (each 2x over-provision doubles every
+        kernel's cost: kernels pay for capacity, not live rows)."""
+        states = self._walk_chain(patterns)
+        return None if states is None else [st.rows for st in states]
+
+    def estimate_peak_rows(self, patterns: list) -> int | None:
+        """Peak intermediate cardinality across an already-ordered chain,
+        or None when the shape cannot be walked. The compiled-template
+        route chooser gates on this: a whole-plan XLA dispatch only
+        amortizes when the binding tables it fuses are large enough
+        (``template_min_rows``) to beat the per-step host kernels."""
+        ests = self.estimate_chain(patterns)
+        if not ests:
+            return None
+        return int(max(ests))
+
+    def explain_steps(self, patterns: list) -> list | None:
+        """EXPLAIN estimate capture: one record per plan step with the
+        estimated output cardinality and the cost model's per-step charge
+        (the quantities EXPLAIN ANALYZE joins actual rows/wall-time against,
+        keyed on step index). Returns None when the plan shape cannot be
+        walked — the EXPLAIN surface then renders the plan without
+        estimates rather than inventing numbers."""
+        states = self._walk_chain(patterns)
+        if states is None:
+            return None
+        out = []
+        prev_cost = 0.0
+        for st in states:
+            out.append({"est_rows": float(st.rows),
+                        "est_cost": float(st.cost - prev_cost),
+                        "est_cost_cum": float(st.cost),
+                        "est_empty": bool(st.empty)})
+            prev_cost = st.cost
+        return out
+
+    def _orient(self, state: _State, p: Pattern) -> Pattern:
+        s_var_b = p.subject < 0 and p.subject in state.vars
+        pred_var = p.predicate < 0
+        if s_var_b or (p.subject > 0 and not pred_var):
+            return Pattern(p.subject, p.predicate, OUT, p.object, p.pred_type)
+        return Pattern(p.object, p.predicate, IN, p.subject, p.pred_type)
+
+
+def make_planner(triples, stat_path: str | None = None) -> Planner:
+    """Build (or load) stats and return a Planner."""
+    import os
+
+    if stat_path and os.path.exists(
+            stat_path if stat_path.endswith(".npz") else stat_path + ".npz"):
+        return Planner(Stats.load(stat_path))
+    st = Stats.generate(triples)
+    if stat_path:
+        try:
+            st.save(stat_path)
+        except OSError as e:
+            logging.getLogger(__name__).warning(
+                "statfile not saved (%s); using in-memory stats", e)
+    return Planner(st)

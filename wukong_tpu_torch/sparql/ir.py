@@ -189,3 +189,28 @@ class SPARQLQuery:
         return False
 
 
+
+
+@dataclass
+class SPARQLTemplate:
+    """Parsed template query with %type placeholders (query.hpp:820-856).
+
+    ``ptypes`` lists the placeholder type/predicate ids in pattern order;
+    ``pos`` the (pattern_idx, field) slots to patch. ``candidates`` is filled by
+    the proxy (fill_template) with the per-placeholder candidate constants.
+    """
+
+    query: SPARQLQuery = field(default_factory=SPARQLQuery)
+    ptypes: list = field(default_factory=list)  # placeholder type ids
+    pos: list = field(default_factory=list)  # (pattern index, "subject"/"object")
+    candidates: list = field(default_factory=list)  # list[np.ndarray]
+
+    def instantiate(self, rng: np.random.Generator) -> SPARQLQuery:
+        import copy
+
+        q = copy.deepcopy(self.query)
+        for i, (pi, fld) in enumerate(self.pos):
+            cand = self.candidates[i]
+            val = int(cand[rng.integers(0, len(cand))])
+            setattr(q.pattern_group.patterns[pi], fld, val)
+        return q

@@ -8,15 +8,17 @@ surface (the subset the reference parses — SPARQLParser.hpp):
   triple patterns with '.' separators; nested { } groups; UNION; OPTIONAL;
   FILTER expressions (||, &&, comparisons, arithmetic, !, bound/isIRI/isBLANK/
   isLITERAL/str/regex builtins); ORDER BY [ASC()/DESC()] ; LIMIT; OFFSET;
-  plus the Wukong __PREDICATE__ keyword for predicate-index patterns.
+  plus two Wukong extensions: %prefix:name template placeholders
+  (SPARQLParser.hpp template ext; query.hpp:820-856) and the __PREDICATE__
+  keyword for predicate-index patterns.
 
 Translation (core/parser.hpp:83-124): variables become negative ssids in order
 of first appearance; IRIs/literals resolve through the StringServer (unknown
 strings raise SYNTAX_ERROR-class failures like the reference's UNKNOWN_SUB);
 attribute predicates get their value-type tag from str_attr_index.
 
-The port's copy of the JAX package's sparql/parser.py, without the template
-placeholder and knn() extensions (not ported yet).
+The port's copy of the JAX package's sparql/parser.py, without the knn()
+extension (the vector plane is not ported yet).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from wukong_tpu_torch.sparql.ir import (
     Pattern,
     PatternGroup,
     SPARQLQuery,
+    SPARQLTemplate,
 )
 from wukong_tpu_torch.types import OUT, AttrType
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
@@ -53,6 +56,7 @@ _TOKEN_RE = re.compile(
   | (?P<VAR>[?$][A-Za-z_][A-Za-z0-9_]*)
   | (?P<STRING>"(?:[^"\\]|\\.)*"(?:\^\^[^\s.;,)]+|@[A-Za-z][A-Za-z0-9-]*)?)
   | (?P<NUM>[+-]?\d+(?:\.\d+)?)
+  | (?P<TEMPLATE>%(?:[A-Za-z_][A-Za-z0-9_-]*:[A-Za-z_][A-Za-z0-9_.-]*|<[^<>\s]*>))
   | (?P<PNAME>[A-Za-z_][A-Za-z0-9_-]*:[A-Za-z_][A-Za-z0-9_.-]*)
   | (?P<KEYWORD>[A-Za-z_][A-Za-z0-9_]*)
   | (?P<OP>&&|\|\||!=|<=|>=|[{}().,;*=<>!+\-/:])
@@ -87,7 +91,7 @@ class _Term:
     __slots__ = ("kind", "value")
 
     def __init__(self, kind: str, value: str):
-        self.kind = kind  # var | iri | literal | num | predicate_kw
+        self.kind = kind  # var | iri | literal | template | predicate_kw
         self.value = value
 
     def __repr__(self):
@@ -95,17 +99,32 @@ class _Term:
 
 
 class Parser:
-    """parse(text) -> SPARQLQuery."""
+    """parse(text) -> SPARQLQuery; parse_template(text) -> SPARQLTemplate."""
 
     def __init__(self, str_server=None):
         self.str_server = str_server
 
     # -- public API --------------------------------------------------------
     def parse(self, text: str) -> SPARQLQuery:
+        q, tmpl = self._parse_full(text)
+        if tmpl.pos:
+            raise SPARQLSyntaxError("template placeholders in a non-template query")
+        return q
+
+    def parse_template(self, text: str) -> SPARQLTemplate:
+        q, tmpl = self._parse_full(text)
+        if not tmpl.pos:
+            raise SPARQLSyntaxError("no %placeholders in template query")
+        tmpl.query = q
+        return tmpl
+
+    # -- grammar -----------------------------------------------------------
+    def _parse_full(self, text: str):
         self.toks = tokenize(text)
         self.i = 0
         self.prefixes: dict[str, str] = {}
         self.vars: dict[str, int] = {}  # ?name -> negative ssid
+        self.template = SPARQLTemplate()
 
         while self._peek_kw("PREFIX"):
             self._next()
@@ -208,7 +227,7 @@ class Parser:
             q.result.required_vars = [self._var_id(v) for v in proj]
         for vname, desc in orders:
             q.orders.append(Order(self._var_id(vname), desc))
-        return q
+        return q, self.template
 
     def _parse_group(self) -> dict:
         """Returns a symbolic group {patterns, unions, optional, filters}."""
@@ -291,6 +310,12 @@ class Parser:
             return _Term("iri", val)
         if kind == "PNAME":
             return _Term("iri", self._expand_pname(val))
+        if kind == "TEMPLATE":
+            # %prefix:name or %<full-iri> (the watdiv emulator templates use
+            # the full-IRI form)
+            body = val[1:]
+            return _Term("template", body if body.startswith("<")
+                         else self._expand_pname(body))
         if kind == "STRING":
             return _Term("literal", val)
         if kind == "NUM":
@@ -445,23 +470,45 @@ class Parser:
             at = self.str_server.pid2type.get(sid, int(AttrType.SID_t))
         return sid, at
 
-    def _resolve_group(self, group: dict) -> PatternGroup:
+    def _resolve_group(self, group: dict, top_level: bool = True) -> PatternGroup:
         pg = PatternGroup()
         for (s, p, o) in group["patterns"]:
-            ssid, _ = self._resolve_term(s, False)
+            if not top_level and (s.kind == "template" or o.kind == "template"):
+                raise SPARQLSyntaxError(
+                    "%placeholders are only supported in the top-level group")
+            ssid, _ = self._resolve_term(s, False) if s.kind != "template" \
+                else (self._reserve_template_slot(len(pg.patterns), "subject", s), 0)
             pid, ptype = self._resolve_term(p, True)
-            osid, _ = self._resolve_term(o, False)
+            osid, _ = self._resolve_term(o, False) if o.kind != "template" \
+                else (self._reserve_template_slot(len(pg.patterns), "object", o), 0)
             pat = Pattern(ssid, pid, OUT, osid)
             pat.pred_type = ptype
             pg.patterns.append(pat)
         for sub in group["unions"]:
-            pg.unions.append(self._resolve_group(sub))
+            pg.unions.append(self._resolve_group(sub, top_level=False))
         for sub in group["optional"]:
-            spg = self._resolve_group(sub)
+            spg = self._resolve_group(sub, top_level=False)
             pg.optional.append(spg)
         for f in group["filters"]:
             pg.filters.append(f)
         return pg
+
+    def _reserve_template_slot(self, pattern_idx: int, fld: str, t: _Term) -> int:
+        """%type placeholder: record slot, resolve the placeholder's type id.
+        `%<fromPredicate>` (proxy.hpp:76-99) draws candidates from the
+        pattern's own predicate index instead of a type — recorded as a
+        marker for fill_template, no id to resolve."""
+        if "fromPredicate" in t.value:
+            self.template.ptypes.append("fromPredicate")
+            self.template.pos.append((pattern_idx, fld))
+            return 0
+        try:
+            tid = self.str_server.str2id(t.value)
+        except KeyError:
+            raise WukongError(ErrorCode.UNKNOWN_SUB, t.value)
+        self.template.ptypes.append(tid)
+        self.template.pos.append((pattern_idx, fld))
+        return 0  # patched at instantiation
 
     # -- token helpers -----------------------------------------------------
     def _peek(self):

@@ -35,3 +35,8 @@ class LRUCache:
             self._d.move_to_end(key)
             while len(self._d) > self.maxsize:
                 self._d.popitem(last=False)
+
+    def items(self) -> list:
+        """A snapshot of the (key, value) pairs, coldest first."""
+        with self._lock:
+            return list(self._d.items())
