@@ -12,6 +12,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      lanes; three and more probe rounds; ragged and misaligned frontiers; n
      at 0, 1, C - 1 and C) and K2/K3 on look-back stress cases (2^25 edges,
      ragged lengths, cap_out cuts), each run 10 times with identical bits;
+     stream_expand on duplicate anchors at each multiplicity, and with
+     looser bounds (2 over distinct anchors, past mdup, none, a lower
+     bound past mdup), each giving the exact bound's bits;
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
      the card;
@@ -45,17 +48,37 @@ Phases (any failure exits nonzero, and no result line is printed):
      counts equal to the single rows and slice counts summing to them. K1
      must be launched by the slice batches; each kernel the phase launched
      is held against its plain version and timed on its largest input;
+     every window and mixed flight must make one host sync; then every
+     entry point once more, untimed, under StreamAudit (each streamed
+     step against the arm the frontier's true multiplicity picks);
+  8. the serving runtime (run after 7, on phase 3's proxy): with the GPU
+     engine's table_capacity_max at FALLBACK_CAP_MAX, q6 and q1 answer
+     CAPACITY_EXCEEDED on the card and Proxy.run_single_query answers
+     phase 4's rows through the host engine and logs it; then the
+     console's sparql-emu (5 s after 1 s of warm-up, 8 in flight) over a
+     light mix (TEMPLATES) and a mixed one (and HEAVY), which must end
+     with no error, every light class on device batches and every heavy
+     class run, on device batches or a logged pool route, with thpt_qps,
+     wall_qps, host syncs a flight and each class's p50/p99; K1 must
+     launch, and each kernel is held against its plain version and timed
+     on each mix's largest input; then each mix for 3 s more, untimed,
+     under StreamAudit;
   6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
      suite through Proxy(device="cpu") (plain versions) and
      Proxy(device="cuda") must give equal row multisets and attribute
      tables, and equal row order where ORDER BY fixes it; then, both under
-     the planner, equal per-qid counts from every batched entry point.
+     the planner, equal per-qid counts from every batched entry point;
+     then phase 8's console: write_dataset writes LUBM-<cross-scale> to a
+     temporary directory and console.main([config, dir, "-c",
+     "sparql -b <file>"]) runs the seven shapes with -n 5 on the card,
+     with phase 6's rows, the average latency run_single_query logs, and
+     K1 launched.
 The line before the last is one JSON object {"kernels": [...]}, a row for
-each kernel and class of its calls in phases 4 and 5 and for each kernel in
-phase 7, with that row's launches, input ("phase", "input"), bound and
-times; the last is {"ok": true, "device": {...}}. The script needs the
-repository around it and a CUDA GPU; it imports nothing of JAX or of the
-JAX package.
+each kernel and class of its calls in phases 4 and 5, for each kernel in
+phase 7, and for each kernel and mix (and the console) in phase 8, with
+that row's launches, input ("phase", "input"), bound and times; the last is
+{"ok": true, "device": {...}}. The script needs the repository around it
+and a CUDA GPU; it imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -66,8 +89,12 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+# phase 8's lowered ceiling: below q6's 1,630,592 index rows and q1's
+# largest table at LUBM-640
+FALLBACK_CAP_MAX = 1 << 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # the kernels do integer work on the CUDA cores; the data sheet gives no
 # int32 rate, so the float32 rate outside the tensor cores stands for it (an
@@ -260,6 +287,115 @@ class Capture:
         self.orig.launches += self.wrapped.launches
 
 
+class StreamAudit:
+    """While on, wraps tpu_stream.stream_expand and holds each call against
+    the arms PR 5 chose by reading the frontier to the host: the rows of K3
+    where the frontier's true multiplicity (the most live rows sharing one
+    key with edges in the segment) is 2..mdup, else merge_expand's (K2's and
+    the gather arm's bits); and each host bound against it (``mult`` at
+    least the most, ``mult_lo`` at most the fewest). The true multiplicity
+    is worked out on the card apart from stream_expand (a sort of the hit
+    keys); every count stays on the card until report(). Run it outside
+    timed work: it triples each streamed step's work."""
+
+    def __init__(self, device="cuda"):
+        import torch
+
+        from wukong_tpu_torch.engine import tpu_stream as S
+
+        self.S, self.orig = S, S.stream_expand
+        self.mdup = S.stream_mdup()
+        self.calls = 0
+        # [host arm: K2 / K3 / gather / device choice][true: <= 1,
+        # 2..mdup, > mdup]
+        self.by_arm = torch.zeros(4, 3, dtype=torch.int64, device=device)
+        self.unsound = torch.zeros((), dtype=torch.int64, device=device)
+        self.differ = torch.zeros((), dtype=torch.int64, device=device)
+        self.differ_low = torch.zeros((), dtype=torch.int64, device=device)
+
+    @staticmethod
+    def true_mult(skey, sdeg, cur, n, live):
+        """(most, fewest) live rows sharing one key with edges in the
+        segment, as 0-d tensors; (0, C + 1) when no key matches."""
+        import torch
+
+        C = cur.shape[0]
+        idx = torch.arange(C, device=cur.device)
+        pos = torch.searchsorted(skey, cur).clamp(max=skey.shape[0] - 1)
+        hit = (idx < n) & live & (skey[pos] == cur) & (sdeg[pos] > 0)
+        keys = torch.sort(torch.where(hit, cur.long(), -1 - idx)).values
+        new_run = torch.ones(C, dtype=torch.bool, device=cur.device)
+        new_run[1:] = keys[1:] != keys[:-1]
+        last = torch.ones(C, dtype=torch.bool, device=cur.device)
+        last[:-1] = new_run[1:]
+        first = torch.cummax(torch.where(new_run, idx, 0), 0).values
+        runs = idx - first + 1
+        return (torch.max(torch.where(keys >= 0, runs, 0)),
+                torch.min(torch.where((keys >= 0) & last, runs, C + 1)))
+
+    def __enter__(self):
+        import torch
+
+        from wukong_tpu_torch.engine import tpu_kernels as K
+
+        def audited(skey, sstart, sdeg, edges, cur, n, live, cap_out, mult,
+                    mhot=True, mdup=self.mdup, mult_lo=1):
+            args = (skey, sstart, sdeg, edges, cur, n, live)
+            out = self.orig(*args, cap_out, mult, mhot=mhot, mdup=mdup,
+                            mult_lo=mult_lo)
+            true, fewest = self.true_mult(skey, sdeg, cur, n, live)
+            k3 = self.orig(*args, cap_out, mdup, mhot=True, mdup=mdup)
+            merge = K.merge_expand(*args, cap_out)
+            use_k3 = (true >= 2) & (true <= mdup) & mhot
+            bad = torch.stack([(got != torch.where(use_k3, a, b)).any()
+                               for got, a, b in zip(out, k3, merge)]).any()
+            self.differ += bad
+            self.differ_low += bad & (true <= mdup)
+            arm = (0 if mult is not None and mult <= 1 else
+                   1 if mhot and mult is not None and mult <= mdup else
+                   2 if not mhot or mult_lo > mdup else 3)
+            self.by_arm[arm] += torch.stack(
+                [true <= 1, (true >= 2) & (true <= mdup), true > mdup]).long()
+            if mult is not None:
+                self.unsound += true > mult
+            self.unsound += fewest < mult_lo
+            self.calls += 1
+            return out
+
+        self.S.stream_expand = audited
+        return self
+
+    def __exit__(self, *exc):
+        self.S.stream_expand = self.orig
+
+    def report(self, what: str) -> dict:
+        """Reads the counts, fails on an unsound bound or on rows that
+        differ from PR 5's arm, and logs the calls by arm."""
+        import torch
+
+        arms = self.by_arm.tolist()
+        unsound, differ, low = (int(x) for x in torch.stack(
+            [self.unsound, self.differ, self.differ_low]).tolist())
+        out = {"calls": self.calls, "mdup": self.mdup,
+               "k2": arms[0], "k3": arms[1], "gather": arms[2],
+               "device_choice": arms[3],
+               "unsound_bounds": unsound, "rows_differ": differ,
+               "rows_differ_true_at_most_mdup": low}
+        log(f"  stream arms, {what}: {self.calls} streamed steps; by host "
+            f"arm, [true multiplicity <= 1, 2..{self.mdup}, > {self.mdup}]: "
+            f"K2 {arms[0]}, K3 {arms[1]}, gather (lower bound past "
+            f"{self.mdup}) {arms[2]}, device choice {arms[3]} (K3's rows up "
+            f"to {self.mdup}, the gather's past it); rows other "
+            f"than the true multiplicity's arm: {differ} ({low} of them "
+            f"where K3's were due); bounds the true multiplicity breaks: "
+            f"{unsound}")
+        check(unsound == 0, f"stream arms, {what}: {unsound} host bounds "
+              f"that the frontier's true multiplicity breaks")
+        check(differ == 0, f"stream arms, {what}: {differ} calls' rows "
+              f"differ from the arm the true multiplicity picks")
+        return out
+
+
 def probe_size(args) -> int:
     """K1's call size for Capture: the frontier's length C."""
     return args[2].shape[0]
@@ -268,7 +404,7 @@ def probe_size(args) -> int:
 def probe_class_of(proxy):
     """Capture's class of a K1 call: on a combined (versatile) segment of
     ``proxy``'s store, or on predicate segments."""
-    cache = proxy.engine.dstore._cache
+    cache = proxy.gpu.dstore._cache
 
     def probe_class(a) -> str:
         combined = any(k[0] == "vpv" and seg is not None
@@ -363,9 +499,10 @@ def kernel_cases(errs: dict) -> None:
                     S.stream_emit_m_plain(*args),
                     f"m-hot {what}, E={E}, cap={cap}")
 
-    # stream_expand end to end: duplicate anchors at multiplicity 1..mdup go
-    # through K3, above mdup through the gather arm (no K3 launch); the card
-    # must equal the CPU (plain) bit for bit in every arm
+    # stream_expand end to end: duplicate anchors at multiplicity 2..mdup go
+    # through K3; past mdup K3 and the gather arm both run and the device
+    # takes the gather's rows; the card must equal the CPU (plain) bit for
+    # bit in every arm
     nkeys = 20_000
     skeys = np.sort(rng.choice(1 << 24, nkeys, replace=False)).astype(np.int32)
     degs = rng.integers(0, 12, nkeys)
@@ -391,14 +528,49 @@ def kernel_cases(errs: dict) -> None:
         for d in ("cuda", "cpu"):
             outs[d] = S.stream_expand(
                 *(t(a, d) for a in seg), t(cur, d), K.as_count(n, d),
-                t(livem, d), cap_out=1 << 17, mhot=True, mdup=mdup)
+                t(livem, d), cap_out=1 << 17, mult=mult, mhot=True,
+                mdup=mdup)
         arm = "stream_emit" if mult == 1 else "stream_emit_m"
         err = max_abs_diff(outs["cuda"], outs["cpu"])
         errs[arm] = max(errs[arm], err)
         check(err == 0, f"stream_expand cuda != cpu at multiplicity {mult}")
         launched = S.stream_emit_m.launches > before
-        check(launched == (2 <= mult <= mdup),
+        check(launched == (mult >= 2),
               f"multiplicity {mult}: K3 launched={launched}, mdup={mdup}")
+        if mult > mdup:  # the device picked the gather arm: merge's bits
+            err = max_abs_diff(outs["cuda"], K.merge_expand(
+                *(t(a) for a in seg), t(cur), K.as_count(n, dev), t(livem),
+                cap_out=1 << 17))
+            check(err == 0, "stream_expand past mdup != merge_expand")
+            # every row live: each matched key has exactly mult rows, a
+            # lower bound that takes the gather arm with no K3 launch
+            full = np.ones(C, bool)
+            before = S.stream_emit_m.launches
+            err = max_abs_diff(S.stream_expand(
+                *(t(a) for a in seg), t(cur), K.as_count(n, dev), t(full),
+                cap_out=1 << 17, mult=None, mhot=True, mdup=mdup,
+                mult_lo=mult), K.merge_expand(
+                *(t(a) for a in seg), t(cur), K.as_count(n, dev), t(full),
+                cap_out=1 << 17))
+            check(err == 0 and S.stream_emit_m.launches == before,
+                  f"stream_expand with lower bound {mult}: not the gather "
+                  f"arm's bits, or K3 launched")
+        # looser bounds give the exact bound's bits: K3 in K2's place over
+        # distinct anchors (bound 2), and the device's choice between K3
+        # and the gather arm (a bound past mdup, or none)
+        for loose in sorted({max(mult + 1, 2), mdup + 1}) + [None]:
+            if loose is not None and loose <= mult:
+                continue
+            before = S.stream_emit_m.launches
+            got = S.stream_expand(
+                *(t(a) for a in seg), t(cur), K.as_count(n, dev),
+                t(livem), cap_out=1 << 17, mult=loose, mhot=True, mdup=mdup)
+            err = max_abs_diff(got, outs["cuda"])
+            errs["stream_emit_m"] = max(errs["stream_emit_m"], err)
+            check(err == 0, f"stream_expand at multiplicity {mult} with "
+                  f"bound {loose}: bits differ from bound {mult}'s")
+            check(S.stream_emit_m.launches > before,
+                  f"bound {loose}: K3 was not launched")
 
 
 def hold_repeated(errs: dict, name: str, fn, plain, args, what: str,
@@ -707,8 +879,8 @@ def stage_all(proxy) -> int:
     and batch chains read."""
     from wukong_tpu_torch.engine.tpu import _is_index_start
 
-    ds = proxy.engine.dstore
-    merge = proxy.engine.merge
+    ds = proxy.gpu.dstore
+    merge = proxy.gpu.merge
     for text in QUERIES.values():
         q = proxy.parse(text)
         pats = q.pattern_group.patterns
@@ -738,7 +910,7 @@ def walk_caps(proxy, q, B: int) -> list:
     """(step, kind, cap_in, cap_out) of each step of q's replicate batch of
     B, as the merge executor would size them now (learned capacities
     first)."""
-    merge = proxy.engine.merge
+    merge = proxy.gpu.merge
     pats = q.pattern_group.patterns
     folds = merge._plan_folds(pats, index_mode=True)
     return [(k, kind, ci, co) for k, _p, kind, _f, ci, co
@@ -750,7 +922,7 @@ def batch_sizes(proxy, text: str, mdup: int) -> list:
     B <= mdup whose start rows and every step's learned capacity at B=1
     (a power of two at or above the step's true total), times B, stay
     within table_capacity_max."""
-    eng = proxy.engine
+    eng = proxy.gpu
     q = proxy.parse(text)
     p0 = q.pattern_group.patterns[0]
     peak = max([len(proxy.g.get_index(p0.subject, p0.direction))]
@@ -823,8 +995,8 @@ class StageClock:
               ("cpu", "_final_process", "final"))
 
     def __init__(self, proxy):
-        self.owners = {"proxy": proxy, "engine": proxy.engine,
-                       "cpu": proxy.engine.cpu}
+        self.owners = {"proxy": proxy, "engine": proxy.gpu,
+                       "cpu": proxy.gpu.cpu}
         self.ms: dict = {}
         self._nested: list = []
 
@@ -984,18 +1156,20 @@ def single_rows(proxy, tmpl, const) -> int:
     setattr(q.pattern_group.patterns[pi], fld, int(const))
     proxy._plan(q)
     q.result.blind = True
-    proxy.engine.execute(q)
+    proxy.gpu.execute(q)
     check(q.result.status_code == 0, f"single instance: status "
           f"{q.result.status_code!r}")
     return q.result.nrows
 
 
 def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
-                  results: dict) -> None:
+                  results: dict, replay: list) -> None:
     """Phase 7: statistics and the planner, the basic shapes single under
     it, light templates in const batches and their windows, heavy shapes
     in replicate and slice batches. ``entry["name"]`` names the entry point
-    being driven (the class of each kernel call Capture keeps)."""
+    being driven (the class of each kernel call Capture keeps); ``replay``
+    gets one call of each entry point on each input, to be run again
+    outside the timed work."""
     import numpy as np
 
     from wukong_tpu_torch.config import Global
@@ -1005,7 +1179,7 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
     from wukong_tpu_torch.sparql.parser import Parser
 
     out = results["batched"]
-    eng = proxy.engine
+    eng = proxy.gpu
     t0 = time.perf_counter()
     stats = Stats.generate(triples)
     out["stats_generate_s"] = time.perf_counter() - t0
@@ -1029,6 +1203,7 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
     rows = {}
     out["single"] = {}
     for name, text in QUERIES.items():
+        replay.append(lambda text=text: proxy.serve_query(text))
         q, lat = timed_runs(lambda: proxy.serve_query(text), 5)
         check(q.result.status_code == 0, f"{name} planned: status "
               f"{q.result.status_code!r}")
@@ -1058,22 +1233,38 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
         tmpl, q, draws = job
         entry["name"] = "execute_batch"
         want = eng.execute_batch(q, draws[0])  # learns the capacities
+        replay.append(lambda q=q, d=draws[0]: eng.execute_batch(q, d))
         counts, lat = timed_runs(lambda: eng.execute_batch(q, draws[0]), 5)
         check(counts.tolist() == want.tolist(), f"{name}: counts moved")
         entry["name"] = "execute_batch_many"
         eng.execute_batch_many(q, draws)  # learns every draw's capacities
+        replay.append(lambda q=q, d=draws: eng.execute_batch_many(q, d))
+        retries0 = eng.merge.total_retries
         many, lat_many = timed_runs(lambda: eng.execute_batch_many(q, draws),
                                     3)
+        retries = eng.merge.total_retries - retries0
         check(many[0].tolist() == want.tolist(),
               f"{name}: execute_batch_many counts != execute_batch's")
+        # the window's yardstick: the same 8 draws as 8 execute_batch calls
+        # (draws[0] alone repeats one draw's rows and warm caches)
+        entry["name"] = "execute_batch"
+        seq, lat_seq = timed_runs(
+            lambda: [eng.execute_batch(q, d) for d in draws], 3)
+        entry["name"] = "execute_batch_many"
+        check([c.tolist() for c in seq] == [c.tolist() for c in many],
+              f"{name}: 8 execute_batch calls != execute_batch_many's counts")
         syncs, sites = count_syncs(lambda: eng.execute_batch_many(q, draws))
         syncs_one, _ = count_syncs(lambda: eng.execute_batch(q, draws[0]))
+        check(syncs == 1 and syncs_one == 1,
+              f"{name}: {syncs} host syncs a window ({sites}) and "
+              f"{syncs_one} a batch, not 1")
         entry["name"] = "single"
         for i, c in enumerate(draws[0][:64]):
             got = single_rows(proxy, tmpl, c)
             check(int(want[i]) == got, f"{name}: qid {i} (const {int(c)}) "
                   f"counts {int(want[i])}, served alone {got}")
         med, med_many = statistics.median(lat), statistics.median(lat_many)
+        med_seq = statistics.median(lat_seq)
         out["const"][name] = {
             "plan": plan_text(q.pattern_group), "B": B,
             "rows": int(want.sum()), "median_ms": med, "runs_ms": lat,
@@ -1082,18 +1273,24 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
             "many_runs_ms": lat_many,
             "many_queries_per_s": B * len(draws) / med_many * 1e3,
             "syncs_per_flight": syncs, "sync_sites": sites,
-            "syncs_execute_batch": syncs_one}
+            "syncs_execute_batch": syncs_one, "many_retries": retries,
+            "seq_median_ms": med_seq, "seq_runs_ms": lat_seq}
         log(f"  template {name} [{plan_text(q.pattern_group)}]: B={B}, "
             f"{int(want.sum()):,} rows; execute_batch median {med:.2f} ms "
             f"({B / med * 1e3:,.0f} queries/s); execute_batch_many K=8 "
             f"median {med_many:.2f} ms ({B * 8 / med_many * 1e3:,.0f} "
-            f"queries/s); host syncs: {syncs} a flight of 8 ({sites}), "
-            f"{syncs_one} a batch; 64 constants equal their single queries")
+            f"queries/s; {retries} chain re-runs over its 3 timed windows; "
+            f"the same 8 draws as 8 execute_batch calls: median "
+            f"{med_seq:.2f} ms, the window {med_seq / med_many:.2f}x as "
+            f"fast); "
+            f"host syncs: {syncs} a flight of 8 ({sites}), {syncs_one} a "
+            f"batch; 64 constants equal their single queries")
         jobs.append((name, q, draws[0], want))
     check(jobs, "no light template was batchable")
     entry["name"] = "execute_batch_mixed"
     mixed = [(q, c) for _n, q, c, _w in jobs]
     eng.execute_batch_mixed(mixed)
+    replay.append(lambda: eng.execute_batch_mixed(mixed))
     res, lat = timed_runs(lambda: eng.execute_batch_mixed(mixed), 3)
     for (name, _q, _c, want), got in zip(jobs, res):
         check(got.tolist() == want.tolist(),
@@ -1101,6 +1298,8 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
     med = statistics.median(lat)
     nq = B * len(jobs)
     syncs, sites = count_syncs(lambda: eng.execute_batch_mixed(mixed))
+    check(syncs == 1, f"execute_batch_mixed: {syncs} host syncs a flight "
+          f"({sites}), not 1")
     out["mixed"] = {"templates": [j[0] for j in jobs], "queries": nq,
                     "median_ms": med, "runs_ms": lat,
                     "queries_per_s": nq / med * 1e3,
@@ -1117,12 +1316,15 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
         Br = eng.suggest_index_batch(q)
         entry["name"] = "execute_batch_index (replicate)"
         eng.execute_batch_index(q, Br)
+        replay.append(lambda q=q, b=Br: eng.execute_batch_index(q, b))
         counts, lat = timed_runs(lambda: eng.execute_batch_index(q, Br), 3)
         check(counts.tolist() == [single] * Br,
               f"{name} replicate B={Br}: counts != single rows {single}")
         runs.append(("replicate", Br, 1, lat))
         entry["name"] = "execute_batch_index_many"
         eng.execute_batch_index_many(q, Br, 2)
+        replay.append(
+            lambda q=q, b=Br: eng.execute_batch_index_many(q, b, 2))
         many, lat = timed_runs(
             lambda: eng.execute_batch_index_many(q, Br, 2), 3)
         check(all(c.tolist() == [single] * Br for c in many),
@@ -1131,6 +1333,8 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
         entry["name"] = "execute_batch_index (slice)"
         for Bs in sorted({proxy.heavy_index_batch(q), 8}):
             eng.execute_batch_index(q, Bs, slice_mode=True)
+            replay.append(lambda q=q, b=Bs: eng.execute_batch_index(
+                q, b, slice_mode=True))
             counts, lat = timed_runs(
                 lambda: eng.execute_batch_index(q, Bs, slice_mode=True), 3)
             check(int(counts.sum()) == single,
@@ -1148,6 +1352,254 @@ def serve_batched(proxy, triples, phase4: dict, seed: int, entry: dict,
                 "queries_per_s": nq / med * 1e3}
             log(f"  {name} {mode} B={b}{f' K={k}' if k > 1 else ''}: "
                 f"median {med:.2f} ms ({nq / med * 1e3:,.2f} queries/s)")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the serving runtime (run_single_query, sparql-emu, the console)
+# ---------------------------------------------------------------------------
+
+
+class LogCapture:
+    """The port's log lines (written to stderr) while in a ``with`` block,
+    passed on to stderr as well."""
+
+    def __enter__(self):
+        import io
+
+        self.buf, self._err = io.StringIO(), sys.stderr
+        outer = self
+
+        class Tee:
+            def write(self, text):
+                outer.buf.write(text)
+                return outer._err.write(text)
+
+            def flush(self):
+                outer._err.flush()
+
+            def isatty(self):
+                return False
+
+        sys.stderr = Tee()
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr = self._err
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+def serve_fallback(proxy, phase4: dict, results: dict) -> None:
+    """Phase 8, the host engine's capacity fallback on the card: with the
+    GPU engine's table_capacity_max below q6's index (1,630,592 rows at
+    LUBM-640) and q1's largest table, the GPU engine answers
+    CAPACITY_EXCEEDED and run_single_query answers phase 4's rows through
+    the CPUEngine, and logs it."""
+    import torch
+
+    eng = proxy.gpu
+    saved = eng.cap_max
+    out = results["runtime"]["fallback"] = {}
+    try:
+        eng.cap_max = FALLBACK_CAP_MAX
+        for name in ("lubm_q6", "lubm_q1"):
+            q = proxy.parse(QUERIES[name])
+            q.result.blind = False
+            eng.execute(q)
+            check(int(q.result.status_code) == 16,
+                  f"{name} at a {eng.cap_max:,}-row ceiling: GPU engine status "
+                  f"{q.result.status_code!r}, not CAPACITY_EXCEEDED")
+            with LogCapture() as cap:
+                t0 = time.perf_counter()
+                q = proxy.run_single_query(QUERIES[name], blind=False)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            check(q.result.status_code == 0 and
+                  "degrading to the host engine" in cap.text,
+                  f"{name}: no logged degradation to the host engine")
+            import numpy as np
+
+            check(np.array_equal(sorted_table(q), phase4[name]),
+                  f"{name}: host fallback rows differ from phase 4's")
+            out[name] = {"rows": q.result.nrows, "ms": ms,
+                         "cap_max": eng.cap_max}
+            log(f"  fallback {name}: table_capacity_max {eng.cap_max:,} -> "
+                f"CAPACITY_EXCEEDED on the card, {q.result.nrows:,} rows "
+                f"(as phase 4) through the host engine in {ms:.1f} ms")
+    finally:
+        eng.cap_max = saved
+
+
+def write_mix(root: str, name: str, heavy: bool) -> str:
+    """A sparql-emu mix file under root: chip_smoke.TEMPLATES (and HEAVY)
+    with weight 1 each, each query in a file of its own."""
+    names = sorted(TEMPLATES) + (list(HEAVY) if heavy else [])
+    for n in names:
+        with open(os.path.join(root, f"{name}_{n}"), "w") as f:
+            f.write(TEMPLATES.get(n) or QUERIES[n])
+    path = os.path.join(root, name)
+    with open(path, "w") as f:
+        f.write(f"{len(TEMPLATES)} {len(HEAVY) if heavy else 0}\n")
+        f.writelines(f"{name}_{n} 1\n" for n in names)
+    return path
+
+
+def serve_emu(proxy, mixes: dict, entry: dict, results: dict) -> None:
+    """Phase 8's sparql-emu at LUBM-<scale> on phase 3's proxy: a light mix
+    (the four templates) and a mixed one (and the three heavy shapes),
+    through the console verb, 5 s measured after 1 s of warm-up, 8 in
+    flight. Every class must run, the light ones on device batches and the
+    heavy ones on device batches or a logged pool route. Host syncs are
+    counted over the whole run and divided by the device flights (each
+    warm-up batch, each device batch or window)."""
+    from wukong_tpu_torch.runtime.console import Console
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    out = results["runtime"]["emu"] = {}
+    con = Console(proxy)
+    flights = {"n": 0}
+    orig = Emulator._device_batch
+
+    def counted(self, *a, **kw):
+        ran = orig(self, *a, **kw)
+        flights["n"] += bool(ran)
+        return ran
+
+    Emulator._device_batch = counted
+    try:
+        for mix, path in mixes.items():
+            heavy = mix == "mixed"
+            entry["name"] = mix
+            flights["n"] = 0
+            with LogCapture() as cap:
+                syncs, sites = count_syncs(lambda: con.run_command(
+                    f"sparql-emu -f {path} -d 5 -w 1 -p 8"))
+            rep = con.last_emu
+            check(rep is not None, f"sparql-emu {mix}: no report")
+            con.last_emu = None
+            names = sorted(TEMPLATES) + (list(HEAVY) if heavy else [])
+            modes = {names[c]: m for c, m in rep["class_mode"].items()}
+            check(rep["errors"] == 0,
+                  f"sparql-emu {mix}: {rep['errors']} errors")
+            for n in TEMPLATES:
+                check(modes.get(n) == "device-batch",
+                      f"sparql-emu {mix}: light class {n} ran as "
+                      f"{modes.get(n)}, not device-batch")
+            for n in HEAVY if heavy else ():
+                check(modes.get(n) == "device-batch" or (
+                    modes.get(n) == "pool"
+                    and "routed to the pool" in cap.text),
+                    f"sparql-emu {mix}: heavy class {n} ran as "
+                    f"{modes.get(n)}, not device-batch or a logged pool "
+                    f"route")
+            nfl = flights["n"] + rep["precompiled_classes"]
+            cdf = {names[c]: {"p50_us": v.get(0.5), "p99_us": v.get(0.99),
+                              "mode": modes.get(names[c])}
+                   for c, v in rep["cdf"].items()}
+            out[mix] = {"thpt_qps": rep["thpt_qps"],
+                        "wall_qps": rep["wall_qps"],
+                        "errors": rep["errors"], "shed": rep["shed"],
+                        "flights": nfl, "syncs": syncs,
+                        "syncs_per_flight": syncs / max(nfl, 1),
+                        "sync_sites": sites, "classes": cdf}
+            log(f"  sparql-emu {mix}: thpt_qps {rep['thpt_qps']:,.0f}, "
+                f"wall_qps {rep['wall_qps']:,.0f}, errors 0, {nfl} "
+                f"device flights, {syncs} host syncs "
+                f"({syncs / max(nfl, 1):.2f} a flight; {sites})")
+            for n, c in cdf.items():
+                if c["p50_us"] is not None:
+                    log(f"    {n} [{c['mode']}]: p50 {c['p50_us']:,.1f} "
+                        f"us, p99 {c['p99_us']:,.1f} us")
+    finally:
+        Emulator._device_batch = orig
+        stop_pool(proxy)
+
+
+def audit_emu(proxy, mixes: dict) -> None:
+    """Phase 8's stream-arm audit: each mix again, untimed, for 3 s with
+    no warm-up (the same seed, so the same first draws as the measured
+    run), under a StreamAudit the caller holds."""
+    from wukong_tpu_torch.runtime.console import Console
+
+    con = Console(proxy)
+    try:
+        for mix, path in mixes.items():
+            con.run_command(f"sparql-emu -f {path} -d 3 -w 0 -p 8")
+            rep = con.last_emu
+            check(rep is not None and rep["errors"] == 0,
+                  f"sparql-emu {mix} (stream-arm audit): no clean report")
+            con.last_emu = None
+    finally:
+        stop_pool(proxy)
+
+
+def stop_pool(proxy) -> None:
+    if proxy._pool is not None:
+        proxy._pool.stop()
+        proxy._pool = None
+
+
+def console_phase(scale: int, seed: int, cross_rows: dict,
+                  results: dict) -> None:
+    """Phase 8's console at LUBM-<scale>: the port's write_dataset writes
+    the id-format directory, and console.main([config, dir, "-c",
+    "sparql -b <file>"]) on the card runs the seven basic shapes with
+    -n 5 -N; rows must equal phase 6's, and each shape's average latency is
+    the one run_single_query logs."""
+    import re
+
+    from wukong_tpu_torch.loader.lubm import write_dataset
+    from wukong_tpu_torch.runtime import console
+    from wukong_tpu_torch.runtime import proxy as proxy_mod
+
+    out = results["runtime"]["console"] = {"scale": scale}
+    got = []
+    orig = proxy_mod.Proxy.run_single_query
+
+    def recorded(self, text, **kw):
+        q = orig(self, text, **kw)
+        got.append(q)
+        return q
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, f"id_lubm_{scale}")
+        t0 = time.perf_counter()
+        write_dataset(data, scale, seed=seed)
+        out["write_s"] = time.perf_counter() - t0
+        cfg = os.path.join(root, "config")
+        with open(cfg, "w") as f:
+            f.write("global_enable_planner true\n")
+        batch = os.path.join(root, "batch")
+        with open(batch, "w") as f:
+            for name, text in QUERIES.items():
+                with open(os.path.join(root, name), "w") as g:
+                    g.write(text)
+                f.write(f"sparql -f {os.path.join(root, name)} -n 5 -N\n")
+        proxy_mod.Proxy.run_single_query = recorded
+        try:
+            with LogCapture() as cap:
+                t0 = time.perf_counter()
+                rc = console.main([cfg, data, "-c", f"sparql -b {batch}"])
+                out["main_s"] = time.perf_counter() - t0
+        finally:
+            proxy_mod.Proxy.run_single_query = orig
+    check(rc == 0 and len(got) == len(QUERIES),
+          f"console: rc {rc}, {len(got)} of {len(QUERIES)} shapes answered")
+    lat = [m.groups() for m in re.finditer(
+        r"result rows: (\d+), avg latency: ([\d,]+) usec \((\d+) runs\)",
+        cap.text)]
+    check(len(lat) == len(QUERIES), f"console: {len(lat)} latency lines")
+    out["shapes"] = {}
+    for (name, _t), q, (nrows, usec, runs) in zip(QUERIES.items(), got, lat):
+        check(q.result.status_code == 0 and rows_multiset(q) ==
+              cross_rows[name], f"console {name}: rows differ from phase 6's")
+        out["shapes"][name] = {"rows": q.result.nrows,
+                               "avg_us": int(usec.replace(",", "")),
+                               "runs": int(runs)}
+        log(f"  console {name}: {q.result.nrows:,} rows (as phase 6), avg "
+            f"latency {usec} usec over {runs} runs (run_single_query's log)")
 
 
 def merged_rows(captures: dict, phase: str, kernel_fns: dict,
@@ -1176,7 +1628,7 @@ def cross_check_batched(on_cpu, on_gpu, triples, seed: int) -> None:
 
     stats = Stats.generate(triples)
     for p in (on_cpu, on_gpu):
-        p.planner, p.engine.stats = Planner(stats), stats
+        p.planner, p.gpu.stats = Planner(stats), stats
 
     def same(what, a, b):
         a = [np.asarray(x).tolist() for x in a]
@@ -1197,17 +1649,17 @@ def cross_check_batched(on_cpu, on_gpu, triples, seed: int) -> None:
               f"cross-check {name}: draws differ")
         for p, q in ((on_cpu, qa), (on_gpu, qb)):
             jobs.setdefault(p, []).append((q, da[0]))
-        ea, eb = on_cpu.engine, on_gpu.engine
+        ea, eb = on_cpu.gpu, on_gpu.gpu
         same(f"{name} execute_batch", [ea.execute_batch(qa, da[0])],
              [eb.execute_batch(qb, da[0])])
         same(f"{name} execute_batch_many", ea.execute_batch_many(qa, da[:2]),
              eb.execute_batch_many(qb, da[:2]))
     same("execute_batch_mixed",
-         on_cpu.engine.execute_batch_mixed(jobs[on_cpu]),
-         on_gpu.engine.execute_batch_mixed(jobs[on_gpu]))
+         on_cpu.gpu.execute_batch_mixed(jobs[on_cpu]),
+         on_gpu.gpu.execute_batch_mixed(jobs[on_gpu]))
     for name in HEAVY:
         qa, qb = on_cpu.parse(QUERIES[name]), on_gpu.parse(QUERIES[name])
-        ea, eb = on_cpu.engine, on_gpu.engine
+        ea, eb = on_cpu.gpu, on_gpu.gpu
         same(f"{name} execute_batch_index", [ea.execute_batch_index(qa, 4)],
              [eb.execute_batch_index(qb, 4)])
         same(f"{name} execute_batch_index slice",
@@ -1350,7 +1802,7 @@ def main(argv=None) -> int:
     check(sum(r["launches"] for r in rows if r["name"] == "probe_kernel")
           == launches["probe_kernel"] + ext["probe_kernel"],
           "K1's launches by class do not add up to its count")
-    vseg = proxy.engine.dstore._cache.get(("vpv", int(OUT)))
+    vseg = proxy.gpu.dstore._cache.get(("vpv", int(OUT)))
     check(vseg is not None and vseg.edges2 is not None
           and vseg.bline.device.type == "cuda",
           "the OUT combined segment is not resident on the card")
@@ -1364,8 +1816,10 @@ def main(argv=None) -> int:
     log(f"batched: LUBM-{args.scale} on {kind}, planner and batches")
     entry = {"name": ""}
     captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    replay: list = []
     try:
-        serve_batched(proxy, triples, phase4, args.seed, entry, results)
+        serve_batched(proxy, triples, phase4, args.seed, entry, results,
+                      replay)
     finally:
         for c in captures.values():
             c.restore()
@@ -1378,15 +1832,47 @@ def main(argv=None) -> int:
         "probe_kernel was never launched by the slice-mode batches")
     results["batched"]["launches"] = by_entry
     rows += merged_rows(captures, "7 batched serving", kernel_fns, errs)
-    for row in rows:  # every check of a kernel: phase 2 and every phase row
-        row["max_abs_err"] = errs[row["name"]]
-    results["kernels"] = rows
+    with StreamAudit() as audit:  # after the counts: not main-path work
+        for call in replay:
+            call()
+    results["batched"]["stream_arms"] = audit.report(
+        "phase 7, each entry point once on each input")
 
-    # ---- 6. cross-check (after phase 7, which reuses phase 3's store) ---
+    # ---- 8. the serving runtime on phase 3's proxy -----------------------
+    log(f"runtime: LUBM-{args.scale} on {kind}, capacity fallback and "
+        f"sparql-emu")
+    results["runtime"] = {}
+    serve_fallback(proxy, phase4, results)
+    with tempfile.TemporaryDirectory() as root:
+        mixes = {mix: write_mix(root, mix, heavy)
+                 for mix, heavy in (("light", False), ("mixed", True))}
+        for fn, _plain, _b in kernel_fns.values():
+            fn.launches = 0
+        captures = capture_all(lambda a: entry["name"],
+                               lambda a: entry["name"])
+        try:
+            serve_emu(proxy, mixes, entry, results)
+        finally:
+            for c in captures.values():
+                c.restore()
+        torch.cuda.synchronize()
+        emu = {name: dict(c.launches) for name, c in captures.items()}
+        log(f"runtime: sparql-emu kernel launches by mix {emu}")
+        check(sum(captures["probe_kernel"].launches.values()) > 0,
+              "probe_kernel was never launched by sparql-emu")
+        results["runtime"]["emu_launches"] = emu
+        rows += captured_rows(captures, "8 sparql-emu, ", kernel_fns, errs)
+        with StreamAudit() as audit:
+            audit_emu(proxy, mixes)
+        results["runtime"]["stream_arms"] = audit.report(
+            "phase 8 sparql-emu, both mixes")
+
+    # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
     del proxy, triples
     gx, ssx, tx = build_world(args.cross_scale, args.seed)
     on_cpu = Proxy(gx, ssx, device="cpu")
     on_gpu = Proxy(gx, ssx, device="cuda")
+    cross_rows = {}
     for name, text in list(QUERIES.items()) + list(EXT_QUERIES.items()):
         a, b = on_cpu.serve_query(text), on_gpu.serve_query(text)
         check(a.result.status_code == b.result.status_code == 0,
@@ -1397,10 +1883,31 @@ def main(argv=None) -> int:
         if name in ORDERED:
             check(a.result.table.tolist() == b.result.table.tolist(),
                   f"cross-check {name}: row order differs")
+        cross_rows[name] = rows_multiset(b)
         log(f"  cross-check LUBM-{args.cross_scale} {name}: "
             f"{a.result.nrows:,} rows equal on cpu and cuda")
     cross_check_batched(on_cpu, on_gpu, tx, args.seed)
     results["cross_scale"] = args.cross_scale
+    del on_cpu, on_gpu, gx, tx
+
+    # ---- 8. the console on a directory the port writes -------------------
+    log(f"console: LUBM-{args.cross_scale} written by write_dataset, "
+        f"console.main on {kind}")
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all()
+    try:
+        console_phase(args.cross_scale, args.seed, cross_rows, results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    check(kernel_fns["probe_kernel"][0].launches > 0,
+          "probe_kernel was never launched by the console's queries")
+    rows += captured_rows(captures, "8 console", kernel_fns, errs)
+    for row in rows:  # every check of a kernel: phase 2 and every phase row
+        row["max_abs_err"] = errs[row["name"]]
+    results["kernels"] = rows
     results["total_s"] = time.perf_counter() - t_start
     log(f"done in {results['total_s']:.1f} s")
     if args.out:

@@ -63,7 +63,9 @@ def worker(tree: str, scale: int, seed: int, runs: int, shapes: list) -> dict:
     t2 = time.perf_counter()
     # the OUT combined segment, which the first variable-predicate shape
     # stages (x_vers_kuu's first run)
-    proxy.engine.dstore.versatile_segment(OUT)
+    # (earlier builds named the proxy's device engine ``engine``)
+    eng = proxy.gpu if hasattr(proxy, "gpu") else proxy.engine
+    eng.dstore.versatile_segment(OUT)
     torch.cuda.synchronize()
     stage = {"setup_s": t2 - t0, "stage_s": t2 - t1,
              "combined_out_s": time.perf_counter() - t2}

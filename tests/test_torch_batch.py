@@ -128,7 +128,7 @@ def _single_rows(proxy, tp, const) -> int:
     pi, fld = tp.pos[0]
     setattr(q.pattern_group.patterns[pi], fld, int(const))
     proxy._plan(q)
-    proxy.engine.execute(q)
+    proxy.gpu.execute(q)
     assert q.result.status_code == 0
     return q.result.nrows
 
@@ -140,7 +140,7 @@ def test_const_batch_matches_jax(world, name, merge, monkeypatch):
     monkeypatch.setattr(Global, "enable_merge_join", merge)
     monkeypatch.setattr(JGlobal, "enable_merge_join", merge)
     qj, qp, consts, tp = _template_batch(world, name)
-    got = proxy.engine.execute_batch(qp, consts).tolist()
+    got = proxy.gpu.execute_batch(qp, consts).tolist()
     assert got == np.asarray(tpu.execute_batch(qj, consts)).tolist()
     assert got[:4] == [_single_rows(proxy, tp, c) for c in consts[:4]]
     assert sum(got) > 0
@@ -152,7 +152,7 @@ def test_const_batch_stream_arms_match_jax(world, name, force_stream):
     _ss, _jp, tpu, _jproxy, proxy = world
     qj, qp, consts, _tp = _template_batch(world, name, B=8)
     for cs in (np.unique(consts), np.repeat(consts[:2], 3)):
-        got = proxy.engine.execute_batch(qp, cs).tolist()
+        got = proxy.gpu.execute_batch(qp, cs).tolist()
         assert got == np.asarray(tpu.execute_batch(qj, cs)).tolist()
     assert force_stream["stream"] > 0 and force_stream["mhot"] > 0
 
@@ -169,14 +169,14 @@ def test_const_windows_match_jax(world):
         want = [np.asarray(c).tolist()
                 for c in tpu.execute_batch_many(qj, parts)]
         assert [c.tolist() for c in
-                proxy.engine.execute_batch_many(qp, parts)] == want
+                proxy.gpu.execute_batch_many(qp, parts)] == want
         jobs_j.append((qj, consts))
         jobs_p.append((qp, consts))
     want = [np.asarray(c).tolist() for c in tpu.execute_batch_mixed(jobs_j)]
-    assert [c.tolist() for c in proxy.engine.execute_batch_mixed(jobs_p)] \
+    assert [c.tolist() for c in proxy.gpu.execute_batch_mixed(jobs_p)] \
         == want
-    proxy.engine.merge._cap_memo = type(proxy.engine.merge._cap_memo)(4096)
-    assert [c.tolist() for c in proxy.engine.execute_batch_mixed(jobs_p)] \
+    proxy.gpu.merge._cap_memo = type(proxy.gpu.merge._cap_memo)(4096)
+    assert [c.tolist() for c in proxy.gpu.execute_batch_mixed(jobs_p)] \
         == want
 
 
@@ -188,12 +188,12 @@ def test_index_batch_matches_jax(world, name, mode, force_stream):
     single = proxy.serve_query(chip_smoke.QUERIES[name]).result.nrows
     sl = mode == "slice"
     for B in ((4, 8) if sl else (1, 3)):
-        got = proxy.engine.execute_batch_index(qp, B, slice_mode=sl).tolist()
+        got = proxy.gpu.execute_batch_index(qp, B, slice_mode=sl).tolist()
         assert got == np.asarray(
             tpu.execute_batch_index(qj, B, slice_mode=sl)).tolist()
         assert (sum(got) == single) if sl else (got == [single] * B)
         # the merge executor's own slice and replicate modes
-        got = proxy.engine.merge.run_batch_index(qp, B, sl).tolist()
+        got = proxy.gpu.merge.run_batch_index(qp, B, sl).tolist()
         assert got == np.asarray(tpu.merge.run_batch_index(qj, B, sl)).tolist()
 
 
@@ -211,7 +211,7 @@ def test_mt_factor_carriers_match_jax(world, name):
         qj, qp = _both(world, chip_smoke.QUERIES[name])
         qj.mt_factor = qp.mt_factor = 3
         qj.mt_tid = qp.mt_tid = tid
-        got = proxy.engine.execute_batch_index(qp, 2).tolist()
+        got = proxy.gpu.execute_batch_index(qp, 2).tolist()
         p0 = qp.pattern_group.patterns[0]
         lo, hi = _mt_slice(len(proxy.g.get_index(p0.subject, p0.direction)),
                            3, tid)
@@ -229,14 +229,14 @@ def test_index_window_sizing_and_walk_match_jax(world, name):
     want = [np.asarray(c).tolist()
             for c in tpu.execute_batch_index_many(qj, 2, 3)]
     assert [c.tolist() for c in
-            proxy.engine.execute_batch_index_many(qp, 2, 3)] == want
-    assert proxy.engine.suggest_index_batch(qp) == tpu.suggest_index_batch(qj)
+            proxy.gpu.execute_batch_index_many(qp, 2, 3)] == want
+    assert proxy.gpu.suggest_index_batch(qp) == tpu.suggest_index_batch(qj)
     assert proxy.heavy_index_batch(qp) == min(tpu.suggest_index_batch(qj),
                                               Global.heavy_batch_max)
     for B, mode in ((2, "rep"), (4, "slice")):
-        proxy.engine.execute_batch_index(qp, B, slice_mode=mode == "slice")
+        proxy.gpu.execute_batch_index(qp, B, slice_mode=mode == "slice")
         tpu.merge.run_batch_index(qj, B, mode == "slice")
-        pm, jm = proxy.engine.merge, tpu.merge
+        pm, jm = proxy.gpu.merge, tpu.merge
         pp, jj = qp.pattern_group.patterns, qj.pattern_group.patterns
 
         def walk(m, pats):
@@ -251,27 +251,27 @@ def test_capacity_memo_learns_and_round_trips(world, tmp_path):
     save_cap_memo loads into a fresh engine, which then retries nothing."""
     _ss, _jp, _tpu, _jproxy, proxy = world
     _qj, qp, consts, _tp = _template_batch(world, "lubm_q7")
-    merge = proxy.engine.merge
-    first = proxy.engine.execute_batch(qp, consts).tolist()
+    merge = proxy.gpu.merge
+    first = proxy.gpu.execute_batch(qp, consts).tolist()
     before = merge.total_retries
-    assert proxy.engine.execute_batch(qp, consts).tolist() == first
+    assert proxy.gpu.execute_batch(qp, consts).tolist() == first
     assert merge.total_retries == before
     path = str(tmp_path / "cap_memo.json")
     merge.save_cap_memo(path)
     fresh = Proxy(proxy.g, proxy.str_server, device="cpu",
                   planner=proxy.planner)
-    fresh.engine.merge.load_cap_memo(path)
-    assert dict(fresh.engine.merge._cap_memo.items()) == \
+    fresh.gpu.merge.load_cap_memo(path)
+    assert dict(fresh.gpu.merge._cap_memo.items()) == \
         dict(merge._cap_memo.items())
-    assert fresh.engine.execute_batch(qp, consts).tolist() == first
-    assert fresh.engine.merge.total_retries == 0
+    assert fresh.gpu.execute_batch(qp, consts).tolist() == first
+    assert fresh.gpu.merge.total_retries == 0
 
 
 def test_planner_empty_answers_zeros(world):
     _ss, _jp, tpu, _jproxy, proxy = world
     qj, qp = _both(world, EMPTY_INDEX)
     assert qp.planner_empty and qj.planner_empty
-    for eng, q in ((proxy.engine, qp), (tpu, qj)):
+    for eng, q in ((proxy.gpu, qp), (tpu, qj)):
         assert np.asarray(eng.execute_batch_index(q, 3)).tolist() == [0] * 3
         assert [np.asarray(c).tolist() for c in
                 eng.execute_batch_index_many(q, 2, 2)] == [[0, 0]] * 2
@@ -308,7 +308,7 @@ def test_unsupported_batch_shapes_raise_jax_codes(world, shape, plan, entry):
         with pytest.raises(JWukongError) as je:
             run(tpu, qj)
         with pytest.raises(WukongError) as pe:
-            run(proxy.engine, qp)
+            run(proxy.gpu, qp)
         assert int(pe.value.code) == int(je.value.code)
 
 
@@ -340,3 +340,39 @@ def test_planned_proxy_serves_suites_like_jax(world, name):
     else:
         assert sorted(_rows(got.result)) == sorted(_rows(qj.result))
     assert got.result.v2c_map == qj.result.v2c_map
+
+
+def test_stream_arm_bound_holds(world, force_stream, monkeypatch):
+    """The merge executor's host bounds on a streamed frontier's key
+    multiplicity (the stream arm's choice, read from no device value) hold:
+    ``mult`` is never below the most rows a matched key has, and
+    ``mult_lo`` never above the fewest: const batches with repeated
+    constants, and replicate index batches."""
+    _ss, _jp, _tpu, _jproxy, proxy = world
+    seen = []
+    orig = S.stream_expand
+
+    def checked(skey, sstart, sdeg, edges, cur, n, live, cap_out, mult,
+                **kw):
+        deg = dict(zip(skey.tolist(), sdeg.tolist()))
+        nn = int(n)
+        keys = [k for k, ok in zip(cur[:nn].tolist(), live[:nn].tolist())
+                if ok and deg.get(k, 0) > 0]
+        counts = np.unique(keys, return_counts=True)[1] if keys else [0]
+        seen.append((mult, int(max(counts)), kw.get("mult_lo", 1),
+                     int(min(counts)) if keys else None))
+        return orig(skey, sstart, sdeg, edges, cur, n, live, cap_out, mult,
+                    **kw)
+
+    monkeypatch.setattr(S, "stream_expand", checked)
+    for name in ("lubm_q4", "lubm_q5"):
+        _qj, qp, consts, _tp = _template_batch(world, name, B=8)
+        for cs in (np.unique(consts), np.repeat(consts[:2], 3)):
+            proxy.gpu.execute_batch(qp, cs)
+    for name in HEAVY:
+        q = proxy.parse(chip_smoke.QUERIES[name])
+        proxy.gpu.execute_batch_index(q, 3)
+    assert seen and any(t > 1 for _m, t, _lo, _f in seen)
+    assert any(lo > 1 for _m, _t, lo, _f in seen)
+    assert all(m is None or m >= t for m, t, _lo, _f in seen), seen
+    assert all(f is None or lo <= f for _m, _t, lo, f in seen), seen

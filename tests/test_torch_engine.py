@@ -139,13 +139,13 @@ def test_capacity_overflow_retry(world, monkeypatch):
     g, ss, proxy, cpu, tpu = world
     monkeypatch.setattr(Global, "table_capacity_min", 16)
     small = Proxy(proxy.g, proxy.str_server, device="cpu")
-    assert small.engine.cap_min == 16
+    assert small.gpu.cap_min == 16
     # estimates far below the truth: the first attempt must overflow
-    monkeypatch.setattr(small.engine, "_fanout", lambda pat, seg=None: 1e-3)
+    monkeypatch.setattr(small.gpu, "_fanout", lambda pat, seg=None: 1e-3)
     text = LUBM_REFERENCE_SHAPES["lubm_q2"]
     q = small.serve_query(text)
     assert q.result.status_code == ErrorCode.SUCCESS
-    assert small.engine._last_attempts > 1
+    assert small.gpu._last_attempts > 1
     assert sorted(map(tuple, q.result.table.tolist())) == \
         _jax_rows(cpu, ss, text)
 

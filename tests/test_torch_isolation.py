@@ -29,6 +29,12 @@ _SCRIPT = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     assert len(names) >= 20, names
+    runtime = {"wukong_tpu_torch.runtime." + m for m in (
+        "console", "emulator", "scheduler", "monitor", "faults",
+        "resilience", "batcher", "proxy")}
+    assert runtime | {"wukong_tpu_torch.analysis.lockdep",
+                      "wukong_tpu_torch.store.string_server",
+                      "wukong_tpu_torch.loader.base"} <= set(names), names
     leaked = [m for m in sys.modules
               if m == "wukong_tpu" or m.startswith("wukong_tpu.")
               or m == "jax" and sys.modules[m] is not None]

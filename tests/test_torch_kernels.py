@@ -150,6 +150,16 @@ def _mk_segment(rng, nkeys, max_deg):
     return sk, ss, sd, e, keys
 
 
+def _run_mult(sk, sd, cur, n, live) -> int:
+    """The port's stream-arm bound, exact here: the largest number of live
+    frontier rows (i < n) sharing one key that has edges in the segment."""
+    keys = cur[:n][live[:n]]
+    deg = dict(zip(sk.tolist(), sd.tolist()))
+    keys = keys[np.array([deg.get(int(k), 0) > 0 for k in keys], bool)]
+    return int(np.unique(keys, return_counts=True)[1].max()) if len(keys) \
+        else 0
+
+
 def _stream_both(sk, ss, sd, e, cur, n, live, cap, mhot=True, mdup=JS.MDUP):
     a = JS.stream_expand(jnp.asarray(sk), jnp.asarray(ss), jnp.asarray(sd),
                          jnp.asarray(e), jnp.asarray(cur), jnp.int32(n),
@@ -157,6 +167,7 @@ def _stream_both(sk, ss, sd, e, cur, n, live, cap, mhot=True, mdup=JS.MDUP):
                          mhot=mhot, mdup=mdup)
     b = S.stream_expand(_t(sk), _t(ss), _t(sd), _t(e), _t(cur),
                         K.as_count(n, "cpu"), _t(live), cap_out=cap,
+                        mult=_run_mult(sk, sd, cur, n, live),
                         mhot=mhot, mdup=mdup)
     return [np.asarray(x) for x in a], [x.numpy() for x in b]
 
@@ -208,6 +219,35 @@ def test_stream_expand_matches_jax(case):
     else:
         _eq(av, bv)
         _eq(ap, bp)
+
+
+@pytest.mark.parametrize("case", ["distinct", "mhot", "mhot_off",
+                                  "high_mult", "all_miss", "empty"])
+@pytest.mark.parametrize("bound", ["mdup", "above_mdup", "none",
+                                   "lower_past_mdup"])
+def test_stream_expand_loose_bound_same_bits(case, bound):
+    """A bound above the frontier's true multiplicity gives the exact
+    bound's bits: K3 stands in for K2 over distinct keys, past mdup (or
+    with no bound) the device picks K3's rows or the gather arm's, and a
+    lower bound past mdup takes the gather arm."""
+    rng = np.random.default_rng(7)
+    sk, ss, sd, e, keys = _mk_segment(rng, nkeys=400, max_deg=9)
+    mhot = case != "mhot_off"
+    cur, n, live = _frontier(rng, keys, "mhot" if case == "mhot_off"
+                             else case, 1024)
+    true = _run_mult(sk, sd, cur, n, live)
+    loose = {"mdup": max(true, 2) if true <= JS.MDUP else true,
+             "above_mdup": max(true, JS.MDUP + 1), "none": None,
+             "lower_past_mdup": None}[bound]
+    # a lower bound holds only where every matched key has that many rows
+    lo = true if bound == "lower_past_mdup" and case == "high_mult" else 1
+    args = (_t(sk), _t(ss), _t(sd), _t(e), _t(cur), K.as_count(n, "cpu"),
+            _t(live))
+    want = S.stream_expand(*args, cap_out=1 << 13, mult=true, mhot=mhot)
+    got = S.stream_expand(*args, cap_out=1 << 13, mult=loose, mhot=mhot,
+                          mult_lo=lo)
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
 
 
 def test_stream_overflow_totals_agree():

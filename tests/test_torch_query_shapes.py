@@ -97,7 +97,7 @@ def test_versatile_steps_ran_on_the_device_chain(world):
     """x_vers_kuu and x_vers_kuc_fold expand through expand2 over the staged
     OUT combined segment; the const starts need no staging."""
     ss, proxy, cpu, tpu = world
-    ds = proxy.engine.dstore
+    ds = proxy.gpu.dstore
     ds._cache.pop(("vpv", int(OUT)), None)
     proxy.serve_query(chip_smoke.EXT_QUERIES["x_vers_const"])
     assert ("vpv", int(OUT)) not in ds._cache

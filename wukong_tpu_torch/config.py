@@ -1,42 +1,158 @@
 """Runtime knobs the port reads (a subset of the JAX package's ``Global``).
 
+Mirrors the reference's two-tier config (core/global.hpp:29-124,
+core/config.hpp:42-235) as the JAX package's config.py does: key-value
+settings loaded from a config file or string, split into settings that are
+immutable after boot and settings that the console's ``config -s`` reloads
+at runtime (config.hpp:183-198).
+
 Only the fields this package consults live here; each keeps the JAX
-package's name and default so a configuration means the same thing to both.
-No knob routes a CUDA tensor to a plain PyTorch version: on the card every
-kernel of the path is the hand-written one.
+package's name and default, so one config file means the same thing to
+both packages. A key the port does not have is warned about and skipped, as
+the reference skips unknown items. No knob routes a CUDA tensor to a plain
+PyTorch version: on the card every kernel of the path is the hand-written
+one.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 
 @dataclass
-class _Global:
-    # smallest / largest binding-table capacity class (rows); the largest
-    # bounds every intermediate result of one device chain
-    table_capacity_min: int = 1024
-    table_capacity_max: int = 1 << 25
+class GlobalConfig:
+    # ---- immutable after boot (config.hpp:42-110) ----
+    num_engines: int = 4  # host engine threads of the engine pool
+    # the device engine is built (the name is the JAX package's; here the
+    # card is an H100)
+    enable_tpu: bool = True
     # device segment-cache budget in GiB (LRU eviction above it); the name
     # is the JAX package's, the budget is the card's memory
     tpu_mem_cache_gb: int = 4
+
+    # ---- mutable at runtime (config.hpp:112-151) ----
+    enable_planner: bool = True
+    # planner-proved-empty queries answer without device work
+    enable_empty_shortcircuit: bool = True
+    # CORUN at the planner's marked step (host engine, sparql.hpp:816-936)
+    enable_corun: bool = False
+    # blind mode: replies carry the row count, not the table
+    silent: bool = True
+    # host engine work stealing: 0 pair, 1 ring (engine.hpp:186-207)
+    stealing_pattern: int = 0
+    # stage every segment of a chain before its first step runs
+    gpu_enable_pipeline: bool = True
     # sort-merge executor for replicate index batches (else the eager
     # probe chain with a qid column)
     enable_merge_join: bool = True
     # stream-emit kernels for dense expansions inside the merge executor
     enable_stream_expand: bool = True
-    # planner-proved-empty queries answer without device work
-    enable_empty_shortcircuit: bool = True
-    # stage every segment of a chain before its first step runs
-    gpu_enable_pipeline: bool = True
-    # the proxy plans with its cost-based planner when it has one (else a
-    # user plan, else the greedy heuristic)
-    enable_planner: bool = True
-    # const-start instances answered together by one execute_batch
-    device_batch: int = 1024
+
+    # ---- resilience knobs (runtime/resilience.py; all mutable) ----
+    # per-query wall-clock deadline in ms; 0 disables. Checked at every BGP
+    # step and chain attempt; expiry keeps a partial result.
+    query_deadline_ms: int = 0
+    # per-query intermediate-row work budget; 0 disables. Every BGP step and
+    # device chain charges its output rows.
+    query_budget_rows: int = 0
+    # on deadline/budget expiry keep the rows produced so far and tag the
+    # reply incomplete instead of clearing the table
+    enable_partial_results: bool = True
+
+    # ---- lock-order checking (analysis/lockdep.py): read when a lock is
+    # created; off gives plain threading primitives ----
+    debug_locks: bool = False
+
+    # ---- serving caches: bounded-LRU sizes of the proxy's parse cache
+    # (query text -> parsed query) and plan cache (template signature +
+    # store version -> plan recipe) ----
+    parse_cache_size: int = 512
+    plan_cache_size: int = 512
     # ceiling on the slice count suggest_index_batch may pick for a heavy
     # (index-origin) query
     heavy_batch_max: int = 64
 
+    # ---- device-engine knobs ----
+    # smallest / largest binding-table capacity class (rows); the largest
+    # bounds every intermediate result of one device chain
+    table_capacity_min: int = 1024
+    table_capacity_max: int = 1 << 25
+    # const-start instances answered together by one execute_batch
+    device_batch: int = 1024
 
-Global = _Global()
+    _IMMUTABLE = {"num_engines", "enable_tpu", "tpu_mem_cache_gb"}
+
+    def _names(self) -> set:
+        return {f.name for f in fields(self) if f.init}
+
+    def _apply(self, key: str, value: str, runtime: bool) -> None:
+        key = key.removeprefix("global_")
+        if key not in self._names():
+            raise KeyError(f"unknown config item: {key}")
+        if runtime and key in self._IMMUTABLE:
+            raise ValueError(f"config item '{key}' is immutable at runtime")
+        cur = getattr(self, key)
+        if isinstance(cur, bool):
+            setattr(self, key,
+                    value.strip().lower() in ("1", "true", "yes", "on"))
+        elif isinstance(cur, int):
+            setattr(self, key, int(value))
+        else:
+            setattr(self, key, value.strip())
+
+    def load_str(self, text: str, runtime: bool = False) -> None:
+        """Parse 'key value' lines (comments with #) — config.hpp:152-181.
+
+        Every item is parsed and validated before any is applied, so a bad
+        line leaves the config untouched; unknown keys warn and are skipped.
+        """
+        from wukong_tpu_torch.utils.logger import log_warn
+
+        items: list[tuple[str, str]] = []
+        for line in text.splitlines():
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            parts = line.split(None, 1)
+            if len(parts) != 2:
+                raise ValueError(f"malformed config line: {line!r}")
+            items.append((parts[0], parts[1]))
+        valid = self._names()
+        known = [(k, v) for k, v in items if k.removeprefix("global_") in valid]
+        for k, _v in items:
+            if k.removeprefix("global_") not in valid:
+                log_warn(f"unknown config item ignored: {k}")
+        # validate before applying (immutability + int parse)
+        for k, v in known:
+            key = k.removeprefix("global_")
+            if runtime and key in self._IMMUTABLE:
+                raise ValueError(f"config item '{key}' is immutable at runtime")
+            cur = getattr(self, key)
+            if isinstance(cur, int) and not isinstance(cur, bool):
+                int(v)  # raises ValueError on junk before anything is applied
+        for k, v in known:
+            self._apply(k, v, runtime)
+
+    def load_file(self, path: str, runtime: bool = False) -> None:
+        with open(path) as f:
+            self.load_str(f.read(), runtime=runtime)
+
+    def dump(self) -> str:
+        return "\n".join(f"global_{f.name}\t{getattr(self, f.name)}"
+                         for f in fields(self) if f.init)
+
+
+# process-wide singleton, mirroring `Global::*` statics (global.hpp:29-74)
+Global = GlobalConfig()
+
+
+def load_config(path: str) -> GlobalConfig:
+    """Boot-time load of a config file (config.hpp:203-218)."""
+    Global.load_file(path)
+    return Global
+
+
+def reload_config(text: str) -> GlobalConfig:
+    """Runtime reload of mutable settings (config.hpp:183-198)."""
+    Global.load_str(text, runtime=True)
+    return Global

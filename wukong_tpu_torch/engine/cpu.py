@@ -13,11 +13,11 @@ merge (Result::merge_result, query.hpp:497-533), string-space FILTER evaluation
 It executes one query against a single-partition GStore. The GPU engine
 (engine/tpu.py) hands it exactly the work the JAX TPUEngine hands its CPU
 engine: pattern steps past the device prefix, the UNION merge, in-place
-OPTIONAL groups, FILTERs and the final stage. Not ported: CORUN (the JAX
-package reaches it only through its proxy's engine pool, which the port has
-not got), the per-query deadline and row budget (the resilience layer) and
-knn() (the vector store), which is refused with ATTR_DISABLE as with vectors
-off.
+OPTIONAL groups, FILTERs and the final stage. The proxy's engine pool runs
+whole queries on it, CORUN included (``enable_corun``). Every BGP step checks
+the query's deadline and charges its rows to its budget; an expiry keeps the
+rows produced so far (``resilience.mark_partial``). Not ported: knn() (the
+vector store), which is refused with ATTR_DISABLE as with vectors off.
 """
 
 from __future__ import annotations
@@ -47,7 +47,13 @@ from wukong_tpu_torch.types import (
     AttrType,
     is_tpid,
 )
-from wukong_tpu_torch.utils.errors import ErrorCode, WukongError, assert_ec
+from wukong_tpu_torch.utils.errors import (
+    BudgetExceeded,
+    ErrorCode,
+    QueryTimeout,
+    WukongError,
+    assert_ec,
+)
 
 CONST_VAR, KNOWN_VAR, UNKNOWN_VAR = 0, 1, 2
 
@@ -63,6 +69,17 @@ def var_stat(res: Result, ssid: int) -> int:
 
 def _empty_table(ncols: int) -> np.ndarray:
     return np.empty((0, ncols), dtype=np.int64)
+
+
+def _rows_in(main_keys: np.ndarray, sub_keys: np.ndarray) -> np.ndarray:
+    """Per-row membership of main_keys rows in the sub_keys row set (the corun
+    hash/sort join, sparql.hpp:893-930 — vectorized via structured views)."""
+    if len(sub_keys) == 0 or main_keys.shape[1] == 0:
+        return np.zeros(len(main_keys), dtype=bool)
+    a = np.ascontiguousarray(main_keys.astype(np.int64))
+    b = np.ascontiguousarray(sub_keys.astype(np.int64))
+    dt = np.dtype([(f"f{i}", np.int64) for i in range(a.shape[1])])
+    return np.isin(a.view(dt).reshape(-1), np.unique(b.view(dt).reshape(-1)))
 
 
 def _expand_rows(deg: np.ndarray):
@@ -101,8 +118,8 @@ class CPUEngine:
                     self._final_process(q)
                 return q
             self._knn_pre(q)
-            while q.has_pattern and not q.done_patterns():
-                self._execute_one_pattern(q)
+            if q.has_pattern and not q.done_patterns():
+                self._execute_patterns(q)
             if q.pattern_group.unions and not q.union_done:
                 self._execute_unions(q)
             if q.pattern_group.optional:
@@ -112,6 +129,12 @@ class CPUEngine:
                 self._execute_filters(q)
             if from_proxy:
                 self._final_process(q)
+        except (QueryTimeout, BudgetExceeded) as e:
+            # graceful degradation: keep the rows produced so far, tag the
+            # reply incomplete with the dropped patterns
+            from wukong_tpu_torch.runtime.resilience import mark_partial
+
+            mark_partial(q, e)
         except WukongError as e:
             q.result.status_code = e.code
         return q
@@ -145,6 +168,77 @@ class CPUEngine:
         if getattr(q, "knn", None) is not None:
             raise WukongError(ErrorCode.ATTR_DISABLE,
                               "knn() requires enable_vectors")
+
+    def _execute_patterns(self, q: SPARQLQuery) -> None:
+        from wukong_tpu_torch.runtime.resilience import (
+            charge_query,
+            check_query,
+        )
+
+        while not q.done_patterns():
+            check_query(q, f"cpu.bgp step {q.pattern_step}")
+            self._execute_one_pattern(q)
+            charge_query(q, q.result.nrows,
+                         f"cpu.bgp step {q.pattern_step - 1}")
+            # co-run optimization at the marked step (sparql.hpp:1130-1131)
+            if (q.corun_enabled and Global.enable_corun
+                    and q.pattern_step == q.corun_step):
+                self._do_corun(q)
+
+    def _do_corun(self, q: SPARQLQuery) -> None:
+        """CORUN: execute patterns [corun_step, fetch_step) over the DEDUPED
+        binding set of the anchor var, then semi-join the main table against
+        the sub-result — trades traversal for a join (sparql.hpp:816-936)."""
+        res = q.result
+        corun_step, fetch_step = q.corun_step, q.fetch_step
+        assert_ec(0 < corun_step < fetch_step
+                  <= len(q.pattern_group.patterns),
+                  ErrorCode.UNKNOWN_PLAN, "bad corun/fetch steps")
+        vid = q.get_pattern(corun_step).subject
+        assert_ec(vid < 0 and res.var2col(vid) != NO_RESULT,
+                  ErrorCode.VERTEX_INVALID, "corun anchor must be a bound var")
+        col = res.var2col(vid)
+        uniq = np.unique(res.table[:, col])
+
+        # remap sub-query vars to fresh ids (-1, -2, ...); remember which main
+        # column each remapped var corresponds to, in remap order
+        sub_vars: dict[int, int] = {}
+        pvars_cols: list[int] = []
+
+        def remap(ssid: int) -> int:
+            if ssid >= 0:
+                return ssid
+            if ssid not in sub_vars:
+                sub_vars[ssid] = -(len(sub_vars) + 1)
+                pvars_cols.append(res.var2col(ssid))
+            return sub_vars[ssid]
+
+        sub = SPARQLQuery()
+        for i in range(corun_step, fetch_step):
+            p = q.get_pattern(i)
+            sub.pattern_group.patterns.append(
+                Pattern(remap(p.subject), remap(p.predicate), p.direction,
+                        remap(p.object)))
+        sub.result.nvars = len(sub_vars)
+        sub.result.set_table(uniq.reshape(-1, 1).astype(np.int64))
+        sub.result.col_num = 1
+        sub.result.add_var2col(sub_vars[vid], 0)
+        sub.result.blind = False
+        self._execute_patterns(sub)
+
+        # semi-join: keep main rows whose remapped-var tuple appears in the
+        # sub-result (columns looked up via the sub v2c map, remap order)
+        sub_cols = [sub.result.var2col(sub_vars[v])
+                    for v in sub_vars]  # insertion order == remap order
+        bound = [(sc, mc) for sc, mc in zip(sub_cols, pvars_cols)
+                 if sc != NO_RESULT and mc != NO_RESULT]
+        sub_keys = sub.result.table[:, [sc for sc, _ in bound]]
+        main_keys = res.table[:, [mc for _, mc in bound]]
+        keep = _rows_in(main_keys, sub_keys)
+        res.set_table(res.table[keep])
+        if res.attr_table.size:
+            res.attr_table = res.attr_table[keep]
+        q.pattern_step = fetch_step
 
     # ------------------------------------------------------------------
     # pattern dispatch (sparql.hpp:938-1061)
@@ -506,6 +600,7 @@ class CPUEngine:
             child.pqid = q.qid
             child.pg_type = PGType.UNION
             child.pattern_group = sub_pg
+            child.deadline = q.deadline  # children share the parent's budget
             child.result = copy.deepcopy(q.result)
             child.result.blind = False
             child.mt_factor = q.mt_factor if child.start_from_index() else 1
@@ -551,6 +646,7 @@ class CPUEngine:
         child = SPARQLQuery()
         child.pqid = q.qid
         child.pg_type = PGType.OPTIONAL
+        child.deadline = q.deadline  # children share the parent's budget
         child.pattern_group = copy.deepcopy(q.pattern_group.optional[q.optional_step])
         q.optional_step += 1
         self._count_optional_new_vars(child.pattern_group, q.result)

@@ -207,6 +207,7 @@ class DeviceStore:
         self._lru: list = []
         self._pinned: set = set()
         self._fcsr_memo: dict = {}  # filtered host CSRs, per (pid, d, fkey)
+        self._maxdeg_memo: dict = {}  # (pid, d) -> largest host degree
         self.bytes_used = 0
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -333,6 +334,27 @@ class DeviceStore:
             return sum(len(self.g.get_index(t, IN)) for t in self.g.type_ids)
         host = self.g.segments.get((int(pid), int(d)))
         return host.num_edges if host is not None else 0
+
+    def host_max_deg(self, pid: int, d: int) -> int:
+        """Largest key degree of a (pid, dir) host CSR (0 when absent)."""
+        key = (int(pid), int(d))
+        m = self._maxdeg_memo.get(key)
+        if m is None:
+            csr = self._host_csr(pid, d)
+            m = 0 if csr is None or len(csr[0]) == 0 else int(
+                np.diff(np.asarray(csr[1])).max())
+            self._maxdeg_memo[key] = m
+        return m
+
+    def host_reverse_max_deg(self, pid: int, d: int) -> int | None:
+        """How many (pid, dir) keys can share one neighbour, at most: the
+        reverse CSR's largest degree, when that CSR holds every edge of
+        (pid, dir) reversed (equal edge counts); None when it does not
+        (edges to index-id objects have no reverse edge)."""
+        rd = 1 - int(d)
+        if self.host_num_edges(pid, d) != self.host_num_edges(pid, rd):
+            return None
+        return self.host_max_deg(pid, rd)
 
     # ---- lists -----------------------------------------------------------
     def index_list(self, tpid: int, d: int):

@@ -45,11 +45,18 @@ from wukong_tpu_torch.engine import tpu_kernels as K
 from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.device_store import DeviceStore
 from wukong_tpu_torch.engine.optional_join import execute_optional_leftjoin
+from wukong_tpu_torch.runtime.resilience import (
+    charge_query,
+    check_query,
+    mark_partial,
+)
 from wukong_tpu_torch.sparql.ir import NO_RESULT, PGType, SPARQLQuery
 from wukong_tpu_torch.types import OUT, PREDICATE_ID, TYPE_ID, AttrType
 from wukong_tpu_torch.utils.errors import (
+    BudgetExceeded,
     CapacityExceeded,
     ErrorCode,
+    QueryTimeout,
     WukongError,
     assert_ec,
 )
@@ -139,6 +146,8 @@ class GPUEngine:
                 self.cpu._execute_filters(q)
             if from_proxy:
                 self.cpu._final_process(q)
+        except (QueryTimeout, BudgetExceeded) as e:
+            mark_partial(q, e)
         except WukongError as e:
             q.result.status_code = e.code
         return q
@@ -227,6 +236,7 @@ class GPUEngine:
         self._last_attempts = 0
         for attempt in range(8):
             self._last_attempts = attempt + 1
+            check_query(q, f"gpu.chain attempt {attempt}")
             state = _ChainState(q.result)
             state.step_est = step_est
             for k in range(device_steps):
@@ -247,6 +257,7 @@ class GPUEngine:
         else:
             raise WukongError(ErrorCode.UNKNOWN_PATTERN,
                               "capacity retry limit exceeded")
+        charge_query(q, int(n), "gpu.chain")
         res = q.result
         if blind_ok:
             res.nrows = n
@@ -291,6 +302,16 @@ class GPUEngine:
                 if q.mt_factor > 1:
                     lo, hi = _mt_slice(real, q.mt_factor, q.mt_tid)
                     edges, real = edges[lo:hi], hi - lo
+                if real > self.cap_max:
+                    # A deviation from the JAX engine (tpu.py:365-375),
+                    # which clamps the start's class and keeps min(real,
+                    # cap) rows with status 0: the start records no total,
+                    # so neither the retry nor CapacityExceeded would fire.
+                    # The port refuses it, and the proxy answers every row
+                    # on the host engine (runtime/proxy.py _run_repeats).
+                    raise CapacityExceeded(
+                        f"index start ({real:,} rows) exceeds "
+                        f"table_capacity_max ({self.cap_max:,})")
                 cap = cap_override.get(step) or K.next_capacity(
                     real, self.cap_min, self.cap_max)
                 table, nn = K.init_from_list(edges, real, cap)
@@ -304,6 +325,13 @@ class GPUEngine:
             assert_ec(q.result.col_num == 0 and state.width == 0,
                       ErrorCode.FIRST_PATTERN_ERROR)
             vids = np.asarray(self.g.get_triples(start, pid, d), dtype=np.int64)
+            if len(vids) > self.cap_max:
+                # the JAX engine raises a numpy ValueError here (tpu.py:
+                # 415-424, the pad write); the port refuses the start as
+                # the capacity overflow it is, which the proxy degrades
+                raise CapacityExceeded(
+                    f"const start ({len(vids):,} neighbours) exceeds "
+                    f"table_capacity_max ({self.cap_max:,})")
             cap = cap_override.get(step) or K.next_capacity(
                 len(vids), self.cap_min, self.cap_max)
             pad = np.zeros((1, cap), dtype=np.int32)  # [width=1, capacity]
@@ -628,6 +656,7 @@ class GPUEngine:
                 self.dstore.prefetch(pats[1:] if skip0 else pats)
             cap_override: dict[int, int] = {}
             for _attempt in range(8):
+                check_query(q, f"gpu.batch_chain attempt {_attempt}")
                 state = _ChainState(q.result)
                 state.step_est = step_est
                 first = make_init(state, cap_override)

@@ -57,23 +57,33 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
 
 
+# dropped scatter writes go to DUMP slots past the end, spread by position:
+# millions of writes to one address serialize on the card
+DUMP = 1024
+
+
+def _spill(n: int, size: int, like: torch.Tensor) -> torch.Tensor:
+    """The dump slot of each of ``n`` scatter sources: size + (i % DUMP)."""
+    return size + (torch.arange(n, device=like.device) & (DUMP - 1))
+
+
 def _dump_index(idx: torch.Tensor, size: int) -> torch.Tensor:
-    """Scatter targets with every out-of-range index sent to slot ``size``
-    (the JAX ``mode="drop"`` rule; the caller cuts that slot off)."""
+    """Scatter targets with every out-of-range index sent past ``size``
+    (the JAX ``mode="drop"`` rule; the caller cuts the dump slots off)."""
     ok = (idx >= 0) & (idx < size)
-    return torch.where(ok, idx.long(), size)
+    return torch.where(ok, idx.long(), _spill(idx.shape[0], size, idx))
 
 
 def _scatter_max(size: int, idx, vals) -> torch.Tensor:
     """zeros(size).at[idx].max(vals, mode="drop")."""
-    out = torch.zeros(size + 1, dtype=I32, device=vals.device)
+    out = torch.zeros(size + DUMP, dtype=I32, device=vals.device)
     out.scatter_reduce_(0, _dump_index(idx, size), vals.to(I32), reduce="amax")
     return out[:size]
 
 
 def _scatter_set(size: int, idx, vals) -> torch.Tensor:
     """zeros(size).at[idx].set(vals, mode="drop") for unique in-range idx."""
-    out = torch.zeros(size + 1, dtype=I32, device=vals.device)
+    out = torch.zeros(size + DUMP, dtype=I32, device=vals.device)
     out.scatter_(0, _dump_index(idx, size), vals.to(I32))
     return out[:size]
 
@@ -87,8 +97,9 @@ def _nonzero_fill(keep: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     True positions in order, padded with ``fill``."""
     C = keep.shape[0]
     pos = torch.cumsum(keep, 0) - 1
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=keep.device)
-    tgt = torch.where(keep & (pos < size), pos, size)
+    out = torch.full((size + DUMP,), fill, dtype=torch.int64,
+                     device=keep.device)
+    tgt = torch.where(keep & (pos < size), pos, _spill(C, size, keep))
     out.scatter_(0, tgt, torch.arange(C, device=keep.device))
     return out[:size]
 

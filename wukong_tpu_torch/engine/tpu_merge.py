@@ -42,14 +42,19 @@ from wukong_tpu_torch.utils.lru import LRUCache
 
 class _Level:
     """One expansion level: new column values + parent map into the level
-    below (parent is None at the root)."""
+    below (parent is None at the root), with two host-side bounds that no
+    device read feeds: ``mult``, how many of the level's rows can share one
+    value (None: unknown), and ``fan``, how many rows one row of the level
+    below can produce here (None: unknown)."""
 
-    __slots__ = ("var", "vals", "parent")
+    __slots__ = ("var", "vals", "parent", "mult", "fan")
 
-    def __init__(self, var, vals, parent):
+    def __init__(self, var, vals, parent, mult=None, fan=None):
         self.var = var
         self.vals = vals
         self.parent = parent
+        self.mult = mult
+        self.fan = fan
 
 
 class _MergeState:
@@ -62,6 +67,9 @@ class _MergeState:
         self.totals: list = []  # (step, device_total, cap)
         self.var_level: dict[int, int] = {}  # var -> level index
         self.est_rows = 1.0  # host-side live-row estimate (NOT capacity)
+        # rows a matched key has at least, at every level: B in replicate
+        # mode (B identical queries), else 1
+        self.mult_lo = 1
 
     @property
     def cap(self) -> int:
@@ -84,6 +92,18 @@ class _MergeState:
         for k in range(top - 1, lv, -1):
             idx = K.gather_col(self.levels[k].parent, idx)
         return K.gather_col(self.levels[lv].vals, idx)
+
+    def mult_of(self, var: int) -> int | None:
+        """How many current rows can share one value of ``var``, at most:
+        its level's bound times the fan of every level above it (None when
+        a factor is unknown) — the stream arm's choice (tpu_stream)."""
+        lv = self.var_level[var]
+        m = self.levels[lv].mult
+        for lvl in self.levels[lv + 1:]:
+            if m is None or lvl.fan is None:
+                return None
+            m *= lvl.fan
+        return m
 
     def pos0(self):
         """Space-0 position of every current row (for qid recovery)."""
@@ -191,7 +211,11 @@ class MergeExecutor:
         else:
             tab, n = K.init_batch_index(edges, real, B=B, cap=cap0)
             vals = tab[1:2]
-        state.levels.append(_Level(pats[0].object, vals[0], None))
+        # an index list holds each vertex once; replicate mode repeats it B
+        # times
+        state.levels.append(_Level(pats[0].object, vals[0], None,
+                                   mult=1 if slice_mode else B))
+        state.mult_lo = 1 if slice_mode else B
         state.var_level[pats[0].object] = 0
         state.n = n
         state.est_rows = max(total0, 1)
@@ -300,6 +324,7 @@ class MergeExecutor:
         out = []
         for slow, (host_counts, totals), (_, tot) in zip(slows, host, flight):
             if any(t > c for (_, _, c), t in zip(tot, totals)):
+                self.total_retries += 1  # the chain runs again, alone
                 out.append(slow())
             else:
                 out.append(host_counts)
@@ -322,8 +347,10 @@ class MergeExecutor:
         cap0 = K.next_capacity(B, eng.cap_min)
         pad = np.zeros(cap0, dtype=np.int32)
         pad[:B] = consts
+        mult = int(np.unique(consts, return_counts=True)[1].max()) if B else 1
         state.levels.append(_Level(pats[0].subject,
-                                   K.upload(pad, eng.device), None))
+                                   K.upload(pad, eng.device), None,
+                                   mult=mult))
         state.var_level[pats[0].subject] = 0
         state.n = K.as_count(B, eng.device)
         state.est_rows = B
@@ -591,7 +618,7 @@ class MergeExecutor:
                 seg = eng.dstore.merge_segment(pid, d)
             if seg is None or seg.num_edges == 0:
                 zeros = torch.zeros(state.cap, dtype=torch.int32, device=dev)
-                state.levels.append(_Level(end, zeros, zeros))
+                state.levels.append(_Level(end, zeros, zeros, mult=1, fan=1))
                 state.var_level[end] = len(state.levels) - 1
                 state.n = K.as_count(0, dev)
                 state.live = None
@@ -601,6 +628,7 @@ class MergeExecutor:
             # capacity (capacity compounds geometrically)
             est = self._expand_est(pat, step, fold_filters, step_est,
                                    state.est_rows)
+            am = state.mult_of(start)  # host bound: the stream arm's choice
             cap_out = self._expand_cap(step, est, cap_override)
             state.est_rows = max(min(est, cap_out), 1.0)
             if use_probe:
@@ -613,13 +641,21 @@ class MergeExecutor:
                 vals, parent, n, total = tpu_stream.stream_expand(
                     seg.skey, seg.sstart, seg.sdeg, seg.edges, cur, state.n,
                     state.live_mask(), cap_out=cap_out,
+                    mult=am, mult_lo=state.mult_lo,
                     mhot=tpu_stream.mhot_enabled(),
                     mdup=tpu_stream.stream_mdup())
             else:
                 vals, parent, n, total = K.merge_expand(
                     seg.skey, seg.sstart, seg.sdeg, seg.edges, cur, state.n,
                     state.live_mask(), cap_out=cap_out)
-            state.levels.append(_Level(end, vals, parent))
+            # a value is reached from at most (reverse degree) anchor keys,
+            # each repeated at most ``am`` times; a row yields at most
+            # (forward degree) rows (a folded filter only drops edges)
+            rdeg = eng.dstore.host_reverse_max_deg(pid, d)
+            state.levels.append(_Level(
+                end, vals, parent,
+                mult=None if am is None or rdeg is None else am * rdeg,
+                fan=eng.dstore.host_max_deg(pid, d)))
             state.var_level[end] = len(state.levels) - 1
             state.n = n
             state.live = None  # filters before this step are consumed
@@ -662,7 +698,8 @@ class MergeExecutor:
                 state.cap, dtype=torch.int32, device=dev)
             vals, parent, n, total = K.merge_compact(top.vals, parent, keep,
                                                      state.n, cap_new)
-            state.levels[-1] = _Level(top.var, vals, parent)
+            state.levels[-1] = _Level(top.var, vals, parent, mult=top.mult,
+                                      fan=top.fan)
             state.n = n
             state.live = None
             state.totals.append((step, total, cap_new))

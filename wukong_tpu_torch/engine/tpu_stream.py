@@ -17,9 +17,18 @@ Two hand-written kernels (csrc/stream_emit.cu) replace the Pallas ones:
   merge emit's bag) with row positions dupstart + copy that one gather
   resolves to parents.
 Above mdup, ``stream_expand`` takes the plain scatter/gather emit. The JAX
-package chose among the three arms with ``lax.cond`` on the device; here one
-``.item()``-style read decides on the host, and the arm chosen is the arm
-that runs. On CPU tensors each kernel wrapper runs its plain version.
+package chooses among the three arms with ``lax.cond`` on the device, from
+the frontier's duplicates. The port reads nothing to the host for it. The
+caller passes ``mult``, a bound it already holds on how many live frontier
+rows share one key (the merge executor derives it from the start constants
+and the host CSRs' degrees). A bound of 1 launches K2; a bound of at most
+mdup launches K3, which over distinct matched keys emits K2's bits (each
+edge once, in edge order, with its run's parent). A lower bound past mdup
+(``mult_lo``: B in a replicate batch) takes the gather arm. Any other
+bound, or none, leaves the choice to the device: K3 and the gather arm
+both run, and the frontier's true multiplicity selects K3's rows (at most
+mdup) or the gather's, element by element, so every arm gives the JAX
+arm's bits. On CPU tensors each kernel wrapper runs its plain version.
 """
 
 from __future__ import annotations
@@ -30,15 +39,17 @@ import torch
 
 from wukong_tpu_torch.engine import cuda_lib
 from wukong_tpu_torch.engine.tpu_kernels import (
+    DUMP,
     I32,
     INT32_MAX,
     _arange,
-    _cumsum,
     _cummax,
+    _cumsum,
     _emit_gather,
     _merge_lookup,
     _saturate_total,
     _scatter_set,
+    _spill,
 )
 
 TILE = 256  # density-gate granularity (the JAX package's tile; the CUDA
@@ -187,33 +198,40 @@ def _runs(ks, found, deg, is_seg):
 
 
 def _deltas(starts, ends, vals, n_valid, Et: int, size: int, like):
-    """dsel/dpar-style delta arrays over [Et + 1]: +1 at valid starts, -1
-    at valid ends, and ``vals`` deltas at valid starts (index Et collects
-    the invalid entries and is cut off by the caller)."""
+    """dsel/dpar-style delta arrays over [Et + DUMP]: +1 at valid starts,
+    -1 at valid ends, and ``vals`` deltas at valid starts (the invalid
+    entries go to the dump slots past Et, which the caller cuts off)."""
     valid = _arange(size, like) < n_valid
-    s_idx = torch.where(valid, starts, Et).long()
-    dsel = torch.zeros(Et + 1, dtype=I32, device=like.device)
+    spill = _spill(size, Et, like)
+    s_idx = torch.where(valid, starts.long(), spill)
+    dsel = torch.zeros(Et + DUMP, dtype=I32, device=like.device)
     dsel.index_add_(0, s_idx, torch.ones(size, dtype=I32, device=like.device))
     if ends is not None:
-        e_idx = torch.where(valid, ends, Et).long()
+        e_idx = torch.where(valid, ends.long(), spill)
         dsel.index_add_(0, e_idx, torch.full((size,), -1, dtype=I32,
                                              device=like.device))
     prev = torch.cat([vals[:1] * 0, vals[:-1]])
     dv = torch.where(valid, vals - prev, 0).to(I32)
-    dval = torch.zeros(Et + 1, dtype=I32, device=like.device)
+    dval = torch.zeros(Et + DUMP, dtype=I32, device=like.device)
     dval.index_add_(0, s_idx, dv)
     return dsel, dval
 
 
 def stream_expand(skey, sstart, sdeg, edges, cur, n, live, cap_out: int,
-                  mhot: bool = True, mdup: int = MDUP):
+                  mult: int | None, mhot: bool = True, mdup: int = MDUP,
+                  mult_lo: int = 1):
     """known_to_unknown expansion with the streaming emitter: (val
     [cap_out], parent [cap_out], out_n, total).
 
-    Distinct-anchor frontiers are bit-identical to merge_expand (K2).
-    Duplicate anchors with per-key multiplicity <= mdup go through K3 (the
-    same bag in edge-repeat order); higher multiplicity, or ``mhot=False``,
-    takes the plain scatter/gather emit (bit-identical to merge_expand)."""
+    ``mult`` bounds how many live frontier rows (i < n, live) whose key
+    has edges in the segment share one key (None: no bound known), and
+    ``mult_lo`` is how many such rows each matched key has at least. A
+    ``mult`` of at most 1: K2 emits, bit-identical to merge_expand. At most
+    mdup: K3 (the same bag in edge-repeat order). With ``mhot=False``, or a
+    ``mult_lo`` past mdup, the plain scatter/gather emit (bit-identical to
+    merge_expand). Otherwise the true multiplicity, on the device, picks
+    K3's rows (at most mdup) or the gather arm's. Nothing is read from the
+    card."""
     C = cur.shape[0]
     S = skey.shape[0]
     rows = _arange(C, cur)
@@ -225,28 +243,25 @@ def stream_expand(skey, sstart, sdeg, edges, cur, n, live, cap_out: int,
     total = _saturate_total(cum)
     st_ex = cum - deg
 
-    # duplicate anchors: two adjacent FOUND query rows sharing a key
-    dup_t = torch.any(~is_seg[1:] & ~is_seg[:-1] & found[1:]
-                      & (ks[1:] == ks[:-1]) & (ks[1:] != INT32_MAX))
     is_run, rank, first_occ = _runs(ks, found, deg, is_seg)
-    # per-key multiplicity bound (the m-hot gate)
-    dupstart = _cummax(torch.where(first_occ, rank, -1))
-    mmax_t = torch.max(torch.where(is_run, rank - dupstart + 1, 0))
-    dup, mmax = (int(x) for x in torch.stack([dup_t.long(), mmax_t]).tolist())
 
     Et = edges.shape[0]
     SC = is_run.shape[0]
-    if not dup:
+    if mult is not None and mult <= 1:
         arm = "stream"
-    elif mhot and mmax <= mdup:
-        arm = "mhot"
-    else:
+    elif not mhot:
         arm = "gather"
+    elif mult is not None and mult <= mdup:
+        arm = "mhot"
+    elif mult_lo > mdup:
+        arm = "gather"
+    else:
+        arm = "device"
 
-    if arm == "gather":
+    if arm in ("gather", "device"):
         val, parent = _emit_gather(ts, S, start, deg, st_ex, edges, total,
                                    cap_out)
-    elif arm == "stream":
+    if arm == "stream":
         # compact matched runs (disjoint, ascending starts in key order)
         tgt = torch.where(is_run, rank, SC)
         rstart = _scatter_set(SC, tgt, start)
@@ -255,23 +270,39 @@ def stream_expand(skey, sstart, sdeg, edges, cur, n, live, cap_out: int,
         n_runs = is_run.sum()
         dsel, dpar = _deltas(rstart, rstart + rdeg, rpar, n_runs, Et, SC, cur)
         val, parent, _tot = stream_emit(edges, dsel[:Et], dpar[:Et], cap_out)
-    else:
+    elif arm in ("mhot", "device"):
+        n_runs, n_first = is_run.sum(), first_occ.sum()
+        if arm == "device":
+            # the JAX gate (tpu_stream.py:752-762) on the device: the
+            # largest run multiplicity, each run counted from its key's
+            # first run; when the gather arm wins, K3 gets no runs and
+            # makes one pass over the edges
+            dupstart = _cummax(torch.where(first_occ, rank, -1))
+            mmax = torch.max(torch.where(is_run, rank - dupstart + 1, 0))
+            use_m = mmax <= mdup
+            n_runs = torch.where(use_m, n_runs, 0)
+            n_first = torch.where(use_m, n_first, 0)
         # dsel over ALL runs: duplicated boundaries accumulate multiplicity
         tgt = torch.where(is_run, rank, SC)
         rstart = _scatter_set(SC, tgt, start)
         rdeg = _scatter_set(SC, tgt, deg)
-        n_runs = is_run.sum()
         dsel, _ = _deltas(rstart, rstart + rdeg, rstart, n_runs, Et, SC, cur)
         # drow: dupstart deltas at FIRST-occurrence run starts only
         rk1 = torch.cumsum(first_occ, 0, dtype=torch.int64) - 1
         tgt1 = torch.where(first_occ, rk1, SC)
         r1start = _scatter_set(SC, tgt1, start)
         r1dst = _scatter_set(SC, tgt1, torch.where(first_occ, rank, 0))
-        _, drow = _deltas(r1start, None, r1dst, first_occ.sum(), Et, SC, cur)
+        _, drow = _deltas(r1start, None, r1dst, n_first, Et, SC, cur)
         # parents of found rows in sorted-rank order (the rowpos codomain)
         parents_sorted = _scatter_set(SC, tgt, ts - S)
-        val, rowpos, _tot = stream_emit_m(edges, dsel[:Et], drow[:Et], cap_out)
-        parent = parents_sorted[rowpos.clamp(0, SC - 1).long()]
+        val_m, rowpos, _tot = stream_emit_m(edges, dsel[:Et], drow[:Et],
+                                            cap_out)
+        parent_m = parents_sorted[rowpos.clamp(0, SC - 1).long()]
+        if arm == "mhot":
+            val, parent = val_m, parent_m
+        else:
+            val = torch.where(use_m, val_m, val)
+            parent = torch.where(use_m, parent_m, parent)
     okj = _arange(cap_out, cur) < total
     return (torch.where(okj, val, 0), torch.where(okj, parent, 0),
             torch.clamp(total, max=cap_out), total)

@@ -15,13 +15,17 @@ cardinalities, deterministically from (n_univ, seed):
 ID conventions match datagen/generate_data.cpp:112-123: __PREDICATE__=0, rdf:type=1,
 predicates+types take index ids from 2, normal vertices start at 2^17.
 
-The port's copy of the JAX package's loader/lubm.py (synthesis and the virtual
-string table only): the same (n_univ, seed) gives the same triples and ids in
-both packages, so they query one store.
+The port's copy of the JAX package's loader/lubm.py (synthesis, the virtual
+string table and the dataset writer): the same (n_univ, seed) gives the same
+triples and ids in both packages, so they query one store, and
+``python -m wukong_tpu_torch.loader.lubm -n N -o DIR`` writes the same
+id-format directory, byte for byte, as the JAX package's writer.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -611,3 +615,81 @@ class VirtualLubmStrings:
             return True
         except (KeyError, IndexError):
             return False
+
+
+# ---------------------------------------------------------------------------
+# Dataset writer (reference directory convention)
+# ---------------------------------------------------------------------------
+
+
+def write_dataset(outdir: str, n_univ: int, seed: int = 0,
+                  fmt: str = "npy", write_str_normal: bool = False) -> dict:
+    """Write an id-format LUBM dataset directory.
+
+    fmt='text' writes reference-style ``id_uni<i>.nt`` ("s\\tp\\to" rows);
+    fmt='npy' writes one ``id_triples.npy`` [M,3]. str_index is always
+    written; str_normal only on request (tiny scales) — otherwise a
+    ``str_normal_virtual`` marker lets the StringServer rebuild the mapping.
+    """
+    os.makedirs(outdir, exist_ok=True)
+    triples, lay = generate_lubm(n_univ, seed)
+    if fmt == "text":
+        # split by owning university of the subject's department block
+        u_of_row = np.searchsorted(lay.dept_id, triples[:, 0], side="right") - 1
+        u_of_row = lay.counts.dept_univ[np.clip(u_of_row, 0, lay.counts.D - 1)]
+        # rows whose subject is a university itself
+        is_univ = ((triples[:, 0] >= lay.univ_base)
+                   & (triples[:, 0] < lay.univ_base + n_univ))
+        u_of_row = np.where(is_univ, triples[:, 0] - lay.univ_base, u_of_row)
+        for u in range(n_univ):
+            rows = triples[u_of_row == u]
+            with open(os.path.join(outdir, f"id_uni{u}.nt"), "w") as f:
+                f.write("\n".join(f"{s}\t{p}\t{o}"
+                                   for s, p, o in rows.tolist()))
+                if len(rows):
+                    f.write("\n")
+    else:
+        np.save(os.path.join(outdir, "id_triples.npy"), triples)
+    with open(os.path.join(outdir, "str_index"), "w") as f:
+        for s, i in index_strings():
+            f.write(f"{s}\t{i}\n")
+    attrs = generate_lubm_attrs(n_univ, seed)
+    with open(os.path.join(outdir, "attr_uni0.nt"), "w") as f:
+        f.writelines(f"{sv}\t{aid}\t{t}\t{val}\n"
+                     for sv, aid, t, val in zip(*(c.tolist() for c in attrs)))
+    with open(os.path.join(outdir, "str_attr_index"), "w") as f:
+        for s, i, t in attr_index_strings():
+            f.write(f"{s}\t{i}\t{t}\n")
+    meta = {"generator": "lubm", "n_univ": n_univ, "seed": seed,
+            "num_triples": int(len(triples)), "num_attrs": len(attrs[0])}
+    with open(os.path.join(outdir, "str_normal_virtual"), "w") as f:
+        json.dump(meta, f)
+    if write_str_normal:
+        vs = VirtualLubmStrings(n_univ, seed)
+        ids = np.unique(np.concatenate([triples[:, 0], triples[:, 2]]))
+        ids = ids[ids >= NORMAL_ID_START]
+        with open(os.path.join(outdir, "str_normal"), "w") as f:
+            for vid in ids:
+                f.write(f"{vs.id2str(int(vid))}\t{int(vid)}\n")
+    return meta
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Synthesize a LUBM(N) id-format dataset")
+    ap.add_argument("-n", "--n-univ", type=int, required=True)
+    ap.add_argument("-o", "--out", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fmt", choices=["npy", "text"], default="npy")
+    ap.add_argument("--str-normal", action="store_true",
+                    help="write a real str_normal table (tiny scales only)")
+    args = ap.parse_args(argv)
+    meta = write_dataset(args.out, args.n_univ, args.seed, args.fmt,
+                         args.str_normal)
+    print(json.dumps(meta))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,245 @@
+"""Interactive console / CLI (reference: core/console.hpp:99-108, 893-992).
+
+The port's copy of the JAX package's runtime/console.py on one partition:
+
+    python -m wukong_tpu_torch.runtime.console <config> <dataset_dir> \\
+        [-c "<command>"] [--device cuda|cpu]
+
+Verbs: help, quit, config, logger, sparql, sparql-emu, load-stat,
+store-stat. One-shot mode with -c, else a REPL. The engines run on the card
+unless ``--device cpu`` is given. The JAX console's other verbs (load, gsck,
+trace, explain, analyze, top, slo, admission, history, events, cache,
+device, plan, migrate, metrics, checkpoint, recover), ``--dist``, ``--bind``,
+HDFS datasets and the persistent compile cache wait for their slices
+(ROADMAP §A).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shlex
+
+from wukong_tpu_torch.config import Global, load_config, reload_config
+from wukong_tpu_torch.utils.errors import WukongError
+from wukong_tpu_torch.utils.logger import log_error, log_info, set_log_level
+
+HELP = """\
+help                         print help info
+quit                         quit from the console
+config <-v | -l <file> | -s <string>>   show/load/set config
+logger <level>               set log level (0..7)
+sparql -f <file> [-m <f>] [-n <n>] [-p <plan>] [-N] [-v <n>] [-d cpu|gpu]
+                             run a single SPARQL query
+sparql -b <file>             run a batch of `sparql` commands from a file
+sparql-emu -f <mix_config> [-d <sec>] [-w <sec>] [-b <batch>] [-p <inflight>]
+                             run the open-loop throughput emulator
+load-stat [-f <file>]        load optimizer statistics
+store-stat [-f <file>]       store optimizer statistics
+"""
+
+
+class Console:
+    def __init__(self, proxy, stats_path: str | None = None):
+        self.proxy = proxy
+        self.stats_path = stats_path
+        self._in_batch = False
+        self.last_emu: dict | None = None  # the last sparql-emu report
+
+    def run_command(self, line: str) -> bool:
+        """Execute one command; returns False to quit."""
+        try:
+            args = shlex.split(line)
+        except ValueError as e:
+            log_error(f"bad command: {e}")
+            return True
+        if not args:
+            return True
+        cmd, rest = args[0], args[1:]
+        try:
+            if cmd in ("quit", "q", "exit"):
+                return False
+            if cmd == "help":
+                print(HELP)
+            elif cmd == "config":
+                self._config(rest)
+            elif cmd == "logger":
+                set_log_level(int(rest[0]))
+            elif cmd == "sparql":
+                self._sparql(rest)
+            elif cmd == "sparql-emu":
+                self._emu(rest)
+            elif cmd == "load-stat":
+                self._stat(rest, load=True)
+            elif cmd == "store-stat":
+                self._stat(rest, load=False)
+            else:
+                log_error(f"unknown command: {cmd} (try 'help')")
+        except WukongError as e:
+            log_error(str(e))
+        except SystemExit:
+            pass  # argparse error inside a command
+        return True
+
+    # ------------------------------------------------------------------
+    def _config(self, rest) -> None:
+        if not rest or rest[0] == "-v":
+            print(Global.dump())
+        elif rest[0] == "-l":
+            load_config(rest[1])
+        elif rest[0] == "-s":
+            reload_config(" ".join(rest[1:]).replace("=", " "))
+        else:
+            log_error("usage: config <-v | -l <file> | -s <key value>>")
+
+    def _sparql(self, rest) -> None:
+        ap = argparse.ArgumentParser(prog="sparql")
+        ap.add_argument("-f", default=None)
+        ap.add_argument("-b", default=None,
+                        help="batch file: one `sparql ...` command per line "
+                             "(console.hpp:151, exclusive with -f)")
+        ap.add_argument("-m", type=int, default=1)
+        ap.add_argument("-n", type=int, default=1)
+        ap.add_argument("-p", default=None)
+        ap.add_argument("-N", action="store_true", help="non-blind (ship results)")
+        ap.add_argument("-v", type=int, default=0, help="print first N rows")
+        ap.add_argument("-d", default=None, choices=["cpu", "gpu", "dist"])
+        ns = ap.parse_args(rest)
+        if (ns.f is None) == (ns.b is None):
+            log_error("single mode (-f) and batch mode (-b) are exclusive "
+                      "— pass exactly one")
+            return
+        if ns.d == "dist":
+            log_error("-d dist: the distributed engine is not ported yet")
+            return
+        if ns.b is not None:
+            if self._in_batch:
+                log_error("nested batch files are not allowed")
+                return
+            try:
+                with open(ns.b) as f:
+                    lines = f.read().splitlines()
+            except OSError as e:
+                log_error(f"cannot read batch file: {e}")
+                return
+            log_info("Batch-mode start ...")
+            self._in_batch = True
+            try:
+                for line in lines:
+                    line = line.strip()
+                    if not line or line.startswith("#"):
+                        continue
+                    log_info(f"Run the command: {line}")
+                    self.run_command(line)
+            finally:
+                self._in_batch = False
+            return
+        try:
+            with open(ns.f) as f:
+                text = f.read()
+            plan = None
+            if ns.p:
+                with open(ns.p) as f:
+                    plan = f.read()
+        except OSError as e:  # a mistyped path must not kill the REPL
+            log_error(f"cannot read file: {e}")
+            return
+        blind = None if not (ns.N or ns.v) else False
+        self.proxy.run_single_query(text, repeats=ns.n, plan_text=plan,
+                                    mt_factor=ns.m, device=ns.d, blind=blind,
+                                    print_results=ns.v)
+
+    def _emu(self, rest) -> None:
+        from wukong_tpu_torch.runtime.emulator import Emulator, load_mix_config
+
+        ap = argparse.ArgumentParser(prog="sparql-emu")
+        ap.add_argument("-f", required=True)
+        ap.add_argument("-d", type=float, default=5.0)
+        ap.add_argument("-w", type=float, default=1.0)
+        ap.add_argument("-b", type=int, default=None)
+        ap.add_argument("-p", type=int, default=None,
+                        help="in-flight cap across the engine pool")
+        ns = ap.parse_args(rest)
+        mix = load_mix_config(ns.f, self.proxy.str_server)
+        self.last_emu = Emulator(self.proxy).run(
+            mix, duration_s=ns.d, warmup_s=ns.w, batch=ns.b, parallel=ns.p)
+
+    def _stat(self, rest, load: bool) -> None:
+        """load-stat / store-stat: persist optimizer statistics
+        (console.hpp:977-980 -> stats.hpp:585-640)."""
+        from wukong_tpu_torch.planner.stats import Stats
+
+        path = rest[rest.index("-f") + 1] if "-f" in rest else self.stats_path
+        if path is None:
+            log_error("no statfile path (use -f <file>)")
+            return
+        if load:
+            from wukong_tpu_torch.planner.optimizer import Planner
+
+            self.proxy.planner = Planner(Stats.load(path))
+            if self.proxy.gpu is not None:
+                self.proxy.gpu.stats = self.proxy.planner.stats
+            log_info(f"statistics loaded from {path}")
+        else:
+            if self.proxy.planner is None:
+                log_error("no planner statistics to store")
+                return
+            self.proxy.planner.stats.save(path)
+            log_info(f"statistics stored to {path}")
+
+    # ------------------------------------------------------------------
+    def repl(self) -> None:
+        log_info("wukong console — 'help' for commands")
+        while True:
+            try:
+                line = input("wukong> ")
+            except (EOFError, KeyboardInterrupt):
+                break
+            if not self.run_command(line):
+                break
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="wukong on PyTorch/CUDA: RDF store + SPARQL engine")
+    ap.add_argument("config", help="config file path")
+    ap.add_argument("dataset", help="dataset directory (id-format)")
+    ap.add_argument("-c", "--command", default=None,
+                    help="one-shot command, then exit")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the GPU engine's kernels run (cpu: their "
+                         "plain PyTorch versions)")
+    args = ap.parse_args(argv)
+    load_config(args.config)
+
+    from wukong_tpu_torch.loader.base import load_attr_triples, load_triples
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.gstore import build_partition
+    from wukong_tpu_torch.store.string_server import StringServer
+
+    ss = StringServer(args.dataset)
+    # one read of the triple files serves the partition and the statistics
+    triples = load_triples(args.dataset)
+    attrs = load_attr_triples(args.dataset)
+    g = build_partition(triples, 0, 1, attr_triples=attrs)
+    proxy = Proxy(g, ss, device=args.device)
+    statfile = os.path.join(args.dataset, "statfile")
+    if Global.enable_planner:
+        from wukong_tpu_torch.planner.optimizer import make_planner
+
+        proxy.planner = make_planner(
+            None if os.path.exists(statfile + ".npz") else triples, statfile)
+        if proxy.gpu is not None:
+            proxy.gpu.stats = proxy.planner.stats  # capacity estimation
+    del triples
+
+    console = Console(proxy, stats_path=statfile)
+    if args.command is not None:
+        console.run_command(args.command)
+    else:
+        console.repl()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

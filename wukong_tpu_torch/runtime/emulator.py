@@ -1,0 +1,370 @@
+"""Open-loop throughput emulator — `sparql-emu` (reference: proxy.hpp:391-545).
+
+The port's copy of the JAX package's runtime/emulator.py (``MixConfig``,
+``load_mix_config`` and ``Emulator.run``). It parses a mix config (N light
+templates + M heavy queries with integer weights, console format
+``<path> <weight>`` after an "<nlights> <nheavies>" header), fills template
+candidates from the store's indexes, then drives an open loop for a
+duration, reporting throughput and a per-class latency CDF.
+
+Three execution paths:
+- device batches: B = ``device_batch`` instances of one light template in
+  one chain (``GPUEngine.execute_batch``); once a class has run a batch,
+  windows of W <= 8 batches drawn across the warm light classes by mix
+  weight run in one flight with one read (``execute_batch_mixed``);
+- heavy (index-origin) classes in replicate batches of
+  ``heavy_index_batch``'s B (``execute_batch_index``), then windows of up
+  to 4 (``execute_batch_index_many``);
+- the host engine pool for everything else, and for a class whose device
+  batch failed (logged).
+
+The pool path honours the ``query_deadline_ms`` / ``query_budget_rows``
+knobs per instance: queue-expired queries are shed by the pool, mid-query
+expiry yields a partial result. Device batches are all-or-nothing
+dispatches and carry no per-query deadline. The JAX emulator's scenario
+runners (serving, tenants, drills) and its trace export wait for the
+subsystems they drive.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import time
+
+import numpy as np
+
+from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.planner.heuristic import heuristic_plan
+from wukong_tpu_torch.runtime.monitor import Monitor
+from wukong_tpu_torch.runtime.resilience import Deadline
+from wukong_tpu_torch.sparql.parser import Parser
+from wukong_tpu_torch.utils.errors import (
+    BudgetExceeded,
+    QueryTimeout,
+    WukongError,
+)
+from wukong_tpu_torch.utils.logger import log_info, log_warn
+from wukong_tpu_torch.utils.timer import get_usec
+
+# a failed device batch degrades its class to the pool only on a
+# query-scoped refusal (WukongError, e.g. a start past the capacity ceiling),
+# as the JAX emulator degrades on CAPACITY_EXCEEDED. Nothing else is caught:
+# a kernel that fails to build or launch, or the card running out of
+# memory, fails the run.
+
+
+class MixConfig:
+    def __init__(self, templates, heavies, weights):
+        self.templates = templates  # list[SPARQLTemplate]
+        self.heavies = heavies  # list[str] query texts
+        self.weights = np.asarray(weights, dtype=np.float64)
+
+
+def load_mix_config(path: str, str_server) -> MixConfig:
+    """Read a mix file: "<nlights> <nheavies>", then one "<path> <weight>"
+    line per class, lights first. Query paths are relative to the mix
+    file's directory or its parent (the reference's scripts directory)."""
+    base = os.path.dirname(os.path.dirname(path.rstrip("/")))
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    nlights, nheavies = (int(x) for x in lines[0].split())
+    entries = []
+    for ln in lines[1:1 + nlights + nheavies]:
+        parts = ln.split()
+        entries.append((parts[0], int(parts[1])))
+    templates, heavies, weights = [], [], []
+    for i, (qpath, w) in enumerate(entries):
+        for root in (os.path.dirname(path), base, ""):
+            cand = os.path.join(root, qpath) if root else qpath
+            if os.path.exists(cand):
+                qpath = cand
+                break
+        with open(qpath) as f:
+            text = f.read()
+        if i < nlights:
+            templates.append(Parser(str_server).parse_template(text))
+        else:
+            heavies.append(text)
+        weights.append(w)
+    return MixConfig(templates, heavies, weights)
+
+
+class Emulator:
+    # consecutive mixed-flight (W > 1 cross-class) failures a class may
+    # cause before it is pinned to W = 1: de-warming alone lets a class
+    # re-warm through its single-class batch and rejoin the mix, so a
+    # persistently failing W-fold footprint would oscillate forever
+    MIXED_FAIL_LIMIT = 3
+
+    def __init__(self, proxy):
+        self.proxy = proxy
+        self.monitor = Monitor()
+
+    # ------------------------------------------------------------------
+    def run(self, mix: MixConfig, duration_s: float = 5.0, warmup_s: float = 1.0,
+            batch: int | None = None, seed: int = 0,
+            parallel: int | None = None) -> dict:
+        """Open loop for ``duration_s`` keeping up to ``parallel`` queries in
+        flight across the host engine pool (the reference's ``-p`` cap,
+        proxy.hpp:477-525); returns throughput, each class's route
+        (``class_mode``) and latency CDF.
+
+        Device-batchable classes run as synchronous batches (the batch
+        dimension is the pipeline there): light templates through
+        execute_batch, index-origin heavies through execute_batch_index."""
+        gpu = self.proxy.gpu
+        for tmpl in mix.templates:
+            self.proxy.fill_template(tmpl)
+        rng = np.random.default_rng(seed)
+        probs = mix.weights / mix.weights.sum()
+        nclasses = len(mix.templates) + len(mix.heavies)
+        use_gpu = gpu is not None and Global.enable_tpu
+        B = batch or Global.device_batch
+        p_cap = max(parallel or Global.num_engines, 1)
+        self._p_cap = p_cap
+        pool = self.proxy.engine_pool()
+
+        # pre-plan one query per class (remembering the instantiated
+        # placeholder value so _batchable can confirm the plan starts from it)
+        planned = []
+        for tmpl in mix.templates:
+            q = tmpl.instantiate(rng)
+            inst_const = getattr(q.pattern_group.patterns[tmpl.pos[0][0]],
+                                 tmpl.pos[0][1]) if tmpl.pos else None
+            self._plan(q)
+            q._inst_const = inst_const
+            planned.append(("light", tmpl, q))
+        for text in mix.heavies:
+            q = Parser(self.proxy.str_server).parse(text)
+            self._plan(q)
+            planned.append(("heavy", None, q))
+
+        self._planned = planned
+        self._probs = probs
+        self._mixed_fail: dict[int, int] = {}
+        # per-class heavy routing: "device" rides the batch path with the
+        # plan cache's slice count, "pool" is the recorded decision after a
+        # device failure
+        self._heavy_route: dict[int, str] = {}
+        self._served = 0
+
+        # run every device-batchable light class once BEFORE the measured
+        # window: the first batch learns the class's capacity classes
+        t_wall0 = get_usec()
+        precompiled = 0
+        if use_gpu:
+            for kind, tmpl, q0 in planned:
+                if kind != "light" or not self._batchable(tmpl, q0):
+                    continue
+                try:
+                    gpu.execute_batch(q0, self._draw_consts(tmpl, rng, B))
+                    q0._many_warm = True
+                    precompiled += 1
+                except WukongError as e:
+                    q0._inst_const = None  # pool-only, with correct blame
+                    log_info(f"sparql-emu: warm-up degraded a class "
+                             f"to the pool ({e!r:.120})")
+            if precompiled:
+                log_info(f"sparql-emu: warmed {precompiled} device "
+                         f"classes in {(get_usec() - t_wall0) / 1e6:.1f}s")
+        self.monitor.start_thpt()
+        t_end = get_usec() + int((duration_s + warmup_s) * 1e6)
+        t_measure = get_usec() + int(warmup_s * 1e6)
+        warm = True
+        inflight: dict[int, tuple] = {}
+        # how each class is measured: device-batch latencies are
+        # batch_time/B, not pool round trips — label them
+        self.class_mode: dict[int, str] = {}
+        errors = shed = 0
+        first_error: Exception | None = None
+        while get_usec() < t_end or inflight:
+            if warm and get_usec() >= t_measure:
+                self.monitor.start_thpt()
+                warm = False
+            submitted = False
+            while len(inflight) < p_cap and get_usec() < t_end:
+                cls = int(rng.choice(nclasses, p=probs))
+                kind, tmpl, q0 = planned[cls]
+                if use_gpu and self._device_batch(kind, tmpl, q0, rng, B, cls):
+                    self.class_mode[cls] = "device-batch"
+                    submitted = True
+                    break  # a sync batch ran — let the outer loop poll/print
+                if tmpl is not None:
+                    q = tmpl.instantiate(rng)
+                    self._plan(q)
+                else:
+                    q = copy.deepcopy(q0)  # heavy classes reuse the plan
+                q.result.blind = True
+                # per-instance deadline/budget from the resilience knobs; a
+                # deadline is wall-clock state that starts at submit time
+                q.deadline = Deadline.from_config()
+                prev = self.class_mode.get(cls)
+                # a class that device-batched earlier and now rides the
+                # pool has mixed samples — the label says so
+                self.class_mode[cls] = ("pool" if prev in (None, "pool")
+                                        else "mixed")
+                inflight[pool.submit(q)] = (cls, get_usec())
+                submitted = True
+            done = pool.poll()
+            for qid, out in done:
+                info = inflight.pop(qid, None)
+                if info is None:  # stale completion from an earlier run
+                    continue
+                cls, t0 = info
+                if isinstance(out, Exception):
+                    if isinstance(out, (QueryTimeout, BudgetExceeded)):
+                        # deadline/budget load shedding is the resilience
+                        # knobs working as intended, not an engine crash
+                        shed += 1
+                        continue
+                    errors += 1
+                    first_error = first_error or out
+                    continue
+                self._served += 1
+                self.monitor.add_latency(get_usec() - t0, qtype=cls)
+            if not submitted and not done:
+                time.sleep(0.0002)  # open loop idle tick
+            self.monitor.maybe_print_thpt()
+
+        thpt = self.monitor.thpt()
+        if shed:
+            log_warn(f"sparql-emu: {shed} queries shed by deadline/budget")
+        if errors:
+            log_warn(f"sparql-emu: {errors} queries crashed "
+                     f"(first: {first_error!r})")
+            if thpt == 0:
+                raise RuntimeError(
+                    f"sparql-emu: every query failed: {first_error!r}")
+        # thpt_qps is the steady-state number (measured window only, every
+        # device class warmed before it); wall_qps divides every served
+        # query by the whole wall, warm-up included
+        wall_s = (get_usec() - t_wall0) / 1e6
+        wall_qps = self._served / wall_s if wall_s > 0 else 0.0
+        log_info(f"sparql-emu: {thpt:,.0f} q/s steady over {duration_s}s "
+                 f"(wall {wall_qps:,.0f} q/s incl. "
+                 f"{precompiled}-class warm-up; "
+                 f"{'GPU batch + ' if use_gpu else ''}pool p={p_cap})")
+        self.monitor.print_cdf(labels=self.class_mode)
+        return {"thpt_qps": thpt, "wall_qps": round(wall_qps, 1),
+                "precompiled_classes": precompiled, "errors": errors,
+                "shed": shed, "class_mode": dict(self.class_mode),
+                "cdf": {c: self.monitor.cdf(c) for c in range(nclasses)}}
+
+    def _plan(self, q) -> None:
+        """The proxy's planner when enabled, else the greedy heuristic."""
+        if self.proxy.planner is not None and Global.enable_planner:
+            if self.proxy.planner.generate_plan(q):
+                return
+        heuristic_plan(q)
+
+    def _device_batch(self, kind, tmpl, q0, rng, B: int, cls: int) -> bool:
+        """Try the synchronous batch path; True when it ran."""
+        gpu = self.proxy.gpu
+        if kind == "light" and self._batchable(tmpl, q0):
+            # once the class's first batch has learned its capacities, ride
+            # the in-flight window: W batches in one flight, drawn from all
+            # warm batchable light classes by mix weight, so one read serves
+            # the mix (the device path's honouring of the -p cap)
+            W = 1
+            if getattr(q0, "_many_warm", False) and self._p_cap > 1 \
+                    and self._mixed_fail.get(cls, 0) < self.MIXED_FAIL_LIMIT:
+                W = min(self._p_cap, 8)  # bound live batch tables
+            t0 = get_usec()
+            if W > 1:
+                pool_cls = [c for c, (k2, t2, p2) in
+                            enumerate(self._planned)
+                            if k2 == "light"
+                            and getattr(p2, "_many_warm", False)
+                            and self._batchable(t2, p2)
+                            and gpu.merge.supports(p2)
+                            and self._mixed_fail.get(c, 0)
+                            < self.MIXED_FAIL_LIMIT]
+                if cls not in pool_cls:
+                    pool_cls = [cls]
+                w = self._probs[pool_cls] / self._probs[pool_cls].sum()
+                draws = [int(c) for c in rng.choice(pool_cls, size=W, p=w)]
+                if cls not in draws:
+                    draws[0] = cls  # the chosen class always rides
+                jobs = [(self._planned[c][2],
+                         self._draw_consts(self._planned[c][1], rng, B))
+                        for c in draws]
+                try:
+                    gpu.execute_batch_mixed(jobs)
+                except WukongError:
+                    # the failure could come from any drawn class's chain:
+                    # de-warm them all (each re-warms through its own
+                    # single-class batch, where a bad class fails alone),
+                    # and count the failure against every participant
+                    for c in set(draws):
+                        self._mixed_fail[c] = self._mixed_fail.get(c, 0) + 1
+                        self._planned[c][2]._many_warm = False
+                    return False
+                for c in set(draws):
+                    self._mixed_fail[c] = 0
+                dt_q = (get_usec() - t0) / (B * W)
+                self._served += B * W
+                for c in set(draws):
+                    self.monitor.add_latency(
+                        dt_q, qtype=c, count=B * draws.count(c))
+                    self.class_mode[c] = "device-batch"
+                return True
+            try:
+                gpu.execute_batch(q0, self._draw_consts(tmpl, rng, B))
+                q0._many_warm = True
+                if self._mixed_fail.get(cls, 0) >= self.MIXED_FAIL_LIMIT:
+                    # parole after a clean single-class batch: one credit,
+                    # so an innocent class co-drawn with a culprit rejoins
+                    # the mix, while a true culprit re-pins after one more
+                    # failure
+                    self._mixed_fail[cls] = self.MIXED_FAIL_LIMIT - 1
+            except WukongError as e:
+                q0._inst_const = None  # disables _batchable next rounds
+                log_warn(f"sparql-emu: class {cls} degraded to the pool "
+                         f"({e!r:.120})")
+                return False
+            self._served += B
+            self.monitor.add_latency((get_usec() - t0) / B, qtype=cls,
+                                     count=B)
+            return True
+        if kind == "heavy" and q0.start_from_index() \
+                and self._heavy_route.get(cls, "device") == "device":
+            bh = self.proxy.heavy_index_batch(q0)
+            W = 1
+            if getattr(q0, "_many_warm", False) and self._p_cap > 1:
+                W = min(self._p_cap, 4)  # heavy tables are large
+            t0 = get_usec()
+            try:
+                if W > 1:
+                    gpu.execute_batch_index_many(q0, bh, W)
+                else:
+                    gpu.execute_batch_index(q0, bh)
+                    q0._many_warm = True
+            except WukongError as e:
+                # this class rides the pool from now on
+                self._heavy_route[cls] = "pool"
+                log_warn(f"sparql-emu: heavy class {cls} routed to the pool "
+                         f"({e!r:.120})")
+                return False
+            self._served += bh * W
+            self.monitor.add_latency((get_usec() - t0) / (bh * W), qtype=cls,
+                                     count=bh * W)
+            return True
+        return False
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _batchable(tmpl, q_planned) -> bool:
+        """One %placeholder, and the plan's start constant IS that
+        placeholder (otherwise batching would substitute candidates into
+        the wrong slot)."""
+        if tmpl is None or len(tmpl.pos) != 1:
+            return False
+        pats = q_planned.pattern_group.patterns
+        return (bool(pats) and pats[0].subject > 0 and pats[0].predicate > 0
+                and pats[0].subject == getattr(q_planned, "_inst_const", None))
+
+    @staticmethod
+    def _draw_consts(tmpl, rng, B: int) -> np.ndarray:
+        cand = tmpl.candidates[0]
+        return np.asarray(cand[rng.integers(0, len(cand), B)], dtype=np.int64)

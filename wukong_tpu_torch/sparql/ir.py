@@ -107,6 +107,10 @@ class Result:
         # OPTIONAL row mask (query.hpp:782-813): rows still matched by the
         # group being executed in place
         self.optional_matched_rows: np.ndarray | None = None
+        # resilience: False when a deadline/budget expiry kept the rows
+        # produced so far; dropped_patterns lists what was not executed
+        self.complete = True
+        self.dropped_patterns: list[str] = []
 
     def var2col(self, var: int) -> int:
         return self.v2c_map.get(var, NO_RESULT)
@@ -162,6 +166,10 @@ class SPARQLQuery:
     # short-circuit, planner.hpp:1505-1509). Engines honor it under
     # Global.enable_empty_shortcircuit.
     planner_empty: bool = False
+    # per-query Deadline (runtime/resilience.py): wall clock + row budget,
+    # None = unconstrained. The proxy attaches one from the Global knobs;
+    # engines check it at each BGP step and device chain attempt.
+    deadline: object = None
 
     def get_pattern(self, step: int | None = None) -> Pattern:
         s = self.pattern_step if step is None else step

@@ -1,0 +1,94 @@
+"""String <-> ID mapping service (reference: core/string_server.hpp:42-227).
+
+The port's copy of the JAX package's store/string_server.py. It loads the
+``str_index`` / ``str_normal`` (+ ``str_attr_index``) tables of a dataset
+directory. A synthesized LUBM dataset carries a ``str_normal_virtual``
+marker instead of ``str_normal``, which selects the formulaic
+``VirtualLubmStrings`` backend (loader/lubm.py) — the counterpart of the
+reference's memory-frugal bitrie option (string_server.hpp:50-112). The
+JAX package's WatDiv backend waits for the WatDiv loader (ROADMAP §A).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+from wukong_tpu_torch.utils.logger import log_info
+
+
+class StringServer:
+    def __init__(self, dataset_dir: str):
+        self.dir = dataset_dir
+        self._s2i: dict[str, int] = {}
+        self._i2s: dict[int, str] = {}
+        self._virtual = None
+        self.pid2type: dict[int, int] = {}  # attr predicate -> AttrType tag
+
+        idx_path = os.path.join(dataset_dir, "str_index")
+        if os.path.exists(idx_path):
+            self._load_table(idx_path)
+        attr_path = os.path.join(dataset_dir, "str_attr_index")
+        if os.path.exists(attr_path):
+            with open(attr_path) as f:
+                for line in f:
+                    parts = line.rstrip("\n").split("\t")
+                    if len(parts) == 3:
+                        self._s2i[parts[0]] = int(parts[1])
+                        self._i2s[int(parts[1])] = parts[0]
+                        self.pid2type[int(parts[1])] = int(parts[2])
+
+        virt_path = os.path.join(dataset_dir, "str_normal_virtual")
+        norm_path = os.path.join(dataset_dir, "str_normal")
+        if os.path.exists(norm_path):
+            self._load_table(norm_path)
+        elif os.path.exists(virt_path):
+            with open(virt_path) as f:
+                meta = json.load(f)
+            if meta.get("generator") != "lubm":
+                raise ValueError(f"unknown virtual string backend: {meta}")
+            from wukong_tpu_torch.loader.lubm import VirtualLubmStrings
+
+            self._virtual = VirtualLubmStrings(meta["n_univ"], meta["seed"])
+            log_info(f"string server: virtual LUBM backend "
+                     f"(n_univ={meta['n_univ']}, seed={meta['seed']})")
+
+    def _load_table(self, path: str) -> None:
+        with open(path) as f:
+            for line in f:
+                line = line.rstrip("\n")
+                if not line:
+                    continue
+                s, i = line.rsplit("\t", 1)
+                self._s2i[s] = int(i)
+                self._i2s[int(i)] = s
+
+    # -- API (string_server.hpp str2id/id2str/exist) -----------------------
+    def str2id(self, s: str) -> int:
+        if s in self._s2i:
+            return self._s2i[s]
+        if self._virtual is not None:
+            return self._virtual.str2id(s)
+        raise KeyError(s)
+
+    def id2str(self, i: int) -> str:
+        i = int(i)
+        if i in self._i2s:
+            return self._i2s[i]
+        if self._virtual is not None:
+            return self._virtual.id2str(i)
+        raise KeyError(i)
+
+    def exist(self, s: str) -> bool:
+        try:
+            self.str2id(s)
+            return True
+        except KeyError:
+            return False
+
+    def exist_id(self, i: int) -> bool:
+        try:
+            self.id2str(i)
+            return True
+        except (KeyError, IndexError):
+            return False

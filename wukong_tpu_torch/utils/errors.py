@@ -74,9 +74,24 @@ class WukongError(Exception):
         super().__init__(f"[{self.code.name}] {msg}" + (f": {detail}" if detail else ""))
 
 
+class QueryTimeout(WukongError):
+    """Per-query wall-clock deadline expired (resilience layer)."""
+
+    def __init__(self, detail: str = ""):
+        super().__init__(ErrorCode.QUERY_TIMEOUT, detail)
+
+
+class BudgetExceeded(WukongError):
+    """Per-query intermediate-row work budget exhausted (resilience layer)."""
+
+    def __init__(self, detail: str = ""):
+        super().__init__(ErrorCode.BUDGET_EXCEEDED, detail)
+
+
 class CapacityExceeded(WukongError):
-    """A device capacity ceiling (table_capacity_max) was hit; the query's
-    reply carries CAPACITY_EXCEEDED."""
+    """A device capacity ceiling (table_capacity_max) was hit. The proxy
+    treats this as degradable: the host engine has no capacity classes, so
+    the same query can complete there."""
 
     def __init__(self, detail: str = ""):
         super().__init__(ErrorCode.CAPACITY_EXCEEDED, detail)

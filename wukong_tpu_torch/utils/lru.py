@@ -36,6 +36,14 @@ class LRUCache:
             while len(self._d) > self.maxsize:
                 self._d.popitem(last=False)
 
+    def pop(self, key, default=None):
+        with self._lock:
+            return self._d.pop(key, default)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
     def items(self) -> list:
         """A snapshot of the (key, value) pairs, coldest first."""
         with self._lock:
