@@ -63,6 +63,30 @@ Phases (any failure exits nonzero, and no result line is printed):
      launch, and each kernel is held against its plain version and timed
      on each mix's largest input; then each mix for 3 s more, untimed,
      under StreamAudit;
+  9. live serving with coalescing (run after 8, on phase 3's proxy and
+     planner): bench.py --serve-batched's light texts (?s advisor <a>, the
+     first 512 anchors) from 16 clients through Emulator.run_serving
+     (Proxy.serve_query, 5 s after 1 s of warm-up, seed 1) with
+     enable_batching off and on, then --serve-mixed's workload (the same
+     texts and two index-origin 3-hop heavies at 30% of arrivals, 24
+     clients, the engine pool started) with the heavy lane off, on (at
+     the default threshold LUBM-640's heavy dispatches split 4 ways), on
+     with no split (heavy_split_max 1), and with its split forced
+     (heavy_split_threshold 1, heavy_split_max 2).
+     Every run: qps, p50, p99 (by class in the mixed runs), the batcher's
+     counters (occupancy, flushes by reason, fused queries, bypasses,
+     heavy dispatches by mode, slices); zero errors, every reply its
+     text's direct row count, no fused or heavy fallback, no capacity
+     degradation and no inline run after a failed lane submit; K1
+     launched in each workload; batching on coalesces (fused queries,
+     mean occupancy > 1), the heavy lane fuses members, the forced split
+     splits. Each run ends
+     with a single-client replay: host syncs per fused (or direct)
+     dispatch, and 64 fused light members' rows equal to the direct path's
+     as multisets, or 8 heavy members' counts. Each kernel call is classed
+     as a fused light group's, a heavy slice's or a direct dispatch's, and
+     each kernel is held against its plain version and timed on each
+     class's largest input;
   6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
      suite through Proxy(device="cpu") (plain versions) and
      Proxy(device="cuda") must give equal row multisets and attribute
@@ -75,7 +99,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      K1 launched.
 The line before the last is one JSON object {"kernels": [...]}, a row for
 each kernel and class of its calls in phases 4 and 5, for each kernel in
-phase 7, and for each kernel and mix (and the console) in phase 8, with
+phase 7, for each kernel and mix (and the console) in phase 8, and for
+each kernel and class of its calls in phase 9, with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -259,24 +284,33 @@ class Capture:
     main-path calls (``class_of``), the launches and the inputs of the
     largest call (by frontier or edge count). While wrapped, the kernel
     function counts its launches on the module attribute, i.e. on the
-    wrapper; restore() adds them to the kernel function's own count."""
+    wrapper; restore() adds them to the kernel function's own count. A
+    call's launches are its thread's own (``cuda_lib.thread_launches``), so
+    calls from concurrent serving threads are attributed exactly."""
 
     def __init__(self, module, attr: str, size_of, class_of=lambda a: ""):
+        import threading
+
+        from wukong_tpu_torch.engine import cuda_lib
+
         self.module, self.attr = module, attr
         self.orig = getattr(module, attr)
         self.best: dict = {}  # class -> (size, args, kw)
         self.launches: dict = {}  # class -> launches
+        lock = threading.Lock()
 
         def wrapped(*args, **kw):
             cls, size = class_of(args), size_of(args)
-            if size > self.best.get(cls, (-1,))[0]:
-                self.best[cls] = (size, args, kw)
-            before = wrapped.launches
+            with lock:
+                if size > self.best.get(cls, (-1,))[0]:
+                    self.best[cls] = (size, args, kw)
+            before = cuda_lib.thread_launches()
             try:
                 return self.orig(*args, **kw)
             finally:
-                self.launches[cls] = (self.launches.get(cls, 0)
-                                      + wrapped.launches - before)
+                n = cuda_lib.thread_launches() - before
+                with lock:
+                    self.launches[cls] = self.launches.get(cls, 0) + n
 
         wrapped.launches = 0
         self.wrapped = wrapped
@@ -1602,6 +1636,361 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
             f"latency {usec} usec over {runs} runs (run_single_query's log)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: live serving with coalescing (runtime/batcher.py)
+# ---------------------------------------------------------------------------
+
+LIVE_ANCHORS = 512  # light texts: the first anchors of advisor's OUT index
+LIVE_HEAVY_SHARE = 0.3  # heavy arrivals in the mixed workload
+LIVE_DURATION_S, LIVE_WARMUP_S = 5.0, 1.0
+# (workload, knobs, clients, mixed): bench.py --serve-batched's light runs,
+# then --serve-mixed's heavy lane off and on (at the default
+# heavy_split_threshold a LUBM-640 heavy dispatch splits, as many parts as
+# heavy_split_max allows), on with no split, and the split forced to 2
+LIVE_RUNS = (
+    ("light, batching off", {"enable_batching": False}, 16, False),
+    ("light, batching on", {"enable_batching": True}, 16, False),
+    ("mixed, heavy lane off", {"enable_batching": True, "heavy_lane": False},
+     24, True),
+    ("mixed, heavy lane on", {"enable_batching": True, "heavy_lane": True},
+     24, True),
+    ("mixed, heavy lane on, no split", {"enable_batching": True,
+                                        "heavy_lane": True,
+                                        "heavy_split_max": 1}, 24, True),
+    ("mixed, split forced", {"enable_batching": True, "heavy_lane": True,
+                             "heavy_split_threshold": 1,
+                             "heavy_split_max": 2}, 24, True),
+)
+LIVE_KNOBS = ("enable_batching", "heavy_lane", "heavy_split_threshold",
+              "heavy_split_max")
+# the batcher's counters a run reads (deltas over the run)
+LIVE_SERIES = ("wukong_batch_flush_total", "wukong_batch_bypass_total",
+               "wukong_batch_fused_queries_total",
+               "wukong_batch_fallback_total",
+               "wukong_batch_member_timeouts_total",
+               "wukong_batch_heavy_fused_total",
+               "wukong_batch_heavy_dispatch_total",
+               "wukong_batch_heavy_slices_total",
+               "wukong_batch_heavy_fallback_total")
+
+
+def live_texts(proxy) -> tuple:
+    """bench.py --serve-batched's light texts (``?s advisor <a>`` for the
+    first LIVE_ANCHORS anchors) and --serve-mixed's two index-origin 3-hop
+    heavy texts, written inline."""
+    import numpy as np
+
+    from wukong_tpu_torch.loader.lubm import UB
+    from wukong_tpu_torch.types import OUT
+
+    ss, g = proxy.str_server, proxy.g
+    anchors = np.asarray(g.get_index(ss.str2id(f"<{UB}advisor>"), OUT))
+    light = [f"SELECT ?s WHERE {{ ?s <{UB}advisor> {ss.id2str(int(a))} . }}"
+             for a in anchors[:LIVE_ANCHORS]]
+    ug = ("SELECT ?x ?y ?z WHERE { ?x "
+          "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type> "
+          f"<{UB}UndergraduateStudent> . ?x <{UB}takesCourse> ?y . ")
+    heavy = [ug + f"?x <{UB}memberOf> ?z . }}",
+             ug + f"?x <{UB}advisor> ?z . }}"]
+    return light, heavy
+
+
+def live_prepare(proxy, results: dict) -> tuple:
+    """Phase 9's set-up, before its kernel counts start: each text's direct
+    (unbatched) row count, which every live reply must equal, and one
+    sliced dispatch of each heavy text, whole and in two mt parts, so the
+    runs find their segments and lists staged."""
+    import copy
+
+    from wukong_tpu_torch.config import Global
+
+    light, heavy = live_texts(proxy)
+    check(Global.enable_batching is False,
+          "phase 9 must start with batching off")
+    want = {}
+    t0 = time.perf_counter()
+    for text in light + heavy:
+        q = proxy.serve_query(text, blind=True)
+        check(q.result.status_code == 0, f"live direct count: status "
+              f"{q.result.status_code!r}")
+        want[text] = q.result.nrows
+    check(all(want[t] > 0 for t in heavy), "a heavy text has no rows")
+    check(sum(want[t] for t in light) > 0, "the light texts have no rows")
+    for text in heavy:
+        q = proxy._parse_text(text)
+        proxy._plan_prepared(q, True, None)
+        b = proxy.heavy_index_batch(q)
+        for S in (1, 2):
+            total = 0
+            for k in range(S):
+                qk = copy.deepcopy(q)
+                qk.mt_factor, qk.mt_tid = S, k
+                total += int(proxy.gpu.execute_batch_index(
+                    qk, b, slice_mode=True).sum())
+            check(total == want[text], f"heavy slice dispatch in {S} parts: "
+                  f"{total} rows, direct {want[text]}")
+    results["live"] = {"light_texts": len(light), "heavy_texts": heavy,
+                       "light_rows": sum(want[t] for t in light),
+                       "heavy_rows": [want[t] for t in heavy],
+                       "prepare_s": time.perf_counter() - t0, "runs": {}}
+    log(f"  live: {len(light)} light texts ({results['live']['light_rows']:,}"
+        f" rows in all), heavy rows {results['live']['heavy_rows']}, "
+        f"direct counts and slice warm-up in "
+        f"{results['live']['prepare_s']:.1f} s")
+    return light, heavy, want
+
+
+class LiveClasses:
+    """The class of each kernel call made while serving, kept per thread: a
+    fused light group's seeded chain, a heavy slice's dispatch, or a direct
+    (unbatched) dispatch. ``of`` is Capture's ``class_of``."""
+
+    def __init__(self):
+        import threading
+
+        self.tls = threading.local()
+
+    def of(self, _args) -> str:
+        return getattr(self.tls, "cls", ", direct dispatch")
+
+    def _tagged(self, fn, cls: str):
+        tls = self.tls
+
+        def tagged(*args, **kw):
+            prev = getattr(tls, "cls", None)
+            tls.cls = cls
+            try:
+                return fn(*args, **kw)
+            finally:
+                if prev is None:
+                    del tls.cls
+                else:
+                    tls.cls = prev
+        return tagged
+
+    def __enter__(self):
+        from wukong_tpu_torch.runtime.batcher import FusedGroup, HeavyGroup
+
+        self.saved = (FusedGroup._run_fused, HeavyGroup._run_slice)
+        # HeavyGroup overrides _run_fused: only light groups take this one
+        FusedGroup._run_fused = self._tagged(FusedGroup._run_fused,
+                                             ", fused light group")
+        HeavyGroup._run_slice = self._tagged(HeavyGroup._run_slice,
+                                             ", heavy slice")
+        return self
+
+    def __exit__(self, *exc):
+        from wukong_tpu_torch.runtime.batcher import FusedGroup, HeavyGroup
+
+        FusedGroup._run_fused, HeavyGroup._run_slice = self.saved
+
+
+class CheckedReplies:
+    """Stands for the proxy in Emulator.run_serving: passes each call on and
+    keeps every reply whose row count is not its text's direct count."""
+
+    def __init__(self, proxy, want: dict):
+        import threading
+
+        self.proxy, self.want = proxy, want
+        self.bad: list = []
+        self.replies = 0
+        self._lock = threading.Lock()
+
+    def serve_query(self, text, blind=True):
+        q = self.proxy.serve_query(text, blind=blind)
+        with self._lock:
+            self.replies += 1
+            if q.result.status_code == 0 \
+                    and q.result.nrows != self.want[text]:
+                self.bad.append((text, q.result.nrows, self.want[text]))
+        return q
+
+
+def batch_series() -> dict:
+    """The batcher's counters and occupancy histograms, flat."""
+    from wukong_tpu_torch.obs import get_registry
+
+    snap = get_registry().snapshot()
+    out = {}
+    for name in LIVE_SERIES:
+        for srs in snap.get(name, {}).get("series", []):
+            lbl = ",".join(f"{k}={v}" for k, v in srs["labels"].items())
+            out[f"{name}{{{lbl}}}" if lbl else name] = srs["value"]
+    for name in ("wukong_batch_occupancy", "wukong_batch_heavy_occupancy"):
+        for srs in snap.get(name, {}).get("series", []):
+            out[f"{name}_sum"] = srs["sum"]
+            out[f"{name}_count"] = srs["count"]
+    return out
+
+
+def live_replay(proxy, name: str, light: list, heavy: list,
+                want: dict) -> dict:
+    """A single-client replay of what run ``name`` dispatched, untimed: host
+    syncs per dispatch (sync debug mode), and rows. Light: 64 texts as one
+    fused group, each member's rows the direct path's as a multiset (with
+    batching off, one direct query). Heavy: eight members of one heavy
+    text as one heavy group (split when the run forced it), each member
+    the direct count (with the heavy lane off, one direct query)."""
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.runtime.batcher import (
+        FusedGroup,
+        HeavyGroup,
+        _Pending,
+    )
+
+    def planned(text, blind):
+        q = proxy._parse_text(text)
+        proxy._plan_prepared(q, blind, None)
+        return q
+
+    out = {}
+    if not Global.enable_batching:
+        out["light_syncs_per_direct_query"], _ = count_syncs(
+            lambda: proxy.gpu.execute(planned(light[0], True)))
+        return out
+    members = [_Pending(planned(t, False)) for t in light[:64]]
+    group = FusedGroup(members, proxy.batcher(), engine=proxy.gpu,
+                       reason="replay")
+    out["light_syncs_per_fused_dispatch"], out["light_sync_sites"] = \
+        count_syncs(lambda: group.run(None))
+    saved = Global.enable_batching
+    Global.enable_batching = False
+    try:
+        for m, text in zip(members, light[:64]):
+            check(m.q.result.status_code == 0, f"live replay: status "
+                  f"{m.q.result.status_code!r}")
+            direct = proxy.serve_query(text, blind=False)
+            check(rows_multiset(m.q) == rows_multiset(direct),
+                  f"live replay: a fused member's rows differ from the "
+                  f"direct path's ({m.q.result.nrows} against "
+                  f"{direct.result.nrows})")
+    finally:
+        Global.enable_batching = saved
+    if not heavy or not Global.heavy_lane:
+        if heavy:
+            out["heavy_syncs_per_direct_query"], _ = count_syncs(
+                lambda: proxy.gpu.execute(planned(heavy[0], True)))
+        return out
+    members = [_Pending(planned(heavy[0], True)) for _ in range(8)]
+    group = HeavyGroup(members, proxy.batcher(), engine=proxy.gpu,
+                       reason="replay")
+    out["heavy_syncs_per_fused_dispatch"], out["heavy_sync_sites"] = \
+        count_syncs(lambda: group.run(None))
+    out["heavy_replay_slices"] = group._split_factor(members[0].q)
+    check(all(m.q.result.status_code == 0
+              and m.q.result.nrows == want[heavy[0]] for m in members),
+          f"live replay: heavy members {[m.q.result.nrows for m in members]}"
+          f", direct {want[heavy[0]]}")
+    return out
+
+
+def serve_live(proxy, texts: tuple, k1, results: dict) -> None:
+    """Phase 9 on phase 3's proxy (planner from phase 7): each LIVE_RUNS
+    workload through Emulator.run_serving (closed-loop clients,
+    serve_query(text, blind=True), LIVE_DURATION_S after LIVE_WARMUP_S,
+    seed 1), mixed runs with the engine pool started. Each run: zero
+    errors, every reply the direct count, no fused or heavy fallback, no
+    capacity degradation, no inline run after a failed lane submit; K1
+    launched in each workload; batching on: fused queries and mean
+    occupancy above 1; the
+    heavy lane on: heavy fused members; the split forced: split
+    dispatches. Then the run's single-client replay (live_replay). ``k1``
+    reads K1's launch count."""
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    light, heavy, want = texts
+    out = results["live"]["runs"]
+    saved = {k: getattr(Global, k) for k in LIVE_KNOBS}
+    mixed_w = ([(1 - LIVE_HEAVY_SHARE) / len(light)] * len(light)
+               + [LIVE_HEAVY_SHARE / len(heavy)] * len(heavy))
+    k1_by_workload: dict = {}
+    try:
+        for name, knobs, clients, mixed in LIVE_RUNS:
+            for k in LIVE_KNOBS:
+                setattr(Global, k, knobs.get(k, saved[k]))
+            if mixed:
+                proxy.engine_pool()  # the heavy lane needs the pool
+            run_texts = light + heavy if mixed else light
+            checker = CheckedReplies(proxy, want)
+            before, k1_before = batch_series(), k1()
+            with LogCapture() as cap:
+                rep = Emulator(checker).run_serving(
+                    run_texts, duration_s=LIVE_DURATION_S,
+                    warmup_s=LIVE_WARMUP_S, clients=clients, seed=1,
+                    weights=mixed_w if mixed else None,
+                    classes=([0] * len(light) + [1] * len(heavy)
+                             if mixed else None))
+                after, k1_n = batch_series(), k1() - k1_before
+                lanes = proxy.monitor.lane_lines() if mixed else []
+                replay = live_replay(proxy, name, light,
+                                     heavy if mixed else [], want)
+            d = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v - before.get(k, 0)}
+
+            def mean_occ(h):
+                n = d.get(f"{h}_count", 0)
+                return d.get(f"{h}_sum", 0) / n if n else None
+
+            row = {**rep, "knobs": knobs, "replies": checker.replies,
+                   "k1_launches": k1_n, "counters": d,
+                   "mean_occupancy": mean_occ("wukong_batch_occupancy"),
+                   "mean_heavy_occupancy": mean_occ(
+                       "wukong_batch_heavy_occupancy"),
+                   "lane_lines": lanes, **replay}
+            out[name] = row
+            log(f"  live [{name}], {clients} clients: {rep['qps']:,.1f} "
+                f"queries/s, p50 {rep['p50_us']:,} us, p99 "
+                f"{rep['p99_us']:,} us, errors {rep['errors']}, "
+                f"{checker.replies:,} replies; mean occupancy "
+                f"{row['mean_occupancy']}, heavy "
+                f"{row['mean_heavy_occupancy']}; K1 {k1_n:,} launches")
+            for c, v in (rep.get("by_class") or {}).items():
+                log(f"    class {'heavy' if c else 'light'}: "
+                    f"{v['qps']:,.1f} queries/s, p50 {v['p50_us']:,} us, "
+                    f"p99 {v['p99_us']:,} us")
+            log(f"    counters {d}")
+            log(f"    replay {replay}; {lanes}")
+            check(rep["errors"] == 0, f"live [{name}]: {rep['errors']} "
+                  f"errors")
+            check(rep["served"] > 0, f"live [{name}]: nothing served")
+            check(not checker.bad, f"live [{name}]: {len(checker.bad)} "
+                  f"replies off their direct count, e.g. {checker.bad[:2]}")
+            check(not any(k.startswith(("wukong_batch_fallback_total",
+                                        "wukong_batch_heavy_fallback_total"))
+                          for k in d),
+                  f"live [{name}]: a fused dispatch fell back: {d}")
+            check("degrading to the host engine" not in cap.text,
+                  f"live [{name}]: a capacity degradation was logged")
+            check("running inline" not in cap.text,
+                  f"live [{name}]: a lane submit failed and ran inline")
+            workload = name.split(",")[0]
+            k1_by_workload[workload] = k1_by_workload.get(workload, 0) + k1_n
+            if knobs["enable_batching"]:
+                check(d.get("wukong_batch_fused_queries_total", 0) > 0
+                      and (row["mean_occupancy"] or 0) > 1,
+                      f"live [{name}]: no light coalescing ({d})")
+            if mixed and knobs.get("heavy_lane"):
+                check(d.get("wukong_batch_heavy_fused_total", 0) > 0,
+                      f"live [{name}]: no heavy fused members ({d})")
+            if knobs.get("heavy_split_threshold") == 1:
+                check(d.get("wukong_batch_heavy_dispatch_total{mode=split}",
+                            0) > 0, f"live [{name}]: no split dispatch")
+        # a direct light query is a host CSR lookup (a const start, one
+        # step): K1 runs in the light workload's fused seeded chains
+        for workload, n in k1_by_workload.items():
+            check(n > 0, f"live, {workload} workload: K1 never launched")
+        results["live"]["k1_by_workload"] = k1_by_workload
+    finally:
+        for k, v in saved.items():
+            setattr(Global, k, v)
+        stop_pool(proxy)
+        if proxy._batcher is not None:
+            proxy._batcher.close()
+            proxy._batcher = None
+
+
 def merged_rows(captures: dict, phase: str, kernel_fns: dict,
                 errs: dict) -> list:
     """One kernels-line row per kernel a phase launched: held and timed on
@@ -1866,6 +2255,35 @@ def main(argv=None) -> int:
             audit_emu(proxy, mixes)
         results["runtime"]["stream_arms"] = audit.report(
             "phase 8 sparql-emu, both mixes")
+
+    # ---- 9. live serving with coalescing, on phase 3's proxy -------------
+    log(f"live: LUBM-{args.scale} on {kind}, Proxy.serve_query from "
+        f"concurrent clients, batching off and on")
+    live = live_prepare(proxy, results)
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    classes = LiveClasses()
+    captures = capture_all(classes.of, classes.of)
+    try:
+        with classes:
+            serve_live(proxy, live,
+                       lambda: captures["probe_kernel"].wrapped.launches,
+                       results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    by_class = {name: dict(c.launches) for name, c in captures.items()}
+    log(f"live: kernel launches by class {by_class}")
+    check(sum(captures["probe_kernel"].launches.values())
+          == kernel_fns["probe_kernel"][0].launches,
+          "K1's launches by class do not add up to its count")
+    for name in ("stream_emit", "stream_emit_m"):
+        if not sum(captures[name].launches.values()):
+            log(f"live: {name} not launched in phase 9 (its chains probe; "
+                f"phases 2 and 4-8 hold it)")
+    results["live"]["launches"] = by_class
+    rows += captured_rows(captures, "9 live serving", kernel_fns, errs)
 
     # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
     del proxy, triples

@@ -1,6 +1,7 @@
 """The port stands alone: with jax unimportable and every `wukong_tpu` module
-refused, the whole of `wukong_tpu_torch` imports; with no GPU, an entry point
-left at its default device raises instead of running on the CPU."""
+refused, the whole of `wukong_tpu_torch` imports (its `obs/` metrics registry
+included, which the batcher's counters register in); with no GPU, an entry
+point left at its default device raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -34,7 +35,11 @@ _SCRIPT = textwrap.dedent("""
         "resilience", "batcher", "proxy")}
     assert runtime | {"wukong_tpu_torch.analysis.lockdep",
                       "wukong_tpu_torch.store.string_server",
-                      "wukong_tpu_torch.loader.base"} <= set(names), names
+                      "wukong_tpu_torch.loader.base",
+                      "wukong_tpu_torch.obs",
+                      "wukong_tpu_torch.obs.metrics"} <= set(names), names
+    from wukong_tpu_torch.obs import get_registry
+    assert "wukong_batch_fused_queries_total" in get_registry().snapshot()
     leaked = [m for m in sys.modules
               if m == "wukong_tpu" or m.startswith("wukong_tpu.")
               or m == "jax" and sys.modules[m] is not None]

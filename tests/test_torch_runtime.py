@@ -290,6 +290,7 @@ global_stealing_pattern 1
 global_query_budget_rows 5000
 global_enable_partial_results false
 global_breaker_threshold 7
+global_retry_max_attempts 5
 global_plan_cache_size 64
 global_table_capacity_max 65536
 global_mt_threshold 2
@@ -309,8 +310,8 @@ def test_config_loads_like_jax(tmp_path, monkeypatch, capfd):
     monkeypatch.setattr(JGlobal, "mt_threshold", JGlobal.mt_threshold)
     monkeypatch.setattr(JGlobal, "enable_result_cache",
                         JGlobal.enable_result_cache)
-    monkeypatch.setattr(JGlobal, "breaker_threshold",
-                        JGlobal.breaker_threshold)
+    monkeypatch.setattr(JGlobal, "retry_max_attempts",
+                        JGlobal.retry_max_attempts)
     assert _knobs(Global) == _knobs(JGlobal)  # the same defaults
     path = tmp_path / "cfg"
     path.write_text(CONFIG_TEXT)
@@ -318,10 +319,11 @@ def test_config_loads_like_jax(tmp_path, monkeypatch, capfd):
     jconfig.load_config(str(path))
     err = capfd.readouterr().err
     assert "unknown config item ignored: global_mt_threshold" in err
-    assert "unknown config item ignored: global_breaker_threshold" in err
+    assert "unknown config item ignored: global_retry_max_attempts" in err
     assert _knobs(Global) == _knobs(JGlobal)
     assert Global.num_engines == 3 and Global.plan_cache_size == 64
-    assert JGlobal.breaker_threshold == 7
+    assert Global.breaker_threshold == JGlobal.breaker_threshold == 7
+    assert JGlobal.retry_max_attempts == 5
     runtime = "global_query_deadline_ms 250\ndevice_batch 512\n"
     pconfig.reload_config(runtime)
     jconfig.reload_config(runtime)

@@ -14,9 +14,10 @@ held adds edges to a process-wide directed graph:
   is recorded as a violation.
 
 Zero cost when off: with ``debug_locks`` false :func:`make_lock` returns a
-plain ``threading.Lock``. The JAX module's ``make_rlock`` and
-``make_condition`` wait for a caller in the port, and its hold/contention
-histograms for a metrics registry; they are left out.
+plain ``threading.Lock`` and :func:`make_condition` a plain
+``threading.Condition`` (the batcher's). The JAX module's ``make_rlock``
+waits for a caller in the port, and its hold/contention histograms for the
+metrics wiring of §A 2.4; they are left out.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from wukong_tpu_torch.config import Global
 
 __all__ = [
     "DebugLock", "cycles", "declare_leaf", "install", "leaf_violations",
-    "make_lock", "report", "reset",
+    "make_condition", "make_lock", "report", "reset",
 ]
 
 
@@ -182,6 +183,15 @@ def make_lock(name: str):
     """A mutex taking part in lockdep when ``debug_locks`` is on; a plain
     ``threading.Lock`` otherwise."""
     return DebugLock(name) if Global.debug_locks else threading.Lock()
+
+
+def make_condition(name: str):
+    """A Condition whose mutex takes part in lockdep when ``debug_locks``
+    is on. ``Condition.wait`` releases and reacquires through the wrapper,
+    so the held stack stays exact across waits."""
+    if not Global.debug_locks:
+        return threading.Condition()
+    return threading.Condition(DebugLock(name))
 
 
 def declare_leaf(name: str) -> None:

@@ -58,6 +58,11 @@ class GlobalConfig:
     # on deadline/budget expiry keep the rows produced so far and tag the
     # reply incomplete instead of clearing the table
     enable_partial_results: bool = True
+    # circuit breaker (the batcher's fused dispatches): consecutive
+    # failures before it opens, and how long it stays open before a
+    # half-open trial
+    breaker_threshold: int = 3
+    breaker_cooldown_ms: int = 5000
 
     # ---- lock-order checking (analysis/lockdep.py): read when a lock is
     # created; off gives plain threading primitives ----
@@ -71,6 +76,32 @@ class GlobalConfig:
     # ceiling on the slice count suggest_index_batch may pick for a heavy
     # (index-origin) query
     heavy_batch_max: int = 64
+
+    # ---- serving-path batching (runtime/batcher.py) ----
+    # coalesce live same-template queries into fused dispatches; off, the
+    # serving path never reaches the batcher
+    enable_batching: bool = False
+    # how long the first query of a group waits for company before the
+    # group flushes anyway
+    batch_window_us: int = 2000
+    # a group reaching this many members flushes at once
+    batch_max_size: int = 64
+    # a query whose deadline has less than this many windows left skips
+    # the batcher
+    batch_deadline_bypass_factor: int = 4
+    # the heavy lane: identical index-origin blind queries coalesce into
+    # one sliced execute_batch_index dispatch (with enable_batching)
+    heavy_lane: bool = True
+    # index lists at least this long split a fused heavy dispatch across
+    # pool engines by slice range, into at most heavy_split_max parts
+    heavy_split_threshold: int = 100000
+    heavy_split_max: int = 4
+    # at most this percent of pool engines (min 1) run heavy-lane items at
+    # once, so heavy work never takes every engine from light traffic
+    heavy_lane_pct: int = 50
+    # plan-time lane routing: a template whose estimated peak rows reach
+    # this is heavy even without an index-origin start
+    heavy_rows_threshold: int = 100000
 
     # ---- device-engine knobs ----
     # smallest / largest binding-table capacity class (rows); the largest

@@ -9,7 +9,8 @@ compile in parallel (one nvcc process each). Nothing here runs at import time:
 the CPU never builds or loads a kernel.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
-``check`` turns a nonzero code into an exception.
+``check`` turns a nonzero code into an exception. Each wrapper counts its
+launches with ``count_launch``, exactly under concurrent serving threads.
 """
 
 from __future__ import annotations
@@ -48,6 +49,8 @@ _RESTYPES = {"wk_stream_scratch_bytes": _LL}
 
 _libs: dict = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_tls = threading.local()
 build_seconds: float | None = None  # wall time of the last build_all()
 
 
@@ -128,6 +131,22 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.wk_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({rc})")
+
+
+def count_launch(fn) -> None:
+    """One launch more on ``fn.launches`` (a kernel wrapper's counter) and
+    on the calling thread's own count. Serving threads launch at once, and
+    a bare ``+= 1`` on a shared attribute loses increments."""
+    with _count_lock:
+        fn.launches += 1
+    _tls.launches = getattr(_tls, "launches", 0) + 1
+
+
+def thread_launches() -> int:
+    """Kernel launches the calling thread has made so far (every kernel):
+    the difference across one call is that call's own, whatever other
+    threads launch meanwhile."""
+    return getattr(_tls, "launches", 0)
 
 
 def stream_ptr(t) -> int:

@@ -6,6 +6,11 @@ power-of-two lengths, and cached by key under a byte budget with LRU
 eviction; a query pins the segments of its chain (`pin`/`unpin`), as in the
 reference's conflict-aware eviction (core/gpu/gpu_cache.hpp).
 
+Serving threads run chains on one store at once. A key is staged once: the
+first thread to miss it stages it under that key's own lock, and a thread
+that misses the same key waits for that staging, while chains on other
+keys go on. The JAX store takes no lock (one thread drives it).
+
 Two staged forms per (pid, dir):
 - DeviceSegment: an 8-way bucketized hash table over the keys (probed by
   K1), staged as 64 B bucket lines (`line_table`), plus the edge array;
@@ -19,6 +24,8 @@ Bucket placement (`build_hash_table`) is bit-identical to the JAX package's.
 
 from __future__ import annotations
 
+import collections
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -202,10 +209,16 @@ class DeviceStore:
         self.g = gstore
         self.device = resolve_device(device)
         self.budget = budget_bytes
+        # guards the caches, the LRU order, the pins and bytes_used; held
+        # only for bookkeeping, never across a staging
+        self._mu = threading.Lock()
         self._cache: dict = {}  # segment key -> DeviceSegment | MergeSegment
         self._index_cache: dict = {}  # ("idx"|"rev", ...) -> (tensor, real_len)
         self._lru: list = []
-        self._pinned: set = set()
+        # pinned key -> the chains holding it (a key stays pinned while any
+        # concurrent chain still runs over it)
+        self._pinned: collections.Counter = collections.Counter()
+        self._staging: dict = {}  # key -> the lock of its staging in flight
         self._fcsr_memo: dict = {}  # filtered host CSRs, per (pid, d, fkey)
         self._maxdeg_memo: dict = {}  # (pid, d) -> largest host degree
         self.bytes_used = 0
@@ -226,14 +239,44 @@ class DeviceStore:
             return None
         return host.keys, host.offsets, host.edges
 
-    def _cached(self, key, build):
-        if key in self._cache:
-            self._touch(key)
-            return self._cache[key]
-        seg = build()
-        if seg is not None:
-            self._insert(key, seg)
-        return seg
+    def _cached(self, key, build, table=None):
+        """table[key] (the segment cache by default), staged by build() on
+        a miss, once: a thread that misses a key while another stages it
+        waits on that key's lock and then finds it staged (at LUBM-640 the
+        OUT combined segment is 1.48 GB; two stagings of it could run the
+        card out of memory). None from build() is not cached."""
+        table = self._cache if table is None else table
+        with self._mu:
+            hit = table.get(key)
+            if hit is not None:
+                self._touch(key)
+                return hit
+            lock = self._staging.setdefault(key, threading.Lock())
+        with lock:
+            with self._mu:
+                hit = table.get(key)
+                if hit is not None:
+                    self._touch(key)
+                    return hit
+            val = None
+            try:
+                val = build()
+            finally:
+                # one critical section: a miss between the two would find
+                # neither the entry nor a staging to wait for
+                with self._mu:
+                    if val is not None:
+                        table[key] = val
+                        self._lru.append(key)
+                        self.bytes_used += self._nbytes(val)
+                        self._enforce_budget()
+                    self._staging.pop(key, None)
+        return val
+
+    @staticmethod
+    def _nbytes(val) -> int:
+        """Device bytes of a cache entry: a segment, or (list, length)."""
+        return val[0].numel() * 4 if isinstance(val, tuple) else val.nbytes
 
     def segment(self, pid: int, d: int) -> DeviceSegment | None:
         """Stage (pid, dir) in bucket form; TYPE_ID IN resolves to the type
@@ -291,12 +334,13 @@ class DeviceStore:
 
     def _filtered_host_csr(self, pid: int, d: int, fkey: tuple):
         memo_key = (int(pid), int(d), fkey)
-        if memo_key not in self._fcsr_memo:
+        csr = self._fcsr_memo.get(memo_key)
+        if csr is None:
             if len(self._fcsr_memo) > 64:  # bound the host-side copies
                 self._fcsr_memo.clear()
-            self._fcsr_memo[memo_key] = self._filtered_host_csr_build(
+            csr = self._fcsr_memo[memo_key] = self._filtered_host_csr_build(
                 pid, d, fkey)
-        return self._fcsr_memo[memo_key]
+        return csr
 
     def _filtered_host_csr_build(self, pid: int, d: int, fkey: tuple):
         csr = self._host_csr(pid, d)
@@ -360,11 +404,10 @@ class DeviceStore:
     def index_list(self, tpid: int, d: int):
         """Index edge list (type members / pred subjects-objects) on device:
         (tensor padded with INT32_MAX, real length)."""
-        key = ("idx", int(tpid), int(d))
-        if key in self._index_cache:
-            self._touch(key)
-            return self._index_cache[key]
-        return self._stage_list(key, np.asarray(self.g.get_index(tpid, d)))
+        return self._cached(
+            ("idx", int(tpid), int(d)),
+            lambda: self._stage_list(np.asarray(self.g.get_index(tpid, d))),
+            self._index_cache)
 
     def _const_members(self, pid: int, d: int, const: int) -> np.ndarray:
         """Host-side sorted { x : const ∈ adj(x, pid, d) }."""
@@ -382,21 +425,15 @@ class DeviceStore:
     def const_list(self, pid: int, d: int, const: int):
         """Sorted set { x : const ∈ adj(x, pid, d) } staged on device — the
         k2c merge relation. Returns (tensor, real_len)."""
-        key = ("rev", int(pid), int(d), int(const))
-        if key in self._index_cache:
-            self._touch(key)
-            return self._index_cache[key]
-        return self._stage_list(key, self._const_members(pid, d, const))
+        return self._cached(
+            ("rev", int(pid), int(d), int(const)),
+            lambda: self._stage_list(self._const_members(pid, d, const)),
+            self._index_cache)
 
-    def _stage_list(self, key, arr: np.ndarray):
+    def _stage_list(self, arr: np.ndarray):
         padded = np.full(_next_pow2(len(arr)), INT32_MAX, dtype=np.int32)
         padded[: len(arr)] = arr
-        entry = (self._dev(padded), len(arr))
-        self._index_cache[key] = entry
-        self._lru.append(key)
-        self.bytes_used += padded.nbytes
-        self._enforce_budget()
-        return entry
+        return self._dev(padded), len(arr)
 
     # ---- builders --------------------------------------------------------
     def _stage(self, keys, offsets, edges) -> DeviceSegment:
@@ -431,13 +468,7 @@ class DeviceStore:
                             sdeg=self._dev(sd), edges=self._dev(e),
                             ekey=self._dev(ek), num_keys=K, num_edges=E)
 
-    # ---- cache management ------------------------------------------------
-    def _insert(self, key, seg) -> None:
-        self._cache[key] = seg
-        self._lru.append(key)
-        self.bytes_used += seg.nbytes
-        self._enforce_budget()
-
+    # ---- cache management (callers hold _mu) ------------------------------
     def _enforce_budget(self) -> None:
         if self.budget is None:
             return
@@ -448,11 +479,8 @@ class DeviceStore:
             self._evict(victims[0])
 
     def _evict(self, key) -> None:
-        if key in self._cache:
-            self.bytes_used -= self._cache.pop(key).nbytes
-        else:
-            dev, _ = self._index_cache.pop(key)
-            self.bytes_used -= dev.numel() * 4
+        table = self._cache if key in self._cache else self._index_cache
+        self.bytes_used -= self._nbytes(table.pop(key))
         self._lru.remove(key)
 
     def _touch(self, key) -> None:
@@ -466,12 +494,14 @@ class DeviceStore:
         return k if isinstance(k[0], str) else (int(k[0]), int(k[1]))
 
     def pin(self, keys) -> None:
-        self._pinned.update(self._pin_key(k) for k in keys)
+        with self._mu:
+            self._pinned.update(self._pin_key(k) for k in keys)
 
     def unpin(self, keys) -> None:
-        for k in keys:
-            self._pinned.discard(self._pin_key(k))
-        self._enforce_budget()  # pins may have deferred evictions
+        with self._mu:
+            self._pinned.subtract(self._pin_key(k) for k in keys)
+            self._pinned += collections.Counter()  # drop counts at 0
+            self._enforce_budget()  # pins may have deferred evictions
 
     def prefetch(self, patterns) -> None:
         """Stage the bucket segments of upcoming pattern steps (the combined

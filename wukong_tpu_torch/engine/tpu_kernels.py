@@ -206,7 +206,7 @@ def probe_kernel(bline, bhi, cur, n, max_probe: int):
                    cur.get_device(), cuda_lib.stream_ptr(cur))
     if rc:
         cuda_lib.check(cuda_lib.library("probe.cu"), rc, "probe")
-    probe_kernel.launches += 1
+    cuda_lib.count_launch(probe_kernel)
     return found, start, deg
 
 

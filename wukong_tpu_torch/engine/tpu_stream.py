@@ -161,7 +161,7 @@ def stream_emit(edges, dsel, dpar, cap_out: int):
         return stream_emit_plain(edges, dsel, dpar, cap_out)
     out = _launch_emit("wk_stream_emit", "stream_emit", edges, dsel, dpar,
                        cap_out)
-    stream_emit.launches += 1
+    cuda_lib.count_launch(stream_emit)
     return out
 
 
@@ -173,7 +173,7 @@ def stream_emit_m(edges, dsel, drow, cap_out: int):
         return stream_emit_m_plain(edges, dsel, drow, cap_out)
     out = _launch_emit("wk_stream_emit_m", "stream_emit_m", edges, dsel, drow,
                        cap_out)
-    stream_emit_m.launches += 1
+    cuda_lib.count_launch(stream_emit_m)
     return out
 
 

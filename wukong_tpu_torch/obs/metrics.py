@@ -1,0 +1,333 @@
+"""Process-wide metrics registry: labeled counters, gauges, histograms.
+
+The port's copy of the JAX package's obs/metrics.py. The reference's only
+metrics are the proxy-side Monitor's latency vectors (core/monitor.hpp);
+this registry is the shared publication surface the batcher, the engine
+pool and the breaker write into, with two exporters:
+
+- :meth:`MetricsRegistry.render_prometheus` — the Prometheus text
+  exposition format;
+- :meth:`MetricsRegistry.snapshot` — a plain-dict JSON view (read by
+  ``Monitor.lane_lines`` and by ``chip_smoke.py``'s serving phase).
+
+Metric *creation* is get-or-create under one lock; *updates* on a bound
+child (``counter.labels(site="x")``) are a single lock-protected float add.
+Gauges may be backed by a callback so pool state is read lazily at export
+time instead of being pushed on every transition.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+
+# default latency buckets in microseconds: 100us .. ~100s, x4 steps
+DEFAULT_US_BUCKETS = (100.0, 400.0, 1_600.0, 6_400.0, 25_600.0, 102_400.0,
+                      409_600.0, 1_638_400.0, 6_553_600.0, 26_214_400.0,
+                      104_857_600.0)
+
+
+def _fmt(v: float) -> str:
+    """Prometheus sample formatting: integral values render bare (``5``),
+    non-integral as repr floats — deterministic for the golden test."""
+    if v == math.inf:
+        return "+Inf"
+    if v == -math.inf:
+        return "-Inf"
+    f = float(v)
+    return str(int(f)) if f == int(f) else repr(f)
+
+
+def _escape(s: str) -> str:
+    return s.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+def _validate_name(name: str) -> None:
+    if not name or not (name[0].isalpha() or name[0] == "_"):
+        raise ValueError(f"bad metric name: {name!r}")
+    if not all(c.isalnum() or c in "_:" for c in name):
+        raise ValueError(f"bad metric name: {name!r}")
+
+
+class _Child:
+    """One labeled time series of a metric."""
+
+    __slots__ = ("_metric", "_labelvalues", "value", "_bucket_counts",
+                 "_sum", "_count")
+
+    def __init__(self, metric: "_Metric", labelvalues: tuple):
+        self._metric = metric
+        self._labelvalues = labelvalues
+        self.value = 0.0
+        if metric.kind == "histogram":
+            self._bucket_counts = [0] * (len(metric.buckets) + 1)
+            self._sum = 0.0
+            self._count = 0
+
+    # -- counter / gauge -------------------------------------------------
+    def inc(self, amount: float = 1.0) -> None:
+        if self._metric.kind == "counter" and amount < 0:
+            raise ValueError("counters only go up")
+        with self._metric._lock:
+            self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        if self._metric.kind != "gauge":
+            raise ValueError("dec() is gauge-only")
+        self.inc(-amount)
+
+    def set(self, value: float) -> None:
+        if self._metric.kind != "gauge":
+            raise ValueError("set() is gauge-only")
+        with self._metric._lock:
+            self.value = float(value)
+
+    # -- histogram -------------------------------------------------------
+    def observe(self, value: float, count: int = 1) -> None:
+        """Record ``count`` observations of ``value`` (bulk form for
+        device-batch measurements: one call per batch, not per query)."""
+        if self._metric.kind != "histogram":
+            raise ValueError("observe() is histogram-only")
+        v = float(value)
+        n = int(count)
+        with self._metric._lock:
+            i = 0
+            for b in self._metric.buckets:
+                if v <= b:
+                    break
+                i += 1
+            self._bucket_counts[i] += n
+            self._sum += v * n
+            self._count += n
+
+
+class _Metric:
+    """One named metric family; children keyed by label values."""
+
+    def __init__(self, name: str, help: str, kind: str,
+                 labelnames: tuple = (), buckets: tuple = ()):
+        _validate_name(name)
+        self.name = name
+        self.help = help
+        self.kind = kind
+        self.labelnames = tuple(labelnames)
+        self.buckets = tuple(sorted(float(b) for b in buckets))
+        # deliberately a PLAIN lock, never a lockdep factory product: the
+        # lockdep checker publishes its own histograms through this
+        # registry, so tracking registry locks would recurse
+        self._lock = threading.Lock()
+        self._children: dict[tuple, _Child] = {}  # guarded by: _lock
+        if not self.labelnames:
+            self._default = self._child(())
+        self._fn = None  # gauge callback (evaluated at export)
+
+    def _child(self, labelvalues: tuple) -> _Child:
+        with self._lock:
+            ch = self._children.get(labelvalues)
+            if ch is None:
+                ch = self._children[labelvalues] = _Child(self, labelvalues)
+            return ch
+
+    def labels(self, **kv) -> _Child:
+        if set(kv) != set(self.labelnames):
+            raise ValueError(f"{self.name}: expected labels "
+                             f"{self.labelnames}, got {tuple(kv)}")
+        return self._child(tuple(str(kv[k]) for k in self.labelnames))
+
+    # unlabeled convenience passthroughs
+    def inc(self, amount: float = 1.0) -> None:
+        self._default.inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._default.dec(amount)
+
+    def set(self, value: float) -> None:
+        self._default.set(value)
+
+    def observe(self, value: float, count: int = 1) -> None:
+        self._default.observe(value, count)
+
+    def set_function(self, fn) -> None:
+        """Gauge-only: read the value from ``fn()`` at export time (state
+        that already lives elsewhere — breaker snapshots, queue depths —
+        is pulled, not pushed on every transition). Unlabeled gauges take
+        ``fn() -> float``; labeled gauges take ``fn() -> {labels: value}``
+        where ``labels`` is a tuple of label values in labelnames order."""
+        if self.kind != "gauge":
+            raise ValueError("set_function() is gauge-only")
+        self._fn = fn
+
+    def _refresh(self) -> None:
+        """Pull the callback value(s) before an export. For labeled
+        callback gauges the returned dict IS the series set: label series
+        absent from the return are dropped, not left exporting their last
+        value (a dead breaker/pool must disappear, not linger as stale
+        live data)."""
+        if self._fn is None:
+            return
+        val = self._fn()
+        if not self.labelnames:
+            self.set(float(val))
+            return
+        fresh = {tuple(str(x) for x in k): float(v)
+                 for k, v in dict(val).items()}
+        with self._lock:
+            self._children = {k: self._children.get(k) or _Child(self, k)
+                              for k in fresh}
+            for k, v in fresh.items():
+                self._children[k].value = v
+
+    def value(self, **kv) -> float:
+        ch = self.labels(**kv) if kv else self._default
+        return ch.value
+
+    def _series(self) -> list[tuple[tuple, _Child]]:
+        with self._lock:
+            items = sorted(self._children.items())
+        return items
+
+
+class MetricsRegistry:
+    """Named metric families with get-or-create semantics (re-registering
+    the same name+kind returns the existing family, so module-level cached
+    handles and ad-hoc lookups converge on the same series)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()  # plain: see _Metric._lock
+        self._metrics: dict[str, _Metric] = {}  # guarded by: _lock
+
+    def _get_or_create(self, name: str, help: str, kind: str,
+                       labels: tuple = (), buckets: tuple = ()) -> _Metric:
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is not None:
+                if m.kind != kind or m.labelnames != tuple(labels):
+                    raise ValueError(
+                        f"metric {name!r} re-registered as {kind}"
+                        f"{tuple(labels)} (was {m.kind}{m.labelnames})")
+                if (kind == "histogram" and buckets is not DEFAULT_US_BUCKETS
+                        and m.buckets != tuple(sorted(float(b)
+                                                      for b in buckets))):
+                    # an explicit differing layout must not silently bind
+                    # to another module's boundaries (mis-binned data);
+                    # passing the default sentinel means "look up"
+                    raise ValueError(
+                        f"histogram {name!r} re-registered with buckets "
+                        f"{tuple(buckets)} (was {m.buckets})")
+                return m
+            m = _Metric(name, help, kind, labels, buckets)
+            self._metrics[name] = m
+            return m
+
+    def counter(self, name: str, help: str = "", labels: tuple = ()) -> _Metric:
+        return self._get_or_create(name, help, "counter", labels)
+
+    def gauge(self, name: str, help: str = "", labels: tuple = ()) -> _Metric:
+        return self._get_or_create(name, help, "gauge", labels)
+
+    def histogram(self, name: str, help: str = "", labels: tuple = (),
+                  buckets: tuple = DEFAULT_US_BUCKETS) -> _Metric:
+        return self._get_or_create(name, help, "histogram", labels, buckets)
+
+    def unregister(self, name: str) -> None:
+        """Drop one family entirely. Any module-level handle to it keeps
+        writing to an orphan no exporter sees — use only when the writers
+        are gone too; prefer reset() everywhere else."""
+        with self._lock:
+            self._metrics.pop(name, None)
+
+    def reset(self) -> None:
+        """Zero every series IN PLACE (tests). Families and their children
+        survive, so module-level cached handles (_M_* in scheduler/
+        resilience/ingest/...) and fresh lookups keep converging on the
+        same — now zeroed — series instead of silently splitting."""
+        with self._lock:
+            for m in self._metrics.values():
+                with m._lock:
+                    for ch in m._children.values():
+                        ch.value = 0.0
+                        if m.kind == "histogram":
+                            ch._bucket_counts = [0] * (len(m.buckets) + 1)
+                            ch._sum = 0.0
+                            ch._count = 0
+
+    # ------------------------------------------------------------------
+    # exporters
+    # ------------------------------------------------------------------
+    def _families(self) -> list[_Metric]:
+        with self._lock:
+            return [self._metrics[k] for k in sorted(self._metrics)]
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format (version 0.0.4)."""
+        lines: list[str] = []
+        for m in self._families():
+            m._refresh()
+            lines.append(f"# HELP {m.name} {_escape(m.help)}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+            for lv, ch in m._series():
+                lbl = ",".join(f'{k}="{_escape(v)}"'
+                               for k, v in zip(m.labelnames, lv))
+                if m.kind == "histogram":
+                    cum = 0
+                    for b, c in zip(m.buckets + (math.inf,),
+                                    ch._bucket_counts):
+                        cum += c
+                        le = f'le="{_fmt(b)}"'
+                        full = f"{lbl},{le}" if lbl else le
+                        lines.append(f"{m.name}_bucket{{{full}}} {cum}")
+                    suffix = f"{{{lbl}}}" if lbl else ""
+                    lines.append(f"{m.name}_sum{suffix} {_fmt(ch._sum)}")
+                    lines.append(f"{m.name}_count{suffix} {ch._count}")
+                else:
+                    suffix = f"{{{lbl}}}" if lbl else ""
+                    lines.append(f"{m.name}{suffix} {_fmt(ch.value)}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> dict:
+        """Plain-dict JSON view: {name: {kind, help, series: [...]}} for
+        bench artifacts and the console's one-shot dump."""
+        out: dict = {}
+        for m in self._families():
+            m._refresh()
+            series = []
+            for lv, ch in m._series():
+                entry: dict = {"labels": dict(zip(m.labelnames, lv))}
+                if m.kind == "histogram":
+                    entry["count"] = ch._count
+                    entry["sum"] = ch._sum
+                    entry["buckets"] = {
+                        _fmt(b): c for b, c in
+                        zip(m.buckets + (math.inf,), ch._bucket_counts)}
+                else:
+                    entry["value"] = ch.value
+                series.append(entry)
+            out[m.name] = {"kind": m.kind, "help": m.help, "series": series}
+        return out
+
+
+def snapshot_labeled_value(snap: dict, name: str, **labels) -> float:
+    """Point lookup of one labeled series' value in a snapshot() dict
+    (0.0 when absent) — shared so snapshot-shape knowledge stays here."""
+    for s in (snap.get(name) or {}).get("series", []):
+        if all(s.get("labels", {}).get(k) == v for k, v in labels.items()):
+            return float(s.get("value", 0))
+    return 0.0
+
+
+def snapshot_histogram_mean(snap: dict, name: str) -> float | None:
+    """Mean of a snapshot()'d histogram's first series (sum/count), or
+    None when the histogram is absent or empty — the one place that knows
+    the snapshot shape, shared by every occupancy/latency-mean reader."""
+    series = (snap.get(name) or {}).get("series", [])
+    if not series or not series[0].get("count"):
+        return None
+    return series[0]["sum"] / series[0]["count"]
+
+
+# process-wide default registry (subsystems publish here unless handed one)
+_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return _registry

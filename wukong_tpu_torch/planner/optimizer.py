@@ -35,6 +35,7 @@ wait for the port of the tensor-join engine.
 from __future__ import annotations
 
 import logging
+import threading
 from dataclasses import dataclass
 
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
@@ -88,16 +89,22 @@ class Planner:
     def __init__(self, stats: Stats, max_branch: int = 6):
         self.stats = stats
         self.max_branch = max_branch
+        # the DFS keeps its best plan on self: serving threads that plan at
+        # once take turns (the JAX Planner, driven from one thread, has no
+        # lock)
+        self._search_lock = threading.Lock()
 
     # ------------------------------------------------------------------
     def generate_plan(self, q: SPARQLQuery) -> bool:
         pg = q.pattern_group
         if not pg.patterns:
             return True
-        try:
-            best = self._plan_group(pg)
-        except Exception:
-            best = None
+        with self._search_lock:
+            try:
+                best = self._plan_group(pg)
+            except Exception:
+                best = None
+            best_state = getattr(self, "_best_state", None)
         if best is None:
             heuristic_plan(q)
             return True
@@ -107,8 +114,8 @@ class Planner:
         # with filters (only remove rows) and OPTIONAL (left join keeps only
         # parent rows), but NOT with UNION — a branch starting from its own
         # index explores independently of the (empty) parent table.
-        q.planner_empty = bool(self._best_state is not None
-                               and self._best_state.empty
+        q.planner_empty = bool(best_state is not None
+                               and best_state.empty
                                and not pg.unions)
         from wukong_tpu_torch.planner.heuristic import bound_vars, plan_seeded_group
 

@@ -1,21 +1,124 @@
-"""Template signatures and the plan cache of the serving path.
+"""Continuous micro-batching for the serving path (Orca-style coalescing).
 
-The port's copy of the plan-cache part of the JAX package's
-runtime/batcher.py (:137-306): a template signature abstracts a query's
-normal-id constants, a plan recipe replays a planned join order onto any
-query of the same signature, and ``PlanCache`` keeps recipes (and small
-per-template plan facts) in a bounded LRU keyed on signature and store
-version. ``QueryBatcher`` and the fused groups of that module are not ported
-yet.
+The port's copy of the JAX package's runtime/batcher.py. The engine's
+batched entry points amortize device syncs across query batches; this
+module gives live traffic (``Proxy.serve_query`` from concurrent clients)
+the same win:
+
+- :func:`template_signature` / :class:`PlanCache` — the proxy's plan cache:
+  a planned join order replayed onto every query of the same template
+  shape, keyed on signature + store version.
+- :func:`batchable` / :func:`fused_key` — the compatibility test and group
+  key: planned chains that differ ONLY in the start constant may fuse.
+- :class:`QueryBatcher` — the coalescer between the proxy and the engines:
+  compatible queries arriving within ``batch_window_us`` (or until
+  ``batch_max_size``) fuse into ONE chain dispatch over a qid-stamped
+  binding table, and each caller's future gets its own rows back.
+  Incompatible or deadline-tight queries bypass; with ``enable_batching``
+  off (the default) the serving path never reaches this module.
+- :class:`FusedGroup` — the dispatch unit: the start constant becomes a
+  seeded known variable beside a qid column, one seeded chain runs on the
+  GPU engine (one device-to-host copy of the fused table), the table is
+  split by qid on the host, each member is settled against its own
+  deadline and budget, and a failed fused dispatch re-runs its members
+  one at a time on the same engine.
+- :func:`heavy_batchable` / :class:`HeavyGroup` — the heavy lane: identical
+  index-origin blind queries collapse into ONE sliced
+  ``execute_batch_index`` dispatch whose per-slice counts sum to the
+  query's rows; past ``heavy_split_threshold`` index rows the dispatch
+  splits across pool engines by slice range (``mt_factor`` carriers)
+  behind a gather barrier that re-runs a failed slice inline.
+
+Row order: the kernels expand row-major and filter in place, so a member's
+rows in the fused table are contiguous and in the order its own execution
+gives — batched replies equal sequential ones byte for byte.
+
+Left out, each waiting for its subsystem (ROADMAP §A 2.3-2.4): the shed
+notes of the SLO plane (``maybe_note_shed``) and the dispatch traces and
+flight recorder of both ``_run_fused`` methods.
 """
 
 from __future__ import annotations
 
-from wukong_tpu_torch.config import Global
-from wukong_tpu_torch.sparql.ir import Pattern, SPARQLQuery
-from wukong_tpu_torch.types import NORMAL_ID_START, PREDICATE_ID, TYPE_ID
-from wukong_tpu_torch.utils.lru import LRUCache
+import threading
 
+import numpy as np
+
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_condition,
+    make_lock,
+)
+from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.runtime.resilience import (
+    CircuitBreaker,
+    Deadline,
+    mark_partial,
+)
+from wukong_tpu_torch.sparql.ir import Pattern, SPARQLQuery
+from wukong_tpu_torch.types import (
+    NORMAL_ID_START,
+    PREDICATE_ID,
+    TYPE_ID,
+    AttrType,
+)
+from wukong_tpu_torch.utils.errors import (
+    BudgetExceeded,
+    ErrorCode,
+    QueryTimeout,
+    WukongError,
+)
+from wukong_tpu_torch.utils.logger import log_warn
+from wukong_tpu_torch.utils.lru import LRUCache
+from wukong_tpu_torch.utils.timer import get_usec
+
+_SID = int(AttrType.SID_t)
+
+# occupancy and flush reasons are the knobs' feedback: a window that always
+# flushes at size 1 is pure added latency, one that always hits
+# batch_max_size could go wider
+_M_SUBMITTED = get_registry().counter(
+    "wukong_batch_submitted_total", "Queries admitted into the batcher")
+_M_BYPASS = get_registry().counter(
+    "wukong_batch_bypass_total",
+    "Queries that skipped the batcher", labels=("reason",))
+_M_FLUSH = get_registry().counter(
+    "wukong_batch_flush_total", "Group flushes", labels=("reason",))
+_M_FUSED = get_registry().counter(
+    "wukong_batch_fused_queries_total", "Queries served by a fused dispatch")
+_M_FALLBACK = get_registry().counter(
+    "wukong_batch_fallback_total",
+    "Fused dispatches degraded to per-query execution", labels=("reason",))
+_M_MEMBER_TIMEOUT = get_registry().counter(
+    "wukong_batch_member_timeouts_total",
+    "Members individually degraded by their own deadline/budget")
+_M_OCCUPANCY = get_registry().histogram(
+    "wukong_batch_occupancy", "Group size at flush",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+_M_HEAVY_FUSED = get_registry().counter(
+    "wukong_batch_heavy_fused_total",
+    "Queries served by a fused heavy (index-origin) dispatch")
+_M_HEAVY_DISPATCH = get_registry().counter(
+    "wukong_batch_heavy_dispatch_total",
+    "Fused heavy dispatches", labels=("mode",))
+_M_HEAVY_SLICES = get_registry().counter(
+    "wukong_batch_heavy_slices_total",
+    "Slice parts dispatched by split heavy groups")
+_M_HEAVY_FALLBACK = get_registry().counter(
+    "wukong_batch_heavy_fallback_total",
+    "Heavy-lane degradations", labels=("reason",))
+_M_HEAVY_OCC = get_registry().histogram(
+    "wukong_batch_heavy_occupancy", "Heavy group size at flush",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
+_M_HEAVY_SPLIT = get_registry().counter(
+    "wukong_batch_heavy_split_total",
+    "Fused heavy dispatch split decisions", labels=("decision",))
+
+
+# ---------------------------------------------------------------------------
+# template signatures + the plan cache
+# ---------------------------------------------------------------------------
 
 def template_signature(q: SPARQLQuery):
     """Pre-plan template signature: the pattern structure with normal-id
@@ -149,9 +252,857 @@ class PlanCache:
     def __len__(self) -> int:
         return len(self._lru)
 
+    def clear(self) -> None:
+        """Drop every recipe and memoized plan fact (tests, and a knob
+        change that the memo keys do not carry)."""
+        for key, _v in self._lru.items():
+            self._lru.pop(key)
+
 
 def snapshot_patterns(q: SPARQLQuery) -> list:
     """Pre-plan pattern snapshot for build_plan_recipe (plan mutates the
     list in place)."""
     return [(p.subject, p.predicate, p.direction, p.object, p.pred_type)
             for p in q.pattern_group.patterns]
+
+
+# ---------------------------------------------------------------------------
+# batchability + group key
+# ---------------------------------------------------------------------------
+
+def batchable(q: SPARQLQuery) -> bool:
+    """True when a PLANNED query may join a fused group: a const-start
+    chain of const-SID-predicate steps, each anchored on a bound column —
+    the shape ``execute_batch`` takes — with no result-shaping modifiers
+    (those apply per member and would be wrong on the fused table)."""
+    pg = q.pattern_group
+    if pg.unions or pg.optional:
+        return False
+    if q.distinct or q.orders or q.limit >= 0 or q.offset > 0:
+        return False
+    if q.mt_factor > 1 or q.planner_empty or q.corun_enabled:
+        return False
+    pats = pg.patterns
+    if not pats:
+        return False
+    c0 = pats[0].subject
+    if c0 < NORMAL_ID_START:  # needs a plain const start (not index/type)
+        return False
+    if pats[0].object >= 0:  # first step must bind a fresh var
+        return False
+    known = {c0}
+    for k, p in enumerate(pats):
+        if p.predicate < 0 or p.pred_type != _SID:
+            return False
+        if k == 0:
+            if p.subject != c0:
+                return False
+        elif p.subject == c0:
+            # mid-chain re-anchor on the start constant: sequential
+            # execution runs const_to_known, which needs a bound object
+            if not (p.object < 0 and p.object in known):
+                return False
+        elif not (p.subject < 0 and p.subject in known):
+            return False
+        for v in (p.subject, p.object):
+            if v < 0:
+                known.add(v)
+    return True
+
+
+def fused_key(q: SPARQLQuery):
+    """Group key for a planned batchable query: every occurrence of the
+    start constant abstracted, everything else (predicates, other
+    constants, filters, projection, blind mode) concrete — members of one
+    group differ ONLY in where they start."""
+    pats = q.pattern_group.patterns
+    c0 = pats[0].subject
+
+    def el(v: int):
+        return "<start>" if v == c0 else v
+
+    return (tuple((el(p.subject), p.predicate, int(p.direction),
+                   el(p.object), int(p.pred_type)) for p in pats),
+            repr(q.pattern_group.filters),
+            tuple(q.result.required_vars),
+            bool(q.result.blind))
+
+
+def heavy_batchable(q: SPARQLQuery) -> bool:
+    """True when a PLANNED query may join a fused HEAVY group: an
+    index-origin chain of const-SID steps anchored on bound columns (the
+    ``execute_batch_index`` shape), blind (the sliced dispatch returns
+    per-slice row counts, not tables), with no filters or result-shaping
+    modifiers (both would need the materialized table)."""
+    pg = q.pattern_group
+    if pg.unions or pg.optional or pg.filters:
+        return False
+    if not q.result.blind:
+        return False
+    if q.distinct or q.orders or q.limit >= 0 or q.offset > 0:
+        return False
+    if q.mt_factor > 1 or q.planner_empty or q.corun_enabled:
+        return False
+    pats = pg.patterns
+    if not pats:
+        return False
+    try:
+        if not q.start_from_index():
+            return False
+    except WukongError:
+        return False
+    p0 = pats[0]
+    if p0.predicate not in (PREDICATE_ID, TYPE_ID) or p0.object >= 0:
+        return False
+    known = {p0.object}
+    for k, p in enumerate(pats):
+        if p.predicate < 0 or p.pred_type != _SID:
+            return False
+        if k > 0:
+            if not (p.subject < 0 and p.subject in known):
+                return False
+            if p.object < 0:
+                known.add(p.object)
+    return True
+
+
+def heavy_key(q: SPARQLQuery):
+    """Group key for a planned heavy-batchable query: the concrete pattern
+    chain. Index-origin queries carry no per-member start constant, so the
+    members of one heavy group are the SAME query — one sliced dispatch
+    answers every waiter (request collapsing)."""
+    return ("heavy", tuple(
+        (p.subject, p.predicate, int(p.direction), p.object,
+         int(p.pred_type)) for p in q.pattern_group.patterns))
+
+
+# ---------------------------------------------------------------------------
+# the fused dispatch unit
+# ---------------------------------------------------------------------------
+
+class _Pending:
+    """One caller's slot in a group: the planned query, its deadline, and
+    the future the serving thread blocks on."""
+
+    __slots__ = ("q", "deadline", "event", "error")
+
+    def __init__(self, q: SPARQLQuery):
+        self.q = q
+        self.deadline = getattr(q, "deadline", None)
+        self.event = threading.Event()
+        self.error: BaseException | None = None
+
+    def wait(self, timeout: float | None = None) -> SPARQLQuery:
+        if not self.event.wait(timeout):
+            raise TimeoutError("batched query still pending")
+        if self.error is not None:
+            raise self.error
+        return self.q
+
+
+def _fused_deadline(members: list):
+    """The fused chain's Deadline: the LOOSEST member wall clock (a tight
+    member is settled on its own after the dispatch, never failing the
+    group) and the SUM of member row budgets — present only when every
+    member carries the constraint."""
+    rems, budgets, no_wall = [], [], False
+    for m in members:
+        if m.deadline is None:
+            return None  # an unconstrained member: the group is too
+        rem = m.deadline.remaining_s()
+        if rem is None:
+            no_wall = True  # that member has a budget but no wall clock
+        else:
+            rems.append(rem)
+        budgets.append(m.deadline.budget_rows)
+    timeout_ms = 0 if (no_wall or not rems) else int(max(rems) * 1e3) + 1
+    budget = sum(budgets) if budgets and all(b > 0 for b in budgets) else 0
+    if timeout_ms <= 0 and budget <= 0:
+        return None
+    return Deadline(timeout_ms, budget)
+
+
+class FusedGroup:
+    """A flushed group of same-template queries, executed as one unit.
+
+    The engine pool's ``batch`` lane pops a group whole (work stealing
+    cannot split it) and calls :meth:`run` with the popping engine; an
+    inline dispatch (no pool) passes None. Either way the group runs on
+    ``engine`` — the GPU engine whenever ``enable_tpu`` — so a pool's host
+    threads drive device work."""
+
+    lane = "batch"  # which pool lane flushed groups ride
+    BREAKER_SITE = "batch.dispatch"  # CircuitBreaker key
+
+    def __init__(self, members: list, batcher: "QueryBatcher",
+                 engine=None, reason: str = "window", key=None):
+        self.members = members
+        self.batcher = batcher
+        self.engine = engine  # preferred engine (the GPU engine), or None
+        self.reason = reason
+        # group key for per-template chaining (heavy lane): same-key
+        # arrivals accumulate while THIS dispatch runs and flush the
+        # moment it completes; None = no chaining
+        self.key = key
+        # in-flight accounting settled exactly once: run()'s finally
+        # (engine thread) can race fail_all() from the pool's death
+        # handler or the flusher
+        self._note_lock = make_lock("batch.group")
+        self._noted = False  # guarded by: _note_lock
+
+    # -- completion plumbing -------------------------------------------
+    @staticmethod
+    def _finish(m: _Pending) -> None:
+        m.event.set()
+
+    def _note_once(self) -> None:
+        with self._note_lock:
+            if self._noted:
+                return
+            self._noted = True
+        # outside the group lock: _note_done takes the batcher condition
+        self.batcher._note_done(self.key)
+
+    def fail_all(self, exc: BaseException) -> None:
+        """Infrastructure failure (dead pool, engine-thread death): the
+        waiters must never strand."""
+        for m in self.members:
+            if not m.event.is_set():
+                m.error = exc
+                m.event.set()
+        self._note_once()
+
+    # -- execution ------------------------------------------------------
+    def run(self, engine=None) -> None:
+        try:
+            self._run_impl(engine)
+        except BaseException as e:  # the waiters must never strand
+            self.fail_all(e)
+            raise
+        finally:
+            self._note_once()
+
+    def _run_impl(self, engine) -> None:
+        b = self.batcher
+        live = []
+        for m in self.members:
+            if m.deadline is not None and m.deadline.expired():
+                # expired in the batch queue: a structured timeout for that
+                # member, the group unaffected
+                _M_MEMBER_TIMEOUT.inc()
+                mark_partial(m.q, QueryTimeout(
+                    "deadline expired in batch window"))
+                self._finish(m)
+            else:
+                live.append(m)
+        if not live:
+            return
+        if len(live) == 1 and not self._fuse_solo(live[0]):
+            self._run_single(live[0], engine)
+            return
+        if not b.breaker.allow(self.BREAKER_SITE):
+            # breaker open: don't pay the fused failure again — serve the
+            # members one at a time until the half-open trial closes it
+            self._count_fallback("breaker_open")
+            for m in live:
+                self._run_single(m, engine)
+            return
+        try:
+            fq = self._run_fused(live, engine)
+        except Exception as e:
+            b.breaker.record_failure(self.BREAKER_SITE)
+            self._count_fallback("dispatch_error")
+            log_warn(f"fused batch dispatch failed ({e!r:.120}); "
+                     f"degrading {len(live)} queries to per-query execution")
+            for m in live:
+                self._run_single(m, engine)
+            return
+        if fq.result.status_code != ErrorCode.SUCCESS:
+            # a timeout, budget or capacity status of the fused reply: the
+            # same degradation, each member against its own deadline (and,
+            # for CAPACITY_EXCEEDED, the proxy's host fallback)
+            b.breaker.record_failure(self.BREAKER_SITE)
+            self._count_fallback(fq.result.status_code.name.lower())
+            for m in live:
+                self._run_single(m, engine)
+            return
+        b.breaker.record_success(self.BREAKER_SITE)
+        self._scatter(fq, live)
+
+    def _fuse_solo(self, m: _Pending) -> bool:
+        """May a lone live member still take the fused path? The light
+        fused query adds only overhead at size 1; the heavy lane overrides
+        this (a single huge index-origin query still splits)."""
+        return False
+
+    @staticmethod
+    def _count_fallback(reason: str) -> None:
+        _M_FALLBACK.labels(reason=reason).inc()
+
+    def _run_single(self, m: _Pending, engine) -> None:
+        """Per-query degradation path (and the natural size-1 flush), on
+        the group's engine: the GPU engine stays the GPU engine."""
+        eng = self.engine or engine or self.batcher.cpu
+        try:
+            eng.execute(m.q, from_proxy=True)
+        except Exception as e:  # engine contract: errors become the reply;
+            m.error = e        # anything else is infrastructure
+        self._finish(m)
+
+    def _run_fused(self, live: list, engine):
+        """Build and dispatch the fused query: a [qid, start] seed table,
+        the start constant rewritten to a seeded known var, one chain."""
+        eng = self.engine or engine or self.batcher.cpu
+        q0 = live[0].q
+        pats0 = q0.pattern_group.patterns
+        c0 = pats0[0].subject
+        consts = np.asarray(
+            [m.q.pattern_group.patterns[0].subject for m in live],
+            dtype=np.int64)
+        B = len(live)
+
+        low = min((v for p in pats0 for v in (p.subject, p.predicate, p.object)
+                   if v < 0), default=0)
+        vq, vs = low - 1, low - 2
+        fq = SPARQLQuery()
+        fq.pattern_group.patterns = [
+            Pattern(vs if p.subject == c0 else p.subject, p.predicate,
+                    p.direction, vs if p.object == c0 else p.object,
+                    p.pred_type)
+            for p in pats0]
+        fq.pattern_group.filters = q0.pattern_group.filters
+        res = fq.result
+        res.nvars = q0.result.nvars + 2
+        res.set_table(np.column_stack(
+            [np.arange(B, dtype=np.int64), consts]))
+        res.add_var2col(vq, 0)
+        res.add_var2col(vs, 1)
+        res.blind = False  # the fused table IS the members' results
+        fq.deadline = _fused_deadline(live)
+        eng.execute(fq, from_proxy=False)
+        return fq
+
+    def _scatter(self, fq: SPARQLQuery, live: list) -> None:
+        """Split the fused table by qid and settle each member against its
+        own deadline/budget — one member's expiry degrades only itself."""
+        tbl = np.asarray(fq.result.table)
+        C = fq.result.col_num
+        member_v2c = {v: c - 2 for v, c in fq.result.v2c_map.items()
+                      if c >= 2}
+        qids = tbl[:, 0] if len(tbl) else np.empty(0, dtype=np.int64)
+        _M_FUSED.inc(len(live))
+        for i, m in enumerate(live):
+            rows = (tbl[qids == i][:, 2:] if len(tbl)
+                    else np.empty((0, max(C - 2, 0)), dtype=np.int64))
+            res = m.q.result
+            res.v2c_map = dict(member_v2c)
+            res.set_table(np.ascontiguousarray(rows).astype(np.int64))
+            res.col_num = max(C - 2, 0)
+            m.q.pattern_step = len(m.q.pattern_group.patterns)
+            try:
+                if m.deadline is not None:
+                    m.deadline.charge_rows(res.nrows, "batch.dispatch")
+                    m.deadline.check("batch.dispatch")
+                self.batcher.cpu._final_process(m.q)
+            except (QueryTimeout, BudgetExceeded) as e:
+                _M_MEMBER_TIMEOUT.inc()
+                mark_partial(m.q, e)
+            except Exception as e:
+                m.error = e
+            self._finish(m)
+
+
+# ---------------------------------------------------------------------------
+# the heavy lane: fused index-origin dispatches with slice-range splitting
+# ---------------------------------------------------------------------------
+
+# the slice claim flag is a pure check-and-set under its own lock — innermost
+declare_leaf("batch.slice")
+
+#: short grace before the gather thread claims a still-PENDING slice and
+#: runs it inline: pool engines normally pop within ~ms (wake-on-submit),
+#: so a slice not started after this is better done here than waited on
+SLICE_CLAIM_GRACE_S = 0.02
+#: how long the gather barrier waits for a RUNNING slice before declaring
+#: the dispatch wedged (a dead or stuck engine must never strand the group)
+HEAVY_GATHER_WAIT_S = 30.0
+
+
+class _HeavySlice:
+    """One slice-range part of a split heavy dispatch.
+
+    A fire-and-forget pool item (lane ``heavy``, the batch lane's
+    run/fail_all contract) claimable exactly ONCE: the gather thread runs
+    stragglers inline without double execution, and a pool engine popping
+    an already-claimed slice does nothing. An engine-thread death reaches
+    :meth:`fail_all` through the pool's death handler, so the gather
+    barrier always wakes — and then re-runs the failed slice inline."""
+
+    lane = "heavy"
+    # a slice continues an ALREADY-ADMITTED group (which holds the lane's
+    # weighted slot): the pool pops it cap-exempt, or a cap of 1 would
+    # deadlock the gather behind its own group's slot
+    heavy_continuation = True
+
+    __slots__ = ("group", "fq", "b", "event", "error", "total",
+                 "_claim_lock", "_claimed")
+
+    def __init__(self, group: "HeavyGroup", fq: SPARQLQuery, b: int):
+        self.group = group
+        self.fq = fq  # mt-sliced carrier query (this part's slice range)
+        self.b = b
+        self.event = threading.Event()
+        self.error: BaseException | None = None
+        self.total = 0
+        self._claim_lock = make_lock("batch.slice")
+        self._claimed = False  # guarded by: _claim_lock
+
+    def claim(self) -> bool:
+        with self._claim_lock:
+            if self._claimed:
+                return False
+            self._claimed = True
+            return True
+
+    def run(self, engine=None) -> None:
+        """Pool-engine entry (and the gather thread's inline entry)."""
+        if not self.claim():
+            return  # already run inline by the gather thread
+        self._execute()
+
+    def _execute(self) -> None:
+        ok = False
+        try:
+            self.total = self.group._run_slice(self.fq, self.b)
+            ok = True
+        except Exception as e:
+            self.error = e
+        finally:
+            if not ok and self.error is None:
+                # a thread-killing BaseException still runs this finally:
+                # the gather barrier must see a failure, not a zero count
+                self.error = RuntimeError("heavy slice aborted")
+            self.event.set()
+
+    def fail_all(self, exc: BaseException) -> None:
+        """Pool death-handler / dead-pool contract."""
+        if not self.event.is_set():
+            self.error = exc
+            self.event.set()
+
+
+class HeavyGroup(FusedGroup):
+    """A flushed group of IDENTICAL index-origin (heavy) queries.
+
+    One sliced device dispatch (``execute_batch_index``, slice mode)
+    computes the chain once; the summed per-slice counts settle every
+    member against its own deadline/budget (blind replies). Dispatches
+    whose index list reaches ``heavy_split_threshold`` split across pool
+    engines by slice range (``mt_factor`` copies) behind a gather
+    barrier."""
+
+    lane = "heavy"
+    BREAKER_SITE = "batch.heavy.dispatch"
+
+    def _fuse_solo(self, m: _Pending) -> bool:
+        # a single huge heavy query still splits across engines; below the
+        # split threshold, plain execution is strictly cheaper
+        return self._split_factor(m.q) > 1
+
+    @staticmethod
+    def _count_fallback(reason: str) -> None:
+        _M_HEAVY_FALLBACK.labels(reason=reason).inc()
+
+    # -- dispatch -------------------------------------------------------
+    def _split_factor(self, q0: SPARQLQuery) -> int:
+        """How many slice-range parts this dispatch fans out to: bounded
+        by ``heavy_split_max`` and the pool's live engines, and only past
+        ``heavy_split_threshold`` index rows. Memoized per group."""
+        s = getattr(self, "_split_s", None)
+        if s is None:
+            s = self._split_s = self._split_factor_impl(q0)
+        return s
+
+    def _split_factor_impl(self, q0: SPARQLQuery) -> int:
+        if self.batcher.gpu is None or Global.heavy_split_max <= 1:
+            return 1
+        pool = self.batcher.pool()
+        if pool is None:
+            return 1
+        p0 = q0.pattern_group.patterns[0]
+        real = len(self.batcher.gpu.g.get_index(p0.subject, p0.direction))
+        if real < max(int(Global.heavy_split_threshold), 1):
+            return 1
+        return max(min(int(Global.heavy_split_max), pool.alive_count()), 1)
+
+    def _carrier(self, q0: SPARQLQuery, S: int, k: int,
+                 deadline) -> SPARQLQuery:
+        """An execution carrier sharing q0's (read-only) planned patterns:
+        the member query itself is never mutated by the fused dispatch.
+        S/k select this carrier's slice range (mt semantics)."""
+        fq = SPARQLQuery()
+        fq.pattern_group.patterns = list(q0.pattern_group.patterns)
+        fq.planner_empty = q0.planner_empty
+        fq.result.blind = True
+        fq.mt_factor, fq.mt_tid = S, k
+        fq.deadline = deadline
+        return fq
+
+    def _run_slice(self, fq: SPARQLQuery, b: int) -> int:
+        """One sliced device dispatch; returns its summed row count."""
+        from wukong_tpu_torch.runtime import faults
+
+        faults.site("batch.heavy.dispatch")
+        counts = self.batcher.gpu.execute_batch_index(fq, b, slice_mode=True)
+        return int(np.asarray(counts).sum())
+
+    def _run_split(self, q0: SPARQLQuery, b: int, S: int, deadline) -> int:
+        """Fan the dispatch out to S slice-range parts across the pool's
+        heavy lane and gather. The gather thread runs slice 0 itself;
+        stragglers the pool never picked up are claimed and run inline; a
+        failed slice (engine death, injected fault) is re-run inline once —
+        one dead engine costs one slice's retry, not the group."""
+        pool = self.batcher.pool()
+        slices = [_HeavySlice(self, self._carrier(q0, S, k, deadline), b)
+                  for k in range(S)]
+        _M_HEAVY_DISPATCH.labels(mode="split").inc()
+        _M_HEAVY_SLICES.inc(S)
+        for s in slices[1:]:
+            try:
+                pool.submit(s, lane="heavy")
+            except Exception:
+                pass  # claimed and run inline below
+        slices[0].run(None)  # the gather thread works its own share first
+        for s in slices[1:]:
+            if not s.event.wait(SLICE_CLAIM_GRACE_S):
+                if s.claim():  # not started yet: run the straggler inline
+                    s._execute()
+                elif not s.event.wait(HEAVY_GATHER_WAIT_S):
+                    raise RuntimeError(
+                        "heavy gather barrier timed out on a claimed slice")
+        for s in slices:
+            if s.error is not None:
+                # one inline retry on the gather thread; a second failure
+                # degrades the group to per-query execution
+                self._count_fallback("slice_retry")
+                log_warn(f"heavy slice failed ({s.error!r:.120}); "
+                         "re-running the slice inline")
+                s.error = None
+                s.total = self._run_slice(s.fq, s.b)
+        return sum(s.total for s in slices)
+
+    def _run_fused(self, live: list, engine):
+        """One fused heavy dispatch for the whole group. Returns a carrier
+        query whose ``_heavy_total`` is the chain's row count — the base
+        class's status check and :meth:`_scatter` settle it."""
+        if self.batcher.gpu is None:
+            raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
+                              "heavy fusion needs a device engine")
+        q0 = live[0].q
+        b = self.batcher.heavy_b(q0)
+        S = self._split_factor(q0)
+        dl = _fused_deadline(live)
+        _M_HEAVY_SPLIT.labels(
+            decision="split" if S > 1 else "no_split").inc()
+        if S > 1:
+            total = self._run_split(q0, b, S, dl)
+        else:
+            _M_HEAVY_DISPATCH.labels(mode="single").inc()
+            total = self._run_slice(self._carrier(q0, 1, 0, dl), b)
+        fq = SPARQLQuery()
+        fq._heavy_total = total
+        return fq
+
+    def _scatter(self, fq: SPARQLQuery, live: list) -> None:
+        """Settle every member with the fused count (blind replies), each
+        against its own deadline/budget as on the light path."""
+        total = int(getattr(fq, "_heavy_total", 0))
+        _M_HEAVY_FUSED.inc(len(live))
+        for m in live:
+            res = m.q.result
+            res.nrows = total
+            m.q.pattern_step = len(m.q.pattern_group.patterns)
+            try:
+                if m.deadline is not None:
+                    m.deadline.charge_rows(total, "batch.heavy.dispatch")
+                    m.deadline.check("batch.heavy.dispatch")
+                self.batcher.cpu._final_process(m.q)
+            except (QueryTimeout, BudgetExceeded) as e:
+                _M_MEMBER_TIMEOUT.inc()
+                mark_partial(m.q, e)
+            except Exception as e:
+                m.error = e
+            self._finish(m)
+
+
+# ---------------------------------------------------------------------------
+# the batcher
+# ---------------------------------------------------------------------------
+
+class _OpenGroup:
+    __slots__ = ("members", "flush_at_us", "heavy", "chained")
+
+    def __init__(self, flush_at_us: int, heavy: bool = False):
+        self.members: list[_Pending] = []
+        self.flush_at_us = flush_at_us
+        self.heavy = heavy
+        # True once the same-key dispatch this group queued behind has
+        # completed: the flusher releases it at once (reason "chain")
+        self.chained = False
+
+
+class QueryBatcher:
+    """Adaptive request coalescer between the proxy and the engines.
+
+    ``offer(q)`` admits a planned query and returns its :class:`_Pending`
+    future, or None when the query must bypass (incompatible shape,
+    deadline too tight) — the caller then executes it directly. A
+    background flusher dispatches groups at ``batch_window_us`` age;
+    ``batch_max_size`` flushes at once. Groups ride the engine pool's
+    ``batch`` (or ``heavy``) lane when a pool is running, else they run
+    inline on the flusher thread.
+    """
+
+    def __init__(self, cpu_engine, gpu_engine=None, pool=None,
+                 suggest_heavy_b=None):
+        self.cpu = cpu_engine
+        self.gpu = gpu_engine
+        self._pool = pool  # object, or zero-arg callable returning one/None
+        # plan-cache-backed heavy slice sizing (proxy.heavy_index_batch);
+        # None falls back to an uncached suggest_index_batch call
+        self._suggest_heavy_b = suggest_heavy_b
+        self.breaker = CircuitBreaker()
+        self._lock = make_condition("batcher.groups")
+        self._groups: dict = {}  # guarded by: _lock
+        # dispatches currently executing: while one runs, arrivals
+        # accumulate; when idle, a lone query flushes at once instead of
+        # paying the window
+        self._inflight = 0  # guarded by: _lock
+        # per-template in-flight dispatch counts (heavy chaining): while a
+        # heavy template's dispatch runs, same-key arrivals accumulate past
+        # their window and flush the moment it completes — with steady
+        # light traffic the global count never reaches 0
+        self._inflight_keys: dict = {}  # guarded by: _lock
+        self._drain_now = False  # guarded by: _lock
+        self._stopped = False  # guarded by: _lock
+        self._thread = threading.Thread(target=self._flusher, daemon=True,
+                                        name="batcher-flush")
+        self._thread.start()
+
+    # ------------------------------------------------------------------
+    def pool(self):
+        """The engine pool (resolving the lazy callable), or None."""
+        return self._pool() if callable(self._pool) else self._pool
+
+    def heavy_b(self, q: SPARQLQuery) -> int:
+        """Device slice count for a heavy dispatch: the plan-cache-backed
+        sizing when the proxy wired one in, else a direct (uncached)
+        suggest_index_batch capped by ``heavy_batch_max``."""
+        if self._suggest_heavy_b is not None:
+            return max(int(self._suggest_heavy_b(q)), 1)
+        if self.gpu is None:
+            return 1
+        cap = max(int(Global.heavy_batch_max), 1)
+        return max(min(self.gpu.suggest_index_batch(q, cap=cap), cap), 1)
+
+    # ------------------------------------------------------------------
+    def offer(self, q: SPARQLQuery) -> _Pending | None:
+        """Admit a planned query; None means bypass (caller dispatches)."""
+        if self.cpu is None:
+            return None
+        dl = getattr(q, "deadline", None)
+        if dl is not None:
+            if dl.budget_rows > 0:
+                # per-step row budgets cannot be attributed to members
+                # inside a fused chain — budgeted queries keep exact
+                # sequential enforcement
+                _M_BYPASS.labels(reason="budget").inc()
+                return None
+            rem = dl.remaining_s()
+            if rem is not None and rem < (
+                    Global.batch_deadline_bypass_factor
+                    * Global.batch_window_us / 1e6):
+                _M_BYPASS.labels(reason="deadline").inc()
+                return None
+        heavy = False
+        if batchable(q):
+            if getattr(q, "lane", "light") == "heavy":
+                # plan-time heavy routing: a wide const-start template must
+                # not drag a light fused group — it runs alone
+                _M_BYPASS.labels(reason="heavy_route").inc()
+                return None
+        elif (Global.heavy_lane and self.gpu is not None
+                and Global.enable_tpu and heavy_batchable(q)):
+            # enable_tpu is the device switch: the sliced heavy dispatch
+            # has no host formulation
+            heavy = True
+        else:
+            _M_BYPASS.labels(reason="shape").inc()
+            return None
+        p = _Pending(q)
+        key = heavy_key(q) if heavy else fused_key(q)
+        to_flush = None
+        reason = "size"
+        with self._lock:
+            # stop-check INSIDE the admit critical section: close() flips
+            # _stopped and drains _groups under this same lock, so an admit
+            # can never slip in after the final flush and strand its waiter
+            if self._stopped:
+                return None
+            grp = self._groups.get(key)
+            if grp is None:
+                grp = self._groups[key] = _OpenGroup(
+                    get_usec() + max(int(Global.batch_window_us), 0),
+                    heavy=heavy)
+            grp.members.append(p)
+            if len(grp.members) >= max(int(Global.batch_max_size), 1):
+                to_flush = self._groups.pop(key)
+            elif self._inflight == 0 and len(grp.members) == 1 \
+                    and len(self._groups) == 1:
+                # iteration-level batching: nothing executing and nothing
+                # else queued — waiting out the window would only add
+                # latency. Dispatch now; queries arriving DURING this
+                # dispatch accumulate into the next group.
+                to_flush = self._groups.pop(key)
+                reason = "idle"
+            else:
+                self._lock.notify()
+        _M_SUBMITTED.inc()
+        if to_flush is not None:
+            self._dispatch(to_flush.members, reason=reason,
+                           heavy=to_flush.heavy,
+                           key=key if to_flush.heavy else None)
+        return p
+
+    # ------------------------------------------------------------------
+    def _flusher(self) -> None:
+        while True:
+            try:
+                if self._flusher_tick():
+                    return
+            except Exception as e:  # the flusher must never die: waiters
+                log_warn(f"batch flusher error: {e!r}")  # depend on it
+
+    def _flusher_tick(self) -> bool:
+        """One flusher iteration; True = stop."""
+        while True:
+            due = []
+            reason = "window"
+            with self._lock:
+                if self._stopped:
+                    return True
+                now = get_usec()
+                next_due = None
+                if self._drain_now and self._inflight == 0:
+                    # iteration boundary: take everything that queued
+                    # behind the dispatch that just finished
+                    due = [(k, self._groups.pop(k), "idle")
+                           for k in list(self._groups)]
+                else:
+                    for key in list(self._groups):
+                        grp = self._groups[key]
+                        if grp.heavy and self._inflight_keys.get(key):
+                            # same-template heavy dispatch in flight: chain
+                            # — _note_done marks this group due when it ends
+                            continue
+                        if grp.flush_at_us <= now:
+                            due.append((key, self._groups.pop(key),
+                                        "chain" if grp.chained else reason))
+                        elif next_due is None or grp.flush_at_us < next_due:
+                            next_due = grp.flush_at_us
+                self._drain_now = False
+                if not due:
+                    self._lock.wait(
+                        None if next_due is None
+                        else max(next_due - now, 50) / 1e6)
+                    continue
+            for key, grp, why in due:
+                try:
+                    self._dispatch(grp.members, reason=why,
+                                   heavy=grp.heavy,
+                                   key=key if grp.heavy else None)
+                except Exception as e:  # settle, never strand a waiter
+                    for m in grp.members:
+                        if not m.event.is_set():
+                            m.error = e
+                            m.event.set()
+
+    def _note_done(self, key=None) -> None:
+        """A dispatch finished. If it was the last one in flight, wake the
+        flusher to release the groups that accumulated while it ran (the
+        window is only the upper bound on the wait). ``key`` (heavy
+        groups) also closes THAT template's iteration: the same-key group
+        that chained behind this dispatch is marked due. The flusher, not
+        this stack, dispatches, so back-to-back iterations never recurse.
+        """
+        with self._lock:
+            self._inflight = max(self._inflight - 1, 0)
+            if key is not None:
+                n = self._inflight_keys.get(key, 0) - 1
+                if n > 0:
+                    self._inflight_keys[key] = n
+                else:
+                    self._inflight_keys.pop(key, None)
+                    grp = self._groups.get(key)
+                    if grp is not None and grp.members:
+                        grp.chained = True
+                        grp.flush_at_us = 0  # due now
+                        self._lock.notify()
+            if self._inflight == 0 and self._groups:
+                self._drain_now = True
+                self._lock.notify()
+
+    def _dispatch(self, members: list, reason: str,
+                  heavy: bool = False, key=None) -> None:
+        _M_FLUSH.labels(reason=reason).inc()
+        (_M_HEAVY_OCC if heavy else _M_OCCUPANCY).observe(len(members))
+        with self._lock:
+            self._inflight += 1
+            if key is not None:
+                self._inflight_keys[key] = \
+                    self._inflight_keys.get(key, 0) + 1
+        engine = (self.gpu if (Global.enable_tpu and self.gpu is not None)
+                  else None)
+        cls = HeavyGroup if heavy else FusedGroup
+        group = cls(members, self, engine=engine, reason=reason, key=key)
+        # from here the group owns settlement: every path below ends in
+        # run()'s finally or fail_all(), both of which _note_once — the
+        # in-flight and key counts taken above can never leak
+        try:
+            pool = self.pool()
+        except Exception as e:  # a hostile pool callable must not strand
+            group.fail_all(e)
+            return
+        if pool is not None:
+            try:
+                pool.submit(group, lane=group.lane)
+                return
+            except Exception as e:
+                log_warn(f"batch lane submit failed ({e!r}); running inline")
+        try:
+            group.run(None)
+        except Exception:
+            pass  # members are settled (fail_all) inside run()
+
+    # ------------------------------------------------------------------
+    def flush(self) -> None:
+        """Flush every open group now (drain; tests and shutdown)."""
+        with self._lock:
+            due = list(self._groups.items())
+            self._groups.clear()
+        for key, grp in due:
+            self._dispatch(grp.members, reason="drain", heavy=grp.heavy,
+                           key=key if grp.heavy else None)
+
+    def close(self) -> None:
+        with self._lock:
+            self._stopped = True
+            self._lock.notify_all()
+        self.flush()
+        self._thread.join(timeout=2)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"open_groups": len(self._groups),
+                    "queued": sum(len(g.members)
+                                  for g in self._groups.values())}

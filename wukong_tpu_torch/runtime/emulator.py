@@ -21,15 +21,20 @@ Three execution paths:
 The pool path honours the ``query_deadline_ms`` / ``query_budget_rows``
 knobs per instance: queue-expired queries are shed by the pool, mid-query
 expiry yields a partial result. Device batches are all-or-nothing
-dispatches and carry no per-query deadline. The JAX emulator's scenario
-runners (serving, tenants, drills) and its trace export wait for the
-subsystems they drive.
+dispatches and carry no per-query deadline.
+
+``Emulator.run_serving`` is the other throughput measure: closed-loop
+client threads sending query TEXTS through ``Proxy.serve_query`` (live
+traffic, coalesced by the batcher when ``enable_batching`` is on). The JAX
+emulator's other scenario runners (tenants, drills), its metrics
+snapshotter and its trace export wait for the subsystems they drive.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import threading
 import time
 
 import numpy as np
@@ -41,6 +46,7 @@ from wukong_tpu_torch.runtime.resilience import Deadline
 from wukong_tpu_torch.sparql.parser import Parser
 from wukong_tpu_torch.utils.errors import (
     BudgetExceeded,
+    ErrorCode,
     QueryTimeout,
     WukongError,
 )
@@ -250,6 +256,94 @@ class Emulator:
                 "precompiled_classes": precompiled, "errors": errors,
                 "shed": shed, "class_mode": dict(self.class_mode),
                 "cdf": {c: self.monitor.cdf(c) for c in range(nclasses)}}
+
+    def run_serving(self, texts: list, duration_s: float = 5.0,
+                    warmup_s: float = 0.5, clients: int = 4,
+                    seed: int = 0, weights=None, classes=None) -> dict:
+        """Serving-path throughput: ``clients`` closed-loop threads each
+        send one query TEXT at a time through ``Proxy.serve_query(text,
+        blind=True)`` (parse cache -> plan cache -> batcher or direct ->
+        engine) and wait for the reply. Batching follows
+        ``Global.enable_batching``; the pool is not started here — fused
+        groups ride its lanes when the caller started it, else they run on
+        the batcher's flusher thread.
+
+        ``weights`` (aligned with ``texts``) draws a weighted mix instead of
+        a uniform one; ``classes`` (aligned ints, e.g. 0 light, 1 heavy)
+        adds a per-class qps/p50/p99 breakdown (``by_class``). Latencies
+        are host-clock microseconds from send to reply; replies that come
+        back after the warm-up count."""
+        stop = threading.Event()
+        served = [0] * clients
+        errors = [0] * clients
+        lat: list[list] = [[] for _ in range(clients)]
+        t_measure = [0.0]
+        p = None
+        if weights is not None:
+            p = np.asarray(weights, dtype=np.float64)
+            p = p / p.sum()
+
+        def client(k: int) -> None:
+            rng = np.random.default_rng(seed + k)
+            while not stop.is_set():
+                i = (int(rng.choice(len(texts), p=p)) if p is not None
+                     else int(rng.integers(0, len(texts))))
+                t0 = get_usec()
+                try:
+                    q = self.proxy.serve_query(texts[i], blind=True)
+                except Exception:  # a client survives a failed request
+                    errors[k] += 1
+                    continue
+                if q.result.status_code != ErrorCode.SUCCESS:
+                    errors[k] += 1
+                    continue
+                if time.monotonic() >= t_measure[0]:
+                    served[k] += 1
+                    lat[k].append((i, get_usec() - t0))
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True,
+                                    name=f"serve-client-{k}")
+                   for k in range(clients)]
+        t_measure[0] = time.monotonic() + warmup_s
+        for t in threads:
+            t.start()
+        time.sleep(warmup_s + duration_s)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        stuck = sum(t.is_alive() for t in threads)
+        if stuck:
+            raise RuntimeError(f"run_serving: {stuck} clients still "
+                               "waiting 60 s after the run ended")
+        n = sum(served)
+        all_lat = sorted(dt for xs in lat for (_i, dt) in xs)
+        qps = n / duration_s if duration_s > 0 else 0.0
+        p50 = all_lat[len(all_lat) // 2] if all_lat else 0
+        p99 = all_lat[int(len(all_lat) * 0.99)] if all_lat else 0
+        log_info(f"serve: {qps:,.0f} q/s over {duration_s}s "
+                 f"({clients} clients, batching="
+                 f"{'on' if Global.enable_batching else 'off'}, "
+                 f"p50 {p50:,}us, p99 {p99:,}us, "
+                 f"{sum(errors)} errors)")
+        out = {"qps": round(qps, 1), "served": n, "errors": sum(errors),
+               "clients": clients, "duration_s": duration_s,
+               "batching": bool(Global.enable_batching),
+               "p50_us": int(p50), "p99_us": int(p99)}
+        if classes is not None:
+            by_class: dict[int, list] = {}
+            for xs in lat:
+                for i, dt in xs:
+                    by_class.setdefault(int(classes[i]), []).append(dt)
+            out["by_class"] = {}
+            for c, vals in sorted(by_class.items()):
+                vals.sort()
+                out["by_class"][c] = {
+                    "served": len(vals),
+                    "qps": round(len(vals) / duration_s, 1),
+                    "p50_us": int(vals[len(vals) // 2]),
+                    "p99_us": int(vals[int(len(vals) * 0.99)]),
+                }
+        return out
 
     def _plan(self, q) -> None:
         """The proxy's planner when enabled, else the greedy heuristic."""

@@ -17,7 +17,9 @@ The port's sites (``KNOWN_FAULT_SITES``):
 - ``pool.execute`` — per-query execution in runtime/scheduler.py
   (``shard`` = the engine's thread id);
 - ``proxy.serve`` — the serving-boundary dispatch in runtime/proxy.py,
-  before any engine runs: an injected failure reaches the caller.
+  before any engine runs: an injected failure reaches the caller;
+- ``batch.heavy.dispatch`` — one slice dispatch of a fused heavy group in
+  runtime/batcher.py (a failed slice is re-run once on the gather thread).
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. The JAX
@@ -30,10 +32,12 @@ from __future__ import annotations
 import hashlib
 import os
 import random
+import threading
 import time
 from dataclasses import dataclass, field
 
-KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve"})
+KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
+                               "batch.heavy.dispatch"})
 
 
 class TransientFault(Exception):
@@ -80,6 +84,9 @@ class FaultPlan:
         self.sleep = sleep
         self.history: list[tuple[str, int | None, str]] = []
         self._rngs: dict[int, random.Random] = {}
+        # serving threads hit one site at once: the counts and draws are
+        # taken under this lock, so a spec with count=N fires N times
+        self._lock = threading.Lock()
 
     def _rng(self, idx: int) -> random.Random:
         if idx not in self._rngs:
@@ -96,17 +103,18 @@ class FaultPlan:
                 continue
             if sp.shard is not None and shard is not None and sp.shard != shard:
                 continue
-            sp.seen += 1
-            if sp.seen <= sp.after:
-                continue
-            if sp.count is not None and sp.fired >= sp.count:
-                continue
-            # draw even when p == 1 so trimming p later replays the same
-            # underlying stream
-            if self._rng(idx).random() >= sp.p:
-                continue
-            sp.fired += 1
-            self.history.append((site, shard, sp.kind))
+            with self._lock:
+                sp.seen += 1
+                if sp.seen <= sp.after:
+                    continue
+                if sp.count is not None and sp.fired >= sp.count:
+                    continue
+                # draw even when p == 1 so trimming p later replays the
+                # same underlying stream
+                if self._rng(idx).random() >= sp.p:
+                    continue
+                sp.fired += 1
+                self.history.append((site, shard, sp.kind))
             if sp.kind == "delay":
                 self.sleep(sp.delay_s)
             elif sp.kind == "transient":

@@ -3,10 +3,11 @@
 The port's copy of the JAX package's runtime/monitor.py: per-query-class
 latency vectors aggregated into a CDF, and rolling throughput reports — the
 measurements the reference's proxy prints during ``sparql -n N`` and
-``sparql-emu`` runs. The JAX package's lines for subsystems the port does
-not have yet (circuit breakers, metrics registry, stream epochs, heat,
-lanes, SLO, admission, events, placement, migration, caches, device
-observatory) are left out.
+``sparql-emu`` runs — and the heavy lane's rolling line, read from the
+metrics registry (``lane_lines``). The JAX package's lines for subsystems
+the port does not have yet (circuit breakers, stream epochs, heat, SLO,
+admission, events, placement, migration, caches, device observatory) and
+its latency histogram are left out.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ from collections import defaultdict
 
 import numpy as np
 
+from wukong_tpu_torch.obs.metrics import (
+    get_registry,
+    snapshot_histogram_mean,
+    snapshot_labeled_value,
+)
 from wukong_tpu_torch.utils.logger import log_info
 from wukong_tpu_torch.utils.timer import get_usec
 
@@ -84,3 +90,22 @@ class Monitor:
             tag = f" [{labels[qtype]}]" if labels and qtype in labels else ""
             log_info(f"Q{qtype + 1}{tag} latency CDF "
                      f"({len(self.latencies[qtype])} samples): {line}")
+
+    def lane_lines(self) -> list[str]:
+        """Rolling-report line for the heavy lane: queue depth, fused
+        dispatches, and mean group occupancy — only once the lane has seen
+        traffic (quiet on light-only runs)."""
+        snap = get_registry().snapshot()
+        heavy_sub = int(snapshot_labeled_value(
+            snap, "wukong_pool_submitted_total", lane="heavy"))
+        disp = sum(int(s.get("value", 0)) for s in (
+            snap.get("wukong_batch_heavy_dispatch_total") or {}).get(
+            "series", []))
+        if not heavy_sub and not disp:
+            return []
+        depth = int(snapshot_labeled_value(
+            snap, "wukong_pool_lane_depth", lane="heavy"))
+        mean = snapshot_histogram_mean(
+            snap, "wukong_batch_heavy_occupancy") or 0.0
+        return [f"HeavyLane: depth {depth}, {disp} fused dispatches "
+                f"({heavy_sub} lane submits), mean group {mean:.1f}"]

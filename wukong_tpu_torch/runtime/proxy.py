@@ -7,24 +7,30 @@ glues parser -> planner -> engine:
   execute with repeats, log the average latency, print rows — the console's
   ``sparql`` verb (proxy.hpp:298-385);
 - ``serve_query``: the same path without repeats or printing, for callers
-  in Python;
-- one execution loop for both, ``_run_repeats``: the GPU engine answers by
-  default, and a reply of CAPACITY_EXCEEDED (a device capacity ceiling, not
-  a property of the query) is answered again by the host ``CPUEngine``,
+  in Python (live traffic: ``Emulator.run_serving``'s clients);
+- one execution loop for both, ``_run_repeats``: each run goes through
+  ``_serve_execute`` — with ``Global.enable_batching`` the batcher
+  (runtime/batcher.py) coalesces concurrent same-template queries into
+  fused dispatches, else (and for every bypass) the engine runs the query
+  alone; a reply of CAPACITY_EXCEEDED (a device capacity ceiling, not a
+  property of the query) is answered again by the host ``CPUEngine``,
   which has no capacity classes, and logged; a deadline or budget expiry
   ends the repeats;
+- ``classify_lane``: the plan-time light/heavy routing the batcher reads;
 - ``engine_pool``: N host engines with work stealing (runtime/scheduler.py)
-  for the emulator's pool path; ``fill_template`` and ``heavy_index_batch``
-  feed the engine's batched entry points (``sparql-emu``,
-  runtime/emulator.py).
+  for the emulator's pool path and the batcher's lanes; ``fill_template``
+  and ``heavy_index_batch`` feed the engine's batched entry points
+  (``sparql-emu``, runtime/emulator.py, and the heavy lane).
 
 Plans come from the cost-based planner when the proxy has one
 (``Global.enable_planner``), else from a user plan's text, else from the
 greedy heuristic, in the JAX proxy's order. The JAX proxy's hooks into
-subsystems the port does not have yet (metrics, tracing, SLOs, admission,
-the result cache and views, the batcher, the distributed engine, streams,
-vectors, tensor joins, compiled templates, recovery) are left out; ROADMAP
-§A lists each.
+subsystems the port does not have yet (tracing, SLOs, admission, the result
+cache and views, the distributed engine, streams, vectors, tensor joins,
+compiled templates, recovery) are left out; ROADMAP
+§A lists each. ``_serve_execute`` keeps the fault site, the batching branch
+and the direct dispatch of the JAX one; its result-cache lease and its
+``wcoj``, template and knn branches wait for their subsystems (§A 4-8).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import pickle
 
 import numpy as np
 
+from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.tpu import GPUEngine
@@ -41,6 +48,7 @@ from wukong_tpu_torch.planner.plan_file import set_plan
 from wukong_tpu_torch.runtime import faults
 from wukong_tpu_torch.runtime.batcher import (
     PlanCache,
+    QueryBatcher,
     snapshot_patterns,
     template_signature,
 )
@@ -53,6 +61,19 @@ from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.logger import log_error, log_info
 from wukong_tpu_torch.utils.lru import LRUCache
 from wukong_tpu_torch.utils.timer import get_usec
+
+# ceiling on how long a serving thread waits for a coalesced dispatch to
+# settle — a wedged batcher surfaces as an error, never as a hung client
+BATCH_WAIT_TIMEOUT_S = 600.0
+
+
+def _batch_wait_timeout(q) -> float:
+    dl = getattr(q, "deadline", None)
+    if dl is not None:
+        rem = dl.remaining_s()
+        if rem is not None:
+            return min(rem + 60.0, BATCH_WAIT_TIMEOUT_S)
+    return BATCH_WAIT_TIMEOUT_S
 
 
 class Proxy:
@@ -80,6 +101,8 @@ class Proxy:
                     else CPUEngine(gstore, str_server))
         self.monitor = Monitor()
         self._pool = None
+        self._batcher = None  # the request coalescer, started on first use
+        self._batcher_init_lock = make_lock("proxy.batcher_init")
         # serving fast path: parse cache (query text -> pickled parsed
         # query) and plan cache (template signature + store version -> plan
         # recipe)
@@ -148,12 +171,13 @@ class Proxy:
 
     def _plan_prepared(self, q: SPARQLQuery, blind, plan_text) -> None:
         """The prepare tail shared by both entry points: blind mode, the
-        resilience knobs' deadline, planning."""
+        resilience knobs' deadline, planning, plan-time lane routing."""
         q.mt_factor = 1
         q.result.blind = Global.silent if blind is None else blind
         # per-query deadline + work budget (None when both knobs are off)
         q.deadline = Deadline.from_config()
         self._plan(q, plan_text)
+        q.lane = self.classify_lane(q)
 
     def _engine_for(self, device: str | None):
         """``device`` "cpu" | "gpu" | None (the GPU engine when
@@ -227,15 +251,16 @@ class Proxy:
 
     def _run_repeats(self, prepare, repeats: int, device):
         """The repeat and capacity-fallback execution loop; returns (last
-        query, total execution usec)."""
+        query, total execution usec). A batched member that ends
+        CAPACITY_EXCEEDED (its fused group failed and re-ran it alone on
+        the GPU engine) degrades here like a direct one."""
         q = None
         total_us = 0
         for _ in range(repeats):
             q = prepare()
             eng = self._engine_for(device)
             t0 = get_usec()
-            faults.site("proxy.serve")
-            eng.execute(q)
+            self._serve_execute(q, eng, pinned=device is not None)
             total_us += get_usec() - t0
             if (q.result.status_code == ErrorCode.CAPACITY_EXCEEDED
                     and eng is self.gpu):
@@ -252,6 +277,74 @@ class Proxy:
                                         ErrorCode.BUDGET_EXCEEDED):
                 break  # deadline/budget spent: repeats are pointless
         return q, total_us
+
+    # ------------------------------------------------------------------
+    # serving-path micro-batching (runtime/batcher.py)
+    # ------------------------------------------------------------------
+    def batcher(self) -> QueryBatcher:
+        """The request coalescer, started on first use. Groups ride the
+        engine pool's batch and heavy lanes when the pool is running, else
+        they run inline on the batcher's flusher thread."""
+        if self._batcher is None:
+            with self._batcher_init_lock:  # concurrent first dispatches
+                if self._batcher is None:  # must share ONE coalescer
+                    self._batcher = QueryBatcher(
+                        self.cpu, self.gpu, pool=lambda: self._pool,
+                        suggest_heavy_b=self.heavy_index_batch)
+        return self._batcher
+
+    def _serve_execute(self, q: SPARQLQuery, eng,
+                       pinned: bool = False) -> SPARQLQuery:
+        """One serving-path dispatch: with ``enable_batching`` on,
+        compatible queries coalesce into fused dispatches; the default
+        (off) and every bypass go straight to the engine. ``pinned`` (an
+        explicit device= request) always bypasses: the batcher picks its
+        own engine, which would override the caller's pin."""
+        # the serving-boundary fault site: an injected failure reaches the
+        # caller before any engine runs
+        faults.site("proxy.serve")
+        if Global.enable_batching and not pinned and eng is not None:
+            pend = self.batcher().offer(q)
+            if pend is not None:
+                timeout = _batch_wait_timeout(q)
+                try:
+                    pend.wait(timeout)
+                except TimeoutError:
+                    log_error(f"batched dispatch not settled in "
+                              f"{timeout:.0f}s; batcher wedged?")
+                    raise
+                return q
+        eng.execute(q)  # batcher bypass: direct dispatch
+        return q
+
+    def classify_lane(self, q: SPARQLQuery) -> str:
+        """Plan-time light/heavy routing: index-origin starts are heavy
+        (wide scans); other shapes are heavy when the optimizer's
+        ``estimate_chain`` peak reaches ``heavy_rows_threshold``. Memoized
+        per template signature + store version through the plan cache."""
+        try:
+            if q.start_from_index():
+                return "heavy"
+        except WukongError:
+            return "light"
+        if self.planner is None or not Global.enable_planner:
+            return "light"
+        sig = template_signature(q)
+        if sig is None:
+            return "light"  # recursive shapes: unestimated, route light
+        pats = list(q.pattern_group.patterns)
+        threshold = max(int(Global.heavy_rows_threshold), 1)
+
+        def compute() -> str:
+            try:
+                ests = self.planner.estimate_chain(pats)
+            except Exception:  # an unestimable chain routes light
+                ests = None
+            return "heavy" if ests and max(ests) >= threshold else "light"
+
+        # the threshold is runtime-mutable: it joins the memo key
+        return self._plan_cache.aux(
+            "lane", sig, (*self._plan_version(), threshold), compute)
 
     def serve_batch_index(self, text: str, B: int) -> np.ndarray:
         """B replicate instances of an index-origin query in one chain;

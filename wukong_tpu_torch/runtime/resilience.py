@@ -6,13 +6,17 @@ The port's copy of the JAX package's runtime/resilience.py:
   budget, carried on the query (``q.deadline``) and checked at every BGP
   step and device chain attempt. Expiry raises ``QueryTimeout`` /
   ``BudgetExceeded`` (utils/errors.py).
+- :class:`CircuitBreaker` — per-key consecutive-failure breaker with a
+  half-open probe after a cooldown; the batcher keeps one, so a fused
+  dispatch that keeps failing is not paid for again on every group.
 - :func:`mark_partial` — graceful degradation: tag the reply incomplete
   (``result.complete = False``) with the dropped patterns, keeping the rows
   produced so far.
 
-The clock is injectable, so tests replay schedules deterministically. The
-JAX module's ``retry_call`` and ``CircuitBreaker`` wait for their first
-caller in the port, the distributed engine.
+The clocks are injectable, so tests replay schedules deterministically. The
+JAX module's ``retry_call`` waits for its first caller in the port, the
+distributed engine (ROADMAP §A 9); the breaker's trace events wait for
+tracing (§A 2.4) and its journal event for the observatory (§A 10).
 """
 
 from __future__ import annotations
@@ -23,7 +27,15 @@ import numpy as np
 
 from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
 from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.utils.errors import BudgetExceeded, QueryTimeout
+
+_M_BREAKER_TRIPS = get_registry().counter(
+    "wukong_breaker_trips_total",
+    "Circuit breaker open/reopen transitions", labels=("key",))
+
+# breaker state locks are innermost: nothing is acquired under one
+declare_leaf("breaker.state")
 
 # serializes Deadline.charge_rows across threads sharing one deadline;
 # nothing is ever acquired under it
@@ -105,3 +117,99 @@ def mark_partial(q, exc) -> None:
     if not Global.enable_partial_results:
         res.table = np.empty((0, res.col_num), dtype=np.int64)
         res.nrows = 0
+
+
+class CircuitBreaker:
+    """Per-key consecutive-failure circuit breaker.
+
+    closed -> (threshold consecutive failures) -> open -> (cooldown) ->
+    half-open: one trial call is allowed; success closes the breaker,
+    failure reopens it for another cooldown. Thread-safe.
+    """
+
+    def __init__(self, threshold: int | None = None,
+                 cooldown_ms: float | None = None, clock=time.monotonic):
+        self.threshold = (Global.breaker_threshold
+                          if threshold is None else int(threshold))
+        self.cooldown_s = (Global.breaker_cooldown_ms
+                           if cooldown_ms is None else cooldown_ms) / 1e3
+        self._clock = clock
+        self._lock = make_lock("breaker.state")
+        # key -> [consecutive_failures, opened_at | None, half_open_inflight]
+        self._st: dict = {}  # guarded by: _lock
+        # key -> clock time of the most recent open/reopen (trip)
+        self._last_trip: dict = {}  # guarded by: _lock
+
+    def _slot(self, key):  # caller holds: _lock
+        return self._st.setdefault(key, [0, None, False])
+
+    def _state_of(self, slot, now: float) -> str:
+        """Classify one slot; caller holds the lock."""
+        _fails, opened_at, half = slot
+        if opened_at is None:
+            return "closed"
+        if half or now - opened_at >= self.cooldown_s:
+            return "half_open"
+        return "open"
+
+    def state(self, key) -> str:
+        with self._lock:
+            return self._state_of(self._slot(key), self._clock())
+
+    def allow(self, key) -> bool:
+        """True when a call may proceed. The transition to half-open admits
+        ONE trial at a time; concurrent callers keep getting False until
+        the trial reports an outcome."""
+        with self._lock:
+            slot = self._slot(key)
+            _fails, opened_at, half = slot
+            if opened_at is None:
+                return True
+            if half:
+                return False  # a trial is already in flight
+            if self._clock() - opened_at >= self.cooldown_s:
+                slot[2] = True  # admit the half-open trial
+                return True
+            return False
+
+    def record_success(self, key) -> None:
+        with self._lock:
+            self._st[key] = [0, None, False]
+
+    def record_abort(self, key) -> None:
+        """The admitted call never dispatched: release a held half-open
+        trial slot without judging the key either way."""
+        with self._lock:
+            self._slot(key)[2] = False
+
+    def record_failure(self, key) -> None:
+        tripped = False
+        with self._lock:
+            slot = self._slot(key)
+            slot[0] += 1
+            if slot[1] is not None or slot[0] >= self.threshold:
+                # a failed half-open trial (or a failure while open)
+                # reopens; the threshold-th consecutive failure opens
+                slot[1] = self._clock()
+                slot[2] = False
+                self._last_trip[key] = slot[1]
+                tripped = True
+        if tripped:  # outside the lock: the breaker lock is a leaf
+            _M_BREAKER_TRIPS.labels(key=str(key)).inc()
+
+    def tripped(self, key) -> bool:
+        return self.state(key) != "closed"
+
+    def snapshot(self) -> dict:
+        """Per key: state, consecutive failures, and the age of the most
+        recent trip (None = never tripped)."""
+        with self._lock:
+            now = self._clock()
+            out = {}
+            for k, slot in self._st.items():
+                trip = self._last_trip.get(k)
+                out[k] = {"state": self._state_of(slot, now),
+                          "consecutive_failures": slot[0],
+                          "last_trip_age_s":
+                              (now - trip) if trip is not None else None}
+            return out

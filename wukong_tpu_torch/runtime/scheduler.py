@@ -12,22 +12,64 @@ while queued is shed with ``QueryTimeout``; an engine thread that dies is
 respawned up to ``MAX_RESPAWNS`` times, then declared dead, its queue moved
 to the live engines and its tid routed around (``health`` reports it).
 
-Only the default lane is ported. The JAX pool's stream, batch, heavy and
-rebuild lanes, the admission fair queue (``_submit_fair``) and the metric
-gauges wait for the subsystems that feed them.
+Two lanes carry the batcher's fused groups (runtime/batcher.py), each
+group one fire-and-forget item (``run(engine)`` / ``fail_all(exc)``) that
+settles its members' futures itself:
+- ``batch``: light fused groups, popped right after an engine's own queue
+  (interactive traffic; work stealing cannot split a group);
+- ``heavy``: fused index-origin groups and their split slices, popped after
+  every interactive source, with at most ``heavy_lane_pct`` percent of the
+  engines (min 1) running heavy groups at once; a slice continues an
+  admitted group and is popped outside that cap.
+A group carries the GPU engine, so these host threads drive device work.
+
+Left out, each waiting for its subsystem: the stream and rebuild lanes, the
+admission fair queue ``_submit_fair`` and the tenant branch of
+``_heavy_pick_locked`` (ROADMAP §A 2.2), the queue-delay stamps, shed notes
+and queue span (§A 2.3-2.4), and the utilization and total-depth gauges.
 """
 
 from __future__ import annotations
 
 import collections
 import threading
+import weakref
 
 from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.runtime import faults
 from wukong_tpu_torch.utils.errors import QueryTimeout
 from wukong_tpu_torch.utils.logger import log_error, log_warn
 from wukong_tpu_torch.utils.timer import get_usec
+
+_M_SUBMITTED = get_registry().counter(
+    "wukong_pool_submitted_total", "Queries submitted to the engine pool",
+    labels=("lane",))
+_M_SHED = get_registry().counter(
+    "wukong_pool_shed_total",
+    "Queries shed from the queue with an expired deadline")
+_M_RESPAWNS = get_registry().counter(
+    "wukong_pool_engine_respawns_total", "Engine-thread crash respawns")
+
+# every live pool feeds the per-lane depth gauge (weakly referenced: a
+# dropped pool reads as gone, never as stale depth)
+_POOLS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _lane_depth_series() -> dict:
+    """Per-lane queue depth across every live pool."""
+    acc = {"default": 0, "batch": 0, "heavy": 0}
+    for p in list(_POOLS):
+        acc["default"] += sum(len(dq) for dq in p.queues)
+        acc["batch"] += len(p.batch_queue)
+        acc["heavy"] += len(p.heavy_queue) + len(p.heavy_slices)
+    return {(k,): v for k, v in acc.items()}
+
+
+get_registry().gauge(
+    "wukong_pool_lane_depth", "Queries waiting per pool lane",
+    labels=("lane",)).set_function(_lane_depth_series)
 
 
 class EnginePool:
@@ -68,6 +110,17 @@ class EnginePool:
         self._route_lock = make_lock("pool.route")
         self._busy_since = [0] * self.n  # per-tid slot, single writer
         self._inflight: list = [None] * self.n  # per-tid slot, single writer
+        # batch lane: light fused groups, one indivisible item each
+        self.batch_queue = collections.deque()  # guarded by: _batch_lock
+        self._batch_lock = make_lock("pool.batch")
+        # heavy lane: fused heavy groups under the weighted cap, and the
+        # split slices of running groups (cap-exempt) in a deque of their
+        # own, so the pop path never scans the group queue for them
+        self.heavy_queue = collections.deque()  # guarded by: _heavy_lock
+        self.heavy_slices = collections.deque()  # guarded by: _heavy_lock
+        self._heavy_lock = make_lock("pool.heavy")
+        self._heavy_inflight = 0  # guarded by: _heavy_lock
+        _POOLS.add(self)
 
     # ------------------------------------------------------------------
     def start(self) -> None:
@@ -120,9 +173,17 @@ class EnginePool:
         item = self._inflight[tid]
         self._inflight[tid] = None
         if item is not None:
-            self._fail(item[0], RuntimeError(
-                f"engine-{tid} crashed executing query {item[0]}: {exc!r}"))
+            qid, query = item
+            if qid is None:  # a lane item: settle its members' futures
+                self._heavy_done(query)  # a heavy slot died with the thread
+                query.fail_all(RuntimeError(
+                    f"engine-{tid} crashed executing a fused batch: "
+                    f"{exc!r}"))
+            else:
+                self._fail(qid, RuntimeError(
+                    f"engine-{tid} crashed executing query {qid}: {exc!r}"))
         self._respawns[tid] += 1
+        _M_RESPAWNS.inc()
         if self._respawns[tid] <= self.MAX_RESPAWNS and not self._stop.is_set():
             log_warn(f"engine-{tid} died ({exc!r}); respawning "
                      f"({self._respawns[tid]}/{self.MAX_RESPAWNS})")
@@ -146,12 +207,49 @@ class EnginePool:
                 with self.locks[dst]:
                     self.queues[dst].append(it)
                 self._pending.release()
+            if not live:  # nobody left to drain the lanes either
+                with self._batch_lock:
+                    stranded = list(self.batch_queue)
+                    self.batch_queue.clear()
+                with self._heavy_lock:
+                    stranded += (list(self.heavy_queue)
+                                 + list(self.heavy_slices))
+                    self.heavy_queue.clear()
+                    self.heavy_slices.clear()
+                for _qid, lane_item in stranded:
+                    lane_item.fail_all(RuntimeError("engine pool dead"))
 
     # ------------------------------------------------------------------
-    def submit(self, query, tid: int | None = None) -> int:
+    def submit(self, query, tid: int | None = None,
+               lane: str | None = None) -> int:
         """Enqueue a query; returns a handle. tid routes like the
         reference's proxy dst engine choice (round-robin default,
-        proxy.hpp:143-160)."""
+        proxy.hpp:143-160).
+
+        lane="batch" enqueues a light FusedGroup (runtime/batcher.py) and
+        lane="heavy" a HeavyGroup or one of its split slices, each as ONE
+        indivisible fire-and-forget item: it settles its members' futures
+        itself, so no result entry is made and -1 is returned. A dead pool
+        fails the item at once through its fail_all."""
+        if lane in ("batch", "heavy"):
+            _M_SUBMITTED.labels(lane=lane).inc()
+            if lane == "batch":
+                lock, queue = self._batch_lock, self.batch_queue
+            elif getattr(query, "heavy_continuation", False):
+                lock, queue = self._heavy_lock, self.heavy_slices
+            else:
+                lock, queue = self._heavy_lock, self.heavy_queue
+            with self._route_lock:
+                if all(self._dead):
+                    query.fail_all(RuntimeError("engine pool dead"))
+                    return -1
+                with lock:
+                    queue.append((None, query))
+            self._pending.release()
+            return -1
+        if lane not in (None, "default"):
+            raise ValueError(f"unknown pool lane {lane!r}")
+        _M_SUBMITTED.labels(lane="default").inc()
         with self._results_lock:
             qid = self._next_qid
             self._next_qid += 1
@@ -210,16 +308,48 @@ class EnginePool:
             return [(tid + 1) % self.n]
         return [tid ^ 1] if (tid ^ 1) < self.n else []  # pair
 
+    def alive_count(self) -> int:
+        """Engines not declared dead (the heavy split fan-out bound)."""
+        return sum(1 for t in range(self.n) if not self._dead[t])
+
+    def _heavy_cap(self) -> int:
+        """Most engines running heavy-lane groups at once."""
+        return max((self.n * max(int(Global.heavy_lane_pct), 0)) // 100, 1)
+
+    def _heavy_done(self, query) -> None:
+        """Release the weighted heavy slot an engine-loop pop took: only a
+        heavy group took one (a slice continuation did not)."""
+        if getattr(query, "lane", None) != "heavy" \
+                or getattr(query, "heavy_continuation", False):
+            return
+        with self._heavy_lock:
+            self._heavy_inflight = max(self._heavy_inflight - 1, 0)
+
     def _pop_work(self, tid: int):
         # own queue first (front)
         with self.locks[tid]:
             if self.queues[tid]:
                 return self.queues[tid].popleft()
+        # batch lane next: fused groups are interactive traffic, popped
+        # whole (a group is one item: stealing can never split it)
+        with self._batch_lock:
+            if self.batch_queue:
+                return self.batch_queue.popleft()
         # steal from neighbours (back — leave the owner its freshest work)
         for nb in self._neighbors(tid):
             with self.locks[nb]:
                 if self.queues[nb]:
                     return self.queues[nb].pop()
+        # heavy lane after every interactive source, under the weighted
+        # cap; split SLICES are cap-exempt continuations — their group
+        # already holds a slot, and capping them would stall its gather
+        # barrier behind itself
+        with self._heavy_lock:
+            if self.heavy_slices:
+                return self.heavy_slices.popleft()
+            if self.heavy_queue and self._heavy_inflight < self._heavy_cap():
+                self._heavy_inflight += 1
+                return self.heavy_queue.popleft()
         return None
 
     def _run_engine(self, tid: int) -> None:
@@ -243,12 +373,27 @@ class EnginePool:
             qid, query = item
             self._inflight[tid] = item
             self._busy_since[tid] = get_usec()
+            if qid is None:  # batch/heavy lanes: fire-and-forget items
+                try:
+                    faults.site("pool.execute", shard=tid)
+                    query.run(engine)
+                except Exception as e:
+                    # run() settles its members on its own errors; this
+                    # catches the re-raise (and fault injection) so the
+                    # engine thread lives on — fail_all is idempotent
+                    query.fail_all(e)
+                self._heavy_done(query)  # release the weighted heavy slot
+                self._busy_since[tid] = 0
+                self._inflight[tid] = None
+                self._respawns[tid] = 0
+                continue
             try:
                 # a query whose deadline expired while queued fails fast
                 # with a structured QueryTimeout instead of occupying the
                 # engine (load shedding); the pool keeps serving
                 dl = getattr(query, "deadline", None)
                 if dl is not None and dl.expired():
+                    _M_SHED.inc()
                     raise QueryTimeout(
                         f"deadline expired in engine-{tid} queue")
                 faults.site("pool.execute", shard=tid)
