@@ -87,6 +87,31 @@ Phases (any failure exits nonzero, and no result line is printed):
      as a fused light group's, a heavy slice's or a direct dispatch's, and
      each kernel is held against its plain version and timed on each
      class's largest input;
+ 10. multi-tenant serving (run after 9, on phase 3's proxy and planner,
+     the engine pool started and batching on): Emulator.run_tenants over
+     phase 9's light texts with the default classes (gold 2 clients, p95
+     50 ms, 0.999; silver 2, 500 ms, 0.99; bulk 4, 0.9), 3 s after 1 s:
+     A normal (no errors); B chaos (transient faults at proxy.serve with
+     p = 0.25: gold and silver alert, bulk does not, one SLO_BURN dump
+     each, each dumped trace JSON and carrying fault.injected); C the 2x
+     overload drill with admission armed (TENANT_QUOTAS, in-flight
+     ceiling 6: gold compliant and never partial or rejected, bulk shed);
+     D as C with bulk sending the two heavy texts through the heavy lane
+     (gold and silver without errors, the per-tenant heavy slots settled
+     to zero). Every run: every served complete reply its text's direct
+     count, no fused or heavy fallback, no capacity degradation, no inline
+     run, K1 launched; the admission report printed. Then EXPLAIN ANALYZE
+     of the seven shapes (phase 7's rows, the decomposition within the
+     total), a single-threaded replay with tracing off and on (64 light
+     texts direct and as one fused group, the heavy texts direct and as
+     one heavy group: equal host syncs, 1 a direct light query and 2 a
+     fused group; every trace JSON, every span attribute a host scalar;
+     proxy.parse, proxy.plan, gpu.execute and gpu.chain on a direct
+     trace, batch.settled on every member; median latency off and on),
+     and a device trace (xprof_dir) of q6 and q2 through run_single_query
+     whose Chrome trace holds CUDA kernels, K1 among q2's, with each
+     query's kernels by device time. Each kernel the phase launched is
+     held against its plain version and timed on its largest input;
   6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
      suite through Proxy(device="cpu") (plain versions) and
      Proxy(device="cuda") must give equal row multisets and attribute
@@ -96,11 +121,13 @@ Phases (any failure exits nonzero, and no result line is printed):
      temporary directory and console.main([config, dir, "-c",
      "sparql -b <file>"]) runs the seven shapes with -n 5 on the card,
      with phase 6's rows, the average latency run_single_query logs, and
-     K1 launched.
+     K1 launched; and phase 10's EXPLAIN of the seven shapes, equal on
+     cpu and cuda under one planner.
 The line before the last is one JSON object {"kernels": [...]}, a row for
 each kernel and class of its calls in phases 4 and 5, for each kernel in
 phase 7, for each kernel and mix (and the console) in phase 8, and for
-each kernel and class of its calls in phase 9, with
+each kernel and class of its calls in phase 9, for each kernel in phase
+10, with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -1991,6 +2018,402 @@ def serve_live(proxy, texts: tuple, k1, results: dict) -> None:
             proxy._batcher = None
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-tenant serving (admission, SLOs, tracing, EXPLAIN ANALYZE)
+# ---------------------------------------------------------------------------
+
+TENANT_RUN_S, TENANT_WARMUP_S = 3.0, 1.0
+# bench.py --tenants' overload drill: quotas, in-flight ceiling, clients x2
+TENANT_QUOTAS = "gold:8:0:0:0;silver:4:0:0:0;bulk:1:25:4:0"
+TENANT_MAX_INFLIGHT = 6
+TENANT_KNOBS = ("enable_batching", "heavy_lane", "enable_admission",
+                "admission_quotas", "admission_max_inflight",
+                "enable_tracing", "trace_sample_every", "xprof_dir")
+TENANT_REPLAY = 64  # light texts replayed with tracing off and on
+
+
+class TenantReplies:
+    """Stands for the proxy in Emulator.run_tenants: passes each call on
+    and keeps (tenant, text, status, nrows, complete) of every reply."""
+
+    def __init__(self, proxy):
+        import threading
+
+        self.proxy = proxy
+        self.replies: list = []
+        self._lock = threading.Lock()
+
+    def serve_query(self, text, blind=True, tenant="default"):
+        q = self.proxy.serve_query(text, blind=blind, tenant=tenant)
+        r = q.result
+        with self._lock:
+            self.replies.append((tenant, text, int(r.status_code), r.nrows,
+                                 bool(r.complete)))
+        return q
+
+    def off_count(self, want: dict) -> list:
+        """Served, complete replies whose row count is not the text's
+        direct count."""
+        return [r for r in self.replies
+                if r[2] == 0 and r[4] and r[3] != want[r[1]]]
+
+
+def tenant_run(proxy, name: str, texts: list, want: dict, k1, out: dict,
+               **kw) -> dict:
+    """One Emulator.run_tenants run through TenantReplies, with the checks
+    every run of phase 10 makes: no reply off its direct count, no fused
+    or heavy fallback, no capacity degradation, no inline run after a
+    failed lane submit, K1 launched."""
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    checker = TenantReplies(proxy)
+    before, k1_before = batch_series(), k1()
+    with LogCapture() as cap:
+        rep = Emulator(checker).run_tenants(texts, seed=1, **kw)
+    d = {k: v - before.get(k, 0) for k, v in batch_series().items()
+         if v - before.get(k, 0)}
+    k1_n = k1() - k1_before
+    row = {"tenants": {t: {k: v for k, v in r.items() if k != "slo"}
+                       for t, r in rep["tenants"].items()},
+           "slo": {t: r["slo"] for t, r in rep["tenants"].items()},
+           "alerts": rep["alerts"], "burn_dumps": rep["burn_dumps"],
+           "qps": rep["qps"], "replies": len(checker.replies),
+           "k1_launches": k1_n, "counters": d}
+    if "admission" in rep:
+        row["admission"] = rep["admission"]
+    out[name] = row
+    log(f"  tenants [{name}]: {rep['qps']:,.1f} queries/s, "
+        f"{len(checker.replies):,} replies, K1 {k1_n:,} launches")
+    for t, r in rep["tenants"].items():
+        slo = r["slo"] or {}
+        log(f"    {t}: {r['clients']} clients, {r['qps']:,.1f} queries/s, "
+            f"p50 {r['p50_us']:,} us, p99 {r['p99_us']:,} us, served "
+            f"{r['served']:,}, errors {r['errors']}, partial {r['partial']},"
+            f" rejected {r['rejected']}; compliance {slo.get('compliance')},"
+            f" budget left {slo.get('error_budget_remaining')}, latency met "
+            f"{slo.get('latency_met')}, alerts {slo.get('alerts')}")
+    bad = checker.off_count(want)
+    check(not bad, f"tenants [{name}]: {len(bad)} replies off their direct "
+          f"count, e.g. {bad[:2]}")
+    check(not any(k.startswith(("wukong_batch_fallback_total",
+                                "wukong_batch_heavy_fallback_total"))
+                  for k in d), f"tenants [{name}]: a fused dispatch fell "
+          f"back: {d}")
+    check("degrading to the host engine" not in cap.text,
+          f"tenants [{name}]: a capacity degradation was logged")
+    check("running inline" not in cap.text,
+          f"tenants [{name}]: a lane submit failed and ran inline")
+    check(k1_n > 0, f"tenants [{name}]: K1 never launched")
+    return rep
+
+
+def tenant_runs(proxy, light: list, heavy: list, want: dict, k1,
+                entry: dict, out: dict) -> None:
+    """Runs A-D of phase 10: the default classes (normal), chaos at the
+    proxy.serve boundary, the 2x overload drill with admission armed, and
+    the drill again with bulk sending the heavy texts through the heavy
+    lane."""
+    import json as _json
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import get_recorder
+    from wukong_tpu_torch.obs.slo import SLOSpec
+    from wukong_tpu_torch.runtime.admission import (
+        get_admission,
+        render_admission,
+    )
+
+    runs = out["runs"]
+    entry["name"] = ", run A"
+    rep = tenant_run(proxy, "A normal", light, want, k1, runs,
+                     duration_s=TENANT_RUN_S, warmup_s=TENANT_WARMUP_S)
+    for t, r in rep["tenants"].items():
+        check(r["errors"] == 0 and r["served"] > 0,
+              f"tenants [A]: {t} has {r['errors']} errors, "
+              f"{r['served']} served")
+
+    entry["name"] = ", run B"
+    rep = tenant_run(proxy, "B chaos", light, want, k1, runs, chaos=True,
+                     chaos_p=0.25, duration_s=TENANT_RUN_S, warmup_s=0.5)
+    al = rep["alerts"]
+    check(al["gold"] >= 1 and al["silver"] >= 1 and al["bulk"] == 0,
+          f"tenants [B]: alerts {al} (want gold and silver >= 1, bulk 0)")
+    per: dict = {}
+    for d in rep["burn_dumps"]:
+        per[d["tenant"]] = per.get(d["tenant"], 0) + 1
+    check(per == {"gold": 1, "silver": 1},
+          f"tenants [B]: SLO_BURN dumps by tenant {per} (want one each "
+          f"for gold and silver)")
+    for reason, tr in list(get_recorder().dumps):
+        if reason != "SLO_BURN":
+            continue
+        _json.dumps(tr.to_dict())
+        check("fault.injected" in trace_marks(tr),
+              f"tenants [B]: dumped trace {tr.trace_id} carries no "
+              f"fault.injected event ({trace_marks(tr)})")
+    log(f"    burn dumps {rep['burn_dumps']}, each JSON and carrying a "
+        f"fault.injected event")
+
+    Global.enable_admission = True
+    Global.admission_quotas = TENANT_QUOTAS
+    Global.admission_max_inflight = TENANT_MAX_INFLIGHT
+    for run, bulk_texts in (("C overload", None), ("D bulk heavies", heavy)):
+        get_admission().reset()
+        tenants = None
+        if bulk_texts:
+            tenants = [
+                {"tenant": "gold", "clients": 2, "texts": light,
+                 "slo": SLOSpec("gold", 0.95, 50.0, 0.999)},
+                {"tenant": "silver", "clients": 2, "texts": light,
+                 "slo": SLOSpec("silver", 0.95, 500.0, 0.99)},
+                {"tenant": "bulk", "clients": 4, "texts": bulk_texts,
+                 "slo": SLOSpec("bulk", 0.95, 0.0, 0.9)}]
+        entry["name"] = ", run " + run[0]
+        rep = tenant_run(proxy, run, light, want, k1, runs, tenants=tenants,
+                         overload_x=2.0, duration_s=TENANT_RUN_S,
+                         warmup_s=TENANT_WARMUP_S)
+        adm = rep["admission"]
+        dec = adm["decisions"]
+        bulk_shed = sum(n for k, n in dec.items()
+                        if k.endswith("/bulk") and not k.startswith("admit/"))
+        gold = rep["tenants"]["gold"]
+        gslo = gold["slo"] or {}
+        text, _js = render_admission()
+        log("    " + text.replace("\n", "\n    ").rstrip())
+        check(bulk_shed > 0, f"tenants [{run}]: bulk was never shed ({dec})")
+        if bulk_texts is None:
+            check(gslo.get("latency_met") is True
+                  and (gslo.get("error_budget_remaining") or 0.0) >= 0.0,
+                  f"tenants [{run}]: gold not compliant ({gslo})")
+            check(gold["partial"] == 0 and gold["rejected"] == 0,
+                  f"tenants [{run}]: gold degraded ({gold})")
+        else:
+            for t in ("gold", "silver"):
+                check(rep["tenants"][t]["errors"] == 0,
+                      f"tenants [{run}]: {t} has errors")
+            pool = proxy._pool
+            check(pool is not None and not pool._heavy_by_tenant
+                  and pool._heavy_inflight == 0,
+                  f"tenants [{run}]: heavy slots not settled "
+                  f"({pool._heavy_by_tenant}, {pool._heavy_inflight})")
+            log(f"    heavy slots settled; gold compliance "
+                f"{gslo.get('compliance')} (printed, not gated)")
+    Global.enable_admission = False
+    get_admission().reset()
+
+
+def tenant_analyze(proxy, results: dict, out: dict, entry: dict) -> None:
+    """EXPLAIN ANALYZE of the seven shapes under the planner at the serve
+    scale: phase 7's rows, a decomposition whose components sum to at most
+    the total, each rendered table printed once."""
+    entry["name"] = ", analyze"
+    single = results["batched"]["single"]
+    out["analyze"] = {}
+    for name, text in QUERIES.items():
+        rep = proxy.explain_query(text, analyze=True)
+        d = rep["decomposition"]
+        check(rep["status"] == "SUCCESS" and rep["rows"]
+              == single[name]["rows"], f"analyze {name}: {rep['status']} "
+              f"{rep['rows']} rows, phase 7 {single[name]['rows']}")
+        check(sum(d["components"].values()) <= d["total_us"],
+              f"analyze {name}: components exceed the total ({d})")
+        out["analyze"][name] = {k: v for k, v in rep.items()
+                                if k != "rendered"}
+        log(f"  analyze {name}:\n    "
+            + rep["rendered"].replace("\n", "\n    "))
+
+
+def tenant_replay(proxy, light: list, heavy: list, want: dict,
+                  out: dict, entry: dict) -> None:
+    """Tracing adds no sync: 64 light texts single-threaded, direct and then
+    as one fused group, and the heavy texts, direct and as one heavy group,
+    with enable_tracing off and then on at sample 1: equal host syncs per
+    query and per group, every recorded trace JSON, the direct traces'
+    spans, batch.settled on every fused member; median latency as a
+    finding."""
+    import json as _json
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import get_recorder, maybe_start_trace
+    from wukong_tpu_torch.runtime.batcher import (
+        FusedGroup,
+        HeavyGroup,
+        _Pending,
+    )
+
+    entry["name"] = ", replay"
+    texts = light[:TENANT_REPLAY]
+    res: dict = {}
+    for traced in (False, True):
+        Global.enable_tracing = traced
+        Global.trace_sample_every = 1
+        get_recorder().clear()
+        Global.enable_batching = False
+        lat, syncs = [], []
+        direct = []
+        for t in texts:
+            t0 = time.perf_counter()
+            n, _ = count_syncs(lambda t=t: direct.append(
+                (t, proxy.serve_query(t, blind=True))))
+            lat.append((time.perf_counter() - t0) * 1e6)
+            syncs.append(n)
+        hsyncs = []
+        for t in heavy:
+            n, _ = count_syncs(lambda t=t: direct.append(
+                (t, proxy.serve_query(t, blind=True))))
+            hsyncs.append(n)
+        for t, q in direct:
+            check(q.result.status_code == 0 and q.result.nrows == want[t],
+                  "replay: a direct reply is off its count")
+
+        def planned(text, blind):
+            tr = maybe_start_trace(kind="query", text=text)
+            return proxy._prepare(text, blind, None, "default", tr, None)
+
+        members = [_Pending(planned(t, False)) for t in texts]
+        group = FusedGroup(members, proxy.batcher(), engine=proxy.gpu,
+                           reason="replay")
+        gsync, gsites = count_syncs(lambda: group.run(None))
+        hmembers = [_Pending(planned(heavy[0], True)) for _ in range(8)]
+        hgroup = HeavyGroup(hmembers, proxy.batcher(), engine=proxy.gpu,
+                            reason="replay")
+        hgsync, _ = count_syncs(lambda: hgroup.run(None))
+        check(all(m.q.result.status_code == 0
+                  and m.q.result.nrows == want[heavy[0]] for m in hmembers),
+              "replay: a heavy member is off its count")
+        for m in members + hmembers:
+            check(m.q.result.status_code == 0, "replay: a member failed")
+            if m.trace is not None:
+                get_recorder().on_complete(m.trace, m.q.result.status_code)
+        res[traced] = {"direct_syncs": sorted(set(syncs)),
+                       "heavy_direct_syncs": hsyncs,
+                       "fused_syncs": gsync, "heavy_group_syncs": hgsync,
+                       "median_us": statistics.median(lat)}
+        if traced:
+            recorded = get_recorder().last()
+            for tr in recorded + [t for _r, t in get_recorder().dumps]:
+                _json.dumps(tr.to_dict())
+            for _t, q in direct:
+                names = {sp.name for sp in q.trace.spans}
+                check({"proxy.parse", "proxy.plan", "gpu.execute",
+                       "gpu.chain"} <= names,
+                      f"replay: a direct trace lacks spans ({names})")
+            for m in members + hmembers:
+                check("batch.settled" in trace_marks(m.trace),
+                      "replay: a fused member has no batch.settled")
+            check_attrs(recorded)
+            res[traced]["recorded"] = len(recorded)
+    Global.enable_tracing = False
+    log(f"  replay: tracing off {res[False]}; on {res[True]}")
+    for k in ("direct_syncs", "heavy_direct_syncs", "fused_syncs",
+              "heavy_group_syncs"):
+        check(res[False][k] == res[True][k],
+              f"replay: {k} {res[False][k]} with tracing off, "
+              f"{res[True][k]} on")
+    check(res[False]["direct_syncs"] == [1] and res[False]["fused_syncs"]
+          == 2, f"replay: syncs {res[False]} (want 1 a direct query, 2 a "
+          f"fused group)")
+    out["replay"] = {"off": res[False], "on": res[True]}
+
+
+def trace_marks(tr) -> set:
+    """The events of a trace: those inside a span, and those recorded
+    where the thread had no open span (a zero-length span of the event's
+    name, QueryTrace.event)."""
+    return set(tr.event_names()) | {sp.name for sp in tr.spans
+                                    if sp.t1_us == sp.t0_us}
+
+
+def check_attrs(traces) -> None:
+    """Every span attribute is a host scalar (no tensor, no numpy value)."""
+    for tr in traces:
+        for sp in tr.spans:
+            for k, v in sp.attrs.items():
+                check(v is None or type(v) in (int, float, str, bool),
+                      f"span {sp.name} attribute {k} is {type(v)}")
+
+
+def tenant_device_trace(proxy, out: dict, entry: dict) -> None:
+    """q6 and q2 through run_single_query with xprof_dir set: the Chrome
+    trace written there holds CUDA kernel events, K1's among them (q2), and
+    each query's kernels by device time are printed."""
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import export
+
+    entry["name"] = ", device trace"
+    out["device_trace"] = {}
+    Global.enable_batching = False  # the direct path's kernels
+    with tempfile.TemporaryDirectory() as d:
+        Global.xprof_dir = d
+        try:
+            for name in ("lubm_q6", "lubm_q2"):
+                q = proxy.run_single_query(QUERIES[name])
+                check(q.result.status_code == 0, f"device trace {name}: "
+                      f"status {q.result.status_code!r}")
+                path = export.last_capture
+                check(path is not None and path.startswith(d),
+                      f"device trace {name}: no capture written")
+                kern = export.kernel_summary(path)
+                check(kern, f"device trace {name}: no CUDA kernel events")
+                if name == "lubm_q2":
+                    check(any("probe_kernel" in k["name"] for k in kern),
+                          f"device trace {name}: K1 absent "
+                          f"({[k['name'] for k in kern]})")
+                total = sum(k["total_us"] for k in kern)
+                out["device_trace"][name] = {"kernels": kern[:12],
+                                             "device_us": total,
+                                             "rows": q.result.nrows}
+                log(f"  device trace {name}: {q.result.nrows:,} rows, "
+                    f"{len(kern)} kernels, {total:,.1f} us of device time")
+                for k in kern[:8]:
+                    log(f"    {k['total_us']:>10,.1f} us  {k['calls']:>4} "
+                        f"calls  {k['name'][:90]}")
+        finally:
+            Global.xprof_dir = ""
+
+
+def serve_tenants(proxy, texts: tuple, k1, entry: dict,
+                  results: dict) -> None:
+    """Phase 10 on phase 3's proxy (planner from phase 7), the pool started
+    and batching on: runs A-D, EXPLAIN ANALYZE of the seven shapes, the
+    tracing replay and the device trace."""
+    from wukong_tpu_torch.config import Global
+
+    light, heavy, want = texts
+    out = results["tenants"] = {"runs": {}}
+    saved = {k: getattr(Global, k) for k in TENANT_KNOBS}
+    try:
+        Global.enable_batching = True
+        Global.heavy_lane = True
+        proxy.engine_pool()
+        tenant_runs(proxy, light, heavy, want, k1, entry, out)
+        tenant_analyze(proxy, results, out, entry)
+        tenant_replay(proxy, light, heavy, want, out, entry)
+        tenant_device_trace(proxy, out, entry)
+    finally:
+        for k, v in saved.items():
+            setattr(Global, k, v)
+        stop_pool(proxy)
+        if proxy._batcher is not None:
+            proxy._batcher.close()
+            proxy._batcher = None
+
+
+def explain_parity(on_cpu, on_gpu, results: dict) -> None:
+    """Phase 10's EXPLAIN half on phase 6's store: the seven shapes'
+    reports under one planner's statistics equal on cpu and cuda, the
+    rendered table aside (the planner is host code); each table printed."""
+    out = results["tenants"]["explain"] = {}
+    for name, text in QUERIES.items():
+        a, b = on_cpu.explain_query(text), on_gpu.explain_query(text)
+        a.pop("rendered")
+        table = b.pop("rendered")
+        check(a == b, f"explain {name}: cpu {a} != cuda {b}")
+        out[name] = b
+        log(f"  explain {name} (equal on cpu and cuda):\n    "
+            + table.replace("\n", "\n    "))
+
+
 def merged_rows(captures: dict, phase: str, kernel_fns: dict,
                 errs: dict) -> list:
     """One kernels-line row per kernel a phase launched: held and timed on
@@ -2099,7 +2522,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi unavailable"
-    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}"
+        f"); nvidia-smi: {card}")
     build_s = cuda_lib.build_all()
     log(f"build: {len(cuda_lib.SOURCES)} CUDA sources with nvcc in "
         f"{build_s:.1f} s")
@@ -2285,6 +2709,36 @@ def main(argv=None) -> int:
     results["live"]["launches"] = by_class
     rows += captured_rows(captures, "9 live serving", kernel_fns, errs)
 
+    # ---- 10. multi-tenant serving, on phase 3's proxy --------------------
+    log(f"tenants: LUBM-{args.scale} on {kind}, admission, SLOs, tracing "
+        f"and EXPLAIN ANALYZE through Emulator.run_tenants")
+    t0 = time.perf_counter()
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    try:
+        serve_tenants(proxy, live,
+                      lambda: captures["probe_kernel"].wrapped.launches,
+                      entry, results)
+    finally:
+        for c in captures.values():
+            c.restore()
+    torch.cuda.synchronize()
+    by_run = {name: dict(c.launches) for name, c in captures.items()}
+    log(f"tenants: kernel launches by part {by_run} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(sum(captures["probe_kernel"].launches.values())
+          == kernel_fns["probe_kernel"][0].launches > 0,
+          "K1 never launched in phase 10, or its launches by part do not "
+          "add up to its count")
+    for name in ("stream_emit", "stream_emit_m"):
+        if not sum(captures[name].launches.values()):
+            log(f"tenants: {name} not launched in phase 10 (its chains "
+                f"probe; phases 2 and 4-8 hold it)")
+    results["tenants"]["launches"] = by_run
+    rows += merged_rows(captures, "10 multi-tenant serving", kernel_fns,
+                        errs)
+
     # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
     del proxy, triples
     gx, ssx, tx = build_world(args.cross_scale, args.seed)
@@ -2305,6 +2759,7 @@ def main(argv=None) -> int:
         log(f"  cross-check LUBM-{args.cross_scale} {name}: "
             f"{a.result.nrows:,} rows equal on cpu and cuda")
     cross_check_batched(on_cpu, on_gpu, tx, args.seed)
+    explain_parity(on_cpu, on_gpu, results)
     results["cross_scale"] = args.cross_scale
     del on_cpu, on_gpu, gx, tx
 

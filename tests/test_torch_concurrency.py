@@ -9,6 +9,13 @@
 - ``cuda_lib.count_launch`` counts exactly under threads, per kernel and
   per thread, and a ``FaultPlan`` spec with ``count=N`` fires N times.
 - The planner gives each query its own plan when threads plan at once.
+- A multi-tenant scenario (``Emulator.run_tenants``: chaos with tracing
+  on, then the overload drill with admission armed and the fair sub-lane,
+  through the batcher and the engine pool) runs under the port's lockdep
+  checker with no cycle and nothing acquired under a declared leaf: the
+  SLO, overload-signal, admission, fair-queue, trace, recorder and journal
+  locks stay innermost, and ``FairQueue`` and the heavy pick never call out
+  under theirs.
 
 Each test runs more threads than this machine's cores with a shortened
 switch interval, so a lost update would show; every wait is bounded.
@@ -211,3 +218,73 @@ def test_concurrent_planning_gives_each_query_its_own_plan(fast_switch):
     for i, plans in enumerate(got):
         assert plans == [want[(i + k) % len(texts)]
                          for k in range(len(texts))], i
+
+
+def test_tenant_scenario_under_lockdep(monkeypatch):
+    """Checked locks for every lock this scenario takes: the module-level
+    singletons (tracker, signals, labels, controller, recorder, journal)
+    are swapped for ones made after ``install(True)``, as are the proxy,
+    its pool and its batcher."""
+    from wukong_tpu_torch.analysis import lockdep
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import events, recorder, slo
+    from wukong_tpu_torch.runtime import admission
+    from wukong_tpu_torch.runtime.emulator import Emulator
+    from wukong_tpu_torch.runtime.proxy import Proxy
+
+    for name in ("enable_batching", "enable_admission", "admission_quotas",
+                 "admission_max_inflight", "enable_tracing"):
+        monkeypatch.setattr(Global, name, getattr(Global, name))
+    lockdep.install(True)
+    proxy = None
+    try:
+        monkeypatch.setattr(slo, "_label_lock", lockdep.make_lock(
+            "slo.labels"))
+        monkeypatch.setattr(slo, "_tracker", slo.SLOTracker())
+        monkeypatch.setattr(slo, "_signals", slo.OverloadSignals())
+        monkeypatch.setattr(admission, "_controller",
+                            admission.AdmissionController())
+        monkeypatch.setattr(recorder, "_recorder", recorder.FlightRecorder())
+        monkeypatch.setattr(events, "_journal", events.EventJournal())
+        triples, _ = generate_lubm(1, seed=0)
+        proxy = Proxy(build_partition(triples, 0, 1),
+                      VirtualLubmStrings(1, seed=0), device="cpu",
+                      planner=Planner(Stats.generate(triples)))
+        light, _heavy = chip_smoke.live_texts(proxy)
+        Global.enable_batching = True
+        proxy.engine_pool()
+        emu = Emulator(proxy)
+        out = emu.run_tenants(light[:16], duration_s=0.4, warmup_s=0.0,
+                              chaos=True, seed=1)
+        assert out["tenants"]["gold"]["served"] > 0
+        Global.enable_admission = True
+        Global.admission_quotas = chip_smoke.TENANT_QUOTAS
+        Global.admission_max_inflight = chip_smoke.TENANT_MAX_INFLIGHT
+        out = emu.run_tenants(light[:16], duration_s=0.4, warmup_s=0.0,
+                              overload_x=2.0, seed=1)
+        assert out["tenants"]["gold"]["rejected"] == 0
+        pool = proxy._pool
+        # the fair sub-lane carried no default-lane work here (the batch
+        # lane did), but it stays a checked leaf when it exists
+        q = Parser(proxy.str_server).parse(light[0])
+        proxy._plan_prepared(q, True, None, tenant="gold")
+        assert pool.wait(pool.submit(q), timeout=WAIT_S).result.nrows >= 0
+        assert pool._fair is not None
+        rep = lockdep.report()
+        names = {n for e in rep["edges"] for n in (e["from"], e["to"])}
+        assert rep["cycles"] == [], rep["cycles"]
+        assert rep["leaf_violations"] == [], rep["leaf_violations"]
+        # every lock of the plane was a checked one, and the fair queue's
+        # was taken under the pool's routing lock (the recorded edge)
+        for lk in (slo._tracker._lock, slo._signals._lock,
+                   admission._controller._lock, pool._fair._lock,
+                   recorder._recorder._lock, events._journal._lock):
+            assert isinstance(lk, lockdep.DebugLock), lk
+        assert {"pool.route", "admission.queue"} <= names
+    finally:
+        if proxy is not None and proxy._pool is not None:
+            proxy._pool.stop()
+        if proxy is not None and proxy._batcher is not None:
+            proxy._batcher.close()
+        lockdep.install(False)
+

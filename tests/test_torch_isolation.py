@@ -1,7 +1,10 @@
 """The port stands alone: with jax unimportable and every `wukong_tpu` module
-refused, the whole of `wukong_tpu_torch` imports (its `obs/` metrics registry
-included, which the batcher's counters register in); with no GPU, an entry
-point left at its default device raises instead of running on the CPU."""
+refused, the whole of `wukong_tpu_torch` imports (its `obs/` plane included:
+the metrics registry, tracing, the flight recorder, the event journal, the
+exporters, the SLO plane and EXPLAIN, and the admission controller); with no
+GPU, an entry point left at its default device raises instead of running on
+the CPU, and a tenant's traced query, an EXPLAIN ANALYZE and a device trace
+run on the CPU when asked."""
 
 import os
 import subprocess
@@ -33,13 +36,23 @@ _SCRIPT = textwrap.dedent("""
     runtime = {"wukong_tpu_torch.runtime." + m for m in (
         "console", "emulator", "scheduler", "monitor", "faults",
         "resilience", "batcher", "proxy")}
-    assert runtime | {"wukong_tpu_torch.analysis.lockdep",
-                      "wukong_tpu_torch.store.string_server",
-                      "wukong_tpu_torch.loader.base",
-                      "wukong_tpu_torch.obs",
-                      "wukong_tpu_torch.obs.metrics"} <= set(names), names
+    obs = {"wukong_tpu_torch.obs." + m for m in (
+        "metrics", "trace", "events", "recorder", "export", "slo",
+        "profile")}
+    assert runtime | obs | {"wukong_tpu_torch.analysis.lockdep",
+                            "wukong_tpu_torch.store.string_server",
+                            "wukong_tpu_torch.loader.base",
+                            "wukong_tpu_torch.obs",
+                            "wukong_tpu_torch.runtime.admission"
+                            } <= set(names), names
     from wukong_tpu_torch.obs import get_registry
-    assert "wukong_batch_fused_queries_total" in get_registry().snapshot()
+    snap = get_registry().snapshot()
+    for metric in ("wukong_batch_fused_queries_total", "wukong_shed_total",
+                   "wukong_admission_decisions_total",
+                   "wukong_slo_burn_alerts_total",
+                   "wukong_cluster_events_total", "wukong_pool_utilization",
+                   "wukong_query_latency_us"):
+        assert metric in snap, metric
     leaked = [m for m in sys.modules
               if m == "wukong_tpu" or m.startswith("wukong_tpu.")
               or m == "jax" and sys.modules[m] is not None]
@@ -58,10 +71,29 @@ _SCRIPT = textwrap.dedent("""
         assert "no CUDA GPU" in str(e), e
     else:
         raise AssertionError("default-device Proxy ran without a GPU")
-    q = Proxy(g, ss, device="cpu").serve_query(
-        "SELECT ?X WHERE { ?X <http://www.w3.org/1999/02/22-rdf-syntax-ns#type>"
-        " <http://swat.cse.lehigh.edu/onto/univ-bench.owl#GraduateStudent> . }")
-    assert q.result.nrows > 0
+    import tempfile
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import export, get_recorder
+
+    text = ("SELECT ?X WHERE { ?X "
+            "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type> "
+            "<http://swat.cse.lehigh.edu/onto/univ-bench.owl#"
+            "GraduateStudent> . }")
+    proxy = Proxy(g, ss, device="cpu")
+    Global.enable_tracing = True
+    q = proxy.serve_query(text, tenant="gold")
+    assert q.result.nrows > 0 and q.trace.tenant == "gold"
+    assert get_recorder().last(1)[0] is q.trace
+    assert proxy.explain_query(text, analyze=True)["rows"] == q.result.nrows
+    with tempfile.TemporaryDirectory() as d:
+        Global.xprof_dir = d
+        proxy.run_single_query(text)
+        assert export.last_capture.startswith(d)
+    leaked = [m for m in sys.modules
+              if m == "wukong_tpu" or m.startswith("wukong_tpu.")
+              or m == "jax" and sys.modules[m] is not None]
+    assert not leaked, leaked
     print("ISOLATED", len(names))
 """)
 

@@ -17,7 +17,7 @@ Zero cost when off: with ``debug_locks`` false :func:`make_lock` returns a
 plain ``threading.Lock`` and :func:`make_condition` a plain
 ``threading.Condition`` (the batcher's). The JAX module's ``make_rlock``
 waits for a caller in the port, and its hold/contention histograms for the
-metrics wiring of §A 2.4; they are left out.
+observatory (ROADMAP §A 10); they are left out.
 """
 
 from __future__ import annotations

@@ -111,6 +111,90 @@ class GlobalConfig:
     # const-start instances answered together by one execute_batch
     device_batch: int = 1024
 
+    # ---- tracing and the flight recorder (obs/trace.py, obs/recorder.py;
+    # all mutable) ----
+    # per-query tracing; off, every hook is one getattr or knob check
+    enable_tracing: bool = False
+    # sample 1 in N queries (per trace kind) while tracing is on
+    trace_sample_every: int = 1
+    # completed traces kept in the flight recorder's ring
+    trace_ring: int = 64
+    # a traced query slower than this dumps its trace (0 disables);
+    # QUERY_TIMEOUT, BUDGET_EXCEEDED and SHARD_UNAVAILABLE always dump
+    trace_slow_ms: int = 1000
+    # directory for JSON trace dumps ("" = in memory only; the
+    # WUKONG_TRACE_DIR environment variable stands for it when empty)
+    trace_dump_dir: str = ""
+    # keep at most this many trace_*.json files there, oldest evicted
+    # first (0 = unbounded)
+    trace_dump_max: int = 256
+    # rows shown per section by the report verbs (slo, admission, events)
+    top_k: int = 8
+
+    # ---- latency attribution (obs/profile.py; all mutable): each traced
+    # reply's latency split into queue/parse/plan/execute/fetch against a
+    # rolling per-template baseline, a regression dumping its trace ----
+    enable_attribution: bool = False
+    attribution_window: int = 256
+    attribution_min_samples: int = 32
+    attribution_share_drift_pct: int = 25
+    attribution_p95_drift_pct: int = 100
+    attribution_cooldown_s: int = 30
+
+    # ---- the cluster-event journal (obs/events.py; all mutable) ----
+    enable_events: bool = True
+    events_ring: int = 512
+    # JSONL mirror of every journaled event ("" = in memory only)
+    events_log_path: str = ""
+
+    # ---- the tenant SLO plane (obs/slo.py; all mutable) ----
+    # per-tenant accounting at the proxy's reply point and the overload
+    # signal bus the admission controller reads
+    enable_tenant_accounting: bool = True
+    # distinct tenant labels before new tenants land in "__overflow__"
+    max_tenants: int = 64
+    # ";"-separated "<tenant>:<percentile>:<latency_ms>:<availability>"
+    slo_specs: str = ""
+    # per-tenant reply samples kept for compliance and percentiles
+    slo_window: int = 512
+    # burn-rate windows (seconds) and thresholds (x the sustainable
+    # budget-consumption rate); the sentinel pages when both exceed theirs
+    slo_fast_window_s: int = 300
+    slo_slow_window_s: int = 3600
+    slo_burn_fast_x: int = 14
+    slo_burn_slow_x: int = 6
+    # per-tenant sentinel re-arm delay: one burn episode, one dump
+    slo_dump_cooldown_s: int = 60
+
+    # ---- the device trace (obs/export.py): a torch.profiler capture of
+    # run_single_query's execution is written here as a Chrome trace
+    # ("" = the WUKONG_XPROF_DIR environment variable, else no capture) ----
+    xprof_dir: str = ""
+
+    # ---- the admission control plane (runtime/admission.py; all
+    # mutable; off, every hook is one knob check) ----
+    enable_admission: bool = False
+    # ";"-separated "<tenant>:<weight>:<qps>:<inflight>:<rows_per_s>"
+    admission_quotas: str = ""
+    admission_default_weight: int = 1
+    # token-bucket burst, in multiples of a tenant's q/s quota
+    admission_burst_x: float = 2.0
+    # the worst lane queue-delay EWMA against this budget (and in-flight
+    # and queued depth against the in-flight ceiling) sets the overload
+    # level: each doubling past it is one rung
+    admission_delay_budget_us: int = 20000
+    # in-flight ceiling; 0 derives 4 x the live pool engines, or 8
+    admission_max_inflight: int = 0
+    # rung 1's defer; 0 derives 2 x batch_window_us
+    admission_defer_ms: int = 0
+    # rung 2's tightened deadline and row budget
+    admission_partial_deadline_ms: int = 250
+    admission_partial_budget_rows: int = 200000
+    # rung 3's retry-after hint (seconds) on the CAPACITY_EXCEEDED reply
+    admission_retry_after_s: float = 1.0
+    # DRR credits a round per unit of tenant weight
+    admission_drr_quantum: int = 1
+
     _IMMUTABLE = {"num_engines", "enable_tpu", "tpu_mem_cache_gb"}
 
     def _names(self) -> set:
@@ -128,6 +212,8 @@ class GlobalConfig:
                     value.strip().lower() in ("1", "true", "yes", "on"))
         elif isinstance(cur, int):
             setattr(self, key, int(value))
+        elif isinstance(cur, float):
+            setattr(self, key, float(value))
         else:
             setattr(self, key, value.strip())
 
@@ -161,6 +247,8 @@ class GlobalConfig:
             cur = getattr(self, key)
             if isinstance(cur, int) and not isinstance(cur, bool):
                 int(v)  # raises ValueError on junk before anything is applied
+            elif isinstance(cur, float):
+                float(v)
         for k, v in known:
             self._apply(k, v, runtime)
 

@@ -107,6 +107,14 @@ class CPUEngine:
     # top-level state machine (sparql.hpp:1564-1673)
     # ------------------------------------------------------------------
     def execute(self, q: SPARQLQuery, from_proxy: bool = True) -> SPARQLQuery:
+        from wukong_tpu_torch.obs.trace import traced_execute
+
+        return traced_execute(
+            q, "cpu.execute", lambda: self._execute_impl(q, from_proxy),
+            lambda: {"rows": q.result.nrows,
+                     "status": q.result.status_code.name})
+
+    def _execute_impl(self, q: SPARQLQuery, from_proxy: bool) -> SPARQLQuery:
         try:
             if q.planner_empty and Global.enable_empty_shortcircuit:
                 # planner proved the conjunction empty from exact type stats
@@ -170,14 +178,17 @@ class CPUEngine:
                               "knn() requires enable_vectors")
 
     def _execute_patterns(self, q: SPARQLQuery) -> None:
+        from wukong_tpu_torch.obs.trace import traced_step
         from wukong_tpu_torch.runtime.resilience import (
             charge_query,
             check_query,
         )
 
+        tr = getattr(q, "trace", None)
         while not q.done_patterns():
             check_query(q, f"cpu.bgp step {q.pattern_step}")
-            self._execute_one_pattern(q)
+            traced_step(tr, q, "cpu.step",
+                        lambda: self._execute_one_pattern(q))
             charge_query(q, q.result.nrows,
                          f"cpu.bgp step {q.pattern_step - 1}")
             # co-run optimization at the marked step (sparql.hpp:1130-1131)
@@ -601,6 +612,7 @@ class CPUEngine:
             child.pg_type = PGType.UNION
             child.pattern_group = sub_pg
             child.deadline = q.deadline  # children share the parent's budget
+            child.trace = getattr(q, "trace", None)  # ... and its trace
             child.result = copy.deepcopy(q.result)
             child.result.blind = False
             child.mt_factor = q.mt_factor if child.start_from_index() else 1
@@ -647,6 +659,7 @@ class CPUEngine:
         child.pqid = q.qid
         child.pg_type = PGType.OPTIONAL
         child.deadline = q.deadline  # children share the parent's budget
+        child.trace = getattr(q, "trace", None)  # ... and its trace
         child.pattern_group = copy.deepcopy(q.pattern_group.optional[q.optional_step])
         q.optional_step += 1
         self._count_optional_new_vars(child.pattern_group, q.result)

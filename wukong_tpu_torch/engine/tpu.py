@@ -124,7 +124,17 @@ class GPUEngine:
     def execute(self, q: SPARQLQuery, from_proxy: bool = True) -> SPARQLQuery:
         """Run q through the state machine (its projection and modifiers
         too when ``from_proxy``). Failures, an unsupported shape among them,
-        land on ``q.result.status_code`` with the JAX engine's code."""
+        land on ``q.result.status_code`` with the JAX engine's code. A
+        traced query gets a ``gpu.execute`` span (obs/trace.py)."""
+        from wukong_tpu_torch.obs.trace import traced_execute
+
+        return traced_execute(
+            q, "gpu.execute", lambda: self._execute_impl(q, from_proxy),
+            lambda: {"rows": q.result.nrows,
+                     "status": q.result.status_code.name})
+
+    def _execute_impl(self, q: SPARQLQuery,
+                      from_proxy: bool = True) -> SPARQLQuery:
         try:
             if q.planner_empty and Global.enable_empty_shortcircuit:
                 # planner-proved empty (planner.hpp:1505-1509): no device work
@@ -188,8 +198,12 @@ class GPUEngine:
             device_steps += 1
         if device_steps:
             self._run_device_prefix(q, device_steps)
+        from wukong_tpu_torch.obs.trace import traced_step
+
+        tr = getattr(q, "trace", None)
         while not q.done_patterns():
-            self.cpu._execute_one_pattern(q)
+            traced_step(tr, q, "gpu.host_step",
+                        lambda: self.cpu._execute_one_pattern(q))
 
     def _run_device_prefix(self, q: SPARQLQuery, device_steps: int) -> None:
         # a versatile CONST start is one host CSR walk: staging the whole
@@ -233,41 +247,54 @@ class GPUEngine:
         cap_override: dict[int, int] = {}
         step_est = (self._chain_estimates(q.pattern_group.patterns)
                     if q.pattern_step == 0 else {})
-        self._last_attempts = 0
-        for attempt in range(8):
-            self._last_attempts = attempt + 1
-            check_query(q, f"gpu.chain attempt {attempt}")
-            state = _ChainState(q.result)
-            state.step_est = step_est
-            for k in range(device_steps):
-                step = q.pattern_step + k
-                self._dispatch_one(q, q.get_pattern(step), step, state,
-                                   cap_override)
-            host_table, n, totals = state.sync(blind=blind_ok)
-            over = [(s, t) for s, t, c in totals if t > c]
-            if not over:
-                break
-            for s, t in over:
-                if t > self.cap_max:
-                    raise CapacityExceeded(
-                        f"intermediate result ({t:,} rows) exceeds "
-                        f"table_capacity_max ({self.cap_max:,})")
-                cap_override[s] = K.next_capacity(t, self.cap_min,
-                                                  self.cap_max)
-        else:
-            raise WukongError(ErrorCode.UNKNOWN_PATTERN,
-                              "capacity retry limit exceeded")
-        charge_query(q, int(n), "gpu.chain")
-        res = q.result
-        if blind_ok:
-            res.nrows = n
-        else:
-            res.set_table(host_table[:n].astype(np.int64))
-        for var, col in state.new_cols:
-            res.add_var2col(var, col)
-        res.col_num = state.width
-        q.pattern_step += device_steps
-        q.local_var = state.local_var
+        # the chain's span closes after its one sync, so it covers the
+        # chain's device work; every attribute is a host int the chain
+        # already has (the sync's row count, the attempt count)
+        tr = getattr(q, "trace", None)
+        sp = (tr.start_span("gpu.chain", steps=device_steps,
+                            rows_in=q.result.nrows)
+              if tr is not None else None)
+        attempts = 0
+        try:
+            for attempt in range(8):
+                attempts = self._last_attempts = attempt + 1
+                check_query(q, f"gpu.chain attempt {attempt}")
+                state = _ChainState(q.result)
+                state.step_est = step_est
+                for k in range(device_steps):
+                    step = q.pattern_step + k
+                    self._dispatch_one(q, q.get_pattern(step), step, state,
+                                       cap_override)
+                host_table, n, totals = state.sync(blind=blind_ok)
+                over = [(s, t) for s, t, c in totals if t > c]
+                if not over:
+                    break
+                for s, t in over:
+                    if t > self.cap_max:
+                        raise CapacityExceeded(
+                            f"intermediate result ({t:,} rows) exceeds "
+                            f"table_capacity_max ({self.cap_max:,})")
+                    cap_override[s] = K.next_capacity(t, self.cap_min,
+                                                      self.cap_max)
+            else:
+                raise WukongError(ErrorCode.UNKNOWN_PATTERN,
+                                  "capacity retry limit exceeded")
+            charge_query(q, int(n), "gpu.chain")
+            res = q.result
+            if blind_ok:
+                res.nrows = n
+            else:
+                res.set_table(host_table[:n].astype(np.int64))
+            for var, col in state.new_cols:
+                res.add_var2col(var, col)
+            res.col_num = state.width
+            q.pattern_step += device_steps
+            q.local_var = state.local_var
+        finally:
+            if sp is not None:
+                tr.end_span(sp, attempts=attempts,
+                            dispatches=attempts * device_steps,
+                            rows_out=q.result.nrows)
 
     # ------------------------------------------------------------------
     def _dispatch_one(self, q: SPARQLQuery, pat, step: int,

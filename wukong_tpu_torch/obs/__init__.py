@@ -1,8 +1,65 @@
-"""Observability: the process-wide metrics registry (obs/metrics.py).
+"""Observability: tracing, metrics, the flight recorder, exporters, the SLO
+plane and the event journal (the port's copy of the JAX package's obs/).
 
-The JAX package's tracing, flight recorder, exporters, SLO plane and
-observatory are not ported yet (ROADMAP §A 2.3, 2.4, 10)."""
+- trace.py    — per-query :class:`QueryTrace` (trace id + span stack),
+  thread-ambient activation for deep layers, sampling knobs, StepTrace
+- metrics.py  — the process-wide :class:`MetricsRegistry`
+- recorder.py — :class:`FlightRecorder`: a ring of recent traces, dumped
+  on resilience failures, slow queries and SLO burns
+- export.py   — Chrome trace-event JSON and the torch.profiler device trace
+- slo.py      — per-tenant SLO accounting, error budgets, burn-rate
+  sentinels and the overload signal bus (``ADMISSION_INPUTS``) the
+  admission controller (runtime/admission.py) reads
+- events.py   — the cluster-event journal with shard/tenant/qid keys
+- profile.py  — EXPLAIN / EXPLAIN ANALYZE and the latency attributor
 
-from wukong_tpu_torch.obs.metrics import get_registry
+The JAX package's heat, reuse, device, tsdb and placement observatories,
+its HTTP endpoints and its metrics snapshotter wait for the subsystems
+they observe (ROADMAP §A 8-10).
+"""
 
-__all__ = ["get_registry"]
+from wukong_tpu_torch.obs.events import (
+    ClusterEvent,
+    EventJournal,
+    emit_event,
+    get_journal,
+    render_events,
+)
+from wukong_tpu_torch.obs.export import (
+    chrome_trace_events,
+    device_trace,
+    maybe_device_trace,
+    write_chrome_trace,
+)
+from wukong_tpu_torch.obs.metrics import MetricsRegistry, get_registry
+from wukong_tpu_torch.obs.recorder import (
+    DUMP_CODES,
+    FlightRecorder,
+    get_recorder,
+)
+from wukong_tpu_torch.obs.slo import (
+    ADMISSION_INPUTS,
+    SLOSpec,
+    get_overload,
+    get_slo,
+    render_slo,
+)
+from wukong_tpu_torch.obs.trace import (
+    QueryTrace,
+    Span,
+    StepTrace,
+    activate,
+    current,
+    maybe_start_trace,
+    trace_event,
+)
+
+__all__ = [
+    "ADMISSION_INPUTS", "ClusterEvent", "DUMP_CODES", "EventJournal",
+    "FlightRecorder", "MetricsRegistry", "QueryTrace", "SLOSpec", "Span",
+    "StepTrace", "activate", "chrome_trace_events", "current",
+    "device_trace", "emit_event", "get_journal", "get_overload",
+    "get_recorder", "get_registry", "get_slo", "maybe_device_trace",
+    "maybe_start_trace", "render_events", "render_slo", "trace_event",
+    "write_chrome_trace",
+]

@@ -33,9 +33,17 @@ Row order: the kernels expand row-major and filter in place, so a member's
 rows in the fused table are contiguous and in the order its own execution
 gives — batched replies equal sequential ones byte for byte.
 
-Left out, each waiting for its subsystem (ROADMAP §A 2.3-2.4): the shed
-notes of the SLO plane (``maybe_note_shed``) and the dispatch traces and
-flight recorder of both ``_run_fused`` methods.
+Observability, as in the JAX package: each fused dispatch (light or heavy)
+opens its own sampled ``batch.dispatch`` trace, recorded by the flight
+recorder; a member's trace gets a ``batch.dispatch`` event naming the group
+and, once the dispatch settled, a ``batch.settled`` event carrying the
+dispatch's host time (``dispatch_us``), which is how EXPLAIN ANALYZE and
+the latency attributor attribute a member's execution (obs/profile.py). A
+member shed in the batch window or at settlement is charged to the SLO
+plane's shed counters (``maybe_note_shed``). A group carries its first
+member's tenant (``tenant``), which the pool's per-tenant heavy slots key
+on. The plan and parse caches count hits and misses
+(``wukong_plan_cache_total``, ``wukong_parse_cache_total``).
 """
 
 from __future__ import annotations
@@ -50,7 +58,13 @@ from wukong_tpu_torch.analysis.lockdep import (
     make_lock,
 )
 from wukong_tpu_torch.config import Global
-from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.obs import (
+    activate,
+    get_recorder,
+    get_registry,
+    maybe_start_trace,
+)
+from wukong_tpu_torch.obs.slo import maybe_note_shed
 from wukong_tpu_torch.runtime.resilience import (
     CircuitBreaker,
     Deadline,
@@ -93,6 +107,15 @@ _M_FALLBACK = get_registry().counter(
 _M_MEMBER_TIMEOUT = get_registry().counter(
     "wukong_batch_member_timeouts_total",
     "Members individually degraded by their own deadline/budget")
+_M_PLAN_CACHE = get_registry().counter(
+    "wukong_plan_cache_total",
+    "Plan cache outcomes (hit/miss per lookup; uncacheable per refused "
+    "shape; invalidated per entry dropped by a stale recipe or a clear)",
+    labels=("result",))
+_M_PARSE_CACHE = get_registry().counter(
+    "wukong_parse_cache_total",
+    "Parse cache outcomes (hit/miss per lookup; uncacheable per "
+    "unpicklable parse artifact)", labels=("result",))
 _M_OCCUPANCY = get_registry().histogram(
     "wukong_batch_occupancy", "Group size at flush",
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
@@ -221,12 +244,15 @@ class PlanCache:
             return False
         recipe = self._lru.get((sig, version))
         if recipe is None:
+            _M_PLAN_CACHE.labels(result="miss").inc()
             return False
         if not apply_plan_recipe(q, recipe):
             # an entry existed but could not apply (stale/foreign recipe):
             # drop it so the next lookup misses cleanly
             self._lru.pop((sig, version))
+            _M_PLAN_CACHE.labels(result="invalidated").inc()
             return False
+        _M_PLAN_CACHE.labels(result="hit").inc()
         return True
 
     def record(self, parsed_patterns, q: SPARQLQuery, sig, version) -> None:
@@ -235,6 +261,10 @@ class PlanCache:
         recipe = build_plan_recipe(parsed_patterns, q)
         if recipe is not None:
             self._lru.put((sig, version), recipe)
+        else:
+            # planner-empty / corun / ambiguous-const shapes: the plan is
+            # not safely replayable
+            _M_PLAN_CACHE.labels(result="uncacheable").inc()
 
     def aux(self, kind: str, sig, version, compute):
         """Memoized per-template auxiliary plan facts (the device slice
@@ -384,13 +414,15 @@ class _Pending:
     """One caller's slot in a group: the planned query, its deadline, and
     the future the serving thread blocks on."""
 
-    __slots__ = ("q", "deadline", "event", "error")
+    __slots__ = ("q", "deadline", "trace", "event", "error", "t0_us")
 
     def __init__(self, q: SPARQLQuery):
         self.q = q
         self.deadline = getattr(q, "deadline", None)
+        self.trace = getattr(q, "trace", None)
         self.event = threading.Event()
         self.error: BaseException | None = None
+        self.t0_us = get_usec()
 
     def wait(self, timeout: float | None = None) -> SPARQLQuery:
         if not self.event.wait(timeout):
@@ -444,6 +476,10 @@ class FusedGroup:
         # arrivals accumulate while THIS dispatch runs and flush the
         # moment it completes; None = no chaining
         self.key = key
+        # owning tenant (the first member names the group): the pool's
+        # per-tenant heavy-lane slots (_heavy_pick_locked) key on it
+        self.tenant = (getattr(getattr(members[0], "q", None), "tenant",
+                               None) or "default") if members else "default"
         # in-flight accounting settled exactly once: run()'s finally
         # (engine thread) can race fail_all() from the pool's death
         # handler or the flusher
@@ -490,6 +526,8 @@ class FusedGroup:
                 # expired in the batch queue: a structured timeout for that
                 # member, the group unaffected
                 _M_MEMBER_TIMEOUT.inc()
+                maybe_note_shed("batch_window",
+                                getattr(m.q, "tenant", "default"))
                 mark_partial(m.q, QueryTimeout(
                     "deadline expired in batch window"))
                 self._finish(m)
@@ -579,7 +617,35 @@ class FusedGroup:
         res.add_var2col(vs, 1)
         res.blind = False  # the fused table IS the members' results
         fq.deadline = _fused_deadline(live)
-        eng.execute(fq, from_proxy=False)
+        # the group's own sampled trace (a batch.dispatch span, recorded by
+        # the flight recorder) and a linking event on every member's trace
+        ftrace = maybe_start_trace(kind="batch")
+        gid = ftrace.trace_id if ftrace is not None else None
+        # span attributes are host scalars: the member trace ids as one str
+        member_tids = ",".join(m.trace.trace_id for m in live
+                               if m.trace is not None)
+        for m in live:
+            if m.trace is not None:
+                m.trace.event("batch.dispatch", group=gid, size=B,
+                              reason=self.reason)
+        t0 = get_usec()
+        if ftrace is None:
+            eng.execute(fq, from_proxy=False)
+        else:
+            fq.trace = ftrace
+            with activate(ftrace):
+                with ftrace.span("batch.dispatch", size=B,
+                                 reason=self.reason, members=member_tids):
+                    eng.execute(fq, from_proxy=False)
+            get_recorder().on_complete(ftrace, fq.result.status_code)
+        # a member's execution happened inside this dispatch, not on its
+        # own trace: the dispatch's host time lets decompose() attribute
+        # the member's execute component through its group
+        dispatch_us = get_usec() - t0
+        for m in live:
+            if m.trace is not None:
+                m.trace.event("batch.settled", group=gid,
+                              dispatch_us=dispatch_us)
         return fq
 
     def _scatter(self, fq: SPARQLQuery, live: list) -> None:
@@ -606,6 +672,8 @@ class FusedGroup:
                 self.batcher.cpu._final_process(m.q)
             except (QueryTimeout, BudgetExceeded) as e:
                 _M_MEMBER_TIMEOUT.inc()
+                maybe_note_shed("batch_settle",
+                                getattr(m.q, "tenant", "default"))
                 mark_partial(m.q, e)
             except Exception as e:
                 m.error = e
@@ -799,16 +867,45 @@ class HeavyGroup(FusedGroup):
             raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
                               "heavy fusion needs a device engine")
         q0 = live[0].q
+        B = len(live)
         b = self.batcher.heavy_b(q0)
         S = self._split_factor(q0)
         dl = _fused_deadline(live)
+
+        ftrace = maybe_start_trace(kind="batch")
+        gid = ftrace.trace_id if ftrace is not None else None
+        # span attributes are host scalars: the member trace ids as one str
+        member_tids = ",".join(m.trace.trace_id for m in live
+                               if m.trace is not None)
+        for m in live:
+            if m.trace is not None:
+                m.trace.event("batch.dispatch", group=gid, size=B,
+                              reason=self.reason, lane="heavy")
+
         _M_HEAVY_SPLIT.labels(
             decision="split" if S > 1 else "no_split").inc()
-        if S > 1:
-            total = self._run_split(q0, b, S, dl)
-        else:
+
+        def dispatch() -> int:
+            if S > 1:
+                return self._run_split(q0, b, S, dl)
             _M_HEAVY_DISPATCH.labels(mode="single").inc()
-            total = self._run_slice(self._carrier(q0, 1, 0, dl), b)
+            return self._run_slice(self._carrier(q0, 1, 0, dl), b)
+
+        t0 = get_usec()
+        if ftrace is None:
+            total = dispatch()
+        else:
+            with activate(ftrace):
+                with ftrace.span("batch.dispatch", size=B, lane="heavy",
+                                 reason=self.reason, members=member_tids,
+                                 slices=S):
+                    total = dispatch()
+            get_recorder().on_complete(ftrace, ErrorCode.SUCCESS)
+        dispatch_us = get_usec() - t0
+        for m in live:
+            if m.trace is not None:
+                m.trace.event("batch.settled", group=gid,
+                              dispatch_us=dispatch_us)
         fq = SPARQLQuery()
         fq._heavy_total = total
         return fq
@@ -829,6 +926,8 @@ class HeavyGroup(FusedGroup):
                 self.batcher.cpu._final_process(m.q)
             except (QueryTimeout, BudgetExceeded) as e:
                 _M_MEMBER_TIMEOUT.inc()
+                maybe_note_shed("batch_settle",
+                                getattr(m.q, "tenant", "default"))
                 mark_partial(m.q, e)
             except Exception as e:
                 m.error = e

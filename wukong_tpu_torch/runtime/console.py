@@ -5,18 +5,22 @@ The port's copy of the JAX package's runtime/console.py on one partition:
     python -m wukong_tpu_torch.runtime.console <config> <dataset_dir> \\
         [-c "<command>"] [--device cuda|cpu]
 
-Verbs: help, quit, config, logger, sparql, sparql-emu, load-stat,
-store-stat. One-shot mode with -c, else a REPL. The engines run on the card
-unless ``--device cpu`` is given. The JAX console's other verbs (load, gsck,
-trace, explain, analyze, top, slo, admission, history, events, cache,
-device, plan, migrate, metrics, checkpoint, recover), ``--dist``, ``--bind``,
-HDFS datasets and the persistent compile cache wait for their slices
-(ROADMAP §A).
+Verbs: help, quit, config, logger, sparql (``-t <tenant>`` serves as a
+tenant), sparql-emu, load-stat, store-stat, and the reports of the
+observability plane: trace (the flight recorder), explain and analyze
+(EXPLAIN / EXPLAIN ANALYZE), slo (tenant SLOs and the overload bus),
+admission (the admission plane) and events (the event journal). One-shot
+mode with -c, else a REPL. The engines run on the card unless ``--device
+cpu`` is given. The JAX console's other verbs (load, gsck, top, history,
+cache, device, plan, migrate, metrics, checkpoint, recover), ``--dist``,
+``--bind``, HDFS datasets and the persistent compile cache wait for their
+slices (ROADMAP §A).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import shlex
 
@@ -30,12 +34,30 @@ quit                         quit from the console
 config <-v | -l <file> | -s <string>>   show/load/set config
 logger <level>               set log level (0..7)
 sparql -f <file> [-m <f>] [-n <n>] [-p <plan>] [-N] [-v <n>] [-d cpu|gpu]
-                             run a single SPARQL query
+       [-t <tenant>]         run a single SPARQL query (as a tenant)
 sparql -b <file>             run a batch of `sparql` commands from a file
 sparql-emu -f <mix_config> [-d <sec>] [-w <sec>] [-b <batch>] [-p <inflight>]
                              run the open-loop throughput emulator
 load-stat [-f <file>]        load optimizer statistics
 store-stat [-f <file>]       store optimizer statistics
+trace [-q <qid|id>] [-n <k>] [-o <file>]
+                             flight recorder: list recent traces, print one
+                             query's span tree by qid/trace id, or export
+                             Chrome trace JSON (open in ui.perfetto.dev)
+explain <-f <file> | -q <text>> [-p <plan>] [-j]
+                             EXPLAIN: planned patterns + per-step
+                             cost/cardinality estimates (no execution)
+analyze <-f <file> | -q <text>> [-d cpu|gpu] [-j]
+                             EXPLAIN ANALYZE: execute under a forced trace,
+                             join estimated vs actual per-step rows / wall
+                             time + the latency decomposition
+slo [-k <n>] [-j]            per-tenant SLO compliance / error budgets /
+                             burn rates + the overload signal bus
+admission [-k <n>] [-j]      admission control plane: overload level,
+                             per-tenant quotas/weights, decision counts
+events [-k <n>] [-s <shard>] [-K <kind>] [-j]
+                             cluster event journal: breaker trips, SLO
+                             burns, admission sheds, trace dumps
 """
 
 
@@ -73,6 +95,16 @@ class Console:
                 self._stat(rest, load=True)
             elif cmd == "store-stat":
                 self._stat(rest, load=False)
+            elif cmd == "trace":
+                self._trace(rest)
+            elif cmd in ("explain", "analyze"):
+                self._explain(rest, analyze=cmd == "analyze")
+            elif cmd == "slo":
+                self._report(rest, "slo")
+            elif cmd == "admission":
+                self._report(rest, "admission")
+            elif cmd == "events":
+                self._events(rest)
             else:
                 log_error(f"unknown command: {cmd} (try 'help')")
         except WukongError as e:
@@ -104,6 +136,8 @@ class Console:
         ap.add_argument("-N", action="store_true", help="non-blind (ship results)")
         ap.add_argument("-v", type=int, default=0, help="print first N rows")
         ap.add_argument("-d", default=None, choices=["cpu", "gpu", "dist"])
+        ap.add_argument("-t", default="default",
+                        help="tenant identity (SLO accounting, admission)")
         ns = ap.parse_args(rest)
         if (ns.f is None) == (ns.b is None):
             log_error("single mode (-f) and batch mode (-b) are exclusive "
@@ -147,7 +181,7 @@ class Console:
         blind = None if not (ns.N or ns.v) else False
         self.proxy.run_single_query(text, repeats=ns.n, plan_text=plan,
                                     mt_factor=ns.m, device=ns.d, blind=blind,
-                                    print_results=ns.v)
+                                    print_results=ns.v, tenant=ns.t)
 
     def _emu(self, rest) -> None:
         from wukong_tpu_torch.runtime.emulator import Emulator, load_mix_config
@@ -186,6 +220,136 @@ class Console:
                 return
             self.proxy.planner.stats.save(path)
             log_info(f"statistics stored to {path}")
+
+    # ------------------------------------------------------------------
+    def _trace(self, rest) -> None:
+        """Flight-recorder verbs (the console prints directly)."""
+        from wukong_tpu_torch.obs import get_recorder, write_chrome_trace
+
+        ap = argparse.ArgumentParser(prog="trace")
+        ap.add_argument("-q", default=None,
+                        help="fetch one trace by qid or trace id")
+        ap.add_argument("-n", type=int, default=16,
+                        help="how many recent traces to list/export")
+        ap.add_argument("-o", default=None,
+                        help="export Chrome trace JSON to this path")
+        ns = ap.parse_args(rest)
+        rec = get_recorder()
+        if ns.o is not None:
+            traces = ([rec.find(ns.q)] if ns.q is not None
+                      else rec.last(ns.n))
+            traces = [t for t in traces if t is not None]
+            if not traces:
+                log_error("no traces recorded (enable_tracing on?)")
+                return
+            print(f"wrote {len(traces)} trace(s) to "
+                  f"{write_chrome_trace(ns.o, traces)}")
+            return
+        if ns.q is not None:
+            tr = rec.find(ns.q)
+            if tr is None:
+                log_error(f"no trace for {ns.q!r} in the flight recorder")
+                return
+            print(f"trace {tr.trace_id} qid={tr.qid} kind={tr.kind} "
+                  f"tenant={tr.tenant} status={tr.status} "
+                  f"dur={tr.dur_us:,}us")
+            if tr.text:
+                print(f"  query: {' '.join(tr.text.split())[:120]}")
+            for sp in tr.spans:
+                pad = "  " * (sp.depth + 1)
+                attrs = " ".join(f"{k}={v}" for k, v in sp.attrs.items())
+                print(f"{pad}{sp.name} {sp.dur_us:,}us"
+                      + (f" [{attrs}]" if attrs else ""))
+                for (_t, name, a) in sp.events:
+                    ev = " ".join(f"{k}={v}" for k, v in a.items())
+                    print(f"{pad}  ! {name}" + (f" [{ev}]" if ev else ""))
+            return
+        traces = rec.last(ns.n)
+        if not traces:
+            log_error("flight recorder is empty (enable_tracing on?)")
+            return
+        for tr in traces:
+            print(f"{tr.trace_id}  qid={tr.qid:<6} {tr.kind:<7} "
+                  f"{tr.status:<16} {tr.dur_us:>10,}us "
+                  f"{len(tr.spans):>3} spans")
+        if rec.dumps:
+            print(f"({len(rec.dumps)} auto-dumped: "
+                  + ", ".join(f"{r}:{t.trace_id}"
+                              for r, t in list(rec.dumps)[-8:]) + ")")
+
+    def _explain(self, rest, analyze: bool) -> None:
+        """explain / analyze over Proxy.explain_query (obs/profile.py)."""
+        prog = "analyze" if analyze else "explain"
+        ap = argparse.ArgumentParser(prog=prog)
+        ap.add_argument("-f", default=None, help="query file")
+        ap.add_argument("-q", default=None, help="inline query text")
+        ap.add_argument("-d", default=None, choices=["cpu", "gpu"])
+        ap.add_argument("-p", default=None, help="user plan file (EXPLAIN)")
+        ap.add_argument("-j", action="store_true",
+                        help="print the structured JSON report")
+        ns = ap.parse_args(rest)
+        if (ns.f is None) == (ns.q is None):
+            log_error(f"usage: {prog} <-f <file> | -q <text>>")
+            return
+        try:
+            if ns.f:
+                with open(ns.f) as f:
+                    text = f.read()
+            else:
+                text = ns.q
+            plan = None
+            if ns.p:
+                with open(ns.p) as f:
+                    plan = f.read()
+        except OSError as e:  # a mistyped path must not kill the REPL
+            log_error(f"cannot read file: {e}")
+            return
+        report = self.proxy.explain_query(text, analyze=analyze,
+                                          device=ns.d, plan_text=plan)
+        if ns.j:
+            print(json.dumps({k: v for k, v in report.items()
+                              if k != "rendered"},
+                             indent=1, sort_keys=True, default=str))
+        else:
+            print(report["rendered"])
+
+    @staticmethod
+    def _print_report(json_out: bool, text: str, js: dict) -> None:
+        """The shared (text, JSON) epilogue of every report verb."""
+        if json_out:
+            print(json.dumps(js, indent=1, sort_keys=True, default=str))
+        else:
+            print(text, end="")
+
+    def _report(self, rest, verb: str) -> None:
+        """slo: per-tenant compliance / error budgets / burn rates + the
+        overload signal bus; admission: the admission control plane."""
+        from wukong_tpu_torch.obs.slo import render_slo
+        from wukong_tpu_torch.runtime.admission import render_admission
+
+        ap = argparse.ArgumentParser(prog=verb)
+        ap.add_argument("-k", type=int, default=None,
+                        help="tenant rows shown (default: the top_k knob)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        render = render_slo if verb == "slo" else render_admission
+        self._print_report(ns.j, *render(ns.k))
+
+    def _events(self, rest) -> None:
+        """events: the cluster event journal."""
+        from wukong_tpu_torch.obs.events import render_events
+
+        ap = argparse.ArgumentParser(prog="events")
+        ap.add_argument("-k", type=int, default=None,
+                        help="events shown (default: 4x the top_k knob)")
+        ap.add_argument("-s", type=int, default=None, metavar="shard",
+                        help="only events correlated to this shard")
+        ap.add_argument("-K", default=None, metavar="kind",
+                        help="only events of this kind")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_events(ns.k, shard=ns.s,
+                                                kind=ns.K))
 
     # ------------------------------------------------------------------
     def repl(self) -> None:

@@ -23,11 +23,21 @@ knobs per instance: queue-expired queries are shed by the pool, mid-query
 expiry yields a partial result. Device batches are all-or-nothing
 dispatches and carry no per-query deadline.
 
+With tracing on, each device flight runs under a sampled
+``batch.dispatch`` trace of kind ``device_batch`` (``_traced_flight``),
+recorded by the flight recorder; ``WUKONG_TRACE_CHROME=<path>`` writes every
+recorded trace as a Chrome trace at the end of a run.
+
 ``Emulator.run_serving`` is the other throughput measure: closed-loop
 client threads sending query TEXTS through ``Proxy.serve_query`` (live
-traffic, coalesced by the batcher when ``enable_batching`` is on). The JAX
-emulator's other scenario runners (tenants, drills), its metrics
-snapshotter and its trace export wait for the subsystems they drive.
+traffic, coalesced by the batcher when ``enable_batching`` is on).
+``Emulator.run_tenants`` is the multi-tenant scenario: tenant classes with
+conflicting SLOs send closed-loop traffic through
+``serve_query(text, tenant=...)``, optionally under injected faults
+(``chaos``) or at a multiple of their client counts (``overload_x``, the
+admission drill). The JAX emulator's other scenario runners (drills, hot
+spots, rebalancing) and its metrics snapshotter wait for the subsystems
+they drive.
 """
 
 from __future__ import annotations
@@ -40,6 +50,12 @@ import time
 import numpy as np
 
 from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.obs import (
+    activate,
+    get_recorder,
+    maybe_start_trace,
+    write_chrome_trace,
+)
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
 from wukong_tpu_torch.runtime.monitor import Monitor
 from wukong_tpu_torch.runtime.resilience import Deadline
@@ -252,6 +268,12 @@ class Emulator:
                  f"{precompiled}-class warm-up; "
                  f"{'GPU batch + ' if use_gpu else ''}pool p={p_cap})")
         self.monitor.print_cdf(labels=self.class_mode)
+        chrome = os.environ.get("WUKONG_TRACE_CHROME")
+        if chrome:
+            # every trace the flight recorder holds (this run's sampled
+            # flights), Perfetto-loadable
+            log_info("sparql-emu: Chrome trace written to "
+                     f"{write_chrome_trace(chrome, get_recorder().last())}")
         return {"thpt_qps": thpt, "wall_qps": round(wall_qps, 1),
                 "precompiled_classes": precompiled, "errors": errors,
                 "shed": shed, "class_mode": dict(self.class_mode),
@@ -345,12 +367,217 @@ class Emulator:
                 }
         return out
 
+    # ------------------------------------------------------------------
+    # the multi-tenant SLO scenario
+    # ------------------------------------------------------------------
+    def run_tenants(self, texts: list, duration_s: float = 3.0,
+                    warmup_s: float = 0.3, tenants: list | None = None,
+                    chaos: bool = False, chaos_p: float = 0.25,
+                    overload_x: float = 1.0, seed: int = 0) -> dict:
+        """Tenant classes with conflicting SLOs drive closed-loop clients
+        through the real serving entry (``serve_query(text, blind=True,
+        tenant=...)``), so per-tenant compliance, remaining error budget
+        and burn rates land in the SLO tracker and the rolling report.
+
+        The default cast is three classes: ``gold`` (2 clients; p95 within
+        50 ms, three nines — almost no error budget), ``silver`` (2
+        clients; p95 within 500 ms, 0.99) and ``bulk`` (4 clients; 0.9, no
+        latency target). ``chaos=True`` injects transient failures at the
+        ``proxy.serve`` boundary with the same probability ``chaos_p`` for
+        every tenant, with tracing forced on at sample 1: only tenants
+        whose budget cannot absorb the fault rate trip the burn sentinel,
+        each with one dumped trace per cooldown. A class entry may carry
+        its own ``texts``; otherwise every class draws from ``texts``.
+        ``overload_x`` multiplies every class's client count (the admission
+        drill: with ``enable_admission`` on, the per-tenant ``partial`` and
+        ``rejected`` counts and the ``admission`` report show the ladder
+        shedding lowest weight first). As in the JAX fixture, a client
+        whose request is rejected sends its next one at once."""
+        from wukong_tpu_torch.obs.slo import (
+            SLOSpec,
+            get_overload,
+            get_slo,
+            render_slo,
+            reset_labels,
+        )
+        from wukong_tpu_torch.runtime import faults
+        from wukong_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+
+        classes = tenants if tenants is not None else [
+            {"tenant": "gold", "clients": 2,
+             "slo": SLOSpec("gold", 0.95, 50.0, 0.999)},
+            {"tenant": "silver", "clients": 2,
+             "slo": SLOSpec("silver", 0.95, 500.0, 0.99)},
+            {"tenant": "bulk", "clients": 4,
+             "slo": SLOSpec("bulk", 0.95, 0.0, 0.9)},
+        ]
+        tracker, signals = get_slo(), get_overload()
+        tracker.reset()  # the scenario's report starts from a clean slate
+        signals.reset()
+        reset_labels()
+        get_recorder().clear()
+        for c in classes:
+            if c.get("slo") is not None:
+                tracker.register(c["slo"])
+
+        prev_plan = faults.active()
+        prev_tracing = (Global.enable_tracing, Global.trace_sample_every)
+        if chaos:
+            # a burn dump must carry an attributable trace
+            Global.enable_tracing = True
+            Global.trace_sample_every = 1
+            faults.install(FaultPlan(
+                [FaultSpec("proxy.serve", "transient", p=chaos_p)],
+                seed=seed))
+
+        stop = threading.Event()
+        t_measure = [time.monotonic() + warmup_s]
+        stats = [{"served": 0, "errors": 0, "partial": 0, "rejected": 0,
+                  "lat": []} for _ in classes]
+
+        def client(ti: int, k: int) -> None:
+            c = classes[ti]
+            pool = c.get("texts") or texts
+            name = c["tenant"]
+            rng = np.random.default_rng(seed * 1009 + ti * 31 + k)
+            while not stop.is_set():
+                text = pool[int(rng.integers(0, len(pool)))]
+                t0 = get_usec()
+                partial = rejected = False
+                try:
+                    q = self.proxy.serve_query(text, blind=True,
+                                               tenant=name)
+                    ok = q.result.status_code == ErrorCode.SUCCESS
+                    # the ladder's rung 2: a truncated reply
+                    # (mark_partial) counts as neither served nor error
+                    partial = not q.result.complete
+                except WukongError as e:
+                    ok = False
+                    rejected = e.code == ErrorCode.CAPACITY_EXCEEDED
+                except Exception:
+                    ok = False
+                dt = get_usec() - t0
+                if time.monotonic() >= t_measure[0]:
+                    st = stats[ti]
+                    if rejected:
+                        st["rejected"] += 1
+                    elif partial:
+                        st["partial"] += 1
+                    elif ok:
+                        st["served"] += 1
+                        st["lat"].append(dt)
+                    else:
+                        st["errors"] += 1
+                    self.monitor.add_latency(dt, qtype=ti)
+
+        nclients = {c["tenant"]: max(int(round(
+            int(c.get("clients", 1)) * max(float(overload_x), 0.1))), 1)
+            for c in classes}
+        threads = [threading.Thread(target=client, args=(ti, k),
+                                    daemon=True,
+                                    name=f"tenant-{c['tenant']}-{k}")
+                   for ti, c in enumerate(classes)
+                   for k in range(nclients[c["tenant"]])]
+        try:
+            for t in threads:
+                t.start()
+            t_end = time.monotonic() + warmup_s + duration_s
+            started = False
+            while time.monotonic() < t_end:
+                if not started and time.monotonic() >= t_measure[0]:
+                    self.monitor.start_thpt()
+                    started = True
+                self.monitor.maybe_print_thpt()
+                time.sleep(0.05)
+            stop.set()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            stop.set()
+            faults.install(prev_plan)
+            Global.enable_tracing, Global.trace_sample_every = prev_tracing
+        stuck = sum(t.is_alive() for t in threads)
+        if stuck:
+            raise RuntimeError(f"run_tenants: {stuck} clients still "
+                               "waiting 60 s after the run ended")
+
+        out_tenants: dict = {}
+        total = 0
+        for ti, c in enumerate(classes):
+            name = c["tenant"]
+            st = stats[ti]
+            lat = sorted(st["lat"])
+            total += st["served"]
+            out_tenants[name] = {
+                "clients": nclients[name],
+                "served": st["served"],
+                "errors": st["errors"],
+                "partial": st["partial"],
+                "rejected": st["rejected"],
+                "qps": round(st["served"] / duration_s, 1),
+                "p50_us": int(lat[len(lat) // 2]) if lat else 0,
+                "p99_us": int(lat[int(len(lat) * 0.99)]) if lat else 0,
+                "slo": tracker.compliance(name),
+            }
+        burn_dumps = [(r, tr) for (r, tr) in list(get_recorder().dumps)
+                      if r == "SLO_BURN"]
+        out = {
+            "duration_s": duration_s,
+            "chaos": bool(chaos),
+            "chaos_p": chaos_p if chaos else 0.0,
+            "overload_x": float(overload_x),
+            "qps": round(total / duration_s, 1),
+            "tenant_qps": round(total / duration_s, 1),
+            "tenants": out_tenants,
+            "alerts": {n: (d["slo"] or {}).get("alerts", 0)
+                       for n, d in out_tenants.items()},
+            "burn_dumps": [{"tenant": tr.tenant, "trace": tr.trace_id}
+                           for (_r, tr) in burn_dumps],
+            "slo_report": tracker.report(),
+            "signals": signals.report(),
+        }
+        if Global.enable_admission:
+            from wukong_tpu_torch.runtime.admission import get_admission
+
+            out["admission"] = get_admission().report()
+        for line in self.monitor.slo_lines(k=len(classes)):
+            log_info(line)
+        log_info(f"run_tenants: {out['qps']:,.0f} q/s over {duration_s}s"
+                 f" ({len(classes)} classes, chaos={chaos}); alerts "
+                 + " ".join(f"{n}:{a}" for n, a in out["alerts"].items()))
+        if chaos and not burn_dumps:
+            log_warn("run_tenants: chaos ran but no burn dump landed "
+                     "(thresholds/budgets absorb the fault rate?)")
+        _text, js = render_slo()
+        out["slo_json"] = js
+        return out
+
     def _plan(self, q) -> None:
         """The proxy's planner when enabled, else the greedy heuristic."""
         if self.proxy.planner is not None and Global.enable_planner:
             if self.proxy.planner.generate_plan(q):
                 return
         heuristic_plan(q)
+
+    @staticmethod
+    def _traced_flight(fn, **attrs):
+        """One device flight under a sampled ``batch.dispatch`` span (its
+        attributes host scalars: the drawn classes as one str); the
+        untraced path is one knob check + ``fn()``."""
+        ftr = maybe_start_trace(kind="device_batch")
+        if ftr is None:
+            return fn()
+        with activate(ftr):
+            sp = ftr.start_span("batch.dispatch", **attrs)
+            try:
+                out = fn()
+            except Exception:
+                ftr.end_span(sp, status="ERROR")
+                get_recorder().on_complete(ftr, "ERROR")
+                raise
+            ftr.end_span(sp)
+        get_recorder().on_complete(ftr, ErrorCode.SUCCESS)
+        return out
 
     def _device_batch(self, kind, tmpl, q0, rng, B: int, cls: int) -> bool:
         """Try the synchronous batch path; True when it ran."""
@@ -384,7 +611,10 @@ class Emulator:
                          self._draw_consts(self._planned[c][1], rng, B))
                         for c in draws]
                 try:
-                    gpu.execute_batch_mixed(jobs)
+                    self._traced_flight(
+                        lambda: gpu.execute_batch_mixed(jobs),
+                        mode="mixed", W=W, B=B,
+                        classes=",".join(map(str, sorted(set(draws)))))
                 except WukongError:
                     # the failure could come from any drawn class's chain:
                     # de-warm them all (each re-warms through its own
@@ -404,7 +634,10 @@ class Emulator:
                     self.class_mode[c] = "device-batch"
                 return True
             try:
-                gpu.execute_batch(q0, self._draw_consts(tmpl, rng, B))
+                self._traced_flight(
+                    lambda: gpu.execute_batch(
+                        q0, self._draw_consts(tmpl, rng, B)),
+                    mode="const", W=1, B=B, classes=str(cls))
                 q0._many_warm = True
                 if self._mixed_fail.get(cls, 0) >= self.MIXED_FAIL_LIMIT:
                     # parole after a clean single-class batch: one credit,
@@ -430,9 +663,13 @@ class Emulator:
             t0 = get_usec()
             try:
                 if W > 1:
-                    gpu.execute_batch_index_many(q0, bh, W)
+                    self._traced_flight(
+                        lambda: gpu.execute_batch_index_many(q0, bh, W),
+                        mode="index", W=W, B=bh, classes=str(cls))
                 else:
-                    gpu.execute_batch_index(q0, bh)
+                    self._traced_flight(
+                        lambda: gpu.execute_batch_index(q0, bh),
+                        mode="index", W=1, B=bh, classes=str(cls))
                     q0._many_warm = True
             except WukongError as e:
                 # this class rides the pool from now on

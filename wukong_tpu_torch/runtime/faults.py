@@ -22,9 +22,9 @@ The port's sites (``KNOWN_FAULT_SITES``):
   runtime/batcher.py (a failed slice is re-run once on the gather thread).
 
 A plan may name sites of the JAX package the port does not have yet; they
-never fire. When no plan is installed every hook is a cheap no-op. The JAX
-package also records each firing on its trace and metrics registry, which
-the port does not have yet.
+never fire. When no plan is installed every hook is a cheap no-op. Each
+firing is a ``fault.injected`` event on the ambient trace and counts
+``wukong_faults_injected_total{site,kind}``.
 """
 
 from __future__ import annotations
@@ -115,6 +115,17 @@ class FaultPlan:
                     continue
                 sp.fired += 1
                 self.history.append((site, shard, sp.kind))
+            # an injected fault lands on the ambient trace and the metrics
+            # registry, so a chaos run's trace explains itself
+            from wukong_tpu_torch.obs.metrics import get_registry
+            from wukong_tpu_torch.obs.trace import trace_event
+
+            trace_event("fault.injected", site=site, kind=sp.kind,
+                        shard=shard)
+            get_registry().counter(
+                "wukong_faults_injected_total", "Injected fault firings",
+                labels=("site", "kind")).labels(site=site,
+                                                kind=sp.kind).inc()
             if sp.kind == "delay":
                 self.sleep(sp.delay_s)
             elif sp.kind == "transient":

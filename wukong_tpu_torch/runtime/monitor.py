@@ -3,11 +3,14 @@
 The port's copy of the JAX package's runtime/monitor.py: per-query-class
 latency vectors aggregated into a CDF, and rolling throughput reports — the
 measurements the reference's proxy prints during ``sparql -n N`` and
-``sparql-emu`` runs — and the heavy lane's rolling line, read from the
-metrics registry (``lane_lines``). The JAX package's lines for subsystems
-the port does not have yet (circuit breakers, stream epochs, heat, SLO,
-admission, events, placement, migration, caches, device observatory) and
-its latency histogram are left out.
+``sparql-emu`` runs — with every latency also observed into the registry's
+``wukong_query_latency_us{qtype}`` histogram, and the rolling lines read
+back from the observability plane: the heavy lane (``lane_lines``), the
+tenant SLOs (``slo_lines``), the admission plane (``admission_lines``) and
+the event journal (``events_lines``). The JAX package's lines for
+subsystems the port does not have yet (circuit-breaker registry, stream
+epochs, heat, placement, migration, caches, device observatory) are left
+out.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ from wukong_tpu_torch.obs.metrics import (
 )
 from wukong_tpu_torch.utils.logger import log_info
 from wukong_tpu_torch.utils.timer import get_usec
+
+_M_LATENCY = get_registry().histogram(
+    "wukong_query_latency_us", "Per-query latency by class (usec)",
+    labels=("qtype",))
 
 
 def _cdf(vals, points=(0.5, 0.9, 0.95, 0.99, 1.0)) -> dict[float, float]:
@@ -48,6 +55,7 @@ class Monitor:
         queries of ``usec`` each)."""
         self.latencies[qtype].extend([usec] * count)
         self.cnt += count
+        _M_LATENCY.labels(qtype=qtype).observe(usec, count=count)
 
     # -- open-loop throughput (monitor.hpp timely print) -------------------
     def start_thpt(self) -> None:
@@ -109,3 +117,69 @@ class Monitor:
             snap, "wukong_batch_heavy_occupancy") or 0.0
         return [f"HeavyLane: depth {depth}, {disp} fused dispatches "
                 f"({heavy_sub} lane submits), mean group {mean:.1f}"]
+
+    def slo_lines(self, k: int = 3) -> list[str]:
+        """Rolling-report lines for the tenant SLO plane (obs/slo.py): the
+        k worst-burning spec'd tenants' compliance, remaining error budget
+        and burn rates; quiet when no spec'd tenant replied."""
+        from wukong_tpu_torch.obs.slo import get_slo
+
+        rows = [r for r in get_slo().report()["tenants"]
+                if r["spec"] is not None]
+        if not rows:
+            return []
+        parts = []
+        for r in rows[:k]:
+            burn = r.get("burn") or {}
+            parts.append(
+                f"{r['tenant']}: compl "
+                + ("-" if r["compliance"] is None
+                   else f"{r['compliance']:.1%}")
+                + f" budget {r.get('error_budget_remaining', 0):.0%}"
+                + f" burn {burn.get('fast', 0):.1f}/{burn.get('slow', 0):.1f}"
+                + (f" alerts {r['alerts']}" if r["alerts"] else ""))
+        return ["SLO[" + "  ".join(parts) + "]"]
+
+    def admission_lines(self, k: int = 3) -> list[str]:
+        """Rolling-report line for the admission plane
+        (runtime/admission.py): the overload level and the k busiest
+        tenants' non-admit decision counts; quiet while the plane is off or
+        has decided nothing."""
+        from wukong_tpu_torch.config import Global
+
+        if not Global.enable_admission:
+            return []
+        from wukong_tpu_torch.runtime.admission import get_admission
+
+        rep = get_admission().report()
+        decisions = rep["decisions"]
+        if not decisions:
+            return []
+        shed = {kt: n for kt, n in decisions.items()
+                if not kt.startswith("admit/")}
+        top = sorted(shed.items(), key=lambda kv: -kv[1])[:k]
+        parts = [f"{kt}:{n}" for kt, n in top]
+        total = sum(decisions.values())
+        return ["Admission[level " + str(rep["level"])
+                + f" {total:,} decisions"
+                + ("  " + "  ".join(parts) if parts else "") + "]"]
+
+    def events_lines(self, k: int = 4) -> list[str]:
+        """Rolling-report line for the event journal (obs/events.py): the
+        total, the k most frequent kinds and the newest event; quiet while
+        nothing was journaled."""
+        from wukong_tpu_torch.obs.events import get_journal
+
+        j = get_journal()
+        counts = j.counts()
+        if not counts:
+            return []
+        top = sorted(counts.items(), key=lambda kv: (-kv[1], kv[0]))[:k]
+        newest = j.last(1)
+        tail = ""
+        if newest:
+            e = newest[0]
+            tail = (f"; last {e.event_id} {e.kind}"
+                    + (f" shard={e.shard}" if e.shard is not None else ""))
+        return ["Events[" + "  ".join(f"{kd}:{n}" for kd, n in top)
+                + f"] ({sum(counts.values())} total{tail})"]

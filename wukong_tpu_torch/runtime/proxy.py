@@ -24,18 +24,36 @@ glues parser -> planner -> engine:
 
 Plans come from the cost-based planner when the proxy has one
 (``Global.enable_planner``), else from a user plan's text, else from the
-greedy heuristic, in the JAX proxy's order. The JAX proxy's hooks into
-subsystems the port does not have yet (tracing, SLOs, admission, the result
-cache and views, the distributed engine, streams, vectors, tensor joins,
-compiled templates, recovery) are left out; ROADMAP
-§A lists each. ``_serve_execute`` keeps the fault site, the batching branch
-and the direct dispatch of the JAX one; its result-cache lease and its
-``wcoj``, template and knn branches wait for their subsystems (§A 4-8).
+greedy heuristic, in the JAX proxy's order.
+
+Multi-tenant serving, as in the JAX proxy: both entry points take a
+``tenant``. A query's trace starts at receipt (sampled by the tracing
+knobs; ``proxy.parse`` and ``proxy.plan`` spans, then activated around the
+execution), ``_admit`` bounds the tenant label and notes the arrival on the
+overload bus, ``_consult_admission`` asks the admission controller
+(runtime/admission.py; rung 1 sleeps here, rung 2 stamps a tighter
+deadline and row budget on the prepared query, rung 3 raises
+CAPACITY_EXCEEDED before any engine runs), and every exit, the error path
+included, counts ``wukong_queries_total{status,tenant}``, hands the trace to
+the flight recorder, and folds the reply into the tenant's SLO window
+(``_observe_slo``, where the burn sentinel fires). With ``xprof_dir`` set,
+``run_single_query``'s execution runs inside a torch.profiler capture
+(obs/export.py). ``explain_query`` is EXPLAIN / EXPLAIN ANALYZE
+(obs/profile.py).
+
+The JAX proxy's hooks into subsystems the port does not have yet (the
+result cache and its fast path, views, the reuse observatory, the
+distributed engine, streams, vectors, tensor joins, compiled templates,
+recovery) are left out; ROADMAP §A lists each. ``_serve_execute`` keeps the
+fault site, the batching branch and the direct dispatch of the JAX one; its
+result-cache lease and its ``wcoj``, template and knn branches wait for
+their subsystems (§A 4-8).
 """
 
 from __future__ import annotations
 
 import pickle
+import time
 
 import numpy as np
 
@@ -43,10 +61,20 @@ from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.tpu import GPUEngine
+from wukong_tpu_torch.obs import (
+    activate,
+    get_recorder,
+    get_registry,
+    maybe_device_trace,
+    maybe_start_trace,
+)
+from wukong_tpu_torch.obs.slo import get_overload, get_slo, tenant_label
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
 from wukong_tpu_torch.planner.plan_file import set_plan
 from wukong_tpu_torch.runtime import faults
+from wukong_tpu_torch.runtime.admission import maybe_admission
 from wukong_tpu_torch.runtime.batcher import (
+    _M_PARSE_CACHE,
     PlanCache,
     QueryBatcher,
     snapshot_patterns,
@@ -65,6 +93,19 @@ from wukong_tpu_torch.utils.timer import get_usec
 # ceiling on how long a serving thread waits for a coalesced dispatch to
 # settle — a wedged batcher surfaces as an error, never as a hung client
 BATCH_WAIT_TIMEOUT_S = 600.0
+
+# a rung-3 rejection sleeps this long before it raises, with the GIL
+# released. A caller that retries rejections at once (a closed-loop client
+# in this process) would otherwise keep a thread runnable on the GIL at
+# every moment, and each hand-off on an admitted query's path (the
+# batcher's flusher, a pool thread, the wake after the chain's sync) waits
+# behind it; a cheaper rejection only makes the loop spin faster. In the
+# overload drill of bench.py --tenants on an H100 host
+# (scripts/torch_tenants_ab.py), 0, 0.2 and 1 ms left the protected tenant
+# out of its SLO, and so did a 0.5 ms GIL switch interval; 2 ms held in one
+# turn of two, 5 ms in every turn. A deviation: the JAX proxy raises at
+# once.
+REJECT_YIELD_S = 5e-3
 
 
 def _batch_wait_timeout(q) -> float:
@@ -100,6 +141,16 @@ class Proxy:
         self.cpu = (self.gpu.cpu if self.gpu is not None
                     else CPUEngine(gstore, str_server))
         self.monitor = Monitor()
+        # observability: the flight recorder and the metrics registry
+        # (console verbs `trace` / `slo` read these back)
+        self.recorder = get_recorder()
+        self.metrics = get_registry()
+        self._m_queries = self.metrics.counter(
+            "wukong_queries_total", "Proxy queries by reply status and tenant",
+            labels=("status", "tenant"))
+        self._m_lane = self.metrics.counter(
+            "wukong_lane_routed_total",
+            "Plan-time light/heavy lane routing decisions", labels=("lane",))
         self._pool = None
         self._batcher = None  # the request coalescer, started on first use
         self._batcher_init_lock = make_lock("proxy.batcher_init")
@@ -127,7 +178,9 @@ class Proxy:
         every hit gets a pristine query (no execution state leaks)."""
         blob = self._parse_cache.get(text)
         if blob is not None:
+            _M_PARSE_CACHE.labels(result="hit").inc()
             return pickle.loads(blob)
+        _M_PARSE_CACHE.labels(result="miss").inc()
         q = Parser(self.str_server).parse(text)
         self._parse_cache.put(
             text, pickle.dumps(q, protocol=pickle.HIGHEST_PROTOCOL))
@@ -169,15 +222,19 @@ class Proxy:
         heuristic_plan(q)
         self._plan_cache.record(parsed, q, sig, version)
 
-    def _plan_prepared(self, q: SPARQLQuery, blind, plan_text) -> None:
-        """The prepare tail shared by both entry points: blind mode, the
-        resilience knobs' deadline, planning, plan-time lane routing."""
+    def _plan_prepared(self, q: SPARQLQuery, blind, plan_text,
+                       tenant: str = "default") -> None:
+        """The prepare tail shared by both entry points: tenant stamp,
+        blind mode, the resilience knobs' deadline, planning, plan-time
+        lane routing."""
+        q.tenant = tenant
         q.mt_factor = 1
         q.result.blind = Global.silent if blind is None else blind
         # per-query deadline + work budget (None when both knobs are off)
         q.deadline = Deadline.from_config()
         self._plan(q, plan_text)
         q.lane = self.classify_lane(q)
+        self._m_lane.labels(lane=q.lane).inc()
 
     def _engine_for(self, device: str | None):
         """``device`` "cpu" | "gpu" | None (the GPU engine when
@@ -198,24 +255,46 @@ class Proxy:
     def run_single_query(self, text: str, repeats: int = 1,
                          plan_text: str | None = None, mt_factor: int = 1,
                          device: str | None = None, blind: bool | None = None,
-                         print_results: int = 0) -> SPARQLQuery:
+                         print_results: int = 0,
+                         tenant: str = "default") -> SPARQLQuery:
         """sparql -f <file> [-n repeats] [-p plan] [-m mt] [-N] [-v N]
-        [-d cpu|gpu] (console.hpp:141-153). ``blind`` None follows
-        ``Global.silent``."""
+        [-d cpu|gpu] [-t tenant] (console.hpp:141-153). ``blind`` None
+        follows ``Global.silent``."""
         if mt_factor > 1:
             # the reference fans an index scan out to mt_factor threads
             # (sparql.hpp:1064-1088); one device chain scans the whole index
             log_info("-m (mt_factor) is vectorized away on this engine; "
                      "running the full index scan")
         if repeats < 1:
+            # validated before admission: a raise past _admit would leak
+            # the tenant's in-flight slot
             raise WukongError(ErrorCode.SYNTAX_ERROR, "repeats must be >= 1")
+        # the query's trace, started at receipt (None with tracing off)
+        trace = maybe_start_trace(kind="query", text=text)
+        t0_us = get_usec()
+        ten = self._admit(tenant)
+        if trace is not None:
+            trace.tenant = ten
+        adm_d = None
 
         def prepare():
-            qq = self._parse_text(text)
-            self._plan_prepared(qq, blind, plan_text)
-            return qq
+            return self._prepare(text, blind, plan_text, ten, trace, adm_d)
 
-        q, total_us = self._run_repeats(prepare, repeats, device)
+        try:
+            adm_d = self._consult_admission(ten)
+            # the trace is ambient on this thread too (parse, plan and
+            # fallback decisions), and with xprof_dir set the execution
+            # runs inside a device capture
+            with activate(trace), maybe_device_trace():
+                q, total_us = self._run_repeats(prepare, repeats, device,
+                                                trace)
+        except Exception as e:
+            self._reply_failed(e, ten, t0_us, trace)
+            raise
+        self._reply(q, ten, t0_us, trace, text)
+        if trace is not None:
+            log_info(f"trace {trace.trace_id} (qid {trace.qid}) recorded: "
+                     f"{len(trace.spans)} spans, {trace.dur_us:,}us")
         if q.result.status_code != ErrorCode.SUCCESS:
             if not q.result.complete:
                 # a structured partial reply: the rows produced before the
@@ -234,22 +313,87 @@ class Proxy:
         return q
 
     def serve_query(self, text: str, blind: bool = False,
-                    device: str | None = None) -> SPARQLQuery:
+                    device: str | None = None,
+                    tenant: str = "default") -> SPARQLQuery:
         """Run one query through the same execution loop as
         run_single_query; the reply is ``q.result`` (the table, or only the
         row count when ``blind``; ``attr_table`` for attribute variables).
-        A shape no engine can run ends on ``q.result.status_code``. Unlike
-        the JAX proxy's, ``blind`` defaults to False (the table), as the
-        port's callers in Python read it."""
+        A shape no engine can run ends on ``q.result.status_code``; an
+        admission rejection raises CAPACITY_EXCEEDED. ``tenant`` is the
+        caller's identity, stamped on the query, its trace and every
+        reply-side metric. Unlike the JAX proxy's, ``blind`` defaults to
+        False (the table), as the port's callers in Python read it, and a
+        traced reply carries ``proxy.parse`` and ``proxy.plan`` spans as
+        run_single_query's does."""
+        trace = maybe_start_trace(kind="query", text=text)
+        t0_us = get_usec()
+        ten = self._admit(tenant)
+        if trace is not None:
+            trace.tenant = ten
+        adm_d = None
 
         def prepare():
-            qq = self._parse_text(text)
-            self._plan_prepared(qq, blind, None)
-            return qq
+            return self._prepare(text, blind, None, ten, trace, adm_d)
 
-        return self._run_repeats(prepare, 1, device)[0]
+        try:
+            adm_d = self._consult_admission(ten)
+            with activate(trace):
+                q, _us = self._run_repeats(prepare, 1, device, trace)
+        except Exception as e:
+            self._reply_failed(e, ten, t0_us, trace)
+            raise
+        self._reply(q, ten, t0_us, trace, text)
+        return q
 
-    def _run_repeats(self, prepare, repeats: int, device):
+    def _prepare(self, text: str, blind, plan_text, ten: str, trace,
+                 adm_d) -> SPARQLQuery:
+        """Parse and plan one query for an entry point, under the trace's
+        ``proxy.parse`` and ``proxy.plan`` spans when it has one, with a
+        rung-2 admission's deadline and row budget stamped on it."""
+        if trace is None:
+            q = self._parse_text(text)
+            self._plan_prepared(q, blind, plan_text, tenant=ten)
+        else:
+            with trace.span("proxy.parse"):
+                q = self._parse_text(text)
+            q.trace = trace
+            q.qid = trace.qid
+            with trace.span("proxy.plan"):
+                self._plan_prepared(q, blind, plan_text, tenant=ten)
+        if adm_d is not None:
+            adm_d.apply(q)
+        return q
+
+    def _reply(self, q: SPARQLQuery, ten: str, t0_us: int, trace,
+               text: str) -> None:
+        """Reply-side observability: the status counter, the flight
+        recorder (dumping on timeout/budget/slow), latency attribution,
+        then the SLO window — after the trace is finished, so a burn dump
+        serializes a completed trace — and the row-budget accounting."""
+        status = q.result.status_code
+        self._m_queries.labels(status=status.name, tenant=ten).inc()
+        if trace is not None:
+            self.recorder.on_complete(trace, status)
+            self._attribute(trace, q, text)
+        self._observe_slo(ten, get_usec() - t0_us,
+                          ok=status == ErrorCode.SUCCESS, status=status,
+                          trace=trace)
+        self._note_admission_reply(ten, q)
+
+    def _reply_failed(self, e: Exception, ten: str, t0_us: int,
+                      trace) -> None:
+        """A parse, plan or admission failure raises before any reply
+        exists; it still reaches the reply-side observability."""
+        code = e.code if isinstance(e, WukongError) else "ERROR"
+        self._m_queries.labels(
+            status=code.name if isinstance(code, ErrorCode) else str(code),
+            tenant=ten).inc()
+        if trace is not None:
+            self.recorder.on_complete(trace, code)
+        self._observe_slo(ten, get_usec() - t0_us, ok=False, status=code,
+                          trace=trace)
+
+    def _run_repeats(self, prepare, repeats: int, device, trace=None):
         """The repeat and capacity-fallback execution loop; returns (last
         query, total execution usec). A batched member that ends
         CAPACITY_EXCEEDED (its fused group failed and re-ran it alone on
@@ -269,6 +413,9 @@ class Proxy:
                 # classes, so the query runs again there
                 log_info("device capacity exceeded; degrading to the "
                          "host engine")
+                if trace is not None:
+                    trace.event("proxy.fallback", reason="capacity",
+                                to="cpu")
                 q = prepare()
                 t0 = get_usec()
                 self.cpu.execute(q)
@@ -277,6 +424,100 @@ class Proxy:
                                         ErrorCode.BUDGET_EXCEEDED):
                 break  # deadline/budget spent: repeats are pointless
         return q, total_us
+
+    # ------------------------------------------------------------------
+    # tenants: admission, the SLO plane, attribution
+    # ------------------------------------------------------------------
+    def _admit(self, tenant) -> str:
+        """The bounded metric-label form of the tenant id, plus the
+        overload bus's in-flight/arrival note. With accounting off, one
+        knob check and the raw id."""
+        if not Global.enable_tenant_accounting:
+            return str(tenant) if tenant else "default"
+        ten = tenant_label(tenant)
+        get_overload().note_admit(ten)
+        return ten
+
+    def _consult_admission(self, ten: str, cached: bool = False):
+        """The admission plane's consult point, after ``_admit`` (so the
+        in-flight signal includes this query) and inside the caller's
+        reply-accounting try (a rejection releases the in-flight slot
+        through ``_observe_slo``). One knob check when the plane is off.
+        Rung 1 sleeps here on the serving thread; rung 3 yields the GIL
+        (``REJECT_YIELD_S``) and raises the structured CAPACITY_EXCEEDED
+        rejection with its retry-after hint, so a rejected query reaches no
+        engine and no host fallback; the returned Decision stamps a rung-2
+        partial budget onto the prepared query."""
+        adm = maybe_admission()
+        if adm is None:
+            return None
+        d = adm.admit(ten, cached=cached)
+        if d.action == "reject":
+            time.sleep(REJECT_YIELD_S)
+            raise WukongError(
+                ErrorCode.CAPACITY_EXCEEDED,
+                f"admission shed: tenant {ten!r} ({d.reason or 'overload'})"
+                f" — retry after {d.retry_after_s:.1f}s")
+        if d.action == "defer" and d.wait_s > 0:
+            time.sleep(min(d.wait_s, 5.0))
+        return d
+
+    def _note_admission_reply(self, ten: str, q) -> None:
+        """Reply-side aggregate-row accounting for the row-budget quota
+        (one knob check when the plane is off)."""
+        adm = maybe_admission()
+        if adm is not None:
+            adm.note_reply(ten, int(getattr(q.result, "nrows", 0)))
+
+    def _observe_slo(self, tenant: str, dur_us: int, ok: bool, status,
+                     trace) -> None:
+        """Reply-side SLO accounting: release the in-flight slot, count
+        reply-side sheds, and fold the reply into the tenant's SLO window
+        (the burn-rate sentinel fires from here). One knob check when
+        accounting is off."""
+        if not Global.enable_tenant_accounting:
+            return
+        sig = get_overload()
+        sig.note_done(tenant)
+        if status == ErrorCode.QUERY_TIMEOUT:
+            sig.note_shed("reply_timeout", tenant)
+        elif status == ErrorCode.BUDGET_EXCEEDED:
+            sig.note_shed("reply_budget", tenant)
+        get_slo().observe(tenant, int(dur_us), ok, trace=trace)
+
+    def explain_query(self, text: str, analyze: bool = False,
+                      device: str | None = None,
+                      plan_text: str | None = None) -> dict:
+        """EXPLAIN: parse + plan and render the planned patterns with the
+        planner's per-step estimates. EXPLAIN ANALYZE: also execute under
+        a forced trace and join the host steps' actual rows and times
+        against the estimates, plus the latency decomposition. Returns the
+        structured report; ``rendered`` holds the table (console verbs
+        ``explain`` / ``analyze``)."""
+        from wukong_tpu_torch.obs.profile import explain_query
+
+        return explain_query(self, text, analyze=analyze, device=device,
+                             plan_text=plan_text)
+
+    def _attribute(self, trace, q: SPARQLQuery, text: str) -> None:
+        """Reply-side latency attribution: fold the finished trace into its
+        template's rolling baseline; the sentinel dumps the trace on a
+        regression. One knob check when attribution is off."""
+        if not Global.enable_attribution:
+            return
+        from wukong_tpu_torch.obs.profile import get_attributor, template_key
+
+        verdict = get_attributor().observe(
+            trace, template_key(q, text),
+            example=" ".join(text.split())[:120])
+        if verdict is not None:
+            log_error(
+                f"latency regression ({verdict['reason']}): template "
+                f"{verdict['template']} {verdict['total_us']:,}us vs "
+                f"baseline p95 {verdict['baseline_p95_us']:,}us, worst "
+                f"component {verdict['component']} "
+                f"{verdict['share_drift_pts']:+.1f}pts — trace "
+                f"{trace.trace_id} dumped")
 
     # ------------------------------------------------------------------
     # serving-path micro-batching (runtime/batcher.py)

@@ -13,10 +13,12 @@ The port's copy of the JAX package's runtime/resilience.py:
   (``result.complete = False``) with the dropped patterns, keeping the rows
   produced so far.
 
-The clocks are injectable, so tests replay schedules deterministically. The
-JAX module's ``retry_call`` waits for its first caller in the port, the
-distributed engine (ROADMAP §A 9); the breaker's trace events wait for
-tracing (§A 2.4) and its journal event for the observatory (§A 10).
+The clocks are injectable, so tests replay schedules deterministically. A
+breaker trip or close is a ``breaker.trip`` / ``breaker.close`` event on the
+ambient trace and in the cluster-event journal (obs/events.py), both sent
+outside the breaker's lock. The JAX module's ``retry_call`` (with its
+``retry`` and ``breaker.open`` trace events) waits for its first caller in
+the port, the distributed engine (ROADMAP §A 9).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import numpy as np
 from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.obs.trace import trace_event
 from wukong_tpu_torch.utils.errors import BudgetExceeded, QueryTimeout
 
 _M_BREAKER_TRIPS = get_registry().counter(
@@ -36,6 +39,20 @@ _M_BREAKER_TRIPS = get_registry().counter(
 
 # breaker state locks are innermost: nothing is acquired under one
 declare_leaf("breaker.state")
+
+
+
+def _emit_breaker_event(kind: str, key) -> None:
+    """Cluster-event journal hook for breaker transitions: an int key (or
+    a tuple led by one) is the event's shard correlation key. Called
+    outside the breaker lock."""
+    from wukong_tpu_torch.obs.events import emit_event
+
+    shard = key if isinstance(key, int) else (
+        key[0] if isinstance(key, tuple) and key
+        and isinstance(key[0], int) else None)
+    emit_event(kind, shard=shard, key=str(key))
+
 
 # serializes Deadline.charge_rows across threads sharing one deadline;
 # nothing is ever acquired under it
@@ -174,7 +191,11 @@ class CircuitBreaker:
 
     def record_success(self, key) -> None:
         with self._lock:
+            was_open = self._st.get(key, [0, None, False])[1] is not None
             self._st[key] = [0, None, False]
+        if was_open:  # a half-open trial just recovered the key
+            trace_event("breaker.close", key=str(key))
+            _emit_breaker_event("breaker.close", key)
 
     def record_abort(self, key) -> None:
         """The admitted call never dispatched: release a held half-open
@@ -195,7 +216,9 @@ class CircuitBreaker:
                 self._last_trip[key] = slot[1]
                 tripped = True
         if tripped:  # outside the lock: the breaker lock is a leaf
+            trace_event("breaker.trip", key=str(key))
             _M_BREAKER_TRIPS.labels(key=str(key)).inc()
+            _emit_breaker_event("breaker.trip", key)
 
     def tripped(self, key) -> bool:
         return self.state(key) != "closed"

@@ -23,10 +23,15 @@ settles its members' futures itself:
   admitted group and is popped outside that cap.
 A group carries the GPU engine, so these host threads drive device work.
 
-Left out, each waiting for its subsystem: the stream and rebuild lanes, the
-admission fair queue ``_submit_fair`` and the tenant branch of
-``_heavy_pick_locked`` (ROADMAP §A 2.2), the queue-delay stamps, shed notes
-and queue span (§A 2.3-2.4), and the utilization and total-depth gauges.
+With ``enable_admission`` (runtime/admission.py) default-lane queries ride
+a weighted-fair sub-lane (``FairQueue``, popped after the batch lane and
+before stealing), and the heavy lane's pick gives each tenant its weighted
+share of the heavy slots (``_heavy_pick_locked``, ``_heavy_by_tenant``).
+Every queued item is stamped at submit and its wait charged to its lane's
+queue-delay EWMA when popped (obs/slo.py); a traced query's ``pool.queue``
+span closes on every exit from the queue; the depth, lane-depth and
+utilization gauges are pull gauges over every live pool. The stream and
+rebuild lanes wait for their subsystems (ROADMAP §A 7-8).
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import weakref
 from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.obs.slo import maybe_note_queue_delay, maybe_note_shed
 from wukong_tpu_torch.runtime import faults
 from wukong_tpu_torch.utils.errors import QueryTimeout
 from wukong_tpu_torch.utils.logger import log_error, log_warn
@@ -52,24 +58,65 @@ _M_SHED = get_registry().counter(
 _M_RESPAWNS = get_registry().counter(
     "wukong_pool_engine_respawns_total", "Engine-thread crash respawns")
 
-# every live pool feeds the per-lane depth gauge (weakly referenced: a
-# dropped pool reads as gone, never as stale depth)
+# every live pool feeds the depth and utilization gauges (weakly
+# referenced: a dropped pool reads as gone, never as stale depth)
 _POOLS: "weakref.WeakSet" = weakref.WeakSet()
 
 
+def _queue_depth() -> int:
+    return sum(sum(len(dq) for dq in p.queues) + len(p.batch_queue)
+               + len(p.heavy_queue) + len(p.heavy_slices)
+               + (len(f) if (f := p._fair) is not None else 0)
+               for p in list(_POOLS))
+
+
+get_registry().gauge(
+    "wukong_pool_queue_depth",
+    "Queries waiting in pool queues (incl. the batch and heavy lanes)"
+).set_function(_queue_depth)
+
+
 def _lane_depth_series() -> dict:
-    """Per-lane queue depth across every live pool."""
+    """Per-lane queue depth across every live pool (an ADMISSION_INPUTS
+    signal, obs/slo.py)."""
     acc = {"default": 0, "batch": 0, "heavy": 0}
     for p in list(_POOLS):
         acc["default"] += sum(len(dq) for dq in p.queues)
         acc["batch"] += len(p.batch_queue)
         acc["heavy"] += len(p.heavy_queue) + len(p.heavy_slices)
+        f = p._fair  # the fair sub-lane exists once admission armed
+        if f is not None:
+            acc["fair"] = acc.get("fair", 0) + len(f)
     return {(k,): v for k, v in acc.items()}
 
 
 get_registry().gauge(
     "wukong_pool_lane_depth", "Queries waiting per pool lane",
     labels=("lane",)).set_function(_lane_depth_series)
+
+
+def _pool_utilization() -> float:
+    """Busy fraction of live engines across every live pool (an
+    ADMISSION_INPUTS signal)."""
+    busy = alive = 0
+    for p in list(_POOLS):
+        for t in range(p.n):
+            if not p._dead[t]:  # unguarded: report-only snapshot
+                alive += 1
+                if p._busy_since[t]:
+                    busy += 1
+    return busy / alive if alive else 0.0
+
+
+get_registry().gauge(
+    "wukong_pool_utilization",
+    "Busy fraction of live pool engines").set_function(_pool_utilization)
+
+
+def _live_engine_count() -> int:
+    """Engines not declared dead across every live pool: the admission
+    plane's derived in-flight capacity (admission ``_inflight_cap``)."""
+    return sum(p.alive_count() for p in list(_POOLS))
 
 
 class EnginePool:
@@ -120,6 +167,13 @@ class EnginePool:
         self.heavy_slices = collections.deque()  # guarded by: _heavy_lock
         self._heavy_lock = make_lock("pool.heavy")
         self._heavy_inflight = 0  # guarded by: _heavy_lock
+        # weighted-fair sub-lane (runtime/admission.py FairQueue), made on
+        # the first admission-armed submission: off, the pop path pays one
+        # attribute read
+        self._fair = None  # guarded by: _route_lock
+        # heavy-lane slots held per tenant: the per-tenant weighted cap
+        # (admission heavy_cap_for) counts against this
+        self._heavy_by_tenant: dict = {}  # guarded by: _heavy_lock
         _POOLS.add(self)
 
     # ------------------------------------------------------------------
@@ -166,6 +220,38 @@ class EnginePool:
         self._completed.append(qid)
         ev.set()
 
+    @staticmethod
+    def _stamp_enqueue(query, lane: str) -> None:
+        """Queue-delay accounting for the overload bus (obs/slo.py): submit
+        stamps the enqueue clock, the popping engine charges the lane's
+        delay EWMA. One knob check when accounting is off; ``__slots__``
+        items skip silently."""
+        if not Global.enable_tenant_accounting:
+            return
+        try:
+            query._slo_enq_us = get_usec()
+            query._slo_lane = lane
+        except AttributeError:
+            pass
+
+    @staticmethod
+    def _charge_queue_delay(query) -> None:
+        enq = getattr(query, "_slo_enq_us", None)
+        if enq is not None:
+            query._slo_enq_us = None
+            maybe_note_queue_delay(getattr(query, "_slo_lane", "default"),
+                                   get_usec() - enq)
+
+    @staticmethod
+    def _end_queue_span(query, **attrs) -> None:
+        """Close a traced query's pool.queue span. Every exit from the
+        queue (popped, shed, or failed by a dead pool) ends it, or the open
+        span keeps counting time and swallows later trace events."""
+        qs = getattr(query, "_obs_queue_span", None)
+        if qs is not None:
+            query.trace.end_span(qs, **attrs)
+            query._obs_queue_span = None
+
     def _on_engine_death(self, tid: int, exc: BaseException) -> None:
         # the in-flight query (if any) likely triggered the crash: fail it
         # rather than retry it into every engine, and never strand its waiter
@@ -201,6 +287,7 @@ class EnginePool:
             live = [t for t in range(self.n) if not self._dead[t]]
             for k, it in enumerate(stranded):
                 if not live:  # whole pool dead: fail queries, don't hang
+                    self._end_queue_span(it[1], dead_pool=True)
                     self._fail(it[0], RuntimeError("engine pool dead"))
                     continue
                 dst = live[k % len(live)]
@@ -208,6 +295,14 @@ class EnginePool:
                     self.queues[dst].append(it)
                 self._pending.release()
             if not live:  # nobody left to drain the lanes either
+                # ...starting with the fair sub-lane: pop until dry
+                f = self._fair
+                while f is not None:
+                    it = f.pop()
+                    if it is None:
+                        break
+                    self._end_queue_span(it[1], dead_pool=True)
+                    self._fail(it[0], RuntimeError("engine pool dead"))
                 with self._batch_lock:
                     stranded = list(self.batch_queue)
                     self.batch_queue.clear()
@@ -230,7 +325,11 @@ class EnginePool:
         lane="heavy" a HeavyGroup or one of its split slices, each as ONE
         indivisible fire-and-forget item: it settles its members' futures
         itself, so no result entry is made and -1 is returned. A dead pool
-        fails the item at once through its fail_all."""
+        fails the item at once through its fail_all.
+
+        With ``enable_admission`` a default-lane query with no routing pin
+        rides the weighted-fair sub-lane (``_submit_fair``). A traced query
+        gets a ``pool.queue`` span, closed by the engine that pops it."""
         if lane in ("batch", "heavy"):
             _M_SUBMITTED.labels(lane=lane).inc()
             if lane == "batch":
@@ -239,6 +338,7 @@ class EnginePool:
                 lock, queue = self._heavy_lock, self.heavy_slices
             else:
                 lock, queue = self._heavy_lock, self.heavy_queue
+            self._stamp_enqueue(query, lane)
             with self._route_lock:
                 if all(self._dead):
                     query.fail_all(RuntimeError("engine pool dead"))
@@ -254,16 +354,53 @@ class EnginePool:
             qid = self._next_qid
             self._next_qid += 1
             self._done[qid] = threading.Event()
+        # the queue span opens here and closes on the engine thread that
+        # pops the query (a cross-thread end)
+        tr = getattr(query, "trace", None)
+        if tr is not None:
+            query._obs_queue_span = tr.start_span(
+                "pool.queue", qid=qid, lane="default")
+        self._stamp_enqueue(query, "default")
+        if tid is None and Global.enable_admission:
+            # default-lane traffic with no routing pin rides the DRR fair
+            # sub-lane: per-tenant sub-queues drained by weight
+            return self._submit_fair(qid, query)
         t = qid % self.n if tid is None else tid % self.n
         with self._route_lock:  # atomic dead-check + enqueue vs declare-dead
             if self._dead[t]:  # route around dead engines
                 live = [k for k in range(self.n) if not self._dead[k]]
                 if not live:
+                    self._end_queue_span(query, dead_pool=True)
                     self._fail(qid, RuntimeError("engine pool dead"))
                     return qid
                 t = live[qid % len(live)]
             with self.locks[t]:
                 self.queues[t].append((qid, query))
+        self._pending.release()
+        return qid
+
+    def _submit_fair(self, qid: int, query) -> int:
+        """Enqueue into the weighted-fair sub-lane (admission armed). The
+        tenant is the effective one (``owner_tenant`` first) and the DRR
+        weight is resolved here, from the lock-free quota map: FairQueue
+        never calls out under ``admission.queue``, which stays a leaf."""
+        from wukong_tpu_torch.runtime.admission import (
+            FairQueue,
+            effective_tenant,
+            get_admission,
+        )
+
+        ten = effective_tenant(query)
+        w = get_admission().weight(ten)
+        with self._route_lock:  # atomic dead-check + enqueue, as above
+            if all(self._dead[k] for k in range(self.n)):
+                self._end_queue_span(query, dead_pool=True)
+                self._fail(qid, RuntimeError("engine pool dead"))
+                return qid
+            f = self._fair
+            if f is None:
+                f = self._fair = FairQueue()
+            f.push(ten, (qid, query), weight=w)
         self._pending.release()
         return qid
 
@@ -318,12 +455,41 @@ class EnginePool:
 
     def _heavy_done(self, query) -> None:
         """Release the weighted heavy slot an engine-loop pop took: only a
-        heavy group took one (a slice continuation did not)."""
+        heavy group took one (a slice continuation did not), with its
+        tenant's slot when admission counted one."""
         if getattr(query, "lane", None) != "heavy" \
                 or getattr(query, "heavy_continuation", False):
             return
+        ten = getattr(query, "_adm_heavy_ten", None)
         with self._heavy_lock:
             self._heavy_inflight = max(self._heavy_inflight - 1, 0)
+            if ten is not None:
+                query._adm_heavy_ten = None
+                left = self._heavy_by_tenant.get(ten, 1) - 1
+                if left <= 0:
+                    self._heavy_by_tenant.pop(ten, None)
+                else:
+                    self._heavy_by_tenant[ten] = left
+
+    def _heavy_pick_locked(self) -> int:  # caller holds: _heavy_lock
+        """Index of the first heavy-queue group whose tenant is under its
+        weighted slot share, or -1 when every queued tenant is at its cap.
+        ``heavy_cap_for`` is a pure function of the lock-free quota map: no
+        lock is taken under ``pool.heavy``."""
+        if not Global.enable_admission:
+            return 0 if self.heavy_queue else -1
+        from wukong_tpu_torch.runtime.admission import get_admission
+
+        adm = get_admission()
+        cap = self._heavy_cap()
+        for i, (_qid, g) in enumerate(self.heavy_queue):
+            ten = getattr(g, "tenant", None)
+            if ten is None:
+                return i  # an untagged group: no tenant cap
+            if (self._heavy_by_tenant.get(ten, 0)
+                    < adm.heavy_cap_for(ten, cap, self._heavy_by_tenant)):
+                return i
+        return -1
 
     def _pop_work(self, tid: int):
         # own queue first (front)
@@ -335,6 +501,14 @@ class EnginePool:
         with self._batch_lock:
             if self.batch_queue:
                 return self.batch_queue.popleft()
+        # weighted-fair sub-lane (admission armed): one DRR pop serves the
+        # per-tenant sub-queues by weight, ahead of stealing (a fair item
+        # has no owner engine to steal from)
+        f = self._fair  # unguarded: reads the set-once published reference
+        if f is not None:
+            item = f.pop()
+            if item is not None:
+                return item
         # steal from neighbours (back — leave the owner its freshest work)
         for nb in self._neighbors(tid):
             with self.locks[nb]:
@@ -348,8 +522,20 @@ class EnginePool:
             if self.heavy_slices:
                 return self.heavy_slices.popleft()
             if self.heavy_queue and self._heavy_inflight < self._heavy_cap():
-                self._heavy_inflight += 1
-                return self.heavy_queue.popleft()
+                i = self._heavy_pick_locked()
+                if i >= 0:
+                    item = self.heavy_queue[i]
+                    del self.heavy_queue[i]
+                    self._heavy_inflight += 1
+                    ten = getattr(item[1], "tenant", None)
+                    if ten is not None and Global.enable_admission:
+                        # stamp the counted tenant on the group so
+                        # _heavy_done releases the same slot even if the
+                        # knob or the quota map changes mid-flight
+                        item[1]._adm_heavy_ten = ten
+                        self._heavy_by_tenant[ten] = (
+                            self._heavy_by_tenant.get(ten, 0) + 1)
+                    return item
         return None
 
     def _run_engine(self, tid: int) -> None:
@@ -373,6 +559,7 @@ class EnginePool:
             qid, query = item
             self._inflight[tid] = item
             self._busy_since[tid] = get_usec()
+            self._charge_queue_delay(query)  # overload bus: per-lane EWMA
             if qid is None:  # batch/heavy lanes: fire-and-forget items
                 try:
                     faults.site("pool.execute", shard=tid)
@@ -387,6 +574,8 @@ class EnginePool:
                 self._inflight[tid] = None
                 self._respawns[tid] = 0
                 continue
+            # close the queue span opened at submit (the wait IS the span)
+            self._end_queue_span(query, engine=tid)
             try:
                 # a query whose deadline expired while queued fails fast
                 # with a structured QueryTimeout instead of occupying the
@@ -394,6 +583,8 @@ class EnginePool:
                 dl = getattr(query, "deadline", None)
                 if dl is not None and dl.expired():
                     _M_SHED.inc()
+                    maybe_note_shed("queue_deadline",
+                                    getattr(query, "tenant", "default"))
                     raise QueryTimeout(
                         f"deadline expired in engine-{tid} queue")
                 faults.site("pool.execute", shard=tid)

@@ -170,6 +170,10 @@ class SPARQLQuery:
     # None = unconstrained. The proxy attaches one from the Global knobs;
     # engines check it at each BGP step and device chain attempt.
     deadline: object = None
+    # tenant identity (obs/slo.py): stamped by the proxy at admission
+    # (bounded to max_tenants label values) and carried to the batcher, the
+    # engine pool and the shed counters; "default" is the single-tenant path
+    tenant: str = "default"
 
     def get_pattern(self, step: int | None = None) -> Pattern:
         s = self.pattern_step if step is None else step
