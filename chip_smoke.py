@@ -14,7 +14,13 @@ Phases (any failure exits nonzero, and no result line is printed):
      ragged lengths, cap_out cuts), each run 10 times with identical bits;
      stream_expand on duplicate anchors at each multiplicity, and with
      looser bounds (2 over distinct anchors, past mdup, none, a lower
-     bound past mdup), each giving the exact bound's bits;
+     bound past mdup), each giving the exact bound's bits; the level probe
+     (csrc/level_probe.cu) against level_probe_plain bit for bit on
+     level_probe_cases at about 3,000 and 1,050,000 candidates (an empty
+     candidate list and all-padding groups, an empty glob and an empty
+     edge table, anchors absent from the keys, degree-1 and maximum-degree
+     runs and depth 1, ids at 2^31 - 1, J = 1, 2 and 3 with and without a
+     glob, J = 9 past the kernel's 8 descriptors a launch);
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
      the card;
@@ -34,6 +40,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      resident on the card, and each kernel is held against its plain
      version and timed on the largest input of each class of its calls in
      this phase (K1: predicate segments, the combined segment);
+  Phases 7-10 (and phase 8's q1) hold the walk's mechanisms and are pinned
+  to it (join_strategy walk, template_device host; a line says so): at
+  default knobs the planner's other strategies would serve q1, q2 and q6.
   7. batched serving (run after 5, on phase 3's store): Stats.generate over
      the same triples (timed) and the type-centric planner on the proxy and
      its engine; each shape's plan beside the heuristic's; the seven shapes
@@ -51,10 +60,12 @@ Phases (any failure exits nonzero, and no result line is printed):
      every window and mixed flight must make one host sync; then every
      entry point once more, untimed, under StreamAudit (each streamed
      step against the arm the frontier's true multiplicity picks);
-  8. the serving runtime (run after 7, on phase 3's proxy): with the GPU
-     engine's table_capacity_max at FALLBACK_CAP_MAX, q6 and q1 answer
-     CAPACITY_EXCEEDED on the card and Proxy.run_single_query answers
-     phase 4's rows through the host engine and logs it; then the
+  8. the serving runtime (run after 7, on phase 3's proxy): with
+     table_capacity_max (the GPU engine's and the knob) at FALLBACK_CAP_MAX,
+     q6 and q1 answer CAPACITY_EXCEEDED on the GPU engine; Proxy.
+     run_single_query answers q6 in full through the compiled-template
+     route at default knobs (as the JAX proxy does), and q1, pinned to the
+     walk, phase 4's rows through the host engine, logged; then the
      console's sparql-emu (5 s after 1 s of warm-up, 8 in flight) over a
      light mix (TEMPLATES) and a mixed one (and HEAVY), which must end
      with no error, every light class on device batches and every heavy
@@ -112,6 +123,27 @@ Phases (any failure exits nonzero, and no result line is printed):
      whose Chrome trace holds CUDA kernels, K1 among q2's, with each
      query's kernels by device time. Each kernel the phase launched is
      held against its plain version and timed on its largest input;
+11. the planner's other two execution strategies (run after 10, on phase
+     3's proxy and phase 7's planner): (a) q1, q2 and q6 through
+     Proxy.serve_query at default knobs, three calls each, every call's
+     strategy, level route and template route equal to what the planner's
+     rules give on the store's statistics and the feedback rules give after
+     the call before, per-level candidates, rows and route, the demotion
+     log lines, ms, host syncs and level_probe launches (which must rise
+     where a level routes device), rows equal to phase 7's; (b) q1 and q2
+     with join_strategy wcoj and join_device device, every level probed on
+     the card, rows equal to the walk's; (c) the JAX bench's triangle
+     (m = 2,000, and 5,600, the largest m whose walk fits the 2^25-row
+     ceiling), diamond and clique4 worlds from the port's datagen: WCOJ on
+     the device route against the walk (rows equal, times), and two calls
+     at default knobs with wukong_join_demotions_total; (d) q1, q2 and q6
+     through the compiled template (template_device device): rows equal to
+     the host walk's in its order, one host sync a dispatch, the padding
+     efficiency, and one forced regrow that still matches; (e) the device
+     console verb and EXPLAIN ANALYZE's device table for q1. The three
+     strategy fallback counters must not move; the resident bytes by kind
+     are printed. Each level probe class is held against its plain version
+     and timed on its largest input;
   6. cross-check: at LUBM-<cross-scale> the seven shapes and the extended
      suite through Proxy(device="cpu") (plain versions) and
      Proxy(device="cuda") must give equal row multisets and attribute
@@ -127,7 +159,8 @@ The line before the last is one JSON object {"kernels": [...]}, a row for
 each kernel and class of its calls in phases 4 and 5, for each kernel in
 phase 7, for each kernel and mix (and the console) in phase 8, and for
 each kernel and class of its calls in phase 9, for each kernel in phase
-10, with
+10, and for each kernel and class of its calls in phase 11 (the level probe
+by call site and part), with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -250,6 +283,11 @@ KERNELS = {
                     "wukong_tpu/engine/tpu_stream.py:399"),
     "stream_emit_m": ("wukong_tpu_torch/csrc/stream_emit.cu",
                       "wukong_tpu/engine/tpu_stream.py:575"),
+    # a hand kernel for an XLA computation (no Pallas kernel): the fused
+    # jit_level_probe of the WCOJ device route, and the pair probes of the
+    # JAX whole-plan template program
+    "level_probe": ("wukong_tpu_torch/csrc/level_probe.cu",
+                    "wukong_tpu/join/kernels.py:189"),
 }
 
 
@@ -479,6 +517,133 @@ def probe_class_of(proxy):
 # ---------------------------------------------------------------------------
 # phase 2: adversarial kernel checks
 # ---------------------------------------------------------------------------
+
+
+def _lp_csr(rng, nkeys: int, maxdeg: int, idmax: int, keymax: int,
+            big: bool = False, one_max: bool = False):
+    """A random sorted CSR (keys, offsets, edges, depth) for the level
+    probe cases: degrees 1..maxdeg (or all 1 but one run of maxdeg with
+    ``one_max``), edges sorted unique within each run; ``big`` puts ids at
+    2^31 - 1 and just below it in the keys and at the end of the runs."""
+    import numpy as np
+
+    top = 2**31 - 1
+    keys = np.unique(rng.integers(0, keymax, 2 * nkeys))[:nkeys]
+    rng.shuffle(keys)
+    keys = np.sort(keys[:nkeys]).astype(np.int64)
+    nkeys = len(keys)
+    if big:
+        keys[-2:] = (top - 1, top)
+    if one_max:
+        degs = np.ones(nkeys, dtype=np.int64)
+        degs[nkeys // 2] = maxdeg
+    else:
+        degs = rng.integers(1, maxdeg + 1, nkeys)
+    run = np.repeat(np.arange(nkeys), degs)
+    vals = rng.integers(0, idmax, len(run))
+    if big:
+        vals[np.cumsum(degs) - 1] = top  # each run ends at 2^31 - 1
+    order = np.lexsort((vals, run))
+    run, vals = run[order], vals[order]
+    keep = np.ones(len(run), dtype=bool)
+    keep[1:] = (run[1:] != run[:-1]) | (vals[1:] != vals[:-1])
+    run, edges = run[keep], vals[keep]
+    degs = np.bincount(run, minlength=nkeys)
+    offsets = np.zeros(nkeys + 1, dtype=np.int64)
+    np.cumsum(degs, out=offsets[1:])
+    depth = int(max(int(degs.max()) if nkeys else 1, 1)).bit_length() + 1
+    return keys, offsets, edges.astype(np.int64), depth
+
+
+def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
+    """The level probe's adversarial cases, as NumPy arrays:
+    [(name, valid bool [Cp], cand int32 [Cp], glob int32 | None,
+    [(keys, offsets, edges, anchors [Cp], depth), ...], full_depth)].
+    An empty candidate list and all-padding groups (padding slots hold
+    garbage that ``valid`` must mask), an empty glob and an empty edge
+    table, anchors absent from the keys, degree-1 runs beside a
+    maximum-degree run searched at depth 1 (``full_depth`` False: the
+    search stops short, as the kernel's must), ids at 2^31 - 1, J = 1, 2
+    and 3 adjacencies with and without a glob, and J = 9 (past the kernel's
+    8 descriptors a launch). ``scale`` multiplies the
+    candidate counts (the card runs them at 2^20 and more). The tests
+    hold the plain version against the JAX functions on the same cases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    out = []
+
+    def pack(name, C, adjs, glob=None, anchor_keys=True, full=True,
+             Cp=None):
+        from wukong_tpu_torch.join.kernels import pad_pow2
+
+        Cp = Cp or pad_pow2(C)
+        valid = np.zeros(Cp, dtype=bool)
+        valid[:C] = True
+        # padding slots hold garbage: valid alone must mask them
+        cand = rng.integers(0, 2**31 - 1, Cp)
+        probes = []
+        if adjs:
+            keys0, off0, e0, _d = adjs[0]
+            # half the candidates are true edges of their anchor's run
+            ka = rng.integers(0, max(len(keys0), 1), Cp)
+            if len(keys0) and len(e0):
+                lo, hi = off0[ka], off0[ka + 1]
+                pick = lo + (rng.random(Cp) * (hi - lo)).astype(np.int64)
+                true = rng.random(Cp) < 0.5
+                cand = np.where(true, e0[np.clip(pick, 0, len(e0) - 1)],
+                                cand)
+        for keys, offsets, edges, depth in adjs:
+            if anchor_keys and len(keys):
+                anchors = keys[np.clip(ka, 0, len(keys) - 1)] \
+                    if adjs[0][0] is keys else \
+                    keys[rng.integers(0, len(keys), Cp)]
+            else:
+                anchors = rng.integers(0, 2**31 - 1, Cp)
+                if len(keys):
+                    anchors = np.where(np.isin(anchors, keys),
+                                       anchors + 1, anchors)
+            probes.append((keys.astype(i32), offsets.astype(i32),
+                           edges.astype(i32), anchors.astype(i32), depth))
+        g = None if glob is None else np.asarray(glob).astype(i32)
+        out.append((name, valid, cand.astype(i32), g, probes, full))
+
+    n = 3000 * scale
+    base = _lp_csr(rng, 400 * scale, 12, 50_000, 100_000)
+    # the same graph with a tenth of its edges dropped: a candidate true in
+    # one adjacency fails another now and then
+    k, o, e, d = base
+    keep = rng.random(len(e)) >= 0.1
+    deg = np.add.reduceat(keep.astype(np.int64), o[:-1]) if len(k) else o
+    o2 = np.zeros_like(o)
+    np.cumsum(deg, out=o2[1:])
+    thin = (k, o2, e[keep], d)
+    glob = np.unique(np.concatenate([base[2][::3],
+                                     rng.integers(0, 50_000, 500)]))
+    pack("empty candidate list", 0, [base])
+    pack("all-padding group, glob", 0, [base, thin], glob=glob, Cp=4096)
+    pack("empty glob", n, [base], glob=np.empty(0, np.int64))
+    empty = (np.empty(0, np.int64), np.zeros(1, np.int64),
+             np.empty(0, np.int64), 1)
+    pack("empty edges", n, [empty])
+    pack("empty edges beside a table", n, [base, empty], glob=glob)
+    pack("anchors absent from keys", n, [base], anchor_keys=False)
+    deep = _lp_csr(rng, 64, 4096, 1 << 20, 1 << 20, one_max=True)
+    pack("degree-1 and max-degree runs", n, [deep])
+    pack("degree-1 and max-degree runs, depth 1", n,
+         [deep[:3] + (1,)], full=False)
+    big = _lp_csr(rng, 300, 8, 2**31 - 1, 2**31 - 3, big=True)
+    pack("ids at 2^31 - 1", n, [big], glob=np.unique(np.concatenate(
+        [big[2][::2], [2**31 - 1]])))
+    for J in (1, 2, 3):
+        adjs = [base, thin, base][:J]
+        pack(f"J={J}", n, adjs)
+        pack(f"J={J}, glob", n, adjs, glob=glob)
+    # past the kernel's 8 descriptors a launch: the wrapper chains a second
+    # launch over the first one's mask
+    pack("J=9, glob", n, [base, thin] * 4 + [thin], glob=glob)
+    return out
 
 
 def kernel_cases(errs: dict) -> None:
@@ -869,14 +1034,20 @@ def emit_work(args, mhot: bool = False) -> tuple:
 
 
 def measure(name: str, phase: str, best: tuple, launches: int, kern, plain,
-            work_of, errs: dict) -> dict:
+            work_of, errs: dict, library=None) -> dict:
     """One row of the kernels line: the kernel held against its plain version
     on the largest call of one class of a phase's calls, timed there, with
-    that input's bound and that class's launches."""
+    that input's bound and that class's launches. ``library``, where one
+    PyTorch call computes the same function on these inputs, is held
+    against the plain version too and timed as ``library_ms``."""
     _size, args, kw = best
-    err = max_abs_diff(kern(*args, **kw), plain(*args, **kw))
+    want = plain(*args, **kw)
+    err = max_abs_diff(kern(*args, **kw), want)
     errs[name] = max(errs[name], err)
     check(err == 0, f"{name} != plain on its {phase} inputs ({err})")
+    if library is not None:
+        check(max_abs_diff(library(*args, **kw), want) == 0,
+              f"{name}'s library call != plain on its {phase} inputs")
     nbytes, ops, what = work_of(args)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / CORE_OPS_PER_S * 1e3
@@ -887,11 +1058,13 @@ def measure(name: str, phase: str, best: tuple, launches: int, kern, plain,
            "plain_ms": time_ms(lambda: plain(*args, **kw), reps=5),
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "library_ms": None, "phase": phase, "input": what}
+           "library_ms": (None if library is None else
+                          time_ms(lambda: library(*args, **kw))),
+           "phase": phase, "input": what}
     log(f"  {name} [{phase}]: {launches} launches; largest input {what}  "
         f"bytes {nbytes:,}  ops {ops:,}  ms {row['ms']:.4f}  bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']})  plain "
-        f"{row['plain_ms']:.4f}")
+        f"{row['plain_ms']:.4f}  library {row['library_ms']}")
     return row
 
 
@@ -1453,42 +1626,60 @@ class LogCapture:
 
 
 def serve_fallback(proxy, phase4: dict, results: dict) -> None:
-    """Phase 8, the host engine's capacity fallback on the card: with the
-    GPU engine's table_capacity_max below q6's index (1,630,592 rows at
-    LUBM-640) and q1's largest table, the GPU engine answers
-    CAPACITY_EXCEEDED and run_single_query answers phase 4's rows through
-    the CPUEngine, and logs it."""
+    """Phase 8 at a lowered ceiling: with table_capacity_max (the GPU
+    engine's and the knob) below q6's index (1,630,592 rows at LUBM-640)
+    and q1's largest table, the GPU engine answers CAPACITY_EXCEEDED for
+    both. At default knobs run_single_query then answers q6 in full through
+    the compiled-template route, as the JAX proxy does (ROADMAP §C 2: the
+    program's start list is not held to the ceiling); q1, pinned to the
+    walk, answers phase 4's rows through the CPUEngine and logs it."""
+    import numpy as np
     import torch
+
+    from wukong_tpu_torch.config import Global
 
     eng = proxy.gpu
     saved = eng.cap_max
     out = results["runtime"]["fallback"] = {}
     try:
         eng.cap_max = FALLBACK_CAP_MAX
-        for name in ("lubm_q6", "lubm_q1"):
-            q = proxy.parse(QUERIES[name])
-            q.result.blind = False
-            eng.execute(q)
-            check(int(q.result.status_code) == 16,
-                  f"{name} at a {eng.cap_max:,}-row ceiling: GPU engine status "
-                  f"{q.result.status_code!r}, not CAPACITY_EXCEEDED")
-            with LogCapture() as cap:
-                t0 = time.perf_counter()
-                q = proxy.run_single_query(QUERIES[name], blind=False)
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3
-            check(q.result.status_code == 0 and
-                  "degrading to the host engine" in cap.text,
-                  f"{name}: no logged degradation to the host engine")
-            import numpy as np
-
-            check(np.array_equal(sorted_table(q), phase4[name]),
-                  f"{name}: host fallback rows differ from phase 4's")
-            out[name] = {"rows": q.result.nrows, "ms": ms,
-                         "cap_max": eng.cap_max}
-            log(f"  fallback {name}: table_capacity_max {eng.cap_max:,} -> "
-                f"CAPACITY_EXCEEDED on the card, {q.result.nrows:,} rows "
-                f"(as phase 4) through the host engine in {ms:.1f} ms")
+        with Knobs(None, table_capacity_max=FALLBACK_CAP_MAX):
+            for name in ("lubm_q6", "lubm_q1"):
+                q = proxy.parse(QUERIES[name])
+                q.result.blind = False
+                eng.execute(q)
+                check(int(q.result.status_code) == 16,
+                      f"{name} at a {eng.cap_max:,}-row ceiling: GPU engine "
+                      f"status {q.result.status_code!r}, not "
+                      "CAPACITY_EXCEEDED")
+                pin = (walk_pinned("8, q1's capacity fallback")
+                       if name == "lubm_q1" else Knobs(None))
+                with LogCapture() as cap, pin:
+                    t0 = time.perf_counter()
+                    q = proxy.run_single_query(QUERIES[name], blind=False)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) * 1e3
+                check(np.array_equal(sorted_table(q), phase4[name]),
+                      f"{name}: rows differ from phase 4's")
+                fell_back = "degrading to the host engine" in cap.text
+                compiled = bool(getattr(q, "_template_compiled", False))
+                if name == "lubm_q6":
+                    check(q.result.status_code == 0 and compiled
+                          and not fell_back,
+                          f"{name}: not answered by the compiled template "
+                          f"(compiled {compiled}, host fallback {fell_back})")
+                    how = "the compiled-template route"
+                else:
+                    check(q.result.status_code == 0 and fell_back,
+                          f"{name}: no logged degradation to the host "
+                          "engine")
+                    how = "the host engine"
+                out[name] = {"rows": q.result.nrows, "ms": ms,
+                             "cap_max": eng.cap_max, "route": how,
+                             "knob_cap_max": Global.table_capacity_max}
+                log(f"  fallback {name}: table_capacity_max {eng.cap_max:,} "
+                    f"-> CAPACITY_EXCEEDED on the card, {q.result.nrows:,} "
+                    f"rows (as phase 4) through {how} in {ms:.1f} ms")
     finally:
         eng.cap_max = saved
 
@@ -2492,6 +2683,545 @@ def rows_multiset(q):
     return sorted(map(tuple, rows))
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the planner's other two execution strategies
+# ---------------------------------------------------------------------------
+
+STRATEGY_SHAPES = ("lubm_q1", "lubm_q2", "lubm_q6")
+# the JAX bench's cyclic worlds (bench.py --cyclic), and the triangle at the
+# largest m (in steps of 200) whose walk still fits the default 2^25-row
+# ceiling: at m = 5,600 its wedge table has 31,812,508 rows, at 5,800 more
+# than 2^25
+CYCLIC_WORLDS = (
+    ("triangle", {"m": 2000, "noise": 8, "seed": 0}),
+    ("triangle", {"m": 5600, "noise": 8, "seed": 0}),
+    ("diamond", {"m": 400, "noise": 4, "seed": 0}),
+    ("clique4", {"n": 1200, "fan": 10, "ncliques": 40, "seed": 0}),
+)
+STRATEGY_KNOBS = ("join_strategy", "join_device", "template_device",
+                  "table_capacity_min", "table_capacity_max")
+FALLBACK_SERIES = ("wukong_join_fallback_total",
+                   "wukong_join_device_fallback_total",
+                   "wukong_template_fallback_total")
+
+
+class Knobs:
+    """Set Global knobs for a ``with`` block and restore them after."""
+
+    def __init__(self, note: str | None = None, **knobs):
+        self.note, self.knobs, self.saved = note, knobs, {}
+
+    def __enter__(self):
+        from wukong_tpu_torch.config import Global
+
+        for k, v in self.knobs.items():
+            self.saved[k] = getattr(Global, k)
+            setattr(Global, k, v)
+        if self.note:
+            log(f"  {self.note}: " + ", ".join(
+                f"{k} {v}" for k, v in self.knobs.items()))
+        return self
+
+    def __exit__(self, *exc):
+        from wukong_tpu_torch.config import Global
+
+        for k, v in self.saved.items():
+            setattr(Global, k, v)
+
+
+def walk_pinned(phase: str) -> Knobs:
+    """A phase that holds the walk's mechanisms (K1 launch counts under the
+    planner, the GPU engine's capacity fallback, the heavy lane) keeps q1,
+    q2 and q6 off the wcoj and compiled-template routes, which would
+    otherwise serve them at default knobs; phase 11 holds those routes."""
+    return Knobs(f"phase {phase} pinned to the walk (phase 11 holds the "
+                 "default routes)", join_strategy="walk",
+                 template_device="host")
+
+
+def fallback_counts() -> dict:
+    """{series: total over its labels} of the three strategy fallback
+    counters."""
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    snap = get_registry().snapshot()
+    return {name: sum(s.get("value", 0)
+                      for s in (snap.get(name) or {}).get("series", []))
+            for name in FALLBACK_SERIES}
+
+
+def strategy_decision(q) -> dict:
+    """The routes one served query took and what its levels and template
+    dispatches measured."""
+    levels = [(lv["level"], lv["candidates"], lv["rows_out"], lv["route"])
+              for lv in (getattr(q, "join_stats", None) or [])]
+    tmpl = [r for r in (getattr(q, "device_steps", None) or [])
+            if r.get("site") == "template.plan"]
+    return {"strategy": getattr(q, "join_strategy", None),
+            "join_route": getattr(q, "join_route", None),
+            "template_route": getattr(q, "template_route", None),
+            "levels": levels,
+            "compiled": bool(getattr(q, "_template_compiled", False)),
+            "template_live": [r["live"] for r in tmpl],
+            "template_capacity": [r["capacity"] for r in tmpl]}
+
+
+def first_decision(proxy, text: str) -> dict:
+    """The first call's routes by the planner's own rules on this store's
+    statistics (choose_strategy, choose_join_route, estimate_peak_rows
+    against template_min_rows), with nothing memoized or latched yet."""
+    from wukong_tpu_torch.config import Global
+
+    q = proxy.parse(text)
+    pats = list(q.pattern_group.patterns)
+    pl = proxy.planner
+    strategy = pl.choose_strategy(pats)
+    est = pl.estimate_peak_rows(pats)
+    # the template route a walk-strategy call takes (a wcoj call takes none)
+    walk_template = ("device" if est is not None
+                     and est >= max(int(Global.template_min_rows), 1)
+                     else "host")
+    out = {"strategy": strategy, "join_route": None, "template_route": None,
+           "walk_template": walk_template,
+           "estimates": pl.estimate_chain(pats)}
+    if strategy == "wcoj":
+        out["join_route"] = pl.choose_join_route(pats)
+    else:
+        out["template_route"] = walk_template
+    return out
+
+
+def next_decision(prev: dict, decided: dict) -> dict:
+    """The next call's routes after ``prev`` by the feedback rules (the
+    JAX proxy's _record_wcoj_feedback, _record_route_feedback and
+    _record_template_feedback), restated here: a wcoj call whose peak
+    level rows pass wcoj_ratio x its final rows demotes the template to the
+    walk; a device-routed wcoj call whose summed candidates stay under
+    join_device_min_candidates demotes its route to host; a compiled
+    template whose live rows stay under template_min_rows latches host."""
+    from wukong_tpu_torch.config import Global
+
+    nxt = dict(decided)
+    if prev["strategy"] == "wcoj":
+        rows = [r for _l, _c, r, _rt in prev["levels"]]
+        if max(rows) / max(rows[-1], 1) > max(float(Global.wcoj_ratio), 1.0):
+            nxt.update(strategy="walk", join_route=None,
+                       template_route=decided["walk_template"])
+        elif prev["join_route"] == "device" and sum(
+                c for _l, c, _r, _rt in prev["levels"]) < max(
+                int(Global.join_device_min_candidates), 1):
+            nxt["join_route"] = "host"
+    elif prev["template_route"] == "device" and prev["compiled"] and \
+            prev["template_live"][-1] < max(int(Global.template_min_rows),
+                                            1):
+        nxt["template_route"] = "latched_host"
+    return nxt
+
+
+def level_probe_work(args) -> tuple:
+    """(bytes, operations, what) the level probe needs on these inputs,
+    with the kernel's short-circuit order (glob first, then each adjacency
+    in order, only for rows still true). Bytes: valid and the mask over
+    all C rows, cand for the valid rows, each adjacency's anchors for the
+    rows that reach it, and one 32 B sector for each DISTINCT sector of
+    the glob, keys, offsets and edges that some binary-search step (or the
+    compare after it) reads. Operations: about 6 a search step, 4 a row."""
+    import torch
+
+    valid, cand, glob, adj = args
+    C = cand.shape[0]
+    ok = valid.clone()
+    nbytes = 2 * C + 4 * int(valid.sum())
+    steps = sectors = 0
+
+    def lower_bound(arr, vals, lo, hi, iters=None):
+        """Rows' lower_bound of vals over arr[lo:hi): (final lo, sectors
+        the search touched)."""
+        nonlocal steps
+        n = arr.shape[0]
+        touched = torch.zeros(n // 8 + 1, dtype=torch.bool, device=arr.device)
+        it = 0
+        while True:
+            active = lo < hi
+            if iters is not None and it >= iters:
+                break
+            na = int(active.sum())
+            if na == 0:
+                break
+            steps += na
+            mid = lo + (hi - lo) // 2
+            mc = mid.clamp(0, max(n - 1, 0))
+            touched[(mc[active] // 8).long()] = True
+            less = arr[mc] < vals
+            lo = torch.where(active & less, mid + 1, lo)
+            hi = torch.where(active & ~less, mid, hi)
+            it += 1
+        return lo, touched
+
+    if glob is not None:
+        rows = ok.nonzero().squeeze(1)
+        n = glob.shape[0]
+        if n and len(rows):
+            v = cand[rows]
+            lo, t = lower_bound(glob, v, torch.zeros_like(v),
+                                torch.full_like(v, n))
+            lc = lo.clamp(0, n - 1)
+            t[(lc[lo < n] // 8).long()] = True
+            sectors += int(t.sum())
+            ok[rows] = (lo < n) & (glob[lc] == v)
+        else:
+            ok[:] = False
+    for keys, offsets, edges, anchors, depth in adj:
+        rows = ok.nonzero().squeeze(1)
+        nbytes += 4 * len(rows)
+        ne, nk = edges.shape[0], keys.shape[0]
+        if not len(rows) or ne == 0 or nk == 0:
+            ok[rows] = False
+            continue
+        a, v = anchors[rows], cand[rows]
+        k, tk = lower_bound(keys, a, torch.zeros_like(a),
+                            torch.full_like(a, nk))
+        kc = k.clamp(0, nk - 1)
+        tk[(kc[k < nk] // 8).long()] = True
+        found = (k < nk) & (keys[kc] == a)
+        to = torch.zeros(offsets.shape[0] // 8 + 1, dtype=torch.bool,
+                         device=offsets.device)
+        to[(kc[found] // 8).long()] = True
+        to[((kc[found] + 1) // 8).long()] = True
+        start = torch.where(found, offsets[kc], torch.zeros_like(a))
+        end = torch.where(found, offsets[(kc + 1).clamp(max=nk)],
+                          torch.zeros_like(a))
+        lo, te = lower_bound(edges, v, start, end, iters=max(int(depth), 1))
+        lc = lo.clamp(0, ne - 1)
+        te[(lc[lo < end] // 8).long()] = True
+        sectors += int(tk.sum()) + int(to.sum()) + int(te.sum())
+        ok[rows] = (lo < end) & (edges[lc] == v)
+    nbytes += 32 * sectors
+    return (nbytes, 6 * steps + 4 * C,
+            {"C": C, "valid": int(valid.sum()), "J": len(adj),
+             "glob": None if glob is None else int(glob.shape[0]),
+             "passed": int(ok.sum()), "search_steps": steps,
+             "sectors": sectors})
+
+
+def lp_captures(entry: dict) -> list:
+    """Captures of the level probe's two main-path call sites (the WCOJ
+    executor's probe groups and the template program's pair probes), each
+    call classed by its site and ``entry["name"]``."""
+    from wukong_tpu_torch.engine import template_compile as TC
+    from wukong_tpu_torch.join import wcoj as WJ
+
+    return [Capture(mod, "level_probe", lambda a: a[1].shape[0],
+                    lambda a, site=site: f", {site}, {entry['name']}")
+            for mod, site in ((WJ, "wcoj.probe"), (TC, "template.plan"))]
+
+
+def lp_library(_valid, _cand, glob, adj):
+    """The one PyTorch call that computes the level probe where it has no
+    adjacency (J = 0): glob membership, ``torch.isin``. None for J > 0,
+    where no single call does the bounded search in a ragged range."""
+    import torch
+
+    if adj:
+        return None
+    if glob is None:
+        return lambda v, _c, _g, _a: (v.clone(),)
+    return lambda v, c, g, _a: (v & torch.isin(c, g),)
+
+
+def lp_rows(captures: list, phase: str, errs: dict) -> list:
+    """A kernels-line row for each class of the level probe's calls."""
+    from wukong_tpu_torch.join import kernels as JK
+
+    rows = []
+    for cap in captures:
+        for cls, best in sorted(cap.best.items()):
+            if cap.launches.get(cls, 0):
+                rows.append(measure(
+                    "level_probe", phase + cls, best, cap.launches[cls],
+                    lambda *a: (JK.level_probe(*a),),
+                    lambda *a: (JK.level_probe_plain(*a),),
+                    level_probe_work, errs, library=lp_library(*best[1])))
+    return rows
+
+
+def level_probe_checks(errs: dict, scales=(1, 350)) -> int:
+    """Phase 2: the level probe against its plain version on the card, bit
+    for bit, on level_probe_cases at each scale (C about 1M at 350)."""
+    import torch
+
+    from wukong_tpu_torch.join import kernels as JK
+
+    dev = torch.device("cuda")
+    n = 0
+    for scale in scales:
+        for name, valid, cand, glob, adj, _full in level_probe_cases(scale):
+            def t(a):
+                return torch.from_numpy(a).to(dev)
+
+            args = (t(valid), t(cand), None if glob is None else t(glob),
+                    [(t(k), t(o), t(e), t(a), d) for k, o, e, a, d in adj])
+            got = JK.level_probe(*args)
+            want = JK.level_probe_plain(*args)
+            err = max_abs_diff([got], [want])
+            errs["level_probe"] = max(errs["level_probe"], err)
+            check(err == 0, f"level_probe != plain on {name!r} at scale "
+                  f"{scale} ({err} rows differ)")
+            n += 1
+    return n
+
+
+def serve_strategies(proxy, phase4: dict, entry: dict, results: dict) -> None:
+    """Phase 11 (a), (b), (d) and (e) on phase 3's proxy with phase 7's
+    planner: the default routes call after call, the forced WCOJ device
+    route, the forced template route with its one sync a dispatch and a
+    forced regrow, and the device report and EXPLAIN ANALYZE of q1."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.join import kernels as JK
+    from wukong_tpu_torch.obs.device import read_device_input
+    from wukong_tpu_torch.runtime.console import Console
+
+    out = results["strategies"] = {"default": {}, "wcoj_device": {},
+                                   "template_device": {}}
+    single = results["batched"]["single"]
+
+    def serve_once(text):
+        """(query, host ms, host syncs, level_probe launches, log text)."""
+        got = []
+        lp0 = JK.level_probe.launches
+        with LogCapture() as cap:
+            t0 = time.perf_counter()
+            syncs, sites = count_syncs(lambda: got.append(
+                proxy.serve_query(text)))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        return got[0], ms, syncs, JK.level_probe.launches - lp0, cap.text
+
+    # (a) the default routes, three calls each
+    entry["name"] = "(a) default routes"
+    for name in STRATEGY_SHAPES:
+        text = QUERIES[name]
+        want = first_decision(proxy, text)
+        log(f"  (a) {name}: the planner's rules give strategy "
+            f"{want['strategy']}, level route {want['join_route']}, "
+            f"template route {want['template_route']} (estimates "
+            f"{[int(e) for e in want['estimates'] or []]}, wcoj_ratio "
+            f"{Global.wcoj_ratio}, join_device_min_candidates "
+            f"{Global.join_device_min_candidates:,}, template_min_rows "
+            f"{Global.template_min_rows:,})")
+        calls = []
+        for call in range(3):
+            q, ms, syncs, launches, text_log = serve_once(text)
+            d = strategy_decision(q)
+            check(q.result.status_code == 0
+                  and np.array_equal(sorted_table(q), phase4[name]),
+                  f"(a) {name} call {call + 1}: rows differ from phase 7's")
+            got = {k: d[k] for k in ("strategy", "join_route",
+                                     "template_route")}
+            check(got == {k: want[k] for k in got},
+                  f"(a) {name} call {call + 1}: routes {got}, the rules "
+                  f"give {want}")
+            if any(rt == "device" for *_x, rt in d["levels"]):
+                check(launches > 0, f"(a) {name} call {call + 1}: a level "
+                      "routed device and level_probe never launched")
+            demoted = [ln.split("] ", 1)[-1] for ln in text_log.splitlines()
+                       if "demoted" in ln or "degraded" in ln]
+            log(f"  (a) {name} call {call + 1}: strategy {d['strategy']}, "
+                f"level route {d['join_route']}, template route "
+                f"{d['template_route']}; levels (level, candidates, rows, "
+                f"route) {d['levels']}; template live/capacity "
+                f"{d['template_live']}/{d['template_capacity']}; "
+                f"{q.result.nrows:,} rows (as phase 7), {ms:.2f} ms, "
+                f"{syncs} host syncs, {launches} level_probe launches"
+                + "".join(f"\n      log: {x}" for x in demoted))
+            calls.append({**d, "ms": ms, "syncs": syncs,
+                          "level_probe_launches": launches,
+                          "log": demoted, "rows": q.result.nrows})
+            want = next_decision(d, want)
+        out["default"][name] = {"calls": calls,
+                                "phase7_walk_ms": single[name]["median_ms"]}
+
+    # (b) every level on the card at full width
+    with Knobs("(b) forced", join_strategy="wcoj", join_device="device"):
+        for name in ("lubm_q1", "lubm_q2"):
+            entry["name"] = f"(b) wcoj device {name}"
+            q, ms, syncs, launches, _t = serve_once(QUERIES[name])
+            d = strategy_decision(q)
+            check(q.result.status_code == 0 and d["levels"]
+                  and all(rt == "device" for *_x, rt in d["levels"])
+                  and np.array_equal(sorted_table(q), phase4[name]),
+                  f"(b) {name}: {d['levels']} or rows differ from the walk")
+            check(launches > 0, f"(b) {name}: level_probe never launched")
+            _q, lat = timed_runs(lambda: proxy.serve_query(QUERIES[name]), 5)
+            med = statistics.median(lat)
+            out["wcoj_device"][name] = {"levels": d["levels"],
+                                        "first_ms": ms, "median_ms": med,
+                                        "runs_ms": lat, "syncs": syncs,
+                                        "level_probe_launches": launches}
+            log(f"  (b) {name}: wcoj, every level on the card "
+                f"{d['levels']}; rows as the walk; first call {ms:.2f} ms "
+                f"({syncs} host syncs, {launches} launches), median "
+                f"{med:.2f} ms over 5 (phase 7's walk "
+                f"{single[name]['median_ms']:.2f} ms)")
+
+    # (d) the compiled template on the card, against the host walk in order
+    with Knobs("(d) forced", join_strategy="walk", template_device="device"):
+        from wukong_tpu_torch.engine.template_compile import (
+            demotion_report,
+            reset_demotions,
+        )
+
+        # a latch taken in (a) (small_measured) holds under a forced
+        # device knob too: (d) starts with none
+        log(f"  (d) demotion latches cleared: {demotion_report()}")
+        reset_demotions()
+        eng = proxy.template_engine()
+        for name in STRATEGY_SHAPES:
+            entry["name"] = f"(d) template {name}"
+            text = QUERIES[name]
+            q = proxy.parse(text)
+            q.result.blind = False
+            t0 = time.perf_counter()
+            proxy.cpu.execute(q)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            proxy.serve_query(text)  # stages the program
+            r, ms, syncs, launches, _t = serve_once(text)
+            d = strategy_decision(r)
+            n_disp = len(d["template_live"])
+            check(d["compiled"] and r.result.table.tolist()
+                  == q.result.table.tolist(),
+                  f"(d) {name}: not compiled, or rows not the host walk's "
+                  "in its order")
+            check(syncs == n_disp == 1, f"(d) {name}: {syncs} host syncs "
+                  f"for {n_disp} dispatches")
+            _r, lat = timed_runs(lambda: proxy.serve_query(text), 5)
+            med = statistics.median(lat)
+            eff = d["template_live"][-1] / d["template_capacity"][-1]
+            out["template_device"][name] = {
+                "median_ms": med, "runs_ms": lat, "syncs": syncs,
+                "dispatches": n_disp, "padding_efficiency": eff,
+                "host_walk_ms": host_ms, "level_probe_launches": launches,
+                "live": d["template_live"], "capacity": d["template_capacity"]}
+            log(f"  (d) {name}: compiled, rows equal to the host walk's in "
+                f"order ({r.result.nrows:,}); {syncs} host sync for "
+                f"{n_disp} dispatch; padding efficiency {eff:.3f} "
+                f"({d['template_live'][-1]:,} of "
+                f"{d['template_capacity'][-1]:,}); {launches} level_probe "
+                f"launches; median {med:.2f} ms over 5 (phase 7's walk "
+                f"{single[name]['median_ms']:.2f} ms, host walk "
+                f"{host_ms:.1f} ms)")
+        # one forced regrow: every expand's class far too small
+        from wukong_tpu_torch.engine.template_compile import extract_template
+
+        name = "lubm_q2"
+        entry["name"] = "(d) template regrow"
+        q = proxy.parse(QUERIES[name])
+        q.result.blind = False
+        spec = extract_template(q)[0]
+        caps0 = eng._initial_caps(q._tsig, spec, None)
+        small = (caps0[0],) + (64,) * (len(caps0) - 1)
+        with Knobs(None, table_capacity_min=64):
+            with eng._lock:
+                eng._good_caps[(q._tsig, eng._version())] = small
+            r = proxy.serve_query(QUERIES[name])
+        d = strategy_decision(r)
+        check(d["compiled"] and len(d["template_live"]) >= 2
+              and np.array_equal(sorted_table(r), phase4[name]),
+              f"(d) regrow {name}: {d} or rows differ")
+        out["template_device"]["regrow"] = {
+            "from": small, "dispatches": len(d["template_live"]),
+            "capacity": d["template_capacity"]}
+        log(f"  (d) regrow {name}: from classes {small} (table_capacity_min "
+            f"64): {len(d['template_live'])} dispatches, capacities "
+            f"{d['template_capacity']}, rows as phase 7")
+
+    # (e) the device report and EXPLAIN ANALYZE's device table for q1
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        Console(proxy).run_command("device -k 12")
+    log("  (e) device verb:\n    " + buf.getvalue().rstrip().replace(
+        "\n", "\n    "))
+    with Knobs(None, join_strategy="wcoj", join_device="device"):
+        entry["name"] = "(e) analyze q1"
+        rep = proxy.explain_query(QUERIES["lubm_q1"], analyze=True)
+    check(rep["rows"] == single["lubm_q1"]["rows"] and rep.get("device_steps"),
+          f"(e) analyze q1: {rep['rows']} rows, device steps "
+          f"{len(rep.get('device_steps') or [])}")
+    log("  (e) EXPLAIN ANALYZE q1 (wcoj, device levels):\n    "
+        + rep["rendered"].replace("\n", "\n    "))
+    out["resident_bytes"] = read_device_input("resident_bytes")
+    out["padding_efficiency"] = {
+        site: read_device_input("padding_efficiency", site)
+        for site in ("wcoj.probe", "template.plan", "gpu.chain")}
+
+
+def serve_cyclic(entry: dict, results: dict) -> None:
+    """Phase 11 (c): the cyclic worlds of the JAX bench on the card, WCOJ on
+    the device route against the walk (rows, times), and the default
+    routes' first two calls with the demotions they count."""
+    import numpy as np
+
+    from wukong_tpu_torch.loader import datagen
+    from wukong_tpu_torch.obs.metrics import get_registry
+    from wukong_tpu_torch.planner.optimizer import Planner
+    from wukong_tpu_torch.planner.stats import Stats
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.gstore import build_partition
+
+    def demotions() -> float:
+        snap = get_registry().snapshot()
+        return sum(s.get("value", 0) for s in (snap.get(
+            "wukong_join_demotions_total") or {}).get("series", []))
+
+    out = results["strategies"]["cyclic"] = {}
+    for world, kw in CYCLIC_WORLDS:
+        label = f"{world} " + ",".join(f"{k}={v}" for k, v in kw.items())
+        triples, meta = getattr(datagen, f"generate_{world}")(**kw)
+        g = build_partition(triples, 0, 1)
+        proxy = Proxy(g, datagen.CyclicStrings(meta), device="cuda",
+                      planner=Planner(Stats.generate(triples)))
+        text = datagen.cyclic_query_text(meta)
+        rec = {"triples": len(triples)}
+        with Knobs(None, join_strategy="walk", template_device="host"):
+            entry["name"] = f"(c) walk {label}"
+            walk, lat = timed_runs(lambda: proxy.serve_query(text), 3)
+        rec["walk_ms"] = statistics.median(lat)
+        rec["walk_status"] = int(walk.result.status_code)
+        with Knobs(None, join_strategy="wcoj", join_device="device"):
+            entry["name"] = f"(c) wcoj device {label}"
+            q, lat = timed_runs(lambda: proxy.serve_query(text), 3)
+        rec["wcoj_device_ms"] = statistics.median(lat)
+        rec["levels"] = strategy_decision(q)["levels"]
+        check(q.result.status_code == 0 and walk.result.status_code == 0
+              and np.array_equal(sorted_table(q), sorted_table(walk)),
+              f"(c) {label}: wcoj {q.result.nrows} rows vs walk "
+              f"{walk.result.nrows}")
+        check(all(rt == "device" for *_x, rt in rec["levels"]),
+              f"(c) {label}: a level off the card {rec['levels']}")
+        d0 = demotions()
+        entry["name"] = f"(c) default {label}"
+        auto = [strategy_decision(proxy.serve_query(text))
+                for _ in range(2)]
+        rec["default"] = [{k: a[k] for k in ("strategy", "join_route",
+                                             "template_route")}
+                          for a in auto]
+        rec["demotions"] = demotions() - d0
+        rec["rows"] = q.result.nrows
+        out[label] = rec
+        log(f"  (c) {label}: {len(triples):,} triples, {rec['rows']:,} rows "
+            f"equal on both; walk {rec['walk_ms']:.1f} ms, wcoj on the card "
+            f"{rec['wcoj_device_ms']:.1f} ms ({rec['walk_ms'] / max(rec['wcoj_device_ms'], 1e-9):.2f}x); "
+            f"levels {rec['levels']}; default routes {rec['default']}, "
+            f"wukong_join_demotions_total +{rec['demotions']:g}")
+        del proxy, g
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=640,
@@ -2548,6 +3278,11 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"kernels: {n} K2/K3 look-back stress cases, 10 runs each, identical "
         f"and equal to the plain versions ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n = level_probe_checks(errs)
+    torch.cuda.synchronize()
+    log(f"kernels: {n} level_probe cases equal to the plain version bit for "
+        f"bit ({time.perf_counter() - t0:.1f} s)")
 
     # ---- 3. store -------------------------------------------------------
     g, ss, triples = build_world(args.scale, args.seed)
@@ -2631,8 +3366,9 @@ def main(argv=None) -> int:
     captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
     replay: list = []
     try:
-        serve_batched(proxy, triples, phase4, args.seed, entry, results,
-                      replay)
+        with walk_pinned("7"):
+            serve_batched(proxy, triples, phase4, args.seed, entry, results,
+                          replay)
     finally:
         for c in captures.values():
             c.restore()
@@ -2645,8 +3381,8 @@ def main(argv=None) -> int:
         "probe_kernel was never launched by the slice-mode batches")
     results["batched"]["launches"] = by_entry
     rows += merged_rows(captures, "7 batched serving", kernel_fns, errs)
-    with StreamAudit() as audit:  # after the counts: not main-path work
-        for call in replay:
+    with StreamAudit() as audit, walk_pinned("7, replayed"):
+        for call in replay:  # after the counts: not main-path work
             call()
     results["batched"]["stream_arms"] = audit.report(
         "phase 7, each entry point once on each input")
@@ -2656,7 +3392,7 @@ def main(argv=None) -> int:
         f"sparql-emu")
     results["runtime"] = {}
     serve_fallback(proxy, phase4, results)
-    with tempfile.TemporaryDirectory() as root:
+    with tempfile.TemporaryDirectory() as root, walk_pinned("8"):
         mixes = {mix: write_mix(root, mix, heavy)
                  for mix, heavy in (("light", False), ("mixed", True))}
         for fn, _plain, _b in kernel_fns.values():
@@ -2689,7 +3425,7 @@ def main(argv=None) -> int:
     classes = LiveClasses()
     captures = capture_all(classes.of, classes.of)
     try:
-        with classes:
+        with classes, walk_pinned("9"):
             serve_live(proxy, live,
                        lambda: captures["probe_kernel"].wrapped.launches,
                        results)
@@ -2717,9 +3453,10 @@ def main(argv=None) -> int:
         fn.launches = 0
     captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
     try:
-        serve_tenants(proxy, live,
-                      lambda: captures["probe_kernel"].wrapped.launches,
-                      entry, results)
+        with walk_pinned("10"):
+            serve_tenants(proxy, live,
+                          lambda: captures["probe_kernel"].wrapped.launches,
+                          entry, results)
     finally:
         for c in captures.values():
             c.restore()
@@ -2738,6 +3475,44 @@ def main(argv=None) -> int:
     results["tenants"]["launches"] = by_run
     rows += merged_rows(captures, "10 multi-tenant serving", kernel_fns,
                         errs)
+
+    # ---- 11. the planner's other two execution strategies ----------------
+    from wukong_tpu_torch.join import kernels as JK
+
+    log(f"strategies: LUBM-{args.scale} on {kind}, WCOJ and compiled "
+        f"templates through Proxy.serve_query at default knobs")
+    t0 = time.perf_counter()
+    fb0 = fallback_counts()
+    kernel_fns["level_probe"] = (JK.level_probe, JK.level_probe_plain, None)
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    lpc = lp_captures(entry)
+    try:
+        serve_strategies(proxy, phase4, entry, results)
+        serve_cyclic(entry, results)
+    finally:
+        for c in list(captures.values()) + lpc:
+            c.restore()
+    torch.cuda.synchronize()
+    strat = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    log(f"strategies: kernel launches {strat} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(strat["level_probe"] > 0,
+          "level_probe was never launched by phase 11")
+    check(sum(sum(c.launches.values()) for c in lpc) == strat["level_probe"],
+          "level_probe's launches by class do not add up to its count")
+    fb = {k: v - fb0[k] for k, v in fallback_counts().items()}
+    log(f"strategies: fallback counters over phase 11 {fb}; totals "
+        f"{fallback_counts()}")
+    check(not any(fb.values()), f"phase 11 degraded a strategy: {fb}")
+    log(f"strategies: resident bytes by kind "
+        f"{results['strategies']['resident_bytes']}")
+    results["strategies"]["launches"] = strat
+    results["strategies"]["seconds"] = time.perf_counter() - t0
+    del kernel_fns["level_probe"]
+    rows += captured_rows(captures, "11 strategies, ", kernel_fns, errs)
+    rows += lp_rows(lpc, "11 strategies", errs)
 
     # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
     del proxy, triples

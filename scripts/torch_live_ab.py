@@ -7,9 +7,10 @@ an earlier build of the port beside the current one, on the GPU, in turns.
 OTHER is a directory that holds an earlier checkout, for example ``git
 archive <commit> | tar -x -C archive_check/parent``. Each turn of
 ``--order`` is its own process: ``o`` runs OTHER's package, ``t`` this
-checkout's, and ``a`` this checkout's with the reply-side tenant
+checkout's, ``a`` this checkout's with the reply-side tenant
 accounting and the event journal off (``enable_tenant_accounting`` and
-``enable_events``, both on by default). A turn builds the package's CUDA
+``enable_events``, both on by default), and ``d`` this checkout's with
+the device observatory off (``enable_device_obs``, on by default). A turn builds the package's CUDA
 kernels, synthesizes LUBM-<scale> from the seed, serves each light text
 once (staging and the parse and plan caches), then drives the texts
 (``?s ub:advisor <a>`` over 512 anchors) from 16 closed-loop clients
@@ -52,6 +53,8 @@ def worker(tree: str, arm: str, scale: int, seed: int, duration: float,
     if arm == "a":
         Global.enable_tenant_accounting = False
         Global.enable_events = False
+    if arm == "d":
+        Global.enable_device_obs = False
     for text in light:
         proxy.serve_query(text, blind=True)
     runs = {}
@@ -78,7 +81,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--order", default="otao",
                     help="turns: o = OTHER, t = this checkout, a = this "
-                         "checkout with tenant accounting and events off")
+                         "checkout with tenant accounting and events off, "
+                         "d = this checkout with the device observatory "
+                         "off")
     ap.add_argument("--duration", type=float, default=5.0)
     ap.add_argument("--warmup", type=float, default=1.0)
     ap.add_argument("--out", default=None)
@@ -102,7 +107,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(f"card: {card}", flush=True)
-    trees = {"o": os.path.abspath(args.other), "t": ROOT, "a": ROOT}
+    trees = {"o": os.path.abspath(args.other), "t": ROOT, "a": ROOT,
+             "d": ROOT}
     turns = []
     for label in args.order:
         p = subprocess.run(

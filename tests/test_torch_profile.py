@@ -75,9 +75,12 @@ def world():
 
 @pytest.fixture(autouse=True)
 def _hygiene(monkeypatch):
-    """The planner on in both packages, the JAX package's wcoj and
-    compiled-template routes off (the port has neither yet), tracing and
-    attribution off, recorders clean."""
+    """The planner on in both packages; the wcoj and compiled-template
+    routes off in both (these reports hold the walk's host steps; the
+    strategies' reports are held in test_torch_wcoj.py and
+    test_torch_template.py) and the device observatory off in both (its
+    dispatch records carry each engine's own site names and times);
+    tracing and attribution off, recorders clean."""
     from wukong_tpu.obs import get_recorder as jget_recorder
 
     for G in (Global, JGlobal):
@@ -85,9 +88,9 @@ def _hygiene(monkeypatch):
         monkeypatch.setattr(G, "enable_tracing", False)
         monkeypatch.setattr(G, "enable_attribution", False)
         monkeypatch.setattr(G, "enable_batching", False)
-    monkeypatch.setattr(JGlobal, "join_strategy", "walk")
-    monkeypatch.setattr(JGlobal, "template_device", "host")
-    monkeypatch.setattr(JGlobal, "enable_device_obs", False)
+        monkeypatch.setattr(G, "join_strategy", "walk")
+        monkeypatch.setattr(G, "template_device", "host")
+        monkeypatch.setattr(G, "enable_device_obs", False)
     get_recorder().clear()
     jget_recorder().clear()
     profile.get_attributor().reset()

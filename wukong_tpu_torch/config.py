@@ -111,6 +111,52 @@ class GlobalConfig:
     # const-start instances answered together by one execute_batch
     device_batch: int = 1024
 
+    # ---- the device-cost observatory (obs/device.py; all mutable):
+    # dispatch accounting, the compile ledger and the residency ledger.
+    # Off, every seam is one knob check. ----
+    enable_device_obs: bool = True
+    # device-resident byte ceiling the residency ledger reports against
+    # (telemetry only; DeviceStore's own budget keeps enforcing)
+    device_budget_mb: int = 4096
+    # a dispatch site minting more than this many distinct (template,
+    # capacity class) variants in one window journals a
+    # device.variant_storm event and dumps the trace ring
+    device_variant_limit: int = 32
+    # seconds between variant-storm trips per site
+    device_storm_cooldown_s: float = 60.0
+
+    # ---- execution strategies (join/, engine/template_compile.py; all
+    # mutable) ----
+    # auto (the planner routes wcoj on a cyclic shape whose estimated walk
+    # blowup reaches wcoj_ratio), walk, or wcoj (every supported shape)
+    join_strategy: str = "auto"
+    # auto routes wcoj when the estimated peak rows reach this multiple of
+    # the estimated final rows
+    wcoj_ratio: int = 4
+    # ... and the estimated peak reaches this many rows
+    wcoj_min_rows: int = 8192
+    # bounded cache of sorted edge tables / index lists (entries)
+    join_table_cache: int = 64
+    # wcoj level route: host (NumPy kernels), device (every level through
+    # the level probe), auto (device when the estimated candidate volume
+    # reaches join_device_min_candidates)
+    join_device: str = "auto"
+    # under auto, the device route's candidate floor (per plan and per
+    # level); measured feedback demotes an over-estimated template
+    join_device_min_candidates: int = 65536
+    # whole-plan compiled template route: host (the walk), device (every
+    # eligible template), auto (device when the estimated peak rows reach
+    # template_min_rows, with measured-feedback demotion)
+    template_device: str = "auto"
+    template_min_rows: int = 4096
+    # overflow regrows before a compiled run degrades to the walk
+    template_capacity_retries: int = 3
+    # byte budget of cached compiled programs and their staged operands
+    template_budget_mb: int = 256
+    # a template site whose padding efficiency falls below this after
+    # warm-up is demoted to the walk
+    template_demote_eff: float = 0.02
+
     # ---- tracing and the flight recorder (obs/trace.py, obs/recorder.py;
     # all mutable) ----
     # per-query tracing; off, every hook is one getattr or knob check

@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("probe.cu", "stream_emit.cu")
+SOURCES = ("probe.cu", "stream_emit.cu", "level_probe.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -42,6 +42,10 @@ _SIGNATURES = {
         "wk_stream_scratch_bytes": [_LL],
         "wk_stream_emit": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P],
         "wk_stream_emit_m": [_P, _P, _P, _LL, _LL, _P, _P, _P, _P, _P],
+    },
+    "level_probe.cu": {
+        "wk_level_probe_max_adj": [],
+        "wk_level_probe": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P],
     },
 }
 # return types other than c_int

@@ -20,6 +20,10 @@ Two staged forms per (pid, dir):
 - MergeSegment: sorted key/start/deg arrays plus per-edge (key, neighbor)
   pairs, for the sort-merge kernels and the stream emitters.
 Bucket placement (`build_hash_table`) is bit-identical to the JAX package's.
+
+Every staging, eviction and store-version invalidation is charged on the
+device observatory's residency ledger (kinds ``segment`` and ``index``,
+obs/device.py), as the JAX store charges them.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from wukong_tpu_torch.engine.tpu_kernels import check_table
+from wukong_tpu_torch.obs.device import maybe_device_resident
 from wukong_tpu_torch.types import IN, OUT, PREDICATE_ID, TYPE_ID
 from wukong_tpu_torch.utils.device import resolve_device
 
@@ -222,6 +227,7 @@ class DeviceStore:
         self._fcsr_memo: dict = {}  # filtered host CSRs, per (pid, d, fkey)
         self._maxdeg_memo: dict = {}  # (pid, d) -> largest host degree
         self.bytes_used = 0
+        self._seen_version = getattr(gstore, "version", 0)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
@@ -246,6 +252,7 @@ class DeviceStore:
         OUT combined segment is 1.48 GB; two stagings of it could run the
         card out of memory). None from build() is not cached."""
         table = self._cache if table is None else table
+        self._check_version()
         with self._mu:
             hit = table.get(key)
             if hit is not None:
@@ -269,14 +276,49 @@ class DeviceStore:
                         table[key] = val
                         self._lru.append(key)
                         self.bytes_used += self._nbytes(val)
+                        maybe_device_resident("fill", self._kind(val),
+                                              self._nbytes(val))
                         self._enforce_budget()
                     self._staging.pop(key, None)
         return val
+
+    def _check_version(self) -> None:
+        """A store mutation bumps the host store's version: drop every
+        staging of the old version, charged as ONE residency edge per kind
+        (the JAX DeviceStore's invalidation; the port's stores are not
+        mutated yet, so this fires only for a store that carries a
+        version)."""
+        v = getattr(self.g, "version", 0)
+        if v == self._seen_version:
+            return
+        with self._mu:
+            if v == self._seen_version:
+                return
+            seg_bytes = sum(self._nbytes(s) for s in self._cache.values())
+            idx_bytes = max(self.bytes_used - seg_bytes, 0)
+            self._cache.clear()
+            self._index_cache.clear()
+            self._lru.clear()
+            self._fcsr_memo.clear()
+            self._maxdeg_memo.clear()
+            self.bytes_used = 0
+            self._seen_version = v
+        if seg_bytes:
+            maybe_device_resident("invalidate", "segment", seg_bytes,
+                                  version=int(v))
+        if idx_bytes:
+            maybe_device_resident("invalidate", "index", idx_bytes,
+                                  version=int(v))
 
     @staticmethod
     def _nbytes(val) -> int:
         """Device bytes of a cache entry: a segment, or (list, length)."""
         return val[0].numel() * 4 if isinstance(val, tuple) else val.nbytes
+
+    @staticmethod
+    def _kind(val) -> str:
+        """The residency ledger's kind of a cache entry."""
+        return "index" if isinstance(val, tuple) else "segment"
 
     def segment(self, pid: int, d: int) -> DeviceSegment | None:
         """Stage (pid, dir) in bucket form; TYPE_ID IN resolves to the type
@@ -480,7 +522,9 @@ class DeviceStore:
 
     def _evict(self, key) -> None:
         table = self._cache if key in self._cache else self._index_cache
-        self.bytes_used -= self._nbytes(table.pop(key))
+        val = table.pop(key)
+        self.bytes_used -= self._nbytes(val)
+        maybe_device_resident("evict", self._kind(val), self._nbytes(val))
         self._lru.remove(key)
 
     def _touch(self, key) -> None:

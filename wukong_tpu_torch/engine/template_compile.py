@@ -1,0 +1,722 @@
+"""Whole-plan compiled template execution.
+
+The port's copy of the JAX package's engine/template_compile.py. Compile
+the template, not the step: instead of one host<->device round trip per
+BGP step, an eligible walk-strategy plan runs as ONE device program —
+expand + intersect + filter + projection over padded CSR tensors (the
+pad_pow2 capacity-class posture of the WCOJ level probe) — with ONE host
+sync a dispatch: the result table, its validity, the per-expand totals,
+the overflow flags and the live count come back in one copy.
+
+The JAX module traces the plan into one jitted XLA program. The port runs
+the same ops eagerly as a torch function over tensors on the engine's
+device (``_build_program``): ``lookup_ranges`` and ``expand_padded``
+(cumsum + searchsorted) for an expand, the hand-written ``level_probe``
+kernel (one adjacency, no glob) for a pair probe, ``searchsorted`` for a
+member filter. Programs are not captured as CUDA graphs: a replay would
+bypass the level probe's launch count (ROADMAP lists the capture as later
+work).
+
+Byte identity with the host walk is structural, not tested-in: every
+fused op reproduces the corresponding ``engine/cpu.py`` kernel's row order
+exactly (``expand_padded`` is ``np.repeat`` order over live rows, filters
+only mask, the final host-side validity compaction preserves position
+order), and anything the extractor cannot prove — unions, OPTIONAL,
+FILTER, attrs, predicate variables, TYPE_ID+IN adjacency, corun,
+deadlines, mt slices — routes to the host walk untouched.
+
+Programs are cached per ``(template signature, store version, capacity
+classes, blind mode, route-knob set)`` (``_program_key``), LRU-bounded by
+``template_budget_mb`` with every fill/evict/invalidate charged on the
+residency ledger (kind ``template``), and every dispatch charged through
+``maybe_device_dispatch`` (site ``template.plan``).
+
+Routing: a ``template_device`` knob + the :data:`TEMPLATE_ROUTES`
+registry, with measured-feedback demotion whose every signal read is a
+``read_device_input()`` call against a declared ``DEVICE_INPUTS`` member.
+A compile or dispatch that cannot run (the proxy catches the structured
+causes: a WukongError, ``DeviceRangeError``, :class:`TemplateOverflow`,
+an injected fault) degrades to the host walk byte-identically and latches
+a per-template demotion (re-armed by a store mutation), visible in the
+``device`` report and EXPLAIN. A CUDA error is not caught.
+
+Unlike the JAX engine, the per-dispatch totals, overflow flags and live
+count stay with each dispatch (``_Dispatch``), not on the engine: the
+port's serving threads dispatch concurrently.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.join.kernels import (
+    DeviceRangeError,
+    expand_padded,
+    level_probe,
+    lookup_ranges,
+    pad_pow2,
+    to_device_i32,
+)
+from wukong_tpu_torch.join.wcoj import JoinTableCache
+from wukong_tpu_torch.obs.device import (
+    maybe_device_dispatch,
+    maybe_device_resident,
+    note_compile_cache,
+    note_feedback,
+    read_device_input,
+)
+from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.runtime import faults
+from wukong_tpu_torch.types import PREDICATE_ID, TYPE_ID, AttrType, IN
+from wukong_tpu_torch.utils.device import resolve_device
+from wukong_tpu_torch.utils.timer import get_usec
+
+#: the dispatch site every whole-plan program charges (DEVICE_INPUTS
+#: reads against it drive the route chooser below)
+SITE = "template.plan"
+
+#: every route a template may take, with what it means — the literal
+#: registry the template-coherence analysis gate anchors on (the
+#: JOIN_ROUTES pattern: routes are an enumerable contract, not strings
+#: scattered through call sites)
+TEMPLATE_ROUTES = {
+    "device": "whole-plan device program: one host sync per query",
+    "host": "the NumPy walk engine, one kernel per BGP step",
+    "latched_host": "demoted: a failing or losing compiled attempt "
+                    "latched host for this template until the next "
+                    "store mutation",
+}
+
+#: int32 sentinel used to pad sorted membership lists — binary search
+#: stays exact for every live value at or below it
+_PAD_SENTINEL = (1 << 31) - 1
+
+# both locks guard pure dict moves; program builds and dispatches run
+# outside them (the join.tables discipline)
+declare_leaf("template.programs")
+declare_leaf("template.routes")
+
+_M_EXEC = get_registry().counter(
+    "wukong_template_exec_total",
+    "Compiled-template execution attempts by outcome "
+    "(compiled / unsupported / overflow)",
+    labels=("outcome",))
+_M_DEMOTED = get_registry().counter(
+    "wukong_template_demotions_total",
+    "Per-template compiled-route demotion latches by reason",
+    labels=("reason",))
+
+
+class TemplateUnsupported(Exception):
+    """The plan shape cannot be compiled — route host, no latch."""
+
+
+class TemplateOverflow(Exception):
+    """Capacity retries exhausted — degrade to the host walk."""
+
+
+# ---------------------------------------------------------------------------
+# demotion latch (per template signature, re-armed by store mutation)
+# ---------------------------------------------------------------------------
+
+_DEM_LOCK = make_lock("template.routes")
+#: {tsig: (reason, store version at latch time)}
+_DEMOTED: dict = {}  # guarded by: _DEM_LOCK
+
+
+def _label(tsig) -> str:
+    """Bounded-cardinality template label for metrics/EXPLAIN."""
+    return "t" + hashlib.sha1(repr(tsig).encode()).hexdigest()[:8]
+
+
+def latch_demotion(tsig, reason: str, version: int | None = None) -> None:
+    """Latch ``host`` for this template (a deterministic compile or
+    dispatch failure would otherwise re-pay the failed device attempt
+    on every same-template query). The latch carries the store version
+    it was taken at: a mutation re-arms the device attempt, mirroring
+    the plan-cache memo keys."""
+    if tsig is None:
+        return
+    with _DEM_LOCK:
+        _DEMOTED[tsig] = (str(reason), version)
+    _M_DEMOTED.labels(reason=str(reason)).inc()
+    note_feedback("template_route", str(reason))
+
+
+def is_demoted(tsig, version: int | None = None) -> bool:
+    with _DEM_LOCK:
+        ent = _DEMOTED.get(tsig)
+    if ent is None:
+        return False
+    if version is not None and ent[1] is not None and ent[1] != version:
+        return False  # store mutated since the latch: re-arm
+    return True
+
+
+def demotion_report() -> dict:
+    """{template label: reason} for /device and tests."""
+    with _DEM_LOCK:
+        return {_label(t): r for t, (r, _v) in _DEMOTED.items()}
+
+
+def reset_demotions() -> None:
+    with _DEM_LOCK:
+        _DEMOTED.clear()
+
+
+# ---------------------------------------------------------------------------
+# route chooser — reads ONLY declared DEVICE_INPUTS
+# ---------------------------------------------------------------------------
+
+def _route_knobs() -> tuple:
+    """The route-relevant knob set — part of every compiled-program
+    cache key, so a runtime knob flip can never serve a program chosen
+    under different routing rules (the template-coherence gate checks
+    ``_program_key`` composes this)."""
+    return (str(Global.template_device).strip().lower(),
+            int(Global.template_min_rows))
+
+
+def choose_template_route(tsig, est_rows: int | None = None,
+                          version: int | None = None) -> str:
+    """Plan-time route for one template. The knob forces host/device;
+    under ``auto`` the planner's estimated peak rows must amortize the
+    dispatch (``template_min_rows``) and the measured feedback may
+    demote: every measured signal is read through
+    :func:`read_device_input` against a declared ``DEVICE_INPUTS``
+    member — the gate-held contract that the actuator consumes nothing
+    the observatory does not publish."""
+    knob = str(Global.template_device).strip().lower()
+    if knob == "host":
+        return "host"
+    if is_demoted(tsig, version):
+        return "latched_host"
+    if knob == "device":
+        return "device"
+    if knob != "auto":
+        return "host"
+    if est_rows is None or est_rows < max(int(Global.template_min_rows), 1):
+        return "host"
+    # measured feedback: a template site whose warm padding efficiency
+    # collapsed is burning capacity on padding — latch host until the
+    # next store mutation re-arms the estimate-driven decision
+    eff = read_device_input("padding_efficiency", SITE)
+    if eff is not None and eff < max(float(Global.template_demote_eff), 0.0):
+        counts = read_device_input("dispatches", SITE) or {}
+        if int(counts.get("count", 0)) >= 8:
+            latch_demotion(tsig, "low_efficiency", version)
+            return "latched_host"
+    return "device"
+
+
+# ---------------------------------------------------------------------------
+# plan extraction: prove the walk chain compilable, or refuse
+# ---------------------------------------------------------------------------
+
+def extract_template(q) -> tuple | None:
+    """(spec, v2c, proj, width) for a compilable plan, else None.
+
+    The extractor simulates ``engine/cpu.py``'s ``_execute_one_pattern``
+    dispatch over the plan: every step must land on a kernel the fused
+    program reproduces bit-for-bit. Anything else — unions, OPTIONAL,
+    FILTER, attr patterns, predicate variables, ``vp``/type-index
+    adjacencies, corun, mt slices, deadlines, repeated const-starts —
+    returns None and the host walk serves the query untouched.
+    """
+    pg = q.pattern_group
+    res = q.result
+    if (pg.unions or pg.optional or pg.filters or not pg.patterns
+            or q.pattern_step != 0 or q.corun_enabled or q.planner_empty
+            or q.mt_factor > 1 or q.deadline is not None
+            or getattr(q, "knn", None) is not None):
+        return None
+
+    def stat(ssid: int, v2c: dict) -> str:
+        return "const" if ssid >= 0 else ("known" if ssid in v2c
+                                          else "unknown")
+
+    def seg_ok(pid: int, d: int) -> bool:
+        # the vp pseudo-segment (PREDICATE_ID) and the per-type Python
+        # loop (TYPE_ID + IN) have no CSR twin the program can probe
+        return pid != PREDICATE_ID and not (pid == TYPE_ID and d == IN)
+
+    v2c: dict[int, int] = {}
+    spec: list[tuple] = []
+    width = 1
+    for step, pat in enumerate(pg.patterns):
+        if pat.predicate < 0 or pat.pred_type != int(AttrType.SID_t):
+            return None
+        s, p, d, o = (pat.subject, pat.predicate, int(pat.direction),
+                      pat.object)
+        if step == 0:
+            if q.start_from_index():
+                if o >= 0 or s < 0:
+                    return None
+                spec.append(("index", s, d))
+            else:
+                if s < 0 or o >= 0:
+                    return None
+                spec.append(("const_list", s, p, d))
+            v2c[o] = 0
+            continue
+        key = (stat(s, v2c), stat(o, v2c))
+        if key == ("known", "unknown"):
+            if not seg_ok(p, d):
+                return None
+            spec.append(("expand", p, d, v2c[s]))
+            v2c[o] = width
+            width += 1
+        elif key == ("known", "known"):
+            if not seg_ok(p, d):
+                return None
+            spec.append(("filter_pair", p, d, v2c[s], v2c[o]))
+        elif key == ("known", "const"):
+            if not seg_ok(p, d):
+                return None
+            spec.append(("filter_pair_const", p, d, v2c[s], o))
+        elif key == ("const", "known"):
+            spec.append(("filter_member", s, p, d, v2c[o]))
+        else:
+            # (const, unknown) past step 0 and every unknown-subject
+            # shape raise on the host too — let the walk own them
+            return None
+
+    # projection fuses on-device only when it IS the final process:
+    # distinct/orders/offset/limit and blind replies keep the full
+    # table and run the host engine's _final_process verbatim
+    proj = None
+    req = [v for v in res.required_vars if not res.is_attr_var(v)]
+    if (not res.blind and not q.distinct and not q.orders
+            and q.offset == 0 and q.limit < 0 and req
+            and not any(res.is_attr_var(v) for v in res.required_vars)
+            and all(v in v2c for v in req)):
+        proj = tuple(v2c[v] for v in req)
+    return tuple(spec), v2c, proj, width
+
+
+# ---------------------------------------------------------------------------
+# the fused program
+# ---------------------------------------------------------------------------
+
+def _build_program(spec: tuple, caps: tuple, depths: tuple,
+                   proj: tuple | None, blind: bool = False):
+    """The whole plan as one torch function from the padded start list to
+    the (projected) padded result table. All structure — op kinds,
+    capacity classes, binary-search depths, projection — is fixed here;
+    every value (start list, CSR triplets, member lists, const ids) is an
+    argument, so same-shape templates share one program. Nothing in it
+    reads a device value on the host: the caller's one fetch is the
+    dispatch's only sync."""
+    n_expand = sum(1 for op in spec if op[0] == "expand")
+    if len(caps) != n_expand + 1:
+        raise ValueError(f"{len(caps)} capacity classes for {n_expand} "
+                         "expands")
+
+    def run(*args):
+        it = iter(args)
+        vals = next(it)
+        n0 = next(it)
+        dev = vals.device
+        valid = torch.arange(caps[0], device=dev) < n0
+        cols = [vals]
+        totals, ovfs = [], []
+        ci, di = 1, 0
+        for op in spec[1:]:
+            kind = op[0]
+            if kind == "expand":
+                keys, offsets, edges = next(it), next(it), next(it)
+                cur = cols[op[3]]
+                start, deg = lookup_ranges(keys, offsets, cur)
+                deg = torch.where(valid, deg, torch.zeros_like(deg))
+                rowc, newv, valid, total, ovf = expand_padded(
+                    start, deg, edges, caps[ci])
+                cols = [c[rowc] for c in cols] + [newv]
+                totals.append(total)
+                ovfs.append(ovf)
+                ci += 1
+            elif kind == "filter_pair":
+                keys, offsets, edges = next(it), next(it), next(it)
+                valid = level_probe(valid, cols[op[4]], None,
+                                    [(keys, offsets, edges, cols[op[3]],
+                                      depths[di])])
+                di += 1
+            elif kind == "filter_pair_const":
+                keys, offsets, edges = next(it), next(it), next(it)
+                objc = next(it)
+                anchors = cols[op[3]]
+                valid = level_probe(valid, torch.full_like(anchors, objc),
+                                    None, [(keys, offsets, edges, anchors,
+                                            depths[di])])
+                di += 1
+            else:  # filter_member
+                mlist, mlen = next(it), next(it)
+                col = cols[op[4]]
+                idx = torch.searchsorted(mlist, col, out_int32=True)
+                idxc = idx.clamp(0, mlist.shape[0] - 1)
+                valid = valid & (idx < mlen) & (mlist[idxc] == col)
+        live = valid.sum(dtype=torch.int32)
+        totals_a = (torch.stack(totals) if totals
+                    else torch.zeros(0, dtype=torch.int32, device=dev))
+        ovfs_a = (torch.stack(ovfs) if ovfs
+                  else torch.zeros(0, dtype=torch.bool, device=dev))
+        if blind:
+            # the blind reply IS the live count (the host walk's
+            # _final_process returns before touching the table): the
+            # padded table is never built, never fetched
+            return None, None, totals_a, ovfs_a, live
+        out_cols = cols if proj is None else [cols[c] for c in proj]
+        table = torch.stack(out_cols, dim=1)
+        return table, valid, totals_a, ovfs_a, live
+
+    return run
+
+
+def _fetch(table, valid, totals, ovfs, live):
+    """Every output of one dispatch in ONE device-to-host copy (the
+    dispatch's one host sync): (table [cap, w] | None, valid [cap] | None,
+    totals, overflow flags, live count) as NumPy arrays and an int."""
+    i32 = torch.int32
+    parts = [totals.to(i32), ovfs.to(i32), live.reshape(1).to(i32)]
+    if table is not None:
+        parts = [table.reshape(-1), valid.to(i32)] + parts
+    host = torch.cat(parts).cpu().numpy()
+    nt = int(totals.shape[0])
+    tail = host[len(host) - 2 * nt - 1:]
+    tot, ovf, lv = tail[:nt], tail[nt:2 * nt].astype(bool), int(tail[-1])
+    if table is None:
+        return None, None, tot, ovf, lv
+    cap, w = table.shape
+    return (host[:cap * w].reshape(cap, w), host[cap * w:cap * w + cap]
+            .astype(bool), tot, ovf, lv)
+
+
+class _Program:
+    """One cached compiled template: the program function plus its fully
+    staged device operands (start list, CSR triplets, member lists) —
+    steady-state execution is ``fn(*args)`` and one result fetch."""
+
+    __slots__ = ("fn", "args", "caps", "spec", "v2c", "proj", "width",
+                 "nbytes", "label", "blind")
+
+    def __init__(self, fn, args, caps, spec, v2c, proj, width, nbytes,
+                 label, blind=False):
+        self.fn = fn
+        self.args = args
+        self.caps = caps
+        self.spec = spec
+        self.v2c = v2c
+        self.proj = proj
+        self.width = width
+        self.nbytes = nbytes
+        self.label = label
+        self.blind = blind
+
+
+class _Dispatch:
+    """What one dispatch fetched (host arrays): the padded table and its
+    validity (None for a blind program), the per-expand totals and
+    overflow flags, and the live row count."""
+
+    __slots__ = ("table", "valid", "totals", "ovfs", "live")
+
+    def __init__(self, table, valid, totals, ovfs, live: int):
+        self.table = table
+        self.valid = valid
+        self.totals = totals
+        self.ovfs = ovfs
+        self.live = live
+
+    @property
+    def overflow(self) -> bool:
+        return bool(self.ovfs.size and self.ovfs.any())
+
+
+def _program_key(tsig, store_version: int, caps: tuple,
+                 blind: bool = False) -> tuple:
+    """THE compiled-program cache key: template signature + the store
+    version the operands were staged at + the capacity classes the
+    program was traced with + the blind/materializing mode + the
+    route-knob set (``_route_knobs``) — a dynamic insert, a capacity
+    regrowth, or a runtime knob flip each make stale programs
+    unreachable. The template-coherence analysis gate holds this exact
+    composition."""
+    return (tsig, int(store_version), tuple(int(c) for c in caps),
+            bool(blind), _route_knobs())
+
+
+def _budget_bytes() -> int:
+    return max(int(Global.template_budget_mb), 1) * (1 << 20)
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+class TemplateCompiledEngine:
+    """Serves eligible walk-strategy queries through cached whole-plan
+    device programs on ``device`` (the proxy's); everything else (and
+    every failure) degrades to the host walk byte-identically. One
+    instance per proxy, sharing the WCOJ executor's per-version
+    device-table discipline through its own :class:`JoinTableCache`."""
+
+    def __init__(self, gstore, str_server=None, device="cuda"):
+        from wukong_tpu_torch.engine.cpu import CPUEngine
+
+        self.g = gstore
+        self.device = resolve_device(device)
+        self.cpu = CPUEngine(gstore, str_server)
+        self.tables = JoinTableCache(gstore, self.device)
+        self._programs: OrderedDict = OrderedDict()  # guarded by: _lock
+        self._good_caps: dict = {}  # guarded by: _lock
+        self._lock = make_lock("template.programs")
+        get_registry().gauge(
+            "wukong_template_programs",
+            "Cached whole-plan compiled programs resident "
+            "(LRU-bounded by template_budget_mb)",
+        ).set_function(lambda: float(len(self._programs)))
+
+    def _version(self) -> int:
+        return int(getattr(self.g, "version", 0))
+
+    # -- program cache -------------------------------------------------
+    def _cache_get(self, key):
+        with self._lock:
+            ent = self._programs.get(key)
+            if ent is not None:
+                self._programs.move_to_end(key)
+        note_compile_cache("hit" if ent is not None else "miss",
+                           site="template")
+        return ent
+
+    def _cache_put(self, key, prog: _Program):
+        evicted = []
+        with self._lock:
+            version = key[1]
+            stale = [k for k in self._programs if k[1] != version]
+            stale_bytes = sum(self._programs.pop(k).nbytes for k in stale)
+            self._programs[key] = prog
+            self._programs.move_to_end(key)
+            budget = _budget_bytes()
+            total = sum(p.nbytes for p in self._programs.values())
+            while total > budget and len(self._programs) > 1:
+                _k, old = self._programs.popitem(last=False)
+                total -= old.nbytes
+                evicted.append(old)
+        if stale:
+            maybe_device_resident("invalidate", "template", stale_bytes,
+                                  version=int(version))
+        maybe_device_resident("fill", "template", prog.nbytes)
+        for old in evicted:
+            maybe_device_resident("evict", "template", old.nbytes)
+            note_compile_cache("evict", site="template")
+        return prog
+
+    def program_count(self) -> int:
+        with self._lock:
+            return len(self._programs)
+
+    def clear(self) -> None:
+        with self._lock:
+            dropped = sum(p.nbytes for p in self._programs.values())
+            self._programs.clear()
+            self._good_caps.clear()
+        if dropped:
+            maybe_device_resident("invalidate", "template", dropped)
+        self.tables.clear()
+
+    # -- staging -------------------------------------------------------
+    def _start_values(self, op) -> np.ndarray:
+        if op[0] == "index":
+            return np.asarray(self.g.get_index(op[1], op[2]),
+                              dtype=np.int64)
+        return np.asarray(self.g.get_triples(op[1], op[2], op[3]),
+                          dtype=np.int64)
+
+    def _stage(self, tsig, spec, caps, v2c, proj, width,
+               blind=False) -> _Program:
+        """Build one compiled program: stage every operand on device
+        (CSR triplets through the version-keyed JoinTableCache, start
+        and member lists padded here) and trace the fused fn. Raises
+        DeviceRangeError when any operand exceeds int32 — the caller
+        degrades to the host walk."""
+        faults.site("template.compile")
+        args: list = []
+        depths: list[int] = []
+        nbytes = 0
+        start_op = spec[0]
+        vals = self._start_values(start_op)
+        n0 = len(vals)
+        padded = np.zeros(caps[0], dtype=np.int64)
+        padded[:n0] = vals
+        dv = to_device_i32(padded, self.device)
+        args += [dv, n0]
+        nbytes += int(dv.nbytes)
+        for op in spec[1:]:
+            kind = op[0]
+            if kind in ("expand", "filter_pair", "filter_pair_const"):
+                keys, offsets, edges, depth = self.tables.device_tables(
+                    op[1], op[2])
+                args += [keys, offsets, edges]
+                if kind != "expand":
+                    depths.append(int(depth))
+                if kind == "filter_pair_const":
+                    if not (0 <= op[4] < (1 << 31)):
+                        raise DeviceRangeError(
+                            f"const object {op[4]} exceeds int32")
+                    args.append(int(op[4]))
+            else:  # filter_member
+                ml = np.asarray(self.g.get_triples(op[1], op[2], op[3]),
+                                dtype=np.int64)
+                if len(ml) > 1 and not bool((ml[1:] >= ml[:-1]).all()):
+                    ml = np.sort(ml)
+                pml = np.full(pad_pow2(len(ml)), _PAD_SENTINEL,
+                              dtype=np.int64)
+                pml[:len(ml)] = ml
+                dml = to_device_i32(pml, self.device)
+                args += [dml, len(ml)]
+                nbytes += int(dml.nbytes)
+        fn = _build_program(spec, caps, tuple(depths), proj, blind)
+        if not blind:
+            # the result fetch buffer counts toward the residency
+            # estimate (blind programs fetch three scalars)
+            out_w = width if proj is None else len(proj)
+            nbytes += caps[-1] * (out_w + 1) * 4
+        return _Program(fn, args, caps, spec, v2c, proj, width, nbytes,
+                        _label(tsig), blind)
+
+    def _initial_caps(self, tsig, spec, est_rows: int | None) -> tuple:
+        version = self._version()
+        with self._lock:
+            good = self._good_caps.get((tsig, version))
+        if good is not None:
+            return good
+        n0 = len(self._start_values(spec[0]))
+        floor = max(int(Global.table_capacity_min), 1)
+        caps = [pad_pow2(n0, floor=floor)]
+        for op in spec[1:]:
+            if op[0] == "expand":
+                guess = caps[-1] * 4
+                if est_rows:
+                    guess = max(guess, pad_pow2(est_rows, floor=floor))
+                caps.append(min(pad_pow2(guess, floor=floor),
+                                int(Global.table_capacity_max)))
+        return tuple(caps)
+
+    @staticmethod
+    def _grow_caps(caps: tuple, totals: np.ndarray,
+                   ovfs: np.ndarray) -> tuple:
+        caps = list(caps)
+        k = int(np.argmax(ovfs))  # first overflowed expand
+        t = int(totals[k])
+        cap_max = int(Global.table_capacity_max)
+        if 0 < t <= cap_max:
+            caps[k + 1] = max(pad_pow2(t), caps[k + 1] * 2)
+        else:
+            caps[k + 1] = caps[k + 1] * 4
+        for j in range(k + 2, len(caps)):
+            # downstream totals were computed over garbage rows: grow
+            # them to at least the repaired step's class
+            caps[j] = max(caps[j], caps[k + 1])
+        if any(c > cap_max for c in caps):
+            raise TemplateOverflow(
+                f"capacity class past table_capacity_max ({cap_max})")
+        return tuple(caps)
+
+    # -- execution -----------------------------------------------------
+    def try_execute(self, q) -> bool:
+        """Serve ``q`` through the compiled program. Returns True when
+        served (byte-identical to the host walk), False when the plan
+        shape is not compilable (caller walks, nothing latched). Raises
+        on compile/dispatch failure with ``q`` UNTOUCHED — the caller
+        latches the per-template demotion and walks."""
+        ext = extract_template(q)
+        if ext is None:
+            _M_EXEC.labels(outcome="unsupported").inc()
+            return False
+        spec, v2c, proj, width = ext
+        tsig = getattr(q, "_tsig", None) or spec
+        est = getattr(q, "_template_est_rows", None)
+        # a blind reply is the live-row COUNT (the host _final_process
+        # returns before touching the table): the blind program never
+        # builds or fetches the padded result table at all
+        blind = bool(q.result.blind)
+        version = self._version()
+        caps = self._initial_caps(tsig, spec, est)
+        retries = max(int(Global.template_capacity_retries), 0)
+        for _attempt in range(retries + 1):
+            key = _program_key(tsig, version, caps, blind)
+            prog = self._cache_get(key)
+            if prog is None:
+                prog = self._cache_put(key, self._stage(
+                    tsig, spec, caps, v2c, proj, width, blind))
+            out = self._dispatch(prog, q)
+            if not out.overflow:
+                with self._lock:
+                    self._good_caps[(tsig, version)] = caps
+                self._commit(q, prog, out)
+                q._template_compiled = True
+                q._template_label = prog.label
+                _M_EXEC.labels(outcome="compiled").inc()
+                return True
+            caps = self._grow_caps(caps, out.totals, out.ovfs)
+        _M_EXEC.labels(outcome="overflow").inc()
+        raise TemplateOverflow(
+            f"padded table overflowed after {retries + 1} attempts")
+
+    def _dispatch(self, prog: _Program, q) -> "_Dispatch":
+        """One program run and its one fetch, charged at the sync point.
+        The returned record carries this dispatch's table, validity,
+        per-step totals, overflow flags and live count."""
+        faults.site("template.dispatch")
+        t0 = get_usec()
+        tbl, val, totals, ovfs, live = _fetch(*prog.fn(*prog.args))
+        nbytes = (12 if prog.blind
+                  else int(tbl.nbytes) + int(val.nbytes))
+        wall = get_usec() - t0
+        rec = maybe_device_dispatch(
+            SITE, template=prog.label, live=live,
+            capacity=int(prog.caps[-1]), wall_us=int(wall),
+            nbytes=nbytes)
+        if rec is not None:
+            dev = getattr(q, "device_steps", None)
+            if dev is None:
+                dev = q.device_steps = []
+            dev.append({**rec, "step": len(q.pattern_group.patterns),
+                        "eff": (int(live) / max(int(prog.caps[-1]), 1))})
+        return _Dispatch(tbl, val, totals, ovfs, live)
+
+    def _commit(self, q, prog: _Program, out: "_Dispatch") -> None:
+        """Install the compiled result exactly as the walk would have
+        left it: validity compaction preserves the host row order; the
+        fused projection sets the walk's post-projection v2c map, the
+        unfused path replays the host ``_final_process`` verbatim. A
+        blind program commits only the live count — the client-visible
+        blind reply — with the walk's v2c metadata."""
+        res = q.result
+        if prog.blind:
+            res.v2c_map = dict(prog.v2c)
+            res.col_num = prog.width
+            res.nrows = int(out.live)
+            q.pattern_step = len(q.pattern_group.patterns)
+            return
+        rows = out.table[out.valid].astype(np.int64)
+        if rows.ndim == 1:
+            rows = rows.reshape(-1, max(prog.width, 1))
+        res.set_table(rows)
+        if prog.proj is not None:
+            normal = [v for v in res.required_vars
+                      if not res.is_attr_var(v)]
+            res.v2c_map = {v: i for i, v in enumerate(normal)}
+            res.col_num = len(normal)
+        else:
+            res.v2c_map = dict(prog.v2c)
+            res.col_num = prog.width
+        q.pattern_step = len(q.pattern_group.patterns)
+        if prog.proj is None:
+            self.cpu._final_process(q)

@@ -45,6 +45,7 @@ from wukong_tpu_torch.engine import tpu_kernels as K
 from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.device_store import DeviceStore
 from wukong_tpu_torch.engine.optional_join import execute_optional_leftjoin
+from wukong_tpu_torch.obs.device import charge_steps
 from wukong_tpu_torch.runtime.resilience import (
     charge_query,
     check_query,
@@ -61,6 +62,7 @@ from wukong_tpu_torch.utils.errors import (
     assert_ec,
 )
 from wukong_tpu_torch.utils.lru import LRUCache
+from wukong_tpu_torch.utils.timer import get_usec
 
 
 class GPUEngine:
@@ -259,6 +261,7 @@ class GPUEngine:
             for attempt in range(8):
                 attempts = self._last_attempts = attempt + 1
                 check_query(q, f"gpu.chain attempt {attempt}")
+                t0 = get_usec()
                 state = _ChainState(q.result)
                 state.step_est = step_est
                 for k in range(device_steps):
@@ -266,6 +269,11 @@ class GPUEngine:
                     self._dispatch_one(q, q.get_pattern(step), step, state,
                                        cap_override)
                 host_table, n, totals = state.sync(blind=blind_ok)
+                moved = 4 * (1 + len(totals))  # the ride-along scalars
+                if not blind_ok:
+                    moved += int(host_table.nbytes)
+                charge_steps("gpu.chain", totals, get_usec() - t0,
+                             nbytes=moved, q=q)
                 over = [(s, t) for s, t, c in totals if t > c]
                 if not over:
                     break
@@ -684,6 +692,7 @@ class GPUEngine:
             cap_override: dict[int, int] = {}
             for _attempt in range(8):
                 check_query(q, f"gpu.batch_chain attempt {_attempt}")
+                t0 = get_usec()
                 state = _ChainState(q.result)
                 state.step_est = step_est
                 first = make_init(state, cap_override)
@@ -694,6 +703,11 @@ class GPUEngine:
                 counts = _qid_counts(state.table, state.n, B)
                 [(host_counts, totals)] = K.fetch_counts(
                     [(counts, [t for (_, t, _) in state.totals])])
+                charge_steps("gpu.batch_chain",
+                             [(s, t, c) for (s, _, c), t
+                              in zip(state.totals, totals)],
+                             get_usec() - t0, nbytes=4 * (B + len(totals)),
+                             q=q)
                 over = False
                 for (s, _, c), t in zip(state.totals, totals):
                     if t > c:

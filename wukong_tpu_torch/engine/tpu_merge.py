@@ -35,9 +35,11 @@ import torch
 from wukong_tpu_torch.engine import tpu_kernels as K
 from wukong_tpu_torch.engine import tpu_stream
 from wukong_tpu_torch.engine.device_store import fold_key
+from wukong_tpu_torch.obs.device import charge_steps
 from wukong_tpu_torch.sparql.ir import SPARQLQuery
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError, assert_ec
 from wukong_tpu_torch.utils.lru import LRUCache
+from wukong_tpu_torch.utils.timer import get_usec
 
 
 class _Level:
@@ -315,14 +317,19 @@ class MergeExecutor:
         and re-learns capacities for later windows)."""
         eng = self.eng
         eng.dstore.pin(pin_set)
+        t0 = get_usec()
         try:
             flight = [t() for t in thunks]
             host = K.fetch_counts(
                 [(c, [t for (_, t, _) in tot]) for c, tot in flight])
         finally:
             eng.dstore.unpin(pin_set)
+        wall = get_usec() - t0
         out = []
         for slow, (host_counts, totals), (_, tot) in zip(slows, host, flight):
+            charge_steps("gpu.merge.flight",
+                         [(s, t, c) for (s, _, c), t in zip(tot, totals)],
+                         wall // max(len(flight), 1))
             if any(t > c for (_, _, c), t in zip(tot, totals)):
                 self.total_retries += 1  # the chain runs again, alone
                 out.append(slow())
@@ -371,6 +378,7 @@ class MergeExecutor:
         eng.dstore.pin(pins)
         try:
             for _attempt in range(8):
+                t0 = get_usec()
                 state = _MergeState()
                 init(state)
                 for k, pat, _kind, fold in self.classify(pats, folds,
@@ -382,6 +390,10 @@ class MergeExecutor:
                                            slice_mode=slice_mode)
                 [(host_counts, totals)] = K.fetch_counts(
                     [(counts, [t for (_, t, _) in state.totals])])
+                charge_steps("gpu.merge",
+                             [(s, t, c) for (s, _, c), t
+                              in zip(state.totals, totals)],
+                             get_usec() - t0, q=q)
                 over = False
                 for (s, _, c), t in zip(state.totals, totals):
                     exact = K.next_capacity(t, eng.cap_min, eng.cap_max)

@@ -1,0 +1,380 @@
+"""Sorted-array join primitives for the WCOJ executor and compiled templates.
+
+The port's copy of the JAX package's join/kernels.py. The JAX module writes
+every kernel once against a swappable array module (NumPy on the host, XLA
+under ``jax.jit`` on the device). Here the same functions take NumPy arrays
+(the host route) or torch tensors (the device route: tensors on the proxy's
+device, int32 as the JAX device path is with x64 off) and run the matching
+library's ops; each torch branch repeats the NumPy one step for step, so
+the two routes give the same answers.
+
+Data model: adjacency is the store's CSR triplet (sorted unique ``keys``,
+``offsets``, ``edges`` sorted within each key run); candidate sets are
+sorted 1-D id arrays. Intersection = membership mask via vectorized binary
+search; ragged per-row probes = fixed-iteration branchless lower_bound over
+each row's [start, end) edge range.
+
+:func:`level_probe` is the one device computation here that stock torch ops
+cannot do in a few launches (``depth`` iterations of about six ops per
+adjacency): on a CUDA tensor it launches the hand-written kernel
+``csrc/level_probe.cu`` (which replaces the JAX ``jit_level_probe``), on a
+CPU tensor it runs :func:`level_probe_plain`, the same function in plain
+PyTorch. The JAX module's streaming and distributed kernels
+(``unique_rows_padded``, ``seed_*``, ``concat_rows_padded``) wait for the
+stream plane and the distributed join (ROADMAP §A 8-9).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+I32 = torch.int32
+
+
+def _is_t(a) -> bool:
+    return isinstance(a, torch.Tensor)
+
+
+def member_sorted(sorted_arr, vals):
+    """Boolean mask: is ``vals[i]`` present in ``sorted_arr``?
+
+    One vectorized binary search + one gather. Empty set -> all-False."""
+    n = int(sorted_arr.shape[0])
+    if _is_t(vals):
+        if n == 0:
+            return torch.zeros(vals.shape[0], dtype=torch.bool,
+                               device=vals.device)
+        idx = torch.searchsorted(sorted_arr, vals, out_int32=True)
+        return (idx < n) & (sorted_arr[idx.clamp(0, n - 1)] == vals)
+    if n == 0:
+        return np.zeros(vals.shape[0], dtype=bool)
+    idx = np.searchsorted(sorted_arr, vals)
+    idx_c = np.clip(idx, 0, n - 1)
+    return (idx < n) & (sorted_arr[idx_c] == vals)
+
+
+def intersect_sorted(a, b):
+    """Sorted intersection of two sorted unique arrays (result stays
+    sorted/unique). The smaller side should be ``a`` — the probe cost is
+    ``|a| * log |b|``."""
+    if a.shape[0] == 0 or b.shape[0] == 0:
+        return a[:0]
+    return a[member_sorted(b, a)]
+
+
+def intersect_many(lists):
+    """Fold-intersect sorted unique arrays, smallest first (leapfrog's
+    seek-from-the-shortest-list order). Empty input list -> None."""
+    if not lists:
+        return None
+    out = None
+    for arr in sorted(lists, key=lambda t: t.shape[0]):
+        out = arr if out is None else intersect_sorted(out, arr)
+        if out.shape[0] == 0:
+            break
+    return out
+
+
+def lookup_ranges(keys, offsets, vids):
+    """(start, degree) of each vid's edge range in a CSR (0 when absent).
+    NumPy arrays give int64 ranges; torch tensors (int32 tables) give the
+    tables' dtype, as the JAX device path's int32."""
+    n = int(keys.shape[0])
+    if _is_t(vids):
+        if n == 0:
+            z = torch.zeros(vids.shape[0], dtype=offsets.dtype,
+                            device=vids.device)
+            return z, z
+        idx = torch.searchsorted(keys, vids, out_int32=True)
+        idx_c = idx.clamp(0, n - 1)
+        found = (idx < n) & (keys[idx_c] == vids)
+        lo = offsets[idx_c]
+        zero = torch.zeros((), dtype=offsets.dtype, device=vids.device)
+        start = torch.where(found, lo, zero)
+        deg = torch.where(found, offsets[idx_c + 1] - lo, zero)
+        return start, deg
+    if n == 0:
+        z = np.zeros(vids.shape[0], dtype=np.int64)
+        return z, z
+    idx = np.searchsorted(keys, vids)
+    idx_c = np.clip(idx, 0, n - 1)
+    found = (idx < n) & (keys[idx_c] == vids)
+    start = np.where(found, offsets[idx_c], 0)
+    deg = np.where(found, offsets[idx_c + 1] - offsets[idx_c], 0)
+    return start, deg
+
+
+def expand_ragged(start: np.ndarray, deg: np.ndarray):
+    """(row_idx, flat edge positions) for a ragged per-row expansion.
+
+    deg=[2,0,3] -> row_idx=[0,0,2,2,2], pos=[s0,s0+1,s2,s2+1,s2+2]
+    (row indices are ORIGINAL positions — zero-degree rows are skipped,
+    never compacted away, so callers may index anchors with row_idx).
+    Host-side only (the output length is data-dependent — the device path
+    pads to a capacity class instead, :func:`expand_padded`)."""
+    row_idx = np.repeat(np.arange(len(deg)), deg)
+    total = int(deg.sum())
+    local = np.ones(total, dtype=np.int64)
+    if total:
+        starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+        nz = deg > 0
+        local[starts[nz]] = np.concatenate([[0], 1 - deg[nz][:-1]])
+        local = np.cumsum(local)
+    return row_idx, start[row_idx] + local
+
+
+def pair_member(keys, offsets, edges, anchors, vals, depth=None):
+    """Boolean mask: does edge (anchors[i] -> vals[i]) exist in the CSR?
+
+    Branchless lower_bound over each row's sorted [start, end) edge range,
+    iterated a FIXED ``log2(len(edges))+1`` times; ``depth`` overrides the
+    iteration count (each row's range is ONE key's edge run, so
+    ``log2(max_degree)+1`` converges every row — the device path passes the
+    table's cached degree bound). NumPy searches in int64, torch in the
+    tables' int32 with the midpoint ``lo + (hi - lo) // 2``: ``lo + hi``
+    overflows past 2^30 edges (the classic binary-search midpoint bug)."""
+    ne = int(edges.shape[0])
+    t = _is_t(anchors)
+    if ne == 0:
+        return (torch.zeros(anchors.shape[0], dtype=torch.bool,
+                            device=anchors.device) if t
+                else np.zeros(anchors.shape[0], dtype=bool))
+    start, deg = lookup_ranges(keys, offsets, anchors)
+    if t:
+        lo = start
+        end = hi = start + deg
+    else:
+        lo = start.astype(np.int64)
+        end = hi = (start + deg).astype(np.int64)
+    iters = ne.bit_length() + 1 if depth is None else max(int(depth), 1)
+    for _ in range(iters):
+        active = lo < hi
+        mid = lo + (hi - lo) // 2
+        if t:
+            less = edges[mid.clamp(0, ne - 1)] < vals
+            lo = torch.where(active & less, mid + 1, lo)
+            hi = torch.where(active & ~less, mid, hi)
+        else:
+            less = edges[np.clip(mid, 0, ne - 1)] < vals
+            lo = np.where(active & less, mid + 1, lo)
+            hi = np.where(active & ~less, mid, hi)
+    inb = lo < end
+    if t:
+        return inb & (edges[lo.clamp(0, ne - 1)] == vals)
+    return inb & (edges[np.clip(lo, 0, ne - 1)] == vals)
+
+
+# ---------------------------------------------------------------------------
+# the device level path: padded candidate tensors
+# ---------------------------------------------------------------------------
+
+#: smallest padded capacity class — tiny dispatches all share one shape
+PAD_FLOOR = 1024
+
+
+def pad_pow2(n: int, floor: int = PAD_FLOOR) -> int:
+    """The device path's capacity class: smallest power of two >=
+    max(n, floor). Candidate tensors are padded to it so the device
+    programs see a bounded set of shapes (the engine's capacity-class
+    discipline)."""
+    c = max(int(n), int(floor), 1)
+    return 1 << (c - 1).bit_length()
+
+
+class DeviceRangeError(ValueError):
+    """An array holds values outside int32 — the device path (int32, as the
+    JAX device path under the default x64-off config) must degrade to host
+    rather than silently truncate ids or offsets."""
+
+
+def check_i32(arr, what: str = "values") -> np.ndarray:
+    """``arr`` as a NumPy array, REFUSING (DeviceRangeError) any value
+    outside int32 instead of truncating."""
+    a = np.asarray(arr)
+    if len(a) and a.dtype != np.int32:
+        lo, hi = int(a.min()), int(a.max())
+        if lo < -(1 << 31) or hi >= (1 << 31):
+            raise DeviceRangeError(
+                f"{what} [{lo}, {hi}] exceed int32 — host route required")
+    return a
+
+
+def to_device_i32(arr, device) -> torch.Tensor:
+    """Host int array -> int32 tensor on ``device``, REFUSING
+    (DeviceRangeError) any value outside int32 instead of truncating.
+    Offsets past 2^31 (a >2G-edge segment) and out-of-range ids therefore
+    degrade the query to the host kernels, never to wrong answers. A copy to
+    the card goes through pinned memory without a host sync."""
+    from wukong_tpu_torch.engine.tpu_kernels import upload
+
+    a = check_i32(arr).astype(np.int32, copy=False)
+    return upload(np.ascontiguousarray(a), torch.device(device))
+
+
+def level_probe_plain(valid, cand, glob, adj):
+    """The level probe in plain PyTorch (same argument layout as
+    :func:`level_probe`): ``valid`` AND membership of ``cand`` in the sorted
+    ``glob`` (None: no glob) AND, for each adjacency ``(keys, offsets,
+    edges, anchors, depth)`` in ``adj``, the edge anchors[i] -> cand[i]."""
+    mask = valid.clone()
+    if glob is not None:
+        mask &= member_sorted(glob, cand)
+    for keys, offsets, edges, anchors, depth in adj:
+        mask &= pair_member(keys, offsets, edges, anchors, cand, depth=depth)
+    return mask
+
+
+class _WkAdj(ctypes.Structure):
+    """The C ``WkAdj`` descriptor of csrc/level_probe.cu."""
+
+    _fields_ = [("keys", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
+                ("edges", ctypes.c_void_p), ("anchors", ctypes.c_void_p),
+                ("nkeys", ctypes.c_int), ("nedges", ctypes.c_int),
+                ("depth", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
+_wk = None  # the bound C library, set at the first launch
+
+
+def _check_probe_args(valid, cand, glob, adj) -> None:
+    from wukong_tpu_torch.engine import cuda_lib
+
+    C = cand.shape[0]
+    if valid.dtype != torch.bool or cand.dtype != I32 or cand.dim() != 1 \
+            or valid.shape != cand.shape:
+        raise ValueError("level_probe: valid must be bool and cand int32, "
+                         f"both [C]; got {valid.dtype} {tuple(valid.shape)}, "
+                         f"{cand.dtype} {tuple(cand.shape)}")
+    tensors = [valid, cand]
+    if glob is not None:
+        if glob.dtype != I32 or glob.dim() != 1:
+            raise ValueError(f"level_probe: glob must be int32 [n], got "
+                             f"{glob.dtype} {tuple(glob.shape)}")
+        tensors.append(glob)
+    for keys, offsets, edges, anchors, _depth in adj:
+        if any(a.dtype != I32 for a in (keys, offsets, edges, anchors)):
+            raise ValueError("level_probe: CSR tables and anchors must be "
+                             "int32")
+        if anchors.shape != (C,) or offsets.shape[0] != keys.shape[0] + 1:
+            raise ValueError("level_probe: anchors must be [C] and offsets "
+                             "[nkeys + 1]")
+        tensors += [keys, offsets, edges, anchors]
+    cuda_lib.require_cuda("level_probe", *tensors)
+    dev = cand.device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("level_probe: every tensor must be on one device")
+
+
+def level_probe(valid, cand, glob, adj):
+    """mask[C] of one WCOJ generator group (or a template pair probe):
+    ``valid`` AND ``cand`` in the sorted ``glob`` (None: no glob) AND every
+    adjacency's edge ``anchors[i] -> cand[i]``; ``adj`` is a sequence of
+    ``(keys, offsets, edges, anchors, depth)`` with int32 tables.
+
+    Replaces wukong_tpu/join/kernels.py:jit_level_probe. CUDA tensors
+    launch csrc/level_probe.cu (one thread a candidate, every adjacency in
+    one launch, up to its descriptor limit; more adjacencies chain launches
+    over the mask), counted on ``level_probe.launches``; CPU tensors run
+    :func:`level_probe_plain`. Bound: bytes (see the source note). No
+    launch for an empty candidate tensor."""
+    global _wk
+    if cand.device.type == "cpu":
+        return level_probe_plain(valid, cand, glob, adj)
+    from wukong_tpu_torch.engine import cuda_lib
+
+    adj = [(keys, offsets, edges, anchors, max(int(depth), 1))
+           for keys, offsets, edges, anchors, depth in adj]
+    _check_probe_args(valid, cand, glob, adj)
+    C = cand.shape[0]
+    mask = torch.empty(C, dtype=torch.bool, device=cand.device)
+    if C == 0:
+        return mask
+    if _wk is None:
+        lib = cuda_lib.library("level_probe.cu")
+        lib.max_adj = int(lib.wk_level_probe_max_adj())
+        _wk = lib
+    stream = cuda_lib.stream_ptr(cand)
+    src = valid
+    chunks = [adj[i:i + _wk.max_adj]
+              for i in range(0, len(adj), _wk.max_adj)] or [[]]
+    for k, chunk in enumerate(chunks):
+        descs = (_WkAdj * max(len(chunk), 1))()
+        for j, (keys, offsets, edges, anchors, depth) in enumerate(chunk):
+            descs[j] = _WkAdj(keys.data_ptr(), offsets.data_ptr(),
+                              edges.data_ptr(), anchors.data_ptr(),
+                              keys.shape[0], edges.shape[0], depth, 0)
+        use_glob = glob is not None and k == 0
+        rc = _wk.wk_level_probe(
+            src.data_ptr(), cand.data_ptr(), C,
+            glob.data_ptr() if use_glob else None,
+            glob.shape[0] if use_glob else 0, int(use_glob),
+            ctypes.cast(descs, ctypes.c_void_p), len(chunk),
+            mask.data_ptr(), cand.get_device(), stream)
+        if rc:
+            cuda_lib.check(_wk, rc, "level_probe")
+        cuda_lib.count_launch(level_probe)
+        src = mask
+    return mask
+
+
+level_probe.launches = 0
+
+
+def level_probe_host(valid, cand, glob, *adj):
+    """NumPy twin of the level probe in the JAX argument layout (``adj``
+    flattened as keys, offsets, edges, anchors per adjacency, searched to
+    full depth; ``glob`` None: no glob) — the parity oracle the tests hold
+    the device route against, and the JAX module's function of the same
+    name."""
+    mask = np.asarray(valid).copy()
+    if glob is not None:
+        mask &= member_sorted(np.asarray(glob), np.asarray(cand))
+    for j in range(len(adj) // 4):
+        keys, offsets, edges, anchors = adj[4 * j: 4 * j + 4]
+        mask &= pair_member(np.asarray(keys), np.asarray(offsets),
+                            np.asarray(edges), np.asarray(anchors),
+                            np.asarray(cand))
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# whole-plan compiled-template kernels (engine/template_compile.py)
+# ---------------------------------------------------------------------------
+
+def expand_padded(start, deg, edges, out_cap: int):
+    """Order-preserving ragged expansion to a STATIC output capacity, on
+    torch tensors (int32).
+
+    The padded twin of :func:`expand_ragged`: rows land in source-row
+    order with each row's edges contiguous (np.repeat order), so a
+    validity-compacted result is byte-identical to the host expansion.
+    Rows the caller masked out must arrive with ``deg == 0``.
+
+    Returns ``(row_idx, values, valid, total, overflow)`` (``total`` and
+    ``overflow`` 0-d device tensors: no host sync). The cumulative sum is
+    int32 as in the JAX device path and can wrap: a float32 shadow sum of
+    the degrees catches totals past 2^31 that the wrapped comparison would
+    miss, so ``overflow`` trips on them and the caller regrows or degrades,
+    never truncates."""
+    n = int(start.shape[0])
+    ne = int(edges.shape[0])
+    dev = start.device
+    cum = torch.cumsum(deg, 0, dtype=I32)
+    total = cum[n - 1]
+    pos = torch.arange(out_cap, dtype=I32, device=dev)
+    row = torch.searchsorted(cum, pos, right=True, out_int32=True)
+    rowc = row.clamp(0, n - 1)
+    zero = torch.zeros((), dtype=I32, device=dev)
+    prev = torch.where(rowc > 0, cum[(rowc - 1).clamp(0, n - 1)], zero)
+    local = pos - prev
+    if ne:
+        values = edges[(start[rowc] + local).clamp(0, ne - 1)]
+    else:
+        values = torch.zeros(out_cap, dtype=start.dtype, device=dev)
+    valid = (pos < total) & (total > 0)
+    fsum = deg.to(torch.float32).sum()
+    overflow = (total > out_cap) | (total < 0) | (fsum > float(out_cap))
+    return rowc, values, valid, total, overflow

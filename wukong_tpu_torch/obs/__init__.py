@@ -12,10 +12,13 @@ plane and the event journal (the port's copy of the JAX package's obs/).
   admission controller (runtime/admission.py) reads
 - events.py   — the cluster-event journal with shard/tenant/qid keys
 - profile.py  — EXPLAIN / EXPLAIN ANALYZE and the latency attributor
+- device.py   — the device-cost observatory: dispatch, compile and
+  residency ledgers behind ``maybe_device_dispatch`` / ``charge_steps``
+  / ``maybe_device_resident``, ``DEVICE_INPUTS``, ``render_device``
 
-The JAX package's heat, reuse, device, tsdb and placement observatories,
-its HTTP endpoints and its metrics snapshotter wait for the subsystems
-they observe (ROADMAP §A 8-10).
+The JAX package's heat, reuse, tsdb and placement observatories, its HTTP
+endpoints and its metrics snapshotter wait for the subsystems they observe
+(ROADMAP §A 8-10).
 """
 
 from wukong_tpu_torch.obs.events import (

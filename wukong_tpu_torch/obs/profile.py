@@ -25,9 +25,12 @@ The port's copy of the JAX package's obs/profile.py:
   percent counts ``wukong_latency_regressions_total`` and dumps its trace
   (reason ``LATENCY_REGRESSION``).
 
-The report keeps the keys of subsystems the port does not have yet
-(``wcoj_levels``, ``knn``, ``device_steps``); each is absent unless the
-query carries that attribute, as in the JAX package. The JAX module's
+The report carries the execution strategy, the route line (a wcoj query's
+level route, ``template-compiled`` for a query its compiled template
+served), the WCOJ per-level table (``wcoj_levels``) and the device table
+(``device_steps``: one row per charged device dispatch — a chain step, a
+merge step, a WCOJ probe group, a template program), as in the JAX package;
+the ``knn`` key of the vector plane the port does not have yet is absent. The JAX module's
 ``render_top`` (the ``top`` verb) needs the heat and reuse observatories
 and waits for them (ROADMAP §A 8-9).
 """
@@ -49,7 +52,7 @@ from wukong_tpu_torch.utils.timer import get_usec
 COMPONENTS = ("queue", "parse", "plan", "execute", "fetch")
 
 #: top-level engine execution spans (one per engine family)
-EXECUTE_SPANS = frozenset({"cpu.execute", "gpu.execute"})
+EXECUTE_SPANS = frozenset({"cpu.execute", "gpu.execute", "wcoj.execute"})
 
 #: per-BGP-step spans carrying step index + rows in/out attributes
 STEP_SPANS = frozenset({"cpu.step", "gpu.host_step"})

@@ -483,7 +483,7 @@ class Planner:
     def estimate_peak_rows(self, patterns: list) -> int | None:
         """Peak intermediate cardinality across an already-ordered chain,
         or None when the shape cannot be walked. The compiled-template
-        route chooser gates on this: a whole-plan XLA dispatch only
+        route chooser gates on this: a whole-plan device dispatch only
         amortizes when the binding tables it fuses are large enough
         (``template_min_rows``) to beat the per-step host kernels."""
         ests = self.estimate_chain(patterns)
@@ -510,6 +510,70 @@ class Planner:
                         "est_empty": bool(st.empty)})
             prev_cost = st.cost
         return out
+
+    # ------------------------------------------------------------------
+    # execution-strategy selection (join/): walk vs wcoj
+    # ------------------------------------------------------------------
+    def choose_strategy(self, patterns: list) -> str:
+        """Pick the execution strategy for an ALREADY-ORDERED pattern list.
+
+        ``join_strategy`` knob: ``walk`` forces the walk; ``wcoj`` forces
+        the tensor join on every supported shape; ``auto`` (default) routes
+        wcoj only when the query graph is cyclic AND the walk's estimated
+        peak intermediate cardinality reaches ``wcoj_ratio`` times the
+        estimated final fragment size — the wedge-blowup signature that
+        worst-case-optimal joins exist to avoid. Acyclic queries always
+        walk under auto. Every return value is a member of
+        ``join.JOIN_STRATEGIES``."""
+        from wukong_tpu_torch.config import Global
+        from wukong_tpu_torch.join.qgraph import analyze
+
+        knob = str(Global.join_strategy).strip().lower()
+        if knob == "walk":
+            return "walk"
+        qg = analyze(patterns, stats=self.stats)
+        if not qg.supported:
+            return "walk"
+        if knob == "wcoj":
+            return "wcoj"
+        if not qg.cyclic:
+            return "walk"
+        ests = self.estimate_chain(patterns)
+        if ests is None:
+            # cyclic but unestimable: the walk's blowup is the known risk
+            return "wcoj"
+        peak, final = max(ests), max(ests[-1], 1.0)
+        if (peak >= max(int(Global.wcoj_min_rows), 1)
+                and peak / final >= max(float(Global.wcoj_ratio), 1.0)):
+            return "wcoj"
+        return "walk"
+
+    def choose_join_route(self, patterns: list) -> str:
+        """Pick the wcoj LEVEL route for an already-ordered pattern list.
+
+        ``join_device`` knob: ``host`` forces the NumPy kernels; ``device``
+        forces the level probe on every level; ``auto`` (default) routes
+        device only when the estimated candidate volume — the chain's
+        summed per-step output rows — reaches
+        ``join_device_min_candidates``, so a padded dispatch is amortized.
+        Unestimable chains stay on host. The JAX chooser also returns host
+        when jax cannot be imported; torch is always there, and ``device``
+        means tensors on the proxy's device (the CUDA kernel on the card,
+        its plain version on a CPU proxy). Every return value is a member
+        of ``join.JOIN_ROUTES``."""
+        from wukong_tpu_torch.config import Global
+
+        knob = str(Global.join_device).strip().lower()
+        if knob == "host":
+            return "host"
+        if knob == "device":
+            return "device"
+        ests = self.estimate_chain(patterns)
+        if ests is None:
+            return "host"
+        if sum(ests) >= max(int(Global.join_device_min_candidates), 1):
+            return "device"
+        return "host"
 
     def _orient(self, state: _State, p: Pattern) -> Pattern:
         s_var_b = p.subject < 0 and p.subject in state.vars

@@ -266,10 +266,20 @@ class PlanCache:
             # not safely replayable
             _M_PLAN_CACHE.labels(result="uncacheable").inc()
 
+    def put_aux(self, kind: str, sig, version, value) -> None:
+        """Overwrite one auxiliary plan fact (the measured-feedback paths:
+        an execution-time measurement replaces the estimate-derived memo
+        under the SAME key, so the next ``aux()`` lookup serves the
+        corrected decision)."""
+        if sig is None:
+            return
+        self._lru.put((kind, sig, version), value)
+
     def aux(self, kind: str, sig, version, compute):
         """Memoized per-template auxiliary plan facts (the device slice
-        count), keyed like a plan recipe on signature + store version.
-        ``sig`` None computes uncached."""
+        count, the lane, the strategy and level route), keyed like a plan
+        recipe on signature + store version. ``sig`` None computes
+        uncached."""
         if sig is None:
             return compute()
         key = (kind, sig, version)

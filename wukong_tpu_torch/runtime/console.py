@@ -9,10 +9,11 @@ Verbs: help, quit, config, logger, sparql (``-t <tenant>`` serves as a
 tenant), sparql-emu, load-stat, store-stat, and the reports of the
 observability plane: trace (the flight recorder), explain and analyze
 (EXPLAIN / EXPLAIN ANALYZE), slo (tenant SLOs and the overload bus),
-admission (the admission plane) and events (the event journal). One-shot
-mode with -c, else a REPL. The engines run on the card unless ``--device
-cpu`` is given. The JAX console's other verbs (load, gsck, top, history,
-cache, device, plan, migrate, metrics, checkpoint, recover), ``--dist``,
+admission (the admission plane), events (the event journal) and device
+(the device-cost observatory). One-shot mode with -c, else a REPL. The
+engines run on the card unless ``--device cpu`` is given. The JAX
+console's other verbs (load, gsck, top, history, cache, plan, migrate,
+metrics, checkpoint, recover), ``--dist``,
 ``--bind``, HDFS datasets and the persistent compile cache wait for their
 slices (ROADMAP §A).
 """
@@ -58,6 +59,8 @@ admission [-k <n>] [-j]      admission control plane: overload level,
 events [-k <n>] [-s <shard>] [-K <kind>] [-j]
                              cluster event journal: breaker trips, SLO
                              burns, admission sheds, trace dumps
+device [-k <n>] [-j]         device-cost observatory: dispatches, padding
+                             efficiency, variants, residency, demotions
 """
 
 
@@ -105,6 +108,8 @@ class Console:
                 self._report(rest, "admission")
             elif cmd == "events":
                 self._events(rest)
+            elif cmd == "device":
+                self._device(rest)
             else:
                 log_error(f"unknown command: {cmd} (try 'help')")
         except WukongError as e:
@@ -334,6 +339,18 @@ class Console:
         ns = ap.parse_args(rest)
         render = render_slo if verb == "slo" else render_admission
         self._print_report(ns.j, *render(ns.k))
+
+    def _device(self, rest) -> None:
+        """device: the device-cost observatory (dispatches, padding
+        efficiency, variants, residency, template demotions)."""
+        from wukong_tpu_torch.obs.device import render_device
+
+        ap = argparse.ArgumentParser(prog="device")
+        ap.add_argument("-k", type=int, default=None,
+                        help="dispatch rows shown (default: the top_k knob)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_device(ns.k))
 
     def _events(self, rest) -> None:
         """events: the cluster event journal."""

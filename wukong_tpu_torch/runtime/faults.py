@@ -19,7 +19,13 @@ The port's sites (``KNOWN_FAULT_SITES``):
 - ``proxy.serve`` — the serving-boundary dispatch in runtime/proxy.py,
   before any engine runs: an injected failure reaches the caller;
 - ``batch.heavy.dispatch`` — one slice dispatch of a fused heavy group in
-  runtime/batcher.py (a failed slice is re-run once on the gather thread).
+  runtime/batcher.py (a failed slice is re-run once on the gather thread);
+- ``join.materialize`` — a sorted edge table or index list built for the
+  WCOJ executor (join/wcoj.py), before the query is touched: the proxy
+  degrades the query to the walk;
+- ``template.compile`` / ``template.dispatch`` — staging and running a
+  compiled template program (engine/template_compile.py): the proxy
+  latches the template's demotion and walks.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -37,7 +43,8 @@ import time
 from dataclasses import dataclass, field
 
 KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
-                               "batch.heavy.dispatch"})
+                               "batch.heavy.dispatch", "join.materialize",
+                               "template.compile", "template.dispatch"})
 
 
 class TransientFault(Exception):
@@ -51,6 +58,11 @@ class ShardDown(Exception):
         self.site = site
         self.shard = shard
         super().__init__(f"injected shard-down at {site} (shard={shard})")
+
+
+#: what an installed plan raises at a site: the degrading paths (a wcoj
+#: join to the walk, a compiled template to the walk) catch these by name
+INJECTED = (TransientFault, ShardDown)
 
 
 @dataclass

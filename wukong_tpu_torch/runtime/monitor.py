@@ -6,11 +6,11 @@ measurements the reference's proxy prints during ``sparql -n N`` and
 ``sparql-emu`` runs — with every latency also observed into the registry's
 ``wukong_query_latency_us{qtype}`` histogram, and the rolling lines read
 back from the observability plane: the heavy lane (``lane_lines``), the
-tenant SLOs (``slo_lines``), the admission plane (``admission_lines``) and
-the event journal (``events_lines``). The JAX package's lines for
-subsystems the port does not have yet (circuit-breaker registry, stream
-epochs, heat, placement, migration, caches, device observatory) are left
-out.
+tenant SLOs (``slo_lines``), the admission plane (``admission_lines``),
+the event journal (``events_lines``) and the device observatory
+(``device_lines``). The JAX package's lines for subsystems the port does
+not have yet (circuit-breaker registry, stream epochs, heat, placement,
+migration, caches) are left out.
 """
 
 from __future__ import annotations
@@ -163,6 +163,27 @@ class Monitor:
         return ["Admission[level " + str(rep["level"])
                 + f" {total:,} decisions"
                 + ("  " + "  ".join(parts) if parts else "") + "]"]
+
+    def device_lines(self) -> list[str]:
+        """Rolling-report line for the device observatory: dispatch count
+        + cold/warm split + padding efficiency + resident bytes vs the
+        budget — quiet until any dispatch or residency fill has been
+        charged."""
+        from wukong_tpu_torch.obs.device import get_device_obs
+
+        obs = get_device_obs()
+        d = obs.dispatch_ledger.dispatch_counts()
+        res = obs.residency.stats()
+        if d["count"] == 0 and res["total_bytes"] == 0:
+            return []
+        eff = obs.dispatch_ledger.padding_efficiency()
+        return [f"Device[{d['count']:,} dispatches "
+                f"({d['cold']:,} cold / {d['warm']:,} warm), pad_eff "
+                + ("-" if eff is None else f"{eff:.1%}")
+                + f", resident {res['total_bytes'] / 2**20:.1f}"
+                f"/{res['budget_bytes'] / 2**20:.0f} MiB"
+                f" (hw {res['high_water_bytes'] / 2**20:.1f})"
+                + (", OVER BUDGET" if res["over_budget"] else "") + "]"]
 
     def events_lines(self, k: int = 4) -> list[str]:
         """Rolling-report line for the event journal (obs/events.py): the

@@ -41,13 +41,31 @@ the flight recorder, and folds the reply into the tenant's SLO window
 (obs/export.py). ``explain_query`` is EXPLAIN / EXPLAIN ANALYZE
 (obs/profile.py).
 
+Execution strategies, as in the JAX proxy: at plan time
+``classify_join_strategy`` routes a query ``walk`` or ``wcoj`` (the
+worst-case-optimal join, join/wcoj.py), ``classify_join_route`` picks a
+wcoj query's level route (host kernels or the device level probe), and
+``classify_template_route`` picks a walk query's compiled-template route
+(engine/template_compile.py: the whole plan as one device program). Each
+decision is memoized per template signature and store version in the plan
+cache, and measured feedback after an execution may demote it
+(``_record_wcoj_feedback``, ``_record_route_feedback``,
+``_record_template_feedback``). ``_serve_execute`` runs a ``wcoj`` query on
+the tensor join and a template-routed one on its compiled program first;
+either degrades to the walk below on the causes the JAX proxy names (a
+structured WukongError, an int32 range refusal, a template overflow or
+unsupported shape, an injected fault), counted under the JAX metric labels.
+Unlike the JAX proxy, it does not catch any other exception there: an
+error from building or launching a CUDA kernel, or a CUDA runtime error,
+reaches the caller of ``serve_query`` instead of being answered by the walk.
+
 The JAX proxy's hooks into subsystems the port does not have yet (the
 result cache and its fast path, views, the reuse observatory, the
-distributed engine, streams, vectors, tensor joins, compiled templates,
-recovery) are left out; ROADMAP §A lists each. ``_serve_execute`` keeps the
-fault site, the batching branch and the direct dispatch of the JAX one; its
-result-cache lease and its ``wcoj``, template and knn branches wait for
-their subsystems (§A 4-8).
+distributed engine and its distributed join, streams, vectors, recovery)
+are left out; ROADMAP §A lists each. ``_serve_execute`` keeps the fault
+site, the strategy branches, the batching branch and the direct dispatch of
+the JAX one; its result-cache lease and its knn branch wait for their
+subsystems (§A 7-8).
 """
 
 from __future__ import annotations
@@ -68,6 +86,7 @@ from wukong_tpu_torch.obs import (
     maybe_device_trace,
     maybe_start_trace,
 )
+from wukong_tpu_torch.obs.device import note_feedback
 from wukong_tpu_torch.obs.slo import get_overload, get_slo, tenant_label
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
 from wukong_tpu_torch.planner.plan_file import set_plan
@@ -85,6 +104,8 @@ from wukong_tpu_torch.runtime.resilience import Deadline
 from wukong_tpu_torch.sparql.ir import SPARQLQuery, SPARQLTemplate
 from wukong_tpu_torch.sparql.parser import Parser
 from wukong_tpu_torch.types import IN, OUT, is_tpid
+from wukong_tpu_torch.join.kernels import DeviceRangeError
+from wukong_tpu_torch.utils.device import resolve_device
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.logger import log_error, log_info
 from wukong_tpu_torch.utils.lru import LRUCache
@@ -131,6 +152,7 @@ class Proxy:
         self.g = gstore
         self.str_server = str_server
         self.planner = planner  # cost-based optimizer (optional)
+        self._device = device  # where the strategies' device routes run
         self.gpu = (GPUEngine(gstore, str_server, device=device,
                               budget_bytes=budget_bytes,
                               stats=planner.stats if planner is not None
@@ -151,6 +173,38 @@ class Proxy:
         self._m_lane = self.metrics.counter(
             "wukong_lane_routed_total",
             "Plan-time light/heavy lane routing decisions", labels=("lane",))
+        # tensor-join strategy routing (join/): per-query strategy
+        # decisions and wcoj-to-walk degradations
+        self._m_join = self.metrics.counter(
+            "wukong_join_queries_total",
+            "Plan-time execution-strategy decisions", labels=("strategy",))
+        self._m_join_fallback = self.metrics.counter(
+            "wukong_join_fallback_total",
+            "WCOJ executions degraded to the walk", labels=("reason",))
+        self._m_join_demoted = self.metrics.counter(
+            "wukong_join_demotions_total",
+            "Templates demoted wcoj->walk by measured-blowup feedback")
+        # device-route plumbing (join_device knob): plan-time host/device
+        # decisions and the measured-candidate demotions back to host
+        self._m_join_route = self.metrics.counter(
+            "wukong_join_route_total",
+            "Plan-time wcoj level-route decisions", labels=("route",))
+        self._m_route_demoted = self.metrics.counter(
+            "wukong_join_route_demotions_total",
+            "Templates demoted device->host by measured-candidate feedback")
+        # compiled-template routing (engine/template_compile.py): plan-
+        # time route decisions and compiled executions degraded to the
+        # host walk (the demotion latch itself counts inside the engine)
+        self._m_template_route = self.metrics.counter(
+            "wukong_template_route_total",
+            "Plan-time compiled-template route decisions",
+            labels=("route",))
+        self._m_template_fallback = self.metrics.counter(
+            "wukong_template_fallback_total",
+            "Compiled-template executions degraded to the host walk",
+            labels=("reason",))
+        self._wcoj = None  # guarded by: _batcher_init_lock
+        self._template = None  # guarded by: _batcher_init_lock
         self._pool = None
         self._batcher = None  # the request coalescer, started on first use
         self._batcher_init_lock = make_lock("proxy.batcher_init")
@@ -211,7 +265,11 @@ class Proxy:
             else:
                 return
         sig = template_signature(q)
+        # the PRE-PLAN signature: the template route's demotion latch keys
+        # on it (the planner reorders the patterns below)
+        q._tsig = sig
         version = self._plan_version()
+        q._rver = version[0]
         if self._plan_cache.lookup(q, sig, version):
             return
         parsed = snapshot_patterns(q) if sig is not None else None
@@ -235,6 +293,16 @@ class Proxy:
         self._plan(q, plan_text)
         q.lane = self.classify_lane(q)
         self._m_lane.labels(lane=q.lane).inc()
+        q.join_strategy = self.classify_join_strategy(q)
+        self._m_join.labels(strategy=q.join_strategy).inc()
+        if q.join_strategy == "wcoj":
+            q.join_route = self.classify_join_route(q)
+            self._m_join_route.labels(route=q.join_route).inc()
+        else:
+            # walk-strategy shapes may compile the WHOLE plan into one
+            # device program (engine/template_compile.py)
+            q.template_route = self.classify_template_route(q)
+            self._m_template_route.labels(route=q.template_route).inc()
 
     def _engine_for(self, device: str | None):
         """``device`` "cpu" | "gpu" | None (the GPU engine when
@@ -536,14 +604,61 @@ class Proxy:
 
     def _serve_execute(self, q: SPARQLQuery, eng,
                        pinned: bool = False) -> SPARQLQuery:
-        """One serving-path dispatch: with ``enable_batching`` on,
-        compatible queries coalesce into fused dispatches; the default
-        (off) and every bypass go straight to the engine. ``pinned`` (an
-        explicit device= request) always bypasses: the batcher picks its
-        own engine, which would override the caller's pin."""
+        """One serving-path dispatch. A query the planner routed ``wcoj``
+        runs on the tensor join first, and a template-routed one on its
+        compiled program; either degrades to the walk below on the causes
+        the JAX proxy names (the module docstring lists them), and any
+        other error raises. Then, with ``enable_batching`` on, compatible
+        queries coalesce into fused dispatches; the default (off) and
+        every bypass go straight to the engine. ``pinned`` (an explicit
+        device= request) bypasses the strategies and the batcher: the
+        batcher picks its own engine, which would override the caller's
+        pin."""
         # the serving-boundary fault site: an injected failure reaches the
         # caller before any engine runs
         faults.site("proxy.serve")
+        if getattr(q, "join_strategy", "walk") == "wcoj" and not pinned:
+            try:
+                self.wcoj().try_execute(q)
+                self._record_wcoj_feedback(q)
+                self._record_route_feedback(q)
+                return q
+            except (WukongError, DeviceRangeError, *faults.INJECTED) as e:
+                reason = (e.code.name if isinstance(e, WukongError)
+                          else type(e).__name__)
+                self._m_join_fallback.labels(reason=reason).inc()
+                tr = getattr(q, "trace", None)
+                if tr is not None:
+                    tr.event("join.fallback", reason=reason)
+                log_info(f"wcoj degraded to the walk ({reason})")
+        if getattr(q, "template_route", "host") == "device" and not pinned:
+            # whole-plan compiled execution: one device program serves the
+            # query byte-identically, or the plan shape is refused (False)
+            # and the walk below owns it; a compile/dispatch failure
+            # latches a per-template demotion so same-template queries stop
+            # re-paying the failed device attempt until a store mutation
+            from wukong_tpu_torch.engine.template_compile import (
+                TemplateOverflow,
+                TemplateUnsupported,
+                latch_demotion,
+            )
+
+            try:
+                if self.template_engine().try_execute(q):
+                    self._record_template_feedback(q)
+                    return q
+            except (WukongError, DeviceRangeError, TemplateOverflow,
+                    TemplateUnsupported, *faults.INJECTED) as e:
+                reason = (e.code.name if isinstance(e, WukongError)
+                          else type(e).__name__)
+                latch_demotion(getattr(q, "_tsig", None), reason,
+                               getattr(self.g, "version", 0))
+                self._m_template_fallback.labels(reason=reason).inc()
+                tr = getattr(q, "trace", None)
+                if tr is not None:
+                    tr.event("template.fallback", reason=reason)
+                log_info(f"compiled template degraded to the walk "
+                         f"({reason})")
         if Global.enable_batching and not pinned and eng is not None:
             pend = self.batcher().offer(q)
             if pend is not None:
@@ -558,6 +673,232 @@ class Proxy:
         eng.execute(q)  # batcher bypass: direct dispatch
         return q
 
+    # ------------------------------------------------------------------
+    # tensor-join strategy routing (join/)
+    # ------------------------------------------------------------------
+    def _strategy_device(self):
+        """The device of the strategies' device routes: the GPU engine's,
+        else the proxy's ``device`` argument (resolved at first use: a CUDA
+        request with no card raises then, not at construction)."""
+        if self.gpu is not None:
+            return self.gpu.device
+        return resolve_device(self._device)
+
+    def classify_join_strategy(self, q: SPARQLQuery) -> str:
+        """Plan-time walk/wcoj strategy for a PLANNED query, memoized per
+        template signature + store version through the plan cache (the
+        ``lane`` pattern). The mutable knobs join the memo key so a
+        runtime ``join_strategy``/``wcoj_ratio`` change applies
+        immediately."""
+        pg = q.pattern_group
+        if (pg.unions or pg.optional or q.planner_empty
+                or not pg.patterns):
+            return "walk"
+        knob = str(Global.join_strategy).strip().lower()
+        if knob == "walk":
+            return "walk"
+        if self.planner is None or not Global.enable_planner:
+            # no cost model: only the forced knob may route wcoj
+            if knob != "wcoj":
+                return "walk"
+            from wukong_tpu_torch.join.qgraph import analyze
+
+            return "wcoj" if analyze(pg.patterns).supported else "walk"
+        sig = template_signature(q)
+        pats = list(pg.patterns)
+        key_extra = (knob, int(Global.wcoj_ratio),
+                     int(Global.wcoj_min_rows))
+        return self._plan_cache.aux(
+            "strategy", sig, (*self._plan_version(), *key_extra),
+            lambda: self.planner.choose_strategy(pats))
+
+    def classify_join_route(self, q: SPARQLQuery) -> str:
+        """Plan-time host/device level route for a wcoj-routed query,
+        memoized like the strategy decision (the knobs join the key).
+        Overwritten by ``_record_route_feedback`` when the measured
+        candidate volume says the estimate over-predicted."""
+        knob = str(Global.join_device).strip().lower()
+        if knob in ("host", "device"):
+            return "device" if knob == "device" else "host"
+        if self.planner is None or not Global.enable_planner:
+            return "host"  # no cost model to amortize the dispatch against
+        sig = template_signature(q)
+        pats = list(q.pattern_group.patterns)
+        key_extra = (knob, int(Global.join_device_min_candidates))
+        return self._plan_cache.aux(
+            "route", sig, (*self._plan_version(), *key_extra),
+            lambda: self.planner.choose_join_route(pats))
+
+    def _route_memo_key(self):
+        return (*self._plan_version(), "auto",
+                int(Global.join_device_min_candidates))
+
+    def _record_route_feedback(self, q: SPARQLQuery) -> None:
+        """Device-route feedback: after a successful wcoj execution that
+        ROUTED device under ``join_device auto``, compare the MEASURED
+        candidate volume (summed per-level candidates from
+        ``q.join_stats``) against the dispatch-amortization threshold and
+        demote the memoized route to host when the estimate over-predicted.
+        The memo key mirrors ``classify_join_route``'s exactly, so the
+        demotion takes effect on the very next same-template query, and a
+        knob flip or store mutation re-arms the estimate-driven decision."""
+        stats = getattr(q, "join_stats", None)
+        if (not stats or q.result.status_code != ErrorCode.SUCCESS
+                or getattr(q, "join_route", "host") != "device"
+                or str(Global.join_device).strip().lower() != "auto"
+                or self.planner is None or not Global.enable_planner):
+            return
+        sig = template_signature(q)
+        if sig is None:
+            return
+        if getattr(q, "_join_device_broken", False):
+            # the executor latched host mid-query (an int32 range refusal,
+            # an injected fault): a deterministic failure would re-pay the
+            # failed device attempt on every same-template query
+            self._plan_cache.put_aux("route", sig, self._route_memo_key(),
+                                     "host")
+            self._m_route_demoted.inc()
+            note_feedback("join_route", "latched_host")
+            log_info("wcoj device route: template demoted to host "
+                     "(device path failed and latched host)")
+            return
+        measured = sum(int(lv.get("candidates", 0)) for lv in stats)
+        if measured < max(int(Global.join_device_min_candidates), 1):
+            self._plan_cache.put_aux("route", sig, self._route_memo_key(),
+                                     "host")
+            self._m_route_demoted.inc()
+            note_feedback("join_route", "demote_host")
+            log_info(f"wcoj device route: template demoted to host "
+                     f"(measured candidates {measured:,} < "
+                     f"join_device_min_candidates "
+                     f"{Global.join_device_min_candidates:,})")
+
+    def _record_wcoj_feedback(self, q: SPARQLQuery) -> None:
+        """WCOJ auto-routing feedback: after a successful wcoj execution,
+        record the MEASURED materialized-prefix blowup (peak per-level
+        ``rows_out`` over the final fragment) and demote the template's
+        memoized ``auto`` strategy to the walk when wcoj did NOT keep
+        intermediates near the fragment (measured > ``wcoj_ratio``). The
+        closing level's CANDIDATE count is deliberately excluded: bounding
+        candidates while materializing few rows is exactly the leapfrog
+        win. The memo key mirrors ``classify_join_strategy``'s exactly."""
+        stats = getattr(q, "join_stats", None)
+        if (not stats or q.result.status_code != ErrorCode.SUCCESS
+                or str(Global.join_strategy).strip().lower() != "auto"
+                or self.planner is None or not Global.enable_planner):
+            return
+        sig = template_signature(q)
+        if sig is None:
+            return
+        final = max(int(stats[-1]["rows_out"]), 1)
+        peak = max(int(lv["rows_out"]) for lv in stats)
+        measured = peak / final
+        key = (*self._plan_version(), "auto", int(Global.wcoj_ratio),
+               int(Global.wcoj_min_rows))
+        self._plan_cache.put_aux("wcoj_measured", sig, key,
+                                 round(measured, 2))
+        # STRICTLY above the ratio: a prefix that stays at ~final rows
+        # measures exactly 1.0, and a forced wcoj_ratio of 1 must not
+        # demote the shapes wcoj is winning on
+        if measured > max(float(Global.wcoj_ratio), 1.0):
+            self._plan_cache.put_aux("strategy", sig, key, "walk")
+            self._m_join_demoted.inc()
+            note_feedback("strategy", "demote_walk")
+            log_info(f"wcoj auto-routing: template demoted to the walk "
+                     f"(measured prefix blowup {measured:.1f}x > "
+                     f"wcoj_ratio {Global.wcoj_ratio} — wcoj did not keep "
+                     "intermediates near the fragment)")
+
+    def wcoj(self):
+        """The WCOJ executor over the host partition, built at first use
+        (its sorted edge tables are cached per store version); its device
+        route runs on the proxy's device."""
+        if self._wcoj is None:
+            with self._batcher_init_lock:
+                if self._wcoj is None:
+                    from wukong_tpu_torch.join.wcoj import WCOJExecutor
+
+                    self._wcoj = WCOJExecutor(
+                        self.g, self.str_server,
+                        stats=getattr(self.planner, "stats", None),
+                        device=self._strategy_device())
+        return self._wcoj
+
+    # ------------------------------------------------------------------
+    # whole-plan compiled-template routing (engine/template_compile.py)
+    # ------------------------------------------------------------------
+    def classify_template_route(self, q: SPARQLQuery) -> str:
+        """Plan-time host/device route for a walk-strategy query through
+        the whole-plan compiled engine. Only the planner's peak-rows
+        ESTIMATE is memoized — the route itself is chosen live by
+        ``choose_template_route`` so the per-template demotion latch and
+        the measured padding-efficiency feedback apply on the very next
+        query."""
+        from wukong_tpu_torch.engine.template_compile import \
+            choose_template_route
+
+        # the PRE-PLAN signature (stamped in _plan): the demotion latch
+        # keys on q._tsig at failure time
+        sig = getattr(q, "_tsig", None)
+        if sig is None:
+            sig = template_signature(q)
+        if sig is None:
+            return "host"  # recursive shapes: no template to compile
+        est = None
+        if self.planner is not None and Global.enable_planner:
+            pats = list(q.pattern_group.patterns)
+
+            def compute():
+                try:
+                    return self.planner.estimate_peak_rows(pats)
+                except Exception:  # an unestimable chain: no estimate
+                    return None
+
+            est = self._plan_cache.aux("template_est", sig,
+                                       self._plan_version(), compute)
+        q._template_est_rows = est
+        return choose_template_route(sig, est,
+                                     getattr(self.g, "version", 0))
+
+    def template_engine(self):
+        """The whole-plan compiled engine over the host partition, built at
+        first use, on the proxy's device (its staged operands are cached
+        per store version)."""
+        if self._template is None:
+            with self._batcher_init_lock:
+                if self._template is None:
+                    from wukong_tpu_torch.engine.template_compile import \
+                        TemplateCompiledEngine
+
+                    self._template = TemplateCompiledEngine(
+                        self.g, self.str_server,
+                        device=self._strategy_device())
+        return self._template
+
+    def _record_template_feedback(self, q: SPARQLQuery) -> None:
+        """Measured feedback for the compiled-template route: after a
+        successful compiled execution under ``template_device auto``, a
+        measured live-row count below ``template_min_rows`` means the
+        estimate over-predicted — latch the template back to the host walk
+        (a store mutation re-arms the estimate-driven decision)."""
+        if str(Global.template_device).strip().lower() != "auto":
+            return
+        recs = [r for r in (getattr(q, "device_steps", None) or [])
+                if r.get("site") == "template.plan"]
+        if not recs:
+            return
+        live = int(recs[-1].get("live", 0))
+        if live < max(int(Global.template_min_rows), 1):
+            from wukong_tpu_torch.engine.template_compile import \
+                latch_demotion
+
+            latch_demotion(getattr(q, "_tsig", None), "small_measured",
+                           getattr(self.g, "version", 0))
+            log_info(f"compiled template demoted to the host walk "
+                     f"(measured live rows {live:,} < template_min_rows "
+                     f"{Global.template_min_rows:,})")
+
+    # ------------------------------------------------------------------
     def classify_lane(self, q: SPARQLQuery) -> str:
         """Plan-time light/heavy routing: index-origin starts are heavy
         (wide scans); other shapes are heavy when the optimizer's
