@@ -154,13 +154,36 @@ Phases (any failure exits nonzero, and no result line is printed):
      "sparql -b <file>"]) runs the seven shapes with -n 5 on the card,
      with phase 6's rows, the average latency run_single_query logs, and
      K1 launched; and phase 10's EXPLAIN of the seven shapes, equal on
-     cpu and cuda under one planner.
+     cpu and cuda under one planner;
+ 12. data in and durability (run last, each world built from the seed,
+     served and dropped in turn, pinned to the walk except where a route
+     is forced): (a) WatDiv-<WATDIV_SCALE> (about 10 M triples) with the
+     planner's Stats, the twelve S/F templates filled by fill_template
+     from the seed through Proxy.serve_query (median of 5, rows equal to
+     the host CPUEngine's) and in batches of B = 1,024 constants; (b) the
+     YAGO-shaped world at n_person YAGO_PERSONS, YAGO_QUERIES against the
+     host engine with no capacity fallback, the index-origin ones also
+     as a replicate batch of 1; (c) the DBpedia-shaped world, the five
+     DBPSB_SHAPES built in the port's IR against the host engine; (d)
+     WatDiv rebuilt from a seeded 90% of its triples, the other 10%
+     written to three directories and inserted by the console's `load -d`
+     under wal_sync none, interval and always (insert rate, the first
+     query's ms and restaged bytes against its steady ms,
+     memory_allocated after each round, bounded by the staged bytes'
+     growth), rows then equal to (a)'s full store; `load -d -c` of the
+     whole delta gives 0 new edges; gsck passes; WCOJ on the device and
+     the compiled template forced, rows equal to the walk's; (e)
+     `checkpoint`, one more seeded batch, the proxy dropped, a fresh one
+     over the 90% base, `recover`: gstore_digest and the twelve
+     templates' rows equal to the dropped store's; checkpoint, WAL and
+     recover costs printed. K1 and the level probe must launch, the three
+     fallback counters must not move; K2/K3 launches are logged.
 The line before the last is one JSON object {"kernels": [...]}, a row for
 each kernel and class of its calls in phases 4 and 5, for each kernel in
 phase 7, for each kernel and mix (and the console) in phase 8, and for
 each kernel and class of its calls in phase 9, for each kernel in phase
-10, and for each kernel and class of its calls in phase 11 (the level probe
-by call site and part), with
+10, for each kernel and class of its calls in phase 11 (the level probe
+by call site and part), and for each kernel phase 12 launched, with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -351,7 +374,12 @@ class Capture:
     function counts its launches on the module attribute, i.e. on the
     wrapper; restore() adds them to the kernel function's own count. A
     call's launches are its thread's own (``cuda_lib.thread_launches``), so
-    calls from concurrent serving threads are attributed exactly."""
+    calls from concurrent serving threads are attributed exactly. While
+    ``Capture.keep`` is off, calls are counted and no input is kept, so that
+    phase 12's leak check reads a ``memory_allocated`` that holds nothing of
+    the measurement's."""
+
+    keep = True
 
     def __init__(self, module, attr: str, size_of, class_of=lambda a: ""):
         import threading
@@ -367,7 +395,7 @@ class Capture:
         def wrapped(*args, **kw):
             cls, size = class_of(args), size_of(args)
             with lock:
-                if size > self.best.get(cls, (-1,))[0]:
+                if Capture.keep and size > self.best.get(cls, (-1,))[0]:
                     self.best[cls] = (size, args, kw)
             before = cuda_lib.thread_launches()
             try:
@@ -3222,6 +3250,718 @@ def serve_cyclic(entry: dict, results: dict) -> None:
         del proxy, g
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data in and durability
+# ---------------------------------------------------------------------------
+
+# WatDiv's smallest published scale class (10 M triples: 9,988,634 at scale
+# 2,750, seed 0); OSDI'16's WSDTS is 109 M, cut for the smoke's time
+WATDIV_SCALE = 2750
+# yago_q3's 3-hop chain at n_person 2,000,000: 20,690,384 rows, under the
+# default 2^25-row ceiling (at 1,000,000: 30,950,146, the zipf targets
+# collide less after dedup)
+YAGO_PERSONS = 2_000_000
+# the DBpedia-shaped world, about 2.2 M triples. Cut from the 1,000,000
+# entities (8.9 M triples) of the first runs for the smoke's time: there
+# Stats.generate took 51-57 s and the planner 44 s on Q4_star4, both about
+# linear in the entities
+GENERIC_ENTITIES = 250_000
+GENERIC_KW = {"n_preds": 200, "n_types": 50, "seed": 1}  # bench.py --dbpedia
+INSERT_SHARE = 0.1  # (d): the share of WatDiv's triples loaded online
+WAL_SYNCS = ("none", "interval", "always")  # one insert round each
+EXTRA_EDGES = 50_000  # (e): the seeded batch inserted after the checkpoint
+# the reference's yago suite (scripts/sparql_query/yago/yago_q1-q4), written
+# from loader/yago.py's description and the constants YagoStrings resolves
+YPREFIX = "PREFIX y: <http://yago-knowledge.org/resource/>\n"
+YAGO_QUERIES = {
+    # const-object lookup through the <Athens> hub
+    "yago_q1": YPREFIX + """SELECT ?x WHERE { ?x y:livesIn <Athens> . }""",
+    # shared-object join through <Albert_Einstein>'s alma mater
+    "yago_q2": YPREFIX + """SELECT ?u ?x WHERE {
+        <Albert_Einstein> y:graduatedFrom ?u . ?x y:graduatedFrom ?u . }""",
+    # 3-hop self-join over the internal-link relation (the heavy)
+    "yago_q3": YPREFIX + """SELECT ?a ?b ?c ?d WHERE {
+        ?a y:hasInternalWikipediaLinkTo ?b .
+        ?b y:hasInternalWikipediaLinkTo ?c .
+        ?c y:hasInternalWikipediaLinkTo ?d . }""",
+    # an internal-link step between two external-link stars
+    "yago_q4": YPREFIX + """SELECT ?a ?e ?b ?f WHERE {
+        ?a y:hasExternalWikipediaLinkTo ?e .
+        ?a y:hasInternalWikipediaLinkTo ?b .
+        ?b y:hasExternalWikipediaLinkTo ?f . }""",
+}
+# the JAX bench's dbpsb shapes (bench.py:2145-2175), built from the
+# DBpedia-shaped world's statistics by dbpsb_shapes()
+DBPSB_SHAPES = ("Q1_star", "Q2_anchor", "Q3_reverse", "Q4_star4",
+                "Q5_distinct")
+
+
+def dbpsb_shapes(triples, meta, stats) -> dict:
+    """{name: port IR query} of the five dbpsb shapes, with the JAX bench's
+    data-driven anchors (bench.py:2101-2175): the six most frequent
+    predicates, the four most frequent types, a typed subject with a
+    predicate-0 out-edge (Q2), and a reverse 2-hop pair (Q3)."""
+    from wukong_tpu_torch.sparql.ir import Pattern, SPARQLQuery
+    from wukong_tpu_torch.types import OUT, TYPE_ID
+
+    pids = sorted(stats.pred_edges, key=lambda p: -stats.pred_edges[p])
+    pids = [p for p in pids if p != TYPE_ID][:6]
+    types = sorted((t for t in stats.tyscount if t > 0),
+                   key=lambda t: -stats.tyscount[t])[:4]
+
+    def mk(pats, nvars):
+        q = SPARQLQuery()
+        q.pattern_group.patterns = [Pattern(*p) for p in pats]
+        q.result.nvars = nvars
+        q.result.required_vars = [-(i + 1) for i in range(nvars)]
+        return q
+
+    norm = triples[(triples[:, 1] != TYPE_ID)]
+    typed_s = triples[triples[:, 1] == TYPE_ID]
+    type_of = dict(zip(typed_s[::-1, 0].tolist(), typed_s[::-1, 2].tolist()))
+    p0_subjects = set(norm[norm[:, 1] == pids[0]][:, 0].tolist())
+    anchor = next(((s, p, o, type_of[s]) for s, p, o in norm[:5000].tolist()
+                   if s in type_of and s in p0_subjects), None)
+    obj_first: dict = {}
+    for i, o in enumerate(norm[:50000, 2].tolist()):
+        obj_first.setdefault(int(o), i)
+    rev = None
+    for a, pA, c_ in norm[:20000].tolist():
+        j = obj_first.get(int(a))
+        if j is not None and int(norm[j, 0]) in type_of:
+            b = int(norm[j, 0])
+            rev = (int(a), int(pA), int(c_), b, int(norm[j, 1]), type_of[b])
+            break
+    check(anchor is not None and rev is not None,
+          "dbpsb: no witness for Q2_anchor or Q3_reverse in the scan window")
+    rs, rp, ro, t_rs = anchor
+    a, pA, c_, b, pB, t_b = rev
+    shapes = {
+        "Q1_star": mk([(-1, TYPE_ID, OUT, types[0]),
+                       (-1, pids[0], OUT, -2)], 2),
+        "Q2_anchor": mk([(-1, rp, OUT, ro), (-1, TYPE_ID, OUT, t_rs),
+                         (-1, pids[0], OUT, -2)], 2),
+        "Q3_reverse": mk([(-1, pA, OUT, c_), (-2, pB, OUT, -1),
+                          (-2, TYPE_ID, OUT, t_b)], 2),
+        "Q4_star4": mk([(-1, TYPE_ID, OUT, types[2]),
+                        (-1, pids[0], OUT, -2), (-1, pids[1], OUT, -3),
+                        (-1, pids[2], OUT, -4), (-1, pids[3], OUT, -5)], 5),
+        "Q5_distinct": mk([(-1, TYPE_ID, OUT, types[3]),
+                           (-1, pids[1], OUT, -2),
+                           (-1, pids[2], OUT, -3)], 3),
+    }
+    shapes["Q5_distinct"].distinct = True
+    assert tuple(shapes) == DBPSB_SHAPES
+    return shapes
+
+
+def collect(device) -> None:
+    """After a world's proxy is deleted: free what its reference cycles
+    hold (device stagings among them) before the next world is built."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def live_device_bytes(device) -> tuple:
+    """(torch.cuda.memory_allocated(), bytes of the distinct storages of
+    the CUDA tensors the collector can reach) after a collection, or (None,
+    None) off the card: an unreachable tensor is garbage, not a leak, and
+    the second number says whether a growth is held by Python objects or by
+    the allocator."""
+    import gc
+
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None, None
+    gc.collect()
+    torch.cuda.synchronize()
+    seen = {}
+    for o in gc.get_objects():
+        if torch.is_tensor(o) and o.is_cuda:
+            st = o.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return int(torch.cuda.memory_allocated()), int(sum(seen.values()))
+
+
+def staged_refs(ds) -> list:
+    """Weak references to the tensors the device store's segment and index
+    caches hold: after the next version's restage each must be dead."""
+    import weakref
+
+    import torch
+
+    with ds._mu:
+        stack = list(ds._cache.values()) + list(ds._index_cache.values())
+    refs, seen = [], set()
+    while stack:
+        o = stack.pop()
+        if id(o) in seen:
+            continue
+        seen.add(id(o))
+        if torch.is_tensor(o):
+            refs.append(weakref.ref(o))
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+        elif isinstance(o, (list, tuple)):
+            stack.extend(o)
+        elif type(o).__module__.startswith("wukong_tpu_torch"):
+            stack.extend(getattr(o, "__dict__", {}).values())
+            for cls in type(o).__mro__:
+                stack.extend(getattr(o, a) for a in getattr(cls, "__slots__", ())
+                             if hasattr(o, a))
+    return refs
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, runs: int, device) -> tuple:
+    """(last result, host ms of each run, each ending in a synchronize)."""
+    lat, out = [], None
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        sync(device)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return out, lat
+
+
+def fill_text(text: str, ss, const: int) -> str:
+    """A template's text with its one %placeholder set to const's string."""
+    import re
+
+    return re.sub(r"%[\w:]+", ss.id2str(int(const)), text, count=1)
+
+
+def watdiv_texts(proxy, seed: int) -> dict:
+    """{template: (text with its constant, template, constant)}: each of the
+    twelve WatDiv templates filled by fill_template and instantiated from
+    the seed, in name order."""
+    import numpy as np
+
+    from wukong_tpu_torch.loader.watdiv import TEMPLATES as WT
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in sorted(WT):
+        tmpl = Parser(proxy.str_server).parse_template(WT[name])
+        proxy.fill_template(tmpl)
+        q = tmpl.instantiate(rng)
+        pi, fld = tmpl.pos[0]
+        const = getattr(q.pattern_group.patterns[pi], fld)
+        out[name] = (fill_text(WT[name], proxy.str_server, const), tmpl,
+                     const)
+    return out
+
+
+def served_rows(proxy, texts: dict, device, runs: int = 1,
+                entry=None, prefix: str = "", decisions=None) -> tuple:
+    """({name: sorted rows}, {name: median host ms}) of each text through
+    Proxy.serve_query, non-blind; every reply must be status 0. The routes
+    each last call took go into ``decisions`` when given."""
+    import numpy as np
+
+    rows, ms = {}, {}
+    for name, text in texts.items():
+        if entry is not None:
+            entry["name"] = f"{prefix}{name}"
+        q, lat = host_ms(lambda: proxy.serve_query(text, blind=False), runs,
+                         device)
+        check(q.result.status_code == 0,
+              f"{prefix}{name}: status {q.result.status_code!r}")
+        rows[name] = sorted_table(q)
+        ms[name] = float(np.median(lat))
+        if decisions is not None:
+            decisions[name] = strategy_decision(q)
+    return rows, ms
+
+
+def host_rows(proxy, text=None, q=None):
+    """The host CPUEngine's rows of a text, or of an IR query planned by
+    the proxy's planner (its plan is the GPU engine's: the planner is
+    deterministic), sorted."""
+    import copy
+
+    if q is None:
+        q = proxy.parse(text)
+    else:
+        q = copy.deepcopy(q)
+        check(proxy.planner.generate_plan(q), "host plan failed")
+    q.result.blind = False
+    proxy.cpu.execute(q)
+    check(q.result.status_code == 0, f"host engine: status "
+          f"{q.result.status_code!r}")
+    return sorted_table(q)
+
+
+def same_rows(a, b) -> bool:
+    import numpy as np
+
+    return a.shape == b.shape and np.array_equal(a, b)
+
+
+def watdiv_batches(proxy, texts: dict, seed: int, device, entry,
+                   B: int = 1024) -> dict:
+    """(a)'s batches: B constants of each template's candidates through
+    GPUEngine.execute_batch where the plan starts from the placeholder's
+    constant; four per-query counts held against single calls. A batch
+    whose intermediate passes the capacity ceiling is halved and drawn
+    again, as bench.py --watdiv does (logged)."""
+    import numpy as np
+
+    from wukong_tpu_torch.utils.errors import WukongError
+
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    for name, (_text, tmpl, _c) in texts.items():
+        q = tmpl.instantiate(rng)
+        pi, fld = tmpl.pos[0]
+        inst = getattr(q.pattern_group.patterns[pi], fld)
+        proxy._plan(q)
+        pats = q.pattern_group.patterns
+        if not (pats and pats[0].subject == inst and pats[0].predicate > 0):
+            out[name] = {"batched": False}
+            continue
+        cand = tmpl.candidates[0]
+        bw = B
+        while True:
+            consts = np.asarray(cand[rng.integers(0, len(cand), bw)],
+                                dtype=np.int64)
+            entry["name"] = f"(a) batch {name}"
+            try:
+                counts, lat = host_ms(
+                    lambda: proxy.gpu.execute_batch(q, consts), 3, device)
+                break
+            except WukongError as e:
+                if bw == 1 or "exceeds" not in str(e):
+                    raise
+                log(f"  (a) batch {name}: B = {bw} over the ceiling ({e}); "
+                    f"halved")
+                bw //= 2
+        for i in range(4):
+            check(int(counts[i]) == single_rows(proxy, tmpl, consts[i]),
+                  f"(a) batch {name}: count {i} differs from a single call")
+        med = float(np.median(lat))
+        out[name] = {"batched": True, "B": bw, "median_ms": med,
+                     "queries_per_s": bw / med * 1e3,
+                     "rows": int(np.asarray(counts).sum())}
+    return out
+
+
+def world_proxy(triples, ss, device, label: str, stats=None):
+    """A planner-backed Proxy over one partition of triples, timed; its
+    statistics made from the triples unless given."""
+    from wukong_tpu_torch.planner.optimizer import Planner
+    from wukong_tpu_torch.planner.stats import Stats
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.gstore import build_partition
+
+    t0 = time.perf_counter()
+    g = build_partition(triples, 0, 1)
+    t1 = time.perf_counter()
+    made = stats is None
+    if made:
+        stats = Stats.generate(triples)
+    t2 = time.perf_counter()
+    log(f"  {label}: {len(triples):,} triples, partition {t1 - t0:.1f} s, "
+        + (f"Stats.generate {t2 - t1:.1f} s" if made else "statistics given"))
+    return Proxy(g, ss, device=device, planner=Planner(stats)), stats
+
+
+def phase12_watdiv(out: dict, entry: dict, device, scale: int,
+                   seed: int) -> tuple:
+    """(a): WatDiv at scale on the card; returns (triples, full-store rows
+    of the twelve templates, their texts, the planner's statistics)."""
+    from wukong_tpu_torch.loader.watdiv import (
+        VirtualWatdivStrings,
+        generate_watdiv,
+    )
+
+    t0 = time.perf_counter()
+    triples, _lay = generate_watdiv(scale, seed=seed)
+    rec = out["watdiv"] = {"scale": scale, "triples": len(triples),
+                           "synthesis_s": time.perf_counter() - t0}
+    proxy, stats = world_proxy(triples, VirtualWatdivStrings(scale, seed),
+                               device, f"(a) WatDiv-{scale}")
+    texts = watdiv_texts(proxy, seed)
+    plain = {n: t for n, (t, _tm, _c) in texts.items()}
+    rows, ms = served_rows(proxy, plain, device, 5, entry, "(a) ")
+    for name, text in plain.items():
+        want = host_rows(proxy, text)
+        check(same_rows(rows[name], want),
+              f"(a) {name}: {len(rows[name])} rows on the card, "
+              f"{len(want)} on the host engine")
+    rec["single"] = {n: {"rows": int(len(rows[n])), "median_ms": ms[n],
+                         "const": int(texts[n][2])} for n in texts}
+    rec["batch"] = watdiv_batches(proxy, texts, seed, device, entry)
+    for n in texts:
+        b = rec["batch"][n]
+        log(f"  (a) {n}: {len(rows[n]):,} rows equal to the host engine's, "
+            f"median {ms[n]:.2f} ms over 5"
+            + (f"; B = {b['B']}: {b['median_ms']:.2f} ms, "
+               f"{b['queries_per_s']:,.0f} queries/s" if b["batched"]
+               else "; not batchable (plan starts elsewhere)"))
+    del proxy
+    collect(device)
+    return triples, rows, plain, stats
+
+
+def phase12_yago(out: dict, entry: dict, device, n_person: int,
+                 seed: int) -> None:
+    """(b): the YAGO-shaped world, yago_q1-q4 on the card against the host
+    engine, with no capacity fallback."""
+    from wukong_tpu_torch.loader.yago import YagoStrings, generate_yago
+
+    t0 = time.perf_counter()
+    triples, _m = generate_yago(n_person, seed=seed)
+    rec = out["yago"] = {"n_person": n_person, "triples": len(triples),
+                         "synthesis_s": time.perf_counter() - t0}
+    proxy, _stats = world_proxy(triples, YagoStrings(n_person, seed), device,
+                                f"(b) YAGO n_person {n_person:,}")
+    del triples
+    with LogCapture() as logs:
+        rows, ms = served_rows(proxy, YAGO_QUERIES, device, 3, entry, "(b) ")
+    check("degrading to the host engine" not in logs.text,
+          "(b) a YAGO query fell back to the host engine")
+    rec["queries"] = {}
+    for name, text in YAGO_QUERIES.items():
+        t0 = time.perf_counter()
+        want = host_rows(proxy, text)
+        host_s = time.perf_counter() - t0
+        check(len(want) > 0 and same_rows(rows[name], want),
+              f"(b) {name}: {len(rows[name])} rows on the card, "
+              f"{len(want)} on the host engine")
+        rec["queries"][name] = {"rows": int(len(want)), "median_ms": ms[name],
+                                "host_engine_s": host_s}
+        log(f"  (b) {name}: {len(want):,} rows equal to the host engine's, "
+            f"median {ms[name]:.2f} ms over 3 (host engine {host_s:.1f} s)")
+        if proxy.parse(text).start_from_index():
+            # the heavy lane's replicate entry point, where K2/K3 stream
+            entry["name"] = f"(b) batch index {name}"
+            counts, lat = host_ms(lambda: proxy.serve_batch_index(text, 1), 1,
+                                  device)
+            check(int(counts[0]) == len(want),
+                  f"(b) {name}: replicate batch count {int(counts[0])}, "
+                  f"rows {len(want)}")
+            rec["queries"][name]["batch_index_ms"] = lat[0]
+            log(f"  (b) {name}: replicate batch of 1, count equal, "
+                f"{lat[0]:.2f} ms")
+    del proxy
+    collect(device)
+
+
+def phase12_dbpsb(out: dict, entry: dict, device, n_entities: int) -> None:
+    """(c): the DBpedia-shaped world, the five dbpsb shapes through the GPU
+    engine (planned by the planner) against the host engine."""
+    import copy
+
+    import numpy as np
+
+    from wukong_tpu_torch.loader.generic_rdf import generate_generic
+
+    t0 = time.perf_counter()
+    triples, meta = generate_generic(n_entities, **GENERIC_KW)
+    rec = out["dbpsb"] = {"n_entities": n_entities, "triples": len(triples),
+                          "synthesis_s": time.perf_counter() - t0,
+                          "shapes": {}}
+    proxy, stats = world_proxy(triples, None, device,
+                               f"(c) DBpedia-shaped {n_entities:,}")
+    shapes = dbpsb_shapes(triples, meta, stats)
+    del triples
+
+    def run(planned):
+        q = copy.deepcopy(planned)
+        q.result.blind = False
+        proxy.gpu.execute(q)
+        return q
+
+    for name, q0 in shapes.items():
+        planned = copy.deepcopy(q0)
+        t0 = time.perf_counter()
+        check(proxy.planner.generate_plan(planned), "dbpsb: plan failed")
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        entry["name"] = f"(c) {name}"
+        q, lat = host_ms(lambda: run(planned), 3, device)
+        check(q.result.status_code == 0, f"(c) {name}: status "
+              f"{q.result.status_code!r}")
+        want = host_rows(proxy, q=q0)
+        got = sorted_table(q)
+        check(len(want) > 0 and same_rows(got, want),
+              f"(c) {name}: {len(got)} rows on the card, {len(want)} on "
+              f"the host engine")
+        med = float(np.median(lat))
+        rec["shapes"][name] = {"rows": int(len(want)), "median_ms": med,
+                               "plan_ms": plan_ms}
+        log(f"  (c) {name}: {len(want):,} rows equal to the host engine's, "
+            f"median {med:.2f} ms over 3 after one plan of {plan_ms:.1f} ms")
+    del proxy
+    collect(device)
+
+
+def lp_merged_row(captures: list, phase: str, errs: dict) -> list:
+    """The level probe's kernels-line row of a phase: held and timed on its
+    largest input over both call sites, with all their launches."""
+    from wukong_tpu_torch.join import kernels as JK
+
+    n = sum(sum(c.launches.values()) for c in captures)
+    bests = [b for c in captures for b in c.best.values()]
+    if not n or not bests:
+        return []
+    best = max(bests, key=lambda b: b[0])
+    return [measure("level_probe", phase, best, n,
+                    lambda *a: (JK.level_probe(*a),),
+                    lambda *a: (JK.level_probe_plain(*a),),
+                    level_probe_work, errs, library=lp_library(*best[1]))]
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return total
+
+
+def write_ids(path: str, triples) -> str:
+    """An id-format directory holding the triples (id_triples.npy, as the
+    loaders' write_dataset writes it)."""
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    np.save(os.path.join(path, "id_triples.npy"), triples)
+    return path
+
+
+def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
+                   texts: dict, stats, scale: int, seed: int,
+                   root: str) -> None:
+    """(d) online inserts and (e) durability on the WatDiv world, planned
+    with (a)'s statistics (the full store's: an estimate of the 90% base
+    from them is high, never empty)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.loader.watdiv import P as WP
+    from wukong_tpu_torch.loader.watdiv import VirtualWatdivStrings
+    from wukong_tpu_torch.runtime.console import Console
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.persist import clone_gstore, gstore_digest
+
+    on_card = torch.device(device).type == "cuda"
+    rng = np.random.default_rng(seed + 2)
+    keep = rng.random(len(wt)) >= INSERT_SHARE
+    base, delta = wt[keep], wt[~keep]
+    parts = np.array_split(delta[rng.permutation(len(delta))],
+                           len(WAL_SYNCS))
+    dirs = [write_ids(os.path.join(root, f"delta{k}"), p)
+            for k, p in enumerate(parts)]
+    whole = os.path.join(root, "delta")
+    os.makedirs(whole)
+    for k, p in enumerate(parts):  # the chunked form of the whole delta
+        np.save(os.path.join(whole, f"id_triples_{k:05d}.npy"), p)
+    rec = out["online"] = {"base_triples": len(base),
+                           "delta_triples": len(delta), "rounds": []}
+    ss = VirtualWatdivStrings(scale, seed)
+    proxy, _stats = world_proxy(base, ss, device,
+                                f"(d) WatDiv-{scale}, {1 - INSERT_SHARE:.0%}",
+                                stats)
+    base_copy = clone_gstore(proxy.g)  # (e)'s fresh proxy starts from it
+    planner = proxy.planner
+    Global.wal_dir = os.path.join(root, "wal")
+    Global.checkpoint_dir = os.path.join(root, "ckpt")
+    con = Console(proxy)
+    first = sorted(texts)[0]
+    ds = proxy.gpu.dstore
+    # the rounds keep no kernel input for the kernels line: what
+    # memory_allocated reads is the program's alone
+    Capture.keep = False
+    try:
+        rows, _ms = served_rows(proxy, texts, device, 1, entry,
+                                "(d) before ")
+        for k, (mode, d) in enumerate(zip(WAL_SYNCS, dirs)):
+            Global.wal_sync = mode
+            old = staged_refs(ds)
+            check(len(old) > 0, f"(d) round {k}: nothing staged to follow")
+            t0 = time.perf_counter()
+            con.run_command(f"load -d {d}")
+            load_s = time.perf_counter() - t0
+            check(proxy.g.version == k + 1, f"(d) load {k}: store version "
+                  f"{proxy.g.version}")
+            entry["name"] = f"(d) first query after insert {k}"
+            q, lat1 = host_ms(lambda: proxy.serve_query(texts[first]), 1,
+                              device)
+            restaged = ds.bytes_used
+            check(ds._seen_version == proxy.g.version,
+                  f"(d) round {k}: the device store kept the old version")
+            gc.collect()
+            alive = sum(ref() is not None for ref in old)
+            entry["name"] = f"(d) steady {k}"
+            q, lat = host_ms(lambda: proxy.serve_query(texts[first]), 5,
+                             device)
+            rows, _ms = served_rows(proxy, texts, device, 1, entry,
+                                    f"(d) round {k} ")
+            sync(device)
+            r = {"wal_sync": mode, "triples": len(parts[k]),
+                 "load_s": load_s, "insert_rate": len(parts[k]) / load_s,
+                 "first_query": first, "first_ms": lat1[0],
+                 "first_restaged_bytes": int(restaged),
+                 "steady_ms": float(np.median(lat)),
+                 "staged_bytes": int(ds.bytes_used),
+                 "old_staged_tensors": len(old), "old_staged_alive": alive}
+            r["memory_allocated"], r["tensor_bytes"] = \
+                live_device_bytes(device)
+            rec["rounds"].append(r)
+            log(f"  (d) load -d round {k} (wal_sync {mode}): "
+                f"{len(parts[k]):,} triples in {load_s:.3f} s "
+                f"({r['insert_rate']:,.0f} triples/s); {first} first "
+                f"{lat1[0]:.2f} ms restaging {restaged:,} B, steady "
+                f"{r['steady_ms']:.2f} ms; {alive} of the old version's "
+                f"{len(old)} staged tensors alive after the restage; staged "
+                f"{r['staged_bytes']:,} B, memory_allocated "
+                f"{r['memory_allocated']} (reachable CUDA tensors "
+                f"{r['tensor_bytes']} B)")
+    finally:
+        Capture.keep = True
+    for name in texts:
+        check(same_rows(rows[name], full_rows[name]),
+              f"(d) {name}: {len(rows[name])} rows after load -d, "
+              f"{len(full_rows[name])} on the full store")
+    # the leak check: the old version's staged tensors are all freed by the
+    # restage, and memory_allocated may grow over a round by no more than
+    # the staged bytes did (the new data's share), with 16 MiB of slack for
+    # the allocator's rounding; checked after (e), so that one run reports
+    # everything
+    leaks = [f"(d) round {k}: {r['old_staged_alive']} of the old version's "
+             f"staged tensors alive after the restage"
+             for k, r in enumerate(rec["rounds"]) if r["old_staged_alive"]]
+    if on_card:
+        mem = [r["memory_allocated"] for r in rec["rounds"]]
+        st = [r["staged_bytes"] for r in rec["rounds"]]
+        for k in range(1, len(mem)):
+            if mem[k] - mem[k - 1] > max(st[k] - st[k - 1], 0) + (16 << 20):
+                leaks.append(f"(d) memory_allocated grew "
+                             f"{mem[k] - mem[k - 1]:,} B over round {k}, "
+                             f"staged bytes {st[k] - st[k - 1]:,} B")
+    log(f"  (d) memory_allocated over the rounds: {leaks or 'bounded'}")
+    log(f"  (d) the twelve templates after three load -d rounds: rows equal "
+        f"to (a)'s full store")
+    n = proxy.dynamic_load_data(whole, True)
+    check(n == 0, f"(d) load -d -c of the whole delta gave {n} new edges")
+    t0 = time.perf_counter()
+    violations = proxy.gstore_check()
+    rec["gsck_s"] = time.perf_counter() - t0
+    check(violations == 0, f"(d) gsck: {violations} violations")
+    log(f"  (d) load -d -c again: 0 new edges; gsck PASS in "
+        f"{rec['gsck_s']:.2f} s")
+    routes = {}
+    for label, knobs in (("wcoj device", {"join_strategy": "wcoj",
+                                          "join_device": "device"}),
+                         ("template", {"join_strategy": "walk",
+                                       "template_device": "device"})):
+        dec: dict = {}
+        with Knobs(None, **knobs):
+            got, ms = served_rows(proxy, texts, device, 1, entry,
+                                  f"(d) {label} ", dec)
+        for name in texts:
+            check(same_rows(got[name], full_rows[name]),
+                  f"(d) {label} {name}: {len(got[name])} rows, walk "
+                  f"{len(full_rows[name])}")
+            d = dec[name]
+            # a level with no candidates stays on the host, as in JAX
+            took = (d["strategy"] == "wcoj" and d["join_route"] == "device"
+                    and all(rt == "device" for _l, c, _r, rt in d["levels"]
+                            if c)
+                    if label.startswith("wcoj") else d["compiled"])
+            check(took, f"(d) {label} {name}: the route was not taken {d}")
+        routes[label] = ms
+        log(f"  (d) forced {label}: rows equal to the walk's on all twelve; "
+            f"ms {ms}")
+    rec["forced_routes_ms"] = routes
+
+    # ---- (e) durability ----
+    dur = out["durability"] = {}
+    t0 = time.perf_counter()
+    con.run_command("checkpoint")
+    dur["checkpoint_s"] = time.perf_counter() - t0
+    ck = proxy.recovery().newest_checkpoint()
+    check(ck is not None, "(e) no checkpoint written")
+    dur["checkpoint_bytes"] = dir_bytes(ck[0])
+    users = np.unique(wt[wt[:, 1] == WP["friendOf"], 0])
+    extra = np.unique(np.stack([users[rng.integers(0, len(users),
+                                                   EXTRA_EDGES)],
+                                np.full(EXTRA_EDGES, WP["friendOf"]),
+                                users[rng.integers(0, len(users),
+                                                   EXTRA_EDGES)]], 1), axis=0)
+    con.run_command(
+        f"load -d {write_ids(os.path.join(root, 'extra'), extra)} -c")
+    want, _ms = served_rows(proxy, texts, device, 1, entry, "(e) pre-drop ")
+    digest = gstore_digest(proxy.g)
+    dur["wal_bytes"] = dir_bytes(Global.wal_dir)
+    del con, proxy
+    collect(device)
+    fresh = Proxy(base_copy, ss, device=device, planner=planner)
+    t0 = time.perf_counter()
+    Console(fresh).run_command("recover")
+    dur["recover_s"] = time.perf_counter() - t0
+    check(gstore_digest(fresh.g) == digest,
+          "(e) gstore_digest after recover differs from the pre-drop store's")
+    got, _ms = served_rows(fresh, texts, device, 1, entry, "(e) recovered ")
+    for name in texts:
+        check(same_rows(got[name], want[name]),
+              f"(e) {name}: {len(got[name])} rows after recover, "
+              f"{len(want[name])} before the drop")
+    dur.update(extra_edges=int(len(extra)), digest=int(digest))
+    log(f"  (e) checkpoint {dur['checkpoint_s']:.2f} s, "
+        f"{dur['checkpoint_bytes']:,} B; {len(extra):,} more edges; "
+        f"WAL {dur['wal_bytes']:,} B; recover {dur['recover_s']:.2f} s: "
+        f"gstore_digest {digest} equal, the twelve templates' rows equal")
+    Global.wal_dir = Global.checkpoint_dir = ""
+    Global.wal_sync = "none"
+    del fresh
+    collect(device)
+    check(not leaks, "; ".join(leaks))
+
+
+def serve_data_in(entry: dict, results: dict, device="cuda",
+                  watdiv_scale: int = WATDIV_SCALE,
+                  yago_persons: int = YAGO_PERSONS,
+                  generic_entities: int = GENERIC_ENTITIES,
+                  seed: int = 0) -> None:
+    """Phase 12 (a)-(e), each world built, served and dropped in turn."""
+    out = results["data_in"] = {}
+    part_s = out["part_s"] = {}
+    with walk_pinned("12"):
+        t0 = time.perf_counter()
+        wt, full_rows, texts, stats = phase12_watdiv(out, entry, device,
+                                                     watdiv_scale, seed)
+        t1 = time.perf_counter()
+        phase12_yago(out, entry, device, yago_persons, seed)
+        t2 = time.perf_counter()
+        phase12_dbpsb(out, entry, device, generic_entities)
+        t3 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as root:
+            phase12_online(out, entry, device, wt, full_rows, texts, stats,
+                           watdiv_scale, seed, root)
+        t4 = time.perf_counter()
+    part_s.update(watdiv=t1 - t0, yago=t2 - t1, dbpsb=t3 - t2,
+                  online_and_durability=t4 - t3)
+    log("  phase 12 seconds by part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=640,
@@ -3553,6 +4293,40 @@ def main(argv=None) -> int:
     check(kernel_fns["probe_kernel"][0].launches > 0,
           "probe_kernel was never launched by the console's queries")
     rows += captured_rows(captures, "8 console", kernel_fns, errs)
+
+    # ---- 12. data in and durability --------------------------------------
+    log(f"data in: WatDiv-{WATDIV_SCALE}, YAGO n_person {YAGO_PERSONS:,}, "
+        f"DBpedia-shaped {GENERIC_ENTITIES:,} entities, online inserts, WAL, "
+        f"checkpoint and recover on {kind}; {card}")
+    t0 = time.perf_counter()
+    fb0 = fallback_counts()
+    kernel_fns["level_probe"] = (JK.level_probe, JK.level_probe_plain, None)
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    lpc = lp_captures(entry)
+    try:
+        serve_data_in(entry, results, seed=args.seed)
+    finally:
+        for c in list(captures.values()) + lpc:
+            c.restore()
+    torch.cuda.synchronize()
+    data = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    fb = {k: v - fb0[k] for k, v in fallback_counts().items()}
+    results["data_in"].update(launches=data, fallbacks=fb,
+                              seconds=time.perf_counter() - t0)
+    log(f"data in: kernel launches {data}; fallback counters over phase 12 "
+        f"{fb} ({time.perf_counter() - t0:.1f} s); {card}")
+    check(data["probe_kernel"] > 0, "probe_kernel never launched in phase 12")
+    check(data["level_probe"] > 0, "level_probe never launched in phase 12")
+    check(not any(fb.values()), f"phase 12 degraded a strategy: {fb}")
+    for name in ("stream_emit", "stream_emit_m"):
+        log(f"data in: {name} " + (f"launched {data[name]} times"
+                                   if data[name] else "not launched")
+            + " in phase 12")
+    del kernel_fns["level_probe"]
+    rows += merged_rows(captures, "12 data in", kernel_fns, errs)
+    rows += lp_merged_row(lpc, "12 data in", errs)
     for row in rows:  # every check of a kernel: phase 2 and every phase row
         row["max_abs_err"] = errs[row["name"]]
     results["kernels"] = rows

@@ -1,7 +1,9 @@
 """The port's console against the JAX package's, on a LUBM-1 directory that
 the port's ``write_dataset`` writes: ``help``, ``config``, ``logger``,
-``sparql -f/-b/-v/-N/-d``, ``sparql-emu``, ``load-stat``/``store-stat``, an
-unknown verb, and ``main([... "--device", "cpu", "-c", ...])``, which reads
+``sparql -f/-b/-v/-N/-d``, ``sparql-emu``, ``load-stat``/``store-stat``,
+``load -d [-c]``, ``gsck``, ``checkpoint`` and ``recover`` (with the JAX
+console's log lines and rows), an unknown verb, and
+``main([... "--device", "cpu", "-c", ...])``, which reads
 the config file and the directory as the JAX ``main`` does and answers the
 JAX console's rows (device="cpu": every kernel's plain version). With no
 ``--device`` it runs on the card, so here it raises."""
@@ -93,10 +95,11 @@ def test_help_quit_and_unknown_verbs(con, capfd):
     assert con.run_command("help") is True
     out = capfd.readouterr().out
     for verb in ("sparql -f", "sparql -b", "sparql-emu", "config", "logger",
-                 "load-stat", "store-stat"):
+                 "load-stat", "store-stat", "load -d", "gsck", "checkpoint",
+                 "recover"):
         assert verb in out
-    assert con.run_command("checkpoint") is True
-    assert "unknown command: checkpoint (try 'help')" in capfd.readouterr().err
+    assert con.run_command("migrate") is True  # a verb still to port
+    assert "unknown command: migrate (try 'help')" in capfd.readouterr().err
     assert con.run_command("") is True and con.run_command("quit") is False
     assert con.run_command('sparql -f "unterminated') is True
     assert "bad command" in capfd.readouterr().err
@@ -165,3 +168,82 @@ def test_sparql_emu_verb(con, dataset, capfd):
     assert rep["errors"] == 0 and rep["thpt_qps"] > 0
     assert [rep["class_mode"][c] for c in range(4)] == ["device-batch"] * 4
     assert "latency CDF" in capfd.readouterr().err
+
+
+def _worlds(base):
+    """(port console, JAX console) over one partition of the same triples,
+    without a planner."""
+    from wukong_tpu.engine.cpu import CPUEngine as JCPU
+    from wukong_tpu.loader.lubm import VirtualLubmStrings
+    from wukong_tpu.runtime.proxy import Proxy as JProxy
+    from wukong_tpu.store.gstore import build_partition as jbuild
+    from wukong_tpu_torch.loader.lubm import VirtualLubmStrings as PStrings
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.gstore import build_partition
+
+    jg = jbuild(base, 0, 1)
+    return (console.Console(Proxy(build_partition(base, 0, 1),
+                                  PStrings(1, seed=0), device="cpu")),
+            jconsole.Console(JProxy(jg, VirtualLubmStrings(1, seed=0),
+                                    JCPU(jg, VirtualLubmStrings(1, seed=0)))))
+
+
+def test_load_gsck_checkpoint_recover_verbs(dataset, capfd, tmp_path):
+    """Both consoles over the same 90% of LUBM-1: `load -d` of the other
+    10% gives the JAX console's rows and log line, `-c` again adds nothing,
+    gsck passes, and after `checkpoint`, one more load and a restart from
+    the base, `recover` restores the JAX console's rows and replay count."""
+    import numpy as np
+
+    from wukong_tpu.store import wal as jwal
+    from wukong_tpu_torch.loader.lubm import generate_lubm
+    from wukong_tpu_torch.store import wal
+
+    root, _d, _cfg = dataset
+    triples, _ = generate_lubm(1, seed=0)
+    keep = np.random.default_rng(4).random(len(triples)) < 0.9
+    base, delta = triples[keep], triples[~keep]
+    half = len(delta) // 2
+    dirs = [chip_smoke.write_ids(str(tmp_path / n), part) for n, part in
+            (("d0", delta[:half]), ("d1", delta[half:]))]
+    q5 = f"sparql -f {root / 'lubm_q5'} -N"
+    logs = {}
+    for side, G in (("port", Global), ("jax", JGlobal)):
+        G.wal_dir = str(tmp_path / side / "wal")
+        G.checkpoint_dir = str(tmp_path / side / "ckpt")
+    try:
+        pc, jc = _worlds(base)
+        for c, side in ((pc, "port"), (jc, "jax")):
+            for cmd in (f"load -d {dirs[0]}", q5, f"load -d {dirs[0]} -c",
+                        "gsck", "gsck -i", "checkpoint", f"load -d {dirs[1]}",
+                        q5, "recover -d 1"):
+                c.run_command(cmd)
+            logs[side] = capfd.readouterr().err
+        wal.reset_wal()
+        jwal.reset_wal()
+        pc, jc = _worlds(base)  # a restart from the base
+        for c, side in ((pc, "port"), (jc, "jax")):
+            c.run_command("recover")
+            c.run_command(q5)
+            logs[side + " recovered"] = capfd.readouterr().err
+    finally:
+        wal.reset_wal()
+        jwal.reset_wal()
+    for side in ("port", "jax"):
+        text = logs[side]
+        assert re.findall(r"dynamic load: ([\d,]+) new", text)[1] == "0"
+        assert text.count("gsck: PASS") == 2
+        assert "checkpoint written: " in text
+    got = [re.findall(r"dynamic load: ([\d,]+) new", logs[s])
+           for s in ("port", "jax")]
+    assert got[0] == got[1] and got[0][0] != "0"
+    assert _rows_logged(logs["port"]) == _rows_logged(logs["jax"])
+    assert "ROADMAP §A 9" in logs["port"]  # recover -d needs --dist
+    recovered = [re.search(r"recovered: checkpoint=\S+ replayed=(.*) epoch",
+                           logs[s + " recovered"]).group(1)
+                 for s in ("port", "jax")]
+    assert recovered[0] == recovered[1] == (
+        "{'insert': 1, 'epoch': 0, 'vector': 0}")
+    assert (_rows_logged(logs["port recovered"])
+            == _rows_logged(logs["jax recovered"])
+            == _rows_logged(logs["port"])[-1:])

@@ -14,10 +14,12 @@ held adds edges to a process-wide directed graph:
   is recorded as a violation.
 
 Zero cost when off: with ``debug_locks`` false :func:`make_lock` returns a
-plain ``threading.Lock`` and :func:`make_condition` a plain
-``threading.Condition`` (the batcher's). The JAX module's ``make_rlock``
-waits for a caller in the port, and its hold/contention histograms for the
-observatory (ROADMAP §A 10); they are left out.
+plain ``threading.Lock``, :func:`make_rlock` a plain ``threading.RLock``
+(the WAL's mutation lock) and :func:`make_condition` a plain
+``threading.Condition`` (the batcher's). A module-level lock created at
+import registers through :func:`register_global_lock`, and :func:`install`
+rebuilds it, so whole-process checked mode covers it. The JAX module's
+hold/contention histograms wait for the observatory (ROADMAP §A 10).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from wukong_tpu_torch.config import Global
 
 __all__ = [
     "DebugLock", "cycles", "declare_leaf", "install", "leaf_violations",
-    "make_condition", "make_lock", "report", "reset",
+    "make_condition", "make_lock", "make_rlock", "register_global_lock",
+    "report", "reset",
 ]
 
 
@@ -179,10 +182,50 @@ class DebugLock:
         return f"<{type(self).__name__} {self.name!r}>"
 
 
+class DebugRLock(DebugLock):
+    """Reentrant variant: only the outermost acquire and release feed the
+    order graph."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._inner = threading.RLock()
+        self._owner: int | None = None  # mutated only while inner is held
+        self._depth = 0
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        me = threading.get_ident()
+        if self._owner == me:  # reentrant: this thread already holds it
+            self._inner.acquire()
+            self._depth += 1
+            return True
+        if not self._inner.acquire(blocking, timeout):
+            return False
+        self._owner = me
+        self._depth = 1
+        _state.on_acquired(self.name)
+        return True
+
+    def release(self) -> None:
+        self._depth -= 1
+        if self._depth == 0:
+            self._owner = None
+            _state.on_released(self.name)
+        self._inner.release()
+
+    def locked(self) -> bool:
+        return self._owner is not None
+
+
 def make_lock(name: str):
     """A mutex taking part in lockdep when ``debug_locks`` is on; a plain
     ``threading.Lock`` otherwise."""
     return DebugLock(name) if Global.debug_locks else threading.Lock()
+
+
+def make_rlock(name: str):
+    """A reentrant mutex taking part in lockdep when ``debug_locks`` is on;
+    a plain ``threading.RLock`` otherwise."""
+    return DebugRLock(name) if Global.debug_locks else threading.RLock()
 
 
 def make_condition(name: str):
@@ -201,10 +244,35 @@ def declare_leaf(name: str) -> None:
         _state.leaves.add(name)
 
 
+#: (module, attribute, name, kind) of module-level locks created at import
+#: time — install() rebuilds them so whole-process checked mode is possible
+_GLOBAL_LOCKS: list[tuple[object, str, str, str]] = []
+_GLOBAL_LOCKS_MU = threading.Lock()
+_FACTORIES = {"lock": make_lock, "rlock": make_rlock,
+              "condition": make_condition}
+
+
+def register_global_lock(module, attr: str, name: str,
+                         kind: str = "lock") -> None:
+    """Declare a module-global lock for :func:`install` rebinding. The
+    module keeps using ``<module>.<attr>``; install() swaps the object, so
+    callers must always read it through the module (the accessor-function
+    pattern ``mutation_lock()`` does this naturally)."""
+    if kind not in _FACTORIES:
+        raise ValueError(f"unknown lock kind {kind!r}")
+    with _GLOBAL_LOCKS_MU:
+        _GLOBAL_LOCKS.append((module, attr, name, kind))
+
+
 def install(enabled: bool) -> None:
     """Flip the process into or out of checked mode for locks created from
-    now on, and reset what was recorded."""
+    now on, rebuild every registered module-level lock, and reset what was
+    recorded. Only call when the registered locks are not held."""
     Global.debug_locks = bool(enabled)
+    with _GLOBAL_LOCKS_MU:
+        regs = list(_GLOBAL_LOCKS)
+    for module, attr, name, kind in regs:
+        setattr(module, attr, _FACTORIES[kind](name))
     reset()
 
 

@@ -63,6 +63,29 @@ class GlobalConfig:
     # half-open trial
     breaker_threshold: int = 3
     breaker_cooldown_ms: int = 5000
+    # retry with exponential backoff + jitter (retry_call: the HDFS
+    # client's invocations)
+    retry_max_attempts: int = 3
+    retry_base_ms: int = 10
+    retry_max_ms: int = 2000
+
+    # ---- durability (store/wal.py, runtime/recovery.py; all mutable) ----
+    # write-ahead log for mutations (dynamic inserts): "" disables (the
+    # default — the mutation hook degrades to one str check). Records are
+    # length-prefixed + CRC-checksummed, appended BEFORE the mutation is
+    # acknowledged, rotated at wal_segment_mb, and truncated behind
+    # checkpoints.
+    wal_dir: str = ""
+    # fsync policy: none (OS buffering), interval (at most once per
+    # wal_sync_interval_s), always (every append)
+    wal_sync: str = "none"
+    wal_sync_interval_s: int = 1
+    wal_segment_mb: int = 64
+    # checkpoints (partitions with their dynamic deltas): directory ("" =
+    # off) and the periodic checkpointer cadence (0 = the console's
+    # `checkpoint` verb only)
+    checkpoint_dir: str = ""
+    checkpoint_interval_s: int = 0
 
     # ---- lock-order checking (analysis/lockdep.py): read when a lock is
     # created; off gives plain threading primitives ----

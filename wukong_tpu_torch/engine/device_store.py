@@ -283,11 +283,20 @@ class DeviceStore:
         return val
 
     def _check_version(self) -> None:
-        """A store mutation bumps the host store's version: drop every
-        staging of the old version, charged as ONE residency edge per kind
-        (the JAX DeviceStore's invalidation; the port's stores are not
-        mutated yet, so this fires only for a store that carries a
-        version)."""
+        """A store mutation (store/dynamic.py, a checkpoint restore) bumps
+        the host store's version: drop every staging of the old version,
+        whatever the insert touched, charged as ONE residency edge per kind
+        (the JAX DeviceStore's invalidation, wukong_tpu/engine/
+        device_store.py:249-269).
+
+        Dropping the old stagings frees their memory while a serving thread
+        may still have kernels queued that read it. That is safe only
+        because every launch runs on the one default stream
+        (``cuda_lib.stream_ptr``): the caching allocator hands freed blocks
+        out again in stream order, so a later allocation's writes queue
+        behind the pending reads. Per-thread streams (ROADMAP §A 12) will
+        need ``Tensor.record_stream`` on each staged tensor for every stream
+        that reads it, or an event the freeing thread waits on."""
         v = getattr(self.g, "version", 0)
         if v == self._seen_version:
             return

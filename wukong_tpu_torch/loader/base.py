@@ -1,7 +1,8 @@
-"""Dataset loading: an id-format directory -> triples and attributes.
+"""Dataset loading: an id-format directory -> triples, attributes, stores.
 
-The port's copy of ``load_triples`` and ``load_attr_triples`` of the JAX
-package's loader/base.py (:29-76), the reference's loader pipeline
+The port's copy of ``load_triples``, ``load_attr_triples`` and
+``load_dataset`` of the JAX package's loader/base.py, the reference's loader
+pipeline
 (core/loader/base_loader.hpp + posix_loader.hpp) on one host. Inputs:
 
 - ``id_triples.npy``: one packed [M, 3] array (the fast path), or
@@ -9,8 +10,11 @@ package's loader/base.py (:29-76), the reference's loader pipeline
 - ``id_*.nt`` text files of "s\\tp\\to" rows (the reference's format);
 - ``attr_*.nt`` text files of "s\\ta\\ttype\\tvalue" rows (attributes).
 
-``build_partition`` (store/gstore.py) builds the partition from them.
-Presharding and HDFS wait for the distributed engine (ROADMAP §A).
+``build_partition`` (store/gstore.py) builds the partition from them;
+``load_dataset`` does both for every worker. An ``hdfs://`` directory is
+staged locally first by loader/hdfs.py. Presharding
+(``preshard_dataset``, ``load_host_partitions``) waits for the distributed
+engine (ROADMAP §A 9).
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ import glob
 import os
 
 import numpy as np
+
+from wukong_tpu_torch.store.gstore import build_partition
+from wukong_tpu_torch.utils.logger import log_info
+from wukong_tpu_torch.utils.timer import StopWatch
 
 
 def load_triples(dataset_dir: str) -> np.ndarray:
@@ -66,3 +74,19 @@ def load_attr_triples(dataset_dir: str):
     vdtype = np.float64 if any(x in (2, 3) for x in t) else np.int64
     return (np.asarray(s, dtype=np.int64), np.asarray(a, dtype=np.int64),
             np.asarray(t, dtype=np.int64), np.asarray(v, dtype=vdtype))
+
+
+def load_dataset(dataset_dir: str, num_workers: int,
+                 versatile: bool = True) -> list:
+    """Full bulk-load path: files -> [GStore per worker]."""
+    sw = StopWatch()
+    triples = load_triples(dataset_dir)
+    attrs = load_attr_triples(dataset_dir)
+    t_read = sw.restart()
+    stores = [build_partition(triples, i, num_workers, attrs, versatile)
+              for i in range(num_workers)]
+    t_build = sw.restart()
+    log_info(f"loaded {len(triples):,} triples: read {t_read / 1e6:.1f}s, "
+             f"build {t_build / 1e6:.1f}s "
+             f"({sum(s.memory_bytes() for s in stores) / 2**20:.1f} MiB)")
+    return stores

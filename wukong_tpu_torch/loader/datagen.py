@@ -1,16 +1,181 @@
-"""Synthetic cyclic worlds for the tensor-join strategy.
+"""NT -> ID-triples conversion and the synthetic cyclic worlds.
 
-The port's copy of the cyclic part of the JAX package's loader/datagen.py:
-the triangle, diamond and 4-clique worlds (star/co-star hub relations where
-every pairwise join is quadratic while the cyclic result stays linear), the
-virtual string backend the parser needs for them, and each world's query
-text. From the same seed the generators give the JAX triples bit for bit
-(both draw from ``numpy.random.default_rng`` in the same order). The JAX
-module's NT -> ID converter (``convert_dir``), vectors and WatDiv patterns
-wait for ROADMAP §A 3 and §A 6.
+The port's copy of the JAX package's loader/datagen.py (reference:
+datagen/generate_data.cpp):
+
+- ``convert_dir`` reads a directory of N-Triples files, assigns ids with
+  the reference's scheme (generate_data.cpp:112-123: __PREDICATE__=0,
+  rdf:type=1, index ids from 2 in first-seen order, normal ids from 2^17 in
+  first-seen order), detects typed-literal attribute triples (find_type,
+  generate_data.cpp:53-64), honors ``@prefix`` lines (generate_data.cpp:
+  144-149, 173-194), and writes ``id_<file>``/``attr_<file>`` plus the
+  ``str_index``, ``str_normal`` and ``str_attr_index`` tables, byte for byte
+  as the JAX converter does. ``--timestamps N`` emits 4-column ``s p o ts``
+  rows with seeded, shuffled epochs (streaming replay).
+- The cyclic worlds for the tensor-join strategy: the triangle, diamond and
+  4-clique worlds (star/co-star hub relations where every pairwise join is
+  quadratic while the cyclic result stays linear), the virtual string
+  backend the parser needs for them, each world's query text, and the
+  WatDiv cyclic patterns. From the same seed the generators give the JAX
+  triples bit for bit (both draw from ``numpy.random.default_rng`` in the
+  same order).
+
+    python -m wukong_tpu_torch.loader.datagen <nt_dir> <id_dir>
+        [--timestamps N] [--ts-seed S]
+
+The JAX module's vectors (``make_vectors``, ``write_vectors``, the CLI's
+``--vectors``) wait for the vector plane (ROADMAP §A 6).
 """
 
 from __future__ import annotations
+
+import json
+import os
+import random
+import sys
+
+RDF_TYPE_STR = "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type>"
+
+_ATTR_SUFFIXES = [
+    ("^^xsd:int", 1), ("^^<http://www.w3.org/2001/XMLSchema#int>", 1),
+    ("^^xsd:float", 2), ("^^<http://www.w3.org/2001/XMLSchema#float>", 2),
+    ("^^xsd:double", 3), ("^^<http://www.w3.org/2001/XMLSchema#double>", 3),
+]
+
+
+def _find_type(obj: str) -> int:
+    for suf, t in _ATTR_SUFFIXES:
+        if suf in obj:
+            return t
+    return 0
+
+
+def _find_value(obj: str) -> str:
+    a = obj.find('"')
+    b = obj.find('"', a + 1)
+    if a < 0 or b < 0:
+        raise ValueError(f"malformed typed literal: {obj!r}")
+    return obj[a + 1:b]
+
+
+class IdAssigner:
+    def __init__(self):
+        from wukong_tpu_torch.types import NORMAL_ID_START
+
+        self.str_to_id: dict[str, int] = {"__PREDICATE__": 0, RDF_TYPE_STR: 1}
+        self.index_str: list[str] = ["__PREDICATE__", RDF_TYPE_STR]
+        self.normal_str: list[str] = []
+        self.attr_index_str: list[str] = []
+        self.index_to_type: dict[str, int] = {}
+        self.next_index_id = 2
+        self.next_normal_id = NORMAL_ID_START
+
+    def normal(self, s: str) -> int:
+        i = self.str_to_id.get(s)
+        if i is None:
+            i = self.str_to_id[s] = self.next_normal_id
+            self.next_normal_id += 1
+            self.normal_str.append(s)
+        return i
+
+    def index(self, s: str, attr_type: int = 0) -> int:
+        i = self.str_to_id.get(s)
+        if i is None:
+            i = self.str_to_id[s] = self.next_index_id
+            self.next_index_id += 1
+            if attr_type:
+                self.attr_index_str.append(s)
+                self.index_to_type[s] = attr_type
+            else:
+                self.index_str.append(s)
+        return i
+
+
+def _expand_prefix(token: str, prefixes: dict[str, str]) -> str:
+    """prefix:name -> <full_uri_name> using @prefix map (generate_data.cpp:173-194)."""
+    if prefixes and not token.startswith("<") and ":" in token:
+        key, rest = token.split(":", 1)
+        if key in prefixes:
+            base = prefixes[key]
+            return base[:-1] + rest + ">"
+    return token
+
+
+def convert_dir(src_dir: str, dst_dir: str, timestamps: int = 0,
+                ts_seed: int = 0) -> dict:
+    """Convert ``src_dir`` N-Triples into id-format under ``dst_dir``.
+
+    ``timestamps > 0`` switches the id_* files to the 4-column
+    ``s p o ts`` form: each row draws a seeded pseudo-random epoch in
+    [0, timestamps) — shuffled, not monotone, so replays arrive out of
+    order like real logs. 0 keeps the reference 3-column form.
+    """
+    os.makedirs(dst_dir, exist_ok=True)
+    ids = IdAssigner()
+    nfiles = 0
+    ts_rng = random.Random(ts_seed) if timestamps > 0 else None
+    for name in sorted(os.listdir(src_dir)):
+        if name.startswith("."):
+            continue
+        nfiles += 1
+        prefixes: dict[str, str] = {}
+        with open(os.path.join(src_dir, name)) as fin, \
+                open(os.path.join(dst_dir, f"id_{name}"), "w") as fout, \
+                open(os.path.join(dst_dir, f"attr_{name}"), "w") as fattr:
+            for line in fin:
+                parts = line.split()
+                if len(parts) < 4:
+                    continue
+                subject, predicate, obj = parts[0], parts[1], " ".join(parts[2:-1])
+                if subject == "@prefix":
+                    prefixes[predicate.rstrip(":").split(":")[0]] = obj
+                    continue
+                # expand prefixes before id assignment on BOTH branches (the
+                # reference expands only on the normal branch,
+                # generate_data.cpp:171-194, which splits a prefixed subject
+                # into two ids when it also has attribute triples)
+                subject = _expand_prefix(subject, prefixes)
+                predicate = _expand_prefix(predicate, prefixes)
+                t = _find_type(obj)
+                if t:
+                    sid = ids.normal(subject)
+                    pid = ids.index(predicate, attr_type=t)
+                    fattr.write(f"{sid}\t{pid}\t{t}\t{_find_value(obj)}\n")
+                    continue
+                obj = _expand_prefix(obj, prefixes)
+                sid = ids.normal(subject)
+                pid = ids.index(predicate)
+                oid = ids.index(obj) if predicate == RDF_TYPE_STR else ids.normal(obj)
+                if ts_rng is not None:
+                    fout.write(f"{sid}\t{pid}\t{oid}\t"
+                               f"{ts_rng.randrange(timestamps)}\n")
+                else:
+                    fout.write(f"{sid}\t{pid}\t{oid}\n")
+
+    with open(os.path.join(dst_dir, "str_normal"), "w") as f:
+        for s in ids.normal_str:
+            f.write(f"{s}\t{ids.str_to_id[s]}\n")
+    with open(os.path.join(dst_dir, "str_index"), "w") as f:
+        for s in ids.index_str:
+            f.write(f"{s}\t{ids.str_to_id[s]}\n")
+    with open(os.path.join(dst_dir, "str_attr_index"), "w") as f:
+        for s in ids.attr_index_str:
+            f.write(f"{s}\t{ids.str_to_id[s]}\t{ids.index_to_type[s]}\n")
+
+    meta = {
+        "total_vertex": len(ids.str_to_id),
+        "normal_vertex": len(ids.normal_str),
+        "index_vertex": len(ids.index_str),
+        "attr_vertex": len(ids.attr_index_str),
+        "files": nfiles,
+        "timestamps": int(timestamps),
+    }
+    return meta
+
+
+# ---------------------------------------------------------------------------
+# synthetic cyclic worlds (the WCOJ workload suite — LUBM has no cycles)
+# ---------------------------------------------------------------------------
 
 
 def _cyclic_meta(P: dict, T: dict, patterns: list, vars_: list) -> dict:
@@ -175,3 +340,52 @@ def cyclic_query_text(meta: dict) -> str:
     body = " ".join(f"{term(s)} <urn:cyc:p:{p_name[p]}> {term(o)} ."
                     for (s, p, o) in meta["patterns"])
     return f"SELECT {sel} WHERE {{ {body} }}"
+
+
+def watdiv_cyclic_patterns() -> dict:
+    """WatDiv-based cyclic query set (parsed-form patterns over the
+    loader/watdiv.py id space): the social triangle (two friends liking
+    the same product) and the follows/friendOf diamond."""
+    from wukong_tpu_torch.loader.watdiv import P
+
+    u, v, w = -1, -2, -3
+    pa, pb, g = -3, -4, -5
+    return {
+        "w_tri_likes": {  # two friends liking the same product
+            "patterns": [(u, P["friendOf"], v), (u, P["likes"], pa),
+                         (v, P["likes"], pa)],
+            "vars": [u, v, pa]},
+        "w_tri_follows": {  # a follow edge closed by a common friend
+            "patterns": [(u, P["follows"], v), (u, P["friendOf"], w),
+                         (v, P["friendOf"], w)],
+            "vars": [u, v, w]},
+        "w_pentagon": {  # friends liking same-genre products (5-cycle)
+            "patterns": [(u, P["friendOf"], v), (u, P["likes"], pa),
+                         (v, P["likes"], pb), (pa, P["hasGenre"], g),
+                         (pb, P["hasGenre"], g)],
+            "vars": [u, v, pa, pb, g]},
+    }
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m wukong_tpu_torch.loader.datagen",
+        description="NT -> ID-Triples converter")
+    ap.add_argument("src_dir")
+    ap.add_argument("dst_dir")
+    ap.add_argument("--timestamps", type=int, default=0, metavar="N",
+                    help="emit 4-column s p o ts rows with shuffled "
+                         "timestamps over N epochs (streaming replay)")
+    ap.add_argument("--ts-seed", type=int, default=0,
+                    help="seed for the timestamp shuffle")
+    ns = ap.parse_args(argv if argv is not None else sys.argv[1:])
+    meta = convert_dir(ns.src_dir, ns.dst_dir, timestamps=ns.timestamps,
+                       ts_seed=ns.ts_seed)
+    print(json.dumps(meta))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,16 +6,17 @@ The port's copy of the JAX package's runtime/console.py on one partition:
         [-c "<command>"] [--device cuda|cpu]
 
 Verbs: help, quit, config, logger, sparql (``-t <tenant>`` serves as a
-tenant), sparql-emu, load-stat, store-stat, and the reports of the
+tenant), sparql-emu, load (``load -d <dir> [-c]``: online inserts), gsck,
+load-stat, store-stat, checkpoint, recover, and the reports of the
 observability plane: trace (the flight recorder), explain and analyze
 (EXPLAIN / EXPLAIN ANALYZE), slo (tenant SLOs and the overload bus),
 admission (the admission plane), events (the event journal) and device
 (the device-cost observatory). One-shot mode with -c, else a REPL. The
+dataset may be an ``hdfs://`` directory, staged locally first. The
 engines run on the card unless ``--device cpu`` is given. The JAX
-console's other verbs (load, gsck, top, history, cache, plan, migrate,
-metrics, checkpoint, recover), ``--dist``,
-``--bind``, HDFS datasets and the persistent compile cache wait for their
-slices (ROADMAP §A).
+console's other verbs (top, history, cache, plan, migrate, metrics) and
+``recover -d <shard>``, ``--dist``, ``--bind`` and the persistent compile
+cache wait for their slices (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ sparql -f <file> [-m <f>] [-n <n>] [-p <plan>] [-N] [-v <n>] [-d cpu|gpu]
 sparql -b <file>             run a batch of `sparql` commands from a file
 sparql-emu -f <mix_config> [-d <sec>] [-w <sec>] [-b <batch>] [-p <inflight>]
                              run the open-loop throughput emulator
+load -d <dir> [-c]           dynamic (incremental) load; -c drops duplicates
+gsck [-i] [-n]               check store integrity
 load-stat [-f <file>]        load optimizer statistics
 store-stat [-f <file>]       store optimizer statistics
 trace [-q <qid|id>] [-n <k>] [-o <file>]
@@ -61,6 +64,9 @@ events [-k <n>] [-s <shard>] [-K <kind>] [-j]
                              burns, admission sheds, trace dumps
 device [-k <n>] [-j]         device-cost observatory: dispatches, padding
                              efficiency, variants, residency, demotions
+checkpoint                   write one atomic checkpoint to checkpoint_dir;
+                             truncates covered WAL
+recover                      restore newest checkpoint + replay the WAL tail
 """
 
 
@@ -94,6 +100,16 @@ class Console:
                 self._sparql(rest)
             elif cmd == "sparql-emu":
                 self._emu(rest)
+            elif cmd == "load":
+                ap = argparse.ArgumentParser(prog="load")
+                ap.add_argument("-d", required=True)
+                ap.add_argument("-c", action="store_true")
+                ns = ap.parse_args(rest)
+                self.proxy.dynamic_load_data(ns.d, ns.c)
+            elif cmd == "gsck":
+                index = "-i" in rest or not rest
+                normal = "-n" in rest or not rest
+                self.proxy.gstore_check(index, normal)
             elif cmd == "load-stat":
                 self._stat(rest, load=True)
             elif cmd == "store-stat":
@@ -110,6 +126,10 @@ class Console:
                 self._events(rest)
             elif cmd == "device":
                 self._device(rest)
+            elif cmd == "checkpoint":
+                log_info(f"checkpoint written: {self.proxy.checkpoint()}")
+            elif cmd == "recover":
+                self._recover(rest)
             else:
                 log_error(f"unknown command: {cmd} (try 'help')")
         except WukongError as e:
@@ -368,6 +388,21 @@ class Console:
         self._print_report(ns.j, *render_events(ns.k, shard=ns.s,
                                                 kind=ns.K))
 
+    def _recover(self, rest) -> None:
+        """recover: boot-style checkpoint+WAL restore. The JAX console's
+        ``recover -d <shard>`` drill needs the distributed engine."""
+        ap = argparse.ArgumentParser(prog="recover")
+        ap.add_argument("-d", "--drill", type=int, default=None,
+                        metavar="shard")
+        ns = ap.parse_args(rest)
+        if ns.drill is not None:
+            log_error("recover -d: the kill-and-recover drill needs --dist, "
+                      "which is not ported yet (ROADMAP §A 9)")
+            return
+        stats = self.proxy.recover()
+        log_info(f"recovered: checkpoint={stats['checkpoint']} "
+                 f"replayed={stats['replayed']} epoch={stats['epoch']}")
+
     # ------------------------------------------------------------------
     def repl(self) -> None:
         log_info("wukong console — 'help' for commands")
@@ -384,7 +419,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="wukong on PyTorch/CUDA: RDF store + SPARQL engine")
     ap.add_argument("config", help="config file path")
-    ap.add_argument("dataset", help="dataset directory (id-format)")
+    ap.add_argument("dataset",
+                    help="dataset directory (id-format; hdfs:// is staged)")
     ap.add_argument("-c", "--command", default=None,
                     help="one-shot command, then exit")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
@@ -394,10 +430,12 @@ def main(argv=None):
     load_config(args.config)
 
     from wukong_tpu_torch.loader.base import load_attr_triples, load_triples
+    from wukong_tpu_torch.loader.hdfs import resolve_dataset_dir
     from wukong_tpu_torch.runtime.proxy import Proxy
     from wukong_tpu_torch.store.gstore import build_partition
     from wukong_tpu_torch.store.string_server import StringServer
 
+    args.dataset = resolve_dataset_dir(args.dataset)  # hdfs:// -> staged dir
     ss = StringServer(args.dataset)
     # one read of the triple files serves the partition and the statistics
     triples = load_triples(args.dataset)

@@ -25,7 +25,15 @@ The port's sites (``KNOWN_FAULT_SITES``):
   degrades the query to the walk;
 - ``template.compile`` / ``template.dispatch`` — staging and running a
   compiled template program (engine/template_compile.py): the proxy
-  latches the template's demotion and walks.
+  latches the template's demotion and walks;
+- ``hdfs.read`` — one HDFS client invocation (loader/hdfs.py), retried
+  with backoff;
+- ``dynamic.insert`` — a batch insert into one partition
+  (store/dynamic.py), before the store mutates (``shard`` = its sid);
+- ``wal.append`` — a write-ahead-log append (store/wal.py), before any
+  byte lands: the batch is neither logged nor applied;
+- ``checkpoint.write`` — a checkpoint bundle (runtime/recovery.py), before
+  any byte lands.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -44,7 +52,9 @@ from dataclasses import dataclass, field
 
 KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
                                "batch.heavy.dispatch", "join.materialize",
-                               "template.compile", "template.dispatch"})
+                               "template.compile", "template.dispatch",
+                               "hdfs.read", "dynamic.insert", "wal.append",
+                               "checkpoint.write"})
 
 
 class TransientFault(Exception):

@@ -59,10 +59,18 @@ Unlike the JAX proxy, it does not catch any other exception there: an
 error from building or launching a CUDA kernel, or a CUDA runtime error,
 reaches the caller of ``serve_query`` instead of being answered by the walk.
 
+Data in and durability, as in the JAX proxy on one partition:
+``dynamic_load_data`` (the console's ``load -d <dir> [-c]``; an ``hdfs://``
+directory is staged locally first) inserts through store/dynamic.py, whose
+version bump makes the device store, the WCOJ table cache and the template
+programs restage on their next use, and clears the plan cache;
+``recovery()`` is the checkpoint/recovery manager (runtime/recovery.py)
+behind ``checkpoint`` and ``recover``; ``gstore_check`` is ``gsck``.
+
 The JAX proxy's hooks into subsystems the port does not have yet (the
 result cache and its fast path, views, the reuse observatory, the
-distributed engine and its distributed join, streams, vectors, recovery)
-are left out; ROADMAP §A lists each. ``_serve_execute`` keeps the fault
+distributed engine and its distributed join, streams, vectors) are left
+out; ROADMAP §A lists each. ``_serve_execute`` keeps the fault
 site, the strategy branches, the batching branch and the direct dispatch of
 the JAX one; its result-cache lease and its knn branch wait for their
 subsystems (§A 7-8).
@@ -213,6 +221,12 @@ class Proxy:
         # recipe)
         self._parse_cache = LRUCache(Global.parse_cache_size)
         self._plan_cache = PlanCache(Global.plan_cache_size)
+        # the checkpoint/recovery manager, built on first use; the periodic
+        # checkpointer starts here when the knobs ask for it
+        self._recovery = None
+        self._recovery_init_lock = make_lock("proxy.recovery_init")
+        if Global.checkpoint_interval_s > 0 and Global.checkpoint_dir:
+            self.recovery().start()
 
     def engine_pool(self):
         """The host engine pool, started on first use (N CPU engines with
@@ -985,3 +999,75 @@ class Proxy:
                 raise WukongError(ErrorCode.UNKNOWN_SUB,
                                   f"no instances for placeholder type {tid}")
             tmpl.candidates.append(cands)
+
+    # ------------------------------------------------------------------
+    # data in and durability (store/dynamic.py, runtime/recovery.py)
+    # ------------------------------------------------------------------
+    def dynamic_load_data(self, dirname: str, check_dup: bool = False) -> int:
+        """`load -d <dir> [-c]` (proxy.hpp:548 -> RDFEngine -> DynamicLoader).
+
+        -c (check_dup) opts into duplicate dropping, like the reference's
+        dedup-on-insert option. The store's version bump restages every
+        device cache on its next use. Returns the new subject-side edges.
+        """
+        from wukong_tpu_torch.loader.hdfs import resolve_dataset_dir
+        from wukong_tpu_torch.store.dynamic import load_dir_into
+
+        dirname = resolve_dataset_dir(dirname)  # hdfs:// paths stage locally
+        n = load_dir_into(self._insert_targets(), dirname, dedup=check_dup)
+        # plan recipes are version-keyed (stale ones can never apply), but
+        # an insert obsoletes every cached plan's cost basis — free them
+        self._plan_cache.clear()
+        log_info(f"dynamic load: {n:,} new subject-side edges from {dirname}")
+        return n
+
+    def _insert_targets(self) -> list:
+        """Every store online inserts must reach: the host partition (the
+        JAX proxy adds its distributed shards and their replicas)."""
+        return [self.g]
+
+    def _checkpoint_targets(self) -> list:
+        """The checkpointed partitions."""
+        return [self.g]
+
+    def recovery(self):
+        """Lazily-assembled RecoveryManager over this proxy's store."""
+        if self._recovery is None:  # unguarded: double-checked fast path — an atomic reference read; construction is serialized below
+            with self._recovery_init_lock:
+                if self._recovery is None:
+                    from wukong_tpu_torch.runtime.recovery import (
+                        RecoveryManager,
+                    )
+
+                    self._recovery = RecoveryManager(
+                        self._checkpoint_targets, stream=None,
+                        on_change=self._on_store_change)
+        return self._recovery  # unguarded: write-once reference, non-None past init
+
+    def _on_store_change(self) -> None:
+        """Restore invalidation: exactly the dynamic-insert contract —
+        cached plans must re-derive (the device caches follow the store
+        version, which a restore bumps)."""
+        self._plan_cache.clear()
+
+    def checkpoint(self) -> str:
+        """Console `checkpoint` verb: write one atomic checkpoint bundle
+        and truncate the covered WAL."""
+        return self.recovery().checkpoint()
+
+    def recover(self) -> dict:
+        """Console `recover` verb: restore the newest checkpoint and
+        replay the WAL tail (boot-time crash recovery)."""
+        return self.recovery().recover()
+
+    def gstore_check(self, index_check: bool = True,
+                     normal_check: bool = True) -> int:
+        """Console `gsck`: the store consistency checker; returns the
+        violation count."""
+        from wukong_tpu_torch.store.checker import check_partition
+
+        errors = check_partition(self.g, index_check, normal_check)
+        for e in errors[:20]:
+            log_error(f"gsck: {e}")
+        log_info(f"gsck: {'PASS' if not errors else f'{len(errors)} violations'}")
+        return len(errors)

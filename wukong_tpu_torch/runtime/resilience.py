@@ -16,13 +16,15 @@ The port's copy of the JAX package's runtime/resilience.py:
 The clocks are injectable, so tests replay schedules deterministically. A
 breaker trip or close is a ``breaker.trip`` / ``breaker.close`` event on the
 ambient trace and in the cluster-event journal (obs/events.py), both sent
-outside the breaker's lock. The JAX module's ``retry_call`` (with its
-``retry`` and ``breaker.open`` trace events) waits for its first caller in
-the port, the distributed engine (ROADMAP §A 9).
+outside the breaker's lock.
+- :func:`retry_call` — exponential backoff with equal jitter around a
+  transient-failure-prone call (the HDFS client, loader/hdfs.py), with a
+  ``retry`` event on the ambient trace.
 """
 
 from __future__ import annotations
 
+import random
 import time
 
 import numpy as np
@@ -31,8 +33,15 @@ from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.trace import trace_event
-from wukong_tpu_torch.utils.errors import BudgetExceeded, QueryTimeout
+from wukong_tpu_torch.utils.errors import (
+    BudgetExceeded,
+    QueryTimeout,
+    RetryExhausted,
+)
 
+_M_RETRIES = get_registry().counter(
+    "wukong_retry_attempts_total",
+    "Failed attempts that entered retry backoff", labels=("site",))
 _M_BREAKER_TRIPS = get_registry().counter(
     "wukong_breaker_trips_total",
     "Circuit breaker open/reopen transitions", labels=("key",))
@@ -236,3 +245,47 @@ class CircuitBreaker:
                           "last_trip_age_s":
                               (now - trip) if trip is not None else None}
             return out
+
+
+# ---------------------------------------------------------------------------
+# retry with exponential backoff + jitter
+# ---------------------------------------------------------------------------
+
+_retry_rng = random.Random()  # jitter source; tests inject their own
+
+
+def retry_call(fn, *, site: str = "", attempts: int | None = None,
+               base_ms: float | None = None, max_ms: float | None = None,
+               retry_on: tuple = (), rng: random.Random | None = None,
+               sleep=time.sleep):
+    """Call ``fn()``; on an exception in ``retry_on`` back off and retry.
+
+    Backoff is exponential with equal jitter: half the window fixed, half
+    uniform, so synchronized retry storms decorrelate. Non-retryable
+    exceptions (and faults.ShardDown) propagate immediately. Exhaustion
+    raises RetryExhausted carrying the last exception. The JAX function's
+    circuit-breaker and deadline arguments wait for their first caller in
+    the port, the distributed engine (ROADMAP §A 9).
+    """
+    from wukong_tpu_torch.runtime.faults import TransientFault
+
+    attempts = Global.retry_max_attempts if attempts is None else attempts
+    base_ms = Global.retry_base_ms if base_ms is None else base_ms
+    max_ms = Global.retry_max_ms if max_ms is None else max_ms
+    retry_on = tuple(retry_on) or (TransientFault, OSError)
+    rng = rng or _retry_rng
+    attempts = max(int(attempts), 1)
+    last: BaseException | None = None
+    for i in range(attempts):
+        try:
+            return fn()
+        except retry_on as e:
+            last = e
+            trace_event("retry", site=site, attempt=i, error=repr(e))
+            _M_RETRIES.labels(site=site or "?").inc()
+            if i == attempts - 1:
+                break
+            window = min(base_ms * (2 ** i), max_ms) / 1e3
+            sleep(window / 2 + rng.random() * window / 2)
+    raise RetryExhausted(
+        f"{attempts} attempts failed at {site}: {last!r}", last=last)

@@ -12,15 +12,18 @@ while queued is shed with ``QueryTimeout``; an engine thread that dies is
 respawned up to ``MAX_RESPAWNS`` times, then declared dead, its queue moved
 to the live engines and its tid routed around (``health`` reports it).
 
-Two lanes carry the batcher's fused groups (runtime/batcher.py), each
-group one fire-and-forget item (``run(engine)`` / ``fail_all(exc)``) that
-settles its members' futures itself:
+Three lanes carry fire-and-forget items (``run(engine)`` /
+``fail_all(exc)``), each settling its own futures: the batcher's fused
+groups (runtime/batcher.py) and background rebuild jobs
+(runtime/recovery.py ``RebuildJob``):
 - ``batch``: light fused groups, popped right after an engine's own queue
   (interactive traffic; work stealing cannot split a group);
 - ``heavy``: fused index-origin groups and their split slices, popped after
   every interactive source, with at most ``heavy_lane_pct`` percent of the
   engines (min 1) running heavy groups at once; a slice continues an
-  admitted group and is popped outside that cap.
+  admitted group and is popped outside that cap;
+- ``rebuild``: background rebuild jobs, popped only when every other lane
+  is empty (a rebuild soaks idle capacity, never displaces serving).
 A group carries the GPU engine, so these host threads drive device work.
 
 With ``enable_admission`` (runtime/admission.py) default-lane queries ride
@@ -30,8 +33,9 @@ share of the heavy slots (``_heavy_pick_locked``, ``_heavy_by_tenant``).
 Every queued item is stamped at submit and its wait charged to its lane's
 queue-delay EWMA when popped (obs/slo.py); a traced query's ``pool.queue``
 span closes on every exit from the queue; the depth, lane-depth and
-utilization gauges are pull gauges over every live pool. The stream and
-rebuild lanes wait for their subsystems (ROADMAP §A 7-8).
+utilization gauges are pull gauges over every live pool. The stream lane
+waits for its subsystem (ROADMAP §A 8); the rebuild lane's producer, shard
+healing, for the distributed engine (§A 9).
 """
 
 from __future__ import annotations
@@ -66,24 +70,26 @@ _POOLS: "weakref.WeakSet" = weakref.WeakSet()
 def _queue_depth() -> int:
     return sum(sum(len(dq) for dq in p.queues) + len(p.batch_queue)
                + len(p.heavy_queue) + len(p.heavy_slices)
+               + len(p.rebuild_queue)
                + (len(f) if (f := p._fair) is not None else 0)
                for p in list(_POOLS))
 
 
 get_registry().gauge(
     "wukong_pool_queue_depth",
-    "Queries waiting in pool queues (incl. the batch and heavy lanes)"
+    "Queries waiting in pool queues (incl. batch/heavy/rebuild lanes)"
 ).set_function(_queue_depth)
 
 
 def _lane_depth_series() -> dict:
     """Per-lane queue depth across every live pool (an ADMISSION_INPUTS
     signal, obs/slo.py)."""
-    acc = {"default": 0, "batch": 0, "heavy": 0}
+    acc = {"default": 0, "batch": 0, "heavy": 0, "rebuild": 0}
     for p in list(_POOLS):
         acc["default"] += sum(len(dq) for dq in p.queues)
         acc["batch"] += len(p.batch_queue)
         acc["heavy"] += len(p.heavy_queue) + len(p.heavy_slices)
+        acc["rebuild"] += len(p.rebuild_queue)
         f = p._fair  # the fair sub-lane exists once admission armed
         if f is not None:
             acc["fair"] = acc.get("fair", 0) + len(f)
@@ -167,6 +173,10 @@ class EnginePool:
         self.heavy_slices = collections.deque()  # guarded by: _heavy_lock
         self._heavy_lock = make_lock("pool.heavy")
         self._heavy_inflight = 0  # guarded by: _heavy_lock
+        # rebuild lane: background rebuild jobs (runtime/recovery.py
+        # RebuildJob), drained only when every other lane is empty
+        self.rebuild_queue = collections.deque()  # guarded by: _rebuild_lock
+        self._rebuild_lock = make_lock("pool.rebuild")
         # weighted-fair sub-lane (runtime/admission.py FairQueue), made on
         # the first admission-armed submission: off, the pop path pays one
         # attribute read
@@ -311,6 +321,10 @@ class EnginePool:
                                  + list(self.heavy_slices))
                     self.heavy_queue.clear()
                     self.heavy_slices.clear()
+                # ...and the rebuild lane: the same settlement
+                with self._rebuild_lock:
+                    stranded += list(self.rebuild_queue)
+                    self.rebuild_queue.clear()
                 for _qid, lane_item in stranded:
                     lane_item.fail_all(RuntimeError("engine pool dead"))
 
@@ -325,15 +339,20 @@ class EnginePool:
         lane="heavy" a HeavyGroup or one of its split slices, each as ONE
         indivisible fire-and-forget item: it settles its members' futures
         itself, so no result entry is made and -1 is returned. A dead pool
-        fails the item at once through its fail_all.
+        fails the item at once through its fail_all. lane="rebuild"
+        enqueues a background rebuild job (runtime/recovery.py RebuildJob)
+        with the same contract, drained only when every other lane is
+        empty.
 
         With ``enable_admission`` a default-lane query with no routing pin
         rides the weighted-fair sub-lane (``_submit_fair``). A traced query
         gets a ``pool.queue`` span, closed by the engine that pops it."""
-        if lane in ("batch", "heavy"):
+        if lane in ("batch", "heavy", "rebuild"):
             _M_SUBMITTED.labels(lane=lane).inc()
             if lane == "batch":
                 lock, queue = self._batch_lock, self.batch_queue
+            elif lane == "rebuild":
+                lock, queue = self._rebuild_lock, self.rebuild_queue
             elif getattr(query, "heavy_continuation", False):
                 lock, queue = self._heavy_lock, self.heavy_slices
             else:
@@ -536,6 +555,11 @@ class EnginePool:
                         self._heavy_by_tenant[ten] = (
                             self._heavy_by_tenant.get(ten, 0) + 1)
                     return item
+        # rebuild lane last: background rebuilds are fully deferrable
+        if self.rebuild_queue:  # unguarded: an idle engine's peek at an empty lane; the pop rechecks under the lock
+            with self._rebuild_lock:
+                if self.rebuild_queue:
+                    return self.rebuild_queue.popleft()
         return None
 
     def _run_engine(self, tid: int) -> None:

@@ -90,6 +90,14 @@ class GStore:
             return None, False
         return seg.lookup(vid)
 
+    def memory_bytes(self) -> int:
+        n = sum(s.memory_bytes() for s in self.segments.values())
+        n += sum(a.nbytes for a in (self.v_set, self.t_set, self.p_set))
+        n += sum(s.memory_bytes() for s in self.vp.values())
+        n += sum(v.nbytes for v in self.index.values())
+        n += sum(a.keys.nbytes + a.values.nbytes for a in self.attrs.values())
+        return n
+
 
 def check_vid_range(triples: np.ndarray) -> None:
     """Device staging narrows ids to int32 and INT32_MAX is the device-side
@@ -102,6 +110,12 @@ def check_vid_range(triples: np.ndarray) -> None:
     if len(triples) and int(triples.min()) < 0:
         raise WukongError(ErrorCode.UNKNOWN_PATTERN,
                           f"vertex id {int(triples.min())} < 0")
+
+
+def _triple_argsort(primary, secondary, tertiary) -> np.ndarray:
+    """argsort by (primary, secondary, tertiary) (the loader's sorted-run
+    preparation, base_loader.hpp sorts)."""
+    return np.lexsort((tertiary, secondary, primary))
 
 
 def _pred_runs(p_sorted: np.ndarray, k_sorted: np.ndarray, v_sorted: np.ndarray):

@@ -1,0 +1,281 @@
+"""GStore persistence: save/load a built partition as one .npz bundle.
+
+The reference always re-ingests ID-triple files at boot and only persists
+optimizer statistics (stats.hpp:585-640). Rebuilding 300M+ triples of CSR on a
+single host core is minutes of lexsort, so this package adds store-level
+checkpointing: a built partition round-trips through one npz.
+
+Bundle format (version 2): the JSON ``_meta`` array carries a format name,
+a (major, minor) version, the store's dynamic-insert version, and a CRC32
+per payload array. The load path validates all of it and raises a
+structured ``WukongError(CHECKPOINT_CORRUPT)`` naming the offending path —
+never a bare ``KeyError``/``zipfile`` traceback — and refuses bundles from
+a newer *major* version (minor bumps stay readable). Version-1 bundles
+(no header) predate the checksums and still load, with a warning.
+
+Dynamic state rides along for free: ``DeltaCSRSegment``'s array properties
+materialize the merged CSR, so saving a store with pending deltas persists
+exactly what queries see; loading yields plain CSR segments that re-wrap
+lazily on the next insert.
+
+The port's copy of the JAX package's store/persist.py. The bundle is
+byte-compatible (``np.savez``, the same array names, the same ``_meta``
+JSON keys and CRC32s), so a bundle written by either package loads in the
+other. The vector plane is not ported yet (ROADMAP §A 6): a bundle that
+carries vectors raises :class:`VectorsUnsupported` instead of loading
+without them.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+import zlib
+
+import numpy as np
+
+from wukong_tpu_torch.store.gstore import AttrSegment, GStore
+from wukong_tpu_torch.store.segment import CSRSegment
+from wukong_tpu_torch.utils.errors import CheckpointCorrupt, ErrorCode, WukongError
+from wukong_tpu_torch.utils.logger import log_warn
+
+FORMAT_NAME = "wukong-gstore"
+FORMAT_VERSION = (2, 1)  # (major, minor): newer-major bundles are refused
+# 2.1: optional vector-store arrays (vstore_*) + "vstore" meta entry (the
+# JAX package writes them; this package refuses such a bundle, see above)
+
+
+class VectorsUnsupported(WukongError):
+    """A bundle or WAL record carries the vector plane, which this package
+    does not have yet (ROADMAP §A 6). Raised rather than dropping the
+    vectors; recovery does not fall back past it."""
+
+    def __init__(self, where: str):
+        super().__init__(
+            ErrorCode.UNSUPPORTED_SHAPE,
+            f"{where} carries vectors: the vector plane (vector/) is not "
+            "ported yet (ROADMAP §A 6)")
+
+
+def _crc(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes())
+
+
+def _collect_arrays(g: GStore) -> tuple[dict, dict]:
+    """(meta, arrays): the canonical array walk of a partition — every
+    array save_gstore persists, in a stable order. Shared with
+    gstore_digest so the checkpoint surface and the bit-identity proof
+    can never drift."""
+    arrays: dict[str, np.ndarray] = {}
+    meta = {"format": FORMAT_NAME, "version": list(FORMAT_VERSION),
+            "store_version": int(getattr(g, "version", 0)),
+            "sid": g.sid, "num_workers": g.num_workers,
+            "type_ids": sorted(g.type_ids), "segments": [], "index": [],
+            "vp": [], "attrs": []}
+    for i, ((pid, d), seg) in enumerate(sorted(g.segments.items())):
+        meta["segments"].append([int(pid), int(d)])
+        arrays[f"seg{i}_k"] = seg.keys
+        arrays[f"seg{i}_o"] = seg.offsets
+        arrays[f"seg{i}_e"] = seg.edges
+    for i, ((tpid, d), arr) in enumerate(sorted(g.index.items())):
+        meta["index"].append([int(tpid), int(d)])
+        arrays[f"idx{i}"] = arr
+    for i, (d, seg) in enumerate(sorted(g.vp.items())):
+        meta["vp"].append(int(d))
+        arrays[f"vp{i}_k"] = seg.keys
+        arrays[f"vp{i}_o"] = seg.offsets
+        arrays[f"vp{i}_e"] = seg.edges
+    for i, (aid, seg) in enumerate(sorted(g.attrs.items())):
+        meta["attrs"].append([int(aid), int(seg.type)])
+        arrays[f"attr{i}_k"] = seg.keys
+        arrays[f"attr{i}_v"] = seg.values
+    arrays["v_set"] = g.v_set
+    arrays["t_set"] = g.t_set
+    arrays["p_set"] = g.p_set
+    return meta, arrays
+
+
+def gstore_digest(g: GStore) -> int:
+    """Running CRC over every persisted array of a partition. The
+    observe-only drills compare this before/after advising: unlike the
+    store version (0 until the first dynamic insert), a raw in-place
+    array write cannot leave it unchanged."""
+    crc = 0
+    _, arrays = _collect_arrays(g)
+    for name in sorted(arrays):
+        crc = zlib.crc32(np.ascontiguousarray(arrays[name]).tobytes(), crc)
+    return crc
+
+
+def save_gstore(g: GStore, path) -> None:
+    """Persist a partition to ``path`` (a filename or any file object)."""
+    meta, arrays = _collect_arrays(g)
+    meta["checksums"] = {name: _crc(a) for name, a in arrays.items()}
+    arrays["_meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+class _Checked:
+    """Array accessor that verifies the manifest checksum on first read and
+    turns every structural failure into a structured CHECKPOINT_CORRUPT."""
+
+    def __init__(self, z, meta: dict, path: str):
+        self.z = z
+        self.checksums = meta.get("checksums")
+        self.path = path
+
+    def __getitem__(self, name: str) -> np.ndarray:
+        try:
+            arr = self.z[name]
+        except KeyError:
+            raise CheckpointCorrupt(f"missing array {name!r}",
+                                    path=self.path) from None
+        except (zipfile.BadZipFile, OSError, ValueError) as e:
+            raise CheckpointCorrupt(f"unreadable array {name!r}: {e}",
+                                    path=self.path) from None
+        if self.checksums is not None:
+            want = self.checksums.get(name)
+            if want is None or _crc(arr) != want:
+                raise CheckpointCorrupt(
+                    f"checksum mismatch on array {name!r}", path=self.path)
+        return arr
+
+
+def load_gstore(path: str) -> GStore:
+    path = path if path.endswith(".npz") else path + ".npz"
+    try:
+        z = np.load(path)
+        meta = json.loads(bytes(z["_meta"]).decode())
+    except FileNotFoundError:
+        raise
+    except (zipfile.BadZipFile, KeyError, OSError, ValueError,
+            json.JSONDecodeError) as e:
+        raise CheckpointCorrupt(f"unreadable bundle: {e}",
+                                path=path) from None
+    return _decode_bundle(z, meta, path)
+
+
+def _decode_bundle(z, meta: dict, path: str) -> GStore:
+    """Validate + rebuild a partition from an opened npz — shared by the
+    on-disk load path and the byte codec, so both are checked alike."""
+    if meta.get("format") is None:
+        # version-1 bundle (pre-checksum): readable, but unverifiable
+        log_warn(f"legacy gstore bundle (no format header): {path}")
+    elif meta["format"] != FORMAT_NAME:
+        raise CheckpointCorrupt(
+            f"not a gstore bundle (format={meta['format']!r})", path=path)
+    else:
+        major = int(meta.get("version", [0])[0])
+        if major > FORMAT_VERSION[0]:
+            raise CheckpointCorrupt(
+                f"bundle format v{meta['version']} is newer than this "
+                f"build's v{list(FORMAT_VERSION)} — refusing to guess",
+                path=path)
+    a = _Checked(z, meta, path)
+    try:
+        g = GStore(sid=meta["sid"], num_workers=meta["num_workers"])
+        g.type_ids = set(meta["type_ids"])
+        for i, (pid, d) in enumerate(meta["segments"]):
+            g.segments[(pid, d)] = CSRSegment(
+                keys=a[f"seg{i}_k"], offsets=a[f"seg{i}_o"],
+                edges=a[f"seg{i}_e"])
+        for i, (tpid, d) in enumerate(meta["index"]):
+            g.index[(tpid, d)] = a[f"idx{i}"]
+        for i, d in enumerate(meta["vp"]):
+            g.vp[d] = CSRSegment(keys=a[f"vp{i}_k"], offsets=a[f"vp{i}_o"],
+                                 edges=a[f"vp{i}_e"])
+        for i, (aid, at) in enumerate(meta["attrs"]):
+            g.attrs[aid] = AttrSegment(keys=a[f"attr{i}_k"],
+                                       values=a[f"attr{i}_v"], type=at)
+        g.v_set = a["v_set"]
+        g.t_set = a["t_set"]
+        g.p_set = a["p_set"]
+        if meta.get("vstore") is not None:
+            raise VectorsUnsupported(f"bundle {path}")
+    except (KeyError, TypeError) as e:
+        raise CheckpointCorrupt(f"malformed manifest: {e}",
+                                path=path) from None
+    g.version = int(meta.get("store_version", 0))
+    return g
+
+
+def gstore_to_bytes(g: GStore) -> bytes:
+    """One partition as checkpoint-format bytes (the JAX transport's shard
+    snapshot payload). Same arrays, same checksums, same digest surface as
+    an on-disk bundle."""
+    buf = io.BytesIO()
+    save_gstore(g, buf)
+    return buf.getvalue()
+
+
+def gstore_from_bytes(blob: bytes) -> GStore:
+    """Inverse of :func:`gstore_to_bytes`, with the full load-path
+    validation (format header, per-array CRCs, structured errors)."""
+    try:
+        z = np.load(io.BytesIO(blob))
+        meta = json.loads(bytes(z["_meta"]).decode())
+    except (zipfile.BadZipFile, KeyError, OSError, ValueError,
+            json.JSONDecodeError) as e:
+        raise CheckpointCorrupt(f"unreadable bundle: {e}",
+                                path="<wire>") from None
+    return _decode_bundle(z, meta, "<wire>")
+
+
+# ---------------------------------------------------------------------------
+# replication / recovery helpers
+# ---------------------------------------------------------------------------
+
+def clone_gstore(g: GStore) -> GStore:
+    """Structural copy (shard replication in the JAX package; a snapshot
+    of a live partition here): container dicts are copied,
+    the immutable CSR base arrays are shared (they are never mutated in
+    place — inserts wrap segments in fresh DeltaCSRSegments), and any
+    pending delta segments are snapshotted via their merged CSR so later
+    appends to either side never leak across the copy."""
+    from wukong_tpu_torch.store.dynamic import DeltaCSRSegment
+
+    def snap(seg):
+        # _mat() merges pending deltas and returns the (immutable) CSR
+        return seg._mat() if isinstance(seg, DeltaCSRSegment) else seg
+
+    g2 = GStore(sid=g.sid, num_workers=g.num_workers)
+    g2.segments = {k: snap(s) for k, s in g.segments.items()}
+    g2.index = dict(g.index)
+    g2.vp = {d: snap(s) for d, s in g.vp.items()}
+    g2.v_set, g2.t_set, g2.p_set = g.v_set, g.t_set, g.p_set
+    g2.attrs = dict(g.attrs)
+    g2.type_ids = set(g.type_ids)
+    g2.version = getattr(g, "version", 0)
+    return g2
+
+
+def adopt_gstore(g: GStore, g2: GStore) -> None:
+    """Swap a loaded partition's contents into an existing GStore object
+    IN PLACE (engines, the proxy and the device caches all hold references
+    to the object — replacing it would strand them on the dead store). The
+    store version is force-bumped past the current one so device caches
+    restage unconditionally. Cannot fail partway: the caller validates
+    (loads) every bundle BEFORE adopting any of them."""
+    g.segments = g2.segments
+    g.index = g2.index
+    g.vp = g2.vp
+    g.v_set, g.t_set, g.p_set = g2.v_set, g2.t_set, g2.p_set
+    g.attrs = g2.attrs
+    g.type_ids = g2.type_ids
+    g.version = max(getattr(g, "version", 0), g2.version) + 1
+
+
+def restore_gstore_into(g: GStore, path: str) -> None:
+    """Load a bundle and adopt it into an existing GStore object."""
+    g2 = load_gstore(path)
+    if g2.sid != g.sid or g2.num_workers != g.num_workers:
+        raise CheckpointCorrupt(
+            f"partition mismatch: bundle is {g2.sid}/{g2.num_workers}, "
+            f"target is {g.sid}/{g.num_workers}", path=path)
+    adopt_gstore(g, g2)
+
+
+def checkpoint_part_path(dirname: str, idx: int) -> str:
+    return os.path.join(dirname, f"part{idx}.npz")

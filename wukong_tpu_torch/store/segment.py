@@ -101,3 +101,6 @@ class CSRSegment:
             hi = np.where(active & ~less, mid, hi)
         inb = lo < end
         return inb & (self.edges[np.clip(lo, 0, len(self.edges) - 1)] == vals)
+
+    def memory_bytes(self) -> int:
+        return self.keys.nbytes + self.offsets.nbytes + self.edges.nbytes

@@ -2,11 +2,11 @@
 
 The port's copy of the JAX package's store/string_server.py. It loads the
 ``str_index`` / ``str_normal`` (+ ``str_attr_index``) tables of a dataset
-directory. A synthesized LUBM dataset carries a ``str_normal_virtual``
-marker instead of ``str_normal``, which selects the formulaic
-``VirtualLubmStrings`` backend (loader/lubm.py) — the counterpart of the
-reference's memory-frugal bitrie option (string_server.hpp:50-112). The
-JAX package's WatDiv backend waits for the WatDiv loader (ROADMAP §A).
+directory. A synthesized LUBM or WatDiv dataset carries a
+``str_normal_virtual`` marker instead of ``str_normal``, which selects the
+formulaic ``VirtualLubmStrings`` (loader/lubm.py) or
+``VirtualWatdivStrings`` (loader/watdiv.py) backend — the counterpart of
+the reference's memory-frugal bitrie option (string_server.hpp:50-112).
 """
 
 from __future__ import annotations
@@ -45,13 +45,22 @@ class StringServer:
         elif os.path.exists(virt_path):
             with open(virt_path) as f:
                 meta = json.load(f)
-            if meta.get("generator") != "lubm":
-                raise ValueError(f"unknown virtual string backend: {meta}")
-            from wukong_tpu_torch.loader.lubm import VirtualLubmStrings
+            if meta.get("generator") == "lubm":
+                from wukong_tpu_torch.loader.lubm import VirtualLubmStrings
 
-            self._virtual = VirtualLubmStrings(meta["n_univ"], meta["seed"])
-            log_info(f"string server: virtual LUBM backend "
-                     f"(n_univ={meta['n_univ']}, seed={meta['seed']})")
+                self._virtual = VirtualLubmStrings(meta["n_univ"],
+                                                   meta["seed"])
+                log_info(f"string server: virtual LUBM backend "
+                         f"(n_univ={meta['n_univ']}, seed={meta['seed']})")
+            elif meta.get("generator") == "watdiv":
+                from wukong_tpu_torch.loader.watdiv import VirtualWatdivStrings
+
+                self._virtual = VirtualWatdivStrings(meta["scale"],
+                                                     meta["seed"])
+                log_info(f"string server: virtual WatDiv backend "
+                         f"(scale={meta['scale']}, seed={meta['seed']})")
+            else:
+                raise ValueError(f"unknown virtual string backend: {meta}")
 
     def _load_table(self, path: str) -> None:
         with open(path) as f:

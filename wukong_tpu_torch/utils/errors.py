@@ -97,6 +97,26 @@ class CapacityExceeded(WukongError):
         super().__init__(ErrorCode.CAPACITY_EXCEEDED, detail)
 
 
+class RetryExhausted(WukongError):
+    """A transient failure survived every retry attempt."""
+
+    def __init__(self, detail: str = "", last: BaseException | None = None):
+        self.last = last
+        super().__init__(ErrorCode.RETRY_EXHAUSTED, detail)
+
+
+class CheckpointCorrupt(WukongError):
+    """A persisted bundle (gstore checkpoint, WAL segment, recovery
+    manifest) failed validation: truncated archive, checksum mismatch, or
+    a newer-major format this build refuses to guess at. Carries the
+    offending path so operators know which artifact to discard."""
+
+    def __init__(self, detail: str = "", path: str | None = None):
+        self.path = path
+        super().__init__(ErrorCode.CHECKPOINT_CORRUPT,
+                         f"{detail} ({path})" if path else detail)
+
+
 def assert_ec(cond: bool, code: ErrorCode, detail: str = "") -> None:
     if not cond:
         raise WukongError(code, detail)

@@ -8,3 +8,17 @@ import time
 
 def get_usec() -> int:
     return time.perf_counter_ns() // 1000
+
+
+class StopWatch:
+    def __init__(self):
+        self.start = get_usec()
+
+    def elapsed_usec(self) -> int:
+        return get_usec() - self.start
+
+    def restart(self) -> int:
+        now = get_usec()
+        dt = now - self.start
+        self.start = now
+        return dt
