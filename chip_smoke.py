@@ -20,10 +20,15 @@ Phases (any failure exits nonzero, and no result line is printed):
      candidate list and all-padding groups, an empty glob and an empty
      edge table, anchors absent from the keys, degree-1 and maximum-degree
      runs and depth 1, ids at 2^31 - 1, J = 1, 2 and 3 with and without a
-     glob, J = 9 past the kernel's 8 descriptors a launch);
+     glob, J = 9 past the kernel's 8 descriptors a launch); and knn_scan
+     (csrc/knn_scan.cu) against knn_scan_plain on knn_case_inputs (n = 0,
+     1 and 1,000,003; every row dead; k past the live rows; k = 1, 257 and
+     n; integer ties, bit for bit; extreme norms and zero rows; slot lists;
+     widths on both load paths) and slices merged into the single scan;
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
-     the card;
+     the card; the build and staging must take native/'s paths (and phases
+     4-5's stagings too), with the set-up times and the host CPU printed;
   4. serve: the seven LUBM shapes through Proxy.serve_query (rows, median
      latency of 5 runs) and the index-origin shapes through
      Proxy.serve_batch_index in replicate mode; every per-qid count must equal
@@ -155,6 +160,23 @@ Phases (any failure exits nonzero, and no result line is printed):
      with phase 6's rows, the average latency run_single_query logs, and
      K1 launched; and phase 10's EXPLAIN of the seven shapes, equal on
      cpu and cuda under one planner;
+ 13. the hybrid graph+vector plane (run after 11, on phase 3's proxy and
+     phase 7's planner; bench.py --graphrag's mix): (a) every professor
+     embedded (make_vectors, dim 64), the GraphRAG mix from 8 clients (3 s
+     after 1 s) with knn_device auto, the hybrid scans sliced on the heavy
+     lane: qps, p50 and p99 by kind, 0 errors, 8 replies equal to the host
+     route's; (b) every other entity embedded (about 5.4 GB on the card),
+     a whole-block scan for each metric at k = 10 and at k = BIG_K through
+     Proxy.serve_query, ids equal to topk_host's; (c) pattern-then-rank
+     (a department's members, every GraduateStudent) through the slot-list
+     path, rows equal to the host route's; (d) the drill (demoted, the
+     memo latched to host, the host's rows), no other demotion, and the
+     2-hop micro's bands overlapping with vectors off and on; (e) the
+     vector store detached, memory_allocated falling by its staged bytes.
+     knn_scan must launch in (a), (b) and (c); each class of its calls is
+     held against the plain version and timed. Then phase 3's proxy is
+     dropped, and memory_allocated must fall to within 64 MiB of its value
+     before phase 3 (else what holds the rest is printed);
  12. data in and durability (run last, each world built from the seed,
      served and dropped in turn, pinned to the walk except where a route
      is forced): (a) WatDiv-<WATDIV_SCALE> (about 10 M triples) with the
@@ -164,7 +186,9 @@ Phases (any failure exits nonzero, and no result line is printed):
      YAGO-shaped world at n_person YAGO_PERSONS, YAGO_QUERIES against the
      host engine with no capacity fallback, the index-origin ones also
      as a replicate batch of 1; (c) the DBpedia-shaped world, the five
-     DBPSB_SHAPES built in the port's IR against the host engine; (d)
+     DBPSB_SHAPES built in the port's IR against the host engine, and
+     the world written as id_*.nt files read back through native/'s
+     parse_id_triples, equal; (d)
      WatDiv rebuilt from a seeded 90% of its triples, the other 10%
      written to three directories and inserted by the console's `load -d`
      under wal_sync none, interval and always (insert rate, the first
@@ -173,9 +197,11 @@ Phases (any failure exits nonzero, and no result line is printed):
      growth), rows then equal to (a)'s full store; `load -d -c` of the
      whole delta gives 0 new edges; gsck passes; WCOJ on the device and
      the compiled template forced, rows equal to the walk's; (e)
-     `checkpoint`, one more seeded batch, the proxy dropped, a fresh one
-     over the 90% base, `recover`: gstore_digest and the twelve
-     templates' rows equal to the dropped store's; checkpoint, WAL and
+     `checkpoint`, one more seeded batch and a WAL-logged batch of
+     VECTORS_AFTER_CKPT embeddings, the proxy dropped, a fresh one over
+     the 90% base, `recover`: gstore_digest, the vector store's digest,
+     a knn reply and the twelve templates' rows equal to the dropped
+     store's, the one vector record replayed; checkpoint, WAL and
      recover costs printed. K1 and the level probe must launch, the three
      fallback counters must not move; K2/K3 launches are logged.
 The line before the last is one JSON object {"kernels": [...]}, a row for
@@ -183,7 +209,8 @@ each kernel and class of its calls in phases 4 and 5, for each kernel in
 phase 7, for each kernel and mix (and the console) in phase 8, and for
 each kernel and class of its calls in phase 9, for each kernel in phase
 10, for each kernel and class of its calls in phase 11 (the level probe
-by call site and part), and for each kernel phase 12 launched, with
+by call site and part), for each class of knn_scan's calls in phase 13,
+and for each kernel phase 12 launched, with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -192,6 +219,7 @@ and a CUDA GPU; it imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -199,6 +227,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 # phase 8's lowered ceiling: below q6's 1,630,592 index rows and q1's
 # largest table at LUBM-640
@@ -311,6 +340,9 @@ KERNELS = {
     # JAX whole-plan template program
     "level_probe": ("wukong_tpu_torch/csrc/level_probe.cu",
                     "wukong_tpu/join/kernels.py:189"),
+    # a hand kernel for the XLA k-NN scan (masked scores, then lax.top_k)
+    "knn_scan": ("wukong_tpu_torch/csrc/knn_scan.cu",
+                 "wukong_tpu/vector/knn.py:118"),
 }
 
 
@@ -412,6 +444,20 @@ class Capture:
     def restore(self) -> None:
         setattr(self.module, self.attr, self.orig)
         self.orig.launches += self.wrapped.launches
+
+
+def restore_all(captures) -> None:
+    """Restore each Capture (in a function of its own: a loop variable of
+    main() would keep the last one, and the inputs it holds, alive)."""
+    for c in captures:
+        c.restore()
+
+
+def call_all(calls) -> None:
+    """Make each call (the loop variable dies with this frame: the calls
+    hold the proxy)."""
+    for call in calls:
+        call()
 
 
 class StreamAudit:
@@ -1116,7 +1162,9 @@ def captured_rows(captures: dict, phase: str, kernel_fns: dict,
 # ---------------------------------------------------------------------------
 
 
-def build_world(scale: int, seed: int):
+def build_world(scale: int, seed: int, results: dict | None = None):
+    """LUBM-<scale> from the seed and its partition; with ``results``, the
+    set-up times land there beside the host CPU's name."""
     from wukong_tpu_torch.loader.lubm import (
         VirtualLubmStrings,
         generate_lubm,
@@ -1130,10 +1178,162 @@ def build_world(scale: int, seed: int):
     t1 = time.perf_counter()
     g = build_partition(triples, 0, 1, attr_triples=attrs)
     t2 = time.perf_counter()
+    cpu = cpu_model()
     log(f"store: LUBM-{scale} seed {seed}: {len(triples):,} triples, "
         f"{len(attrs[0]):,} attributes (synthesis {t1 - t0:.1f} s, "
-        f"partition {t2 - t1:.1f} s)")
+        f"partition {t2 - t1:.1f} s; host CPU {cpu})")
+    if results is not None:
+        results["setup_s"] = {"synthesis": t1 - t0, "partition": t2 - t1,
+                              "host_cpu": cpu}
     return g, VirtualLubmStrings(scale, seed=seed), triples
+
+
+def cpu_model() -> str:
+    """The host CPU's name, as lscpu's "Model name" (or /proc/cpuinfo's
+    "model name") gives it."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    for line in out.splitlines():
+        if line.strip().startswith("Model name:"):
+            return line.split(":", 1)[1].strip()
+    try:  # no lscpu: the kernel's own table
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    import platform
+
+    return (f"{platform.machine()}, model not reported, "
+            f"{os.cpu_count()} CPUs")
+
+
+def check_native(where: str, names, results: dict) -> None:
+    """Every call of the named host steps since the last reset took the
+    native path (wukong_tpu_torch/native/), at least once each."""
+    from wukong_tpu_torch import native
+
+    counts = {n: dict(native.counts[n]) for n in names}
+    results.setdefault("native", {})[where] = counts
+    log(f"native: {where}: {counts}")
+    for n, c in counts.items():
+        check(c["native"] > 0 and c["numpy"] == 0,
+              f"{where}: {n} took the numpy path ({c})")
+    native.reset_counts()
+
+
+def why_alive(target, limit: int = 200_000) -> list:
+    """Referrer paths from ``target`` up to what keeps it alive, breadth
+    first, as readable steps (the holder's type; for a dict the key, for a
+    frame the function): a module's namespace, a live frame, or an object
+    no Python object refers to (a running function's local variable, a
+    thread-local's storage, an extension's reference)."""
+    import sys
+    import types
+
+    mine = ("why_alive", "cuda_holders", "drop_check", "<listcomp>",
+            "<genexpr>")
+    parent = {id(target): None}
+    objs = {id(target): target}
+    queue = [target]
+    roots = []
+    while queue and len(parent) < limit and len(roots) < 3:
+        o = queue.pop(0)
+        refs = [r for r in gc.get_referrers(o)
+                if r is not queue and r is not parent and r is not objs
+                and r is not roots
+                and not (isinstance(r, types.FrameType)
+                         and r.f_code.co_name in mine)]
+        if not refs and o is not target:
+            roots.append(o)  # nothing in Python holds it
+        for r in refs:
+            if id(r) in parent:
+                continue
+            parent[id(r)] = id(o)
+            objs[id(r)] = r
+            if isinstance(r, (types.ModuleType, types.FrameType)) or (
+                    isinstance(r, dict) and "__name__" in r
+                    and r.get("__name__") in sys.modules):
+                roots.append(r)
+            else:
+                queue.append(r)
+        del refs  # the next lookup must not see this list as a holder
+
+    def step(o, child):
+        if isinstance(o, types.FrameType):
+            return f"frame {o.f_code.co_name} ({o.f_code.co_filename}:" \
+                   f"{o.f_lineno})"
+        if isinstance(o, dict):
+            keys = [k for k, v in o.items() if v is child][:2]
+            name = o.get("__name__") if "__name__" in o else None
+            return f"dict{' of module ' + name if name else ''} {keys}"
+        if isinstance(o, types.FunctionType):
+            return f"function {o.__qualname__}"
+        return type(o).__qualname__
+
+    paths = []
+    for r in roots:
+        chain, cur = [], id(r)
+        while cur is not None:
+            held = parent[cur]
+            chain.append(step(objs[cur], None if held is None
+                              else objs[held]))
+            cur = held
+        paths.append(" -> ".join(reversed(chain)))
+    if not paths:
+        paths.append(f"no holder found in {len(parent):,} objects")
+    return paths
+
+
+def cuda_holders() -> list:
+    """What keeps the two largest live CUDA tensors, and any live GPU
+    engine, device store or Capture, alive (``why_alive``). The targets
+    are held weakly here: a list of them would itself hold them."""
+    import torch
+
+    from wukong_tpu_torch.engine.device_store import DeviceStore
+    from wukong_tpu_torch.engine.tpu import GPUEngine
+
+    objs = gc.get_objects()
+    big = sorted((o for o in objs if torch.is_tensor(o) and o.is_cuda),
+                 key=lambda t: -t.untyped_storage().nbytes())[:2]
+    refs = [weakref.ref(o) for o in big] + [
+        weakref.ref(o) for o in objs
+        if isinstance(o, (GPUEngine, DeviceStore, Capture))][:6]
+    del objs, big
+    lines = []
+    for ref in refs:
+        o = ref()
+        if o is not None:
+            what = (f"tensor {tuple(o.shape)}" if torch.is_tensor(o)
+                    else type(o).__name__)
+            paths = why_alive(o)
+            o = None
+            lines += [f"{what} alive: {path}" for path in paths]
+    return lines
+
+
+def drop_check(mem_base: int, results: dict) -> None:
+    """After phase 3's proxy is dropped, raw memory_allocated falls back to
+    within 64 MiB of its value before phase 3; else the holders of the
+    largest live CUDA tensors are printed and the run fails."""
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    results["drop"] = {"before_phase3": int(mem_base), "after_drop": int(mem)}
+    log(f"drop: phase 3's proxy dropped; memory_allocated {mem:,} B, "
+        f"{mem_base:,} B before phase 3")
+    if mem - mem_base > 64 * MIB:
+        for line in cuda_holders():
+            log(f"  held: {line}")
+        check(False, f"{mem - mem_base:,} B of CUDA memory outlive phase 3's "
+              "proxy")
 
 
 def stage_all(proxy) -> int:
@@ -3270,6 +3470,9 @@ GENERIC_KW = {"n_preds": 200, "n_types": 50, "seed": 1}  # bench.py --dbpedia
 INSERT_SHARE = 0.1  # (d): the share of WatDiv's triples loaded online
 WAL_SYNCS = ("none", "interval", "always")  # one insert round each
 EXTRA_EDGES = 50_000  # (e): the seeded batch inserted after the checkpoint
+# (e): the seeded WatDiv embeddings upserted, WAL-logged, after the checkpoint
+VECTORS_AFTER_CKPT = 50_000
+ID_FILES = 4  # (c): the DBpedia-shaped world written as id_*.nt files
 # the reference's yago suite (scripts/sparql_query/yago/yago_q1-q4), written
 # from loader/yago.py's description and the constants YagoStrings resolves
 YPREFIX = "PREFIX y: <http://yago-knowledge.org/resource/>\n"
@@ -3678,6 +3881,7 @@ def phase12_dbpsb(out: dict, entry: dict, device, n_entities: int) -> None:
     proxy, stats = world_proxy(triples, None, device,
                                f"(c) DBpedia-shaped {n_entities:,}")
     shapes = dbpsb_shapes(triples, meta, stats)
+    rec["id_files"] = id_files_round_trip(triples)
     del triples
 
     def run(planned):
@@ -3709,6 +3913,37 @@ def phase12_dbpsb(out: dict, entry: dict, device, n_entities: int) -> None:
     collect(device)
 
 
+def id_files_round_trip(triples) -> dict:
+    """The world written as ID_FILES id_*.nt text files and read back by the
+    loader (native/'s parse_id_triples): the triples equal, every file on
+    the native path."""
+    import numpy as np
+
+    from wukong_tpu_torch import native
+    from wukong_tpu_torch.loader.base import load_triples
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        for k, part in enumerate(np.array_split(triples, ID_FILES)):
+            np.savetxt(os.path.join(root, f"id_{k:05d}.nt"), part,
+                       fmt="%d", delimiter="\t")
+        t1 = time.perf_counter()
+        native.reset_counts()
+        back = load_triples(root)
+        t2 = time.perf_counter()
+        nbytes = dir_bytes(root)
+    counts = dict(native.counts["parse_id_triples"])
+    check(np.array_equal(back, triples), "(c) id_*.nt files read back "
+          "differ from the triples written")
+    check(counts == {"native": ID_FILES, "numpy": 0},
+          f"(c) id_*.nt files not all parsed natively: {counts}")
+    log(f"  (c) {len(triples):,} triples written as {ID_FILES} id_*.nt files "
+        f"({nbytes:,} B, {t1 - t0:.1f} s) and read back by parse_id_triples "
+        f"in {t2 - t1:.2f} s, equal; {counts}")
+    return {"triples": int(len(triples)), "bytes": nbytes,
+            "write_s": t1 - t0, "read_s": t2 - t1, "parse": counts}
+
+
 def lp_merged_row(captures: list, phase: str, errs: dict) -> list:
     """The level probe's kernels-line row of a phase: held and timed on its
     largest input over both call sites, with all their launches."""
@@ -3723,6 +3958,650 @@ def lp_merged_row(captures: list, phase: str, errs: dict) -> list:
                     lambda *a: (JK.level_probe(*a),),
                     lambda *a: (JK.level_probe_plain(*a),),
                     level_probe_work, errs, library=lp_library(*best[1]))]
+
+
+# ---------------------------------------------------------------------------
+# the kNN scan kernel (phase 2 cases, phase 13's rows)
+# ---------------------------------------------------------------------------
+
+KNN_RTOL = KNN_ATOL = 1e-5  # float32 sums in another order (dim <= 128)
+KNN_GAP = 1e-3  # ids compared exactly where scores are this far apart
+
+
+def knn_agree(got, want, exact: bool = False) -> float:
+    """Check one knn_scan result against its plain version's (the plain
+    one asked for one more winner, so the boundary is visible); returns the
+    largest score difference, in units of the score where its magnitude
+    passes 1 (knn_scan's max_abs_err: scores of 1e13 differ by thousands
+    in float32). Scores agree within KNN_RTOL/KNN_ATOL (dead
+    rows at -inf on both sides); ids agree exactly at every position whose
+    score is more than KNN_GAP from its neighbours, and every id whose score
+    clears the k-th by KNN_GAP is among the winners. ``exact``: bit for bit
+    (integer-valued inputs, where every sum is exact)."""
+    import numpy as np
+
+    gs, gi = (t.cpu().numpy() for t in got)
+    ws, wi = (t.cpu().numpy() for t in want)
+    kk = len(gs)
+    check(len(gi) == kk and len(ws) >= kk,
+          f"knn_scan returned {kk} winners, the plain version {len(ws)}")
+    if exact:
+        check(np.array_equal(gs, ws[:kk]) and np.array_equal(gi, wi[:kk]),
+              "knn_scan != plain bit for bit on integer-valued input")
+        return 0.0
+    fin = np.isfinite(ws[:kk])
+    check(np.array_equal(np.isfinite(gs), fin), "knn_scan: -inf rows differ")
+    check(np.array_equal(gi[~fin], wi[:kk][~fin]),
+          "knn_scan: dead rows out of slot order")
+    w = ws[:kk][fin].astype(np.float64)
+    g = gs[fin].astype(np.float64)
+    err = (float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1.0)))
+           if len(w) else 0.0)
+    check(np.all(np.abs(g - w) <= KNN_ATOL + KNN_RTOL * np.abs(w)),
+          f"knn_scan scores off the plain version's by {err} (relative)")
+    s = ws.astype(np.float64)
+    s = np.where(np.isfinite(s), s, -1e300)
+    lo = np.concatenate([[np.inf], s[:-1] - s[1:]])[:kk]
+    hi = np.concatenate([s[:-1] - s[1:], [np.inf]])[:kk]
+    sep = fin & (np.minimum(lo, hi) > KNN_GAP)
+    check(np.array_equal(gi[sep], wi[:kk][sep]),
+          "knn_scan ids differ at well-separated positions")
+    if kk:
+        clear = wi[:kk][s[:kk] > s[kk - 1] + KNN_GAP]
+        check(set(clear.tolist()) <= set(gi.tolist()),
+              "knn_scan lost a winner that clears the k-th by 1e-3")
+    return err
+
+
+def knn_scale(metric: str, anchor, rows, scores):
+    """The magnitude KNN_RTOL applies to for each winner: the score itself
+    for dot and cosine; for l2 the sums the score is made of, q.q + 2|q.b|
+    + b.b (an anchor that is itself a row scores -0 up to their rounding)."""
+    import numpy as np
+
+    scores = np.abs(np.asarray(scores, np.float64))
+    if metric != "l2":
+        return scores
+    r = np.asarray(rows, np.float64)
+    q = np.asarray(anchor, np.float64)
+    return q @ q + 2 * np.abs(r @ q) + np.sum(r * r, axis=1)
+
+
+def knn_case_inputs():
+    """(name, base, alive, anchor, k, metric, rows, slots, exact) numpy
+    cases for phase 2: n = 0, 1 and 1,000,003; every row dead; k past the
+    live rows; k = 1, 257 (the first on the radix path) and n; integer
+    ties; extreme norms and a zero row under cosine; a slot list; widths
+    on the 16-byte and the scalar path."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    cases = []
+
+    def rand(n, d, dead=0.1):
+        base = rng.standard_normal((n, d)).astype(np.float32)
+        alive = rng.random(n) >= dead
+        return base, alive, rng.standard_normal(d).astype(np.float32)
+
+    for metric in ("dot", "cosine", "l2"):
+        b, a, q = rand(1_000_003, 64)
+        cases += [(f"n=1000003 k=10 {metric}", b, a, q, 10, metric, None,
+                   None, False),
+                  (f"n=1000003 k=257 {metric}", b, a, q, 257, metric, None,
+                   None, False)]
+        if metric == "cosine":
+            cases.append(("n=1000003 k=n cosine", b, a, q, len(b), metric,
+                          None, None, False))
+            cases.append(("n=1000003 rows 1000..501000 k=20", b, a, q, 20,
+                          metric, (1000, 501000), None, False))
+    b, a, q = rand(1, 64)
+    cases.append(("n=1 k=5", b, a, q, 5, "cosine", None, None, False))
+    b, a, q = rand(0, 64)
+    cases.append(("n=0", b, a, q, 5, "dot", None, None, False))
+    b, a, q = rand(5000, 64)
+    cases.append(("every row dead", b, np.zeros(5000, bool), q, 7, "l2",
+                  None, None, False))
+    cases.append(("k past the live rows", b, rng.random(5000) < 0.001, q,
+                  40, "cosine", None, None, False))
+    cases.append(("k=1", b, a, q, 1, "dot", None, None, False))
+    cases.append(("k=n (block path)", b[:200], a[:200], q, 200, "l2", None,
+                  None, False))
+    for d in (3, 1, 128, 100):
+        bd, ad, qd = rand(70_001, d)
+        cases.append((f"d={d} k=16", bd, ad, qd, 16, "cosine", None, None,
+                      False))
+    ib = rng.integers(-2, 3, size=(300_000, 16)).astype(np.float32)
+    ia = rng.random(300_000) >= 0.2
+    iq = rng.integers(-2, 3, size=16).astype(np.float32)
+    for k in (1, 9, 256, 257, 5000):
+        cases.append((f"integer ties k={k}", ib, ia, iq, k, "dot", None,
+                      None, True))
+    eb, ea, eq = rand(20_000, 64, dead=0.0)
+    eb[::4] *= 1e6
+    eb[1::4] *= 1e-6
+    eb[2::97] = 0.0
+    for metric in ("cosine", "dot", "l2"):
+        cases.append((f"extreme norms and zero rows {metric}", eb, ea,
+                      eq * (1e3 if metric == "dot" else 1.0), 12, metric,
+                      None, None, False))
+    slots = np.unique(rng.integers(0, 5000, size=3000)).astype(np.int64)
+    cases.append(("slot list (np.unique of repeats)", b, a, q, 9, "cosine",
+                  None, slots, False))
+    cases.append(("slot list, k=300", b, a, q, 300, "l2", None, slots,
+                  False))
+    return cases
+
+
+def knn_cases(errs: dict) -> int:
+    """Phase 2: knn_scan against knn_scan_plain on the card, on
+    knn_case_inputs, and sliced scans whose merge equals the single scan
+    (integer ties, bit for bit)."""
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.vector import knn as KN
+
+    dev = torch.device("cuda")
+    n = 0
+    for name, base, alive, anchor, k, metric, rows, slots, exact \
+            in knn_case_inputs():
+        args = (torch.from_numpy(base).to(dev),
+                torch.from_numpy(alive).to(dev),
+                torch.from_numpy(anchor).to(dev), k, metric, rows,
+                None if slots is None else torch.from_numpy(slots).to(dev))
+        got = KN.knn_scan(*args)
+        m = (len(slots) if slots is not None else
+             (rows[1] - rows[0] if rows else len(base)))
+        want = KN.knn_scan_plain(*args[:3], min(k, m) + 1, *args[4:])
+        torch.cuda.synchronize()
+        check(len(got[0]) == min(k, m), f"knn_scan {name}: {len(got[0])} "
+              f"winners, want {min(k, m)}")
+        err = knn_agree(got, want, exact)
+        errs["knn_scan"] = max(errs["knn_scan"], err)
+        n += 1
+    # slices whose merge must equal the single scan
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(rng.integers(-3, 4, size=(400_000, 32))
+                            .astype(np.float32)).to(dev)
+    alive = torch.from_numpy(rng.random(400_000) >= 0.1).to(dev)
+    anchor = torch.from_numpy(rng.integers(-3, 4, size=32)
+                              .astype(np.float32)).to(dev)
+    for k in (8, 300):
+        s, i = KN.knn_scan(base, alive, anchor, k, "dot")
+        bounds = np.linspace(0, 400_000, 8).astype(np.int64)
+        parts = [KN.knn_scan(base, alive, anchor, k, "dot",
+                             (int(lo), int(hi)))
+                 for lo, hi in zip(bounds[:-1], bounds[1:])]
+        ps = np.concatenate([p[0].cpu().numpy() for p in parts])
+        pi = np.concatenate([p[1].cpu().numpy() + lo
+                             for p, lo in zip(parts, bounds[:-1])])
+        order = np.lexsort((pi, -ps))[:k]
+        check(np.array_equal(ps[order], s.cpu().numpy())
+              and np.array_equal(pi[order], i.cpu().numpy()),
+              f"knn_scan: 7 slices merged != the single scan at k={k}")
+        n += 1
+    return n
+
+
+def knn_size(args) -> int:
+    base, _alive, _q, _k, _m, rows, slots = args
+    if slots is not None:
+        return int(slots.shape[0])
+    return int(base.shape[0] if rows is None else rows[1] - rows[0])
+
+
+def knn_class(args) -> str:
+    _b, _a, _q, k, metric, rows, slots = args
+    form = ("slot list" if slots is not None else
+            "whole block" if rows is None else "row range")
+    return f", {form}, k={k}, {metric}"
+
+
+def knn_work(args) -> tuple:
+    """(bytes, operations, what) knn_scan needs: the m candidate rows
+    (m d 4 B), their mask bytes and, for a slot list, the slots (8 B a
+    row) read once, the anchor read once, the kk winners (12 B) written
+    once; 2 m d flops for dot, 4 m d for cosine and l2 (q.b and b.b)."""
+    base, _alive, _q, k, metric, rows, slots = args
+    d = int(base.shape[1])
+    m = knn_size(args)
+    kk = min(int(k), m)
+    nbytes = m * d * 4 + m + (8 * m if slots is not None else 0) + 4 * d \
+        + 12 * kk
+    ops = (2 if metric == "dot" else 4) * m * d
+    return nbytes, ops, {"m": m, "d": d, "k": int(k), "metric": metric,
+                         "form": knn_class(args)[2:].split(",")[0]}
+
+
+def knn_library(base, alive, anchor, k, metric, rows=None, slots=None):
+    """The PyTorch yardstick: torch.topk over torch.mv of the candidates
+    (with the normalisation and mask ops of the metric). Never called by
+    the port."""
+    import torch
+
+    if slots is not None:
+        sub, live = base.index_select(0, slots), alive.index_select(0, slots)
+    else:
+        lo, hi = (0, base.shape[0]) if rows is None else rows
+        sub, live = base[lo:hi], alive[lo:hi]
+    s = torch.mv(sub, anchor)
+    if metric == "cosine":
+        s = s / (torch.clamp(torch.linalg.vector_norm(anchor), min=1e-12)
+                 * torch.clamp(torch.linalg.vector_norm(sub, dim=1),
+                               min=1e-12))
+    elif metric == "l2":
+        s = -(torch.dot(anchor, anchor) - 2.0 * s
+              + torch.linalg.vector_norm(sub, dim=1) ** 2)
+    s = torch.where(live, s, torch.full_like(s, float("-inf")))
+    return torch.topk(s, min(int(k), int(s.shape[0])))
+
+
+def knn_measure(phase: str, best: tuple, launches: int, errs: dict) -> dict:
+    """One kernels-line row of knn_scan: held against its plain version
+    (and the library call against it) on one class's largest call, timed
+    there, with that input's bound and that class's launches."""
+    from wukong_tpu_torch.vector import knn as KN
+
+    _size, args, kw = best
+    base, alive, q, k, metric, rows, slots = args
+    kern = KN.knn_scan
+    err = knn_agree(kern(*args), KN.knn_scan_plain(base, alive, q, k + 1,
+                                                   metric, rows, slots))
+    errs["knn_scan"] = max(errs["knn_scan"], err)
+    knn_agree(knn_library(*args), KN.knn_scan_plain(base, alive, q, k + 1,
+                                                    metric, rows, slots))
+    nbytes, ops, what = knn_work(args)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / CORE_OPS_PER_S * 1e3
+    src, replaces = KERNELS["knn_scan"]
+    row = {"name": "knn_scan", "route": "cuda", "source": src,
+           "replaces": replaces, "launches": launches, "max_abs_err": err,
+           "ms": time_ms(lambda: kern(*args)),
+           "plain_ms": time_ms(lambda: KN.knn_scan_plain(*args), reps=5),
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "library_ms": time_ms(lambda: knn_library(*args)),
+           "phase": phase, "input": what}
+    log(f"  knn_scan [{phase}]: {launches} launches; largest input {what}  "
+        f"bytes {nbytes:,}  ops {ops:,}  ms {row['ms']:.4f}  bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})  plain "
+        f"{row['plain_ms']:.4f}  library {row['library_ms']:.4f}")
+    return row
+
+
+def knn_rows(cap, errs: dict) -> list:
+    """A kernels-line row for each main-path class of knn_scan's calls in
+    phase 13 (the replays that hold replies against the host route are
+    checks, not the main path, and get none)."""
+    rows = []
+    for cls, best in sorted(cap.best.items()):
+        n = cap.launches.get(cls, 0)
+        if n and "replay" not in cls:
+            rows.append(knn_measure("13 hybrid plane " + cls, best, n, errs))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the hybrid graph+vector plane
+# ---------------------------------------------------------------------------
+
+UBI = "http://swat.cse.lehigh.edu/onto/univ-bench.owl#"
+RDF_TYPE_IRI = "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type>"
+# bench.py --graphrag's hybrid template and its GraphRAG mix (bench.py:
+# 835-1030); the bench's 5 s is cut to 3 s for the smoke's time limit
+HYBRID_TEMPLATE = ("SELECT ?p ?d WHERE { knn(?p, {anchor}, 8) . "
+                   f"?p <{UBI}worksFor> ?d }}")
+GRAPHRAG = {"graph_texts": 256, "anchors": 64, "zipf_a": 1.2,
+            "hybrid_frac": 0.5, "clients": 8, "duration_s": 3.0,
+            "warmup_s": 1.0, "dim": 64}
+BIG_K = 100_000  # (b)'s large-k scan (the radix path)
+KNN_SPLIT = 65_536  # (a)'s knn_split_threshold (the JAX default)
+MIB = 1 << 20
+
+
+def hybrid_texts(anchor: str, dept: str) -> dict:
+    """Phase 13's knn() texts for one anchor IRI and one department IRI:
+    (a)'s hybrid template, (b)'s ranked scans and (c)'s
+    pattern-then-rank."""
+    out = {"(a) hybrid": HYBRID_TEMPLATE.replace("{anchor}", anchor)}
+    for metric in ("cosine", "dot", "l2"):
+        out[f"(b) scan {metric}"] = (f"SELECT ?x WHERE {{ knn(?x, {anchor}, "
+                                     f"10, {metric}) }}")
+    out[f"(b) scan k={BIG_K}"] = (f"SELECT ?x WHERE {{ knn(?x, {anchor}, "
+                                  f"{BIG_K}) }}")
+    out["(c) memberOf"] = (f"SELECT ?x WHERE {{ ?x <{UBI}memberOf> {dept} . "
+                           f"knn(?x, {anchor}, 10) }}")
+    out["(c) GraduateStudent"] = (
+        f"SELECT ?x WHERE {{ ?x {RDF_TYPE_IRI} <{UBI}GraduateStudent> . "
+        f"knn(?x, {anchor}, 10) }}")
+    return out
+
+
+def ids_multiset(q) -> list:
+    import numpy as np
+
+    t = np.asarray(q.result.table)
+    return sorted(map(tuple, t.tolist()))
+
+
+def host_topk(vids, vecs, alive, anchor, k: int, metric: str):
+    """topk_host over the rows NumPy's scores (its own formula) put among
+    the best k + 64: the same winners as over every row, without a lexsort
+    of tens of millions of rows on the host."""
+    import numpy as np
+
+    from wukong_tpu_torch.vector import knn as KN
+
+    s = np.asarray(KN.scores(vecs, np.asarray(anchor)[None, :], metric)[0],
+                   dtype=np.float32)
+    s = np.where(alive, s, -np.inf)
+    m = min(int(k) + 64, len(s))
+    cand = np.sort(np.argpartition(-s, m - 1)[:m]) if m < len(s) \
+        else np.arange(len(s))
+    return KN.topk_host(vids[cand], vecs[cand], alive[cand], anchor, k,
+                        metric)
+
+
+def vector_demotions() -> float:
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    fam = get_registry().snapshot().get(
+        "wukong_vector_route_demotions_total") or {}
+    return sum(s.get("value", 0) for s in fam.get("series", []))
+
+
+def serve_hybrid(proxy, results: dict, errs: dict, seed: int,
+                 device="cuda") -> list:
+    """Phase 13 on phase 3's proxy (phase 7's planner): (a) the GraphRAG
+    mix, (b) the full-size scan, (c) pattern-then-rank, (d) the drill and
+    the zero-touch check, (e) the vector plane detached (its memory check
+    on the card only). Returns knn_scan's kernels-line rows."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.loader.datagen import make_vectors
+    from wukong_tpu_torch.runtime.emulator import Emulator
+    from wukong_tpu_torch.types import OUT
+    from wukong_tpu_torch.vector import knn as KN
+    from wukong_tpu_torch.vector.vstore import upsert_batch_into
+
+    g, ss = proxy.g, proxy.str_server
+    out = results["hybrid"] = {"graphrag": dict(GRAPHRAG)}
+    check(getattr(g, "vstore", None) is None, "phase 13: a vector store is "
+          "already attached")
+    t_phase = time.perf_counter()
+    fb0, dem0 = fallback_counts(), vector_demotions()
+    entry = {"name": ""}
+    cap = Capture(KN, "knn_scan", knn_size,
+                  lambda a: entry["name"] + knn_class(a))
+    launched = {}
+
+    def part(name):
+        cap.wrapped.launches = 0  # zero just before the part's main path
+        entry["name"] = name
+
+    def done(name):
+        launched[name] = cap.wrapped.launches  # read just after it
+        check(launched[name] > 0, f"knn_scan never launched in {name}")
+
+    proxy.engine_pool()
+    try:
+        with Knobs("phase 13", enable_vectors=True, vector_dim=64,
+                   knn_device="auto", knn_split_threshold=KNN_SPLIT,
+                   enable_batching=False):
+            # ---- (a) the GraphRAG mix -----------------------------------
+            t0 = time.perf_counter()
+            pid = ss.str2id(f"<{UBI}advisor>")
+            profs = np.unique(np.asarray(g.get_index(pid, OUT), np.int64))
+            vecs = make_vectors(profs, GRAPHRAG["dim"], seed=0)
+            t1 = time.perf_counter()
+            upsert_batch_into([g], profs, vecs)
+            t2 = time.perf_counter()
+            graph = [f"SELECT ?s WHERE {{ ?s <{UBI}advisor> "
+                     f"{ss.id2str(int(a))} . }}"
+                     for a in profs[:GRAPHRAG["graph_texts"]]]
+            anchors = [ss.id2str(int(a))
+                       for a in profs[:GRAPHRAG["anchors"]]]
+            rec = out["graphrag"]
+            rec.update(vectors=int(len(profs)), make_vectors_s=t1 - t0,
+                       upsert_s=t2 - t1)
+            log(f"  (a) {len(profs):,} professors embedded (dim "
+                f"{GRAPHRAG['dim']}): make_vectors {t1 - t0:.1f} s, upsert "
+                f"{t2 - t1:.1f} s")
+            part("(a) warm-up")
+            for text in graph[:4]:
+                proxy.serve_query(text, blind=True)
+            t0 = time.perf_counter()
+            q = proxy.serve_query(HYBRID_TEMPLATE.replace("{anchor}",
+                                                          anchors[0]))
+            rec["first_hybrid_ms"] = (time.perf_counter() - t0) * 1e3
+            check(q.knn_route == "device" and q.lane == "heavy"
+                  and getattr(q, "knn_seeds", None) is not None,
+                  f"(a) the hybrid scan took route {q.knn_route}, lane "
+                  f"{q.lane}: not the device route sliced on the heavy lane")
+            part("(a) graphrag")
+            mix = Emulator(proxy).run_graphrag(
+                graph, HYBRID_TEMPLATE, anchors,
+                duration_s=GRAPHRAG["duration_s"],
+                warmup_s=GRAPHRAG["warmup_s"], clients=GRAPHRAG["clients"],
+                seed=1, zipf_a=GRAPHRAG["zipf_a"],
+                hybrid_frac=GRAPHRAG["hybrid_frac"])
+            done("(a) graphrag")
+            rec["mix"] = mix
+            check(mix["errors"] == 0, f"(a) {mix['errors']} errors")
+            check(mix["hybrid"]["served"] > 0 and mix["graph"]["served"] > 0,
+                  "(a) a kind was never served")
+            log(f"  (a) GraphRAG mix, {GRAPHRAG['clients']} clients "
+                f"{GRAPHRAG['duration_s']} s after {GRAPHRAG['warmup_s']} s: "
+                f"{mix['qps']} q/s; hybrid {mix['hybrid']}; graph "
+                f"{mix['graph']}; errors 0; knn_scan launches "
+                f"{launched['(a) graphrag']}")
+            entry["name"] = "(a) replay"
+            for a in anchors[:8]:
+                text = HYBRID_TEMPLATE.replace("{anchor}", a)
+                dq = proxy.serve_query(text)
+                with Knobs(None, knn_device="host"):
+                    hq = proxy.serve_query(text)
+                check(dq.knn_route == "device" and hq.knn_route == "host"
+                      and ids_multiset(dq) == ids_multiset(hq),
+                      f"(a) {a}: device rows differ from the host route's")
+            log("  (a) 8 hybrid replies equal to knn_device host's")
+
+            # ---- (b) the full-size scan ---------------------------------
+            t0 = time.perf_counter()
+            others = np.setdiff1d(np.asarray(g.v_set, np.int64), profs)
+            # made in bulk on the card from the seed (the host's generator
+            # takes minutes at this size), then brought to the host store
+            gen = torch.Generator(device=device).manual_seed(seed + 13)
+            big = torch.randn((len(others), GRAPHRAG["dim"]), generator=gen,
+                              device=device).cpu().numpy()
+            t1 = time.perf_counter()
+            upsert_batch_into([g], others, big)
+            t2 = time.perf_counter()
+            del big
+            vs = g.vstore
+            n = vs.live_count()
+            brec = out["full_scan"] = {"vectors": int(n),
+                                       "generate_s": t1 - t0,
+                                       "upsert_s": t2 - t1}
+            log(f"  (b) {len(others):,} more entities embedded ({n:,} "
+                f"vectors, {n * GRAPHRAG['dim'] * 4:,} B): generated in "
+                f"{t1 - t0:.1f} s, upserted in {t2 - t1:.1f} s")
+            # an entity with an IRI (literals such as e-mail addresses are
+            # vertices too, and embedded, but no knn() anchor)
+            a_vid = next(int(v) for v in others[len(others) // 3:]
+                         if ss.id2str(int(v)).startswith("<"))
+            anchor_iri = ss.id2str(a_vid)
+            wk = proxy.parse(f"SELECT ?d WHERE {{ {anchors[0]} "
+                             f"<{UBI}worksFor> ?d }}")
+            proxy.cpu.execute(wk)
+            dept = ss.id2str(int(wk.result.table[0, 0]))
+            texts = hybrid_texts(anchor_iri, dept)
+            anchor = np.asarray(vs.get(a_vid))
+            vids_s, vecs_s, alive_s, _v = vs.snapshot()
+            with Knobs("(b) one scan of the whole block a query",
+                       knn_device="device", knn_split_threshold=1 << 40):
+                part("(b) full scan")
+                ms = {}
+                replies = {}
+                for name in [t for t in texts if t.startswith("(b)")]:
+                    t0 = time.perf_counter()
+                    replies[name] = proxy.serve_query(texts[name])
+                    sync(device)
+                    ms[name] = (time.perf_counter() - t0) * 1e3
+                done("(b) full scan")
+            brec["first_query_ms"] = ms[next(iter(ms))]  # stages the block
+            brec["staged_bytes"] = int(vs._knn_block.nbytes)
+            brec["query_ms"] = ms
+            entry["name"] = "(b) replay"
+            for name, q in replies.items():
+                metric = q.knn.metric or Global.knn_metric
+                k = q.knn.k
+                check(q.knn_route == "device" and q.knn_mode == "scan",
+                      f"(b) {name}: route {q.knn_route}")
+                t0 = time.perf_counter()
+                hv, hs = host_topk(vids_s, vecs_s, alive_s, anchor, k,
+                                   metric)
+                host_s = time.perf_counter() - t0
+                got = np.asarray(q.result.table)[:, 0]
+                dv, dsc, _d = KN.scan_topk(vs, anchor, k, metric,
+                                           route="device", device=device)
+                check(np.array_equal(dv, got), f"(b) {name}: reply ids "
+                      "differ from the device route's")
+                s_err = float(np.max(np.abs(dsc.astype(np.float64) - hs)))
+                scale = knn_scale(metric, anchor, vecs_s[
+                    [vs.slot_of[int(v)] for v in hv.tolist()]], hs)
+                check(np.all(np.abs(dsc.astype(np.float64) - hs)
+                             <= KNN_ATOL + KNN_RTOL * scale),
+                      f"(b) {name}: scores off topk_host's by {s_err}")
+                if k <= 10:
+                    check(np.array_equal(got, hv),
+                          f"(b) {name}: ids differ from topk_host's")
+                else:  # ids exact where topk_host's scores are separated
+                    gap = np.diff(hs.astype(np.float64))
+                    sep = np.ones(len(hs), bool)
+                    sep[1:] &= -gap > KNN_GAP
+                    sep[:-1] &= -gap > KNN_GAP
+                    check(np.array_equal(got[sep], hv[sep])
+                          and len(got) == len(hv),
+                          f"(b) {name}: ids differ at separated ranks")
+                log(f"  (b) {name}: {len(got):,} ids, {ms[name]:.1f} ms "
+                    f"through serve_query; equal to topk_host's ({host_s:.1f}"
+                    f" s on the host), scores within {s_err:.2e}")
+                brec.setdefault("host_oracle_s", {})[name] = host_s
+
+            # ---- (c) pattern-then-rank ----------------------------------
+            part("(c) pattern-then-rank")
+            cres = out["pattern_then_rank"] = {}
+            dev_q = {}
+            for name in [t for t in texts if t.startswith("(c)")]:
+                t0 = time.perf_counter()
+                dev_q[name] = proxy.serve_query(texts[name])
+                cres[name] = {"ms": (time.perf_counter() - t0) * 1e3}
+            done("(c) pattern-then-rank")
+            for name, q in dev_q.items():
+                with Knobs(None, knn_device="host"):
+                    t0 = time.perf_counter()
+                    hq = proxy.serve_query(texts[name])
+                    host_ms_ = (time.perf_counter() - t0) * 1e3
+                check(q.knn_mode == "pattern_then_rank"
+                      and q.knn_route == "device" and q.result.nrows > 0
+                      and ids_multiset(q) == ids_multiset(hq),
+                      f"(c) {name}: rows differ from the host route's")
+                cres[name].update(rows=int(q.result.nrows),
+                                  host_route_ms=host_ms_)
+                log(f"  (c) {name}: {q.result.nrows} rows equal to the host "
+                    f"route's; {cres[name]['ms']:.1f} ms (host route "
+                    f"{host_ms_:.1f} ms)")
+            log(f"  knn_scan launches by part {launched}; by class "
+                f"{dict(cap.launches)}")
+            out["launches"] = dict(launched)
+            kernel_rows = knn_rows(cap, errs)
+            cap.best.clear()  # the measured inputs hold the staged block
+
+            # ---- (d) the drill and the zero-touch check -----------------
+            check(vector_demotions() == dem0,
+                  "a knn scan was demoted before the drill")
+            entry["name"] = "(d) replay"
+            text = HYBRID_TEMPLATE.replace("{anchor}", anchors[5])
+            want = proxy.serve_query(text)
+
+            def boom():
+                raise RuntimeError("injected device failure (phase 13 "
+                                   "drill)")
+
+            KN._DEVICE_FAIL_HOOK = boom
+            try:
+                dq = proxy.serve_query(text)
+            finally:
+                KN._DEVICE_FAIL_HOOK = None
+            nq = proxy.serve_query(text)
+            check(dq.knn_demoted == "RuntimeError"
+                  and nq.knn_route == "host"
+                  and ids_multiset(dq) == ids_multiset(want)
+                  == ids_multiset(nq),
+                  "(d) the drill did not demote, latch the memo to host and "
+                  "answer as the host")
+            check(vector_demotions() == dem0 + 1,
+                  "(d) a demotion other than the drill's")
+            fb = {k: v - fb0[k] for k, v in fallback_counts().items()}
+            check(not any(fb.values()), f"phase 13 degraded a strategy {fb}")
+            two_hop = (f"SELECT ?x ?y WHERE {{ ?x <{UBI}advisor> "
+                       f"{anchors[0]} . ?x <{UBI}memberOf> ?y . }}")
+            for _ in range(30):
+                proxy.serve_query(two_hop, blind=True)
+            lat = {"off": [], "on": []}
+            for _round in range(30):
+                for mode in ("off", "on"):
+                    Global.enable_vectors = mode == "on"
+                    for _ in range(10):
+                        t0 = time.perf_counter()
+                        proxy.serve_query(two_hop, blind=True)
+                        lat[mode].append((time.perf_counter() - t0) * 1e6)
+            Global.enable_vectors = True
+
+            def band(xs):
+                xs = sorted(xs)
+                return {"p25_us": xs[len(xs) // 4],
+                        "p50_us": xs[len(xs) // 2],
+                        "p75_us": xs[3 * len(xs) // 4]}
+
+            off, on = band(lat["off"]), band(lat["on"])
+            out["vectors_off"] = {"off": off, "on": on}
+            check(off["p25_us"] <= on["p75_us"]
+                  and on["p25_us"] <= off["p75_us"],
+                  f"(d) vectors off/on bands disjoint: {off} {on}")
+            log(f"  (d) drill: demoted (RuntimeError), memo latched to host, "
+                f"rows as the host's; other demotions and fallbacks 0; "
+                f"2-hop micro off {off} on {on}: bands overlap")
+    finally:
+        cap.restore()
+        cap.best.clear()  # the kept inputs hold the staged block
+        stop_pool(proxy)
+
+    # ---- (e) the vector plane detached ------------------------------------
+    staged = vs._knn_block.nbytes if vs._knn_block is not None else 0
+    check(staged > 0, "(e) no staged block to free")
+    before = live_device_bytes(device)[0]
+    g.vstore = None
+    del vs
+    after = live_device_bytes(device)[0]
+    out["detach"] = {"staged_bytes": int(staged), "before": before,
+                     "after": after}
+    if before is not None:
+        check(abs((before - after) - staged) <= 64 * MIB,
+              f"(e) detaching freed {before - after:,} B of "
+              f"memory_allocated, the staged block is {staged:,} B")
+    else:
+        before = after = 0
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  (e) vectors off, vstore detached: memory_allocated fell by "
+        f"{before - after:,} B (staged {staged:,} B); phase 13 took "
+        f"{out['seconds']:.1f} s")
+    return kernel_rows
 
 
 def dir_bytes(path: str) -> int:
@@ -3759,6 +4638,7 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
     from wukong_tpu_torch.runtime.console import Console
     from wukong_tpu_torch.runtime.proxy import Proxy
     from wukong_tpu_torch.store.persist import clone_gstore, gstore_digest
+    from wukong_tpu_torch.vector.vstore import upsert_batch_into
 
     on_card = torch.device(device).type == "cuda"
     rng = np.random.default_rng(seed + 2)
@@ -3907,6 +4787,21 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
                                                    EXTRA_EDGES)]], 1), axis=0)
     con.run_command(
         f"load -d {write_ids(os.path.join(root, 'extra'), extra)} -c")
+    # one WAL-logged vector batch after the checkpoint: recover replays it
+    vrng = np.random.default_rng(seed + 3)
+    vvids = np.sort(vrng.choice(users, min(VECTORS_AFTER_CKPT, len(users)),
+                                replace=False))
+    vknobs = {"enable_vectors": True, "vector_dim": 64,
+              "knn_device": "device"}
+    ktext = (f"SELECT ?x WHERE {{ knn(?x, {ss.id2str(int(vvids[7]))}, "
+             f"10) }}")
+    with Knobs(None, **vknobs):
+        upsert_batch_into([proxy.g], vvids, vrng.standard_normal(
+            (len(vvids), 64), dtype=np.float32))
+        vdigest = proxy.g.vstore.digest()
+        kwant = proxy.serve_query(ktext).result.table.tolist()
+    check(len(kwant) == 10, f"(e) knn reply of {len(kwant)} rows")
+    replayed0 = replayed_vectors()
     want, _ms = served_rows(proxy, texts, device, 1, entry, "(e) pre-drop ")
     digest = gstore_digest(proxy.g)
     dur["wal_bytes"] = dir_bytes(Global.wal_dir)
@@ -3918,6 +4813,15 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
     dur["recover_s"] = time.perf_counter() - t0
     check(gstore_digest(fresh.g) == digest,
           "(e) gstore_digest after recover differs from the pre-drop store's")
+    check(replayed_vectors() - replayed0 == 1,
+          "(e) recover did not replay the one vector record")
+    with Knobs(None, **vknobs):
+        check(fresh.g.vstore is not None
+              and fresh.g.vstore.digest() == vdigest,
+              "(e) the vector store's digest differs after recover")
+        kgot = fresh.serve_query(ktext).result.table.tolist()
+    check(kgot == kwant, "(e) the knn reply differs after recover")
+    dur.update(vectors=int(len(vvids)), vstore_digest=int(vdigest))
     got, _ms = served_rows(fresh, texts, device, 1, entry, "(e) recovered ")
     for name in texts:
         check(same_rows(got[name], want[name]),
@@ -3925,7 +4829,9 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
               f"{len(want[name])} before the drop")
     dur.update(extra_edges=int(len(extra)), digest=int(digest))
     log(f"  (e) checkpoint {dur['checkpoint_s']:.2f} s, "
-        f"{dur['checkpoint_bytes']:,} B; {len(extra):,} more edges; "
+        f"{dur['checkpoint_bytes']:,} B; {len(extra):,} more edges and "
+        f"{len(vvids):,} vectors (vstore digest {vdigest} and a knn reply "
+        f"equal after recover); "
         f"WAL {dur['wal_bytes']:,} B; recover {dur['recover_s']:.2f} s: "
         f"gstore_digest {digest} equal, the twelve templates' rows equal")
     Global.wal_dir = Global.checkpoint_dir = ""
@@ -3933,6 +4839,15 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
     del fresh
     collect(device)
     check(not leaks, "; ".join(leaks))
+
+
+def replayed_vectors() -> float:
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    fam = get_registry().snapshot().get("wukong_recovery_replayed_total") \
+        or {}
+    return sum(x.get("value", 0) for x in fam.get("series", [])
+               if x.get("labels", {}).get("kind") == "vector")
 
 
 def serve_data_in(entry: dict, results: dict, device="cuda",
@@ -4023,16 +4938,33 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     log(f"kernels: {n} level_probe cases equal to the plain version bit for "
         f"bit ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    n = knn_cases(errs)
+    torch.cuda.synchronize()
+    log(f"kernels: {n} knn_scan cases agree with the plain version (ties bit "
+        f"for bit; largest score difference {errs['knn_scan']:.2e}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # what raw memory_allocated holds before phase 3: phase 13's drop of the
+    # LUBM-640 proxy must fall back to it
+    from wukong_tpu_torch import native
+
+    gc.collect()
+    mem_base = torch.cuda.memory_allocated()
+    native.reset_counts()
 
     # ---- 3. store -------------------------------------------------------
-    g, ss, triples = build_world(args.scale, args.seed)
+    g, ss, triples = build_world(args.scale, args.seed, results)
     ntriples = len(triples)
     proxy = Proxy(g, ss, device="cuda", budget_bytes=60 << 30)
     t0 = time.perf_counter()
     resident = stage_all(proxy)
+    results["setup_s"]["stage"] = time.perf_counter() - t0
     log(f"store: staged {resident:,} bytes on the card "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"({results['setup_s']['stage']:.1f} s)")
     results.update(triples=ntriples, resident_bytes=resident)
+    check_native("phase 3's partition build and staging",
+                 ("sort_triples_perm", "build_bucket_table_native"), results)
 
     # ---- 4. serve (the main path) ----------------------------------------
     def capture_all(probe_class=lambda a: "", emit_class=lambda a: ""):
@@ -4058,8 +4990,7 @@ def main(argv=None) -> int:
     try:
         phase4 = serve(proxy, HEAVY, S.stream_mdup(), results)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
     log(f"serve: kernel launches on the main path {launches}")
@@ -4077,8 +5008,7 @@ def main(argv=None) -> int:
     try:
         serve_extended(proxy, results)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     ext = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
     log(f"extended: kernel launches {ext}, K1 by class "
@@ -4096,6 +5026,13 @@ def main(argv=None) -> int:
           "the OUT combined segment is not resident on the card")
     log(f"extended: OUT combined segment resident, {vseg.num_keys:,} keys, "
         f"{vseg.num_edges:,} edges, {vseg.nbytes:,} bytes")
+    first = results["extended"]["x_vers_kuu"]["runs_ms"][0]
+    results["setup_s"]["combined_out_first_query_ms"] = first
+    log(f"extended: x_vers_kuu's first run, which stages the OUT combined "
+        f"segment, {first:,.1f} ms (host CPU "
+        f"{results['setup_s']['host_cpu']})")
+    check_native("phases 4-5's stagings, the OUT combined segment's among "
+                 "them", ("build_bucket_table_native",), results)
     results["extended_launches"] = ext
 
     # ---- 7. batched serving under the planner (the main path's third part)
@@ -4110,8 +5047,7 @@ def main(argv=None) -> int:
             serve_batched(proxy, triples, phase4, args.seed, entry, results,
                           replay)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     bat = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
     by_entry = {name: dict(c.launches) for name, c in captures.items()}
@@ -4122,8 +5058,8 @@ def main(argv=None) -> int:
     results["batched"]["launches"] = by_entry
     rows += merged_rows(captures, "7 batched serving", kernel_fns, errs)
     with StreamAudit() as audit, walk_pinned("7, replayed"):
-        for call in replay:  # after the counts: not main-path work
-            call()
+        call_all(replay)  # after the counts: not main-path work
+    replay.clear()  # the calls hold the proxy
     results["batched"]["stream_arms"] = audit.report(
         "phase 7, each entry point once on each input")
 
@@ -4142,8 +5078,7 @@ def main(argv=None) -> int:
         try:
             serve_emu(proxy, mixes, entry, results)
         finally:
-            for c in captures.values():
-                c.restore()
+            restore_all(captures.values())
         torch.cuda.synchronize()
         emu = {name: dict(c.launches) for name, c in captures.items()}
         log(f"runtime: sparql-emu kernel launches by mix {emu}")
@@ -4170,8 +5105,7 @@ def main(argv=None) -> int:
                        lambda: captures["probe_kernel"].wrapped.launches,
                        results)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     by_class = {name: dict(c.launches) for name, c in captures.items()}
     log(f"live: kernel launches by class {by_class}")
@@ -4198,8 +5132,7 @@ def main(argv=None) -> int:
                           lambda: captures["probe_kernel"].wrapped.launches,
                           entry, results)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     by_run = {name: dict(c.launches) for name, c in captures.items()}
     log(f"tenants: kernel launches by part {by_run} "
@@ -4232,8 +5165,7 @@ def main(argv=None) -> int:
         serve_strategies(proxy, phase4, entry, results)
         serve_cyclic(entry, results)
     finally:
-        for c in list(captures.values()) + lpc:
-            c.restore()
+        restore_all(list(captures.values()) + lpc)
     torch.cuda.synchronize()
     strat = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
     log(f"strategies: kernel launches {strat} "
@@ -4253,9 +5185,19 @@ def main(argv=None) -> int:
     del kernel_fns["level_probe"]
     rows += captured_rows(captures, "11 strategies, ", kernel_fns, errs)
     rows += lp_rows(lpc, "11 strategies", errs)
+    del captures, lpc  # their kept inputs hold the proxy's stagings
+
+    # ---- 13. the hybrid graph+vector plane, on phase 3's proxy -----------
+    log(f"hybrid: LUBM-{args.scale} on {kind}, knn() through "
+        f"Proxy.serve_query: the GraphRAG mix, the full-size scan, "
+        f"pattern-then-rank, the drill; {card}")
+    rows += serve_hybrid(proxy, results, errs, args.seed)
+
+    # ---- the drop of phase 3's proxy --------------------------------------
+    del proxy, triples, g, vseg
+    drop_check(mem_base, results)
 
     # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
-    del proxy, triples
     gx, ssx, tx = build_world(args.cross_scale, args.seed)
     on_cpu = Proxy(gx, ssx, device="cpu")
     on_gpu = Proxy(gx, ssx, device="cuda")
@@ -4287,8 +5229,7 @@ def main(argv=None) -> int:
     try:
         console_phase(args.cross_scale, args.seed, cross_rows, results)
     finally:
-        for c in captures.values():
-            c.restore()
+        restore_all(captures.values())
     torch.cuda.synchronize()
     check(kernel_fns["probe_kernel"][0].launches > 0,
           "probe_kernel was never launched by the console's queries")
@@ -4308,8 +5249,7 @@ def main(argv=None) -> int:
     try:
         serve_data_in(entry, results, seed=args.seed)
     finally:
-        for c in list(captures.values()) + lpc:
-            c.restore()
+        restore_all(list(captures.values()) + lpc)
     torch.cuda.synchronize()
     data = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
     fb = {k: v - fb0[k] for k, v in fallback_counts().items()}

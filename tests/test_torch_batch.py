@@ -235,6 +235,9 @@ def test_index_window_sizing_and_walk_match_jax(world, name):
                                               Global.heavy_batch_max)
     for B, mode in ((2, "rep"), (4, "slice")):
         proxy.gpu.execute_batch_index(qp, B, slice_mode=mode == "slice")
+        # both merges learn this (B, mode)'s capacities from their own run:
+        # the engine's slice mode takes the direct path, not the merge
+        proxy.gpu.merge.run_batch_index(qp, B, mode == "slice")
         tpu.merge.run_batch_index(qj, B, mode == "slice")
         pm, jm = proxy.gpu.merge, tpu.merge
         pp, jj = qp.pattern_group.patterns, qj.pattern_group.patterns

@@ -3,8 +3,9 @@ the JAX package's: a partition (with dynamic deltas) saved by either package
 loads in the other with the same arrays, version and ``gstore_digest``, and
 the two packages write the same bytes; the byte codec round-trips; a
 truncated, bit-flipped, foreign or newer-major bundle is refused with the
-JAX error; a bundle that carries vectors is refused, never loaded without
-them; and clone / adopt / restore behave as in JAX."""
+JAX error; a bundle that carries vectors (format 2.1) written by either
+package loads in the other with the same vector store and digest; and clone
+/ adopt / restore behave as in JAX, the vector store included."""
 
 import io
 import json
@@ -160,18 +161,43 @@ def test_legacy_bundle_without_header_loads(bundles):
 
 
 def test_a_bundle_with_vectors_is_refused(bundles, stores):
+    """Format 2.1 since the vector plane landed: a bundle with vectors is
+    no longer refused; either package's loads in the other, byte for byte,
+    with the vector store's arrays, version and digest."""
     from wukong_tpu.vector.vstore import attach_vstore
+    from wukong_tpu_torch.vector.vstore import attach_vstore as pattach
 
-    _pg, jg = stores
     g = jp.load_gstore(str(bundles / "jax.npz"))
-    vs = attach_vstore(g, dim=4)
-    vs.upsert(np.asarray([200000, 200003], dtype=np.int64),
-              np.ones((2, 4), dtype=np.float32))
+    pgl = persist.load_gstore(str(bundles / "jax.npz"))
+    vids = np.asarray([200000, 200003, 200001], dtype=np.int64)
+    vecs = np.arange(12, dtype=np.float32).reshape(3, 4)
+    vs, pvs = attach_vstore(g, dim=4), pattach(pgl, dim=4)
+    for store in (vs, pvs):
+        store.upsert(vids, vecs)
+        store.tombstone(vids[:1])
     buf = io.BytesIO()
     jp.save_gstore(g, buf)
-    with pytest.raises(persist.VectorsUnsupported, match="§A 6"):
-        persist.gstore_from_bytes(buf.getvalue())
     assert zipfile.is_zipfile(io.BytesIO(buf.getvalue()))
+    assert persist.gstore_to_bytes(pgl) == buf.getvalue()
+    got = persist.gstore_from_bytes(buf.getvalue())
+    back = jp.gstore_from_bytes(persist.gstore_to_bytes(pgl))
+    assert got.vstore.digest() == vs.digest() == back.vstore.digest()
+    assert got.vstore.version == vs.version == pvs.version >= 1
+    assert got.vstore.live_count() == vs.live_count() >= 1
+    assert got.vstore.dim == 4
+    assert persist.gstore_digest(got) == jp.gstore_digest(g) \
+        == jp.gstore_digest(back)
+    _same_store(got, back)
+    # clone shares the vector store's arrays; adopt swaps it in (or out)
+    c = persist.clone_gstore(got)
+    assert c.vstore is not got.vstore
+    assert c.vstore.digest() == got.vstore.digest()
+    target = persist.load_gstore(str(bundles / "jax.npz"))
+    persist.adopt_gstore(target, got)
+    assert target.vstore is got.vstore
+    persist.adopt_gstore(target, persist.load_gstore(str(bundles
+                                                         / "jax.npz")))
+    assert target.vstore is None
 
 
 def test_clone_adopt_and_restore(stores, tmp_path):

@@ -6,7 +6,8 @@ partition) against the JAX package's:
   the JAX store's ``gstore_digest``, and the reverse;
 - retention keeps two bundles and truncates the WAL behind the older; a
   corrupt newest bundle falls back to the older one and its longer WAL
-  tail; a WAL gap and a vector record are refused; the
+  tail; a WAL gap is refused, and vector records replay (counted in
+  ``replayed["vector"]``) to the JAX store's vector digest; the
   ``checkpoint.write`` fault site writes nothing; the periodic checkpointer
   starts and stops;
 - ``RebuildJob`` rides the engine pool's rebuild lane, after every other
@@ -164,12 +165,17 @@ def test_wal_gap_and_vector_records_are_refused(world, dirs):
         recovery.RecoveryManager([build_partition(base, 0, 1)]).recover()
     shutil.rmtree(dirs[0])
     wal.reset_wal()
+    # a vector record is no longer refused: it replays into the vector
+    # store, as in JAX
     log = jwal.WriteAheadLog(dirs[0], sync="none")
     log.append("vector", triples=np.asarray([1 << 17], np.int64),
-               dedup=True, ts=None)
+               dedup=True, ts=None, vecs=np.ones((1, 3), np.float32),
+               tombstone=False, dim=3)
     log.close()
-    with pytest.raises(persist.VectorsUnsupported):
-        recovery.RecoveryManager([build_partition(base, 0, 1)]).recover()
+    g = build_partition(base, 0, 1)
+    stats = recovery.RecoveryManager([g]).recover()
+    assert stats["replayed"] == {"insert": 0, "epoch": 0, "vector": 1}
+    assert g.vstore.get(1 << 17).tolist() == [1.0, 1.0, 1.0]
 
 
 def test_checkpoint_fault_writes_nothing(world, dirs):
@@ -267,3 +273,41 @@ def test_rebuild_job_rides_the_last_lane():
     dead._dead = [True]
     job = recovery.RebuildJob(lambda: None, "dead")
     assert dead.submit(job, lane="rebuild") == -1 and job.done.is_set()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_vectors_ride_checkpoints_and_the_wal_across_packages(world, dirs,
+                                                              writer):
+    """A store with vectors, checkpointed, then more vector and triple
+    batches logged: the other package recovers it to the same
+    ``gstore_digest`` and vector digest, with the vector records counted."""
+    from wukong_tpu.vector import vstore as jvs
+    from wukong_tpu_torch.vector import vstore as pvs
+
+    base, batches = world
+    rng = np.random.default_rng(5)
+    vids = np.unique(base[:, 0])[:300]
+    vecs = rng.standard_normal((len(vids), 4)).astype(np.float32)
+    if writer == "jax":
+        live = jbuild(base, 0, 1)
+        mgr, vs, dyn = jrec.RecoveryManager([live], stream=None), jvs, jdyn
+    else:
+        live = build_partition(base, 0, 1)
+        mgr, vs, dyn = recovery.RecoveryManager([live]), pvs, dynamic
+    vs.upsert_batch_into([live], vids[:200], vecs[:200])
+    mgr.checkpoint()
+    vs.upsert_batch_into([live], vids[150:], vecs[150:] * 2)
+    dyn.insert_batch_into([live], batches[0], dedup=True)
+    vs.upsert_batch_into([live], vids[::5], tombstone=True)
+    (jwal if writer == "jax" else wal).reset_wal()
+    if writer == "jax":
+        g = build_partition(base, 0, 1)
+        stats = recovery.RecoveryManager([g]).recover()
+        assert persist.gstore_digest(g) == jp.gstore_digest(live)
+    else:
+        g = jbuild(base, 0, 1)
+        stats = jrec.RecoveryManager([g], stream=None).recover()
+        assert jp.gstore_digest(g) == persist.gstore_digest(live)
+    assert stats["replayed"]["vector"] == 2
+    assert stats["replayed"]["insert"] == 1
+    assert g.vstore.digest() == live.vstore.digest()

@@ -21,6 +21,7 @@ against the JAX package's on the same seeds.
 
 import copy
 import filecmp
+import itertools
 import os
 import threading
 import time
@@ -445,22 +446,35 @@ def test_template_candidates_match_jax(world):
 def test_emulator_runs_every_route(world, monkeypatch):
     """sparql-emu with batch 16, 0.5 s: light classes on device batches
     (windows after their first batch), heavy ones in index batches, no
-    errors."""
+    errors. A loaded host draws few classes in 0.5 s, so runs repeat with
+    the next seed until every light class has replied, within a deadline;
+    each run holds every invariant."""
     _jproxy, proxy = world
     calls = []
     orig = proxy.gpu.merge.run_batch_const_mixed
     monkeypatch.setattr(proxy.gpu.merge, "run_batch_const_mixed",
                         lambda jobs: calls.append(len(jobs)) or orig(jobs))
-    out = Emulator(proxy).run(_mix(Parser(proxy.str_server)),
-                              duration_s=0.5, warmup_s=0.1, batch=16,
-                              parallel=4)
-    assert out["errors"] == 0 and out["shed"] == 0 and out["thpt_qps"] > 0
-    modes = out["class_mode"]
-    assert all(modes[c] == "device-batch" for c in range(4))
-    assert all(modes.get(c) in ("device-batch", None) for c in (4, 5, 6))
+    modes: dict = {}
+    replied: set = set()
+    deadline = time.monotonic() + 120
+    for seed in itertools.count():
+        out = Emulator(proxy).run(_mix(Parser(proxy.str_server)),
+                                  duration_s=0.5, warmup_s=0.1, batch=16,
+                                  parallel=4, seed=seed)
+        assert out["errors"] == 0 and out["shed"] == 0
+        assert out["thpt_qps"] > 0
+        assert out["precompiled_classes"] == 4 and out["wall_qps"] > 0
+        for c, mode in out["class_mode"].items():
+            modes.setdefault(c, set()).add(mode)
+        replied |= {c for c in range(4) if out["cdf"][c]}
+        if replied == set(range(4)) and all(c in modes for c in range(4)):
+            break
+        assert time.monotonic() < deadline, (
+            f"light classes {sorted(set(range(4)) - replied)} never replied")
+    assert all(modes[c] == {"device-batch"} for c in range(4))
+    assert all(modes.get(c, {"device-batch"}) == {"device-batch"}
+               for c in (4, 5, 6))
     assert calls and all(w == 4 for w in calls)
-    assert out["precompiled_classes"] == 4 and out["wall_qps"] > 0
-    assert all(out["cdf"][c] for c in range(4))
 
 
 @pytest.mark.parametrize("entry", ["execute_batch", "execute_batch_mixed",

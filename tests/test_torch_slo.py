@@ -289,6 +289,34 @@ def test_burn_sentinel_trips_once_and_dumps_the_failed_trace(monkeypatch):
     assert len(dumps) == 1 and dumps[0][1] is failed
 
 
+def test_burn_sentinel_alerts_on_a_host_up_for_less_than_the_cooldown(
+        monkeypatch):
+    """A clock (the host's uptime) below the cooldown: no alert has fired
+    yet, so no cooldown holds the first one back; the second stays held."""
+    monkeypatch.setattr(Global, "slo_dump_cooldown_s", 3600)
+    now = {"us": 10_000_000}  # up for 10 s
+
+    def clock():
+        now["us"] += 1_000
+        return now["us"]
+
+    monkeypatch.setattr(slo, "get_usec", clock)
+    t = slo.SLOTracker(window=128)
+    t.register(slo.SLOSpec("gold", 0.95, 0.0, 0.999))
+    before = len([1 for r, _d in get_recorder().dumps if r == "SLO_BURN"])
+    failed = QueryTrace(kind="query", tenant="gold")
+    failed.finish("ERROR")
+    verdicts = [t.observe("gold", 1000, ok=False, trace=failed)]
+    for _ in range(39):
+        good = QueryTrace(kind="query", tenant="gold")
+        good.finish("SUCCESS")
+        verdicts.append(t.observe("gold", 1000, ok=True, trace=good))
+    trips = [v for v in verdicts if v is not None]
+    assert len(trips) == 1 and trips[0]["windows"] == ("fast", "slow")
+    dumps = [(r, d) for (r, d) in get_recorder().dumps if r == "SLO_BURN"]
+    assert len(dumps) == before + 1 and dumps[-1][1] is failed
+
+
 def test_burn_sentinel_min_samples_floor():
     t = slo.SLOTracker(window=64)
     t.register(slo.SLOSpec("a", 0.95, 0.0, 0.999))

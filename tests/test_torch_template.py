@@ -136,9 +136,13 @@ def _prepared(proxy, jproxy, text, blind=False):
 
 
 def _series(reg, prefix="wukong_template_"):
+    """{(metric, labels): value} of every counter series under prefix (the
+    `wukong_template_programs` gauge reads one engine's program count, and
+    which engine differs by design: the JAX gauge keeps its last engine
+    alive, the port's holds it weakly)."""
     out = {}
     for name, m in reg.snapshot().items():
-        if name.startswith(prefix):
+        if name.startswith(prefix) and m.get("kind") == "counter":
             for s in m.get("series", []):
                 labels = tuple(sorted((s.get("labels") or {}).items()))
                 out[(name, labels)] = s.get("value")
@@ -454,3 +458,27 @@ def test_concurrent_dispatches_keep_their_own_results(lubm3, monkeypatch):
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert errors == [] and sorted(done) == list(range(8))
+
+
+def test_programs_gauge_does_not_keep_a_dropped_engine():
+    """The process-wide registry's `wukong_template_programs` callback holds
+    its engine weakly: a dropped proxy's programs and staged operands are
+    freed (the JAX engine's closure keeps every engine alive)."""
+    import gc
+    import weakref
+
+    g = build_partition(np.asarray([[1 << 17, 5, (1 << 17) + 1]],
+                                   dtype=np.int64), 0, 1)
+    eng = ptc.TemplateCompiledEngine(g, device="cpu")
+    eng._programs["k"] = object()
+    gauge = get_registry().gauge("wukong_template_programs", "")
+    gauge._refresh()
+    assert get_registry().snapshot()["wukong_template_programs"][
+        "series"][0]["value"] == 1.0
+    ref = weakref.ref(eng)
+    del eng
+    gc.collect()
+    assert ref() is None
+    gauge._refresh()
+    assert get_registry().snapshot()["wukong_template_programs"][
+        "series"][0]["value"] == 0.0

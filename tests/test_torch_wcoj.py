@@ -165,7 +165,7 @@ def _series(reg, prefixes=("wukong_join_", "wukong_template_")):
     """{(metric, labels): value} of every counter series under prefixes."""
     out = {}
     for name, m in reg.snapshot().items():
-        if name.startswith(prefixes):
+        if name.startswith(prefixes) and m.get("kind") == "counter":
             for s in m.get("series", []):
                 labels = tuple(sorted((s.get("labels") or {}).items()))
                 out[(name, labels)] = s.get("value")

@@ -180,6 +180,24 @@ class GlobalConfig:
     # warm-up is demoted to the walk
     template_demote_eff: float = 0.02
 
+    # ---- the hybrid graph+vector plane (vector/; all mutable) ----
+    # master switch: off, a query with a knn() clause is refused
+    # (ATTR_DISABLE), and every other query never looks at the vector plane
+    enable_vectors: bool = False
+    # fixed embedding width of every attached vector store; an upsert of
+    # any other width is refused
+    vector_dim: int = 64
+    # k-NN similarity when a clause names none: cosine | dot | l2 (l2 ranks
+    # by NEGATIVE squared distance, so higher = nearer for all three)
+    knn_metric: str = "cosine"
+    # k-NN scan route: host (NumPy), device (the knn_scan kernel), auto
+    # (device when the live vectors reach knn_split_threshold, demoted to
+    # host by the measured feedback of a failed device scan)
+    knn_device: str = "auto"
+    # live vectors at which a scan-side knn is wide: it goes down the
+    # pool's heavy lane in slices; under auto also the device route's floor
+    knn_split_threshold: int = 65536
+
     # ---- tracing and the flight recorder (obs/trace.py, obs/recorder.py;
     # all mutable) ----
     # per-query tracing; off, every hook is one getattr or knob check

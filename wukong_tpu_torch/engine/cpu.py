@@ -16,8 +16,10 @@ engine: pattern steps past the device prefix, the UNION merge, in-place
 OPTIONAL groups, FILTERs and the final stage. The proxy's engine pool runs
 whole queries on it, CORUN included (``enable_corun``). Every BGP step checks
 the query's deadline and charges its rows to its budget; an expiry keeps the
-rows produced so far (``resilience.mark_partial``). Not ported: knn() (the
-vector store), which is refused with ATTR_DISABLE as with vectors off.
+rows produced so far (``resilience.mark_partial``). A knn() clause composes
+through ``_knn_pre`` (a pure scan or a rank-then-pattern chain: the ranked
+scan seeds the binding table) and ``_knn_post`` (pattern-then-rank: the
+scan ranks the binding set); a device route scans on ``knn_device``.
 """
 
 from __future__ import annotations
@@ -102,6 +104,9 @@ class CPUEngine:
     def __init__(self, gstore, str_server=None, mt_slices: int = 1):
         self.g = gstore
         self.str_server = str_server
+        # where a knn() scan on the device route runs (vector/knn.py): the
+        # GPU engine sets its own device; a CPU device runs the plain scan
+        self.knn_device = "cpu"
 
     # ------------------------------------------------------------------
     # top-level state machine (sparql.hpp:1564-1673)
@@ -125,7 +130,8 @@ class CPUEngine:
                 if from_proxy:
                     self._final_process(q)
                 return q
-            self._knn_pre(q)
+            if q.knn is not None:
+                self._knn_pre(q)
             if q.has_pattern and not q.done_patterns():
                 self._execute_patterns(q)
             if q.pattern_group.unions and not q.union_done:
@@ -135,6 +141,8 @@ class CPUEngine:
                     self._execute_optional(q)
             if q.pattern_group.filters:
                 self._execute_filters(q)
+            if q.knn is not None:
+                self._knn_post(q)
             if from_proxy:
                 self._final_process(q)
         except (QueryTimeout, BudgetExceeded) as e:
@@ -169,13 +177,86 @@ class CPUEngine:
         q.union_done = True
         q.optional_step = len(q.pattern_group.optional)
 
-    @staticmethod
-    def _knn_pre(q: SPARQLQuery) -> None:
-        """knn() needs the vector store, which the port does not have: the
-        clause is refused as the JAX package refuses it with vectors off."""
-        if getattr(q, "knn", None) is not None:
+    # ------------------------------------------------------------------
+    # hybrid graph+vector composition (vector/)
+    # ------------------------------------------------------------------
+    def _vstore(self):
+        vs = getattr(self.g, "vstore", None)
+        if vs is None:
+            raise WukongError(ErrorCode.ATTR_DISABLE,
+                              "knn() needs a vector store attached to this "
+                              "partition (loader --vectors / upsert_batch_into)")
+        return vs
+
+    def _knn_params(self, q):
+        from wukong_tpu_torch.vector import knn as vknn
+
+        vs = self._vstore()
+        anchor = vknn.resolve_anchor(vs, q.knn)
+        metric = q.knn.metric or Global.knn_metric
+        # the proxy stamps the measured route at plan time; direct engine
+        # callers default to the host kernels (always available)
+        route = getattr(q, "knn_route", None) or "host"
+        return vs, anchor, metric, route
+
+    def _knn_pre(self, q: SPARQLQuery) -> None:
+        """Seed-side composition: for a pure scan or a rank-then-pattern
+        chain, run the ranked scan first and seed the binding table with
+        the top-k vids (the corun sub-query seeding idiom) so the BGP
+        walks outward from the k winners. Pattern-then-rank defers to
+        :meth:`_knn_post`."""
+        from wukong_tpu_torch.vector import knn as vknn
+
+        if not Global.enable_vectors:
             raise WukongError(ErrorCode.ATTR_DISABLE,
                               "knn() requires enable_vectors")
+        if getattr(q, "knn_mode", None) is None:
+            q.knn_mode = vknn.classify_knn_mode(q)
+        if q.knn_mode == "pattern_then_rank":
+            return
+        seeds = getattr(q, "knn_seeds", None)
+        if seeds is None:
+            # not pre-solved by the proxy's wide-scan slice split: scan here
+            vs, anchor, metric, route = self._knn_params(q)
+            seeds, _scores, demoted = vknn.scan_topk(
+                vs, anchor, q.knn.k, metric, route=route,
+                device=self.knn_device)
+            if demoted:
+                q.knn_demoted = demoted
+        res = q.result
+        res.set_table(np.asarray(seeds, dtype=np.int64).reshape(-1, 1))
+        res.col_num = 1
+        res.add_var2col(q.knn.var, 0)
+
+    def _knn_post(self, q: SPARQLQuery) -> None:
+        """Rank-side composition (pattern-then-rank): rank the BGP's
+        binding set for the knn variable, keep only rows whose binding
+        made the top-k, and order surviving rows by rank (ties by
+        original row order, stable). Runs after FILTER so ranked rows
+        are exactly the rows a pure BGP would have served."""
+        from wukong_tpu_torch.vector import knn as vknn
+
+        if getattr(q, "knn_mode", None) != "pattern_then_rank":
+            return
+        res = q.result
+        col = res.var2col(q.knn.var)
+        assert_ec(col != NO_RESULT, ErrorCode.NO_REQUIRED_VAR,
+                  "knn() variable is not bound by the pattern group")
+        vs, anchor, metric, route = self._knn_params(q)
+        top, _scores, demoted = vknn.rank_candidates(
+            vs, res.table[:, col], anchor, q.knn.k, metric, route=route,
+            device=self.knn_device)
+        if demoted:
+            q.knn_demoted = demoted
+        rank = {int(v): i for i, v in enumerate(top)}
+        vals = res.table[:, col]
+        pos = np.asarray([rank.get(int(v), -1) for v in vals],
+                         dtype=np.int64)
+        idx = np.nonzero(pos >= 0)[0]
+        order = idx[np.argsort(pos[idx], kind="stable")]
+        res.set_table(res.table[order])
+        if res.attr_table.size:
+            res.attr_table = res.attr_table[order]
 
     def _execute_patterns(self, q: SPARQLQuery) -> None:
         from wukong_tpu_torch.obs.trace import traced_step

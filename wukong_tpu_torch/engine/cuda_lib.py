@@ -27,7 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("probe.cu", "stream_emit.cu", "level_probe.cu")
+SOURCES = ("probe.cu", "stream_emit.cu", "level_probe.cu", "knn_scan.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -47,9 +47,16 @@ _SIGNATURES = {
         "wk_level_probe_max_adj": [],
         "wk_level_probe": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P],
     },
+    "knn_scan.cu": {
+        "wk_knn_block_max_k": [],
+        "wk_knn_max_dim": [],
+        "wk_knn_scratch_words": [_LL, _I, _I],
+        "wk_knn_scan": [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P,
+                        _I, _P],
+    },
 }
 # return types other than c_int
-_RESTYPES = {"wk_stream_scratch_bytes": _LL}
+_RESTYPES = {"wk_stream_scratch_bytes": _LL, "wk_knn_scratch_words": _LL}
 
 _libs: dict = {}
 _lock = threading.Lock()

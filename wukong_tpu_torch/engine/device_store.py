@@ -155,6 +155,12 @@ def build_hash_table(keys: np.ndarray, offsets: np.ndarray,
     """
     K = len(keys)
     NB = num_buckets or max(_next_pow2((K + BUCKET // 2 - 1) // (BUCKET // 2)), 2)
+    # native fast path (bit-identical placement policy)
+    from wukong_tpu_torch.native import build_bucket_table_native
+
+    nat = build_bucket_table_native(np.asarray(keys), np.asarray(offsets), NB)
+    if nat is not None:
+        return nat
     bmask = np.uint32(NB - 1)
     bkey = np.full((NB, BUCKET), -1, dtype=np.int32)
     bstart = np.zeros((NB, BUCKET), dtype=np.int32)

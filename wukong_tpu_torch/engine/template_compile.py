@@ -48,6 +48,7 @@ port's serving threads dispatch concurrently.
 from __future__ import annotations
 
 import hashlib
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -475,11 +476,17 @@ class TemplateCompiledEngine:
         self._programs: OrderedDict = OrderedDict()  # guarded by: _lock
         self._good_caps: dict = {}  # guarded by: _lock
         self._lock = make_lock("template.programs")
+        # the process-wide registry holds the gauge's callback: a weak
+        # reference, so the programs and their staged operands die with
+        # their proxy (the JAX engine's closure, template_compile.py:430,
+        # keeps every engine it ever built alive)
+        ref = weakref.ref(self)
         get_registry().gauge(
             "wukong_template_programs",
             "Cached whole-plan compiled programs resident "
             "(LRU-bounded by template_budget_mb)",
-        ).set_function(lambda: float(len(self._programs)))
+        ).set_function(lambda: float(len(ref()._programs))
+                       if ref() is not None else 0.0)
 
     def _version(self) -> int:
         return int(getattr(self.g, "version", 0))

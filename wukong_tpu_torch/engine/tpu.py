@@ -79,6 +79,7 @@ class GPUEngine:
                                   device=device)
         self.device = self.dstore.device
         self.cpu = CPUEngine(gstore, str_server)
+        self.cpu.knn_device = self.device  # knn() device scans run here
         self.cap_min = Global.table_capacity_min
         self.cap_max = Global.table_capacity_max
         self._est_planner = None  # lazy Planner over self.stats
@@ -144,7 +145,11 @@ class GPUEngine:
                 if from_proxy:
                     self.cpu._final_process(q)
                 return q
-            self.cpu._knn_pre(q)
+            if q.knn is not None:
+                # the hybrid seed/rank stages borrow the CPU engine's
+                # composition seams (vector/knn.py routes device scans
+                # itself); a rank-then-pattern seed starts the device chain
+                self.cpu._knn_pre(q)
             if q.has_pattern and not q.done_patterns():
                 self._run_pattern_chain(q)
             if q.pattern_group.unions and not q.union_done:
@@ -156,6 +161,8 @@ class GPUEngine:
                 self._execute_optional(q)
             if q.pattern_group.filters:
                 self.cpu._execute_filters(q)
+            if q.knn is not None:
+                self.cpu._knn_post(q)
             if from_proxy:
                 self.cpu._final_process(q)
         except (QueryTimeout, BudgetExceeded) as e:

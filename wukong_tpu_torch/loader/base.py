@@ -46,9 +46,11 @@ def load_triples(dataset_dir: str) -> np.ndarray:
     files = sorted(glob.glob(os.path.join(dataset_dir, "id_*.nt")))
     if not files:
         raise FileNotFoundError(f"no id_triples.npy or id_*.nt in {dataset_dir}")
+    from wukong_tpu_torch.native import parse_id_triples
+
     parts = []
     for path in files:
-        arr = np.loadtxt(path, dtype=np.int64, ndmin=2)
+        arr = parse_id_triples(path)  # native mmap parser, loadtxt fallback
         if arr.size:
             parts.append(arr.reshape(-1, 3))
     return np.concatenate(parts) if parts else np.empty((0, 3), dtype=np.int64)

@@ -20,11 +20,12 @@ datagen/generate_data.cpp):
   triples bit for bit (both draw from ``numpy.random.default_rng`` in the
   same order).
 
-    python -m wukong_tpu_torch.loader.datagen <nt_dir> <id_dir>
-        [--timestamps N] [--ts-seed S]
+- ``make_vectors`` / ``write_vectors``: deterministic clustered embeddings
+  for the vector plane, bit for bit the JAX package's (``--vectors DIM``
+  writes ``vectors.npz`` beside the converted files).
 
-The JAX module's vectors (``make_vectors``, ``write_vectors``, the CLI's
-``--vectors``) wait for the vector plane (ROADMAP §A 6).
+    python -m wukong_tpu_torch.loader.datagen <nt_dir> <id_dir>
+        [--timestamps N] [--ts-seed S] [--vectors DIM] [--vec-seed S]
 """
 
 from __future__ import annotations
@@ -367,6 +368,51 @@ def watdiv_cyclic_patterns() -> dict:
     }
 
 
+def make_vectors(vids, dim: int, seed: int = 0, clusters: int = 16):
+    """Deterministic clustered embeddings for a set of vertex ids.
+
+    Each vertex is assigned (by id hash, so the mapping survives
+    re-generation) to one of ``clusters`` unit-norm centers and placed
+    at center + small Gaussian jitter — k-NN over the result has
+    non-trivial structure (neighbors cluster, cosine and L2 disagree
+    near cluster borders) instead of the uniform-random mush where every
+    top-k is noise. Returns ``[len(vids), dim]`` float32."""
+    import numpy as np
+
+    vids = np.asarray(vids, dtype=np.int64).ravel()
+    clusters = max(int(clusters), 1)
+    rng = np.random.default_rng(int(seed))
+    centers = rng.standard_normal((clusters, int(dim))).astype(np.float32)
+    centers /= np.maximum(
+        np.linalg.norm(centers, axis=1, keepdims=True), 1e-12)
+    assign = (vids % np.int64(clusters)).astype(np.int64)
+    # per-vertex jitter seeded by the vertex id, not array position:
+    # the embedding of vid V is identical no matter which batch, order,
+    # or subset it is generated in
+    jitter = np.empty((len(vids), int(dim)), dtype=np.float32)
+    for i, v in enumerate(vids):
+        jr = np.random.default_rng(int(seed) * 1_000_003 + int(v))
+        jitter[i] = jr.standard_normal(int(dim)).astype(np.float32)
+    return centers[assign] + 0.15 * jitter
+
+
+def write_vectors(dst_dir: str, n_normal: int, dim: int,
+                  seed: int = 0, clusters: int = 16) -> dict:
+    """Emit ``vectors.npz`` (vids + [n, dim] float32 vecs) covering every
+    normal vertex the converter assigned — the dataset-side half of the
+    vector plane (``upsert_batch_into`` loads it at boot)."""
+    import numpy as np
+
+    from wukong_tpu_torch.types import NORMAL_ID_START
+
+    vids = np.arange(NORMAL_ID_START, NORMAL_ID_START + int(n_normal),
+                     dtype=np.int64)
+    vecs = make_vectors(vids, dim, seed=seed, clusters=clusters)
+    np.savez(os.path.join(dst_dir, "vectors.npz"), vids=vids, vecs=vecs)
+    return {"vector_dim": int(dim), "vector_count": int(len(vids)),
+            "vector_clusters": int(clusters), "vector_seed": int(seed)}
+
+
 def main(argv=None):
     import argparse
 
@@ -380,9 +426,18 @@ def main(argv=None):
                          "timestamps over N epochs (streaming replay)")
     ap.add_argument("--ts-seed", type=int, default=0,
                     help="seed for the timestamp shuffle")
+    ap.add_argument("--vectors", type=int, default=0, metavar="DIM",
+                    help="also emit vectors.npz: deterministic clustered "
+                         "DIM-dim embeddings for every normal vertex "
+                         "(the hybrid graph+vector plane's dataset half)")
+    ap.add_argument("--vec-seed", type=int, default=0,
+                    help="seed for the embedding clusters/jitter")
     ns = ap.parse_args(argv if argv is not None else sys.argv[1:])
     meta = convert_dir(ns.src_dir, ns.dst_dir, timestamps=ns.timestamps,
                        ts_seed=ns.ts_seed)
+    if ns.vectors > 0:
+        meta.update(write_vectors(ns.dst_dir, meta["normal_vertex"],
+                                  ns.vectors, seed=ns.vec_seed))
     print(json.dumps(meta))
     return 0
 

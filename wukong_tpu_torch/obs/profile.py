@@ -29,8 +29,8 @@ The report carries the execution strategy, the route line (a wcoj query's
 level route, ``template-compiled`` for a query its compiled template
 served), the WCOJ per-level table (``wcoj_levels``) and the device table
 (``device_steps``: one row per charged device dispatch — a chain step, a
-merge step, a WCOJ probe group, a template program), as in the JAX package;
-the ``knn`` key of the vector plane the port does not have yet is absent. The JAX module's
+merge step, a WCOJ probe group, a template program) and the ``knn`` section
+of a hybrid query (its mode, route and scan size), as in the JAX package. The JAX module's
 ``render_top`` (the ``top`` verb) needs the heat and reuse observatories
 and waits for them (ROADMAP §A 8-9).
 """

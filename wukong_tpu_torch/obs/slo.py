@@ -187,7 +187,9 @@ class _TenantSLO:
         self.good = 0
         self.errors = 0
         self.alerts = 0
-        self.last_alert_us = 0  # sentinel cooldown cursor
+        # sentinel cooldown cursor: None until the first alert, so a host
+        # whose clock (uptime) is below the cooldown can still alert once
+        self.last_alert_us = None
         # the newest failed reply's trace: what a burn dump shows
         self.failed_trace = None
 
@@ -307,7 +309,7 @@ class SLOTracker:
         """Caller holds the tracker lock. The SRE-workbook multi-window
         rule: page only when BOTH the fast and the slow window burn the
         budget faster than their thresholds."""
-        if now - st.last_alert_us < max(
+        if st.last_alert_us is not None and now - st.last_alert_us < max(
                 int(Global.slo_dump_cooldown_s), 0) * 1_000_000:
             return None
         fast, n_fast = self._burn(

@@ -426,8 +426,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the GPU engine's kernels run (cpu: their "
                          "plain PyTorch versions)")
+    ap.add_argument("-b", "--bind", default=None, metavar="core.bind",
+                    help="enable thread->core binding from a core.bind file "
+                         "(reference: wukong -b, bind.hpp)")
     args = ap.parse_args(argv)
     load_config(args.config)
+    if args.bind is not None:
+        # after load_config: the binding sanity check reads Global.num_engines
+        from wukong_tpu_torch.runtime.bind import get_binder
+
+        get_binder().load_core_binding(args.bind)
 
     from wukong_tpu_torch.loader.base import load_attr_triples, load_triples
     from wukong_tpu_torch.loader.hdfs import resolve_dataset_dir

@@ -35,9 +35,10 @@ traffic, coalesced by the batcher when ``enable_batching`` is on).
 conflicting SLOs send closed-loop traffic through
 ``serve_query(text, tenant=...)``, optionally under injected faults
 (``chaos``) or at a multiple of their client counts (``overload_x``, the
-admission drill). The JAX emulator's other scenario runners (drills, hot
-spots, rebalancing) and its metrics snapshotter wait for the subsystems
-they drive.
+admission drill). ``Emulator.run_graphrag`` is the GraphRAG mix: pure
+graph texts and a knn()-seeded hybrid template over Zipf-popular anchors.
+The JAX emulator's other scenario runners (drills, hot spots, rebalancing)
+and its metrics snapshotter wait for the subsystems they drive.
 """
 
 from __future__ import annotations
@@ -694,6 +695,93 @@ class Emulator:
         pats = q_planned.pattern_group.patterns
         return (bool(pats) and pats[0].subject > 0 and pats[0].predicate > 0
                 and pats[0].subject == getattr(q_planned, "_inst_const", None))
+
+    def run_graphrag(self, graph_texts: list, hybrid_template: str,
+                     anchors: list, duration_s: float = 3.0,
+                     warmup_s: float = 0.5, clients: int = 4,
+                     seed: int = 0, zipf_a: float = 1.2,
+                     hybrid_frac: float = 0.5) -> dict:
+        """GraphRAG mixed-workload drive: closed-loop clients submit a
+        blend of pure graph queries and hybrid graph+vector queries
+        through the live serving path. Each hybrid query instantiates
+        ``hybrid_template`` (``{anchor}`` placeholder) with a Zipfian-
+        popular anchor — the retrieval-augmented access pattern, where a
+        few hot entities anchor most similarity lookups, so the result
+        cache and knn route memos see realistic skew instead of uniform
+        mush. Returns overall + per-kind q/s and latency percentiles
+        (`bench.py --graphrag`'s hybrid_qps headline)."""
+        import threading
+
+        stop = threading.Event()
+        served: list[list] = [[] for _ in range(clients)]  # (kind, dt)
+        errors = [0] * clients
+        t_measure = [0.0]
+        # Zipf anchor popularity: rank r drawn with p ∝ 1/r^a, capped to
+        # the anchor list (np.random zipf is unbounded — resample by mod)
+        ranks = np.arange(1, len(anchors) + 1, dtype=np.float64)
+        pz = ranks ** -float(zipf_a)
+        pz /= pz.sum()
+
+        def client(k: int) -> None:
+            rng = np.random.default_rng(seed + k)
+            while not stop.is_set():
+                hybrid = bool(rng.random() < hybrid_frac)
+                if hybrid:
+                    a = anchors[int(rng.choice(len(anchors), p=pz))]
+                    # plain token replace — SPARQL's own braces would
+                    # trip str.format's field parser
+                    text = hybrid_template.replace("{anchor}", a)
+                else:
+                    text = graph_texts[int(rng.integers(0,
+                                                        len(graph_texts)))]
+                t0 = get_usec()
+                try:
+                    q = self.proxy.serve_query(text, blind=True)
+                    if q.result.status_code != ErrorCode.SUCCESS:
+                        errors[k] += 1
+                        continue
+                except Exception:
+                    errors[k] += 1
+                    continue
+                if time.monotonic() >= t_measure[0]:
+                    served[k].append((hybrid, get_usec() - t0))
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True,
+                                    name=f"graphrag-client-{k}")
+                   for k in range(clients)]
+        t_measure[0] = time.monotonic() + warmup_s
+        for t in threads:
+            t.start()
+        time.sleep(warmup_s + duration_s)
+        stop.set()
+        for t in threads:
+            t.join(timeout=10)
+
+        def _pct(vals: list) -> dict:
+            vals = sorted(vals)
+            return {"served": len(vals),
+                    "qps": round(len(vals) / duration_s, 1)
+                    if duration_s > 0 else 0.0,
+                    "p50_us": int(vals[len(vals) // 2]) if vals else 0,
+                    "p99_us": int(vals[int(len(vals) * 0.99)])
+                    if vals else 0}
+
+        flat = [x for xs in served for x in xs]
+        hybrid_lat = [dt for h, dt in flat if h]
+        graph_lat = [dt for h, dt in flat if not h]
+        out = {"qps": round(len(flat) / duration_s, 1)
+               if duration_s > 0 else 0.0,
+               "served": len(flat), "errors": sum(errors),
+               "clients": clients, "duration_s": duration_s,
+               "zipf_a": zipf_a, "hybrid_frac": hybrid_frac,
+               "anchors": len(anchors),
+               "hybrid": _pct(hybrid_lat), "graph": _pct(graph_lat)}
+        log_info(f"graphrag: {out['qps']:,.0f} q/s mixed "
+                 f"(hybrid {out['hybrid']['qps']:,.0f} q/s "
+                 f"p99 {out['hybrid']['p99_us']:,}us, graph "
+                 f"{out['graph']['qps']:,.0f} q/s, "
+                 f"{sum(errors)} errors)")
+        return out
 
     @staticmethod
     def _draw_consts(tmpl, rng, B: int) -> np.ndarray:

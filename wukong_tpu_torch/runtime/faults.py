@@ -33,7 +33,10 @@ The port's sites (``KNOWN_FAULT_SITES``):
 - ``wal.append`` — a write-ahead-log append (store/wal.py), before any
   byte lands: the batch is neither logged nor applied;
 - ``checkpoint.write`` — a checkpoint bundle (runtime/recovery.py), before
-  any byte lands.
+  any byte lands;
+- ``vector.upsert`` — a vector batch (vector/vstore.py
+  ``upsert_batch_into``), before the WAL append: the WAL and every vector
+  store stay untouched, and a retry commits.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -54,7 +57,7 @@ KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
                                "batch.heavy.dispatch", "join.materialize",
                                "template.compile", "template.dispatch",
                                "hdfs.read", "dynamic.insert", "wal.append",
-                               "checkpoint.write"})
+                               "checkpoint.write", "vector.upsert"})
 
 
 class TransientFault(Exception):

@@ -67,13 +67,20 @@ programs restage on their next use, and clears the plan cache;
 ``recovery()`` is the checkpoint/recovery manager (runtime/recovery.py)
 behind ``checkpoint`` and ``recover``; ``gstore_check`` is ``gsck``.
 
+The hybrid graph+vector plane, as in the JAX proxy: a query with a knn()
+clause is refused (ATTR_DISABLE) while ``enable_vectors`` is off; else
+``_prepare_knn`` stamps its composition mode and scan route (host or
+device, memoized per template and store version, demoted by the measured
+feedback of the drill), and a wide scan-side scan goes down the heavy lane,
+sliced across the engine pool (``_maybe_presolve_knn``). knn queries walk:
+no tensor join, no compiled template, no coalescing.
+
 The JAX proxy's hooks into subsystems the port does not have yet (the
 result cache and its fast path, views, the reuse observatory, the
-distributed engine and its distributed join, streams, vectors) are left
-out; ROADMAP §A lists each. ``_serve_execute`` keeps the fault
-site, the strategy branches, the batching branch and the direct dispatch of
-the JAX one; its result-cache lease and its knn branch wait for their
-subsystems (§A 7-8).
+distributed engine and its distributed join, streams) are left out;
+ROADMAP §A lists each. ``_serve_execute`` keeps the fault site, the
+strategy branches, the batching branch, the knn branches and the direct
+dispatch of the JAX one; its result-cache lease waits for its subsystem.
 """
 
 from __future__ import annotations
@@ -211,6 +218,22 @@ class Proxy:
             "wukong_template_fallback_total",
             "Compiled-template executions degraded to the host walk",
             labels=("reason",))
+        # hybrid graph+vector serving (vector/): per-mode knn query counts,
+        # plan-time scan-route decisions, and the measured demotions back to
+        # the host scan
+        self._m_vec_queries = self.metrics.counter(
+            "wukong_vector_queries_total",
+            "knn() queries by composition mode", labels=("mode",))
+        self._m_vec_route = self.metrics.counter(
+            "wukong_vector_route_total",
+            "Plan-time knn scan route decisions", labels=("route",))
+        self._m_vec_demoted = self.metrics.counter(
+            "wukong_vector_route_demotions_total",
+            "knn templates demoted device->host by measured feedback")
+        if self.gpu is None:
+            # no GPU engine: the proxy's device decides where a knn
+            # device-route scan runs (resolved at the first such scan)
+            self.cpu.knn_device = device
         self._wcoj = None  # guarded by: _batcher_init_lock
         self._template = None  # guarded by: _batcher_init_lock
         self._pool = None
@@ -284,6 +307,11 @@ class Proxy:
         q._tsig = sig
         version = self._plan_version()
         q._rver = version[0]
+        if getattr(q.knn, "mode", "") == "rank_then_pattern":
+            # a seeded chain executes in TEXTUAL order outward from the
+            # knn seeds: a planner reorder would re-root the chain away
+            # from the seeded variable and flip the query's semantics
+            return
         if self._plan_cache.lookup(q, sig, version):
             return
         parsed = snapshot_patterns(q) if sig is not None else None
@@ -305,6 +333,8 @@ class Proxy:
         # per-query deadline + work budget (None when both knobs are off)
         q.deadline = Deadline.from_config()
         self._plan(q, plan_text)
+        if q.knn is not None:
+            self._prepare_knn(q)
         q.lane = self.classify_lane(q)
         self._m_lane.labels(lane=q.lane).inc()
         q.join_strategy = self.classify_join_strategy(q)
@@ -312,7 +342,7 @@ class Proxy:
         if q.join_strategy == "wcoj":
             q.join_route = self.classify_join_route(q)
             self._m_join_route.labels(route=q.join_route).inc()
-        else:
+        elif q.knn is None:
             # walk-strategy shapes may compile the WHOLE plan into one
             # device program (engine/template_compile.py)
             q.template_route = self.classify_template_route(q)
@@ -645,7 +675,8 @@ class Proxy:
                 if tr is not None:
                     tr.event("join.fallback", reason=reason)
                 log_info(f"wcoj degraded to the walk ({reason})")
-        if getattr(q, "template_route", "host") == "device" and not pinned:
+        if getattr(q, "template_route", "host") == "device" and not pinned \
+                and q.knn is None:
             # whole-plan compiled execution: one device program serves the
             # query byte-identically, or the plan shape is refused (False)
             # and the walk below owns it; a compile/dispatch failure
@@ -673,7 +704,9 @@ class Proxy:
                     tr.event("template.fallback", reason=reason)
                 log_info(f"compiled template degraded to the walk "
                          f"({reason})")
-        if Global.enable_batching and not pinned and eng is not None:
+        if Global.enable_batching and not pinned and eng is not None \
+                and q.knn is None:
+            # knn queries bypass the coalescer: their scan is the batch
             pend = self.batcher().offer(q)
             if pend is not None:
                 timeout = _batch_wait_timeout(q)
@@ -684,8 +717,127 @@ class Proxy:
                               f"{timeout:.0f}s; batcher wedged?")
                     raise
                 return q
+        if q.knn is not None:
+            self._maybe_presolve_knn(q)
         eng.execute(q)  # batcher bypass: direct dispatch
+        self._record_knn_feedback(q)
         return q
+
+    # ------------------------------------------------------------------
+    # hybrid graph+vector routing (vector/)
+    # ------------------------------------------------------------------
+    def _prepare_knn(self, q: SPARQLQuery) -> None:
+        """Plan-time knn stamps: refuse when the plane is off (never
+        silently degrade a vector query to a graph query), classify the
+        composition mode and scan route, and flag wide scans so lane
+        routing sends them down the heavy lane."""
+        from wukong_tpu_torch.vector import knn as vknn
+
+        if not Global.enable_vectors:
+            raise WukongError(ErrorCode.ATTR_DISABLE,
+                              "knn() requires enable_vectors")
+        q.knn_mode = vknn.classify_knn_mode(q)
+        self._m_vec_queries.labels(mode=q.knn_mode).inc()
+        vs = getattr(self.g, "vstore", None)
+        n = int(vs.live_count()) if vs is not None else 0
+        # EXPLAIN inputs (obs/profile.py): scan size = every live
+        # embedding, scan bytes = the float32 block the kernel reads
+        q._knn_live = n
+        q._knn_dim = int(vs.dim) if vs is not None else 0
+        # a wide scan-side composition (pure scan / rank-then-pattern)
+        # is heavy-lane work: slice-range split across the engine pool
+        q._knn_wide = (q.knn_mode != "pattern_then_rank"
+                       and n >= max(int(Global.knn_split_threshold), 1))
+        q.knn_route = self.classify_knn_route(q, n)
+        self._m_vec_route.labels(route=q.knn_route).inc()
+
+    def classify_knn_route(self, q: SPARQLQuery, live: int) -> str:
+        """Plan-time host/device route for the knn scan, memoized per
+        template signature + store version under ``knn_device auto``
+        (vector upserts bump the store version, so the volume-driven
+        decision re-arms on every embedding mutation). Overwritten by
+        ``_record_knn_feedback`` when the drill demoted a device scan."""
+        knob = str(Global.knn_device).strip().lower()
+        if knob in ("host", "device"):
+            return knob
+        thr = max(int(Global.knn_split_threshold), 1)
+
+        def compute() -> str:
+            # device when the scan volume amortizes the dispatch: the
+            # split threshold doubles as the auto-device floor
+            return "device" if live >= thr else "host"
+
+        sig = template_signature(q)
+        if sig is None:
+            return compute()  # pure scans: unmemoized, computed per query
+        return self._plan_cache.aux("knn_route", sig,
+                                    self._knn_route_memo_key(), compute)
+
+    def _knn_route_memo_key(self):
+        return (*self._plan_version(), "auto",
+                int(Global.knn_split_threshold))
+
+    def _record_knn_feedback(self, q: SPARQLQuery) -> None:
+        """Measured-feedback demotion for the knn device route: the drill
+        latched a device demotion onto the query (``knn_demoted``) — under
+        ``knn_device auto``, demote the template's memoized route to host
+        so same-template queries stop re-paying the failed device attempt.
+        A store mutation or knob flip re-arms the volume-driven decision."""
+        if q.knn is None:
+            return
+        demoted = getattr(q, "knn_demoted", None)
+        if demoted is None:
+            return
+        if str(Global.knn_device).strip().lower() == "auto":
+            sig = template_signature(q)
+            if sig is not None:
+                self._plan_cache.put_aux("knn_route", sig,
+                                         self._knn_route_memo_key(), "host")
+        self._m_vec_demoted.inc()
+        note_feedback("knn", "demote_host")
+        log_info(f"knn device route: demoted to host ({demoted})")
+
+    def _maybe_presolve_knn(self, q: SPARQLQuery) -> None:
+        """Wide scan-side knn: run the slice-range split across the
+        engine pool's heavy lane HERE (the proxy owns the pool), stamping
+        the ranked seeds onto the query so the engine's ``_knn_pre``
+        consumes them instead of scanning inline. A gather-barrier timeout
+        or an injected fault falls back to the engine's single-threaded
+        scan; any other failure (a CUDA error among them) raises."""
+        if not getattr(q, "_knn_wide", False) \
+                or getattr(q, "knn_seeds", None) is not None:
+            return
+        vs = getattr(self.g, "vstore", None)
+        if vs is None:
+            return  # the engine raises the structured error
+        from wukong_tpu_torch.vector import knn as vknn
+
+        try:
+            anchor = vknn.resolve_anchor(vs, q.knn)
+        except WukongError:
+            return  # the engine surfaces it with proper status plumbing
+        metric = q.knn.metric or Global.knn_metric
+        thr = max(int(Global.knn_split_threshold), 1)
+        n = int(vs.live_count())
+        parts = max(min(n // thr + 1, 8), 1)
+        if parts <= 1:
+            return
+        # the heavy-split decision: this scan fans out across the pool
+        note_feedback("knn", "heavy_split")
+        try:
+            seeds, _scores, demoted = vknn.sliced_topk(
+                self.engine_pool(), vs, anchor, q.knn.k, metric,
+                getattr(q, "knn_route", "host"), parts,
+                device=self.cpu.knn_device)
+        except (WukongError, *faults.INJECTED) as e:
+            reason = (e.code.name if isinstance(e, WukongError)
+                      else type(e).__name__)
+            log_info(f"knn sliced scan failed ({reason}); the engine "
+                     "scans inline")
+            return
+        q.knn_seeds = seeds
+        if demoted:
+            q.knn_demoted = demoted
 
     # ------------------------------------------------------------------
     # tensor-join strategy routing (join/)
@@ -706,7 +858,9 @@ class Proxy:
         immediately."""
         pg = q.pattern_group
         if (pg.unions or pg.optional or q.planner_empty
-                or not pg.patterns):
+                or not pg.patterns or q.knn is not None):
+            # knn composition lives in the walk engine's pre/post hooks;
+            # the tensor-join executors have no vector seam
             return "walk"
         knob = str(Global.join_strategy).strip().lower()
         if knob == "walk":
@@ -918,6 +1072,10 @@ class Proxy:
         (wide scans); other shapes are heavy when the optimizer's
         ``estimate_chain`` peak reaches ``heavy_rows_threshold``. Memoized
         per template signature + store version through the plan cache."""
+        if getattr(q, "_knn_wide", False):
+            # a wide knn scan is index-origin-shaped work: a full-store
+            # pass, slice-range split across the pool
+            return "heavy"
         try:
             if q.start_from_index():
                 return "heavy"

@@ -43,7 +43,6 @@ from wukong_tpu_torch.obs.events import emit_event
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.trace import trace_event
 from wukong_tpu_torch.store.persist import (
-    VectorsUnsupported,
     adopt_gstore,
     checkpoint_part_path,
     load_gstore,
@@ -280,8 +279,6 @@ class RecoveryManager:
             try:
                 bundle = self._load_bundle(path, man)
                 break
-            except VectorsUnsupported:
-                raise  # an older bundle would silently drop the vectors
             except (WukongError, OSError) as e:
                 log_warn(f"checkpoint {path} unusable ({e}); trying an "
                          "older one")
@@ -329,15 +326,26 @@ class RecoveryManager:
                         path=wal.dir)
                 prev_seq = rec.seq
                 if rec.kind == "vector":
-                    raise VectorsUnsupported(f"WAL record {rec.seq}")
-                # a plain insert — or a stream epoch with no stream
-                # context to re-evaluate it: the data still must not be
-                # lost
-                for g in self.stores:
-                    insert_triples(g, rec.payload["triples"],
-                                   dedup=rec.payload["dedup"],
-                                   check_ids=False)
-                kind = "epoch" if rec.kind == "epoch" else "insert"
+                    # embedding mutation: re-apply into every target's
+                    # vstore (attaches one if the checkpoint predates the
+                    # vector plane); version numbering re-derives, same as
+                    # graph versions do
+                    from wukong_tpu_torch.vector.vstore import (
+                        apply_vector_record,
+                    )
+
+                    for g in self.stores:
+                        apply_vector_record(g, rec.payload)
+                else:
+                    # a plain insert — or a stream epoch with no stream
+                    # context to re-evaluate it: the data still must not
+                    # be lost
+                    for g in self.stores:
+                        insert_triples(g, rec.payload["triples"],
+                                       dedup=rec.payload["dedup"],
+                                       check_ids=False)
+                kind = rec.kind if rec.kind in ("epoch", "vector") \
+                    else "insert"
                 stats["replayed"][kind] += 1
                 _M_REPLAYED.labels(kind=kind).inc()
         if sp is not None:

@@ -570,6 +570,9 @@ class EnginePool:
                 self._on_engine_death(tid, e)
 
     def _engine_loop(self, tid: int) -> None:
+        from wukong_tpu_torch.runtime.bind import get_binder
+
+        get_binder().bind_thread(tid)  # no-op unless core binding is enabled
         engine = self._make_engine(tid)
         snooze_us = self.IDLE_SNOOZE_MIN_US
         while not self._stop.is_set():

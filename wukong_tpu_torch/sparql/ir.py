@@ -87,6 +87,30 @@ class Order:
     descending: bool = False
 
 
+@dataclass
+class KNNClause:
+    """One ``knn(?x, <anchor>, k)`` clause (wukong_tpu_torch/vector/).
+
+    The anchor is EITHER a vertex (``anchor_vid``: rank by similarity to
+    that vertex's stored embedding) OR a literal vector (``anchor_vec``:
+    a parenthesized number list, dim-checked against the store at
+    execution). Exactly one of the two is set. ``var`` is the ranked
+    variable's negative ssid; ``metric`` defaults to the ``knn_metric``
+    knob at execution when empty.
+    """
+
+    var: int
+    k: int
+    anchor_vid: int | None = None
+    anchor_vec: np.ndarray | None = None
+    metric: str = ""
+    # composition direction, stamped by the parser from the TEXTUAL
+    # pattern order (scan | rank_then_pattern | pattern_then_rank).
+    # Decided pre-planning: a planner reorder must not flip the query's
+    # semantics between "rank the binding set" and "seed the chain".
+    mode: str = ""
+
+
 
 class Result:
     """Flat row-major binding table + metadata (query.hpp:251-558)."""
@@ -174,6 +198,10 @@ class SPARQLQuery:
     # (bounded to max_tenants label values) and carried to the batcher, the
     # engine pool and the shed counters; "default" is the single-tenant path
     tenant: str = "default"
+    # hybrid graph+vector (vector/): the parsed KNNClause, or None for a
+    # pure graph query. The proxy stamps knn_mode/knn_route at plan time;
+    # the engine composes the ranked scan with the BGP per the mode.
+    knn: object = None
 
     def get_pattern(self, step: int | None = None) -> Pattern:
         s = self.pattern_step if step is None else step

@@ -17,17 +17,20 @@ of first appearance; IRIs/literals resolve through the StringServer (unknown
 strings raise SYNTAX_ERROR-class failures like the reference's UNKNOWN_SUB);
 attribute predicates get their value-type tag from str_attr_index.
 
-The port's copy of the JAX package's sparql/parser.py, without the knn()
-extension (the vector plane is not ported yet).
+The port's copy of the JAX package's sparql/parser.py, with its knn()
+extension.
 """
 
 from __future__ import annotations
 
 import re
 
+import numpy as np
+
 from wukong_tpu_torch.sparql.ir import (
     Filter,
     FilterType,
+    KNNClause,
     Order,
     Pattern,
     PatternGroup,
@@ -125,6 +128,8 @@ class Parser:
         self.prefixes: dict[str, str] = {}
         self.vars: dict[str, int] = {}  # ?name -> negative ssid
         self.template = SPARQLTemplate()
+        self._knn: KNNClause | None = None  # set by _resolve_group
+        self._knn_leading = False  # clause appeared before any pattern
 
         while self._peek_kw("PREFIX"):
             self._next()
@@ -202,6 +207,22 @@ class Parser:
 
         q = SPARQLQuery()
         q.pattern_group = self._resolve_group(group)
+        q.knn = self._knn
+        if q.knn is not None:
+            # composition direction from the TEXTUAL layout, before any
+            # planner reorder: a knn clause written BEFORE a chain that
+            # starts at its variable is a seeded walk
+            # (rank-then-pattern); a clause written AFTER the patterns
+            # ranks their binding set (pattern-then-rank); no
+            # patterns/unions/optionals at all is a pure ranked scan
+            pg = q.pattern_group
+            if not pg.patterns and not pg.unions and not pg.optional:
+                q.knn.mode = "scan"
+            elif (self._knn_leading and pg.patterns
+                    and pg.patterns[0].subject == q.knn.var):
+                q.knn.mode = "rank_then_pattern"
+            else:
+                q.knn.mode = "pattern_then_rank"
         pg = q.pattern_group
         if not pg.patterns and not pg.unions and pg.optional:
             # a leading OPTIONAL with no required patterns IS the base
@@ -233,7 +254,7 @@ class Parser:
         """Returns a symbolic group {patterns, unions, optional, filters}."""
         self._expect_op("{")
         group = {"patterns": [], "unions": [], "optional": [],
-                 "filters": []}
+                 "filters": [], "knn": []}
         while True:
             t = self._peek()
             if t[1] == "}":
@@ -253,7 +274,8 @@ class Parser:
                     group["unions"].extend(members)
                 else:
                     # plain nested group: merge
-                    for k in ("patterns", "unions", "optional", "filters"):
+                    for k in ("patterns", "unions", "optional", "filters",
+                              "knn"):
                         group[k].extend(sub[k])
                 continue
             if t[0] == "KEYWORD" and t[1].upper() == "OPTIONAL":
@@ -263,6 +285,16 @@ class Parser:
             if t[0] == "KEYWORD" and t[1].upper() == "FILTER":
                 self._next()
                 group["filters"].append(self._parse_filter_expr())
+                continue
+            if t[0] == "KEYWORD" and t[1].upper() == "KNN":
+                # hybrid extension: knn(?x, <anchor|(v0 v1 ...)>, k[, metric]).
+                # Clause position disambiguates the composition: written
+                # BEFORE the patterns it seeds the chain, AFTER it ranks
+                # the binding set
+                self._next()
+                c = self._parse_knn_clause()
+                c["leading"] = not group["patterns"]
+                group["knn"].append(c)
                 continue
             # triple pattern, with the ';' predicate-object-list and ','
             # object-list shorthand (SPARQLParser.hpp:771-809 parseGraphPattern)
@@ -300,6 +332,66 @@ class Parser:
             elif nxt == ".":
                 self._next()
         return group
+
+    # -- knn clause (hybrid graph+vector extension) ------------------------
+    _KNN_METRICS = ("cosine", "dot", "l2")
+
+    def _parse_knn_clause(self) -> dict:
+        """``knn(?x, anchor, k[, metric])`` — anchor is an IRI/PNAME
+        (rank by that vertex's stored embedding) or a parenthesized
+        number list ``(0.1 0.2 ...)`` (a literal query vector). Returns
+        the symbolic clause; ids resolve in ``_resolve_group``."""
+        self._expect_op("(")
+        var = self._expect("VAR")
+        self._expect_op(",")
+        kind, val = self._peek()
+        if val == "(":
+            self._next()
+            nums = []
+            while self._peek()[0] == "NUM":
+                nums.append(float(self._next()[1]))
+            self._expect_op(")")
+            if not nums:
+                raise SPARQLSyntaxError("knn() literal vector is empty")
+            anchor = ("vec", nums)
+        elif kind == "IRI":
+            anchor = ("iri", self._next()[1])
+        elif kind == "PNAME":
+            anchor = ("iri", self._expand_pname(self._next()[1]))
+        else:
+            raise SPARQLSyntaxError(
+                f"knn() anchor must be an IRI or a (v0 v1 ...) literal "
+                f"vector, got {val!r}")
+        self._expect_op(",")
+        k = int(self._expect("NUM"))
+        if k < 1:
+            raise SPARQLSyntaxError("knn() k must be >= 1")
+        metric = ""
+        if self._peek()[1] == ",":
+            self._next()
+            metric = self._next()[1].lower()
+            if metric not in self._KNN_METRICS:
+                raise SPARQLSyntaxError(
+                    f"knn() metric must be one of {self._KNN_METRICS}, "
+                    f"got {metric!r}")
+        self._expect_op(")")
+        return {"var": var, "anchor": anchor, "k": k, "metric": metric}
+
+    def _resolve_knn(self, clause: dict) -> KNNClause:
+        var = self._var_id(clause["var"])
+        akind, aval = clause["anchor"]
+        if akind == "vec":
+            return KNNClause(var=var, k=clause["k"],
+                             anchor_vec=np.asarray(aval, dtype=np.float32),
+                             metric=clause["metric"])
+        if self.str_server is None:
+            raise SPARQLSyntaxError("knn() anchor IRI requires a string server")
+        try:
+            vid = self.str_server.str2id(aval)
+        except KeyError:
+            raise WukongError(ErrorCode.UNKNOWN_SUB, aval)
+        return KNNClause(var=var, k=clause["k"], anchor_vid=vid,
+                         metric=clause["metric"])
 
     # -- terms -------------------------------------------------------------
     def _parse_term(self, predicate: bool = False) -> _Term:
@@ -491,6 +583,14 @@ class Parser:
             pg.optional.append(spg)
         for f in group["filters"]:
             pg.filters.append(f)
+        if group.get("knn"):
+            if not top_level:
+                raise SPARQLSyntaxError(
+                    "knn() is only supported in the top-level group")
+            if len(group["knn"]) > 1:
+                raise SPARQLSyntaxError("at most one knn() clause per query")
+            self._knn = self._resolve_knn(group["knn"][0])
+            self._knn_leading = bool(group["knn"][0].get("leading"))
         return pg
 
     def _reserve_template_slot(self, pattern_idx: int, fld: str, t: _Term) -> int:

@@ -113,8 +113,13 @@ def check_vid_range(triples: np.ndarray) -> None:
 
 
 def _triple_argsort(primary, secondary, tertiary) -> np.ndarray:
-    """argsort by (primary, secondary, tertiary) (the loader's sorted-run
-    preparation, base_loader.hpp sorts)."""
+    """argsort by (primary, secondary, tertiary) — native radix when available
+    (the loader's sorted-run preparation, base_loader.hpp sorts)."""
+    from wukong_tpu_torch.native import sort_triples_perm
+
+    perm = sort_triples_perm(primary, secondary, tertiary)
+    if perm is not None:
+        return perm
     return np.lexsort((tertiary, secondary, primary))
 
 
@@ -144,7 +149,7 @@ def build_partition(triples: np.ndarray, sid: int, num_workers: int,
     mine_out = hash_mod(s, num_workers) == sid
     so, po, oo = s[mine_out], p[mine_out], o[mine_out]
     del mine_out
-    order = np.lexsort((oo, so, po))
+    order = _triple_argsort(po, so, oo)
     so, po, oo = so[order], po[order], oo[order]
     del order
     for pid, ks, vs in _pred_runs(po, so, oo):
@@ -162,7 +167,7 @@ def build_partition(triples: np.ndarray, sid: int, num_workers: int,
     mine_in = (hash_mod(o, num_workers) == sid) & (o >= NORMAL_ID_START)
     si, pi, oi = s[mine_in], p[mine_in], o[mine_in]
     del mine_in
-    order = np.lexsort((si, oi, pi))
+    order = _triple_argsort(pi, oi, si)
     si, pi, oi = si[order], pi[order], oi[order]
     del order
     for pid, ks, vs in _pred_runs(pi, oi, si):

@@ -21,9 +21,7 @@ lazily on the next insert.
 The port's copy of the JAX package's store/persist.py. The bundle is
 byte-compatible (``np.savez``, the same array names, the same ``_meta``
 JSON keys and CRC32s), so a bundle written by either package loads in the
-other. The vector plane is not ported yet (ROADMAP §A 6): a bundle that
-carries vectors raises :class:`VectorsUnsupported` instead of loading
-without them.
+other, the vector store's ``vstore_*`` arrays (format 2.1) included.
 """
 
 from __future__ import annotations
@@ -43,20 +41,8 @@ from wukong_tpu_torch.utils.logger import log_warn
 
 FORMAT_NAME = "wukong-gstore"
 FORMAT_VERSION = (2, 1)  # (major, minor): newer-major bundles are refused
-# 2.1: optional vector-store arrays (vstore_*) + "vstore" meta entry (the
-# JAX package writes them; this package refuses such a bundle, see above)
-
-
-class VectorsUnsupported(WukongError):
-    """A bundle or WAL record carries the vector plane, which this package
-    does not have yet (ROADMAP §A 6). Raised rather than dropping the
-    vectors; recovery does not fall back past it."""
-
-    def __init__(self, where: str):
-        super().__init__(
-            ErrorCode.UNSUPPORTED_SHAPE,
-            f"{where} carries vectors: the vector plane (vector/) is not "
-            "ported yet (ROADMAP §A 6)")
+# 2.1: optional vector-store arrays (vstore_*) + "vstore" meta entry —
+# a minor bump, so 2.0 bundles load here (no vstore attached)
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -94,6 +80,13 @@ def _collect_arrays(g: GStore) -> tuple[dict, dict]:
     arrays["v_set"] = g.v_set
     arrays["t_set"] = g.t_set
     arrays["p_set"] = g.p_set
+    vs = getattr(g, "vstore", None)
+    if vs is not None:
+        # the embedding plane rides the same bundle (same checksums,
+        # same digest surface): a checkpoint/restore that carried the
+        # triples but dropped the vectors would silently break knn
+        meta["vstore"] = {"dim": int(vs.dim), "version": int(vs.version)}
+        arrays.update(vs.export_arrays())
     return meta, arrays
 
 
@@ -192,8 +185,13 @@ def _decode_bundle(z, meta: dict, path: str) -> GStore:
         g.v_set = a["v_set"]
         g.t_set = a["t_set"]
         g.p_set = a["p_set"]
-        if meta.get("vstore") is not None:
-            raise VectorsUnsupported(f"bundle {path}")
+        vmeta = meta.get("vstore")
+        if vmeta is not None:
+            from wukong_tpu_torch.vector.vstore import VectorStore
+
+            g.vstore = VectorStore.from_arrays(
+                g.sid, g.num_workers, a["vstore_vids"], a["vstore_vecs"],
+                a["vstore_alive"], version=int(vmeta.get("version", 0)))
     except (KeyError, TypeError) as e:
         raise CheckpointCorrupt(f"malformed manifest: {e}",
                                 path=path) from None
@@ -248,6 +246,8 @@ def clone_gstore(g: GStore) -> GStore:
     g2.attrs = dict(g.attrs)
     g2.type_ids = set(g.type_ids)
     g2.version = getattr(g, "version", 0)
+    if getattr(g, "vstore", None) is not None:
+        g2.vstore = g.vstore.clone()  # shares the immutable slot arrays
     return g2
 
 
@@ -264,6 +264,9 @@ def adopt_gstore(g: GStore, g2: GStore) -> None:
     g.v_set, g.t_set, g.p_set = g2.v_set, g2.t_set, g2.p_set
     g.attrs = g2.attrs
     g.type_ids = g2.type_ids
+    # the embedding plane swaps with the graph (an adopted world without
+    # a vstore must also DROP any stale one the target carried)
+    g.vstore = getattr(g2, "vstore", None)
     g.version = max(getattr(g, "version", 0), g2.version) + 1
 
 

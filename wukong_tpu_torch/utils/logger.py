@@ -62,6 +62,10 @@ def _write(level: int, msg: str) -> None:
     sys.stderr.write(f"{color}[{ts:9.3f}s {name:5s}]{reset} {msg}\n")
 
 
+def log_debug(msg: str) -> None:
+    _write(LOG_DEBUG, msg)
+
+
 def log_info(msg: str) -> None:
     _write(LOG_INFO, msg)
 
