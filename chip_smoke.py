@@ -20,11 +20,19 @@ Phases (any failure exits nonzero, and no result line is printed):
      candidate list and all-padding groups, an empty glob and an empty
      edge table, anchors absent from the keys, degree-1 and maximum-degree
      runs and depth 1, ids at 2^31 - 1, J = 1, 2 and 3 with and without a
-     glob, J = 9 past the kernel's 8 descriptors a launch); and knn_scan
+     glob, J = 9 past the kernel's 8 descriptors a launch; candidates in
+     runs of one anchor over runs of 1, 31, 32 and 33 edges at converging
+     and short depths, one anchor across warp boundaries, candidates
+     sorted, reverse-sorted and shuffled, globs of 1 value and globs
+     packed for the kernel's bit index or spread past it; the larger
+     cases again in 2^21 and 2^23 slots, with and without the tables'
+     bit indices); and knn_scan
      (csrc/knn_scan.cu) against knn_scan_plain on knn_case_inputs (n = 0,
      1 and 1,000,003; every row dead; k past the live rows; k = 1, 257 and
      n; integer ties, bit for bit; extreme norms and zero rows; slot lists;
-     widths on both load paths) and slices merged into the single scan;
+     widths on both load paths; the GraphRAG slice, m around one block's
+     rows, k = 32, 33 and 256, ties across block boundaries, an all-dead
+     slice) and slices merged into the single scan;
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
      the card; the build and staging must take native/'s paths (and phases
@@ -639,9 +647,16 @@ def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
     maximum-degree run searched at depth 1 (``full_depth`` False: the
     search stops short, as the kernel's must), ids at 2^31 - 1, J = 1, 2
     and 3 adjacencies with and without a glob, and J = 9 (past the kernel's
-    8 descriptors a launch). ``scale`` multiplies the
-    candidate counts (the card runs them at 2^20 and more). The tests
-    hold the plain version against the JAX functions on the same cases."""
+    8 descriptors a launch). Then the kernel's shared work: candidates in
+    runs of one anchor (as WCOJ and a template's expand lay them out) over
+    runs of exactly 1, 31, 32 and 33 edges, each at a depth that converges
+    and one that stops short; one anchor whose run straddles warp
+    boundaries; candidates sorted, reverse-sorted and shuffled; a glob of
+    one value and globs dense enough for the kernel's bit index and too
+    sparse for it, up to 2^31 - 1. ``scale`` multiplies the candidate
+    counts (the card runs them at 2^20 and more, and widened to the tiled
+    kernel's sizes by :func:`widen_case`). The tests hold the plain version
+    against the JAX functions on the same cases."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -649,7 +664,7 @@ def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
     out = []
 
     def pack(name, C, adjs, glob=None, anchor_keys=True, full=True,
-             Cp=None):
+             Cp=None, order=None):
         from wukong_tpu_torch.join.kernels import pad_pow2
 
         Cp = Cp or pad_pow2(C)
@@ -680,6 +695,14 @@ def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
                                        anchors + 1, anchors)
             probes.append((keys.astype(i32), offsets.astype(i32),
                            edges.astype(i32), anchors.astype(i32), depth))
+        if order is not None:  # permute the C live slots, anchors along
+            perm = {"sorted": np.argsort(cand[:C], kind="stable"),
+                    "reverse-sorted": np.argsort(cand[:C],
+                                                 kind="stable")[::-1],
+                    "shuffled": rng.permutation(C)}[order]
+            cand[:C] = cand[:C][perm]
+            for p in probes:
+                p[3][:C] = p[3][:C][perm]
         g = None if glob is None else np.asarray(glob).astype(i32)
         out.append((name, valid, cand.astype(i32), g, probes, full))
 
@@ -717,7 +740,112 @@ def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
     # past the kernel's 8 descriptors a launch: the wrapper chains a second
     # launch over the first one's mask
     pack("J=9, glob", n, [base, thin] * 4 + [thin], glob=glob)
+    for order in ("sorted", "reverse-sorted", "shuffled"):
+        pack(f"J=2, glob, candidates {order}", n, [base, thin], glob=glob,
+             order=order)
+
+    def runs(name, keys, offsets, edges, depths, groups, kx_of=None):
+        """Candidates laid out as the WCOJ generator lays them out: groups
+        of one anchor side by side (``groups`` sizes; ``kx_of`` each
+        group's key index, random when None), each group's values its
+        run's edges (true), those plus one (mostly false), values below
+        and above the run, and garbage past C."""
+        groups = np.asarray(groups, dtype=np.int64)
+        C = int(groups.sum())
+        Cp = pad_pow2(C)
+        valid = np.zeros(Cp, dtype=bool)
+        valid[:C] = True
+        cand = rng.integers(0, 2**31 - 1, Cp)
+        anchors = rng.integers(0, 2**31 - 1, Cp)
+        if kx_of is None:
+            kx_of = rng.integers(0, len(keys), len(groups))
+        kx = np.repeat(np.asarray(kx_of), groups)
+        lo, hi = offsets[kx], offsets[kx + 1]
+        pick = lo + (rng.random(C) * (hi - lo)).astype(np.int64)
+        kind = rng.integers(0, 4, C)
+        vals = np.where(kind == 0, edges[pick],
+                        np.where(kind == 1, edges[pick] + 1,
+                                 np.where(kind == 2, edges[lo] - 1,
+                                          edges[hi - 1] + 1)))
+        cand[:C] = np.clip(vals, 0, 2**31 - 1)
+        anchors[:C] = keys[kx]
+        for depth in depths:
+            conv = int(depth) >= int(
+                (offsets[1:] - offsets[:-1]).max(initial=1)).bit_length()
+            out.append((name + f", depth {depth}" + ("" if conv else
+                                                      " (stops short)"),
+                        valid, cand.astype(i32), None,
+                        [(keys.astype(i32), offsets.astype(i32),
+                          edges.astype(i32), anchors.astype(i32), depth)],
+                        conv))
+
+    from wukong_tpu_torch.join.kernels import pad_pow2
+
+    for n_run in (1, 31, 32, 33):
+        nk = 200 * scale  # keys dense enough for a bit index at scale 350
+        keys = np.sort(rng.choice(1 << 22, nk, replace=False))
+        offsets = np.arange(nk + 1, dtype=np.int64) * n_run
+        e = np.sort(rng.integers(0, 1 << 20, (nk, n_run)), axis=1)
+        edges = (e + np.arange(n_run)).ravel()  # strictly rising runs
+        conv = n_run.bit_length()
+        groups = rng.integers(1, 45, max(n // 20, 1))
+        runs(f"runs of {n_run} edges", keys, offsets, edges,
+             sorted({conv, max(conv - 1, 1)}, reverse=True), groups)
+    # one anchor whose run of 100 edges feeds a group that starts at lane
+    # 20 and spans four warps, amid runs of 3
+    nk = 64
+    keys = np.sort(rng.choice(1 << 24, nk, replace=False))
+    degs = np.full(nk, 3)
+    degs[7] = 100
+    offsets = np.zeros(nk + 1, dtype=np.int64)
+    np.cumsum(degs, out=offsets[1:])
+    edges = np.concatenate([np.sort(rng.choice(1 << 22, dg, replace=False))
+                            for dg in degs])
+    kx_of = rng.integers(0, nk, 2 + 40 * scale)
+    kx_of[1] = 7
+    runs("one anchor across warp boundaries", keys, offsets, edges,
+         (7, 4), [20, 120] + [3] * (40 * scale), kx_of)
+    # globs: one value (2^31 - 1); values packed closely enough for the
+    # kernel's bit index (a word a 32 ids), at the top of int32 and at its
+    # bottom; values spread over all of int32 (searched); candidates on
+    # members, their neighbours and garbage, sorted as a generator leaves
+    # them
+    top = 2**31 - 1
+    for G, where in ((1, "top"), (4096, "top"), (40_000 * scale, "bottom"),
+                     (40_000 * scale, "spread")):
+        span = {"top": 8 * G, "bottom": 8 * G, "spread": top}[where]
+        gv = np.unique(rng.integers(0, span, G + G // 8 + 8))[:G]
+        gv = np.sort(top - gv) if where == "top" else gv
+        if where != "bottom":
+            gv[-1] = top
+        C = n
+        Cp = pad_pow2(C)
+        valid = np.zeros(Cp, dtype=bool)
+        valid[:C] = True
+        kind = rng.integers(0, 4, Cp)
+        member = gv[rng.integers(0, G, Cp)]
+        cand = np.where(kind == 0, member, np.where(
+            kind == 1, member - 1, np.where(
+                kind == 2, member + 1, rng.integers(0, top, Cp))))
+        cand = np.clip(cand, 0, top)
+        cand[:C] = np.sort(cand[:C])  # as a generator's run order leaves it
+        out.append((f"glob of {G} values, {where}", valid,
+                    cand.astype(i32), gv.astype(i32), [], True))
     return out
+
+
+def widen_case(case, cap: int):
+    """A level probe case padded to ``cap`` slots (the template's padded
+    capacities): the same live rows, garbage repeated past them."""
+    import numpy as np
+
+    name, valid, cand, glob, adj, full = case
+    if cap <= len(valid):
+        return case
+    wide = np.zeros(cap, dtype=bool)
+    wide[:len(valid)] = valid
+    return (f"{name}, in {cap}", wide, np.resize(cand, cap), glob,
+            [(k, o, e, np.resize(a, cap), d) for k, o, e, a, d in adj], full)
 
 
 def kernel_cases(errs: dict) -> None:
@@ -3099,7 +3227,7 @@ def level_probe_work(args) -> tuple:
             ok[rows] = (lo < n) & (glob[lc] == v)
         else:
             ok[:] = False
-    for keys, offsets, edges, anchors, depth in adj:
+    for keys, offsets, edges, anchors, depth, *_index in adj:
         rows = ok.nonzero().squeeze(1)
         nbytes += 4 * len(rows)
         ne, nk = edges.shape[0], keys.shape[0]
@@ -3173,29 +3301,56 @@ def lp_rows(captures: list, phase: str, errs: dict) -> list:
     return rows
 
 
-def level_probe_checks(errs: dict, scales=(1, 350)) -> int:
+def level_probe_checks(errs: dict, scales=(1, 350),
+                       caps=(1 << 21, 1 << 23)) -> int:
     """Phase 2: the level probe against its plain version on the card, bit
-    for bit, on level_probe_cases at each scale (C about 1M at 350)."""
+    for bit, on level_probe_cases at each scale (C about 1M at 350; the
+    per-thread kernel), then on the largest scale's cases widened to each
+    of ``caps`` slots (the tiled kernel: the glob's bit index built in the
+    call where it fits, padding tiles skipped), each with every
+    adjacency's keys index as the table cache stages it, and without."""
     import torch
 
     from wukong_tpu_torch.join import kernels as JK
 
     dev = torch.device("cuda")
     n = 0
-    for scale in scales:
-        for name, valid, cand, glob, adj, _full in level_probe_cases(scale):
-            def t(a):
-                return torch.from_numpy(a).to(dev)
 
-            args = (t(valid), t(cand), None if glob is None else t(glob),
-                    [(t(k), t(o), t(e), t(a), d) for k, o, e, a, d in adj])
-            got = JK.level_probe(*args)
-            want = JK.level_probe_plain(*args)
-            err = max_abs_diff([got], [want])
-            errs["level_probe"] = max(errs["level_probe"], err)
-            check(err == 0, f"level_probe != plain on {name!r} at scale "
-                  f"{scale} ({err} rows differ)")
-            n += 1
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    def held(name, scale, valid, cand, glob, adj):
+        nonlocal n
+        args = (valid, cand, glob, adj)
+        got = JK.level_probe(*args)
+        want = JK.level_probe_plain(*args)
+        err = max_abs_diff([got], [want])
+        errs["level_probe"] = max(errs["level_probe"], err)
+        check(err == 0, f"level_probe != plain on {name!r} at scale "
+              f"{scale} ({err} rows differ)")
+        n += 1
+
+    for scale in scales:
+        cases = level_probe_cases(scale)
+        for name, valid, cand, glob, adj, _full in cases:
+            held(name, scale, t(valid), t(cand),
+                 None if glob is None else t(glob),
+                 [(t(k), t(o), t(e), t(a), d) for k, o, e, a, d in adj])
+    indexed = 0
+    for cap in caps:
+        for case in cases:
+            name, valid, cand, glob, adj, _full = widen_case(case, cap)
+            tables = [(t(k), t(o), t(e), t(a), d, k) for k, o, e, a, d in adj]
+            g = None if glob is None else t(glob)
+            plain = [(k, o, e, a, d) for k, o, e, a, d, _h in tables]
+            held(name, scales[-1], t(valid), t(cand), g, plain)
+            if tables:
+                staged = [(k, o, e, a, d, JK.keys_index(h, k))
+                          for k, o, e, a, d, h in tables]
+                indexed += sum(x[5] is not None for x in staged)
+                held(name + ", keys indexed", scales[-1], t(valid),
+                     t(cand), g, staged)
+    check(indexed > 0, "no case of the tiled kernel had a keys index")
     return n
 
 
@@ -4027,16 +4182,27 @@ def knn_scale(metric: str, anchor, rows, scores):
     return q @ q + 2 * np.abs(r @ q) + np.sum(r * r, axis=1)
 
 
-def knn_case_inputs():
+KNN_BLOCK_ROWS = 128  # csrc/knn_scan.cu: kBlockBytes (32 KB) of 64-d rows
+
+
+def knn_case_inputs(scale: float = 1.0):
     """(name, base, alive, anchor, k, metric, rows, slots, exact) numpy
     cases for phase 2: n = 0, 1 and 1,000,003; every row dead; k past the
     live rows; k = 1, 257 (the first on the radix path) and n; integer
     ties; extreme norms and a zero row under cosine; a slot list; widths
-    on the 16-byte and the scalar path."""
+    on the 16-byte and the scalar path. Then the block paths' shapes: the
+    GraphRAG slice (m = 65,120 at lo > 0, k = 8, cosine), m below one
+    block's rows and at exact multiples of them, k = 32 (the register
+    path's largest), 33 and 256 at m of about 65 K, integer ties that
+    straddle block boundaries, an all-dead slice. ``scale`` multiplies the
+    large row counts (the card runs scale 1; the CPU tests a fraction)."""
     import numpy as np
 
     rng = np.random.default_rng(7)
     cases = []
+
+    def big(n):
+        return max(int(n * scale), 1)
 
     def rand(n, d, dead=0.1):
         base = rng.standard_normal((n, d)).astype(np.float32)
@@ -4044,16 +4210,18 @@ def knn_case_inputs():
         return base, alive, rng.standard_normal(d).astype(np.float32)
 
     for metric in ("dot", "cosine", "l2"):
-        b, a, q = rand(1_000_003, 64)
-        cases += [(f"n=1000003 k=10 {metric}", b, a, q, 10, metric, None,
+        b, a, q = rand(big(1_000_003), 64)
+        n = len(b)
+        cases += [(f"n={n} k=10 {metric}", b, a, q, 10, metric, None,
                    None, False),
-                  (f"n=1000003 k=257 {metric}", b, a, q, 257, metric, None,
+                  (f"n={n} k=257 {metric}", b, a, q, 257, metric, None,
                    None, False)]
         if metric == "cosine":
-            cases.append(("n=1000003 k=n cosine", b, a, q, len(b), metric,
+            cases.append((f"n={n} k=n cosine", b, a, q, len(b), metric,
                           None, None, False))
-            cases.append(("n=1000003 rows 1000..501000 k=20", b, a, q, 20,
-                          metric, (1000, 501000), None, False))
+            lo, hi = big(1000), big(501_000)
+            cases.append((f"n={n} rows {lo}..{hi} k=20", b, a, q, 20,
+                          metric, (lo, hi), None, False))
     b, a, q = rand(1, 64)
     cases.append(("n=1 k=5", b, a, q, 5, "cosine", None, None, False))
     b, a, q = rand(0, 64)
@@ -4067,11 +4235,12 @@ def knn_case_inputs():
     cases.append(("k=n (block path)", b[:200], a[:200], q, 200, "l2", None,
                   None, False))
     for d in (3, 1, 128, 100):
-        bd, ad, qd = rand(70_001, d)
+        bd, ad, qd = rand(big(70_001), d)
         cases.append((f"d={d} k=16", bd, ad, qd, 16, "cosine", None, None,
                       False))
-    ib = rng.integers(-2, 3, size=(300_000, 16)).astype(np.float32)
-    ia = rng.random(300_000) >= 0.2
+    ni = big(300_000)
+    ib = rng.integers(-2, 3, size=(ni, 16)).astype(np.float32)
+    ia = rng.random(ni) >= 0.2
     iq = rng.integers(-2, 3, size=16).astype(np.float32)
     for k in (1, 9, 256, 257, 5000):
         cases.append((f"integer ties k={k}", ib, ia, iq, k, "dot", None,
@@ -4089,6 +4258,38 @@ def knn_case_inputs():
                   None, slots, False))
     cases.append(("slot list, k=300", b, a, q, 300, "l2", None, slots,
                   False))
+    # the block paths' shapes: phase 13's GraphRAG slice (the second of 7
+    # row ranges over 455,840 professors), then m around one block's rows
+    gb, ga, gq = rand(big(455_840), 64, dead=0.01)
+    step = len(gb) // 7
+    cases.append((f"GraphRAG slice rows {step}..{2 * step} k=8 cosine", gb,
+                  ga, gq, 8, "cosine", (step, 2 * step), None, False))
+    for m in (KNN_BLOCK_ROWS - 28, KNN_BLOCK_ROWS, 3 * KNN_BLOCK_ROWS,
+              509 * KNN_BLOCK_ROWS):
+        m = min(m, len(gb) - 17)
+        cases.append((f"m={m} rows from 17 k=8", gb, ga, gq, 8, "cosine",
+                      (17, 17 + m), None, False))
+    for k in (32, 33, 256):
+        cases.append((f"m={2 * step} k={k} l2", gb, ga, gq, k, "l2",
+                      (step, 3 * step), None, False))
+    # every row but those at block boundaries scores -1; those score the
+    # same top value: their order is their positions, across blocks
+    tb = np.zeros((big(200_000), 64), np.float32)
+    tb[:, 0] = -1.0
+    at = np.arange(KNN_BLOCK_ROWS - 1, len(tb) - 1, KNN_BLOCK_ROWS)
+    tb[at, :2] = (2.0, 1.0)
+    tb[at + 1, :2] = (2.0, 1.0)
+    ta = rng.random(len(tb)) >= 0.05
+    tq = np.zeros(64, np.float32)
+    tq[:2] = (1.0, 1.0)
+    for k, rows in ((8, None), (32, (5, len(tb) - 3)), (100, (300, None))):
+        rows = rows if rows is None or rows[1] else (rows[0], len(tb))
+        cases.append((f"integer ties at block boundaries k={k} rows {rows}",
+                      tb, ta, tq, k, "dot", rows, None, True))
+    dead = np.ones(len(gb), bool)
+    dead[step:2 * step] = False
+    cases.append(("all-dead slice k=8", gb, dead, gq, 8, "cosine",
+                  (step, 2 * step), None, False))
     return cases
 
 

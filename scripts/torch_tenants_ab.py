@@ -1,14 +1,19 @@
 """Run the overload drill of ``bench.py --tenants`` on the GPU with a
 rung-3 rejection that first yields the GIL for each of several times
-(``proxy.REJECT_YIELD_S``; 0 raises at once, as the JAX proxy does), in
-turns, in one process. A turn written ``Y/S`` also runs with the
+(``proxy.REJECT_YIELD_S``; 0 raises at once, as the JAX proxy does) and
+spaces each tenant's rejections by each of several times
+(``proxy.REJECT_SPACING_S``; 0 holds every rejection for the yield alone),
+in turns, in one process. A turn written ``Y/S`` also runs with the
 interpreter's GIL switch interval at S us (``sys.setswitchinterval``; the
 default is 5,000).
 
     python3 scripts/torch_tenants_ab.py [--scale 640] [--seed 0]
-        [--yields-us 0,Y,Y,0] [--duration 3] [--warmup 1] [--out PATH]
+        [--yields-us 0,Y,Y,0] [--spacings-us P,P,P,P] [--duration 3]
+        [--warmup 1] [--out PATH]
 
-Y, the default's, is this build's ``REJECT_YIELD_S``.
+Y and P, the defaults, are this build's ``REJECT_YIELD_S`` and
+``REJECT_SPACING_S``; ``--spacings-us`` gives one value for each turn of
+``--yields-us``.
 
 It synthesizes LUBM-<scale> from the seed, serves chip_smoke's light texts
 (``?s ub:advisor <a>``, bench.py --serve-batched's) under the greedy
@@ -39,6 +44,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=640)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--yields-us", default=None)
+    ap.add_argument("--spacings-us", default=None)
     ap.add_argument("--duration", type=float, default=3.0)
     ap.add_argument("--warmup", type=float, default=1.0)
     ap.add_argument("--out", default=None)
@@ -66,13 +72,19 @@ def main(argv=None) -> int:
     proxy = proxy_mod.Proxy(g, ss, device="cuda", budget_bytes=60 << 30)
     light, _heavy = smoke.live_texts(proxy)
     build_s = proxy_mod.REJECT_YIELD_S
+    build_p = proxy_mod.REJECT_SPACING_S
     ys = (args.yields_us.split(",") if args.yields_us
           else ["0", "Y", "Y", "0"])
+    ps = (args.spacings_us.split(",") if args.spacings_us
+          else ["P"] * len(ys))
+    if len(ps) != len(ys):
+        ap.error("--spacings-us needs one value for each turn")
     switch_s = sys.getswitchinterval()
     arms = []
-    for y in ys:
+    for y, p in zip(ys, ps):
         y, _, sw = y.partition("/")
         arms.append((build_s if y == "Y" else float(y) / 1e6,
+                     build_p if p == "P" else float(p) / 1e6,
                      float(sw) / 1e6 if sw else switch_s))
     Global.silent = True
     Global.enable_batching = True
@@ -85,15 +97,16 @@ def main(argv=None) -> int:
         Global.enable_admission = True
         Global.admission_quotas = smoke.TENANT_QUOTAS
         Global.admission_max_inflight = smoke.TENANT_MAX_INFLIGHT
-        for y, sw in arms:
+        for y, p, sw in arms:
             proxy_mod.REJECT_YIELD_S = y
+            proxy_mod.REJECT_SPACING_S = p
             sys.setswitchinterval(sw)
             get_admission().reset()
             t0 = time.perf_counter()
             rep = Emulator(proxy).run_tenants(
                 light, duration_s=args.duration, warmup_s=args.warmup,
                 overload_x=2.0, seed=1)
-            row = {"yield_s": y, "switch_interval_s": sw,
+            row = {"yield_s": y, "spacing_s": p, "switch_interval_s": sw,
                    "wall_s": round(time.perf_counter() - t0, 3),
                    "decisions": rep["admission"]["decisions"]}
             for t, r in rep["tenants"].items():
@@ -112,6 +125,7 @@ def main(argv=None) -> int:
             print(json.dumps(row), flush=True)
     finally:
         proxy_mod.REJECT_YIELD_S = build_s
+        proxy_mod.REJECT_SPACING_S = build_p
         sys.setswitchinterval(switch_s)
         Global.enable_admission = False
         smoke.stop_pool(proxy)

@@ -14,8 +14,10 @@ acquired under a declared leaf.
   it, and the heavy lane's tenant branch picks the same groups as the JAX
   pool's and settles its slots.
 - The proxy (device="cpu"): a rung-3 rejection raises CAPACITY_EXCEEDED
-  and reaches no engine and no host fallback; rung 2 gives a partial
-  reply; the off knob touches nothing.
+  and reaches no engine and no host fallback, and holds its caller after
+  its accounting, one tenant's rejections spaced apart (a deviation: the
+  JAX proxy raises at once); rung 2 gives a partial reply; the off knob
+  touches nothing.
 """
 
 import re
@@ -404,6 +406,76 @@ def test_rejection_reaches_no_engine_and_no_fallback(world, monkeypatch):
     assert any(e.kind == "admission.quota" and e.tenant == "bulk"
                for e in get_journal().last(kind="admission"))
     assert slo.read_admission_input("tenant_inflight").get("bulk", 0) == 0
+
+
+def test_rejections_are_spaced_per_tenant(world, monkeypatch):
+    """A rung-3 rejection holds its caller after its reply-side accounting
+    (no in-flight slot held): for the yield at first, then until its
+    tenant's next slot, each REJECT_SPACING_S after the one before, never
+    past the retry-after; tenants are paced apart."""
+    import time
+    from types import SimpleNamespace
+
+    from wukong_tpu_torch.runtime import proxy as proxy_mod
+
+    proxy = Proxy(world["g"], world["ss"], device="cpu")
+    y, sp = proxy_mod.REJECT_YIELD_S, proxy_mod.REJECT_SPACING_S
+    _both(monkeypatch, enable_admission=True,
+          admission_quotas="bulk:1:0.5:0:0")
+    proxy.serve_query(Q_CHAIN, blind=True, tenant="bulk")  # the burst
+    held = []
+    monkeypatch.setattr(proxy_mod, "time", SimpleNamespace(
+        monotonic=time.monotonic, sleep=lambda s: held.append(
+            (s, slo.read_admission_input("tenant_inflight").get("bulk", 0)))))
+    with pytest.raises(WukongError) as ei:
+        proxy.serve_query(Q_CHAIN, blind=True, tenant="bulk")
+    assert ei.value.code == ErrorCode.CAPACITY_EXCEEDED
+    assert len(held) == 1 and held[0][1] == 0
+    assert abs(held[0][0] - y) < 2e-3
+    holds = [proxy._reject_hold_s("t", 1.0) for _ in range(4)]
+    want = [y, y + sp, y + 2 * sp, y + 3 * sp]
+    assert all(abs(h - w) < 2e-3 for h, w in zip(holds, want)), holds
+    assert abs(proxy._reject_hold_s("u", 1.0) - y) < 2e-3
+    cap = y + 3 * sp
+    assert abs(proxy._reject_hold_s("t", cap) - cap) < 2e-3
+
+
+def test_rejection_slots_under_threads(world, monkeypatch):
+    """More threads than cores reserve one tenant's rejection slots at a
+    short switch interval, the clock held still: every hold is distinct,
+    the yield and then one REJECT_SPACING_S more each (a lost update would
+    repeat one)."""
+    import sys
+    import threading
+    from types import SimpleNamespace
+
+    from wukong_tpu_torch.runtime import proxy as proxy_mod
+
+    proxy = Proxy(world["g"], world["ss"], device="cpu")
+    monkeypatch.setattr(proxy_mod, "time", SimpleNamespace(
+        monotonic=lambda: 1000.0, sleep=None))
+    holds, lock = [], threading.Lock()
+
+    def reserve():
+        for _ in range(20):
+            h = proxy._reject_hold_s("t", 60.0)
+            with lock:
+                holds.append(h)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=reserve) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    want = (proxy_mod.REJECT_YIELD_S
+            + proxy_mod.REJECT_SPACING_S * np.arange(320))
+    np.testing.assert_allclose(sorted(holds), want, rtol=0, atol=1e-9)
 
 
 def test_partial_reply_end_to_end(world, monkeypatch):

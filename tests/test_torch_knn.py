@@ -14,6 +14,9 @@ order, so their order is compared bit for bit.
   block equals the JAX ``topk_device`` and ``topk_host``, for each metric;
 - exact ties in slot order; k past the live rows, every slot dead, n = 0,
   k = n; the slot-list path; ``sliced_topk``'s merge equal to one scan;
+- ``knn_scan_plain`` equals ``_jit_scan`` on the card's adversarial cases
+  (``chip_smoke.knn_case_inputs`` at 1/64 of their rows), with phase 2's
+  equality;
 - the drill demotes a device scan to the host (scan, candidates, slices);
   any other exception raises.
 """
@@ -24,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from wukong_tpu.vector import knn as jknn
 from wukong_tpu.vector import vstore as jvstore
 from wukong_tpu_torch.vector import knn
@@ -112,6 +116,32 @@ def test_plain_scan_equals_jax_scan(metric, n, d, k, seed):
     assert np.array_equal(i.numpy()[fin], ji[:kk][fin])
     np.testing.assert_allclose(s.numpy()[fin], js[:kk][fin], rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("case", chip_smoke.knn_case_inputs(scale=1 / 64),
+                         ids=lambda c: c[0])
+def test_plain_scan_equals_jax_scan_on_the_kernel_cases(case):
+    """The card's adversarial cases (chip_smoke phase 2, at 1/64 of their
+    row counts): knn_scan_plain against the JAX _jit_scan on the same
+    candidates, with phase 2's equality (chip_smoke.knn_agree: scores
+    within 1e-5, ids exact where scores are 1e-3 apart, bit for bit on
+    integer-valued input)."""
+    _name, base, alive, anchor, k, metric, rows, slots, exact = case
+    if slots is not None:
+        sub, live = base[slots], alive[slots]
+    else:
+        lo, hi = (0, len(base)) if rows is None else rows
+        sub, live = base[lo:hi], alive[lo:hi]
+    got = knn.knn_scan_plain(_t(base), _t(alive), _t(anchor), k, metric,
+                             rows, None if slots is None else _t(slots))
+    kk = min(k, len(sub))
+    assert tuple(got[0].shape) == tuple(got[1].shape) == (kk,)
+    if kk == 0:
+        return
+    js, ji = _jax_scan(sub, live, anchor, kk + 1, metric)
+    chip_smoke.knn_agree(got, (torch.from_numpy(np.array(js[:kk + 1])),
+                               torch.from_numpy(np.array(ji[:kk + 1]))),
+                         exact)
 
 
 @pytest.mark.parametrize("metric", knn.KNN_METRICS)

@@ -45,18 +45,27 @@ _SIGNATURES = {
     },
     "level_probe.cu": {
         "wk_level_probe_max_adj": [],
-        "wk_level_probe": [_P, _P, _I, _P, _I, _I, _P, _I, _P, _I, _P],
+        "wk_level_probe_glob_words": [_I, _I],
+        "wk_level_probe_index_words": [_LL, _LL, _I],
+        "wk_level_probe_build_index": [_P, _I, _P, _LL, _I, _P],
+        "wk_level_probe": [_P, _P, _I, _P, _I, _I, _P, _LL, _P, _I, _P, _I,
+                           _P],
     },
     "knn_scan.cu": {
         "wk_knn_block_max_k": [],
         "wk_knn_max_dim": [],
-        "wk_knn_scratch_words": [_LL, _I, _I],
+        "wk_knn_block_scratch_words": [_I],
+        "wk_knn_radix_scratch_words": [_LL, _I],
         "wk_knn_scan": [_P, _I, _P, _LL, _LL, _P, _P, _I, _I, _P, _P, _P,
                         _I, _P],
     },
 }
 # return types other than c_int
-_RESTYPES = {"wk_stream_scratch_bytes": _LL, "wk_knn_scratch_words": _LL}
+_RESTYPES = {"wk_stream_scratch_bytes": _LL,
+             "wk_level_probe_glob_words": _LL,
+             "wk_level_probe_index_words": _LL,
+             "wk_knn_block_scratch_words": _LL,
+             "wk_knn_radix_scratch_words": _LL}
 
 _libs: dict = {}
 _lock = threading.Lock()

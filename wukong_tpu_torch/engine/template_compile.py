@@ -343,17 +343,19 @@ def _build_program(spec: tuple, caps: tuple, depths: tuple,
                 ci += 1
             elif kind == "filter_pair":
                 keys, offsets, edges = next(it), next(it), next(it)
+                index = next(it)
                 valid = level_probe(valid, cols[op[4]], None,
                                     [(keys, offsets, edges, cols[op[3]],
-                                      depths[di])])
+                                      depths[di], index)])
                 di += 1
             elif kind == "filter_pair_const":
                 keys, offsets, edges = next(it), next(it), next(it)
+                index = next(it)
                 objc = next(it)
                 anchors = cols[op[3]]
                 valid = level_probe(valid, torch.full_like(anchors, objc),
                                     None, [(keys, offsets, edges, anchors,
-                                            depths[di])])
+                                            depths[di], index)])
                 di += 1
             else:  # filter_member
                 mlist, mlen = next(it), next(it)
@@ -567,10 +569,11 @@ class TemplateCompiledEngine:
         for op in spec[1:]:
             kind = op[0]
             if kind in ("expand", "filter_pair", "filter_pair_const"):
-                keys, offsets, edges, depth = self.tables.device_tables(
-                    op[1], op[2])
+                keys, offsets, edges, depth, index = \
+                    self.tables.device_tables(op[1], op[2])
                 args += [keys, offsets, edges]
                 if kind != "expand":
+                    args.append(index)
                     depths.append(int(depth))
                 if kind == "filter_pair_const":
                     if not (0 <= op[4] < (1 << 31)):

@@ -21,7 +21,7 @@ adjacency): on a CUDA tensor it launches the hand-written kernel
 CPU tensor it runs :func:`level_probe_plain`, the same function in plain
 PyTorch. The JAX module's streaming and distributed kernels
 (``unique_rows_padded``, ``seed_*``, ``concat_rows_padded``) wait for the
-stream plane and the distributed join (ROADMAP §A 8-9).
+stream plane and the distributed join (ROADMAP §A 5 and §A 7).
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from wukong_tpu_torch.engine import cuda_lib
 
 I32 = torch.int32
 
@@ -218,11 +220,12 @@ def level_probe_plain(valid, cand, glob, adj):
     """The level probe in plain PyTorch (same argument layout as
     :func:`level_probe`): ``valid`` AND membership of ``cand`` in the sorted
     ``glob`` (None: no glob) AND, for each adjacency ``(keys, offsets,
-    edges, anchors, depth)`` in ``adj``, the edge anchors[i] -> cand[i]."""
+    edges, anchors, depth[, index])`` in ``adj``, the edge anchors[i] ->
+    cand[i] (a keys index changes no answer and is not read here)."""
     mask = valid.clone()
     if glob is not None:
         mask &= member_sorted(glob, cand)
-    for keys, offsets, edges, anchors, depth in adj:
+    for keys, offsets, edges, anchors, depth, *_index in adj:
         mask &= pair_member(keys, offsets, edges, anchors, cand, depth=depth)
     return mask
 
@@ -232,39 +235,79 @@ class _WkAdj(ctypes.Structure):
 
     _fields_ = [("keys", ctypes.c_void_p), ("offsets", ctypes.c_void_p),
                 ("edges", ctypes.c_void_p), ("anchors", ctypes.c_void_p),
-                ("nkeys", ctypes.c_int), ("nedges", ctypes.c_int),
-                ("depth", ctypes.c_int), ("pad", ctypes.c_int)]
+                ("index", ctypes.c_void_p), ("nkeys", ctypes.c_int),
+                ("nedges", ctypes.c_int), ("depth", ctypes.c_int),
+                ("nindex", ctypes.c_int)]
 
 
 _wk = None  # the bound C library, set at the first launch
 
 
-def _check_probe_args(valid, cand, glob, adj) -> None:
-    from wukong_tpu_torch.engine import cuda_lib
+def _lib():
+    global _wk
+    if _wk is None:
+        lib = cuda_lib.library("level_probe.cu")
+        lib.max_adj = int(lib.wk_level_probe_max_adj())
+        _wk = lib
+    return _wk
 
+
+def keys_index(keys_host, keys):
+    """The level probe's dense index of a staged keys table (``keys`` the
+    sorted unique int32 tensor on the card, ``keys_host`` its host copy):
+    int64 words, one a 32 ids, holding their bits and the position of the
+    first, built on the card when the table is staged and waited for, so
+    that any thread or stream may read it once this returns. Pass it as the
+    sixth item of the table's adjacency tuples. None on the CPU (the plain
+    version searches) and where the keys are too sparse for one (the
+    kernel searches them)."""
+    n = len(keys_host)
+    if keys.device.type == "cpu" or n == 0:
+        return None
+    lib = _lib()
+    nw = int(lib.wk_level_probe_index_words(int(keys_host[0]),
+                                            int(keys_host[-1]), n))
+    if nw == 0:
+        return None
+    words = torch.empty(nw, dtype=torch.int64, device=keys.device)
+    rc = lib.wk_level_probe_build_index(keys.data_ptr(), n, words.data_ptr(),
+                                        nw, keys.get_device(),
+                                        cuda_lib.stream_ptr(keys))
+    if rc:
+        cuda_lib.check(lib, rc, "level_probe keys index")
+    torch.cuda.current_stream(keys.device).synchronize()
+    return words
+
+
+def _check_probe_args(valid, cand, glob, adj) -> None:
     C = cand.shape[0]
-    if valid.dtype != torch.bool or cand.dtype != I32 or cand.dim() != 1 \
-            or valid.shape != cand.shape:
+    if valid.dtype is not torch.bool or cand.dtype is not I32 \
+            or cand.dim() != 1 or valid.shape != cand.shape:
         raise ValueError("level_probe: valid must be bool and cand int32, "
                          f"both [C]; got {valid.dtype} {tuple(valid.shape)}, "
                          f"{cand.dtype} {tuple(cand.shape)}")
     tensors = [valid, cand]
     if glob is not None:
-        if glob.dtype != I32 or glob.dim() != 1:
+        if glob.dtype is not I32 or glob.dim() != 1:
             raise ValueError(f"level_probe: glob must be int32 [n], got "
                              f"{glob.dtype} {tuple(glob.shape)}")
         tensors.append(glob)
-    for keys, offsets, edges, anchors, _depth in adj:
-        if any(a.dtype != I32 for a in (keys, offsets, edges, anchors)):
+    for keys, offsets, edges, anchors, _depth, index in adj:
+        if any(a.dtype is not I32 for a in (keys, offsets, edges, anchors)):
             raise ValueError("level_probe: CSR tables and anchors must be "
                              "int32")
         if anchors.shape != (C,) or offsets.shape[0] != keys.shape[0] + 1:
             raise ValueError("level_probe: anchors must be [C] and offsets "
                              "[nkeys + 1]")
         tensors += [keys, offsets, edges, anchors]
+        if index is not None:
+            if index.dtype is not torch.int64 or index.dim() != 1:
+                raise ValueError("level_probe: a keys index must be the "
+                                 "int64 words of keys_index")
+            tensors.append(index)
     cuda_lib.require_cuda("level_probe", *tensors)
-    dev = cand.device
-    if any(t.device != dev for t in tensors):
+    dev = cand.get_device()
+    if any(t.get_device() != dev for t in tensors):
         raise ValueError("level_probe: every tensor must be on one device")
 
 
@@ -272,49 +315,60 @@ def level_probe(valid, cand, glob, adj):
     """mask[C] of one WCOJ generator group (or a template pair probe):
     ``valid`` AND ``cand`` in the sorted ``glob`` (None: no glob) AND every
     adjacency's edge ``anchors[i] -> cand[i]``; ``adj`` is a sequence of
-    ``(keys, offsets, edges, anchors, depth)`` with int32 tables.
+    ``(keys, offsets, edges, anchors, depth)`` with int32 tables, each
+    optionally with a sixth item, the keys' :func:`keys_index` (or None).
 
     Replaces wukong_tpu/join/kernels.py:jit_level_probe. CUDA tensors
-    launch csrc/level_probe.cu (one thread a candidate, every adjacency in
-    one launch, up to its descriptor limit; more adjacencies chain launches
-    over the mask), counted on ``level_probe.launches``; CPU tensors run
-    :func:`level_probe_plain`. Bound: bytes (see the source note). No
-    launch for an empty candidate tensor."""
-    global _wk
+    launch csrc/level_probe.cu (below 2^21 candidates a thread a candidate;
+    from there a dense index of the glob built on the card first, the keys'
+    indices read where given, a warp's lanes of one anchor sharing its key
+    lookup; every adjacency in one probe launch up to its descriptor limit,
+    more chaining launches over the mask), counted once a probe launch on
+    ``level_probe.launches``; CPU tensors run :func:`level_probe_plain`.
+    Bound: bytes (see the source note). No launch for an empty candidate
+    tensor. One allocation a call: the mask, with the glob index's scratch
+    after it."""
     if cand.device.type == "cpu":
         return level_probe_plain(valid, cand, glob, adj)
-    from wukong_tpu_torch.engine import cuda_lib
-
-    adj = [(keys, offsets, edges, anchors, max(int(depth), 1))
-           for keys, offsets, edges, anchors, depth in adj]
+    adj = [(a[0], a[1], a[2], a[3], max(int(a[4]), 1),
+            a[5] if len(a) > 5 else None) for a in adj]
     _check_probe_args(valid, cand, glob, adj)
     C = cand.shape[0]
-    mask = torch.empty(C, dtype=torch.bool, device=cand.device)
     if C == 0:
-        return mask
-    if _wk is None:
-        lib = cuda_lib.library("level_probe.cu")
-        lib.max_adj = int(lib.wk_level_probe_max_adj())
-        _wk = lib
+        return torch.empty(0, dtype=torch.bool, device=cand.device)
+    lib = _lib()
+    nglob = 0 if glob is None else glob.shape[0]
+    gw = int(lib.wk_level_probe_glob_words(C, nglob)) if nglob else 0
+    if gw:  # one buffer: the mask, then the glob index's 8-byte words
+        at = -(-C // 16) * 16
+        buf = torch.empty(at + 8 * gw, dtype=torch.bool, device=cand.device)
+        mask, gindex = buf[:C], buf.data_ptr() + at
+    else:
+        mask, gindex = torch.empty(C, dtype=torch.bool,
+                                   device=cand.device), None
     stream = cuda_lib.stream_ptr(cand)
+    dev = cand.get_device()
     src = valid
-    chunks = [adj[i:i + _wk.max_adj]
-              for i in range(0, len(adj), _wk.max_adj)] or [[]]
-    for k, chunk in enumerate(chunks):
+    for k in range(0, max(len(adj), 1), lib.max_adj):
+        chunk = adj[k:k + lib.max_adj]
         descs = (_WkAdj * max(len(chunk), 1))()
-        for j, (keys, offsets, edges, anchors, depth) in enumerate(chunk):
+        for j, (keys, offsets, edges, anchors, depth, index) in \
+                enumerate(chunk):
             descs[j] = _WkAdj(keys.data_ptr(), offsets.data_ptr(),
                               edges.data_ptr(), anchors.data_ptr(),
-                              keys.shape[0], edges.shape[0], depth, 0)
+                              None if index is None else index.data_ptr(),
+                              keys.shape[0], edges.shape[0], depth,
+                              0 if index is None else index.shape[0])
         use_glob = glob is not None and k == 0
-        rc = _wk.wk_level_probe(
+        rc = lib.wk_level_probe(
             src.data_ptr(), cand.data_ptr(), C,
             glob.data_ptr() if use_glob else None,
-            glob.shape[0] if use_glob else 0, int(use_glob),
-            ctypes.cast(descs, ctypes.c_void_p), len(chunk),
-            mask.data_ptr(), cand.get_device(), stream)
+            nglob if use_glob else 0, int(use_glob),
+            gindex if use_glob else None, gw if use_glob else 0,
+            ctypes.addressof(descs), len(chunk), mask.data_ptr(), dev,
+            stream)
         if rc:
-            cuda_lib.check(_wk, rc, "level_probe")
+            cuda_lib.check(lib, rc, "level_probe")
         cuda_lib.count_launch(level_probe)
         src = mask
     return mask

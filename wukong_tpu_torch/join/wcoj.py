@@ -51,6 +51,7 @@ from wukong_tpu_torch.join.kernels import (
     check_i32,
     expand_ragged,
     intersect_many,
+    keys_index,
     level_probe,
     lookup_ranges,
     member_sorted,
@@ -164,7 +165,8 @@ class JoinTableCache:
         segments/indexes — only ``dseg`` tuples live on the device)."""
         if key[1] != "dseg":
             return 0
-        return sum(int(getattr(a, "nbytes", 0)) for a in value[:3])
+        return sum(int(getattr(a, "nbytes", 0))
+                   for a in value[:3] + value[4:])
 
     def _put(self, key, value):
         evicted = []
@@ -230,12 +232,15 @@ class JoinTableCache:
 
     def device_tables(self, pid: int, d: int):
         """The (pid, dir) adjacency as int32 tensors on the cache's device
-        (keys, offsets, edges, depth) for the level probe — built from the
-        verified-sorted host segment and cached per store version like
-        every other entry, so mutations self-invalidate and steady-state
-        device levels never re-ship tables. ``depth`` is the segment's
-        binary-search iteration bound (log2(max_degree)+1 — a probe range
-        is one key's edge run, never the whole edge array). Raises
+        (keys, offsets, edges, depth, index) for the level probe — built
+        from the verified-sorted host segment and cached per store version
+        like every other entry, so mutations self-invalidate and
+        steady-state device levels never re-ship tables. ``depth`` is the
+        segment's binary-search iteration bound (log2(max_degree)+1 — a
+        probe range is one key's edge run, never the whole edge array);
+        ``index`` the keys' dense index for the probe kernel
+        (:func:`~wukong_tpu_torch.join.kernels.keys_index`, built here
+        once with the table; None on the CPU or for sparse keys). Raises
         :class:`DeviceRangeError` (caller degrades to host) when any
         value exceeds int32."""
         key = (self._version(), "dseg", int(pid), int(d))
@@ -247,10 +252,12 @@ class JoinTableCache:
         seg = self.segment(pid, d)  # host twin first (verify + fault site)
         max_deg = (int(np.diff(seg.offsets).max())
                    if len(seg.offsets) > 1 else 0)
-        return self._put(key, (to_device_i32(seg.keys, self.device),
+        keys = to_device_i32(seg.keys, self.device)
+        return self._put(key, (keys,
                                to_device_i32(seg.offsets, self.device),
                                to_device_i32(seg.edges, self.device),
-                               max(max_deg, 1).bit_length() + 1))
+                               max(max_deg, 1).bit_length() + 1,
+                               keys_index(seg.keys, keys)))
 
     def clear(self) -> None:
         with self._lock:
@@ -599,7 +606,7 @@ class WCOJExecutor:
             cand[:C] = newcol[lo:hi]  # ids < 2^31 (tables range-checked)
             probes, depths = [], []
             for j in adj_ids:
-                keys, offsets, edges, depth = dev[j]
+                keys, offsets, edges, depth, index = dev[j]
                 # anchors come from the PREFIX, which host-route levels
                 # may have bound from never-range-checked host tables — an
                 # unchecked int32 fill would silently wrap ids past 2^31
@@ -609,7 +616,7 @@ class WCOJExecutor:
                 anchors = np.zeros(Cp, dtype=np.int32)
                 anchors[:C] = avals
                 probes.append((keys, offsets, edges,
-                               upload(anchors, self.device), depth))
+                               upload(anchors, self.device), depth, index))
                 depths.append(depth)
             t0 = get_usec()
             out = level_probe(upload(valid, self.device),

@@ -90,7 +90,7 @@ import time
 
 import numpy as np
 
-from wukong_tpu_torch.analysis.lockdep import make_lock
+from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.engine.cpu import CPUEngine
 from wukong_tpu_torch.engine.tpu import GPUEngine
@@ -130,18 +130,34 @@ from wukong_tpu_torch.utils.timer import get_usec
 # settle — a wedged batcher surfaces as an error, never as a hung client
 BATCH_WAIT_TIMEOUT_S = 600.0
 
-# a rung-3 rejection sleeps this long before it raises, with the GIL
-# released. A caller that retries rejections at once (a closed-loop client
-# in this process) would otherwise keep a thread runnable on the GIL at
-# every moment, and each hand-off on an admitted query's path (the
-# batcher's flusher, a pool thread, the wake after the chain's sync) waits
-# behind it; a cheaper rejection only makes the loop spin faster. In the
-# overload drill of bench.py --tenants on an H100 host
-# (scripts/torch_tenants_ab.py), 0, 0.2 and 1 ms left the protected tenant
-# out of its SLO, and so did a 0.5 ms GIL switch interval; 2 ms held in one
-# turn of two, 5 ms in every turn. A deviation: the JAX proxy raises at
-# once.
+# a rung-3 rejection holds its caller, with the GIL released, after its
+# reply-side accounting (a held caller holds no in-flight slot) and before
+# it raises: at least REJECT_YIELD_S, and until its tenant's next
+# rejection slot, REJECT_SPACING_S after the one before, but never past
+# the retry-after that the reply names. A caller that retries rejections
+# at once (a closed-loop client in this process) would otherwise keep
+# threads runnable on the GIL, and each hand-off on an admitted query's
+# path (the batcher's flusher, a pool thread, the wake after the chain's
+# sync) waits behind them; a cheaper rejection only makes the loop spin
+# faster. A fixed hold lets the loop's cost grow with the rejected
+# tenant's clients: in the overload drill of bench.py --tenants (8 bulk
+# clients) a 5 ms hold cost the admitted tenants about half of their rate
+# on an H100 host and gold its SLO on the slower ones. Spacing bounds a
+# tenant's rejections to 1 / REJECT_SPACING_S a second however many
+# clients it has. A deviation: the JAX proxy raises at once.
 REJECT_YIELD_S = 5e-3
+REJECT_SPACING_S = 2e-2
+# the pacing lock guards one dict and calls nothing while held
+declare_leaf("proxy.reject_pace")
+
+
+class _Rejected(WukongError):
+    """A rung-3 admission rejection (CAPACITY_EXCEEDED) and how long its
+    caller is held before it is raised to them."""
+
+    def __init__(self, detail: str, hold_s: float):
+        super().__init__(ErrorCode.CAPACITY_EXCEEDED, detail)
+        self.hold_s = hold_s
 
 
 def _batch_wait_timeout(q) -> float:
@@ -248,6 +264,9 @@ class Proxy:
         # checkpointer starts here when the knobs ask for it
         self._recovery = None
         self._recovery_init_lock = make_lock("proxy.recovery_init")
+        # tenant -> monotonic time of its latest rejection slot
+        self._reject_slots: dict = {}  # guarded by: _reject_lock
+        self._reject_lock = make_lock("proxy.reject_pace")
         if Global.checkpoint_interval_s > 0 and Global.checkpoint_dir:
             self.recovery().start()
 
@@ -495,7 +514,8 @@ class Proxy:
     def _reply_failed(self, e: Exception, ten: str, t0_us: int,
                       trace) -> None:
         """A parse, plan or admission failure raises before any reply
-        exists; it still reaches the reply-side observability."""
+        exists; it still reaches the reply-side observability. A rung-3
+        rejection then holds its caller for its hold."""
         code = e.code if isinstance(e, WukongError) else "ERROR"
         self._m_queries.labels(
             status=code.name if isinstance(code, ErrorCode) else str(code),
@@ -504,6 +524,9 @@ class Proxy:
             self.recorder.on_complete(trace, code)
         self._observe_slo(ten, get_usec() - t0_us, ok=False, status=code,
                           trace=trace)
+        if isinstance(e, _Rejected):
+            # after the accounting: a held caller holds no in-flight slot
+            time.sleep(e.hold_s)
 
     def _run_repeats(self, prepare, repeats: int, device, trace=None):
         """The repeat and capacity-fallback execution loop; returns (last
@@ -555,24 +578,38 @@ class Proxy:
         in-flight signal includes this query) and inside the caller's
         reply-accounting try (a rejection releases the in-flight slot
         through ``_observe_slo``). One knob check when the plane is off.
-        Rung 1 sleeps here on the serving thread; rung 3 yields the GIL
-        (``REJECT_YIELD_S``) and raises the structured CAPACITY_EXCEEDED
-        rejection with its retry-after hint, so a rejected query reaches no
-        engine and no host fallback; the returned Decision stamps a rung-2
-        partial budget onto the prepared query."""
+        Rung 1 sleeps here on the serving thread; rung 3 raises the
+        structured CAPACITY_EXCEEDED rejection with its retry-after hint
+        (``_reply_failed`` holds its caller, ``_reject_hold_s``), so a
+        rejected query reaches no engine and no host fallback; the
+        returned Decision stamps a rung-2 partial budget onto the prepared
+        query."""
         adm = maybe_admission()
         if adm is None:
             return None
         d = adm.admit(ten, cached=cached)
         if d.action == "reject":
-            time.sleep(REJECT_YIELD_S)
-            raise WukongError(
-                ErrorCode.CAPACITY_EXCEEDED,
+            raise _Rejected(
                 f"admission shed: tenant {ten!r} ({d.reason or 'overload'})"
-                f" — retry after {d.retry_after_s:.1f}s")
+                f" — retry after {d.retry_after_s:.1f}s",
+                self._reject_hold_s(ten, d.retry_after_s))
         if d.action == "defer" and d.wait_s > 0:
             time.sleep(min(d.wait_s, 5.0))
         return d
+
+    def _reject_hold_s(self, ten: str, retry_after_s: float) -> float:
+        """How long a rung-3 rejection of ``ten`` holds its caller: until
+        the tenant's next rejection slot (``REJECT_SPACING_S`` after its
+        latest, ``REJECT_YIELD_S`` from now at the earliest), capped at
+        the reply's retry-after."""
+        now = time.monotonic()
+        with self._reject_lock:
+            slot = max(now + REJECT_YIELD_S,
+                       self._reject_slots.get(ten, now - REJECT_SPACING_S)
+                       + REJECT_SPACING_S)
+            slot = min(slot, now + max(retry_after_s, REJECT_YIELD_S))
+            self._reject_slots[ten] = slot
+        return slot - now
 
     def _note_admission_reply(self, ten: str, q) -> None:
         """Reply-side aggregate-row accounting for the row-budget quota

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.engine import cuda_lib
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.timer import get_usec
 
@@ -184,6 +185,18 @@ def knn_scan_plain(base, alive, anchor, k: int, metric: str, rows=None,
 
 
 _wk = None  # the loaded knn_scan library
+_block_scratch: dict = {}  # (device index, stream) -> the block paths' scratch
+
+
+def _scratch_of(dev, stream: int) -> torch.Tensor:
+    """The block paths' scratch of one stream on ``dev``, made at the
+    stream's first call: zeroed once, and left with its ticket at 0 by
+    every call, so the calls on a stream (one after another) share it;
+    sized once for any k the block paths take."""
+    words = int(_wk.wk_knn_block_scratch_words(dev.index))
+    t = _block_scratch[(dev.index, stream)] = torch.zeros(
+        words, dtype=torch.int64, device=dev)
+    return t
 
 
 def knn_scan(base, alive, anchor, k: int, metric: str, rows=None,
@@ -197,68 +210,77 @@ def knn_scan(base, alive, anchor, k: int, metric: str, rows=None,
     ``base`` [n, d] float32, ``alive`` [n] bool, ``anchor`` [d] float32,
     ``slots`` int64. Replaces wukong_tpu/vector/knn.py:_jit_scan (and
     topk_device's selection). CUDA tensors launch csrc/knn_scan.cu (one call
-    a scan: a fused score pass with a per-block top k for k <= 256, a radix
+    a scan: one fused launch that scores and selects for k <= 256, a radix
     select past it), counted on ``knn_scan.launches``; CPU tensors run
     :func:`knn_scan_plain`. Bound: bytes (see the source note). No launch
-    when there is nothing to rank."""
+    when there is nothing to rank. One allocation a call for k <= 256 (both
+    outputs in one buffer; the scratch is the stream's, kept)."""
     global _wk
-    if base.device.type == "cpu":
+    if base.is_cpu:
         return knn_scan_plain(base, alive, anchor, k, metric, rows, slots)
-    from wukong_tpu_torch.engine import cuda_lib
-
-    if metric not in _METRIC_CODE:
+    code = _METRIC_CODE.get(metric)
+    if code is None:
         raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
                           f"knn_metric must be one of {KNN_METRICS}, "
                           f"got {metric!r}")
-    if base.dtype != torch.float32 or base.dim() != 2:
+    if base.dtype is not torch.float32 or base.dim() != 2:
         raise ValueError(f"knn_scan: base must be [n, d] float32, got "
                          f"{base.dtype} {tuple(base.shape)}")
-    if alive.dtype != torch.bool or tuple(alive.shape) != (base.shape[0],):
-        raise ValueError(f"knn_scan: alive must be [{base.shape[0]}] bool, "
+    n, d = base.shape
+    if alive.dtype is not torch.bool or alive.dim() != 1 \
+            or alive.shape[0] != n:
+        raise ValueError(f"knn_scan: alive must be [{n}] bool, "
                          f"got {alive.dtype} {tuple(alive.shape)}")
-    d = int(base.shape[1])
-    if anchor.dtype != torch.float32 or tuple(anchor.shape) != (d,):
+    if anchor.dtype is not torch.float32 or anchor.dim() != 1 \
+            or anchor.shape[0] != d:
         raise ValueError(f"knn_scan: anchor must be [{d}] float32, got "
                          f"{anchor.dtype} {tuple(anchor.shape)}")
-    tensors = [base, alive, anchor]
     if slots is not None:
-        if slots.dtype != torch.int64 or slots.dim() != 1:
+        if slots.dtype is not torch.int64 or slots.dim() != 1:
             raise ValueError("knn_scan: slots must be a 1-D int64 tensor")
-        tensors.append(slots)
-        lo, m = 0, int(slots.shape[0])
+        cuda_lib.require_cuda("knn_scan", base, alive, anchor, slots)
+        lo, m, sp = 0, slots.shape[0], slots.data_ptr()
     else:
-        lo, hi = (0, int(base.shape[0])) if rows is None else map(int, rows)
-        if not 0 <= lo <= hi <= base.shape[0]:
-            raise ValueError(f"knn_scan: rows {rows} outside "
-                             f"[0, {base.shape[0]}]")
-        m = hi - lo
-    cuda_lib.require_cuda("knn_scan", *tensors)
-    dev = base.device
-    for t in tensors[1:]:
-        if t.device != dev:
-            raise ValueError(f"knn_scan: tensors on {t.device} and {dev}")
+        lo, hi = (0, n) if rows is None else map(int, rows)
+        if not 0 <= lo <= hi <= n:
+            raise ValueError(f"knn_scan: rows {rows} outside [0, {n}]")
+        cuda_lib.require_cuda("knn_scan", base, alive, anchor)
+        m, sp = hi - lo, None
+    di = base.get_device()
+    if alive.get_device() != di or anchor.get_device() != di or (
+            slots is not None and slots.get_device() != di):
+        raise ValueError(f"knn_scan: tensors on more than one device "
+                         f"(base on cuda:{di})")
     kk = min(int(k), m)
-    out_s = torch.empty(max(kk, 0), dtype=torch.float32, device=dev)
-    out_i = torch.empty(max(kk, 0), dtype=torch.int64, device=dev)
     if kk <= 0:
-        return out_s, out_i
+        return (torch.empty(0, dtype=torch.float32, device=base.device),
+                torch.empty(0, dtype=torch.int64, device=base.device))
     if _wk is None:
         lib = cuda_lib.library("knn_scan.cu")
         lib.max_dim = int(lib.wk_knn_max_dim())
+        lib.block_max_k = int(lib.wk_knn_block_max_k())
         _wk = lib
     if d > _wk.max_dim:
         raise ValueError(f"knn_scan: dim {d} above the kernel's "
                          f"{_wk.max_dim}")
     if m >= 2**31 - 1:
         raise ValueError(f"knn_scan: {m} candidates (at most 2^31 - 2)")
-    words = int(_wk.wk_knn_scratch_words(m, kk, dev.index))
-    scratch = torch.empty(max(words, 1), dtype=torch.int64, device=dev)
-    rc = _wk.wk_knn_scan(
-        base.data_ptr(), d, alive.data_ptr(), lo, m,
-        slots.data_ptr() if slots is not None else None,
-        anchor.data_ptr(), _METRIC_CODE[metric], kk, scratch.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), dev.index,
-        cuda_lib.stream_ptr(base))
+    stream = cuda_lib.stream_ptr(base)
+    if kk <= _wk.block_max_k:
+        scratch = _block_scratch.get((di, stream))
+        if scratch is None:
+            scratch = _scratch_of(base.device, stream)
+    else:  # the radix path's scratch, made a call
+        scratch = torch.empty(int(_wk.wk_knn_radix_scratch_words(m, kk)),
+                              dtype=torch.int64, device=base.device)
+    # both outputs in one buffer: the positions' int64 words, then scores
+    out_i, out_s = torch.empty(3 * kk, dtype=torch.float32,
+                               device=base.device).split_with_sizes(
+                                   (2 * kk, kk))
+    out_i = out_i.view(torch.int64)
+    rc = _wk.wk_knn_scan(base.data_ptr(), d, alive.data_ptr(), lo, m, sp,
+                         anchor.data_ptr(), code, kk, scratch.data_ptr(),
+                         out_s.data_ptr(), out_i.data_ptr(), di, stream)
     if rc:
         cuda_lib.check(_wk, rc, "knn_scan")
     cuda_lib.count_launch(knn_scan)
