@@ -182,9 +182,31 @@ Phases (any failure exits nonzero, and no result line is printed):
      2-hop micro's bands overlapping with vectors off and on; (e) the
      vector store detached, memory_allocated falling by its staged bytes.
      knn_scan must launch in (a), (b) and (c); each class of its calls is
-     held against the plain version and timed. Then phase 3's proxy is
-     dropped, and memory_allocated must fall to within 64 MiB of its value
-     before phase 3 (else what holds the rest is printed);
+     held against the plain version and timed;
+ 14. the serving caches and streams (run after 13, on phase 3's proxy,
+     whose store its writes mutate): (a) bench.py --readmostly's drill
+     (Emulator.run_readmostly: four light families, READMOSTLY_ANCHORS
+     anchors each, Zipf 1.2, seed 7, write rates 0 / 2% / 8% from a
+     WRITE_POOL of seeded store triples, tenants gold and bulk), shadow
+     only (predicted hit rate >= 0.5, the rate falls as writes rise, the
+     store's digest unchanged over the read-only phase) and then with the
+     result cache and views on (every measured reply identical to an
+     uncached one, the real hit rate at least the shadow's, at most 15
+     points lower at 8% writes; cached and uncached q/s printed; its
+     one-pattern texts are host CSR lookups and launch no kernel);
+     HIT_TEXTS two-pattern texts executed once (K1 launched on their
+     misses), then HIT_BURST pure hits over them with no kernel launch and
+     no host sync; the cache and history verbs; (b) the
+     stream: STREAM_EPOCHS epochs of STREAM_ROWS new edges among existing
+     entities on the pool's stream lane, STANDING's four queries (two in
+     a tumbling window, one with base triples), STREAM_CLIENTS light
+     clients meanwhile (STREAM_CLIENT_GAP_S between a client's replies);
+     the device frontier ran every epoch and each
+     epoch's seed rows equal the host twin's; the standing results equal
+     one-shots (S1, S2 on the host and on the card; S3, S4 over the live
+     window). Then phase 3's proxy is dropped, and memory_allocated must
+     fall to within 64 MiB of its value before phase 3 (else what holds
+     the rest is printed);
  12. data in and durability (run last, each world built from the seed,
      served and dropped in turn, pinned to the walk except where a route
      is forced): (a) WatDiv-<WATDIV_SCALE> (about 10 M triples) with the
@@ -205,11 +227,13 @@ Phases (any failure exits nonzero, and no result line is printed):
      growth), rows then equal to (a)'s full store; `load -d -c` of the
      whole delta gives 0 new edges; gsck passes; WCOJ on the device and
      the compiled template forced, rows equal to the walk's; (e)
-     `checkpoint`, one more seeded batch and a WAL-logged batch of
+     a standing query registered, `checkpoint`, STANDING_EPOCHS stream
+     epochs, one more seeded batch and a WAL-logged batch of
      VECTORS_AFTER_CKPT embeddings, the proxy dropped, a fresh one over
      the 90% base, `recover`: gstore_digest, the vector store's digest,
-     a knn reply and the twelve templates' rows equal to the dropped
-     store's, the one vector record replayed; checkpoint, WAL and
+     a knn reply, the twelve templates' rows, and the standing query's
+     registry, rows and sink equal to the dropped store's, the one vector
+     record and the epochs replayed; checkpoint, WAL and
      recover costs printed. K1 and the level probe must launch, the three
      fallback counters must not move; K2/K3 launches are logged.
 The line before the last is one JSON object {"kernels": [...]}, a row for
@@ -218,7 +242,8 @@ phase 7, for each kernel and mix (and the console) in phase 8, and for
 each kernel and class of its calls in phase 9, for each kernel in phase
 10, for each kernel and class of its calls in phase 11 (the level probe
 by call site and part), for each class of knn_scan's calls in phase 13,
-and for each kernel phase 12 launched, with
+for each kernel phase 14 launched and for each kernel phase 12 launched,
+with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -2252,15 +2277,9 @@ def live_texts(proxy) -> tuple:
     """bench.py --serve-batched's light texts (``?s advisor <a>`` for the
     first LIVE_ANCHORS anchors) and --serve-mixed's two index-origin 3-hop
     heavy texts, written inline."""
-    import numpy as np
-
     from wukong_tpu_torch.loader.lubm import UB
-    from wukong_tpu_torch.types import OUT
 
-    ss, g = proxy.str_server, proxy.g
-    anchors = np.asarray(g.get_index(ss.str2id(f"<{UB}advisor>"), OUT))
-    light = [f"SELECT ?s WHERE {{ ?s <{UB}advisor> {ss.id2str(int(a))} . }}"
-             for a in anchors[:LIVE_ANCHORS]]
+    light = family_texts(proxy, ("advisor",), LIVE_ANCHORS)
     ug = ("SELECT ?x ?y ?z WHERE { ?x "
           "<http://www.w3.org/1999/02/22-rdf-syntax-ns#type> "
           f"<{UB}UndergraduateStudent> . ?x <{UB}takesCourse> ?y . ")
@@ -2581,22 +2600,37 @@ TENANT_REPLAY = 64  # light texts replayed with tracing off and on
 
 class TenantReplies:
     """Stands for the proxy in Emulator.run_tenants: passes each call on
-    and keeps (tenant, text, status, nrows, complete) of every reply."""
+    and keeps (tenant, text, status, nrows, complete) of every reply, and
+    (tenant, start, end) of every call, in perf_counter seconds."""
 
     def __init__(self, proxy):
         import threading
 
         self.proxy = proxy
         self.replies: list = []
+        self.spans: list = []
         self._lock = threading.Lock()
 
     def serve_query(self, text, blind=True, tenant="default"):
-        q = self.proxy.serve_query(text, blind=blind, tenant=tenant)
+        t0 = time.perf_counter()
+        try:
+            q = self.proxy.serve_query(text, blind=blind, tenant=tenant)
+        finally:
+            t1 = time.perf_counter()
+            with self._lock:
+                self.spans.append((tenant, t0, t1))
         r = q.result
         with self._lock:
             self.replies.append((tenant, text, int(r.status_code), r.nrows,
                                  bool(r.complete)))
         return q
+
+    def late(self, tenant: str, limit_ms: float, t_base: float) -> list:
+        """(end in s from t_base, ms) of the tenant's calls over
+        ``limit_ms``, in order of their end."""
+        return sorted((round(t1 - t_base, 3), round((t1 - t0) * 1e3, 1))
+                      for ten, t0, t1 in self.spans
+                      if ten == tenant and (t1 - t0) * 1e3 > limit_ms)
 
     def off_count(self, want: dict) -> list:
         """Served, complete replies whose row count is not the text's
@@ -2615,6 +2649,7 @@ def tenant_run(proxy, name: str, texts: list, want: dict, k1, out: dict,
 
     checker = TenantReplies(proxy)
     before, k1_before = batch_series(), k1()
+    t_base = time.perf_counter()
     with LogCapture() as cap:
         rep = Emulator(checker).run_tenants(texts, seed=1, **kw)
     d = {k: v - before.get(k, 0) for k, v in batch_series().items()
@@ -2639,6 +2674,12 @@ def tenant_run(proxy, name: str, texts: list, want: dict, k1, out: dict,
             f" rejected {r['rejected']}; compliance {slo.get('compliance')},"
             f" budget left {slo.get('error_budget_remaining')}, latency met "
             f"{slo.get('latency_met')}, alerts {slo.get('alerts')}")
+    # a finding, not a gate: when gold's late calls fall (its warm-up
+    # counts toward its SLO window)
+    late = checker.late("gold", 50.0, t_base)
+    row["gold_late"] = late
+    log(f"    gold calls over 50 ms: {len(late)} (s from the run's start, "
+        f"ms): {late[:24]}")
     bad = checker.off_count(want)
     check(not bad, f"tenants [{name}]: {len(bad)} replies off their direct "
           f"count, e.g. {bad[:2]}")
@@ -3625,6 +3666,8 @@ GENERIC_KW = {"n_preds": 200, "n_types": 50, "seed": 1}  # bench.py --dbpedia
 INSERT_SHARE = 0.1  # (d): the share of WatDiv's triples loaded online
 WAL_SYNCS = ("none", "interval", "always")  # one insert round each
 EXTRA_EDGES = 50_000  # (e): the seeded batch inserted after the checkpoint
+# (e): a standing query's epochs fed after the checkpoint, and their rows
+STANDING_EPOCHS, STANDING_ROWS = 2, 4096
 # (e): the seeded WatDiv embeddings upserted, WAL-logged, after the checkpoint
 VECTORS_AFTER_CKPT = 50_000
 ID_FILES = 4  # (c): the DBpedia-shaped world written as id_*.nt files
@@ -4805,6 +4848,446 @@ def serve_hybrid(proxy, results: dict, errs: dict, seed: int,
     return kernel_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the serving caches and streams (serve/, obs/reuse.py, stream/)
+# ---------------------------------------------------------------------------
+
+# bench.py --readmostly's drill: four light families, up to 128 anchors each
+READMOSTLY_FAMILIES = ("advisor", "takesCourse", "memberOf", "teacherOf")
+# (reads and warm-up reads cut to half of the JAX bench's 600 / 300 for the
+# smoke's time: at LUBM-640 a write and the restage after it take about
+# 0.9 s, PERF.md §4)
+READMOSTLY = {"reads": 300, "warmup_reads": 150,
+              "write_rates": (0.0, 0.02, 0.08), "zipf_a": 1.2, "seed": 7,
+              "tenants": ["gold", "bulk"]}
+READMOSTLY_ANCHORS = 128
+WRITE_POOL = 4096  # seeded store triples the write phases sample from
+# the pure-hit burst: this many two-pattern texts (the drill's one-pattern
+# texts are a host CSR lookup on a miss and launch nothing; the second
+# step here is K1's) ...
+HIT_TEXTS = 32
+HIT_BURST = 512  # ... served this many times in all
+# the stream: epochs of new edges among existing entities
+STREAM_EPOCHS = 16
+STREAM_ROWS = 32_768
+STREAM_PREDS = ("memberOf", "worksFor", "advisor", "takesCourse")
+STREAM_WINDOW = 4  # S3 and S4: a tumbling window of this many epochs
+STREAM_CLIENTS = 4  # light clients sending teacherOf texts meanwhile, ...
+STREAM_CLIENT_GAP_S = 0.01  # ... each pausing this long between replies
+STANDING = {
+    # scripts/bench_stream.py's const_type
+    "S1": PREFIX + """SELECT ?X WHERE {
+        ?X ub:worksFor <http://www.Department0.University0.edu> .
+        ?X rdf:type ub:FullProfessor . }""",
+    "S2": PREFIX + """SELECT ?X ?Y WHERE { ?X ub:advisor ?Y .
+        ?Y ub:worksFor <http://www.Department0.University0.edu> . }""",
+    "S3": PREFIX + "SELECT ?X ?Y WHERE { ?X ub:memberOf ?Y . }",
+    # scripts/bench_stream.py's chain2
+    "S4": PREFIX + """SELECT ?X ?Y ?Z WHERE {
+        ?X ub:memberOf ?Y . ?Y ub:subOrganizationOf ?Z . }""",
+}
+
+
+def family_texts(proxy, preds, anchors: int) -> list:
+    """``?s ub:<pred> <a>`` for the first ``anchors`` anchors of each
+    predicate's OUT index (bench.py --readmostly's texts)."""
+    import numpy as np
+
+    from wukong_tpu_torch.loader.lubm import UB
+    from wukong_tpu_torch.types import OUT
+
+    ss, g = proxy.str_server, proxy.g
+    out = []
+    for pred in preds:
+        pid = ss.str2id(f"<{UB}{pred}>")
+        out += [f"SELECT ?s WHERE {{ ?s <{UB}{pred}> {ss.id2str(int(a))} . }}"
+                for a in np.asarray(g.get_index(pid, OUT))[:anchors]]
+    return out
+
+
+def stream_batches(triples, ss, epochs: int, rows: int, seed: int) -> list:
+    """Each epoch: ``rows`` store triples of STREAM_PREDS drawn from the
+    seed, each with its object replaced by another object of the same
+    predicate (new edges among existing entities)."""
+    import numpy as np
+
+    from wukong_tpu_torch.loader.lubm import UB
+
+    rng = np.random.default_rng(seed + 14)
+    pids = [ss.str2id(f"<{UB}{p}>") for p in STREAM_PREDS]
+    pool = triples[np.isin(triples[:, 1], pids)]
+    objs = {pid: np.unique(pool[pool[:, 1] == pid, 2]) for pid in pids}
+    out = []
+    for _ in range(epochs):
+        b = pool[rng.integers(0, len(pool), rows)].copy()
+        for pid in pids:
+            sel = b[:, 1] == pid
+            b[sel, 2] = objs[pid][rng.integers(0, len(objs[pid]),
+                                               int(sel.sum()))]
+        out.append(b)
+    return out
+
+
+def projected(q, required=None) -> set:
+    """A reply's distinct rows over the query's projection."""
+    res = q.result
+    cols = [res.var2col(v) for v in (required or res.required_vars)]
+    if res.nrows == 0:
+        return set()
+    return set(map(tuple, res.table[:, cols].tolist()))
+
+
+def one_shot(store, ss, text) -> set:
+    """The host CPUEngine's distinct rows of ``text`` over ``store``."""
+    from wukong_tpu_torch.engine.cpu import CPUEngine
+    from wukong_tpu_torch.planner.heuristic import heuristic_plan
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    q = Parser(ss).parse(text)
+    heuristic_plan(q)
+    q.result.blind = False
+    CPUEngine(store, ss).execute(q, from_proxy=False)
+    check(q.result.status_code == 0, f"one-shot status {q.result.status_code}")
+    return projected(q)
+
+
+def verb_text(proxy, line: str) -> str:
+    import contextlib
+    import io
+
+    from wukong_tpu_torch.runtime.console import Console
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        Console(proxy).run_command(line)
+    return buf.getvalue().rstrip()
+
+
+def seed_outcomes() -> dict:
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    fam = get_registry().snapshot().get("wukong_stream_seed_batch_total") \
+        or {}
+    return {x["labels"].get("outcome"): x.get("value", 0)
+            for x in fam.get("series", [])}
+
+
+def serve_readmostly(proxy, triples, entry: dict, out: dict,
+                     reads: dict) -> None:
+    """(a) bench.py --readmostly's drill through Emulator.run_readmostly on
+    the card: shadow-only, then the result cache and views on, with the
+    JAX bench's gates (its q/s gate is a TPU number, not the port's: the
+    cached and uncached q/s are printed). Then a burst of pure hits: no
+    kernel launch, no host sync."""
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.engine import cuda_lib
+    from wukong_tpu_torch.runtime.emulator import Emulator
+    from wukong_tpu_torch.serve import get_serve
+
+    on_card = torch.device(proxy._device).type == "cuda"
+    texts = family_texts(proxy, READMOSTLY_FAMILIES, READMOSTLY_ANCHORS)
+    rng = np.random.default_rng(READMOSTLY["seed"])
+    pool = triples[rng.integers(0, len(triples), WRITE_POOL)]
+    for t in texts[::READMOSTLY_ANCHORS]:  # parse and plan caches warm
+        proxy.serve_query(t, blind=True)
+    emu = Emulator(proxy)
+    kw = dict(READMOSTLY, **reads, write_batch=pool)
+    entry["name"] = "(a) shadow only"
+    t0 = time.perf_counter()
+    rep = emu.run_readmostly(texts, **kw)
+    shadow_s = time.perf_counter() - t0
+    check(rep["predicted_hit_rate"] is not None
+          and rep["predicted_hit_rate"] >= 0.5,
+          f"(a) predicted hit rate {rep['predicted_hit_rate']} < 0.5")
+    check(rep["degrades"], "(a) the hit rate does not fall as writes rise: "
+          + str([p["hit_rate"] for p in rep["phases"]]))
+    check(rep["store_untouched"], "(a) the store's digest or version moved "
+          "over the read-only phase")
+    entry["name"] = "(a) cached, views"
+    t0 = time.perf_counter()
+    with Knobs(None, view_promote_edges=1, views_max=256):
+        crep = emu.run_readmostly(texts, **kw, cached=True, views=True)
+    cached_s = time.perf_counter() - t0
+    real = crep["real"]
+    check(real["identical"], f"(a) {real['mismatches']} cached replies "
+          "differ from an uncached execution")
+    check(real["beats_shadow"], f"(a) real hit rate {real['hit_rate']} "
+          f"under the shadow's {real['shadow_predicted']}")
+    check(real["hit_rate_drop_pts"] is not None
+          and real["hit_rate_drop_pts"] <= 15.0,
+          f"(a) the real hit rate drops {real['hit_rate_drop_pts']} points "
+          "at 8% writes")
+    phases = [{k: p.get(k) for k in ("write_rate", "hit_rate", "qps",
+                                     "writes", "real_hit_rate", "cached_qps",
+                                     "uncached_qps")}
+              for p in crep["phases"]]
+    out["readmostly"] = {
+        "texts": len(texts), **{k: v for k, v in kw.items()
+                                if k != "write_batch"},
+        "predicted_hit_rate": rep["predicted_hit_rate"],
+        "shadow_phases": [{k: p[k] for k in ("write_rate", "hit_rate", "qps",
+                                             "writes")}
+                          for p in rep["phases"]],
+        "cached_phases": phases, "zipf_alpha": rep["zipf_alpha"],
+        "real": {k: real[k] for k in ("identical", "hit_rate",
+                                      "shadow_predicted", "readmostly_qps",
+                                      "uncached_qps", "speedup_vs_uncached",
+                                      "hit_rate_drop_pts", "divergence")},
+        "views": {k: real["views"][k] for k in ("registered", "promoted",
+                                                "rejected", "demoted")},
+        "shadow_s": shadow_s, "cached_s": cached_s}
+    log(f"  (a) shadow only: predicted hit rate {rep['predicted_hit_rate']}"
+        f", hit rate by write rate "
+        f"{[(p['write_rate'], p['hit_rate']) for p in rep['phases']]}, "
+        f"q/s {[p['qps'] for p in rep['phases']]} ({shadow_s:.1f} s)")
+    log(f"  (a) cached + views: real hit rate by write rate "
+        f"{[(p['write_rate'], p['real_hit_rate']) for p in phases]} (drop "
+        f"{real['hit_rate_drop_pts']} points), every reply identical to an "
+        f"uncached one; read-only phase {real['readmostly_qps']} q/s "
+        f"cached, {real['uncached_qps']} q/s uncached (x"
+        f"{real['speedup_vs_uncached']}); views {out['readmostly']['views']}"
+        f" ({cached_s:.1f} s)")
+    # a burst of pure hits: texts executed once on the card (K1 probes
+    # their second step), then answered on the fast path
+    from wukong_tpu_torch.loader.lubm import UB
+
+    hot = [t.replace(" . }", f" . ?s <{UB}takesCourse> ?c . }}").replace(
+        "SELECT ?s WHERE", "SELECT ?s ?c WHERE")
+        for t in family_texts(proxy, ("advisor",), HIT_TEXTS)]
+    with Knobs(None, enable_result_cache=True):
+        entry["name"] = "(a) burst misses"
+        n0 = cuda_lib.thread_launches()
+        for t in hot:
+            q = proxy.serve_query(t, blind=True)
+            check(q.result.status_code == 0
+                  and q.__dict__.get("_rc_probe") == "miss",
+                  "(a) a burst text's first serve was not an executed miss")
+        missed = cuda_lib.thread_launches() - n0
+        check(missed > 0 or not on_card,
+              "(a) the burst texts' misses launched no kernel")
+        for t in hot:
+            proxy.serve_query(t, blind=True)
+        rc = get_serve().cache
+        h0 = rc.stats()["hits"]
+        n0 = cuda_lib.thread_launches()
+        entry["name"] = "(a) hit burst"
+
+        def burst():
+            for k in range(HIT_BURST):
+                q = proxy.serve_query(hot[k % len(hot)], blind=True)
+                check(q.__dict__.get("_rc_probe") == "hit",
+                      "(a) a burst reply was not a cache hit")
+
+        t0 = time.perf_counter()
+        if on_card:
+            # the counter's own use, with no work (phase 7's baseline):
+            # what it reports here is not the burst's
+            base, base_sites = count_syncs(lambda: None)
+            syncs, sites = count_syncs(burst)
+            for at, n in base_sites.items():
+                if sites.get(at, 0) <= n:
+                    syncs -= sites.pop(at, 0)
+        else:
+            burst()
+            syncs, sites, base = 0, {}, 0
+        burst_s = time.perf_counter() - t0
+        launched = cuda_lib.thread_launches() - n0
+    check(rc.stats()["hits"] - h0 == HIT_BURST,
+          f"(a) {rc.stats()['hits'] - h0} hits of {HIT_BURST}")
+    check(launched == 0, f"(a) the hit burst launched {launched} kernels")
+    check(syncs == 0, f"(a) the hit burst synced the host {syncs} times at "
+          f"{sites}")
+    out["hit_burst"] = {"replies": HIT_BURST, "texts": len(hot),
+                        "miss_launches": missed,
+                        "launches": launched, "syncs": syncs,
+                        "counter_baseline": base,
+                        "qps": HIT_BURST / burst_s}
+    log(f"  (a) {len(hot)} two-pattern texts executed on their misses "
+        f"({missed} kernel launches), then {HIT_BURST} pure hits over them: 0 "
+        f"kernel "
+        f"launches, 0 host syncs (the counter's own use, with no work: "
+        f"{base}), {HIT_BURST / burst_s:,.0f} replies/s")
+    log("  (a) cache verb:\n    "
+        + verb_text(proxy, "cache -k 4").replace("\n", "\n    "))
+    log("  (a) history verb:\n    "
+        + verb_text(proxy, "history -k 6").replace("\n", "\n    "))
+
+
+def serve_stream(proxy, triples, entry: dict, out: dict, epochs: int,
+                 rows: int, seed: int) -> None:
+    """(b) the stream: STANDING's queries on the pool's stream lane while
+    STREAM_CLIENTS light clients send teacherOf texts (which the stream
+    never writes); each epoch's device frontier held against the host
+    twin; the standing results against one-shots at the end."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from wukong_tpu_torch.loader.lubm import UB
+    from wukong_tpu_torch.store.gstore import build_partition
+    from wukong_tpu_torch.stream import WindowSpec
+    from wukong_tpu_torch.stream import continuous as C
+
+    ss = proxy.str_server
+    batches = stream_batches(triples, ss, epochs, rows, seed)
+    sub = ss.str2id(f"<{UB}subOrganizationOf>")
+    base = triples[triples[:, 1] == sub]
+    ctx = proxy.stream_context(use_pool=True)
+    check(ctx.continuous.pool is not None,
+          "(b) the stream context was built before phase 14, without the "
+          "pool's stream lane")
+    win = WindowSpec.tumbling(STREAM_WINDOW)
+    t0 = time.perf_counter()
+    qids = {"S1": proxy.stream_register(STANDING["S1"]),
+            "S2": proxy.stream_register(STANDING["S2"]),
+            "S3": proxy.stream_register(STANDING["S3"], window=win),
+            "S4": proxy.stream_register(STANDING["S4"], window=win,
+                                        base_triples=base)}
+    reg_s = time.perf_counter() - t0
+    # the clients' texts and their rows (the stream never writes teacherOf)
+    light = family_texts(proxy, ("teacherOf",), 64)
+    want = {t: proxy.serve_query(t, blind=True).result.nrows for t in light}
+    stop = threading.Event()
+    errors: list = []
+    served = [0] * STREAM_CLIENTS
+
+    def client(k: int) -> None:
+        rng = np.random.default_rng(seed + k)
+        try:
+            while not stop.is_set():
+                t = light[int(rng.integers(0, len(light)))]
+                q = proxy.serve_query(t, blind=True, tenant="gold")
+                if q.result.status_code != 0 or q.result.nrows != want[t]:
+                    errors.append((t, q.result.status_code, q.result.nrows))
+                served[k] += 1
+                stop.wait(STREAM_CLIENT_GAP_S)
+        except Exception as e:  # a client's error fails the phase
+            errors.append(repr(e))
+
+    # every epoch's frontier as the device computed it, beside its time
+    frontiers: list = []
+    orig = C.device_seed_extract
+
+    def recorded(patterns, batch, owner=None, device=None):
+        t1 = time.perf_counter()
+        got = orig(patterns, batch, owner=owner, device=device)
+        if got is not None:
+            frontiers.append((list(patterns), batch, got,
+                              time.perf_counter() - t1))
+        return got
+
+    o0 = seed_outcomes()
+    entry["name"] = "(b) stream clients"
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(STREAM_CLIENTS)]
+    C.device_seed_extract = recorded
+    try:
+        for th in threads:
+            th.start()
+        t0 = time.perf_counter()
+        recs = []
+        for k, b in enumerate(batches):
+            recs.append(proxy.stream_feed(b))
+            if k % 4 == 3:
+                log(f"  (b) epoch {k + 1}: {time.perf_counter() - t0:.1f} s")
+        feed_s = time.perf_counter() - t0
+    finally:
+        C.device_seed_extract = orig
+        stop.set()
+        for th in threads:
+            th.join(60)
+    check(not errors, f"(b) light clients failed: {errors[:3]}")
+    fused = seed_outcomes().get("fused", 0) - o0.get("fused", 0)
+    check(fused >= epochs and len(frontiers) >= epochs,
+          f"(b) the device frontier ran {fused} times over {epochs} epochs")
+    # each epoch's seed rows against the host twin (match_delta)
+    dev_ms, host_ms = [], []
+    for patterns, batch, got, dt in frontiers:
+        t1 = time.perf_counter()
+        host = [C.match_delta(p, batch) for p in patterns]
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+        dev_ms.append(dt * 1e3)
+        for i, (hv, hs) in enumerate(host):
+            check(got[i][0] == hv and np.array_equal(got[i][1], hs),
+                  f"(b) a frontier term's seed rows differ from the host "
+                  f"twin's ({len(got[i][1])} rows, host {len(hs)})")
+    # the standing results against one-shots
+    for name in ("S1", "S2"):
+        have = set(map(tuple, ctx.result_set(qids[name]).tolist()))
+        host = projected(proxy.serve_query(STANDING[name], device="cpu"))
+        card = projected(proxy.serve_query(STANDING[name]))
+        check(have == host == card, f"(b) {name}: {len(have)} standing "
+              f"rows, host one-shot {len(host)}, card {len(card)}")
+    live = np.concatenate([b for _e, b in
+                           ctx.continuous.queries[qids["S3"]].window.live])
+    for name, extra in (("S3", None), ("S4", base)):
+        store = build_partition(live if extra is None
+                                else np.concatenate([extra, live]), 0, 1)
+        have = set(map(tuple, ctx.result_set(qids[name]).tolist()))
+        want_w = one_shot(store, ss, STANDING[name])
+        check(have == want_w, f"(b) {name}: {len(have)} standing rows, the "
+              f"live window's one-shot {len(want_w)}")
+    st = proxy.monitor.stream_stats()
+    sizes = {n: len(ctx.result_set(q)) for n, q in qids.items()}
+    rec = {"epochs": epochs, "rows": rows, "register_s": reg_s,
+           "feed_s": feed_s, "epochs_per_s": epochs / feed_s,
+           "inserts_per_s": sum(r.n_inserted for r in recs) / feed_s,
+           "eval_us": st["eval_us_cdf"], "lag_us": st["lag_us_cdf"],
+           "frontier_ms": dev_ms, "host_twin_ms": host_ms,
+           "frontier_calls": len(frontiers), "fused": fused,
+           "client_replies": sum(served), "standing_rows": sizes,
+           "retractions": sum(d.sign < 0 for q in qids.values()
+                              for d in ctx.poll(q))}
+    out["stream"] = rec
+    log(f"  (b) {epochs} epochs of {rows:,} triples: {rec['epochs_per_s']:.2f}"
+        f" epochs/s, {rec['inserts_per_s']:,.0f} inserts/s; eval p50/p99 "
+        f"{st['eval_us_cdf'].get(0.5, 0) / 1e3:,.1f}/"
+        f"{st['eval_us_cdf'].get(0.99, 0) / 1e3:,.1f} ms, lag p50/p99 "
+        f"{st['lag_us_cdf'].get(0.5, 0) / 1e3:,.1f}/"
+        f"{st['lag_us_cdf'].get(0.99, 0) / 1e3:,.1f} ms; the frontier "
+        f"({len(frontiers)} calls, {len(frontiers[0][0])} terms) median "
+        f"{statistics.median(dev_ms):.2f} ms on the device against "
+        f"{statistics.median(host_ms):.2f} ms for the host twin, seed rows "
+        f"equal; standing rows {sizes} equal to the one-shots; "
+        f"{sum(served):,} client replies meanwhile, all equal")
+    for q in qids.values():
+        proxy.stream_unregister(q)
+    del frontiers
+    if torch.device(proxy._device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_caches_streams(proxy, triples, entry: dict, results: dict,
+                         seed: int = 0, reads: dict | None = None,
+                         epochs: int = STREAM_EPOCHS,
+                         rows: int = STREAM_ROWS) -> None:
+    """Phase 14 on phase 3's proxy: (a) the read-mostly drill and the hit
+    burst, (b) the stream. ``reads`` overrides READMOSTLY's read counts (a
+    CPU rehearsal runs it small)."""
+    out = results["caches_streams"] = {}
+    t0 = time.perf_counter()
+    serve_readmostly(proxy, triples, entry, out, reads or {})
+    t1 = time.perf_counter()
+    serve_stream(proxy, triples, entry, out, epochs, rows, seed)
+    out["seconds"] = {"readmostly": t1 - t0,
+                      "stream": time.perf_counter() - t1}
+    # the stream lane's pool engines hold the proxy (their engine factory
+    # is its method): stopped here, or the proxy outlives its drop; and the
+    # serving plane lets go of phase 3's store (its views and entries hold
+    # host memory only, but the store is the size of the world)
+    from wukong_tpu_torch.serve import get_serve
+
+    stop_pool(proxy)
+
+    get_serve().reset()
+    get_serve().attach(None, None)
+    log(f"  phase 14 seconds: {out['seconds']}")
+
+
 def dir_bytes(path: str) -> int:
     total = 0
     for root, _dirs, files in os.walk(path):
@@ -4974,13 +5457,34 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
 
     # ---- (e) durability ----
     dur = out["durability"] = {}
+    users = np.unique(wt[wt[:, 1] == WP["friendOf"], 0])
+    # a standing WatDiv query rides the bundle: registered before the
+    # checkpoint, STANDING_EPOCHS epochs fed after it (WAL epoch records)
+    from wukong_tpu_torch.loader.watdiv import WSDBM
+
+    star = int(users[0])
+    stext = (f"SELECT ?x WHERE {{ ?x <{WSDBM}friendOf> "
+             f"{ss.id2str(star)} . }}")
+    sq = proxy.stream_register(stext)
     t0 = time.perf_counter()
     con.run_command("checkpoint")
     dur["checkpoint_s"] = time.perf_counter() - t0
     ck = proxy.recovery().newest_checkpoint()
     check(ck is not None, "(e) no checkpoint written")
+    check(os.path.exists(os.path.join(ck[0], "stream.pkl")),
+          "(e) the checkpoint holds no stream registry")
     dur["checkpoint_bytes"] = dir_bytes(ck[0])
-    users = np.unique(wt[wt[:, 1] == WP["friendOf"], 0])
+    srng = np.random.default_rng(seed + 4)
+    for _ in range(STANDING_EPOCHS):
+        b = np.stack([users[srng.integers(0, len(users), STANDING_ROWS)],
+                      np.full(STANDING_ROWS, WP["friendOf"]),
+                      users[srng.integers(0, len(users), STANDING_ROWS)]], 1)
+        b[::8, 2] = star  # an eighth of the epoch reaches the standing query
+        proxy.stream_feed(b)
+    ctx = proxy.stream_context()
+    swant = ctx.result_set(sq)
+    ssink = [(d.epoch, d.sign, d.rows.tolist()) for d in ctx.poll(sq)]
+    sepoch = ctx.epoch
     extra = np.unique(np.stack([users[rng.integers(0, len(users),
                                                    EXTRA_EDGES)],
                                 np.full(EXTRA_EDGES, WP["friendOf"]),
@@ -5022,7 +5526,17 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
               "(e) the vector store's digest differs after recover")
         kgot = fresh.serve_query(ktext).result.table.tolist()
     check(kgot == kwant, "(e) the knn reply differs after recover")
-    dur.update(vectors=int(len(vvids)), vstore_digest=int(vdigest))
+    fctx = fresh.stream_context()
+    check(sorted(fctx.continuous.queries) == [sq]
+          and fctx.epoch == sepoch
+          and np.array_equal(fctx.result_set(sq), swant)
+          and [(d.epoch, d.sign, d.rows.tolist()) for d in fctx.poll(sq)]
+          == ssink,
+          f"(e) the standing query after recover: registry "
+          f"{sorted(fctx.continuous.queries)}, epoch {fctx.epoch} (want "
+          f"{sepoch}), {len(fctx.result_set(sq))} rows (want {len(swant)})")
+    dur.update(vectors=int(len(vvids)), vstore_digest=int(vdigest),
+               standing_rows=int(len(swant)), standing_epochs=sepoch)
     got, _ms = served_rows(fresh, texts, device, 1, entry, "(e) recovered ")
     for name in texts:
         check(same_rows(got[name], want[name]),
@@ -5034,7 +5548,9 @@ def phase12_online(out: dict, entry: dict, device, wt, full_rows: dict,
         f"{len(vvids):,} vectors (vstore digest {vdigest} and a knn reply "
         f"equal after recover); "
         f"WAL {dur['wal_bytes']:,} B; recover {dur['recover_s']:.2f} s: "
-        f"gstore_digest {digest} equal, the twelve templates' rows equal")
+        f"gstore_digest {digest} equal, the twelve templates' rows equal; "
+        f"a standing query's registry, {len(swant):,} rows and sink equal "
+        f"after {sepoch} epochs replayed from the WAL")
     Global.wal_dir = Global.checkpoint_dir = ""
     Global.wal_sync = "none"
     del fresh
@@ -5393,6 +5909,35 @@ def main(argv=None) -> int:
         f"Proxy.serve_query: the GraphRAG mix, the full-size scan, "
         f"pattern-then-rank, the drill; {card}")
     rows += serve_hybrid(proxy, results, errs, args.seed)
+
+    # ---- 14. the serving caches and streams, on phase 3's proxy ----------
+    log(f"caches and streams: LUBM-{args.scale} on {kind}, the read-mostly "
+        f"drill (shadow, then the result cache and views), a burst of pure "
+        f"hits, {STREAM_EPOCHS} stream epochs on the pool's stream lane; "
+        f"{card}")
+    t0 = time.perf_counter()
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: entry["name"], lambda a: entry["name"])
+    try:
+        serve_caches_streams(proxy, triples, entry, results, args.seed)
+    finally:
+        restore_all(captures.values())
+    torch.cuda.synchronize()
+    by_part = {name: dict(c.launches) for name, c in captures.items()}
+    log(f"caches and streams: kernel launches by part {by_part} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    k1 = captures["probe_kernel"].launches
+    check(sum(k1.values()) == kernel_fns["probe_kernel"][0].launches,
+          "K1's launches by part do not add up to its count")
+    check(k1.get("(a) burst misses", 0) > 0,
+          "K1 did not launch on the burst texts' misses")
+    check(not any(c.launches.get("(a) hit burst", 0)
+                  for c in captures.values()),
+          "a kernel launched in the hit burst")
+    results["caches_streams"]["launches"] = by_part
+    rows += merged_rows(captures, "14 caches and streams", kernel_fns, errs)
+    del captures
 
     # ---- the drop of phase 3's proxy --------------------------------------
     del proxy, triples, g, vseg

@@ -238,7 +238,7 @@ def test_load_gsck_checkpoint_recover_verbs(dataset, capfd, tmp_path):
            for s in ("port", "jax")]
     assert got[0] == got[1] and got[0][0] != "0"
     assert _rows_logged(logs["port"]) == _rows_logged(logs["jax"])
-    assert "ROADMAP §A 9" in logs["port"]  # recover -d needs --dist
+    assert "the distributed engine" in logs["port"]  # recover -d: --dist
     recovered = [re.search(r"recovered: checkpoint=\S+ replayed=(.*) epoch",
                            logs[s + " recovered"]).group(1)
                  for s in ("port", "jax")]

@@ -192,8 +192,8 @@ def test_checkpoint_fault_writes_nothing(world, dirs):
         faults.install(None)
     with pytest.raises(WukongError, match="checkpoint_dir"):
         recovery.RecoveryManager([], ckpt_dir="").checkpoint()
-    with pytest.raises(WukongError, match="§A 8"):
-        recovery.RecoveryManager([], stream=object())
+    with pytest.raises(WukongError, match="the distributed engine"):
+        recovery.RecoveryManager([], sstore=object())
 
 
 def test_periodic_checkpointer(world, dirs, monkeypatch):

@@ -19,7 +19,8 @@ plain ``threading.Lock``, :func:`make_rlock` a plain ``threading.RLock``
 ``threading.Condition`` (the batcher's). A module-level lock created at
 import registers through :func:`register_global_lock`, and :func:`install`
 rebuilds it, so whole-process checked mode covers it. The JAX module's
-hold/contention histograms wait for the observatory (ROADMAP §A 10).
+hold/contention histograms wait for the observatory (ROADMAP §A, "The rest
+of the observatory, and the analysis plugins").
 """
 
 from __future__ import annotations

@@ -253,6 +253,54 @@ class GlobalConfig:
     # per-tenant sentinel re-arm delay: one burn episode, one dump
     slo_dump_cooldown_s: int = 60
 
+    # ---- the metrics time-series ring (obs/tsdb.py; all mutable): sample
+    # the registry every tsdb_interval_s seconds into a bounded ring
+    # tsdb_retention_s deep (windowed rates and percentiles: the `history`
+    # verb, the reuse observatory's trend). One snapshot an interval, on a
+    # daemon thread. ----
+    enable_tsdb: bool = True
+    tsdb_interval_s: int = 5
+    tsdb_retention_s: int = 900
+
+    # ---- the serving-cache observatory (obs/reuse.py; all mutable): the
+    # template popularity ledger and the observe-only shadow cache charged
+    # at the proxy's reply point (key = plan signature + constants + store
+    # version, the result cache's key; no result is stored). Off, every
+    # hook, the mutation paths' invalidation notes included, is one knob
+    # check. ----
+    enable_reuse: bool = True
+    # per-template arrival samples kept for the windowed rate
+    reuse_window: int = 512
+    # distinct templates before new ones land in "__overflow__"
+    reuse_templates_max: int = 256
+    # shadow key ring capacity (the simulated cache's entry budget)
+    shadow_cache_size: int = 4096
+    # sample the shadow probe 1 in N replies (the ledger charge always runs)
+    reuse_sample_every: int = 1
+
+    # ---- the serving plane (serve/; all mutable) ----
+    # the version-keyed full-result cache in the proxy's reply path. Off,
+    # the serving path is unchanged; on, it admits only what the reuse
+    # observatory's ledger vouches for (enable_reuse off: nothing)
+    enable_result_cache: bool = False
+    # result bytes held (LRU past it; one entry at most a quarter of it)
+    result_cache_mb: int = 64
+    # a reply is cached once its template has this many ledger reads,
+    # counting the reply itself
+    result_cache_min_reads: int = 1
+    # promote templates that stay hot across version edges into views kept
+    # by semi-naive delta evaluation, so their entries survive writes
+    enable_views: bool = False
+    # version-edge refills a template needs before promotion
+    view_promote_edges: int = 2
+    # demote a view touched on more than this percent of its edges (after
+    # 8 edges)
+    view_demote_touch_pct: int = 60
+    # most views maintained at once
+    views_max: int = 64
+    # cost-aware admission and eviction (recompute us per byte held)
+    result_cache_cost_model: bool = True
+
     # ---- the device trace (obs/export.py): a torch.profiler capture of
     # run_single_query's execution is written here as a Chrome trace
     # ("" = the WUKONG_XPROF_DIR environment variable, else no capture) ----

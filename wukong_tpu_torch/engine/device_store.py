@@ -300,7 +300,8 @@ class DeviceStore:
         because every launch runs on the one default stream
         (``cuda_lib.stream_ptr``): the caching allocator hands freed blocks
         out again in stream order, so a later allocation's writes queue
-        behind the pending reads. Per-thread streams (ROADMAP §A 12) will
+        behind the pending reads. Per-thread streams (ROADMAP A′, "Per-thread
+        CUDA streams for serving threads") will
         need ``Tensor.record_stream`` on each staged tensor for every stream
         that reads it, or an event the freeing thread waits on."""
         v = getattr(self.g, "version", 0)

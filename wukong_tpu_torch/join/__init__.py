@@ -22,7 +22,8 @@ Layout:
 The planner selects the strategy per query (``Planner.choose_strategy``,
 ``join_strategy`` knob: ``auto``/``walk``/``wcoj``); every outcome is a
 member of :data:`JOIN_STRATEGIES`. The JAX package's distributed join
-(``join/dist.py``) waits for the sharded store (ROADMAP §A 9).
+(``join/dist.py``) waits for the sharded store (ROADMAP §A, "``parallel/``,
+the distributed engine").
 """
 
 from __future__ import annotations

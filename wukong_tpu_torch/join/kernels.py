@@ -19,9 +19,12 @@ cannot do in a few launches (``depth`` iterations of about six ops per
 adjacency): on a CUDA tensor it launches the hand-written kernel
 ``csrc/level_probe.cu`` (which replaces the JAX ``jit_level_probe``), on a
 CPU tensor it runs :func:`level_probe_plain`, the same function in plain
-PyTorch. The JAX module's streaming and distributed kernels
-(``unique_rows_padded``, ``seed_*``, ``concat_rows_padded``) wait for the
-stream plane and the distributed join (ROADMAP §A 5 and §A 7).
+PyTorch. The stream plane's epoch frontier (``seed_masks``,
+``seed_extract``, ``unique_rows_padded``) is a dozen stock torch ops on the
+card, batched over terms as one [T, N] computation; the NumPy twins
+(``seed_masks_host``, ``seed_extract_host``) are its parity oracles. The
+distributed join's ``concat_rows_padded`` waits for the distributed engine
+(ROADMAP §A, "``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -432,3 +435,127 @@ def expand_padded(start, deg, edges, out_cap: int):
     fsum = deg.to(torch.float32).sum()
     overflow = (total > out_cap) | (total < 0) | (fsum > float(out_cap))
     return rowc, values, valid, total, overflow
+
+
+# ---------------------------------------------------------------------------
+# the stream plane's epoch frontier (stream/continuous.py)
+# ---------------------------------------------------------------------------
+
+def seed_masks(s, p, o, tp, ts, to, eq):
+    """Every semi-naive term's frontier row mask over an epoch batch,
+    [T, N]: triples [N] columns against per-term specs [T] (predicate,
+    subject-const, object-const, repeated-var equality; -1 = wildcard
+    endpoint). NumPy arrays or torch tensors: the broadcasting below is the
+    same in both libraries, so the host twin and the device path are one
+    function, as in the JAX module."""
+    m = p[None, :] == tp[:, None]
+    m &= (ts[:, None] < 0) | (s[None, :] == ts[:, None])
+    m &= (to[:, None] < 0) | (o[None, :] == to[:, None])
+    m &= (~eq[:, None]) | (s[None, :] == o[None, :])
+    return m
+
+
+def seed_masks_host(s, p, o, tp, ts, to, eq) -> np.ndarray:
+    """NumPy instance of :func:`seed_masks` (the parity oracle)."""
+    return seed_masks(*(np.asarray(x) for x in (s, p, o, tp, ts, to, eq)))
+
+
+def _unique_rows_np(ca, cb, valid):
+    """The JAX module's padded two-column dedupe, in NumPy: live rows
+    lexsorted (first column primary), adjacent duplicates masked, the
+    survivors stably compacted to the front, sorted duplicates after."""
+    n = int(ca.shape[0])
+    order = np.lexsort((cb, ca, ~valid))
+    a, b, v = ca[order], cb[order], valid[order]
+    first = np.concatenate([np.ones(1, dtype=bool),
+                            (a[1:] != a[:-1]) | (b[1:] != b[:-1])])
+    uniq = v & first
+    count = np.sum(uniq.astype(np.int32))
+    comp = np.lexsort((np.arange(n), ~uniq))
+    return a[comp], b[comp], count
+
+
+def _stable_first(flag: torch.Tensor) -> torch.Tensor:
+    """Per-row stable permutation that moves the True entries of ``flag``
+    [T, N] to the front, in their order."""
+    return torch.sort((~flag).to(torch.uint8), dim=1, stable=True).indices
+
+
+def _unique_rows_t(A: torch.Tensor, B: torch.Tensor, valid: torch.Tensor):
+    """The batched dedupe on torch tensors: for each of T rows of [T, N]
+    int32 columns, the distinct live (a, b) pairs in ascending order,
+    compacted to the front, and their count. One int64 composite key
+    (a << 32 | b + 2^31, monotone in (a, b) over all of int32) sorted
+    stably, then stably by liveness (a live key may equal any value, so
+    dead rows are ordered by a flag, not a sentinel key); an adjacent
+    difference marks the first of each run, and a last stable sort
+    compacts the survivors. No host sync."""
+    key = (A.to(torch.int64) << 32) + (B.to(torch.int64) + (1 << 31))
+    order = torch.sort(key, dim=1, stable=True).indices
+    key = key.gather(1, order)
+    live = valid.gather(1, order)
+    order = _stable_first(live)
+    key = key.gather(1, order)
+    live = live.gather(1, order)
+    first = torch.ones_like(live)
+    first[:, 1:] = key[:, 1:] != key[:, :-1]
+    uniq = live & first
+    count = uniq.sum(dim=1, dtype=torch.int32)
+    key = key.gather(1, _stable_first(uniq))
+    a = (key >> 32).to(torch.int32)
+    b = ((key & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+    return a, b, count
+
+
+def unique_rows_padded(ca, cb, valid):
+    """Padded two-column row dedupe matching ``np.unique(axis=0)`` order:
+    ``(col_a, col_b, count)`` with the first ``count`` rows equal, bit for
+    bit, to the host oracle's unique rows. A one-column dedupe passes the
+    same array as both columns. NumPy input runs the JAX module's lexsort
+    twin, whose padding holds the sorted duplicates; torch input runs the
+    composite-key sort, whose padding is unspecified (its values are the
+    dead rows' and duplicates' in key order)."""
+    if _is_t(ca):
+        a, b, c = _unique_rows_t(ca[None], cb[None], valid[None])
+        return a[0], b[0], c[0]
+    return _unique_rows_np(np.asarray(ca), np.asarray(cb),
+                           np.asarray(valid))
+
+
+def seed_extract_term(s, p, o, tp, ts, to, eq, ca, cb):
+    """One semi-naive term's fused frontier (NumPy): the seed_masks row
+    mask and the term's unique seed rows in one pass over the padded
+    epoch batch. ``ca``/``cb`` select the term's seed columns out of the
+    stacked (s, p, o) columns (``ca == cb`` for a one-variable term).
+    Returns ``(col_a, col_b, count)``, the first ``count`` rows live, in
+    np.unique(axis=0) order."""
+    m = seed_masks_host(s, p, o, np.asarray([tp]), np.asarray([ts]),
+                        np.asarray([to]), np.asarray([eq]))[0]
+    cols = np.stack([np.asarray(s), np.asarray(p), np.asarray(o)])
+    return _unique_rows_np(cols[int(ca)], cols[int(cb)], m)
+
+
+def seed_extract_host(s, p, o, tp, ts, to, eq, ca, cb):
+    """NumPy twin of :func:`seed_extract` (the parity oracle): a Python
+    loop over terms, each through :func:`seed_extract_term`."""
+    outs = [seed_extract_term(s, p, o, np.asarray(tp)[t], np.asarray(ts)[t],
+                              np.asarray(to)[t], np.asarray(eq)[t],
+                              int(ca[t]), int(cb[t]))
+            for t in range(len(tp))]
+    return (np.stack([a for a, _, _ in outs]),
+            np.stack([b for _, b, _ in outs]),
+            np.asarray([int(c) for _, _, c in outs]))
+
+
+def seed_extract(s, p, o, tp, ts, to, eq, ca, cb):
+    """Every term's frontier mask AND its deduped seed rows for a whole
+    epoch batch, batched over terms as one [T, N] computation on torch
+    tensors (the JAX module's ``jit_seed_extract``, a vmap of
+    :func:`seed_extract_term`): ``(A [T, N], B [T, N], counts [T])`` int32,
+    each term's first ``counts[t]`` rows equal to np.unique(axis=0)'s over
+    its matching rows. The padding after them is unspecified (the JAX
+    function's holds sorted duplicates). No Python loop over terms and no
+    host sync: the caller copies the result back once."""
+    m = seed_masks(s, p, o, tp, ts, to, eq)
+    cols = torch.stack([s, p, o])
+    return _unique_rows_t(cols[ca.long()], cols[cb.long()], m)

@@ -14,7 +14,7 @@ pipeline
 ``load_dataset`` does both for every worker. An ``hdfs://`` directory is
 staged locally first by loader/hdfs.py. Presharding
 (``preshard_dataset``, ``load_host_partitions``) waits for the distributed
-engine (ROADMAP §A 9).
+engine (ROADMAP §A, "``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations

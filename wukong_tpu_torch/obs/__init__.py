@@ -15,10 +15,14 @@ plane and the event journal (the port's copy of the JAX package's obs/).
 - device.py   — the device-cost observatory: dispatch, compile and
   residency ledgers behind ``maybe_device_dispatch`` / ``charge_steps``
   / ``maybe_device_resident``, ``DEVICE_INPUTS``, ``render_device``
+- tsdb.py     — the metrics time-series ring (windowed rates and
+  percentiles; the ``history`` verb)
+- reuse.py    — the serving-cache observatory: template popularity, the
+  shadow cache, invalidation telemetry (the ``cache`` verb)
 
-The JAX package's heat, reuse, tsdb and placement observatories, its HTTP
-endpoints and its metrics snapshotter wait for the subsystems they observe
-(ROADMAP §A 8-10).
+The JAX package's heat and placement observatories, its HTTP endpoints and
+its metrics snapshotter wait for the subsystems they observe (ROADMAP §A,
+"The rest of the observatory, and the analysis plugins").
 """
 
 from wukong_tpu_torch.obs.events import (
@@ -47,6 +51,7 @@ from wukong_tpu_torch.obs.slo import (
     get_slo,
     render_slo,
 )
+from wukong_tpu_torch.obs.reuse import get_reuse, render_cache
 from wukong_tpu_torch.obs.trace import (
     QueryTrace,
     Span,
@@ -56,13 +61,20 @@ from wukong_tpu_torch.obs.trace import (
     maybe_start_trace,
     trace_event,
 )
+from wukong_tpu_torch.obs.tsdb import (
+    get_tsdb,
+    maybe_start_tsdb,
+    render_history,
+    stop_tsdb,
+)
 
 __all__ = [
     "ADMISSION_INPUTS", "ClusterEvent", "DUMP_CODES", "EventJournal",
     "FlightRecorder", "MetricsRegistry", "QueryTrace", "SLOSpec", "Span",
     "StepTrace", "activate", "chrome_trace_events", "current",
     "device_trace", "emit_event", "get_journal", "get_overload",
-    "get_recorder", "get_registry", "get_slo", "maybe_device_trace",
-    "maybe_start_trace", "render_events", "render_slo", "trace_event",
-    "write_chrome_trace",
+    "get_recorder", "get_registry", "get_reuse", "get_slo", "get_tsdb",
+    "maybe_device_trace", "maybe_start_trace", "maybe_start_tsdb",
+    "render_cache", "render_events", "render_history", "render_slo",
+    "stop_tsdb", "trace_event", "write_chrome_trace",
 ]

@@ -30,8 +30,8 @@ read to the registered metric that backs it; :func:`read_device_input` is
 its only read path. Surfaced as the ``device`` console verb and
 ``Monitor.device_lines``. Everything gates on ``enable_device_obs``
 (default on; off, every seam is one knob check). The JAX module's
-``device_trend`` and its ``/device`` HTTP endpoint wait for the time-series
-store and the HTTP plane (ROADMAP §A 10).
+``device_trend`` and its ``/device`` HTTP endpoint wait for the HTTP plane
+(ROADMAP §A, "The rest of the observatory, and the analysis plugins").
 """
 
 from __future__ import annotations

@@ -31,8 +31,8 @@ served), the WCOJ per-level table (``wcoj_levels``) and the device table
 (``device_steps``: one row per charged device dispatch — a chain step, a
 merge step, a WCOJ probe group, a template program) and the ``knn`` section
 of a hybrid query (its mode, route and scan size), as in the JAX package. The JAX module's
-``render_top`` (the ``top`` verb) needs the heat and reuse observatories
-and waits for them (ROADMAP §A 8-9).
+``render_top`` (the ``top`` verb) needs the heat observatory and waits for
+it (ROADMAP §A, "The rest of the observatory, and the analysis plugins").
 """
 
 from __future__ import annotations

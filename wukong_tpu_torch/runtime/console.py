@@ -10,13 +10,16 @@ tenant), sparql-emu, load (``load -d <dir> [-c]``: online inserts), gsck,
 load-stat, store-stat, checkpoint, recover, and the reports of the
 observability plane: trace (the flight recorder), explain and analyze
 (EXPLAIN / EXPLAIN ANALYZE), slo (tenant SLOs and the overload bus),
-admission (the admission plane), events (the event journal) and device
-(the device-cost observatory). One-shot mode with -c, else a REPL. The
-dataset may be an ``hdfs://`` directory, staged locally first. The
-engines run on the card unless ``--device cpu`` is given. The JAX
-console's other verbs (top, history, cache, plan, migrate, metrics) and
-``recover -d <shard>``, ``--dist``, ``--bind`` and the persistent compile
-cache wait for their slices (ROADMAP §A).
+admission (the admission plane), history (the metrics time-series ring),
+events (the event journal), cache (the serving plane and the reuse
+observatory) and device (the device-cost observatory). One-shot mode with
+-c, else a REPL. The dataset may be an ``hdfs://`` directory, staged
+locally first. The engines run on the card unless ``--device cpu`` is
+given; ``--bind`` binds the engine threads to cores. The JAX console's
+other verbs (top, plan, metrics; migrate and ``recover -d <shard>``),
+``--dist`` and the persistent compile cache wait for their slices (ROADMAP
+§A, "The rest of the observatory, and the analysis plugins" and
+"``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -59,9 +62,17 @@ slo [-k <n>] [-j]            per-tenant SLO compliance / error budgets /
                              burn rates + the overload signal bus
 admission [-k <n>] [-j]      admission control plane: overload level,
                              per-tenant quotas/weights, decision counts
+history [-k <n>] [-w <sec>] [-j]
+                             metrics trend windows from the time-series
+                             ring: counter rates, histogram percentiles,
+                             gauges
 events [-k <n>] [-s <shard>] [-K <kind>] [-j]
                              cluster event journal: breaker trips, SLO
                              burns, admission sheds, trace dumps
+cache [-k <n>] [-j]          serving plane + observatory: real result-
+                             cache hit rate/bytes/views, shadow hit rate,
+                             template popularity + cacheability verdicts,
+                             invalidation trend
 device [-k <n>] [-j]         device-cost observatory: dispatches, padding
                              efficiency, variants, residency, demotions
 checkpoint                   write one atomic checkpoint to checkpoint_dir;
@@ -122,8 +133,12 @@ class Console:
                 self._report(rest, "slo")
             elif cmd == "admission":
                 self._report(rest, "admission")
+            elif cmd == "history":
+                self._history(rest)
             elif cmd == "events":
                 self._events(rest)
+            elif cmd == "cache":
+                self._cache(rest)
             elif cmd == "device":
                 self._device(rest)
             elif cmd == "checkpoint":
@@ -146,6 +161,11 @@ class Console:
             load_config(rest[1])
         elif rest[0] == "-s":
             reload_config(" ".join(rest[1:]).replace("=", " "))
+            # a flip of enable_tsdb from off to on after boot needs the
+            # idempotent sampler start re-invoked
+            from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
+
+            maybe_start_tsdb()
         else:
             log_error("usage: config <-v | -l <file> | -s <key value>>")
 
@@ -372,6 +392,30 @@ class Console:
         ns = ap.parse_args(rest)
         self._print_report(ns.j, *render_device(ns.k))
 
+    def _history(self, rest) -> None:
+        """history: metrics trend windows from the time-series ring."""
+        from wukong_tpu_torch.obs.tsdb import render_history
+
+        ap = argparse.ArgumentParser(prog="history")
+        ap.add_argument("-k", type=int, default=None,
+                        help="rows per section (default: the top_k knob)")
+        ap.add_argument("-w", type=float, default=None,
+                        help="trend window seconds (default: retention)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_history(ns.k, ns.w))
+
+    def _cache(self, rest) -> None:
+        """cache: the serving plane + the reuse observatory."""
+        from wukong_tpu_torch.obs.reuse import render_cache
+
+        ap = argparse.ArgumentParser(prog="cache")
+        ap.add_argument("-k", type=int, default=None,
+                        help="template rows shown (default: the top_k knob)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_cache(ns.k))
+
     def _events(self, rest) -> None:
         """events: the cluster event journal."""
         from wukong_tpu_torch.obs.events import render_events
@@ -397,7 +441,8 @@ class Console:
         ns = ap.parse_args(rest)
         if ns.drill is not None:
             log_error("recover -d: the kill-and-recover drill needs --dist, "
-                      "which is not ported yet (ROADMAP §A 9)")
+                      "which is not ported yet (ROADMAP §A, \"parallel/, "
+                      "the distributed engine\")")
             return
         stats = self.proxy.recover()
         log_info(f"recovered: checkpoint={stats['checkpoint']} "

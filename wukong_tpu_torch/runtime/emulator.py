@@ -37,8 +37,12 @@ conflicting SLOs send closed-loop traffic through
 (``chaos``) or at a multiple of their client counts (``overload_x``, the
 admission drill). ``Emulator.run_graphrag`` is the GraphRAG mix: pure
 graph texts and a knn()-seeded hybrid template over Zipf-popular anchors.
-The JAX emulator's other scenario runners (drills, hot spots, rebalancing)
-and its metrics snapshotter wait for the subsystems they drive.
+``Emulator.run_readmostly`` is the Zipfian read-mostly drill of the serving
+caches: observe-only (the shadow cache's predicted hit rate by write rate),
+or with the result cache and views on (every measured reply held against
+an uncached one). The JAX emulator's other scenario runners (drills, hot
+spots, rebalancing) and its metrics snapshotter wait for the subsystems
+they drive.
 """
 
 from __future__ import annotations
@@ -75,6 +79,20 @@ from wukong_tpu_torch.utils.timer import get_usec
 # as the JAX emulator degrades on CAPACITY_EXCEEDED. Nothing else is caught:
 # a kernel that fails to build or launch, or the card running out of
 # memory, fails the run.
+
+
+def _replies_identical(qa, qb) -> bool:
+    """Byte-level reply equality for the cached read-mostly drill: a
+    cache-served reply must be indistinguishable from the uncached
+    execution — status, row/column counts, the table's bytes, and the
+    projection map all compare."""
+    ra, rb = qa.result, qb.result
+    return (ra.status_code == rb.status_code
+            and bool(ra.complete) == bool(rb.complete)
+            and int(ra.nrows) == int(rb.nrows)
+            and int(ra.col_num) == int(rb.col_num)
+            and ra.v2c_map == rb.v2c_map
+            and np.array_equal(np.asarray(ra.table), np.asarray(rb.table)))
 
 
 class MixConfig:
@@ -123,6 +141,11 @@ class Emulator:
     def __init__(self, proxy):
         self.proxy = proxy
         self.monitor = Monitor()
+        # per-run latency counters stay private, but stream epochs live on
+        # the proxy monitor: adopt them so the rolling report shows them
+        # (a stand-in proxy without a monitor keeps its own)
+        if getattr(proxy, "monitor", None) is not None:
+            self.monitor.share_observability(proxy.monitor)
 
     # ------------------------------------------------------------------
     def run(self, mix: MixConfig, duration_s: float = 5.0, warmup_s: float = 1.0,
@@ -695,6 +718,308 @@ class Emulator:
         pats = q_planned.pattern_group.patterns
         return (bool(pats) and pats[0].subject > 0 and pats[0].predicate > 0
                 and pats[0].subject == getattr(q_planned, "_inst_const", None))
+
+    def run_readmostly(self, texts: list, reads: int = 600,
+                       warmup_reads: int = 200,
+                       write_rates=(0.0, 0.02, 0.08),
+                       zipf_a: float = 1.1, seed: int = 0,
+                       write_batch=None, batch_rows: int = 48,
+                       tenants: list | None = None,
+                       cached: bool = False, views: bool = False) -> dict:
+        """The Zipfian read-mostly closed loop: template+const reads drawn
+        Zipf(``zipf_a``) over ``texts`` through the REAL serving entry
+        (``serve_query``), replayed once per ``write_rates`` phase with
+        that many writes interleaved per read (0.02 = one dynamic insert
+        batch per 50 reads). Every reply charges the serving-cache
+        observatory, so each phase's shadow-cache hit rate is what a
+        version-keyed result cache (key = plan signature + consts + store
+        version) would have achieved under that write pressure.
+
+        Three proofs ride along (the ``run_hotspot`` posture):
+
+        - the zero-write phase's hit rate is ``predicted_hit_rate`` (the
+          headline; the skewed mix must clear the cache's economic bar),
+        - the store content digest is bit-identical across that phase —
+          the ledger + shadow simulation read everything and touch
+          nothing,
+        - hit rate degrades monotonically as the write rate rises (every
+          insert bumps the version the keys carry; ``degrades`` is the
+          ordered-phase check), with the write-side ``cache.invalidate``
+          events on the same timeline as the reads.
+
+        ``write_batch`` is an [N,3] triple pool writes sample from
+        (``batch_rows`` rows per insert, appended non-dedup so every
+        batch is a real version edge); phases with a positive write rate
+        require it. ``tenants`` rotates reply attribution across the
+        given tenant names (default single-tenant).
+
+        ``cached=True`` flips the drill from observe-only to the
+        ACTUATOR (wukong_tpu/serve/): the real result cache fronts every
+        serve, and every reply is compared byte-for-byte against an
+        uncached oracle execution of the same text (status, rows,
+        columns, table bytes, projection map) — one mismatch fails the
+        ``identical`` verdict. Write phases verify inline, each reply
+        against the store state it saw; pure-read phases verify in a
+        sweep AFTER the timed window (one oracle per distinct text
+        served — re-serving returns the same resident entry, so the
+        comparison witnesses exactly the measured bytes without the
+        oracle's executions polluting the throughput number).
+        ``views=True`` additionally arms rung ii, so hot templates
+        promote to materialized views and their hit rates survive the
+        write phases. Cached q/s is measured over the cached serves
+        alone; ``uncached_qps`` reports the oracle's rate for the
+        in-run speedup.
+        """
+        from wukong_tpu_torch.obs.reuse import get_reuse, reuse_trend
+        from wukong_tpu_torch.obs.tsdb import get_tsdb
+        from wukong_tpu_torch.store.dynamic import insert_batch_into
+        from wukong_tpu_torch.store.persist import gstore_digest
+
+        if any(w > 0 for w in write_rates) and write_batch is None:
+            raise WukongError(ErrorCode.SYNTAX_ERROR,
+                              "write_rates > 0 need a write_batch pool")
+        obs = get_reuse()
+        obs.reset()
+        tsdb = get_tsdb()
+        tsdb.reset()
+        tsdb.sample_once()  # trend-window start marker
+        rng = np.random.default_rng(seed)
+        n = len(texts)
+        w = 1.0 / np.power(np.arange(1, n + 1, dtype=np.float64), zipf_a)
+        w /= w.sum()
+        tens = tenants or ["default"]
+        g = self.proxy.g
+
+        rc = vr = None
+        knobs0 = (Global.enable_result_cache, Global.enable_views)
+        if cached:
+            from wukong_tpu_torch.serve import get_serve
+
+            plane = get_serve()
+            plane.reset()
+            plane.attach(g, self.proxy.str_server,
+                         device=self.proxy._device)
+            Global.enable_result_cache = True
+            Global.enable_views = bool(views)
+            rc = plane.cache
+            vr = plane.views
+        cached_us = [0]
+        oracle_us = [0]
+        oracle_n = [0]
+        mismatches = [0]
+        deferred: list = []  # zero-write phases: texts to verify after
+
+        def serve_one(k: int, measured: bool = True,
+                      verify_inline: bool = True) -> bool:
+            text = texts[int(rng.choice(n, p=w))]
+            try:
+                t0 = get_usec()
+                q = self.proxy.serve_query(text, blind=True,
+                                           tenant=tens[k % len(tens)])
+                cached_us[0] += get_usec() - t0
+                ok = q.result.status_code == ErrorCode.SUCCESS
+            except Exception:
+                return False
+            if cached and measured:
+                if verify_inline:
+                    t1 = get_usec()
+                    oq = self._readmostly_oracle(text)
+                    oracle_us[0] += get_usec() - t1
+                    oracle_n[0] += 1
+                    if not _replies_identical(q, oq):
+                        mismatches[0] += 1
+                else:
+                    deferred.append(text)
+            return ok
+
+        def verify_deferred() -> None:
+            """Zero-write phases: verify AFTER the timed window, once
+            per distinct (text, version) served — re-serving returns the
+            same resident entry the measured pass handed out, so the
+            oracle comparison witnesses exactly the measured bytes
+            without polluting the throughput measurement."""
+            for text in dict.fromkeys(deferred):
+                try:
+                    q = self.proxy.serve_query(text, blind=True,
+                                               tenant=tens[0])
+                    t1 = get_usec()
+                    oq = self._readmostly_oracle(text)
+                    oracle_us[0] += get_usec() - t1
+                    oracle_n[0] += 1
+                    if not _replies_identical(q, oq):
+                        mismatches[0] += 1
+                except Exception:
+                    mismatches[0] += 1
+            deferred.clear()
+
+        try:
+            phases = []
+            store_untouched = None
+            for write_rate in write_rates:
+                every = (int(round(1.0 / write_rate))
+                         if write_rate > 0 else 0)
+                if write_rate == 0 and store_untouched is None:
+                    # the observe-only proof brackets THIS phase (warmup
+                    # + measurement are both pure reads), wherever it
+                    # sits in the write_rates ordering
+                    digest0 = gstore_digest(g)
+                    version0 = int(getattr(g, "version", 0))
+                # warm the shadow population for THIS phase's steady
+                # state (uncounted — the hit rate models a long-running
+                # cache, not its cold start)
+                for k in range(warmup_reads):
+                    serve_one(k, measured=False)
+                s0 = obs.shadow.stats()
+                r0 = rc.stats() if rc is not None else None
+                c0, o0 = cached_us[0], oracle_us[0]
+                on0 = oracle_n[0]
+                served = errors = writes = 0
+                t0 = get_usec()
+                for k in range(reads):
+                    # write phases verify inline (each reply against the
+                    # store state IT saw); pure-read phases defer the
+                    # sweep past the timed window — the oracle's own
+                    # executions must not pollute the throughput number
+                    if serve_one(k, verify_inline=every > 0):
+                        served += 1
+                    else:
+                        errors += 1
+                    if every and (k + 1) % every == 0:
+                        rows = write_batch[rng.integers(
+                            0, len(write_batch), batch_rows)]
+                        insert_batch_into(self.proxy._insert_targets(),
+                                          rows, dedup=False)
+                        writes += 1
+                dur_s = max((get_usec() - t0) / 1e6, 1e-9)
+                s1 = obs.shadow.stats()
+                probes = (s1["hits"] + s1["misses"]
+                          - s0["hits"] - s0["misses"])
+                hits = s1["hits"] - s0["hits"]
+                phase = {
+                    "write_rate": float(write_rate),
+                    "reads": reads, "served": served, "errors": errors,
+                    "writes": writes,
+                    "qps": round(reads / dur_s, 1),
+                    "probes": probes, "hits": hits,
+                    "hit_rate": (round(hits / probes, 4)
+                                 if probes else None),
+                    "keys_killed": s1["killed"] - s0["killed"],
+                }
+                if rc is not None:
+                    r1 = rc.stats()
+                    rp = (r1["hits"] + r1["misses"]
+                          - r0["hits"] - r0["misses"])
+                    rh = r1["hits"] - r0["hits"]
+                    cs = max((cached_us[0] - c0) / 1e6, 1e-9)
+                    phase.update({
+                        "real_probes": rp, "real_hits": rh,
+                        "real_hit_rate": (round(rh / rp, 4)
+                                          if rp else None),
+                        "real_killed": r1["killed"] - r0["killed"],
+                        "cached_qps": round(reads / cs, 1),
+                    })
+                    verify_deferred()  # outside the throughput window
+                    on = oracle_n[0] - on0
+                    os_ = max((oracle_us[0] - o0) / 1e6, 1e-9)
+                    phase["uncached_qps"] = (round(on / os_, 1)
+                                             if on else None)
+                phases.append(phase)
+                if write_rate == 0 and store_untouched is None:
+                    # the observe-only proof: a full read phase (ledger +
+                    # shadow probes — and, cached, real fills — on every
+                    # reply) left the store bit-identical
+                    store_untouched = (
+                        gstore_digest(g) == digest0
+                        and int(getattr(g, "version", 0)) == version0)
+        finally:
+            Global.enable_result_cache, Global.enable_views = knobs0
+        tsdb.sample_once()  # trend-window end marker
+        # monotone degradation within a small jitter tolerance: compared
+        # in WRITE-RATE order (not tuple order — a caller may interleave
+        # phases), more write pressure must never serve a better hit rate
+        rates = [p["hit_rate"]
+                 for p in sorted(phases, key=lambda p: p["write_rate"])
+                 if p["hit_rate"] is not None]
+        degrades = all(b <= a + 0.05 for a, b in zip(rates, rates[1:]))
+        predicted = next((p["hit_rate"] for p in phases
+                          if p["write_rate"] == 0), None)
+        rep = obs.report(k=8)
+        out = {
+            "predicted_hit_rate": predicted,
+            "phases": phases,
+            "degrades": bool(degrades),
+            "store_untouched": bool(store_untouched)
+            if store_untouched is not None else None,
+            "zipf_alpha": rep["popularity"]["zipf_alpha"],
+            "bytes_saved": rep["shadow"]["bytes_saved"],
+            "uncacheable_by_reason": rep["uncacheable_by_reason"],
+            "trend": reuse_trend(),
+            "report": rep,
+        }
+        if rc is not None:
+            # the actuator verdicts: real-vs-shadow parity on the
+            # zero-write phase, byte-identity against the oracle on
+            # EVERY measured reply, the in-run speedup, and (views) the
+            # flat-curve check — rung ii's whole point
+            zero = next((p for p in phases if p["write_rate"] == 0), None)
+            real_zero = zero.get("real_hit_rate") if zero else None
+            by_rate = sorted((p for p in phases
+                              if p.get("real_hit_rate") is not None),
+                             key=lambda p: p["write_rate"])
+            flat_pts = None
+            if (real_zero is not None and by_rate
+                    and by_rate[-1]["write_rate"] > 0):
+                flat_pts = round(
+                    (real_zero - by_rate[-1]["real_hit_rate"]) * 100, 1)
+            from wukong_tpu_torch.serve.result_cache import divergence_total
+
+            out["real"] = {
+                "identical": mismatches[0] == 0,
+                "mismatches": mismatches[0],
+                "hit_rate": real_zero,
+                "shadow_predicted": predicted,
+                "beats_shadow": (real_zero is not None
+                                 and predicted is not None
+                                 and real_zero >= predicted - 1e-9),
+                "readmostly_qps": zero.get("cached_qps") if zero else None,
+                "uncached_qps": zero.get("uncached_qps") if zero else None,
+                "speedup_vs_uncached": (
+                    round(zero["cached_qps"] / zero["uncached_qps"], 2)
+                    if zero and zero.get("uncached_qps") else None),
+                "hit_rate_drop_pts": flat_pts,
+                "views_enabled": bool(views),
+                "divergence": divergence_total(),
+                "cache": rc.stats(),
+                "views": vr.stats() if vr is not None else None,
+            }
+        log_info(
+            "readmostly: predicted hit rate "
+            + ("-" if predicted is None else f"{predicted:.1%}")
+            + f" on Zipf({zipf_a}) x{n} templates; phases "
+            + " ".join(f"w={p['write_rate']:g}:"
+                       + ("-" if p["hit_rate"] is None
+                          else f"{p['hit_rate']:.0%}")
+                       + ("" if p.get("real_hit_rate") is None
+                          else f"/real:{p['real_hit_rate']:.0%}")
+                       for p in phases)
+            + f"; degrades={degrades}, store untouched={store_untouched}"
+            + (f"; cached identical={out['real']['identical']} "
+               f"qps={out['real']['readmostly_qps']} "
+               f"(x{out['real']['speedup_vs_uncached']}), "
+               f"drop={out['real']['hit_rate_drop_pts']}pts"
+               if rc is not None else ""))
+        return out
+
+    def _readmostly_oracle(self, text: str):
+        """Uncached oracle execution for the cached drill's byte-identity
+        proof: the same parse/plan/execute path ``serve_query`` takes,
+        minus the admission/SLO/reuse reply hooks (they would double-
+        charge the observatory) and minus the result cache."""
+        q = self.proxy._parse_text(text)
+        self.proxy._plan_prepared(q, True, None, tenant="oracle")
+        eng = self.proxy._engine_for(None)
+        eng.execute(q)
+        return q
 
     def run_graphrag(self, graph_texts: list, hybrid_template: str,
                      anchors: list, duration_s: float = 3.0,

@@ -7,15 +7,17 @@ measurements the reference's proxy prints during ``sparql -n N`` and
 ``wukong_query_latency_us{qtype}`` histogram, and the rolling lines read
 back from the observability plane: the heavy lane (``lane_lines``), the
 tenant SLOs (``slo_lines``), the admission plane (``admission_lines``),
-the event journal (``events_lines``) and the device observatory
-(``device_lines``). The JAX package's lines for subsystems the port does
-not have yet (circuit-breaker registry, stream epochs, heat, placement,
-migration, caches) are left out.
+the event journal (``events_lines``), the device observatory
+(``device_lines``) and the serving caches (``cache_lines``); stream epochs
+land in :class:`StreamStats` (``record_stream_epoch``, ``stream_stats``),
+which the emulator's per-run monitor adopts (``share_observability``). The
+JAX package's lines for subsystems the port does not have yet
+(circuit-breaker registry, heat, placement, migration) are left out.
 """
 
 from __future__ import annotations
 
-from collections import defaultdict
+from collections import defaultdict, deque
 
 import numpy as np
 
@@ -32,14 +34,34 @@ _M_LATENCY = get_registry().histogram(
     labels=("qtype",))
 
 
+# per-epoch latency samples kept for the stream CDF (bounds memory on
+# long-running ingest loops; the totals keep counting past it)
+STREAM_WINDOW = 4096
+
+
 def _cdf(vals, points=(0.5, 0.9, 0.95, 0.99, 1.0)) -> dict[float, float]:
     """Percentile dict over a sample list (monitor.hpp print_cdf
-    indexing)."""
+    indexing — shared by the query and stream CDFs)."""
     if not vals:
         return {}
     arr = np.sort(np.asarray(vals, dtype=np.float64))
     return {p: float(arr[min(int(p * len(arr)), len(arr) - 1)])
             for p in points}
+
+
+class StreamStats:
+    """Streaming counters + latency windows, shareable between monitors
+    (the emulator's per-run Monitor adopts the proxy monitor's instance so
+    its report sees epochs committed on the proxy side)."""
+
+    __slots__ = ("epochs", "triples", "lag_us", "eval_us", "ingest_us")
+
+    def __init__(self):
+        self.epochs = 0
+        self.triples = 0
+        self.lag_us: deque = deque(maxlen=STREAM_WINDOW)
+        self.eval_us: deque = deque(maxlen=STREAM_WINDOW)
+        self.ingest_us: deque = deque(maxlen=STREAM_WINDOW)
 
 
 class Monitor:
@@ -49,6 +71,20 @@ class Monitor:
         self._t0 = None
         self._last_print = None
         self._last_cnt = 0
+        # streaming (stream/ingest.py feeds record_stream_epoch)
+        self.stream = StreamStats()
+        self._last_stream_epochs = 0
+        self._last_stream_triples = 0
+
+    def share_observability(self, other: "Monitor") -> None:
+        """Adopt ``other``'s stream stats by reference, keeping per-query
+        counters private (the JAX monitor also adopts its breaker
+        registry, which waits for the distributed engine)."""
+        self.stream = other.stream
+        # epochs committed before this monitor existed must not read as
+        # rate in its first report window
+        self._last_stream_epochs = other.stream.epochs
+        self._last_stream_triples = other.stream.triples
 
     def add_latency(self, usec: float, qtype: int = 0, count: int = 1) -> None:
         """Record an aggregate measurement (batched execution: ``count``
@@ -68,6 +104,18 @@ class Monitor:
         if self._last_print is not None and now - self._last_print > interval_usec:
             d = now - self._last_print
             log_info(f"Throughput: {(self.cnt - self._last_cnt) / (d / 1e6):,.0f} q/s")
+            if self.stream.epochs > self._last_stream_epochs:
+                de = self.stream.epochs - self._last_stream_epochs
+                dt = self.stream.triples - self._last_stream_triples
+                lag = self.stream_lag_cdf()
+                lag_str = (f", lag p50={lag[0.5]:,.0f}us "
+                           f"p99={lag[0.99]:,.0f}us" if lag else "")
+                log_info(f"Stream: {de / (d / 1e6):,.1f} epochs/s, "
+                         f"{dt / (d / 1e6):,.0f} triples/s{lag_str}")
+            self._last_stream_epochs = self.stream.epochs
+            self._last_stream_triples = self.stream.triples
+            for line in self.cache_lines():
+                log_info(line)
             self._last_print = now
             self._last_cnt = self.cnt
 
@@ -76,6 +124,30 @@ class Monitor:
             return 0.0
         dt = get_usec() - self._t0
         return self.cnt / (dt / 1e6) if dt else 0.0
+
+    # -- streaming metrics (no reference analogue; Wukong+S-style lag) -----
+    def record_stream_epoch(self, n_triples: int, ingest_us: int,
+                            eval_us: int, lag_us: int) -> None:
+        """One committed epoch: batch size, insert time, standing-query
+        evaluation time, and commit-to-results lag."""
+        self.stream.epochs += 1
+        self.stream.triples += int(n_triples)
+        self.stream.ingest_us.append(int(ingest_us))
+        self.stream.eval_us.append(int(eval_us))
+        self.stream.lag_us.append(int(lag_us))
+
+    def stream_lag_cdf(self, points=(0.5, 0.9, 0.95, 0.99, 1.0)):
+        return _cdf(self.stream.lag_us, points)
+
+    def stream_stats(self) -> dict:
+        """Aggregate streaming view."""
+        return {
+            "epochs": self.stream.epochs,
+            "triples": self.stream.triples,
+            "ingest_us_cdf": _cdf(self.stream.ingest_us),
+            "eval_us_cdf": _cdf(self.stream.eval_us),
+            "lag_us_cdf": self.stream_lag_cdf(),
+        }
 
     # -- CDF (monitor.hpp print_cdf) ---------------------------------------
     def cdf(self, qtype: int | None = None,
@@ -204,3 +276,47 @@ class Monitor:
                     + (f" shard={e.shard}" if e.shard is not None else ""))
         return ["Events[" + "  ".join(f"{kd}:{n}" for kd, n in top)
                 + f"] ({sum(counts.values())} total{tail})"]
+
+    def cache_lines(self) -> list[str]:
+        """Rolling-report lines for the serving cache: the real result
+        cache + view registry (serve/) when it is on and probed, then the
+        observatory's shadow line (obs/reuse.py) — quiet until any reply
+        has been observed."""
+        from wukong_tpu_torch.config import Global
+        from wukong_tpu_torch.obs.reuse import get_reuse
+
+        lines = []
+        if Global.enable_result_cache:
+            from wukong_tpu_torch.serve import get_serve
+            from wukong_tpu_torch.serve.result_cache import divergence_total
+
+            rc = get_serve().cache.stats()
+            if rc["hits"] + rc["misses"]:
+                hr = rc["hit_rate"]
+                lines.append(
+                    "Cache[real "
+                    + ("-" if hr is None else f"{hr:.1%}")
+                    + f" over {rc['hits'] + rc['misses']:,} probes, "
+                    f"{rc['entries']} entries, "
+                    f"{rc['bytes_held'] / 2**20:.1f} MiB held, "
+                    f"{get_serve().views.count()} views, "
+                    f"{rc['collapsed']:,} collapsed, "
+                    f"diverged {divergence_total():,}]")
+        obs = get_reuse()
+        sh = obs.shadow.stats()
+        if sh["hits"] + sh["misses"] == 0:
+            return lines
+        pop = obs.ledger.report(k=1)
+        hot = ""
+        if pop["ranked"]:
+            r = pop["ranked"][0]
+            hot = (f", top {r['template']} {r['share']:.0%} "
+                   f"@{r['rate_qps']:,.0f}q/s")
+        hr = sh["hit_rate"]
+        lines.append(f"Cache[shadow "
+                     + ("-" if hr is None else f"{hr:.1%}")
+                     + f" over {sh['hits'] + sh['misses']:,} probes, "
+                     f"{sh['keys']} keys, {sh['killed']:,} killed, "
+                     f"saved {sh['bytes_saved'] / 2**20:.1f} MiB"
+                     f"{hot}]")
+        return lines

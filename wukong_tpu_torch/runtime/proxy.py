@@ -75,12 +75,24 @@ feedback of the drill), and a wide scan-side scan goes down the heavy lane,
 sliced across the engine pool (``_maybe_presolve_knn``). knn queries walk:
 no tensor join, no compiled template, no coalescing.
 
-The JAX proxy's hooks into subsystems the port does not have yet (the
-result cache and its fast path, views, the reuse observatory, the
-distributed engine and its distributed join, streams) are left out;
-ROADMAP §A lists each. ``_serve_execute`` keeps the fault site, the
-strategy branches, the batching branch, the knn branches and the direct
-dispatch of the JAX one; its result-cache lease waits for its subsystem.
+The serving caches and streams, as in the JAX proxy: the constructor
+binds the serving plane (serve/: the result cache and the views) to this
+proxy's partition and starts the metrics time-series sampler; with
+``enable_result_cache`` on, ``_serve_execute`` is fronted by the cache's
+lease (a hit installs the cached reply, a miss may make this thread the
+key's collapsing leader, which fills the cache when it settles), and
+``serve_query`` first tries the zero-parse fast path
+(``_serve_fast_hit``), which answers a repeated text from its resident
+entry without parsing or planning. A hit's table is host NumPy, so it
+launches no kernel and makes no device sync. Every reply, the fast path's
+included, folds into the reuse observatory (``_observe_reuse``) against
+its plan-time store version (``q._rver``). The stream verbs
+(``stream_register``, ``stream_unregister``, ``stream_poll``,
+``stream_prune``, ``stream_feed``) drive a ``StreamContext`` over the
+partition (``stream_context``; the epoch frontier runs on the proxy's
+device), and ``recovery()`` checkpoints its registry. The JAX proxy's
+hooks into the distributed engine and its distributed join are left out
+(ROADMAP §A, "``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -102,6 +114,7 @@ from wukong_tpu_torch.obs import (
     maybe_start_trace,
 )
 from wukong_tpu_torch.obs.device import note_feedback
+from wukong_tpu_torch.obs.reuse import maybe_observe_reuse
 from wukong_tpu_torch.obs.slo import get_overload, get_slo, tenant_label
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
 from wukong_tpu_torch.planner.plan_file import set_plan
@@ -267,8 +280,20 @@ class Proxy:
         # tenant -> monotonic time of its latest rejection slot
         self._reject_slots: dict = {}  # guarded by: _reject_lock
         self._reject_lock = make_lock("proxy.reject_pace")
+        self._stream = None  # the StreamContext, built on first use
         if Global.checkpoint_interval_s > 0 and Global.checkpoint_dir:
             self.recovery().start()
+        # the metrics time-series sampler (enable_tsdb; idempotent per
+        # process)
+        from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
+
+        maybe_start_tsdb()
+        # the serving plane (serve/): bind the result cache + view registry
+        # to THIS proxy's partition — a re-attach (a new world in-process)
+        # purges entries and drops old-world view registrations
+        from wukong_tpu_torch.serve import get_serve
+
+        get_serve().attach(self.g, self.str_server, device=device)
 
     def engine_pool(self):
         """The host engine pool, started on first use (N CPU engines with
@@ -289,11 +314,14 @@ class Proxy:
         blob = self._parse_cache.get(text)
         if blob is not None:
             _M_PARSE_CACHE.labels(result="hit").inc()
-            return pickle.loads(blob)
+            q = pickle.loads(blob)
+            q._qtext = text  # view promotion re-registers from the text
+            return q
         _M_PARSE_CACHE.labels(result="miss").inc()
         q = Parser(self.str_server).parse(text)
         self._parse_cache.put(
             text, pickle.dumps(q, protocol=pickle.HIGHEST_PROTOCOL))
+        q._qtext = text
         return q
 
     def _plan_version(self):
@@ -455,7 +483,19 @@ class Proxy:
         reply-side metric. Unlike the JAX proxy's, ``blind`` defaults to
         False (the table), as the port's callers in Python read it, and a
         traced reply carries ``proxy.parse`` and ``proxy.plan`` spans as
-        run_single_query's does."""
+        run_single_query's does.
+
+        With ``enable_result_cache`` on, a repeated text whose key is
+        resident at the current store version serves on the zero-parse
+        fast path (``_serve_fast_hit``): no parse, no plan, no engine —
+        the reply-side accounting (tenant admission, SLO, reuse
+        observatory, the ``proxy.serve`` fault site) still runs in
+        full."""
+        if Global.enable_result_cache and device is None \
+                and not Global.enable_tracing:
+            q = self._serve_fast_hit(text, blind, tenant)
+            if q is not None:
+                return q
         trace = maybe_start_trace(kind="query", text=text)
         t0_us = get_usec()
         ten = self._admit(tenant)
@@ -510,6 +550,63 @@ class Proxy:
                           ok=status == ErrorCode.SUCCESS, status=status,
                           trace=trace)
         self._note_admission_reply(ten, q)
+        self._observe_reuse(q, ten, text)
+
+    def _serve_fast_hit(self, text: str, blind, tenant: str):
+        """The zero-parse cached-serving path: resolve the text to its
+        cache key via the fill-time memo and, on a fresh-version hit,
+        reply from the cached entry without parsing or planning. Returns
+        None on any miss — the caller falls through to the full path
+        (which probes the same key again, with collapsing). Skipped under
+        tracing (a traced reply keeps its parse/plan spans) and for
+        pinned-device requests."""
+        from wukong_tpu_torch.serve import get_serve
+
+        eff_blind = Global.silent if blind is None else bool(blind)
+        rc = get_serve().cache
+        found = rc.fast_probe(text, eff_blind,
+                              int(getattr(self.g, "version", 0)))
+        if found is None:
+            return None
+        key, ent = found
+        t0_us = get_usec()
+        ten = self._admit(tenant)
+        try:
+            # cached hits consume no engine capacity: only the q/s and
+            # in-flight quotas apply (cached=True skips the ladder); the
+            # serving boundary's fault site fires as for executed traffic
+            self._consult_admission(ten, cached=True)
+            faults.site("proxy.serve")
+        except Exception as e:
+            self._reply_failed(e, ten, t0_us, None)
+            raise
+        q = rc.build_reply(key, ent)
+        q.tenant = ten
+        self._m_queries.labels(status="SUCCESS", tenant=ten).inc()
+        self._observe_slo(ten, get_usec() - t0_us, ok=True,
+                          status=ErrorCode.SUCCESS, trace=None)
+        self._observe_reuse(q, ten, text)
+        return q
+
+    def _observe_reuse(self, q, tenant: str, text: str) -> None:
+        """Reply-side reuse-observatory hook: the shadow key carries the
+        PLAN-time store version (``_rver``), so a write landing between
+        plan and reply cannot file the key under a version the read never
+        saw; a query that skipped the plan path (a user plan file) falls
+        back to the current version. With the result cache on, the
+        shadow's verdict for this reply is compared against the real
+        probe's (stamped in ``_serve_execute``): a disagreement counts
+        toward ``wukong_cache_divergence_total``."""
+        shadow_hit = maybe_observe_reuse(
+            q, tenant,
+            q.__dict__.get("_rver", getattr(self.g, "version", 0)),
+            text=text)
+        if Global.enable_result_cache:
+            from wukong_tpu_torch.serve.result_cache import (
+                note_shadow_outcome,
+            )
+
+            note_shadow_outcome(q, shadow_hit)
 
     def _reply_failed(self, e: Exception, ten: str, t0_us: int,
                       trace) -> None:
@@ -694,10 +791,37 @@ class Proxy:
         every bypass go straight to the engine. ``pinned`` (an explicit
         device= request) bypasses the strategies and the batcher: the
         batcher picks its own engine, which would override the caller's
-        pin."""
+        pin.
+
+        With ``enable_result_cache`` on, the dispatch is fronted by the
+        version-keyed result cache: a hit installs the cached reply and
+        skips execution; a miss may elect this thread the key's
+        collapsing leader, whose settlement (in the ``finally``) fills the
+        cache and wakes the followers, whichever path produced the
+        reply."""
         # the serving-boundary fault site: an injected failure reaches the
-        # caller before any engine runs
+        # caller before any engine runs — before the cache probe, so
+        # cached traffic burns error budgets too
         faults.site("proxy.serve")
+        lease = None
+        if Global.enable_result_cache:
+            from wukong_tpu_torch.serve import get_serve
+
+            served, lease = get_serve().cache.acquire(q)
+            if served:
+                return q
+        try:
+            return self._dispatch(q, eng, pinned)
+        finally:
+            if lease is not None:
+                # leader settlement: fill on SUCCESS+admission, and wake
+                # the followers either way (a failed leader must never
+                # strand its collapsed waiters)
+                lease.settle(q)
+
+    def _dispatch(self, q: SPARQLQuery, eng, pinned: bool) -> SPARQLQuery:
+        """``_serve_execute``'s execution, behind the fault site and the
+        result cache."""
         if getattr(q, "join_strategy", "walk") == "wcoj" and not pinned:
             try:
                 self.wcoj().try_execute(q)
@@ -1216,6 +1340,56 @@ class Proxy:
         log_info(f"dynamic load: {n:,} new subject-side edges from {dirname}")
         return n
 
+    # ------------------------------------------------------------------
+    # streaming verbs (the Wukong+S surface; stream/)
+    # ------------------------------------------------------------------
+    def stream_context(self, use_pool: bool = False):
+        """The StreamContext over this proxy's store, built on first call.
+
+        Delta evaluation runs on the host partition; the epoch frontier
+        runs on the proxy's device. With ``use_pool`` the delta queries
+        ride the engine pool's stream lane, interleaving with one-shot
+        queries. The flag only matters on first call — the context is
+        built once."""
+        if self._stream is None:
+            from wukong_tpu_torch.stream import StreamContext
+
+            self._stream = StreamContext(
+                self._insert_targets(), self.str_server,
+                pool=self.engine_pool() if use_pool else None,
+                monitor=self.monitor, device=self._device)
+        return self._stream
+
+    def stream_register(self, text: str, window=None, base_triples=None,
+                        callback=None) -> int:
+        """Register a standing SPARQL query; returns its stream qid.
+        ``callback`` is the push-mode sink: invoked per committed
+        ResultDelta next to the pull poll() surface (exceptions contained
+        and surfaced as the stream-callback-error metric)."""
+        return self.stream_context().register(text, window=window,
+                                              base_triples=base_triples,
+                                              callback=callback)
+
+    def stream_unregister(self, qid: int) -> None:
+        self.stream_context().unregister(qid)
+
+    def stream_poll(self, qid: int, since_epoch: int = -1) -> list:
+        """Read a standing query's append-only result deltas."""
+        return self.stream_context().poll(qid, since_epoch)
+
+    def stream_prune(self, qid: int, upto_epoch: int) -> int:
+        """Free a standing query's consumed sink history behind a cursor."""
+        return self.stream_context().prune(qid, upto_epoch)
+
+    def stream_feed(self, triples, ts=None):
+        """Commit one triple batch as the next stream epoch; standing
+        queries are incrementally evaluated before this returns. Device
+        caches restage lazily via the store version bump, and cached plans
+        are freed as by ``load -d``."""
+        rec = self.stream_context().feed(triples, ts=ts)
+        self._plan_cache.clear()  # stream commit: same contract as load -d
+        return rec
+
     def _insert_targets(self) -> list:
         """Every store online inserts must reach: the host partition (the
         JAX proxy adds its distributed shards and their replicas)."""
@@ -1226,7 +1400,8 @@ class Proxy:
         return [self.g]
 
     def recovery(self):
-        """Lazily-assembled RecoveryManager over this proxy's store."""
+        """Lazily-assembled RecoveryManager over this proxy's store and
+        stream context."""
         if self._recovery is None:  # unguarded: double-checked fast path — an atomic reference read; construction is serialized below
             with self._recovery_init_lock:
                 if self._recovery is None:
@@ -1235,7 +1410,8 @@ class Proxy:
                     )
 
                     self._recovery = RecoveryManager(
-                        self._checkpoint_targets, stream=None,
+                        self._checkpoint_targets,
+                        stream=self.stream_context(),
                         on_change=self._on_store_change)
         return self._recovery  # unguarded: write-once reference, non-None past init
 
@@ -1247,7 +1423,8 @@ class Proxy:
 
     def checkpoint(self) -> str:
         """Console `checkpoint` verb: write one atomic checkpoint bundle
-        and truncate the covered WAL."""
+        (the partition + the stream registry) and truncate the covered
+        WAL."""
         return self.recovery().checkpoint()
 
     def recover(self) -> dict:

@@ -22,11 +22,16 @@ reads are unaffected.
 The port's copy of the JAX package's runtime/recovery.py for one host
 partition: the same bundle layout and manifest (a checkpoint or WAL
 directory written by either package recovers in the other), the same
-``checkpoint.write`` fault site, events and metrics. The stream registry's
-state waits for streaming (ROADMAP §A 8), and shard healing (the heal
-watcher, ``heal_once``, rebuilds from a replica or a checkpoint, which
-ride the pool's ``rebuild`` lane as :class:`RebuildJob`) waits for the
-distributed engine (§A 9); until then ``stream`` and ``sstore`` must be
+``checkpoint.write`` fault site, events and metrics. With a stream context
+(stream/), a bundle also holds the standing-query registry and the epoch
+counter (``stream.pkl``, CRC-checked in the manifest), and the WAL's
+``epoch`` records replay through the context, re-evaluating the standing
+queries. A restore purges the result cache and the shadow cache
+(``notify_mutation`` / ``maybe_note_invalidation``, cause ``restore``).
+Shard healing (the heal watcher, ``heal_once``, rebuilds from a replica or
+a checkpoint, which ride the pool's ``rebuild`` lane as
+:class:`RebuildJob`) waits for the distributed engine (ROADMAP §A,
+"``parallel/``, the distributed engine"); until then ``sstore`` must be
 None.
 """
 
@@ -34,8 +39,10 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import threading
 import time
+import zlib
 
 from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
@@ -97,19 +104,22 @@ class RecoveryManager:
     """One process's checkpoint and recovery coordinator.
 
     ``stores`` are the checkpointed partitions (or a zero-arg callable
-    returning the current ones); ``on_change`` runs after any restore so
-    the owner can drop derived caches (plan cache, compiled programs). The
-    JAX manager's ``stream``, ``sstore`` and ``pool`` (the stream registry,
-    the sharded store and the rebuild lane's pool) must be None here.
+    returning the current ones); ``stream`` is the StreamContext whose
+    registry and epoch ride in each bundle (None: none is written);
+    ``on_change`` runs after any restore so the owner can drop derived
+    caches (plan cache, compiled programs). The JAX manager's ``sstore``
+    and ``pool`` (the sharded store and the rebuild lane's pool) must be
+    None here.
     """
 
     def __init__(self, stores, stream=None, sstore=None,
                  ckpt_dir: str | None = None, on_change=None):
-        if stream is not None or sstore is not None:
+        if sstore is not None:
             raise WukongError(
                 ErrorCode.UNSUPPORTED_SHAPE,
-                "the stream registry (ROADMAP §A 8) and sharded stores "
-                "(§A 9) are not ported: stream and sstore must be None")
+                "sharded stores are not ported (ROADMAP §A, \"parallel/, "
+                "the distributed engine\"): sstore must be None")
+        self.stream = stream
         self._stores_src = stores
         # an explicit ckpt_dir pins; otherwise the runtime-mutable knob is
         # read at use time (the console can set it after the proxy booted)
@@ -167,6 +177,15 @@ class RecoveryManager:
                               "bytes": int(nbytes)})
             man = {"format": list(MANIFEST_VERSION), "wal_seq": int(wal_seq),
                    "parts": parts, "stream": False, "epoch": 0}
+            if self.stream is not None:
+                state = {"registry": self.stream.continuous.export_state(),
+                         "epoch": int(self.stream.ingestor.epoch)}
+                blob = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
+                with open(os.path.join(tmp, "stream.pkl"), "wb") as f:
+                    f.write(blob)
+                man["stream"] = True
+                man["stream_crc"] = zlib.crc32(blob)
+                man["epoch"] = state["epoch"]
             with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
                 json.dump(man, f)
             os.rename(tmp, final)  # atomic publish: no torn checkpoints
@@ -253,11 +272,6 @@ class RecoveryManager:
         where falling back to an older checkpoint is still possible, never
         halfway through an in-place restore."""
         targets = self.stores
-        if man.get("stream"):
-            # as the JAX manager with no stream context: the partitions
-            # restore, the registry state is not read
-            log_warn(f"checkpoint {path}: stream state not restored (no "
-                     "stream context; ROADMAP §A 8)")
         if len(man["parts"]) != len(targets):
             raise CheckpointCorrupt(
                 f"bundle has {len(man['parts'])} parts but this process "
@@ -271,7 +285,20 @@ class RecoveryManager:
                     f"part {idx} is partition {g2.sid}/{g2.num_workers}, "
                     f"target is {g.sid}/{g.num_workers}", path=path)
             parts.append((g, g2))
-        return {"path": path, "man": man, "parts": parts}
+        state = None
+        if man.get("stream") and self.stream is not None:
+            with open(os.path.join(path, "stream.pkl"), "rb") as f:
+                blob = f.read()
+            if zlib.crc32(blob) != man.get("stream_crc"):
+                raise CheckpointCorrupt("stream state checksum mismatch",
+                                        path=path)
+            state = pickle.loads(blob)
+        elif man.get("stream"):
+            # as the JAX manager with no stream context: the partitions
+            # restore, the registry state is not read
+            log_warn(f"checkpoint {path}: stream state not restored (no "
+                     "stream context)")
+        return {"path": path, "man": man, "parts": parts, "stream": state}
 
     def _recover_impl(self, stats: dict, trace) -> None:
         bundle = None
@@ -289,6 +316,12 @@ class RecoveryManager:
                                   path=path) if trace else None
             for g, g2 in bundle["parts"]:  # validated: cannot fail partway
                 adopt_gstore(g, g2)
+            if bundle["stream"] is not None:
+                state = bundle["stream"]
+                self.stream.continuous.import_state(state["registry"])
+                self.stream.ingestor.epoch = int(state["epoch"])
+                stats["standing_queries"] = len(
+                    state["registry"]["queries"])
             after_seq = int(man["wal_seq"])
             stats["checkpoint"] = path
             stats["restored_parts"] = len(man["parts"])
@@ -298,11 +331,25 @@ class RecoveryManager:
             _M_RESTORES.inc()
             emit_event("recovery.restore", path=path,
                        parts=len(man["parts"]), wal_seq=after_seq)
+        if self.stream is not None:
+            self.stream.ingestor.stores = self.stores
         self._replay_wal(after_seq, stats, trace)
+        # a restore replaces array contents wholesale: a version-keyed
+        # cache purges conservatively (the restored world's versions are
+        # not comparable to the cached keys'), and the edge lands as one
+        # cache.invalidate event. One knob check each when off.
+        from wukong_tpu_torch.obs.reuse import maybe_note_invalidation
+        from wukong_tpu_torch.serve import notify_mutation
+
+        maybe_note_invalidation("restore", version=None,
+                                checkpoint=stats["checkpoint"])
+        notify_mutation("restore")
         if self.on_change is not None:
             self.on_change()
+        stats["epoch"] = (self.stream.ingestor.epoch
+                          if self.stream is not None else 0)
         log_info(f"recovery: checkpoint={stats['checkpoint']} "
-                 f"replayed={stats['replayed']} epoch=0")
+                 f"replayed={stats['replayed']} epoch={stats['epoch']}")
 
     def _replay_wal(self, after_seq: int, stats: dict, trace) -> None:
         from wukong_tpu_torch.store.dynamic import insert_triples
@@ -325,7 +372,17 @@ class RecoveryManager:
                         "the tail for this checkpoint was truncated",
                         path=wal.dir)
                 prev_seq = rec.seq
-                if rec.kind == "vector":
+                if rec.kind == "epoch" and self.stream is not None:
+                    # re-commit at the RECORDED epoch number (every record
+                    # past wal_seq is outside the checkpoint), so a ghost
+                    # record — an epoch whose commit failed after its
+                    # append — never shifts later acknowledged epochs
+                    ep = int(rec.payload.get("epoch",
+                                             self.stream.ingestor.epoch + 1))
+                    self.stream.ingestor.epoch = ep - 1
+                    self.stream.ingestor.commit_epoch(
+                        rec.payload["triples"], ts=rec.payload.get("ts"))
+                elif rec.kind == "vector":
                     # embedding mutation: re-apply into every target's
                     # vstore (attaches one if the checkpoint predates the
                     # vector plane); version numbering re-derives, same as

@@ -265,7 +265,8 @@ def retry_call(fn, *, site: str = "", attempts: int | None = None,
     exceptions (and faults.ShardDown) propagate immediately. Exhaustion
     raises RetryExhausted carrying the last exception. The JAX function's
     circuit-breaker and deadline arguments wait for their first caller in
-    the port, the distributed engine (ROADMAP §A 9).
+    the port, the distributed engine
+    (ROADMAP §A, "``parallel/``, the distributed engine").
     """
     from wukong_tpu_torch.runtime.faults import TransientFault
 

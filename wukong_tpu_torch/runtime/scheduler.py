@@ -33,9 +33,20 @@ share of the heavy slots (``_heavy_pick_locked``, ``_heavy_by_tenant``).
 Every queued item is stamped at submit and its wait charged to its lane's
 queue-delay EWMA when popped (obs/slo.py); a traced query's ``pool.queue``
 span closes on every exit from the queue; the depth, lane-depth and
-utilization gauges are pull gauges over every live pool. The stream lane
-waits for its subsystem (ROADMAP §A 8); the rebuild lane's producer, shard
-healing, for the distributed engine (§A 9).
+utilization gauges are pull gauges over every live pool.
+
+The stream lane (``submit(q, lane="stream")``) is a shared low-priority
+queue for standing-query delta work (stream/continuous.py). Engines drain
+it after their own queue, their steal targets and the heavy lane, so
+interactive one-shot queries always go first and continuous evaluation
+soaks up idle capacity, under the same deadline/budget machinery (expired
+stream items are shed like interactive ones). With admission armed, a
+delta query carrying ``owner_tenant`` rides the fair sub-lane at its
+owner's weight instead. Stream-lane completions are reserved for
+``wait()`` and never returned by ``poll()``, so an open-loop ``poll()``
+consumer (the emulator) can share the pool with the stream context. The
+rebuild lane's producer, shard healing, waits for the distributed engine
+(ROADMAP §A, "``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -68,7 +79,8 @@ _POOLS: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _queue_depth() -> int:
-    return sum(sum(len(dq) for dq in p.queues) + len(p.batch_queue)
+    return sum(sum(len(dq) for dq in p.queues) + len(p.stream_queue)
+               + len(p.batch_queue)
                + len(p.heavy_queue) + len(p.heavy_slices)
                + len(p.rebuild_queue)
                + (len(f) if (f := p._fair) is not None else 0)
@@ -77,18 +89,19 @@ def _queue_depth() -> int:
 
 get_registry().gauge(
     "wukong_pool_queue_depth",
-    "Queries waiting in pool queues (incl. batch/heavy/rebuild lanes)"
+    "Queries waiting in pool queues (incl. stream/batch/heavy/rebuild lanes)"
 ).set_function(_queue_depth)
 
 
 def _lane_depth_series() -> dict:
     """Per-lane queue depth across every live pool (an ADMISSION_INPUTS
     signal, obs/slo.py)."""
-    acc = {"default": 0, "batch": 0, "heavy": 0, "rebuild": 0}
+    acc = {"default": 0, "batch": 0, "heavy": 0, "stream": 0, "rebuild": 0}
     for p in list(_POOLS):
         acc["default"] += sum(len(dq) for dq in p.queues)
         acc["batch"] += len(p.batch_queue)
         acc["heavy"] += len(p.heavy_queue) + len(p.heavy_slices)
+        acc["stream"] += len(p.stream_queue)
         acc["rebuild"] += len(p.rebuild_queue)
         f = p._fair  # the fair sub-lane exists once admission armed
         if f is not None:
@@ -163,6 +176,13 @@ class EnginePool:
         self._route_lock = make_lock("pool.route")
         self._busy_since = [0] * self.n  # per-tid slot, single writer
         self._inflight: list = [None] * self.n  # per-tid slot, single writer
+        # stream lane: shared low-priority queue for standing-query work
+        self.stream_queue = collections.deque()  # guarded by: _stream_lock
+        self._stream_lock = make_lock("pool.stream")
+        # stream-lane qids are reserved for wait(): poll() skips them, so
+        # an open-loop poll() consumer sharing this pool can't steal the
+        # stream context's completions
+        self._stream_qids: set = set()  # guarded by: _results_lock
         # batch lane: light fused groups, one indivisible item each
         self.batch_queue = collections.deque()  # guarded by: _batch_lock
         self._batch_lock = make_lock("pool.batch")
@@ -313,6 +333,13 @@ class EnginePool:
                         break
                     self._end_queue_span(it[1], dead_pool=True)
                     self._fail(it[0], RuntimeError("engine pool dead"))
+                # ...the stream lane: its waiters get the error
+                with self._stream_lock:
+                    stream_stranded = list(self.stream_queue)
+                    self.stream_queue.clear()
+                for it in stream_stranded:
+                    self._end_queue_span(it[1], dead_pool=True)
+                    self._fail(it[0], RuntimeError("engine pool dead"))
                 with self._batch_lock:
                     stranded = list(self.batch_queue)
                     self.batch_queue.clear()
@@ -334,6 +361,12 @@ class EnginePool:
         """Enqueue a query; returns a handle. tid routes like the
         reference's proxy dst engine choice (round-robin default,
         proxy.hpp:143-160).
+
+        lane="stream" bypasses per-engine routing into the shared
+        low-priority stream queue: any engine drains it, but only after its
+        own queue, its steal targets and the heavy lane (standing-query
+        work never displaces interactive queries); its completion is
+        reserved for wait().
 
         lane="batch" enqueues a light FusedGroup (runtime/batcher.py) and
         lane="heavy" a HeavyGroup or one of its split slices, each as ONE
@@ -366,9 +399,10 @@ class EnginePool:
                     queue.append((None, query))
             self._pending.release()
             return -1
-        if lane not in (None, "default"):
+        if lane not in (None, "default", "stream"):
             raise ValueError(f"unknown pool lane {lane!r}")
-        _M_SUBMITTED.labels(lane="default").inc()
+        lane = lane or "default"
+        _M_SUBMITTED.labels(lane=lane).inc()
         with self._results_lock:
             qid = self._next_qid
             self._next_qid += 1
@@ -378,8 +412,26 @@ class EnginePool:
         tr = getattr(query, "trace", None)
         if tr is not None:
             query._obs_queue_span = tr.start_span(
-                "pool.queue", qid=qid, lane="default")
-        self._stamp_enqueue(query, "default")
+                "pool.queue", qid=qid, lane=lane)
+        self._stamp_enqueue(query, lane)
+        if lane == "stream":
+            if Global.enable_admission and getattr(query, "owner_tenant",
+                                                   None):
+                # priority inheritance: a standing query's maintenance
+                # work rides the fair sub-lane at its OWNER's weight
+                # instead of the last-priority stream lane
+                return self._submit_fair(qid, query, stream=True)
+            with self._results_lock:
+                self._stream_qids.add(qid)
+            with self._route_lock:
+                if all(self._dead[k] for k in range(self.n)):
+                    self._end_queue_span(query, dead_pool=True)
+                    self._fail(qid, RuntimeError("engine pool dead"))
+                    return qid
+                with self._stream_lock:
+                    self.stream_queue.append((qid, query))
+            self._pending.release()
+            return qid
         if tid is None and Global.enable_admission:
             # default-lane traffic with no routing pin rides the DRR fair
             # sub-lane: per-tenant sub-queues drained by weight
@@ -398,11 +450,12 @@ class EnginePool:
         self._pending.release()
         return qid
 
-    def _submit_fair(self, qid: int, query) -> int:
+    def _submit_fair(self, qid: int, query, stream: bool = False) -> int:
         """Enqueue into the weighted-fair sub-lane (admission armed). The
         tenant is the effective one (``owner_tenant`` first) and the DRR
         weight is resolved here, from the lock-free quota map: FairQueue
-        never calls out under ``admission.queue``, which stays a leaf."""
+        never calls out under ``admission.queue``, which stays a leaf. A
+        stream-lane item keeps its completion reserved for wait()."""
         from wukong_tpu_torch.runtime.admission import (
             FairQueue,
             effective_tenant,
@@ -411,6 +464,9 @@ class EnginePool:
 
         ten = effective_tenant(query)
         w = get_admission().weight(ten)
+        if stream:
+            with self._results_lock:
+                self._stream_qids.add(qid)
         with self._route_lock:  # atomic dead-check + enqueue, as above
             if all(self._dead[k] for k in range(self.n)):
                 self._end_queue_span(query, dead_pool=True)
@@ -432,6 +488,7 @@ class EnginePool:
             raise TimeoutError(f"query {qid} still running")
         with self._results_lock:
             self._done.pop(qid, None)
+            self._stream_qids.discard(qid)
             try:
                 self._completed.remove(qid)
             except ValueError:
@@ -450,6 +507,10 @@ class EnginePool:
                 break
             with self._results_lock:
                 if qid not in self._done:  # already consumed via wait()
+                    continue
+                if qid in self._stream_qids:
+                    # stream-lane completions belong to the stream
+                    # context's wait() — leave them claimable
                     continue
                 self._done.pop(qid)
                 out.append((qid, self._results.pop(qid, None)))
@@ -555,6 +616,11 @@ class EnginePool:
                         self._heavy_by_tenant[ten] = (
                             self._heavy_by_tenant.get(ten, 0) + 1)
                     return item
+        # stream lane next-to-last: standing-query work fills idle capacity
+        if self.stream_queue:  # unguarded: an idle engine's peek at an empty lane; the pop rechecks under the lock
+            with self._stream_lock:
+                if self.stream_queue:
+                    return self.stream_queue.popleft()
         # rebuild lane last: background rebuilds are fully deferrable
         if self.rebuild_queue:  # unguarded: an idle engine's peek at an empty lane; the pop rechecks under the lock
             with self._rebuild_lock:

@@ -19,10 +19,12 @@ sequence gives the same arrays, version and ``gstore_digest``. Readers take
 no store-wide lock against a writer, as in the JAX package, but each
 ``DeltaCSRSegment`` holds a lock of its own around ``append`` and the merge
 in ``_mat``: without it a serving thread's merge could clear a batch that an
-insert appended after the merge took its snapshot (ROADMAP §C). The
-migration dual-write
-sinks wait for the distributed engine (ROADMAP §A 9), and the serving
-plane's mutation hook and the reuse observatory for theirs (§A 8, §A 10).
+insert appended after the merge took its snapshot (ROADMAP §C). A batch's
+version edge goes to the serving plane (``notify_mutation``, inside the
+mutation lock) and to the reuse observatory (``maybe_note_invalidation``,
+which journals ``cache.invalidate``), as in the JAX package. The migration
+dual-write sinks wait for the distributed engine (ROADMAP §A,
+"``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -98,18 +100,46 @@ class DeltaCSRSegment:
             return self._base
 
     def _merge(self) -> None:
-        bk = np.repeat(self._base.keys, np.diff(self._base.offsets))
-        all_k = np.concatenate([bk] + [p[0] for p in self._pending])
-        all_v = np.concatenate([self._base.edges]
-                               + [p[1] for p in self._pending])
-        order = np.lexsort((all_v, all_k))
-        k, v = all_k[order], all_v[order]
-        keys, counts = np.unique(k, return_counts=True)
-        offsets = np.zeros(len(keys) + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
+        """The merged CSR: the JAX merge's arrays (a lexsort of base +
+        deltas by (key, value), ties in arrival order), built by sorting
+        only the deltas and inserting each after the base's equal pairs —
+        two copies of the base instead of a sort of it, which made the
+        first read after a write O(segment log segment)."""
+        base = self._base
+        pk = np.concatenate([p[0] for p in self._pending])
+        pv = np.concatenate([p[1] for p in self._pending])
+        order = np.lexsort((pv, pk))
+        pk, pv = pk[order], pv[order]
+        keys, offsets, edges = base.keys, base.offsets, base.edges
+        # each delta's key run in the base ([lo, hi); empty for a new key,
+        # at the place the key's run will take), then the position after
+        # its equal values there: a vectorized binary search
+        at = np.searchsorted(keys, pk)
+        lo, hi = offsets[at].copy(), offsets[at].copy()
+        old = at < len(keys)
+        old[old] = keys[at[old]] == pk[old]
+        hi[old] = offsets[at[old] + 1]
+        while True:
+            live = lo < hi
+            if not live.any():
+                break
+            mid = (lo + hi) // 2
+            right = np.zeros(len(lo), dtype=bool)
+            right[live] = edges[mid[live]] <= pv[live]
+            lo = np.where(live & right, mid + 1, lo)
+            hi = np.where(live & ~right, mid, hi)
+        merged_edges = np.insert(
+            edges.astype(np.result_type(edges, pv), copy=False), lo, pv)
+        new_keys = sorted_union(keys, pk)
+        counts = np.zeros(len(new_keys), dtype=np.int64)
+        counts[np.searchsorted(new_keys, keys)] = np.diff(offsets)
+        np.add.at(counts, np.searchsorted(new_keys, pk), 1)
+        new_offsets = np.zeros(len(new_keys) + 1, dtype=np.int64)
+        np.cumsum(counts, out=new_offsets[1:])
         # no pair-dedup here: dedup appends were filtered at write time,
         # non-dedup appends legitimately keep duplicates
-        self._base = CSRSegment(keys=keys, offsets=offsets, edges=v)
+        self._base = CSRSegment(keys=new_keys, offsets=new_offsets,
+                                edges=merged_edges)
         self._pending.clear()
         self._pending_set.clear()
         self._n_pending = 0
@@ -148,6 +178,23 @@ class DeltaCSRSegment:
         return self._base.memory_bytes() + 16 * self._n_pending
 
 
+def sorted_union(old: np.ndarray, new: np.ndarray) -> np.ndarray:
+    """``np.union1d(old, new)`` (same values, same dtype): for a sorted
+    unique ``old`` (an index list, a key array, a versatile set) the new
+    values it lacks are inserted in place — a copy of ``old`` instead of a
+    sort of old + new, which made every insert batch O(index log index).
+    Any other ``old`` goes to ``np.union1d``."""
+    new = np.asarray(new)
+    if (len(old) and old.dtype == np.result_type(old, new)
+            and (len(old) < 2 or bool((old[1:] > old[:-1]).all()))):
+        new = np.unique(new)
+        pos = np.searchsorted(old, new)
+        have = pos < len(old)
+        have[have] = old[pos[have]] == new[have]
+        return np.insert(old, pos[~have], new[~have])
+    return np.union1d(old, new)
+
+
 def insert_triples(g: GStore, triples: np.ndarray, dedup: bool = True,
                    check_ids: bool = True) -> int:
     """Insert an [N,3] batch into this partition. Returns #edges inserted
@@ -181,27 +228,27 @@ def insert_triples(g: GStore, triples: np.ndarray, dedup: bool = True,
             for t in np.unique(vs):
                 members = np.unique(ks[vs == t])
                 old = g.index.get((int(t), IN), np.empty(0, dtype=np.int64))
-                g.index[(int(t), IN)] = np.union1d(old, members)
+                g.index[(int(t), IN)] = sorted_union(old, members)
                 g.type_ids.add(int(t))
         else:
             old = g.index.get((pid, IN), np.empty(0, dtype=np.int64))
-            g.index[(pid, IN)] = np.union1d(old, np.unique(ks))
+            g.index[(pid, IN)] = sorted_union(old, np.unique(ks))
 
     order = _triple_argsort(pi, oi, si)
     si, pi, oi = si[order], pi[order], oi[order]
     for pid, ks, vs in _pred_runs(pi, oi, si):
         _merge_into(g, (pid, IN), ks, vs, dedup)
         old = g.index.get((pid, OUT), np.empty(0, dtype=np.int64))
-        g.index[(pid, OUT)] = np.union1d(old, np.unique(ks))
+        g.index[(pid, OUT)] = sorted_union(old, np.unique(ks))
 
     # versatile structures
     if g.vp:
         g.vp[OUT] = _merge_seg(g.vp.get(OUT), s[mine_out], p[mine_out], True)
         g.vp[IN] = _merge_seg(g.vp.get(IN), oi, pi, True)
-        g.v_set = np.union1d(g.v_set, np.concatenate([s[mine_out], oi]))
+        g.v_set = sorted_union(g.v_set, np.concatenate([s[mine_out], oi]))
         tmask = p[mine_out] == TYPE_ID
-        g.t_set = np.union1d(g.t_set, o[mine_out][tmask])
-        g.p_set = np.union1d(
+        g.t_set = sorted_union(g.t_set, o[mine_out][tmask])
+        g.p_set = sorted_union(
             g.p_set, np.unique(np.concatenate([p[mine_out][~tmask], pi])))
 
     g.version = getattr(g, "version", 0) + 1
@@ -241,9 +288,9 @@ def insert_batch_into(stores: list[GStore], triples: np.ndarray,
     fires BEFORE any store mutates, so an acknowledged batch is always
     replayable and a WAL failure leaves the stores untouched. The mutation
     lock keeps the append + fan-out atomic w.r.t. checkpoint
-    serialization (runtime/recovery.py). The version edge is journaled as
-    one ``cache.invalidate`` event, outside the lock."""
-    from wukong_tpu_torch.obs.events import emit_event
+    serialization (runtime/recovery.py)."""
+    from wukong_tpu_torch.obs.reuse import maybe_note_invalidation
+    from wukong_tpu_torch.serve import notify_mutation
     from wukong_tpu_torch.store.wal import maybe_wal_append, mutation_lock
 
     with mutation_lock():
@@ -251,8 +298,17 @@ def insert_batch_into(stores: list[GStore], triples: np.ndarray,
         total = 0
         for g in stores:
             total += insert_triples(g, triples, dedup, check_ids=False)
+        # the serving plane's edge: INSIDE the mutation lock, so view
+        # maintenance re-keys surviving cache entries atomically with the
+        # version bump. One knob check when the result cache is off.
+        if stores:
+            notify_mutation("insert",
+                            version=getattr(stores[0], "version", 0),
+                            triples=triples)
+    # the observatory's edge kills the stale shadow keys and journals one
+    # cache.invalidate event, outside the lock (pure observability)
     if stores:
-        emit_event("cache.invalidate", cause="insert",
-                   version_to=int(getattr(stores[0], "version", 0)),
-                   n_triples=int(len(triples)))
+        maybe_note_invalidation(
+            "insert", version=getattr(stores[0], "version", 0),
+            n_triples=int(len(triples)))
     return total

@@ -34,7 +34,8 @@ deviations (ROADMAP §C):
   ``_DEVICE_FAIL_HOOK`` drill (:class:`DeviceDrill`); a CUDA error, a failed
   build, a refused launch or running out of memory reaches the caller.
 
-The scan's charge to ``obs.heat`` waits for that module (ROADMAP §A 6).
+The scan's charge to ``obs.heat`` waits for that module (ROADMAP §A, "The
+rest of the observatory, and the analysis plugins").
 """
 
 from __future__ import annotations

@@ -24,11 +24,11 @@ upserts. It mirrors the triple store's disciplines:
 - **Partitioning**: ownership is ``hash_mod(vid, num_workers) == sid``,
   the triple store's subject rule.
 
-The port's copy of the JAX package's vector/vstore.py. Its hooks into
-modules the port does not have yet (the migration dual-write sinks, the
-serving caches' ``notify_mutation`` and the reuse observatory) are left
-out; the version edge is journaled as one ``cache.invalidate`` event, as
-``insert_batch_into`` does.
+The port's copy of the JAX package's vector/vstore.py. A batch's version
+edge goes to the serving plane (``notify_mutation``) and the reuse
+observatory (``maybe_note_invalidation``), as ``insert_batch_into``'s does;
+the migration dual-write sinks wait for the distributed engine (ROADMAP §A,
+"``parallel/``, the distributed engine").
 """
 
 from __future__ import annotations
@@ -318,10 +318,12 @@ def upsert_batch_into(stores: list, vids, vecs=None, dedup: bool = True,
     BEFORE the WAL append, so an injected failure leaves the WAL and
     every vstore untouched (the batch was never acknowledged); the WAL
     append fires before any store mutates, so an acknowledged batch is
-    always replayable. The version edge is journaled as one
-    ``cache.invalidate`` event, outside the mutation lock."""
-    from wukong_tpu_torch.obs.events import emit_event
+    always replayable. The serving plane's invalidation edge lands INSIDE
+    the mutation lock (the insert-batch contract); the observatory's
+    outside it."""
+    from wukong_tpu_torch.obs.reuse import maybe_note_invalidation
     from wukong_tpu_torch.runtime import faults
+    from wukong_tpu_torch.serve import notify_mutation
     from wukong_tpu_torch.store.wal import maybe_wal_append, mutation_lock
 
     vids = np.asarray(vids, dtype=np.int64).ravel()
@@ -349,10 +351,13 @@ def upsert_batch_into(stores: list, vids, vecs=None, dedup: bool = True,
         total = 0
         for g in stores:
             total += _apply_to_store(g, vids, vecs_arr, tombstone, dim)
+        if stores:
+            notify_mutation("vector",
+                            version=getattr(stores[0], "version", 0))
     if stores:
-        emit_event("cache.invalidate", cause="vector",
-                   version_to=int(getattr(stores[0], "version", 0)),
-                   n_vecs=int(len(vids)), tombstone=bool(tombstone))
+        maybe_note_invalidation(
+            "vector", version=getattr(stores[0], "version", 0),
+            n_vecs=int(len(vids)), tombstone=bool(tombstone))
     return total
 
 
