@@ -4,7 +4,10 @@
 
 Phases (any failure exits nonzero, and no result line is printed):
   1. device: the card's name and power limit; build the CUDA kernels from
-     wukong_tpu_torch/csrc with nvcc and print the build time;
+     wukong_tpu_torch/csrc with nvcc and print the build time and the
+     build cache's outcome (hit or miss), which the device observatory's
+     boot counter (wukong_device_compile_cache_total, site boot) must
+     show;
   2. kernels: each hand-written kernel (K1 probe, K2 stream emit, K3 m-hot
      stream emit) against its plain PyTorch version on the card, exactly, on
      adversarial cases; K1 also on probe stress cases (a dense frontier of
@@ -110,7 +113,11 @@ Phases (any failure exits nonzero, and no result line is printed):
      as multisets, or 8 heavy members' counts. Each kernel call is classed
      as a fused light group's, a heavy slice's or a direct dispatch's, and
      each kernel is held against its plain version and timed on each
-     class's largest input;
+     class's largest input. Before the runs the HTTP plane (obs/httpd.py)
+     starts on a free loopback port and the metrics ring samples every
+     TSDB_INTERVAL_S; a scraper GETs every endpoint in ENDPOINTS in turn
+     (SCRAPE_PAUSE_S between rounds) through the runs: every reply 200,
+     every JSON body parsed, latencies printed; it stops before phase 10;
  10. multi-tenant serving (run after 9, on phase 3's proxy and planner,
      the engine pool started and batching on): Emulator.run_tenants over
      phase 9's light texts with the default classes (gold 2 clients, p95
@@ -166,8 +173,11 @@ Phases (any failure exits nonzero, and no result line is printed):
      temporary directory and console.main([config, dir, "-c",
      "sparql -b <file>"]) runs the seven shapes with -n 5 on the card,
      with phase 6's rows, the average latency run_single_query logs, and
-     K1 launched; and phase 10's EXPLAIN of the seven shapes, equal on
-     cpu and cuda under one planner;
+     K1 launched, the console lockdep-checked under a burst of scrapes of
+     every endpoint (no lock-order cycle, no leaf inversion, and every
+     render plane's ledger lock tracked); and phase
+     10's EXPLAIN of the seven shapes, equal on cpu and cuda under one
+     planner;
  13. the hybrid graph+vector plane (run after 11, on phase 3's proxy and
      phase 7's planner; bench.py --graphrag's mix): (a) every professor
      embedded (make_vectors, dim 64), the GraphRAG mix from 8 clients (3 s
@@ -182,7 +192,16 @@ Phases (any failure exits nonzero, and no result line is printed):
      2-hop micro's bands overlapping with vectors off and on; (e) the
      vector store detached, memory_allocated falling by its staged bytes.
      knn_scan must launch in (a), (b) and (c); each class of its calls is
-     held against the plain version and timed;
+     held against the plain version and timed. The scraper runs again
+     through the phase, with the metrics snapshot written every
+     SNAPSHOT_S; after it /top.json's shard 0 must hold one vector fetch a
+     scan and the rows scanned, as the smoke counts scan_topk's and
+     sliced_topk's calls itself (ScanCount), /device.json's trend
+     dispatches, /plan.json (a fresh sweep) the advisor's no-store status,
+     and the snapshot file must parse. Then, with the proxy idle,
+     IDLE_ROUNDS rounds of every endpoint with no kernel launch, no host
+     sync and no CUDA allocation; and python -m wukong_tpu_torch.analysis
+     --json over the port's tree must report 0 violations;
  14. the serving caches and streams (run after 13, on phase 3's proxy,
      whose store its writes mutate): (a) bench.py --readmostly's drill
      (Emulator.run_readmostly: four light families, READMOSTLY_ANCHORS
@@ -2175,15 +2194,22 @@ def stop_pool(proxy) -> None:
 
 
 def console_phase(scale: int, seed: int, cross_rows: dict,
-                  results: dict) -> None:
+                  results: dict, port: int) -> None:
     """Phase 8's console at LUBM-<scale>: the port's write_dataset writes
     the id-format directory, and console.main([config, dir, "-c",
     "sparql -b <file>"]) on the card runs the seven basic shapes with
     -n 5 -N; rows must equal phase 6's, and each shape's average latency is
-    the one run_single_query logs."""
+    the one run_single_query logs. The console runs lockdep-checked under a
+    burst of scrapes of the HTTP plane (no pause between rounds): no lock
+    order cycle and no leaf inversion, and every render plane's ledger
+    lock (RENDER_LOCKS) tracked through the burst. The metrics ring's
+    sampler is stopped while checked mode is switched on and off, so no
+    ledger lock is held when install() rebuilds it."""
     import re
 
+    from wukong_tpu_torch.analysis import lockdep
     from wukong_tpu_torch.loader.lubm import write_dataset
+    from wukong_tpu_torch.obs import stop_tsdb
     from wukong_tpu_torch.runtime import console
     from wukong_tpu_torch.runtime import proxy as proxy_mod
 
@@ -2211,13 +2237,36 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
                     g.write(text)
                 f.write(f"sparql -f {os.path.join(root, name)} -n 5 -N\n")
         proxy_mod.Proxy.run_single_query = recorded
+        before = lock_holds()
+        stop_tsdb()
+        lockdep.install(True)  # before the console builds its locks
+        set_tsdb_interval(TSDB_INTERVAL_S)
         try:
-            with LogCapture() as cap:
+            with LogCapture() as cap, Scraper(port, pause=0.0) as scraper:
                 t0 = time.perf_counter()
                 rc = console.main([cfg, data, "-c", f"sparql -b {batch}"])
                 out["main_s"] = time.perf_counter() - t0
+            locks = lockdep.report()
+            held = lock_holds()
         finally:
             proxy_mod.Proxy.run_single_query = orig
+            stop_tsdb()
+            lockdep.install(False)
+            set_tsdb_interval(TSDB_INTERVAL_S)
+    out["scrapes"] = scraper.report("phase 8's console, lockdep-checked")
+    check(locks["cycles"] == [] and locks["leaf_violations"] == [],
+          f"console under scrapes: lock-order cycles {locks['cycles'][:2]}, "
+          f"leaf inversions {locks['leaf_violations'][:2]}")
+    tracked = {n: held.get(n, 0) - before.get(n, 0) for n in RENDER_LOCKS}
+    check(all(c > 0 for c in tracked.values()),
+          f"console under scrapes: render-plane locks never tracked by "
+          f"lockdep: {sorted(n for n, c in tracked.items() if c <= 0)}")
+    out["lockdep"] = {"edges": len(locks["edges"]), "cycles": 0,
+                      "leaf_violations": 0, "render_lock_holds": tracked}
+    log(f"  console: lockdep-checked under the scrapes: "
+        f"{len(locks['edges'])} lock-order edges, no cycle, no leaf "
+        f"inversion; {len(tracked)} render-plane locks tracked, "
+        f"{sum(tracked.values()):,} holds")
     check(rc == 0 and len(got) == len(QUERIES),
           f"console: rc {rc}, {len(got)} of {len(QUERIES)} shapes answered")
     lat = [m.groups() for m in re.finditer(
@@ -2233,6 +2282,316 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
                                "runs": int(runs)}
         log(f"  console {name}: {q.result.nrows:,} rows (as phase 6), avg "
             f"latency {usec} usec over {runs} runs (run_single_query's log)")
+
+
+# ---------------------------------------------------------------------------
+# the observatory's HTTP plane under load (obs/httpd.py; phases 8, 9, 13)
+# ---------------------------------------------------------------------------
+
+# every endpoint of the HTTP plane, text and JSON; a scrape must answer 200
+# and every JSON body must parse
+ENDPOINTS = ("/metrics", "/metrics.json", "/top", "/top.json", "/slo",
+             "/slo.json", "/admission", "/admission.json", "/history",
+             "/history.json", "/events", "/events.json", "/plan",
+             "/plan.json", "/cache", "/cache.json", "/device",
+             "/device.json", "/healthz")
+SCRAPE_PAUSE_S = 1.0  # between a scraper's rounds (a monitor's pace)
+# the ledger locks of the planes the handler renders: process-wide
+# singletons made at import, which lockdep's checked mode must rebuild to
+# track (phase 8 fails if any of them saw no hold)
+RENDER_LOCKS = ("admission.state", "device.compile", "device.dispatch",
+                "device.residency", "events.ring", "heat.shard",
+                "placement.advisor", "placement.lineage",
+                "profile.templates", "reuse.ledger", "reuse.shadow",
+                "slo.signals", "slo.tenants", "tsdb.ring")
+IDLE_ROUNDS = 200  # rounds of every endpoint in phase 13's idle burst
+TSDB_INTERVAL_S = 1  # the metrics ring's interval from phase 9 on
+SNAPSHOT_S = 1  # phase 13's metrics snapshot interval
+
+
+def compile_cache_boot(outcome: str) -> float:
+    """The device observatory's compile-cache counter at site ``boot`` for
+    the build cache's outcome."""
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    return get_registry().counter(
+        "wukong_device_compile_cache_total",
+        labels=("outcome", "site")).value(outcome=outcome, site="boot")
+
+
+def lock_holds() -> dict:
+    """Tracked lock name -> releases recorded (lockdep's hold histogram)."""
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    fam = get_registry().snapshot().get("wukong_lock_hold_us") or {}
+    return {s["labels"]["name"]: s["count"] for s in fam.get("series", [])}
+
+
+def set_tsdb_interval(seconds: int) -> None:
+    """The metrics ring's sampler restarted at ``seconds`` (a running
+    sampler would take its interval only from its next tick)."""
+    from wukong_tpu_torch.config import Global
+    from wukong_tpu_torch.obs import maybe_start_tsdb, stop_tsdb
+
+    stop_tsdb()
+    Global.enable_tsdb, Global.tsdb_interval_s = True, seconds
+    check(maybe_start_tsdb() is not None, "the metrics ring did not start")
+
+
+def start_http_plane() -> int:
+    """The HTTP plane on a free loopback port and the metrics ring
+    sampling every TSDB_INTERVAL_S seconds; returns the port."""
+    import socket
+
+    from wukong_tpu_torch.obs import maybe_start_metrics_http
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    check(maybe_start_metrics_http(port=port) is not None,
+          f"the HTTP plane did not bind 127.0.0.1:{port}")
+    set_tsdb_interval(TSDB_INTERVAL_S)
+    return port
+
+
+def stop_http_plane() -> None:
+    """The HTTP plane down and the metrics ring back at its default
+    interval, as phases 10-11 ran before the plane existed (phase 10's
+    overload drill rides the host's pace): the ring's 1 s samples dropped
+    and the scraper's garbage collected, so the drill's heap holds nothing
+    of the scrapes (no phase 10-11 check reads the ring)."""
+    from wukong_tpu_torch.config import GlobalConfig
+    from wukong_tpu_torch.obs import get_tsdb, stop_metrics_http
+
+    stop_metrics_http()
+    get_tsdb().reset()
+    set_tsdb_interval(GlobalConfig.tsdb_interval_s)
+    gc.collect()
+
+
+def scrape(port: int, path: str):
+    """One GET: (status, ms, body bytes, the parsed JSON body or None)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        status, body = r.status, r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    doc = None
+    if path.split("?")[0].endswith(".json") or path == "/healthz":
+        doc = json.loads(body)
+    return status, ms, len(body), doc
+
+
+class Scraper:
+    """A thread that GETs every endpoint in turn, SCRAPE_PAUSE_S between
+    rounds, for the life of a ``with`` block; every failure (a status other
+    than 200, a JSON body that does not parse, an exception) is kept."""
+
+    def __init__(self, port: int, pause: float = SCRAPE_PAUSE_S):
+        import threading
+
+        self.port, self.pause = port, pause
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True,
+                                       name="chip-smoke-scraper")
+        self.ms: dict = {path: [] for path in ENDPOINTS}
+        self.errors: list = []
+        self.rounds = 0
+
+    def _run(self) -> None:
+        while not self.stop.is_set():
+            for path in ENDPOINTS:
+                try:
+                    status, ms, _n, _doc = scrape(self.port, path)
+                    self.ms[path].append(ms)
+                    if status != 200:
+                        self.errors.append((path, status))
+                except Exception as e:  # kept: the phase fails on it
+                    self.errors.append((path, repr(e)))
+            self.rounds += 1
+            self.stop.wait(self.pause)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=60)
+
+    def report(self, what: str) -> dict:
+        check(not self.thread.is_alive(), f"{what}: the scraper hangs")
+        check(self.errors == [], f"{what}: scrapes failed: "
+              f"{self.errors[:4]}")
+        check(self.rounds > 0, f"{what}: no round of scrapes ended")
+        ms = sorted(t for ts in self.ms.values() for t in ts)
+        rep = {"rounds": self.rounds, "requests": len(ms),
+               "p50_ms": ms[len(ms) // 2], "p99_ms": ms[int(len(ms) * 0.99)],
+               "max_ms": ms[-1],
+               "p50_ms_by_path": {p: sorted(ts)[len(ts) // 2]
+                                  for p, ts in self.ms.items() if ts}}
+        log(f"  http: {what}: {rep['rounds']} rounds, {rep['requests']} "
+            f"scrapes of {len(ENDPOINTS)} endpoints, every reply 200 and "
+            f"every JSON body parsed; p50 {rep['p50_ms']:.2f} ms, p99 "
+            f"{rep['p99_ms']:.2f} ms, max {rep['max_ms']:.2f} ms")
+        return rep
+
+
+class ScanCount:
+    """The smoke's own count of k-NN scans and the rows they scan: every
+    outermost call of vector/knn.py's scan_topk and sliced_topk (the heat
+    plane's two producers), counted beside the plane's charge."""
+
+    def __init__(self, knn):
+        import threading
+
+        self.knn = knn
+        self.lock = threading.Lock()
+        self.tls = threading.local()
+        self.scans = self.rows = 0
+        self.by_route: dict = {}
+        self.orig = {}
+
+    def _wrap(self, name: str):
+        import inspect
+
+        orig = self.orig[name] = getattr(self.knn, name)
+        sig = inspect.signature(orig)
+
+        def counted(*args, **kw):
+            outer = not getattr(self.tls, "depth", 0)
+            self.tls.depth = getattr(self.tls, "depth", 0) + 1
+            try:
+                out = orig(*args, **kw)
+            finally:
+                self.tls.depth -= 1
+            if outer:
+                call = sig.bind(*args, **kw)
+                call.apply_defaults()
+                route = call.arguments["route"]
+                rows = int(len(call.arguments["vstore"].snapshot()[0]))
+                with self.lock:
+                    self.scans += 1
+                    self.rows += rows
+                    self.by_route[route] = self.by_route.get(route, 0) + 1
+            return out
+
+        setattr(self.knn, name, counted)
+
+    def __enter__(self):
+        for name in ("scan_topk", "sliced_topk"):
+            self._wrap(name)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.knn, name, fn)
+
+
+def kernel_launches() -> dict:
+    """Every hand kernel's launch counter."""
+    from wukong_tpu_torch.engine import tpu_kernels as K
+    from wukong_tpu_torch.engine import tpu_stream as S
+    from wukong_tpu_torch.join import kernels as JK
+    from wukong_tpu_torch.vector import knn as KN
+
+    return {"probe_kernel": K.probe_kernel.launches,
+            "stream_emit": S.stream_emit.launches,
+            "stream_emit_m": S.stream_emit_m.launches,
+            "level_probe": JK.level_probe.launches,
+            "knn_scan": KN.knn_scan.launches}
+
+
+def observatory_after_hybrid(port: int, own: ScanCount, snap_path: str,
+                             out: dict) -> None:
+    """Phase 13's observatory checks: /top.json's shard 0 holds one vector
+    fetch per scan and the rows the scans read, as the smoke counted them;
+    /device.json's trend shows dispatches; /plan.json (a fresh sweep)
+    renders the advisor's no-store status; the snapshot file parses."""
+    _s, _ms, _n, top = scrape(port, "/top.json")
+    shard = top["shards"]["shards"].get("0")
+    check(shard is not None, "/top.json: no heat charged to shard 0")
+    check(shard["by_kind"].get("vector") == own.scans == shard["fetches"]
+          and shard["rows"] == own.rows,
+          f"/top.json: shard 0 has {shard['by_kind']} fetches and "
+          f"{shard['rows']:,} rows; the smoke counted {own.scans} scans of "
+          f"{own.rows:,} rows")
+    _s, _ms, _n, dev = scrape(port, "/device.json")
+    trend = dev["trend"]
+    check(trend.get("dispatches_per_s", 0) > 0,
+          f"/device.json: no dispatches in the trend window ({trend})")
+    _s, _ms, _n, plan = scrape(port, "/plan.json?sweep=1")
+    check(plan["status"]["decision"] == "no_store"
+          and plan["migration"] is None,
+          f"/plan.json: {plan['status']}, not the no-store status")
+    check(os.path.isfile(snap_path), "no metrics snapshot was written")
+    with open(snap_path) as f:
+        snapshot = json.load(f)
+    check("wukong_shard_heat_fetches_total" in snapshot,
+          "the metrics snapshot lacks the heat counters")
+    out.update(vector_fetches=shard["fetches"], rows=shard["rows"],
+               scans_by_route=dict(own.by_route), trend=trend,
+               plan=plan["status"]["decision"],
+               snapshot_bytes=os.path.getsize(snap_path))
+    log(f"  http: /top.json shard 0: {shard['fetches']} vector fetches, "
+        f"{shard['rows']:,} rows, as counted ({own.by_route} by route); "
+        f"/device.json trend {trend}; /plan.json {plan['status']}; the "
+        f"snapshot {out['snapshot_bytes']:,} B parsed")
+
+
+def idle_burst(port: int, out: dict) -> None:
+    """IDLE_ROUNDS rounds of every endpoint with the proxy idle: no kernel
+    launch, no host sync and no CUDA allocation."""
+    import torch
+
+    launches0 = kernel_launches()
+    alloc0 = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    ms: list = []
+
+    def burst():
+        for _ in range(IDLE_ROUNDS):
+            for path in ENDPOINTS:
+                status, t, _n, _doc = scrape(port, path)
+                check(status == 200, f"idle burst: {path} answered {status}")
+                ms.append(t)
+
+    t0 = time.perf_counter()
+    syncs, sites = count_syncs(burst)
+    seconds = time.perf_counter() - t0
+    alloc = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    launches = kernel_launches()
+    check(launches == launches0, f"idle burst: kernels launched "
+          f"({launches0} -> {launches})")
+    check(syncs == 0, f"idle burst: {syncs} host syncs at {sites}")
+    check(alloc == alloc0, f"idle burst: {alloc - alloc0} CUDA allocations")
+    ms.sort()
+    out.update(rounds=IDLE_ROUNDS, requests=len(ms), seconds=seconds,
+               p50_ms=ms[len(ms) // 2], p99_ms=ms[int(len(ms) * 0.99)])
+    log(f"  http: idle burst, {IDLE_ROUNDS} rounds of {len(ENDPOINTS)} "
+        f"endpoints ({len(ms):,} scrapes, {seconds:.1f} s, p50 "
+        f"{out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms): no kernel "
+        f"launch, no host sync, no CUDA allocation")
+
+
+def analysis_gates(out: dict) -> None:
+    """``python -m wukong_tpu_torch.analysis --json`` over the port's tree:
+    every gate clean."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wukong_tpu_torch.analysis", "--json"],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    doc = json.loads(proc.stdout) if proc.stdout.strip() else {}
+    check(proc.returncode == 0 and doc.get("count") == 0,
+          f"wukong-analyze: rc {proc.returncode}, "
+          f"{doc.get('violations', proc.stderr)[:4]}")
+    out.update(gates=len(doc["gates"]), count=doc["count"],
+               seconds=time.perf_counter() - t0)
+    log(f"  gates: python -m wukong_tpu_torch.analysis --json: "
+        f"{len(doc['gates'])} gates, {doc['count']} violations "
+        f"({out['seconds']:.1f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -5627,9 +5986,15 @@ def main(argv=None) -> int:
     log(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda}"
         f"); nvidia-smi: {card}")
     build_s = cuda_lib.build_all()
+    outcome = cuda_lib.last_build_outcome
+    boot = compile_cache_boot(outcome)
     log(f"build: {len(cuda_lib.SOURCES)} CUDA sources with nvcc in "
-        f"{build_s:.1f} s")
+        f"{build_s:.1f} s; the build cache's outcome: {outcome} (the device "
+        f"observatory's boot counter for it: {boot:g})")
+    check(boot >= 1, f"the build cache's outcome {outcome} is not on the "
+          "device observatory's boot counter")
     results = {"card": card, "kind": kind, "build_s": build_s,
+               "build_cache": {"outcome": outcome, "boot_count": boot},
                "scale": args.scale, "seed": args.seed, "queries": {},
                "batches": {}, "extended": {}, "batched": {}}
 
@@ -5812,17 +6177,26 @@ def main(argv=None) -> int:
     log(f"live: LUBM-{args.scale} on {kind}, Proxy.serve_query from "
         f"concurrent clients, batching off and on")
     live = live_prepare(proxy, results)
+    # the HTTP plane and the metrics ring at 1 s, scraped through the run
+    port = start_http_plane()
+    results["http"] = {"port": port}
+    log(f"live: the HTTP plane on 127.0.0.1:{port}, the metrics ring every "
+        f"{TSDB_INTERVAL_S} s, a scraper over {len(ENDPOINTS)} endpoints "
+        f"every {SCRAPE_PAUSE_S} s")
     for fn, _plain, _b in kernel_fns.values():
         fn.launches = 0
     classes = LiveClasses()
     captures = capture_all(classes.of, classes.of)
     try:
-        with classes, walk_pinned("9"):
+        with classes, walk_pinned("9"), Scraper(port) as scraper:
             serve_live(proxy, live,
                        lambda: captures["probe_kernel"].wrapped.launches,
                        results)
     finally:
         restore_all(captures.values())
+    results["http"]["phase9"] = scraper.report("phase 9, live serving")
+    # down before phase 10, whose overload drill rides the host's pace
+    stop_http_plane()
     torch.cuda.synchronize()
     by_class = {name: dict(c.launches) for name, c in captures.items()}
     log(f"live: kernel launches by class {by_class}")
@@ -5905,10 +6279,29 @@ def main(argv=None) -> int:
     del captures, lpc  # their kept inputs hold the proxy's stagings
 
     # ---- 13. the hybrid graph+vector plane, on phase 3's proxy -----------
+    from wukong_tpu_torch.obs.heat import get_heat
+    from wukong_tpu_torch.vector import knn as KN
+
     log(f"hybrid: LUBM-{args.scale} on {kind}, knn() through "
         f"Proxy.serve_query: the GraphRAG mix, the full-size scan, "
-        f"pattern-then-rank, the drill; {card}")
-    rows += serve_hybrid(proxy, results, errs, args.seed)
+        f"pattern-then-rank, the drill, scraped, the metrics snapshot every "
+        f"{SNAPSHOT_S} s; {card}")
+    port = start_http_plane()
+    results["http"]["port13"] = port
+    get_heat().reset()  # the phase's vector scans are its only charges
+    with tempfile.TemporaryDirectory() as snapdir:
+        snap_path = os.path.join(snapdir, "metrics.json")
+        with Knobs(None, metrics_snapshot_s=SNAPSHOT_S,
+                   metrics_snapshot_path=snap_path), \
+                ScanCount(KN) as own, Scraper(port) as scraper:
+            rows += serve_hybrid(proxy, results, errs, args.seed)
+        results["http"]["phase13"] = scraper.report(
+            "phase 13, the hybrid plane")
+        observatory_after_hybrid(port, own, snap_path,
+                                 results["http"]["phase13"])
+    del own, scraper
+    idle_burst(port, results["http"].setdefault("idle", {}))
+    analysis_gates(results.setdefault("gates", {}))
 
     # ---- 14. the serving caches and streams, on phase 3's proxy ----------
     log(f"caches and streams: LUBM-{args.scale} on {kind}, the read-mostly "
@@ -5973,7 +6366,7 @@ def main(argv=None) -> int:
         fn.launches = 0
     captures = capture_all()
     try:
-        console_phase(args.cross_scale, args.seed, cross_rows, results)
+        console_phase(args.cross_scale, args.seed, cross_rows, results, port)
     finally:
         restore_all(captures.values())
     torch.cuda.synchronize()

@@ -8,15 +8,27 @@ interpreter's GIL switch interval at S us (``sys.setswitchinterval``; the
 default is 5,000). ``--reuse`` sets ``enable_reuse`` (the reuse
 observatory's reply hook) for each turn, and ``--freeze`` moves every
 object alive before a turn out of the collector's reach for that turn
-(``gc.freeze``, undone after it).
+(``gc.freeze``, undone after it). ``--plane`` precedes each turn's drill
+with ``--pre`` seconds of chip_smoke's phase 9 light serving (16 clients,
+batching on, admission off), as the smoke's phase 9 precedes its phase
+10: ``0`` with no HTTP plane, then the metrics ring dropped and the heap
+collected; ``s`` with the HTTP plane up, the metrics ring at 1 s and
+chip_smoke's Scraper (a round of every endpoint each 1 s), then
+chip_smoke's ``stop_http_plane`` (the plane down, the ring dropped and
+back at its default interval, the heap collected); ``k`` as ``s`` but
+stopped without dropping the ring or collecting the heap.
 
     python3 scripts/torch_tenants_ab.py [--scale 640] [--seed 0]
         [--yields-us 0,Y,Y,0] [--spacings-us P,P,P,P] [--reuse 1,1,1,1]
-        [--freeze 0,0,0,0] [--duration 3] [--warmup 1] [--out PATH]
+        [--freeze 0,0,0,0] [--plane 0,s,k] [--pre 10] [--duration 3]
+        [--warmup 1] [--out PATH]
 
 Y and P, the defaults, are this build's ``REJECT_YIELD_S`` and
-``REJECT_SPACING_S``; ``--spacings-us``, ``--reuse`` and ``--freeze`` give
-one value for each turn of ``--yields-us``.
+``REJECT_SPACING_S``; ``--spacings-us``, ``--reuse``, ``--freeze`` and
+``--plane`` give one value for each turn of ``--yields-us`` (with
+``--plane`` alone, every turn's yield is Y). With ``--plane`` it also
+prints, for each of its letters, gold's compliance, p99 and late calls
+over the turns with that letter (mean, least and most).
 
 It synthesizes LUBM-<scale> from the seed, serves chip_smoke's light texts
 (``?s ub:advisor <a>``, bench.py --serve-batched's) under the greedy
@@ -101,6 +113,62 @@ def gc_summary(pauses: list, t_base: float) -> dict:
     return out
 
 
+def before_drill(smoke, proxy, light, plane: str, seconds: float) -> dict:
+    """A turn's lead-in (``--plane``): phase 9's light serving for
+    ``seconds``, with the HTTP plane scraped (``s``, ``k``) or without it
+    (``0``), then the plane's end as the letter says. Returns the lead-in's
+    rate, the scrapes, and the metrics ring's samples and the heap's
+    tracked objects as the drill starts."""
+    from wukong_tpu_torch.config import Global, GlobalConfig
+    from wukong_tpu_torch.obs import get_tsdb, stop_metrics_http
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    Global.enable_admission = False
+    port = smoke.start_http_plane() if plane != "0" else None
+    scraper = smoke.Scraper(port) if port is not None else None
+    if scraper is not None:
+        scraper.__enter__()
+    try:
+        rep = Emulator(proxy).run_serving(light, duration_s=seconds,
+                                          warmup_s=0.5, clients=16, seed=1)
+    finally:
+        if scraper is not None:
+            scraper.__exit__(None, None, None)
+    out = {"qps": rep["qps"], "errors": rep["errors"]}
+    if scraper is not None:
+        out["scrapes"] = scraper.report(f"lead-in {plane}")["requests"]
+    if plane == "s":
+        smoke.stop_http_plane()
+    elif plane == "k":
+        stop_metrics_http()
+        smoke.set_tsdb_interval(GlobalConfig.tsdb_interval_s)
+    else:
+        get_tsdb().reset()
+        gc.collect()
+    out["ring_samples"] = len(get_tsdb())
+    out["tracked_objects"] = len(gc.get_objects())
+    return out
+
+
+def by_plane(turns: list) -> dict:
+    """Gold's compliance, p99 and late calls over the turns of each
+    ``--plane`` letter: mean, least and most, and how many turns held."""
+    out: dict = {}
+    for letter in sorted({t["plane"] for t in turns}):
+        rows = [t for t in turns if t["plane"] == letter]
+        d = out[letter] = {"turns": len(rows),
+                           "held": sum(t["gold_held"] for t in rows)}
+        for key, vals in (
+                ("compliance", [t["gold"]["compliance"] or 0.0
+                                for t in rows]),
+                ("p99_us", [t["gold"]["p99_us"] for t in rows]),
+                ("qps", [t["gold"]["qps"] for t in rows]),
+                ("late", [len(t["gold_late"]) for t in rows])):
+            d[key] = {"mean": sum(vals) / len(vals), "min": min(vals),
+                      "max": max(vals)}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=640)
@@ -109,6 +177,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spacings-us", default=None)
     ap.add_argument("--reuse", default=None)
     ap.add_argument("--freeze", default=None)
+    ap.add_argument("--plane", default=None)
+    ap.add_argument("--pre", type=float, default=10.0)
     ap.add_argument("--duration", type=float, default=3.0)
     ap.add_argument("--warmup", type=float, default=1.0)
     ap.add_argument("--out", default=None)
@@ -138,15 +208,19 @@ def main(argv=None) -> int:
     light, _heavy = smoke.live_texts(proxy)
     build_s = proxy_mod.REJECT_YIELD_S
     build_p = proxy_mod.REJECT_SPACING_S
+    planes = args.plane.split(",") if args.plane else None
+    if planes is not None and set(planes) - {"0", "s", "k"}:
+        ap.error("--plane letters are 0, s and k")
     ys = (args.yields_us.split(",") if args.yields_us
-          else ["0", "Y", "Y", "0"])
+          else ["Y"] * len(planes) if planes else ["0", "Y", "Y", "0"])
     ps = (args.spacings_us.split(",") if args.spacings_us
           else ["P"] * len(ys))
     rs = args.reuse.split(",") if args.reuse else ["1"] * len(ys)
     fs = args.freeze.split(",") if args.freeze else ["0"] * len(ys)
-    if not len(ps) == len(rs) == len(fs) == len(ys):
-        ap.error("--spacings-us, --reuse and --freeze need one value for "
-                 "each turn")
+    planes = planes or [None] * len(ys)
+    if not len(ps) == len(rs) == len(fs) == len(planes) == len(ys):
+        ap.error("--spacings-us, --reuse, --freeze and --plane need one "
+                 "value for each turn")
     switch_s = sys.getswitchinterval()
     build_reuse = Global.enable_reuse
     pauses: list = []  # (generation, start, end) in perf_counter seconds
@@ -180,12 +254,12 @@ def main(argv=None) -> int:
                 (time.perf_counter() - t_full) * 1e3, 2)}
     print(f"heap: {heap}", flush=True)
     arms = []
-    for y, p, r, f in zip(ys, ps, rs, fs):
+    for y, p, r, f, pl in zip(ys, ps, rs, fs, planes):
         y, _, sw = y.partition("/")
         arms.append((build_s if y == "Y" else float(y) / 1e6,
                      build_p if p == "P" else float(p) / 1e6,
                      float(sw) / 1e6 if sw else switch_s,
-                     r != "0", f != "0"))
+                     r != "0", f != "0", pl))
     Global.silent = True
     Global.enable_batching = True
     Global.heavy_lane = True
@@ -197,7 +271,10 @@ def main(argv=None) -> int:
         Global.enable_admission = True
         Global.admission_quotas = smoke.TENANT_QUOTAS
         Global.admission_max_inflight = smoke.TENANT_MAX_INFLIGHT
-        for y, p, sw, reuse, freeze in arms:
+        for y, p, sw, reuse, freeze, plane in arms:
+            pre = (before_drill(smoke, proxy, light, plane, args.pre)
+                   if plane is not None else None)
+            Global.enable_admission = True
             proxy_mod.REJECT_YIELD_S = y
             proxy_mod.REJECT_SPACING_S = p
             sys.setswitchinterval(sw)
@@ -216,7 +293,8 @@ def main(argv=None) -> int:
                 if freeze:
                     gc.unfreeze()
             row = {"yield_s": y, "spacing_s": p, "switch_interval_s": sw,
-                   "reuse": reuse, "frozen": freeze,
+                   "reuse": reuse, "frozen": freeze, "plane": plane,
+                   "pre": pre,
                    "wall_s": round(time.perf_counter() - t0, 3),
                    "decisions": rep["admission"]["decisions"],
                    "gc": gc_summary(pauses, t0),
@@ -235,6 +313,8 @@ def main(argv=None) -> int:
                 and g_["partial"] == 0 and g_["rejected"] == 0)
             turns.append(row)
             print(json.dumps(row), flush=True)
+            if plane is not None:
+                Global.enable_admission = False
     finally:
         proxy_mod.REJECT_YIELD_S = build_s
         proxy_mod.REJECT_SPACING_S = build_p
@@ -248,6 +328,9 @@ def main(argv=None) -> int:
             proxy._batcher.close()
     out = {"card": card, "scale": args.scale, "seed": args.seed,
            "heap": heap, "turns": turns}
+    if args.plane:
+        out["by_plane"] = by_plane(turns)
+        print(json.dumps({"by_plane": out["by_plane"]}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

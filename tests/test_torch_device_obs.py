@@ -404,3 +404,49 @@ def test_off_knob_is_zero_touch(tri, monkeypatch):
             (snap0.get(metric) or {}).get("series", []), metric
     text_out, js = pdev.render_device()
     assert "enable_device_obs is OFF" in text_out and js["enabled"] is False
+
+
+def test_device_trend_and_render_equal_jax():
+    """``device_trend`` (the /device body's ``trend``) reads the same
+    dispatch, storm and residency-edge rates out of each package's tsdb
+    window over the same charges."""
+    from wukong_tpu.obs.tsdb import get_tsdb as jget_tsdb
+    from wukong_tpu_torch.obs.tsdb import get_tsdb
+
+    tsdbs = (get_tsdb(), jget_tsdb())
+    for ts in tsdbs:
+        ts.reset()
+    try:
+        assert pdev.device_trend() == jdev.device_trend() == {}
+        for ts in tsdbs:
+            ts.sample_once(now_us=1_000_000)
+        _charge_both()
+        for mod in (pdev, jdev):
+            mod.maybe_device_resident("fill", "join_table", 4096)
+            mod.maybe_device_resident("evict", "join_table", 4096)
+        for ts in tsdbs:
+            ts.sample_once(now_us=11_000_000)
+        trend = pdev.device_trend()
+        assert trend == jdev.device_trend()
+        assert trend["dispatches_per_s"] == pytest.approx(0.9)
+        assert trend["residency_edges_per_s"] == pytest.approx(0.2)
+        text, js = pdev.render_device(4)
+        jtext, jjs = jdev.render_device(4)
+        assert js["trend"] == jjs["trend"] == trend
+        assert text.splitlines()[-1] == jtext.splitlines()[-1]
+        assert text.splitlines()[-1].startswith("TREND")
+    finally:
+        for ts in tsdbs:
+            ts.reset()
+
+
+def test_dispatch_allowlist_names_real_modules():
+    """Each DEVICE_DISPATCH_ALLOWLIST entry is a module of the port with
+    a written reason (the device-telemetry gate holds the rest)."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(pdev.__file__))
+    assert pdev.DEVICE_DISPATCH_ALLOWLIST
+    for rel, why in pdev.DEVICE_DISPATCH_ALLOWLIST.items():
+        assert os.path.isfile(os.path.join(root, rel)), rel
+        assert len(why.split()) >= 5, rel

@@ -284,3 +284,83 @@ def test_attribution_off_is_untouched(world, monkeypatch):
     monkeypatch.setattr(Global, "enable_tracing", True)
     world["proxy"].run_single_query(Q_CHAIN, blind=True)
     assert profile.get_attributor().report() == []
+
+
+# ---------------------------------------------------------------------------
+# render_top (the `top` verb, GET /top)
+# ---------------------------------------------------------------------------
+
+def _top_sections(text):
+    """The shards and templates sections (the caches line and the lanes
+    read each package's process-wide counters)."""
+    return text.split("  caches:")[0]
+
+
+@pytest.mark.parametrize("k", [None, 2])
+def test_render_top_equals_jax(monkeypatch, k):
+    from wukong_tpu.obs import heat as jheat
+    from wukong_tpu_torch.obs import heat
+
+    class Clock:
+        def __init__(self):
+            self.t = 5_000_000
+
+        def __call__(self):
+            self.t += 333
+            return self.t
+
+    for mod in (heat, jheat):
+        monkeypatch.setattr(mod, "get_usec", Clock())
+        mod.get_heat().reset()
+    jprofile.get_attributor().reset()
+    try:
+        for args in ((0, "vector", 5000, 320000, 900),
+                     (1, "primary", 10, 80, 15),
+                     (0, "vector", 4000, 256000, 700),
+                     (2, "failover", 7, 56, 2000)):
+            heat.get_heat().charge(*args)
+            jheat.get_heat().charge(*args)
+        for tmpl, rows in (("T1", SERIES), ("T2", SERIES[:5])):
+            for (total, parse, execute) in rows:
+                profile.get_attributor().observe(
+                    _fake(ptrace, total, parse, execute, "gpu.execute"), tmpl)
+                jprofile.get_attributor().observe(
+                    _fake(jtrace, total, parse, execute, "tpu.execute"), tmpl)
+        text, js = profile.render_top(k)
+        jtext, jjs = jprofile.render_top(k)
+        assert js["shards"] == jjs["shards"]
+        strip = ("example",)
+        assert [{a: b for a, b in r.items() if a not in strip}
+                for r in js["templates"]] == \
+            [{a: b for a, b in r.items() if a not in strip}
+             for r in jjs["templates"]]
+        assert _top_sections(text) == _top_sections(jtext)
+        assert set(js) == set(jjs) == {"shards", "templates", "lanes",
+                                       "caches"}
+        assert set(js["caches"]) == set(jjs["caches"])
+        assert "LANES" in text and js["shards"]["ranked"][0]["shard"] == 0
+    finally:
+        for mod in (heat, jheat):
+            mod.get_heat().reset()
+        jprofile.get_attributor().reset()
+
+
+def test_lane_depths_reads_the_pool_gauges():
+    from wukong_tpu_torch.runtime.scheduler import EnginePool
+
+    class Echo:
+        def execute(self, q):
+            return q
+
+    pool = EnginePool(num_engines=2, make_engine=lambda t: Echo())
+    pool.start()
+    try:
+        qids = [pool.submit(i) for i in range(4)]
+        for qid in qids:
+            pool.wait(qid, timeout=5)
+        lanes = profile._lane_depths()
+        assert lanes["queue_depth"] == 0
+        assert lanes["submitted[default]"] >= 4
+        assert "depth[batch]" in lanes
+    finally:
+        pool.stop()

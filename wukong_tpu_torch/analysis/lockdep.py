@@ -10,31 +10,55 @@ held adds edges to a process-wide directed graph:
   one thread took A then B earlier, another now takes B while holding A.
   The first detection is recorded with both stacks.
 - **Declared leaves.** :func:`declare_leaf` marks a lock class innermost
-  (the row-budget lock). Acquiring any tracked lock while holding a leaf
-  is recorded as a violation.
+  (the row-budget lock, the observatory's ledgers). Acquiring any tracked
+  lock while holding a leaf is recorded as a violation.
+- **Hold/contention histograms.** Every tracked lock exports
+  ``wukong_lock_wait_us{name}`` / ``wukong_lock_hold_us{name}`` and a
+  ``wukong_lock_contended_total{name}`` counter, and the findings count
+  ``wukong_lockdep_cycles_total`` / ``wukong_lockdep_leaf_violations_total``,
+  through the obs MetricsRegistry (whose own locks are deliberately not
+  tracked: the checker publishes through them).
 
 Zero cost when off: with ``debug_locks`` false :func:`make_lock` returns a
 plain ``threading.Lock``, :func:`make_rlock` a plain ``threading.RLock``
 (the WAL's mutation lock) and :func:`make_condition` a plain
 ``threading.Condition`` (the batcher's). A module-level lock created at
-import registers through :func:`register_global_lock`, and :func:`install`
-rebuilds it, so whole-process checked mode covers it. The JAX module's
-hold/contention histograms wait for the observatory (ROADMAP §A, "The rest
-of the observatory, and the analysis plugins").
+import, or the lock of a process-wide singleton (the observatory's
+ledgers), registers through :func:`register_global_lock`, and
+:func:`install` rebuilds it, so whole-process checked mode covers it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import traceback
 
 from wukong_tpu_torch.config import Global
 
 __all__ = [
-    "DebugLock", "cycles", "declare_leaf", "install", "leaf_violations",
-    "make_condition", "make_lock", "make_rlock", "register_global_lock",
-    "report", "reset",
+    "DebugCondition", "DebugLock", "DebugRLock", "cycles", "declare_leaf",
+    "install", "leaf_violations", "make_condition", "make_lock",
+    "make_rlock", "register_global_lock", "report", "reset",
 ]
+
+
+def _metrics():
+    from wukong_tpu_torch.obs.metrics import get_registry
+
+    reg = get_registry()
+    return (reg.histogram("wukong_lock_wait_us",
+                          "Time spent waiting for contended tracked locks",
+                          labels=("name",)),
+            reg.histogram("wukong_lock_hold_us",
+                          "Tracked lock hold times", labels=("name",)),
+            reg.counter("wukong_lock_contended_total",
+                        "Tracked lock acquisitions that had to block",
+                        labels=("name",)),
+            reg.counter("wukong_lockdep_cycles_total",
+                        "Lock-order cycles detected"),
+            reg.counter("wukong_lockdep_leaf_violations_total",
+                        "Acquisitions while holding a declared-leaf lock"))
 
 
 class _LockdepState:
@@ -50,12 +74,14 @@ class _LockdepState:
         self.seen_cycle_keys: set[tuple] = set()
         self._tls = threading.local()
 
+    # -- per-thread held stack -----------------------------------------
     def held(self) -> list[str]:
         st = getattr(self._tls, "stack", None)
         if st is None:
             st = self._tls.stack = []
         return st
 
+    # -- graph ----------------------------------------------------------
     def _path_exists(self, src: str, dst: str) -> list[str] | None:
         """DFS over recorded edges; returns the node path src..dst."""
         stack = [(src, [src])]
@@ -74,9 +100,9 @@ class _LockdepState:
         return None
 
     def on_acquired(self, name: str) -> None:
-        """Record one successful acquisition of ``name`` by this thread,
-        after the underlying lock is held (the graph only records orders
-        that really happened)."""
+        """Record one successful acquisition of ``name`` by this thread.
+        Must be called AFTER the underlying lock is held (the order graph
+        only ever records orders that really happened)."""
         held = self.held()
         if held:
             prev = held[-1]
@@ -91,8 +117,8 @@ class _LockdepState:
         held.append(name)
 
     def _record(self, name: str, held: list[str]) -> None:
-        """Slow path: a new edge, or a leaf lock is held. Captures the
-        stack once."""
+        """Slow path: something new to write down (first time this edge is
+        seen, or a leaf lock is held). Captures the stack once."""
         prev = held[-1]
         stack_txt = "".join(traceback.format_stack(limit=16)[:-2])
         tname = threading.current_thread().name
@@ -100,6 +126,7 @@ class _LockdepState:
         with self._mu:
             for h in held:
                 if h in self.leaves:
+                    _metrics()[4].inc()
                     key = ("leaf", h, name)
                     if key not in self.seen_cycle_keys:
                         self.seen_cycle_keys.add(key)
@@ -123,6 +150,7 @@ class _LockdepState:
                             "stack_first": first_edge.get("stack", ""),
                             "thread_first": first_edge.get("thread", ""),
                         })
+                        _metrics()[3].inc()
                         cycle_msg = (
                             "lockdep: lock-order cycle "
                             f"{' -> '.join(path + [name])}: this thread "
@@ -130,8 +158,10 @@ class _LockdepState:
                             "but the opposite order was recorded earlier "
                             "— potential deadlock (both stacks kept; see "
                             "analysis.lockdep.report())")
-                # first observation only: a later visit must not overwrite
-                # the stack a cycle report presents as "stack_first"
+                # first observation only: a later slow-path visit (leaf
+                # held, or a racing thread) must not overwrite the stack
+                # a cycle report will present as "stack_first", and a
+                # reentrant same-name acquire must not self-edge
                 self.edges[(prev, name)] = {"stack": stack_txt,
                                             "thread": tname}
         if cycle_msg is not None:  # log outside the checker's own mutex
@@ -152,22 +182,49 @@ class _LockdepState:
 _state = _LockdepState()
 
 
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
 class DebugLock:
-    """threading.Lock wrapper feeding the order graph."""
+    """threading.Lock wrapper feeding the order graph + histograms."""
+
+    _kind = "lock"
 
     def __init__(self, name: str):
         self.name = name
-        self._inner = threading.Lock()
+        self._inner = self._make_inner()
+        self._acquired_at = 0.0  # monotonic; only read by the owner
+        (self._m_wait, self._m_hold, self._m_contended,
+         _c, _l) = _metrics()
 
+    @staticmethod
+    def _make_inner():
+        return threading.Lock()
+
+    # -- lock protocol --------------------------------------------------
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
-        if not self._inner.acquire(blocking, timeout):
-            return False
+        got = self._inner.acquire(blocking=False)
+        if not got:
+            if not blocking:
+                return False
+            self._m_contended.labels(name=self.name).inc()
+            t0 = time.monotonic()
+            got = self._inner.acquire(timeout=timeout) \
+                if timeout and timeout > 0 else self._inner.acquire()
+            if not got:
+                return False
+            self._m_wait.labels(name=self.name).observe(
+                (time.monotonic() - t0) * 1e6)
+        self._acquired_at = time.monotonic()
         _state.on_acquired(self.name)
         return True
 
     def release(self) -> None:
+        held_us = (time.monotonic() - self._acquired_at) * 1e6
         _state.on_released(self.name)
         self._inner.release()
+        self._m_hold.labels(name=self.name).observe(held_us)
 
     def locked(self) -> bool:
         return self._inner.locked()
@@ -184,59 +241,84 @@ class DebugLock:
 
 
 class DebugRLock(DebugLock):
-    """Reentrant variant: only the outermost acquire and release feed the
-    order graph."""
+    """Reentrant variant: only the outermost acquire/release feed the
+    order graph and the hold histogram."""
+
+    _kind = "rlock"
 
     def __init__(self, name: str):
-        self.name = name
-        self._inner = threading.RLock()
+        super().__init__(name)
         self._owner: int | None = None  # mutated only while inner is held
         self._depth = 0
 
+    @staticmethod
+    def _make_inner():
+        return threading.RLock()
+
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
         me = threading.get_ident()
-        if self._owner == me:  # reentrant: this thread already holds it
+        if self._owner == me:  # reentrant fast path: we already hold it
             self._inner.acquire()
             self._depth += 1
             return True
-        if not self._inner.acquire(blocking, timeout):
-            return False
+        got = self._inner.acquire(blocking=False)
+        if not got:
+            if not blocking:
+                return False
+            self._m_contended.labels(name=self.name).inc()
+            t0 = time.monotonic()
+            got = self._inner.acquire(timeout=timeout) \
+                if timeout and timeout > 0 else self._inner.acquire()
+            if not got:
+                return False
+            self._m_wait.labels(name=self.name).observe(
+                (time.monotonic() - t0) * 1e6)
         self._owner = me
         self._depth = 1
+        self._acquired_at = time.monotonic()
         _state.on_acquired(self.name)
         return True
 
     def release(self) -> None:
         self._depth -= 1
         if self._depth == 0:
+            held_us = (time.monotonic() - self._acquired_at) * 1e6
             self._owner = None
             _state.on_released(self.name)
-        self._inner.release()
+            self._inner.release()
+            self._m_hold.labels(name=self.name).observe(held_us)
+        else:
+            self._inner.release()
 
     def locked(self) -> bool:
         return self._owner is not None
 
 
 def make_lock(name: str):
-    """A mutex taking part in lockdep when ``debug_locks`` is on; a plain
-    ``threading.Lock`` otherwise."""
+    """A mutex participating in lockdep when ``debug_locks`` is on; a
+    PLAIN ``threading.Lock`` otherwise (zero wrapper cost off-path)."""
     return DebugLock(name) if Global.debug_locks else threading.Lock()
 
 
 def make_rlock(name: str):
-    """A reentrant mutex taking part in lockdep when ``debug_locks`` is on;
-    a plain ``threading.RLock`` otherwise."""
     return DebugRLock(name) if Global.debug_locks else threading.RLock()
 
 
 def make_condition(name: str):
-    """A Condition whose mutex takes part in lockdep when ``debug_locks``
-    is on. ``Condition.wait`` releases and reacquires through the wrapper,
-    so the held stack stays exact across waits."""
+    """A Condition whose underlying mutex participates in lockdep when on.
+    ``Condition.wait`` releases/reacquires through the wrapper, so the
+    held-stack stays exact across waits."""
     if not Global.debug_locks:
         return threading.Condition()
     return threading.Condition(DebugLock(name))
 
+
+DebugCondition = make_condition  # the factory IS the wrapper spelling
+
+
+# ---------------------------------------------------------------------------
+# leaves + module-level lock rebinding
+# ---------------------------------------------------------------------------
 
 def declare_leaf(name: str) -> None:
     """Declare a lock class innermost: acquiring any tracked lock while
@@ -255,10 +337,12 @@ _FACTORIES = {"lock": make_lock, "rlock": make_rlock,
 
 def register_global_lock(module, attr: str, name: str,
                          kind: str = "lock") -> None:
-    """Declare a module-global lock for :func:`install` rebinding. The
-    module keeps using ``<module>.<attr>``; install() swaps the object, so
-    callers must always read it through the module (the accessor-function
-    pattern ``mutation_lock()`` does this naturally)."""
+    """Declare a module-global lock, or the lock of a process-wide
+    singleton made at import (``module`` is then the instance), for
+    :func:`install` rebinding. The owner keeps using ``<module>.<attr>``;
+    install() swaps the object, so callers must always read it through the
+    owner (the accessor-function pattern ``mutation_lock()`` does this
+    naturally)."""
     if kind not in _FACTORIES:
         raise ValueError(f"unknown lock kind {kind!r}")
     with _GLOBAL_LOCKS_MU:
@@ -266,9 +350,11 @@ def register_global_lock(module, attr: str, name: str,
 
 
 def install(enabled: bool) -> None:
-    """Flip the process into or out of checked mode for locks created from
-    now on, rebuild every registered module-level lock, and reset what was
-    recorded. Only call when the registered locks are not held."""
+    """Flip the process into/out of checked mode: sets the
+    ``debug_locks`` knob, rebuilds every registered module-level lock, and
+    resets recorded state. Only call when the registered locks are not
+    held (test setup/teardown, process boot) — swapping a held lock would
+    orphan its waiters."""
     Global.debug_locks = bool(enabled)
     with _GLOBAL_LOCKS_MU:
         regs = list(_GLOBAL_LOCKS)
@@ -276,6 +362,10 @@ def install(enabled: bool) -> None:
         setattr(module, attr, _FACTORIES[kind](name))
     reset()
 
+
+# ---------------------------------------------------------------------------
+# reporting
+# ---------------------------------------------------------------------------
 
 def cycles() -> list[dict]:
     with _state._mu:

@@ -262,6 +262,31 @@ class GlobalConfig:
     tsdb_interval_s: int = 5
     tsdb_retention_s: int = 900
 
+    # ---- the heat and placement observatory and the HTTP plane
+    # (obs/heat.py, obs/placement.py, obs/httpd.py; all mutable) ----
+    # per-shard heat: every charge (a vector scan's rows and bytes, its
+    # latency) lands in per-shard counters, the wukong_shard_heat_*
+    # metrics and the /top report
+    enable_heat: bool = True
+    # per-shard latency / arrival samples kept for the heat CDFs
+    heat_window: int = 512
+    # observe-only placement advisor: the trend window its sweep (/plan
+    # and the `plan` verb) reads the per-shard fetch rates over; its
+    # planning knobs come with the sharded store (ROADMAP §A 7)
+    placement_window_s: int = 300
+    # the scrape endpoint (GET /metrics, /top, /plan, /healthz, ...): 0 =
+    # off; loopback unless metrics_host widens it (the endpoint has no
+    # auth)
+    metrics_port: int = 0
+    metrics_host: str = "127.0.0.1"
+    # /healthz answers 503 while degraded (dead pool engines) instead of
+    # 200 with the degraded set in its body
+    health_ready_503: bool = False
+    # the registry's JSON snapshot written to metrics_snapshot_path every
+    # metrics_snapshot_s seconds during emulator runs (0 = off)
+    metrics_snapshot_s: int = 0
+    metrics_snapshot_path: str = ""
+
     # ---- the serving-cache observatory (obs/reuse.py; all mutable): the
     # template popularity ledger and the observe-only shadow cache charged
     # at the proxy's reply point (key = plan signature + constants + store

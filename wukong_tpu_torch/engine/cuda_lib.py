@@ -72,6 +72,9 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _tls = threading.local()
 build_seconds: float | None = None  # wall time of the last build_all()
+# the last build_all()'s outcome on the device observatory's compile-cache
+# counter: "hit" (every library present) or "miss" (nvcc ran)
+last_build_outcome: str | None = None
 
 
 def _nvcc() -> str:
@@ -90,8 +93,13 @@ def _target(src: str) -> Path:
 
 def build_all() -> float:
     """Compile every source that has no current library, in parallel.
-    Returns the wall seconds spent (0 when everything was built)."""
-    global build_seconds
+    Returns the wall seconds spent (0 when everything was built). Charges
+    the outcome to the device observatory's compile-cache counter (site
+    ``boot``): ``hit`` when every library was present, ``miss`` when nvcc
+    ran; a failed build raises before any charge."""
+    global build_seconds, last_build_outcome
+    from wukong_tpu_torch.obs.device import note_compile_cache
+
     with _lock:
         todo = [s for s in SOURCES if not _target(s).exists()]
         t0 = time.perf_counter()
@@ -116,6 +124,8 @@ def build_all() -> float:
             if errors:
                 raise RuntimeError("\n".join(errors))
         build_seconds = time.perf_counter() - t0
+        last_build_outcome = "miss" if todo else "hit"
+        note_compile_cache(last_build_outcome, site="boot")
         return build_seconds
 
 

@@ -19,10 +19,13 @@ plane and the event journal (the port's copy of the JAX package's obs/).
   percentiles; the ``history`` verb)
 - reuse.py    — the serving-cache observatory: template popularity, the
   shadow cache, invalidation telemetry (the ``cache`` verb)
-
-The JAX package's heat and placement observatories, its HTTP endpoints and
-its metrics snapshotter wait for the subsystems they observe (ROADMAP §A,
-"The rest of the observatory, and the analysis plugins").
+- heat.py     — per-shard heat accounting (``PLACEMENT_INPUTS``; the
+  vector scans charge it; the ``top`` verb)
+- placement.py — shard lineage and the observe-only placement advisor
+  (its store-less sweep; the ``plan`` verb)
+- httpd.py    — the HTTP scrape endpoint (/metrics, /top, /slo,
+  /admission, /history, /events, /plan, /cache, /device, /healthz) and the
+  metrics snapshotter
 """
 
 from wukong_tpu_torch.obs.events import (
@@ -38,7 +41,22 @@ from wukong_tpu_torch.obs.export import (
     maybe_device_trace,
     write_chrome_trace,
 )
+from wukong_tpu_torch.obs.httpd import (
+    MetricsSnapshotter,
+    health_report,
+    maybe_start_metrics_http,
+    maybe_start_snapshotter,
+    register_health_source,
+    stop_metrics_http,
+)
 from wukong_tpu_torch.obs.metrics import MetricsRegistry, get_registry
+from wukong_tpu_torch.obs.placement import (
+    PlacementAdvisor,
+    ShardLineage,
+    get_advisor,
+    get_lineage,
+    render_plan,
+)
 from wukong_tpu_torch.obs.recorder import (
     DUMP_CODES,
     FlightRecorder,
@@ -62,6 +80,7 @@ from wukong_tpu_torch.obs.trace import (
     trace_event,
 )
 from wukong_tpu_torch.obs.tsdb import (
+    MetricsTSDB,
     get_tsdb,
     maybe_start_tsdb,
     render_history,
@@ -70,11 +89,15 @@ from wukong_tpu_torch.obs.tsdb import (
 
 __all__ = [
     "ADMISSION_INPUTS", "ClusterEvent", "DUMP_CODES", "EventJournal",
-    "FlightRecorder", "MetricsRegistry", "QueryTrace", "SLOSpec", "Span",
+    "FlightRecorder", "MetricsRegistry", "MetricsSnapshotter",
+    "MetricsTSDB", "PlacementAdvisor", "QueryTrace", "SLOSpec", "ShardLineage", "Span",
     "StepTrace", "activate", "chrome_trace_events", "current",
-    "device_trace", "emit_event", "get_journal", "get_overload",
-    "get_recorder", "get_registry", "get_reuse", "get_slo", "get_tsdb",
-    "maybe_device_trace", "maybe_start_trace", "maybe_start_tsdb",
-    "render_cache", "render_events", "render_history", "render_slo",
-    "stop_tsdb", "trace_event", "write_chrome_trace",
+    "device_trace", "emit_event", "get_advisor", "get_journal",
+    "get_lineage", "get_overload", "get_recorder", "get_registry",
+    "get_reuse", "get_slo", "get_tsdb", "health_report",
+    "maybe_device_trace", "maybe_start_metrics_http", "maybe_start_snapshotter",
+    "maybe_start_trace", "maybe_start_tsdb", "register_health_source",
+    "render_cache", "render_events", "render_history", "render_plan",
+    "render_slo", "stop_metrics_http", "stop_tsdb", "trace_event",
+    "write_chrome_trace",
 ]

@@ -27,11 +27,13 @@ observe-only (no dispatch is re-routed here):
 
 ``DEVICE_INPUTS`` maps every signal the compiled-template route chooser may
 read to the registered metric that backs it; :func:`read_device_input` is
-its only read path. Surfaced as the ``device`` console verb and
-``Monitor.device_lines``. Everything gates on ``enable_device_obs``
-(default on; off, every seam is one knob check). The JAX module's
-``device_trend`` and its ``/device`` HTTP endpoint wait for the HTTP plane
-(ROADMAP §A, "The rest of the observatory, and the analysis plugins").
+its only read path; ``DEVICE_DISPATCH_ALLOWLIST`` names each module of
+``engine/``, ``join/``, ``vector/`` and ``stream/`` that makes device
+calls without the dispatch seam, with the reason (the ``device-telemetry``
+analysis gate holds both). Surfaced as ``GET /device`` + ``/device.json``
+on obs/httpd.py, the ``device`` console verb, ``Monitor.device_lines`` and
+the tsdb trend windows (:func:`device_trend`). Everything gates on
+``enable_device_obs`` (default on; off, every seam is one knob check).
 """
 
 from __future__ import annotations
@@ -39,7 +41,11 @@ from __future__ import annotations
 import time
 from collections import deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.utils.timer import get_usec
@@ -61,6 +67,39 @@ DEVICE_INPUTS = {
     "residency_high_water": "wukong_device_resident_high_water_bytes",
     "compile_cache": "wukong_device_compile_cache_total",
     "feedback": "wukong_device_feedback_total",
+}
+
+#: modules under engine/, join/, vector/ and stream/ that launch a hand
+#: kernel or run torch ops on the card without calling the dispatch seam
+#: themselves, each with the reason the device-telemetry gate displays.
+#: The rule: a module may skip the seam only when every site that invokes
+#: its device work charges it — the charge belongs at the sync point,
+#: where wall time and live-row counts exist.
+DEVICE_DISPATCH_ALLOWLIST = {
+    "engine/cuda_lib.py": (
+        "builds and binds the kernel libraries and counts launches; it "
+        "launches nothing itself — each wrapper's caller charges"),
+    "engine/device_store.py": (
+        "staging only (segment and index uploads): charged to the "
+        "residency ledger through maybe_device_resident, and the chains "
+        "that read the stagings charge their dispatches"),
+    "engine/tpu.py": (
+        "the GPU engine's chains sync once a chain and charge every step "
+        "through charge_steps at that sync (sites gpu.chain, "
+        "gpu.batch_chain)"),
+    "engine/tpu_merge.py": (
+        "the merge executor's flights sync once and charge their steps "
+        "through charge_steps (sites gpu.merge.flight, gpu.merge)"),
+    "engine/tpu_kernels.py": (
+        "K1 probe_kernel and the expand ops; launched only inside chains "
+        "and flights charged in engine/tpu.py and engine/tpu_merge.py"),
+    "engine/tpu_stream.py": (
+        "K2/K3 stream_emit wrappers; launched only inside merge flights "
+        "charged in engine/tpu_merge.py"),
+    "join/kernels.py": (
+        "level_probe and the epoch frontier; invoked by join/wcoj.py, "
+        "engine/template_compile.py and stream/continuous.py, which charge "
+        "the seam at their sync"),
 }
 
 #: bounded-cardinality catch-all template label (the reuse-observatory
@@ -106,8 +145,9 @@ _M_RESIDENCY = get_registry().counter(
     labels=("kind", "event"))
 _M_COMPILE_CACHE = get_registry().counter(
     "wukong_device_compile_cache_total",
-    "Compile-cache outcomes by site (engine/template_compile.py "
-    "whole-plan program cache hits/misses/evictions)",
+    "Compile-cache outcomes by site (engine/cuda_lib.py kernel build "
+    "cache at boot; engine/template_compile.py whole-plan program cache "
+    "hits/misses/evictions)",
     labels=("outcome", "site"))
 _M_FEEDBACK = get_registry().counter(
     "wukong_device_feedback_total",
@@ -552,6 +592,10 @@ class DeviceObservatory:
 
 # process-wide observatory (the engine seams, /device, and Monitor share it)
 _observatory = DeviceObservatory()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_observatory.dispatch_ledger, "_lock", "device.dispatch")
+register_global_lock(_observatory.compile_ledger, "_lock", "device.compile")
+register_global_lock(_observatory.residency, "_lock", "device.residency")
 
 get_registry().gauge(
     "wukong_device_padding_efficiency",
@@ -650,10 +694,12 @@ def note_feedback(kind: str, reason: str) -> None:
 
 
 def note_compile_cache(outcome: str, site: str = "boot") -> None:
-    """Compile-cache outcomes by site: engine/template_compile.py charges
-    its whole-plan program cache (``hit`` / ``miss`` / ``evict``, site
-    ``template``) — a storm of whole-plan variants is visible to the same
-    counter the compile ledger's amortization claim reads."""
+    """Compile-cache outcomes by site: engine/cuda_lib.py's ``build_all``
+    charges the kernel build cache (``hit`` / ``miss``, site ``boot``) and
+    engine/template_compile.py its whole-plan program cache (``hit`` /
+    ``miss`` / ``evict``, site ``template``) — a storm of whole-plan
+    variants is visible to the same counter the compile ledger's
+    amortization claim reads."""
     _M_COMPILE_CACHE.labels(outcome=outcome, site=site).inc()
 
 
@@ -681,6 +727,30 @@ def read_device_input(signal: str, site: str | None = None):
                    f"{DEVICE_INPUTS[signal]!r} instead")
 
 
+def device_trend(window_s: float | None = None) -> dict:
+    """Dispatch / storm / residency-edge rates over the tsdb trend
+    window. Every metric literal read here is declared in DEVICE_INPUTS
+    (gate-enforced); reads go through rate_by_label, not rate(), for
+    the cold-start-window reason reuse_trend documents."""
+    from wukong_tpu_torch.obs.tsdb import get_tsdb
+
+    ts = get_tsdb()
+    by_site = ts.rate_by_label("wukong_device_dispatch_total", "site",
+                               window_s)
+    if not by_site:
+        return {}
+    out = {"dispatches_per_s": round(sum(by_site.values()), 2)}
+    storms = ts.rate_by_label("wukong_device_variant_storms_total",
+                              "site", window_s)
+    if storms:
+        out["storms_per_s"] = round(sum(storms.values()), 3)
+    edges = ts.rate_by_label("wukong_device_residency_total", "kind",
+                             window_s)
+    if edges:
+        out["residency_edges_per_s"] = round(sum(edges.values()), 2)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the /device report (endpoint + console verb + Monitor line)
 # ---------------------------------------------------------------------------
@@ -691,7 +761,8 @@ def render_device(k: int | None = None) -> tuple[str, dict]:
     top, the per-(site, template, capacity) ranking under it, variants
     and the residency ledger against the budget below."""
     rep = _observatory.report(k)
-    js = {**rep,
+    trend = device_trend()
+    js = {**rep, "trend": trend,
           "knobs": {"device_budget_mb": int(Global.device_budget_mb),
                     "device_variant_limit":
                         int(Global.device_variant_limit),
@@ -745,4 +816,7 @@ def render_device(k: int | None = None) -> tuple[str, dict]:
     if res["by_kind"]:
         lines.append("  by kind  " + "  ".join(
             f"{kk}:{v:,}B" for kk, v in sorted(res["by_kind"].items())))
+    if trend:
+        lines.append("TREND   " + "  ".join(
+            f"{k2} {v:,.2f}" for k2, v in sorted(trend.items())))
     return "\n".join(lines) + "\n", js

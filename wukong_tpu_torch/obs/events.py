@@ -29,7 +29,11 @@ import itertools
 import json
 from collections import deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.utils.logger import log_warn
@@ -204,6 +208,8 @@ class EventJournal:
 
 # process-wide journal (every emitter and the ``events`` verb share it)
 _journal = EventJournal()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_journal, "_lock", "events.ring")
 
 
 def get_journal() -> EventJournal:

@@ -30,9 +30,9 @@ level route, ``template-compiled`` for a query its compiled template
 served), the WCOJ per-level table (``wcoj_levels``) and the device table
 (``device_steps``: one row per charged device dispatch — a chain step, a
 merge step, a WCOJ probe group, a template program) and the ``knn`` section
-of a hybrid query (its mode, route and scan size), as in the JAX package. The JAX module's
-``render_top`` (the ``top`` verb) needs the heat observatory and waits for
-it (ROADMAP §A, "The rest of the observatory, and the analysis plugins").
+of a hybrid query (its mode, route and scan size), as in the JAX package.
+:func:`render_top` is top(1) for shards (the heat plane), templates (the
+attributor) and the pool's lanes: the ``top`` verb and ``GET /top``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,13 @@ from __future__ import annotations
 import os
 from collections import deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
+from wukong_tpu_torch.obs.heat import get_heat
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.recorder import get_recorder
 from wukong_tpu_torch.obs.trace import QueryTrace, activate
@@ -527,6 +532,8 @@ class LatencyAttributor:
 
 
 _attributor = LatencyAttributor()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_attributor, "_lock", "profile.templates")
 
 
 def get_attributor() -> LatencyAttributor:
@@ -548,3 +555,95 @@ def template_key(q, text: str) -> str:
     import zlib
 
     return f"sig:{zlib.crc32(repr(sig).encode()):08x}"
+
+
+# ---------------------------------------------------------------------------
+# the /top report (shards / templates / lanes)
+# ---------------------------------------------------------------------------
+
+def render_top(k: int | None = None) -> tuple[str, dict]:
+    """(plain-text table, JSON dict) for the /top endpoint and the ``top``
+    console verb — top(1) for shards, templates, and scheduler lanes."""
+    from wukong_tpu_torch.obs.reuse import cache_hit_rates
+
+    kk = k if k is not None else max(int(Global.top_k), 1)
+    heat = get_heat().report(kk)
+    templates = get_attributor().report(kk)
+    lanes = _lane_depths()
+    caches = cache_hit_rates()
+    js = {"shards": heat, "templates": templates, "lanes": lanes,
+          "caches": caches}
+
+    lines = [f"wukong-top  (top {kk} per section)", ""]
+    lines.append("SHARDS by fetches "
+                 f"(total {heat['total_fetches']:,})")
+    lines.append(f"{'shard':>6} {'fetches':>8} {'share':>6} {'rows':>10} "
+                 f"{'bytes':>12} {'ewma_us':>9} {'p50_us':>8} {'p99_us':>8} "
+                 f"{'rate50/s':>9} {'failover':>8} {'degraded':>8}")
+    for r in heat["ranked"]:
+        lat = r["latency_cdf"]
+        rate = r["load_rate_cdf"]
+        lines.append(
+            f"{r['shard']:>6} {r['fetches']:>8,} {r['share']:>6.1%} "
+            f"{r['rows']:>10,} {r['bytes']:>12,} {r['ewma_us']:>9,.0f} "
+            f"{lat.get(0.5, 0):>8,.0f} {lat.get(0.99, 0):>8,.0f} "
+            f"{rate.get(0.5, 0):>9,.1f} "
+            f"{r['by_kind'].get('failover', 0):>8,} "
+            f"{r['by_kind'].get('degraded', 0):>8,}")
+    if not heat["ranked"]:
+        lines.append("  (no shard fetches charged — enable_heat off or "
+                     "no distributed store)")
+    lines.append("")
+    lines.append("TEMPLATES by attributed time")
+    lines.append(f"{'template':<16} {'count':>7} {'p50_us':>8} {'p95_us':>8} "
+                 f"{'top_component':>14} {'share':>6} {'trips':>5}")
+    for t in templates:
+        lines.append(f"{t['template']:<16.16} {t['count']:>7,} "
+                     f"{t['p50_us']:>8,} {t['p95_us']:>8,} "
+                     f"{t['top_component']:>14} {t['top_share']:>6.1%} "
+                     f"{t['trips']:>5}")
+    if not templates:
+        lines.append("  (no attributed samples — enable_attribution + "
+                     "enable_tracing to populate)")
+
+    def _rate(c):
+        return ("-" if c["hit_rate"] is None
+                else format(c["hit_rate"], ".1%"))
+
+    shadow_hr = caches["shadow"]["hit_rate"]
+    lines.append(
+        f"  caches: parse {_rate(caches['parse'])} "
+        f"({caches['parse']['total']:,})  plan {_rate(caches['plan'])} "
+        f"({caches['plan']['total']:,})  shadow "
+        + ("-" if shadow_hr is None else format(shadow_hr, ".1%")
+           ) + "  (GET /cache for the full observatory)")
+    lines.append("")
+    lines.append("LANES")
+    for name, v in lanes.items():
+        lines.append(f"  {name:<24} {v:,}")
+    return "\n".join(lines) + "\n", js
+
+
+def _lane_depths() -> dict:
+    """Lane activity from the registry: current pool queue depth (total
+    and per lane), cumulative submissions per lane, and the heavy lane's
+    fused-group occupancy (mean members per flush)."""
+    snap = get_registry().snapshot()
+    out: dict = {}
+    g = snap.get("wukong_pool_queue_depth")
+    if g and g["series"]:
+        out["queue_depth"] = int(g["series"][0].get("value", 0))
+    d = snap.get("wukong_pool_lane_depth")
+    for s in (d or {}).get("series", []):
+        lane = s.get("labels", {}).get("lane", "default") or "default"
+        out[f"depth[{lane}]"] = int(s.get("value", 0))
+    c = snap.get("wukong_pool_submitted_total")
+    for s in (c or {}).get("series", []):
+        lane = s.get("labels", {}).get("lane", "default") or "default"
+        out[f"submitted[{lane}]"] = int(s.get("value", 0))
+    from wukong_tpu_torch.obs.metrics import snapshot_histogram_mean
+
+    occ = snapshot_histogram_mean(snap, "wukong_batch_heavy_occupancy")
+    if occ is not None:
+        out["heavy_occupancy_mean"] = round(occ, 2)
+    return out

@@ -18,7 +18,11 @@ import json
 import os
 from collections import deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.trace import QueryTrace
@@ -176,6 +180,8 @@ class FlightRecorder:
 
 
 _recorder = FlightRecorder()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_recorder, "_lock", "obs.recorder")
 
 
 def get_recorder() -> FlightRecorder:

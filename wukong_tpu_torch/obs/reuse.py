@@ -43,7 +43,11 @@ import math
 import zlib
 from collections import OrderedDict, deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.types import NORMAL_ID_START
@@ -586,6 +590,9 @@ class ReuseObservatory:
 # process-wide observatory (the proxy hook, the cache verb and the Monitor
 # share it)
 _observatory = ReuseObservatory()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_observatory.ledger, "_lock", "reuse.ledger")
+register_global_lock(_observatory.shadow, "_lock", "reuse.shadow")
 
 get_registry().gauge(
     "wukong_reuse_hit_rate",

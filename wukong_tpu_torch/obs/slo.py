@@ -30,10 +30,15 @@ is host bookkeeping at the reply point; nothing here touches a tensor.
 
 from __future__ import annotations
 
+import sys
 from collections import deque
 from dataclasses import dataclass
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.recorder import get_recorder
@@ -552,6 +557,10 @@ class OverloadSignals:
 # share them)
 _tracker = SLOTracker()
 _signals = OverloadSignals()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_tracker, "_lock", "slo.tenants")
+register_global_lock(_signals, "_lock", "slo.signals")
+register_global_lock(sys.modules[__name__], "_label_lock", "slo.labels")
 
 get_registry().gauge(
     "wukong_lane_queue_delay_us",

@@ -30,7 +30,11 @@ import math
 import threading
 from collections import deque
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.utils.logger import log_warn
@@ -390,6 +394,8 @@ class TSDBSampler:
 # process-wide ring (the sampler, the history verb and the reuse trend
 # share it)
 _tsdb = MetricsTSDB()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_tsdb, "_lock", "tsdb.ring")
 _sampler_lock = threading.Lock()  # plain: guards one-shot sampler start only
 _sampler: "TSDBSampler | None" = None  # guarded by: _sampler_lock
 

@@ -43,7 +43,11 @@ from __future__ import annotations
 from collections import deque
 from dataclasses import dataclass
 
-from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
+from wukong_tpu_torch.analysis.lockdep import (
+    declare_leaf,
+    make_lock,
+    register_global_lock,
+)
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.events import emit_event
 from wukong_tpu_torch.obs.metrics import get_registry
@@ -618,6 +622,8 @@ class FairQueue:
 # ---------------------------------------------------------------------------
 
 _controller = AdmissionController()
+# checked mode (lockdep.install) rebuilds the process-wide ledgers' locks
+register_global_lock(_controller, "_lock", "admission.state")
 
 
 def get_admission() -> AdmissionController:

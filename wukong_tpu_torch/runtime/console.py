@@ -58,6 +58,8 @@ analyze <-f <file> | -q <text>> [-d cpu|gpu] [-j]
                              EXPLAIN ANALYZE: execute under a forced trace,
                              join estimated vs actual per-step rows / wall
                              time + the latency decomposition
+top [-k <n>] [-j]            hot shards / templates / lanes (like top(1);
+                             also served at GET /top on the metrics port)
 slo [-k <n>] [-j]            per-tenant SLO compliance / error budgets /
                              burn rates + the overload signal bus
 admission [-k <n>] [-j]      admission control plane: overload level,
@@ -75,6 +77,11 @@ cache [-k <n>] [-j]          serving plane + observatory: real result-
                              invalidation trend
 device [-k <n>] [-j]         device-cost observatory: dispatches, padding
                              efficiency, variants, residency, demotions
+plan [-j] [-n]               observe-only placement advisor: run one
+                             sweep and print its decision + shard
+                             lineage (-n skips the fresh sweep; also
+                             GET /plan)
+metrics [-j]                 dump the metrics registry (Prometheus text, -j JSON)
 checkpoint                   write one atomic checkpoint to checkpoint_dir;
                              truncates covered WAL
 recover                      restore newest checkpoint + replay the WAL tail
@@ -129,6 +136,8 @@ class Console:
                 self._trace(rest)
             elif cmd in ("explain", "analyze"):
                 self._explain(rest, analyze=cmd == "analyze")
+            elif cmd == "top":
+                self._top(rest)
             elif cmd == "slo":
                 self._report(rest, "slo")
             elif cmd == "admission":
@@ -141,6 +150,10 @@ class Console:
                 self._cache(rest)
             elif cmd == "device":
                 self._device(rest)
+            elif cmd == "plan":
+                self._plan_verb(rest)
+            elif cmd == "metrics":
+                self._metrics(rest)
             elif cmd == "checkpoint":
                 log_info(f"checkpoint written: {self.proxy.checkpoint()}")
             elif cmd == "recover":
@@ -159,15 +172,23 @@ class Console:
             print(Global.dump())
         elif rest[0] == "-l":
             load_config(rest[1])
+            self._apply_observatory_knobs()
         elif rest[0] == "-s":
             reload_config(" ".join(rest[1:]).replace("=", " "))
-            # a flip of enable_tsdb from off to on after boot needs the
-            # idempotent sampler start re-invoked
-            from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
-
-            maybe_start_tsdb()
+            self._apply_observatory_knobs()
         else:
             log_error("usage: config <-v | -l <file> | -s <key value>>")
+
+    def _apply_observatory_knobs(self) -> None:
+        """The observatory knobs are runtime-mutable both ways: the
+        sampler's thread checks its knob every tick (on to off), but a
+        flip from off to on after boot needs the idempotent starter
+        re-invoked. The JAX console restarts the placement advisor's loop
+        here too; the loop comes with the sharded store it advises on
+        (ROADMAP §A 7)."""
+        from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
+
+        maybe_start_tsdb()
 
     def _sparql(self, rest) -> None:
         ap = argparse.ArgumentParser(prog="sparql")
@@ -380,6 +401,41 @@ class Console:
         render = render_slo if verb == "slo" else render_admission
         self._print_report(ns.j, *render(ns.k))
 
+    def _top(self, rest) -> None:
+        """top: hot shards / templates / lanes (the /top endpoint's body)."""
+        from wukong_tpu_torch.obs.profile import render_top
+
+        ap = argparse.ArgumentParser(prog="top")
+        ap.add_argument("-k", type=int, default=None,
+                        help="rows per section (default: the top_k knob)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_top(ns.k))
+
+    def _plan_verb(self, rest) -> None:
+        """plan: one observe-only placement-advisor sweep, its decision
+        and the shard lineage (the /plan body)."""
+        from wukong_tpu_torch.obs.placement import render_plan
+
+        ap = argparse.ArgumentParser(prog="plan")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ap.add_argument("-n", action="store_true",
+                        help="no fresh sweep: print the last plan only")
+        ns = ap.parse_args(rest)
+        self._print_report(ns.j, *render_plan(advise=not ns.n))
+
+    @staticmethod
+    def _metrics(rest) -> None:
+        """metrics: the registry as Prometheus text (-j: the JSON
+        snapshot)."""
+        from wukong_tpu_torch.obs import get_registry
+
+        if "-j" in rest:
+            print(json.dumps(get_registry().snapshot(), indent=1,
+                             sort_keys=True))
+        else:
+            print(get_registry().render_prometheus(), end="")
+
     def _device(self, rest) -> None:
         """device: the device-cost observatory (dispatches, padding
         efficiency, variants, residency, template demotions)."""
@@ -494,7 +550,13 @@ def main(argv=None):
     triples = load_triples(args.dataset)
     attrs = load_attr_triples(args.dataset)
     g = build_partition(triples, 0, 1, attr_triples=attrs)
-    proxy = Proxy(g, ss, device=args.device)
+    proxy = Proxy(g, ss, device=args.device)  # raises here without a card
+    if args.device == "cuda":
+        # build every kernel library the build cache lacks before the first
+        # query (the JAX console's persistent XLA cache set-up)
+        from wukong_tpu_torch.utils.compilecache import setup_persistent_cache
+
+        setup_persistent_cache()
     statfile = os.path.join(args.dataset, "statfile")
     if Global.enable_planner:
         from wukong_tpu_torch.planner.optimizer import make_planner

@@ -41,8 +41,10 @@ graph texts and a knn()-seeded hybrid template over Zipf-popular anchors.
 caches: observe-only (the shadow cache's predicted hit rate by write rate),
 or with the result cache and views on (every measured reply held against
 an uncached one). The JAX emulator's other scenario runners (drills, hot
-spots, rebalancing) and its metrics snapshotter wait for the subsystems
-they drive.
+spots, rebalancing) wait for the subsystems they drive. ``run_serving``
+and ``run_graphrag`` write the registry's snapshot every
+``metrics_snapshot_s`` seconds while they run (obs/httpd.py
+``MetricsSnapshotter``).
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs import (
     activate,
     get_recorder,
+    maybe_start_snapshotter,
     maybe_start_trace,
     write_chrome_trace,
 )
@@ -318,7 +321,9 @@ class Emulator:
         a uniform one; ``classes`` (aligned ints, e.g. 0 light, 1 heavy)
         adds a per-class qps/p50/p99 breakdown (``by_class``). Latencies
         are host-clock microseconds from send to reply; replies that come
-        back after the warm-up count."""
+        back after the warm-up count. Starts the periodic metrics
+        snapshotter when the ``metrics_snapshot_s`` knob asks for one."""
+        snap = maybe_start_snapshotter()
         stop = threading.Event()
         served = [0] * clients
         errors = [0] * clients
@@ -357,6 +362,8 @@ class Emulator:
         stop.set()
         for t in threads:
             t.join(timeout=60)
+        if snap is not None:
+            snap.stop()
         stuck = sum(t.is_alive() for t in threads)
         if stuck:
             raise RuntimeError(f"run_serving: {stuck} clients still "
@@ -1034,9 +1041,9 @@ class Emulator:
         few hot entities anchor most similarity lookups, so the result
         cache and knn route memos see realistic skew instead of uniform
         mush. Returns overall + per-kind q/s and latency percentiles
-        (`bench.py --graphrag`'s hybrid_qps headline)."""
-        import threading
-
+        (`bench.py --graphrag`'s hybrid_qps headline). Starts the
+        periodic metrics snapshotter when ``metrics_snapshot_s`` asks."""
+        snap = maybe_start_snapshotter()
         stop = threading.Event()
         served: list[list] = [[] for _ in range(clients)]  # (kind, dt)
         errors = [0] * clients
@@ -1081,6 +1088,8 @@ class Emulator:
         stop.set()
         for t in threads:
             t.join(timeout=10)
+        if snap is not None:
+            snap.stop()
 
         def _pct(vals: list) -> dict:
             vals = sorted(vals)

@@ -36,7 +36,11 @@ The port's sites (``KNOWN_FAULT_SITES``):
   any byte lands;
 - ``vector.upsert`` — a vector batch (vector/vstore.py
   ``upsert_batch_into``), before the WAL append: the WAL and every vector
-  store stay untouched, and a retry commits.
+  store stay untouched, and a retry commits;
+- ``stream.ingest`` — one stream epoch's insert (stream/ingest.py
+  ``StreamIngestor.commit_epoch``), inside the mutation lock after the
+  epoch's WAL record: the commit retries it, and the dedup insert counts
+  every edge once.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -53,11 +57,16 @@ import threading
 import time
 from dataclasses import dataclass, field
 
+# THE central fault-site registry: every ``faults.site("X")`` hook in the
+# package uses a name declared here, every name here has a live hook, and
+# a port test (tests/test_torch_*.py) exercises every name — the
+# ``fault-sites`` gate (analysis/drift.py) holds all three directions.
 KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
                                "batch.heavy.dispatch", "join.materialize",
                                "template.compile", "template.dispatch",
                                "hdfs.read", "dynamic.insert", "wal.append",
-                               "checkpoint.write", "vector.upsert"})
+                               "checkpoint.write", "vector.upsert",
+                               "stream.ingest"})
 
 
 class TransientFault(Exception):

@@ -8,11 +8,13 @@ measurements the reference's proxy prints during ``sparql -n N`` and
 back from the observability plane: the heavy lane (``lane_lines``), the
 tenant SLOs (``slo_lines``), the admission plane (``admission_lines``),
 the event journal (``events_lines``), the device observatory
-(``device_lines``) and the serving caches (``cache_lines``); stream epochs
+(``device_lines``), the serving caches (``cache_lines``), the heat plane
+(``heat_report``, ``shard_load_cdfs``, ``heat_lines``); stream epochs
 land in :class:`StreamStats` (``record_stream_epoch``, ``stream_stats``),
 which the emulator's per-run monitor adopts (``share_observability``). The
-JAX package's lines for subsystems the port does not have yet
-(circuit-breaker registry, heat, placement, migration) are left out.
+JAX package's breaker, migration and placement-plan lines come with the
+breaker registry, the migration actuator and the advisor's MigrationPlan
+(ROADMAP §A 7).
 """
 
 from __future__ import annotations
@@ -114,6 +116,8 @@ class Monitor:
                          f"{dt / (d / 1e6):,.0f} triples/s{lag_str}")
             self._last_stream_epochs = self.stream.epochs
             self._last_stream_triples = self.stream.triples
+            for line in self.heat_lines(k=3):
+                log_info(line)
             for line in self.cache_lines():
                 log_info(line)
             self._last_print = now
@@ -170,6 +174,33 @@ class Monitor:
             tag = f" [{labels[qtype]}]" if labels and qtype in labels else ""
             log_info(f"Q{qtype + 1}{tag} latency CDF "
                      f"({len(self.latencies[qtype])} samples): {line}")
+
+    # -- per-shard heat (obs/heat.py) -------------------------------------
+    def heat_report(self, k: int | None = None) -> dict:
+        """The aggregated per-shard heat view: load CDFs, latency CDFs,
+        and the top-K hot-shard ranking (the placement inputs).
+        Aggregation lives on the process-wide accountant; the Monitor is
+        its reporting surface."""
+        from wukong_tpu_torch.obs.heat import get_heat
+
+        return get_heat().report(k)
+
+    def shard_load_cdfs(self) -> dict[int, dict]:
+        """shard -> load-rate CDF (instantaneous fetches/s percentiles)."""
+        rep = self.heat_report(k=None)
+        return {s: d["load_rate_cdf"] for s, d in rep["shards"].items()}
+
+    def heat_lines(self, k: int = 3) -> list[str]:
+        """Rolling-report lines: the top-k hot shards, only when any
+        charge has landed (quiet until a vector scan runs)."""
+        rep = self.heat_report(k)
+        if not rep["ranked"]:
+            return []
+        parts = []
+        for r in rep["ranked"]:
+            parts.append(f"{r['shard']}:{r['fetches']} ({r['share']:.0%}"
+                         f", ewma {r['ewma_us']:,.0f}us)")
+        return [f"Heat[top{k}]: " + "  ".join(parts)]
 
     def lane_lines(self) -> list[str]:
         """Rolling-report line for the heavy lane: queue depth, fused

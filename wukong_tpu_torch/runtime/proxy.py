@@ -283,10 +283,15 @@ class Proxy:
         self._stream = None  # the StreamContext, built on first use
         if Global.checkpoint_interval_s > 0 and Global.checkpoint_dir:
             self.recovery().start()
-        # the metrics time-series sampler (enable_tsdb; idempotent per
-        # process)
+        # the metrics scrape endpoint (metrics_port; no-op when 0) and the
+        # metrics time-series sampler (enable_tsdb); both idempotent per
+        # process. The JAX proxy also attaches its sharded store to the
+        # placement advisor and registers the store's /healthz probe:
+        # those wait for the sharded store (ROADMAP §A 7)
+        from wukong_tpu_torch.obs.httpd import maybe_start_metrics_http
         from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
 
+        maybe_start_metrics_http()
         maybe_start_tsdb()
         # the serving plane (serve/): bind the result cache + view registry
         # to THIS proxy's partition — a re-attach (a new world in-process)
@@ -1142,7 +1147,7 @@ class Proxy:
         """The WCOJ executor over the host partition, built at first use
         (its sorted edge tables are cached per store version); its device
         route runs on the proxy's device."""
-        if self._wcoj is None:
+        if self._wcoj is None:  # unguarded: double-checked lazy init; the second check runs under the lock, and a reference read is atomic
             with self._batcher_init_lock:
                 if self._wcoj is None:
                     from wukong_tpu_torch.join.wcoj import WCOJExecutor
@@ -1151,7 +1156,7 @@ class Proxy:
                         self.g, self.str_server,
                         stats=getattr(self.planner, "stats", None),
                         device=self._strategy_device())
-        return self._wcoj
+        return self._wcoj  # unguarded: set once under the lock above and never rebound
 
     # ------------------------------------------------------------------
     # whole-plan compiled-template routing (engine/template_compile.py)
@@ -1193,7 +1198,7 @@ class Proxy:
         """The whole-plan compiled engine over the host partition, built at
         first use, on the proxy's device (its staged operands are cached
         per store version)."""
-        if self._template is None:
+        if self._template is None:  # unguarded: double-checked lazy init; the second check runs under the lock, and a reference read is atomic
             with self._batcher_init_lock:
                 if self._template is None:
                     from wukong_tpu_torch.engine.template_compile import \
@@ -1202,7 +1207,7 @@ class Proxy:
                     self._template = TemplateCompiledEngine(
                         self.g, self.str_server,
                         device=self._strategy_device())
-        return self._template
+        return self._template  # unguarded: set once under the lock above and never rebound
 
     def _record_template_feedback(self, q: SPARQLQuery) -> None:
         """Measured feedback for the compiled-template route: after a

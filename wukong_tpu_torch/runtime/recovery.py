@@ -48,6 +48,7 @@ from wukong_tpu_torch.analysis.lockdep import make_lock
 from wukong_tpu_torch.config import Global
 from wukong_tpu_torch.obs.events import emit_event
 from wukong_tpu_torch.obs.metrics import get_registry
+from wukong_tpu_torch.obs.placement import get_lineage
 from wukong_tpu_torch.obs.trace import trace_event
 from wukong_tpu_torch.store.persist import (
     adopt_gstore,
@@ -175,6 +176,10 @@ class RecoveryManager:
                 parts.append({"sid": int(g.sid),
                               "num_workers": int(g.num_workers),
                               "bytes": int(nbytes)})
+                # the placement ledger's predicted-move-bytes source: each
+                # partition's measured on-disk size (one partition until
+                # the sharded store, ROADMAP §A 7)
+                get_lineage().note_checkpoint(int(g.sid), nbytes)
             man = {"format": list(MANIFEST_VERSION), "wal_seq": int(wal_seq),
                    "parts": parts, "stream": False, "epoch": 0}
             if self.stream is not None:

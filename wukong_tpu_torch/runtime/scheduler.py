@@ -132,6 +132,13 @@ get_registry().gauge(
     "Busy fraction of live pool engines").set_function(_pool_utilization)
 
 
+def dead_engine_count() -> int:
+    """Engines declared dead (respawn budget exhausted) across every live
+    pool: a /healthz readiness input (obs/httpd.py ``health_report``)."""
+    return sum(1 for p in list(_POOLS) for t in range(p.n)
+               if p._dead[t])  # unguarded: report-only snapshot, like health()
+
+
 def _live_engine_count() -> int:
     """Engines not declared dead across every live pool: the admission
     plane's derived in-flight capacity (admission ``_inflight_cap``)."""
@@ -236,7 +243,7 @@ class EnginePool:
         long the current query has been executing (0 = idle)."""
         now = get_usec()
         return {
-            tid: {"alive": not self._dead[tid],
+            tid: {"alive": not self._dead[tid],  # unguarded: report-only snapshot; a stale bool here only ages the health report by one call
                   "respawns": self._respawns[tid],
                   "busy_us": (now - b) if (b := self._busy_since[tid]) else 0}
             for tid in range(self.n)}
@@ -382,14 +389,16 @@ class EnginePool:
         gets a ``pool.queue`` span, closed by the engine that pops it."""
         if lane in ("batch", "heavy", "rebuild"):
             _M_SUBMITTED.labels(lane=lane).inc()
+            # the queue references bound here are never rebound after
+            # __init__; each deque is mutated only under `lock`, below
             if lane == "batch":
-                lock, queue = self._batch_lock, self.batch_queue
+                lock, queue = self._batch_lock, self.batch_queue  # unguarded: binds the deque reference only; appended under `lock` below
             elif lane == "rebuild":
-                lock, queue = self._rebuild_lock, self.rebuild_queue
+                lock, queue = self._rebuild_lock, self.rebuild_queue  # unguarded: reference binding only, as above
             elif getattr(query, "heavy_continuation", False):
-                lock, queue = self._heavy_lock, self.heavy_slices
+                lock, queue = self._heavy_lock, self.heavy_slices  # unguarded: reference binding only, as above
             else:
-                lock, queue = self._heavy_lock, self.heavy_queue
+                lock, queue = self._heavy_lock, self.heavy_queue  # unguarded: reference binding only, as above
             self._stamp_enqueue(query, lane)
             with self._route_lock:
                 if all(self._dead):
@@ -527,7 +536,7 @@ class EnginePool:
 
     def alive_count(self) -> int:
         """Engines not declared dead (the heavy split fan-out bound)."""
-        return sum(1 for t in range(self.n) if not self._dead[t])
+        return sum(1 for t in range(self.n) if not self._dead[t])  # unguarded: report-only snapshot; a stale bool only sizes one fan-out by an engine that just died, whose slices the gather runs inline
 
     def _heavy_cap(self) -> int:
         """Most engines running heavy-lane groups at once."""

@@ -48,7 +48,13 @@ class DeltaCSRSegment:
     merged CSR once per write epoch. Duck-types CSRSegment — every consumer
     (engines, device staging, checker, persistence) sees merged arrays.
     ``_lock`` serializes ``append`` with the merge: a reader merging while a
-    writer appends must not clear the writer's batch.
+    writer appends must not clear the writer's batch. Lock contract (the
+    guarded-by gate's vocabulary): the delta buffers are guarded by
+    ``_lock``; ``_append`` and ``_merge`` run with it held (``append`` and
+    ``_mat`` take it); ``num_edges`` and ``memory_bytes`` read under it;
+    ``_mat``'s first emptiness check is the one unguarded read. The JAX
+    segment locks neither the append nor the merge (a merge can clear a
+    batch appended between its snapshot and its clear).
     """
 
     __slots__ = ("_base", "_pending", "_n_pending", "_pending_set", "_lock")
@@ -57,7 +63,8 @@ class DeltaCSRSegment:
         self._base = base if base is not None else CSRSegment.empty()
         self._pending: list = []  # guarded by: _lock
         self._n_pending = 0  # guarded by: _lock
-        self._pending_set: set = set()  # guarded by: _lock; O(1) dedup probes into the deltas
+        # O(1) dedup probes into the deltas
+        self._pending_set: set = set()  # guarded by: _lock
         self._lock = make_lock("dynamic.segment")
 
     # ---- writes ----------------------------------------------------------
@@ -69,7 +76,7 @@ class DeltaCSRSegment:
         with self._lock:
             return self._append(ks, vs, dedup)
 
-    def _append(self, ks: np.ndarray, vs: np.ndarray, dedup: bool) -> int:
+    def _append(self, ks: np.ndarray, vs: np.ndarray, dedup: bool) -> int:  # caller holds: _lock
         if dedup:
             if len(ks):
                 pairs = np.stack([ks, vs], axis=1)
@@ -99,7 +106,7 @@ class DeltaCSRSegment:
                 self._merge()
             return self._base
 
-    def _merge(self) -> None:
+    def _merge(self) -> None:  # caller holds: _lock
         """The merged CSR: the JAX merge's arrays (a lexsort of base +
         deltas by (key, value), ties in arrival order), built by sorting
         only the deltas and inserting each after the base's equal pairs —
@@ -163,7 +170,11 @@ class DeltaCSRSegment:
 
     @property
     def num_edges(self) -> int:  # exact without materializing
-        return self._base.num_edges + self._n_pending
+        # under the lock: a merge swaps in the merged base before it zeroes
+        # the pending count, and a reader between the two counted the
+        # pending edges twice
+        with self._lock:
+            return self._base.num_edges + self._n_pending
 
     def lookup(self, vid: int):
         return self._mat().lookup(vid)
@@ -175,7 +186,8 @@ class DeltaCSRSegment:
         return self._mat().contains_pair(vids, vals)
 
     def memory_bytes(self) -> int:
-        return self._base.memory_bytes() + 16 * self._n_pending
+        with self._lock:  # the merge's swap, as in num_edges
+            return self._base.memory_bytes() + 16 * self._n_pending
 
 
 def sorted_union(old: np.ndarray, new: np.ndarray) -> np.ndarray:

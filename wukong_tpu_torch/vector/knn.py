@@ -34,8 +34,10 @@ deviations (ROADMAP §C):
   ``_DEVICE_FAIL_HOOK`` drill (:class:`DeviceDrill`); a CUDA error, a failed
   build, a refused launch or running out of memory reaches the caller.
 
-The scan's charge to ``obs.heat`` waits for that module (ROADMAP §A, "The
-rest of the observatory, and the analysis plugins").
+Each scan charges the heat plane (``obs.heat``) once: its store's shard
+(``vstore.sid``), kind ``vector``, with the rows it scanned and their
+bytes, after every lock here is released (:func:`scan_topk`,
+:func:`sliced_topk`, as the JAX package's two sites do).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ import torch
 
 from wukong_tpu_torch.analysis.lockdep import declare_leaf, make_lock
 from wukong_tpu_torch.engine import cuda_lib
+from wukong_tpu_torch.obs.heat import get_heat
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.timer import get_usec
 
@@ -426,8 +429,17 @@ def scan_topk(vstore, anchor, k: int, metric: str, route: str = "host",
             demoted = e.reason
     if out is None:
         out = topk_host(vids, vecs, alive, anchor, k, metric)
-    _M_SCAN_US.labels(route=used).observe(get_usec() - t0)
+    dur = get_usec() - t0
+    _M_SCAN_US.labels(route=used).observe(dur)
+    _charge_heat(vstore, len(vids), vecs.nbytes, dur)
     return out[0], out[1], demoted
+
+
+def _charge_heat(vstore, rows: int, nbytes: int, dur_us: int) -> None:
+    """One scan's charge to the heat plane: shard ``vstore.sid``, kind
+    ``vector``, the rows scanned and their bytes (outside every lock)."""
+    get_heat().charge(int(getattr(vstore, "sid", 0)), "vector",
+                      rows=int(rows), nbytes=int(nbytes), dur_us=int(dur_us))
 
 
 def rank_candidates(vstore, cand_vids, anchor, k: int, metric: str,
@@ -652,7 +664,9 @@ def sliced_topk(pool, vstore, anchor, k: int, metric: str,
     all_v = np.concatenate([s.result[0] for s in slices])
     all_s = np.concatenate([s.result[1] for s in slices])
     order = np.lexsort((all_v, -all_s))[:int(k)]
+    dur = get_usec() - t0
     _M_SCAN_US.labels(
         route="device" if route == "device" and demoted is None
-        else "host").observe(get_usec() - t0)
+        else "host").observe(dur)
+    _charge_heat(vstore, n, vecs.nbytes, dur)
     return all_v[order].copy(), all_s[order].copy(), demoted

@@ -158,12 +158,15 @@ class VectorStore:
             self.alive = cur_alive
             self.slot_of = slot_of
             self.version += 1
+            # this write's version, read under the lock: a later writer
+            # may bump it before the invalidation below is charged
+            version = self.version
             stale, self._knn_block = self._knn_block, None
         if stale is not None and stale.device.type != "cpu":
             from wukong_tpu_torch.obs.device import maybe_device_resident
 
             maybe_device_resident("invalidate", "knn", stale.nbytes,
-                                  version=self.version)
+                                  version=version)
         return written
 
     # ------------------------------------------------------------------
