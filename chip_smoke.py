@@ -28,8 +28,8 @@ Phases (any failure exits nonzero, and no result line is printed):
      and short depths, one anchor across warp boundaries, candidates
      sorted, reverse-sorted and shuffled, globs of 1 value and globs
      packed for the kernel's bit index or spread past it; the larger
-     cases again in 2^21 and 2^23 slots, with and without the tables'
-     bit indices); and knn_scan
+     cases again in 2^21 slots, the tiled kernel's, with and without the
+     tables' bit indices); and knn_scan
      (csrc/knn_scan.cu) against knn_scan_plain on knn_case_inputs (n = 0,
      1 and 1,000,003; every row dead; k past the live rows; k = 1, 257 and
      n; integer ties, bit for bit; extreme norms and zero rows; slot lists;
@@ -1334,9 +1334,11 @@ def captured_rows(captures: dict, phase: str, kernel_fns: dict,
 # ---------------------------------------------------------------------------
 
 
-def build_world(scale: int, seed: int, results: dict | None = None):
+def build_world(scale: int, seed: int, results: dict | None = None,
+                with_attrs: bool = False):
     """LUBM-<scale> from the seed and its partition; with ``results``, the
-    set-up times land there beside the host CPU's name."""
+    set-up times land there beside the host CPU's name. ``with_attrs``
+    returns the attribute columns too (phase 15 partitions them again)."""
     from wukong_tpu_torch.loader.lubm import (
         VirtualLubmStrings,
         generate_lubm,
@@ -1357,6 +1359,8 @@ def build_world(scale: int, seed: int, results: dict | None = None):
     if results is not None:
         results["setup_s"] = {"synthesis": t1 - t0, "partition": t2 - t1,
                               "host_cpu": cpu}
+    if with_attrs:
+        return g, VirtualLubmStrings(scale, seed=seed), triples, attrs
     return g, VirtualLubmStrings(scale, seed=seed), triples
 
 
@@ -1489,23 +1493,24 @@ def cuda_holders() -> list:
     return lines
 
 
-def drop_check(mem_base: int, results: dict) -> None:
-    """After phase 3's proxy is dropped, raw memory_allocated falls back to
-    within 64 MiB of its value before phase 3; else the holders of the
-    largest live CUDA tensors are printed and the run fails."""
+def drop_check(mem_base: int, results: dict,
+               what: str = "phase 3's proxy") -> None:
+    """After ``what`` is dropped, raw memory_allocated falls back to within
+    64 MiB of its value before phase 3; else the holders of the largest
+    live CUDA tensors are printed and the run fails."""
     import torch
 
     gc.collect()
     torch.cuda.synchronize()
     mem = torch.cuda.memory_allocated()
-    results["drop"] = {"before_phase3": int(mem_base), "after_drop": int(mem)}
-    log(f"drop: phase 3's proxy dropped; memory_allocated {mem:,} B, "
+    results.setdefault("drop", {})[what] = {"before_phase3": int(mem_base),
+                                            "after_drop": int(mem)}
+    log(f"drop: {what} dropped; memory_allocated {mem:,} B, "
         f"{mem_base:,} B before phase 3")
     if mem - mem_base > 64 * MIB:
         for line in cuda_holders():
             log(f"  held: {line}")
-        check(False, f"{mem - mem_base:,} B of CUDA memory outlive phase 3's "
-              "proxy")
+        check(False, f"{mem - mem_base:,} B of CUDA memory outlive {what}")
 
 
 def stage_all(proxy) -> int:
@@ -2236,6 +2241,10 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
                 with open(os.path.join(root, name), "w") as g:
                     g.write(text)
                 f.write(f"sparql -f {os.path.join(root, name)} -n 5 -N\n")
+        dbatch = os.path.join(root, "dist_batch")
+        with open(dbatch, "w") as f:
+            for name in QUERIES:
+                f.write(f"sparql -f {os.path.join(root, name)} -d dist -N\n")
         proxy_mod.Proxy.run_single_query = recorded
         before = lock_holds()
         stop_tsdb()
@@ -2253,6 +2262,32 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
             stop_tsdb()
             lockdep.install(False)
             set_tsdb_interval(TSDB_INTERVAL_S)
+        # phase 15's console: --dist -w 8 one-shot over the same directory
+        dist_got = []
+
+        def dist_recorded(self, text, **kw):
+            q = orig(self, text, **kw)
+            dist_got.append(q)
+            return q
+
+        proxy_mod.Proxy.run_single_query = dist_recorded
+        try:
+            t0 = time.perf_counter()
+            drc = console.main([cfg, data, "--dist", "-w", str(DIST_SHARDS),
+                                "-c", f"sparql -b {dbatch}"])
+            dist_s = time.perf_counter() - t0
+        finally:
+            proxy_mod.Proxy.run_single_query = orig
+    check(drc == 0 and len(dist_got) == len(QUERIES) and all(
+        q.result.status_code == 0 and rows_multiset(q) == cross_rows[name]
+        for name, q in zip(QUERIES, dist_got)),
+        f"console --dist -w {DIST_SHARDS}: rc {drc}, rows differ from "
+        "phase 6's")
+    out["dist"] = {"seconds": dist_s, "rows": {
+        name: q.result.nrows for name, q in zip(QUERIES, dist_got)}}
+    log(f"  console --dist -w {DIST_SHARDS}: the seven shapes through "
+        f"-d dist, rows as phase 6's ({dist_s:.1f} s with the partitions "
+        f"and statistics)")
     out["scrapes"] = scraper.report("phase 8's console, lockdep-checked")
     check(locks["cycles"] == [] and locks["leaf_violations"] == [],
           f"console under scrapes: lock-order cycles {locks['cycles'][:2]}, "
@@ -3702,7 +3737,7 @@ def lp_rows(captures: list, phase: str, errs: dict) -> list:
 
 
 def level_probe_checks(errs: dict, scales=(1, 350),
-                       caps=(1 << 21, 1 << 23)) -> int:
+                       caps=(1 << 21,)) -> int:
     """Phase 2: the level probe against its plain version on the card, bit
     for bit, on level_probe_cases at each scale (C about 1M at 350; the
     per-thread kernel), then on the largest scale's cases widened to each
@@ -4016,11 +4051,11 @@ WATDIV_SCALE = 2750
 # default 2^25-row ceiling (at 1,000,000: 30,950,146, the zipf targets
 # collide less after dedup)
 YAGO_PERSONS = 2_000_000
-# the DBpedia-shaped world, about 2.2 M triples. Cut from the 1,000,000
-# entities (8.9 M triples) of the first runs for the smoke's time: there
-# Stats.generate took 51-57 s and the planner 44 s on Q4_star4, both about
-# linear in the entities
-GENERIC_ENTITIES = 250_000
+# the DBpedia-shaped world, about 1.1 M triples. Cut from the 1,000,000
+# entities (8.9 M triples) of the first runs, and from 250,000 since phase
+# 15, for the smoke's time: Stats.generate and the planner on Q4_star4 are
+# about linear in the entities
+GENERIC_ENTITIES = 125_000
 GENERIC_KW = {"n_preds": 200, "n_types": 50, "seed": 1}  # bench.py --dbpedia
 INSERT_SHARE = 0.1  # (d): the share of WatDiv's triples loaded online
 WAL_SYNCS = ("none", "interval", "always")  # one insert round each
@@ -5953,6 +5988,450 @@ def serve_data_in(entry: dict, results: dict, device="cuda",
         + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed engine, D shard slots on the card
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS = 8  # the JAX bench's and tests' mesh
+# the extended shapes served through `-d dist`: a UNION, an OPTIONAL, a
+# variable-predicate const start and an attribute query
+DIST_EXT = ("x_union", "x_opt_light", "x_vers_const", "x_attr")
+# the light const shapes served on both routes (in place and collective)
+DIST_LIGHT = ("lubm_q3", "lubm_q4", "lubm_q5", "lubm_q7")
+# the shard-down drill's text: its segment (headOf IN) is staged by no
+# earlier step of the phase, so its first fetch meets the fault
+DIST_DRILL = PREFIX + f"SELECT ?X WHERE {{ ?X ub:headOf {DEPT0} . }}"
+DIST_HOTSPOT_OPS = 600
+# the chain steps that probe each shard's segment with K1
+DIST_PROBING = ("init_const", "expand", "expand_type_all", "member",
+                "expand_versatile", "expand_versatile_const")
+
+
+class AnnotatedCollectives:
+    """While in a ``with`` block, the distributed chain's exchange and
+    all-gather run inside torch.profiler ranges ("dist.exchange",
+    "dist.allgather"), so a device trace attributes the kernels each one
+    launches (``chain_split``)."""
+
+    def __enter__(self):
+        import torch
+
+        from wukong_tpu_torch.parallel import dist_engine as DE
+
+        self.DE = DE
+        self.saved = (DE._exchange, DE._allgather_rows)
+
+        def ranged(fn, label):
+            def inner(*a, **kw):
+                with torch.profiler.record_function(label):
+                    return fn(*a, **kw)
+            return inner
+
+        DE._exchange = ranged(DE._exchange, "dist.exchange")
+        DE._allgather_rows = ranged(DE._allgather_rows, "dist.allgather")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.DE._exchange, self.DE._allgather_rows = self.saved
+
+
+def chain_split(path: str) -> dict:
+    """A device trace of one distributed chain split by what ran: device
+    us of the exchange's and the all-gather's kernels (their launches lie
+    inside the "dist.*" ranges on the host), of K1 (probe_kernel) and of
+    everything else, and the card's idle share over the chain's span on
+    the device (first device event to the end of the last: the gaps that
+    no kernel, copy or fill covers)."""
+    with open(path) as f:
+        js = json.load(f)
+    evs = js.get("traceEvents", []) if isinstance(js, dict) else js
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in evs
+              if e.get("ph") == "X" and e.get("name") in
+              ("dist.exchange", "dist.allgather")
+              and str(e.get("cat", "")).lower() == "user_annotation"]
+    label = {}
+    for e in evs:
+        if str(e.get("cat", "")).lower() in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            for lo, hi, name in ranges:
+                if corr is not None and lo <= e.get("ts", -1) <= hi:
+                    label[corr] = name
+    dev = [e for e in evs if e.get("ph") == "X" and str(
+        e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset")]
+    split = {"dist.exchange": 0.0, "dist.allgather": 0.0, "k1": 0.0,
+             "other": 0.0}
+    k1_calls = 0
+    for e in dev:
+        dur = float(e.get("dur", 0.0))
+        name = label.get((e.get("args") or {}).get("correlation"))
+        if name is not None:
+            split[name] += dur
+        elif "probe_kernel" in str(e.get("name", "")):
+            split["k1"] += dur
+            k1_calls += 1
+        else:
+            split["other"] += dur
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in dev)
+    busy, end = 0.0, None
+    for lo, hi in spans:
+        if end is None or lo > end:
+            busy += hi - lo
+            end = hi
+        elif hi > end:
+            busy += hi - end
+            end = hi
+    span = (max(hi for _lo, hi in spans) - spans[0][0]) if spans else 0.0
+    total = sum(split.values())
+    return {"device_us": total, "span_us": span, "busy_us": busy,
+            "idle_share": (1 - busy / span) if span else None,
+            "exchange_us": split["dist.exchange"],
+            "allgather_us": split["dist.allgather"], "k1_us": split["k1"],
+            "k1_calls": k1_calls, "other_us": split["other"],
+            "ranges": len(ranges), "device_events": len(dev)}
+
+
+def dist_bench(dist, planner, ss, expected: dict, out: dict) -> None:
+    """(a) L1-L7 as bench.py --dist runs them (bench.py:2950-2990): blind,
+    planned by the type-centric planner, the first call and the best of
+    the next 3, each chain's stats and bytes model; rows equal to the
+    single-card engine's (phase 4). Then each once more with its table,
+    projected: the rows of phase 4, as a multiset."""
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    out["queries"] = {}
+    for name, text in QUERIES.items():
+        first, best = None, None
+        for rep in range(4):
+            q = Parser(ss).parse(text)
+            planner.generate_plan(q)
+            q.result.blind = True
+            t0 = time.perf_counter()
+            dist.execute(q, from_proxy=False)
+            ms = (time.perf_counter() - t0) * 1e3
+            check(q.result.status_code == 0, f"dist {name}: status "
+                  f"{q.result.status_code!r}")
+            if rep == 0:
+                first = ms
+            else:
+                best = ms if best is None else min(best, ms)
+        rows = q.result.nrows
+        want = expected[name].shape[0]
+        check(rows == want, f"dist {name}: {rows:,} rows, single card "
+              f"{want:,}")
+        st = dist.last_chain_stats or {}
+        row = {"rows": rows, "first_ms": first, "best_ms": best,
+               "mode": st.get("mode", "collective"), "chain": st,
+               "bytes_model": dist.bytes_model(),
+               "planner_empty": bool(q.planner_empty)}
+        qt = Parser(ss).parse(text)
+        planner.generate_plan(qt)
+        qt.result.blind = False
+        dist.execute(qt)
+        check(qt.result.status_code == 0 and np_equal(
+            sorted_table(qt), expected[name]),
+            f"dist {name}: rows differ from phase 4's")
+        out["queries"][name] = row
+        bm = row["bytes_model"] or {}
+        log(f"  dist {name}: {rows:,} rows (as phase 4), first "
+            f"{first:,.2f} ms, best of 3 {best:,.2f} ms, {row['mode']}, "
+            f"retries {st.get('retries', 0)}, exchanges "
+            f"{st.get('exchanges', 0)}, modelled bytes "
+            f"{bm.get('total_bytes', 0):,}")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+
+
+def dist_routes(dist, planner, ss, expected: dict, out: dict) -> None:
+    """(b) the light const shapes on both routes: in place (owner-routed
+    host walk, no exchange) and the collective chain, with equal rows,
+    phase 4's."""
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    out["routes"] = {}
+    for name in DIST_LIGHT:
+        got = {}
+        for inplace in (True, False):
+            with Knobs(None, enable_dist_inplace=inplace):
+                q = Parser(ss).parse(QUERIES[name])
+                planner.generate_plan(q)
+                q.result.blind = False
+                t0 = time.perf_counter()
+                dist.execute(q)
+                ms = (time.perf_counter() - t0) * 1e3
+            mode = (dist.last_chain_stats or {}).get("mode", "collective")
+            check(q.result.status_code == 0 and np_equal(
+                sorted_table(q), expected[name]),
+                f"dist {name} ({mode}): rows differ from phase 4's")
+            got["inplace" if inplace else "collective"] = {
+                "mode": mode, "ms": ms, "rows": q.result.nrows}
+        out["routes"][name] = got
+        log(f"  dist {name}: {got['inplace']['rows']:,} rows on both "
+            f"routes: {got['inplace']['mode']} {got['inplace']['ms']:.2f} "
+            f"ms, {got['collective']['mode']} "
+            f"{got['collective']['ms']:.2f} ms")
+
+
+def dist_extended(proxy, results: dict, out: dict) -> None:
+    """(c) the extended shapes through the proxy's `-d dist` route,
+    heuristically planned as in phase 5: rows as many as phase 5's
+    single-card replies (the same world)."""
+    out["extended"] = {}
+    for name in DIST_EXT:
+        t0 = time.perf_counter()
+        with Knobs(None, enable_planner=False):
+            q = proxy.run_single_query(EXT_QUERIES[name], device="dist",
+                                       blind=False)
+        ms = (time.perf_counter() - t0) * 1e3
+        want = results["extended"][name]["rows"]
+        check(q.result.status_code == 0 and q.result.complete
+              and q.result.nrows == want,
+              f"dist {name}: {q.result.nrows:,} rows, status "
+              f"{q.result.status_code!r}; phase 5 {want:,}")
+        out["extended"][name] = {"rows": q.result.nrows, "ms": ms}
+        log(f"  dist -d {name}: {q.result.nrows:,} rows (as phase 5), "
+            f"{ms:,.2f} ms")
+
+
+def dist_k1_chain(dist, planner, ss, k1_launches, out: dict) -> None:
+    """(d) one steady collective chain of q2: K1 must launch on every
+    shard for every probing step, at least D per step."""
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    q = Parser(ss).parse(QUERIES["lubm_q2"])
+    planner.generate_plan(q)
+    q.result.blind = True
+    before = k1_launches()
+    dist.execute(q, from_proxy=False)
+    n = k1_launches() - before
+    kinds = [s.kind for s in dist._last_plan.steps]
+    probing = sum(k in DIST_PROBING for k in kinds)
+    check(n >= DIST_SHARDS * probing and probing > 0,
+          f"dist q2: {n} K1 launches for {probing} probing steps of "
+          f"{DIST_SHARDS} shards")
+    out["k1_chain"] = {"launches": n, "steps": kinds,
+                       "probing_steps": probing}
+    log(f"  dist q2 chain: {kinds}; K1 launched {n} times for {probing} "
+        f"probing steps on {DIST_SHARDS} shards")
+
+
+def dist_trace(dist, planner, ss, out: dict) -> None:
+    """(e) a torch.profiler trace of one steady q2 chain: the exchange's
+    and all-gather's share of device time, K1's time per shard, and the
+    card's idle share between the shards' launches."""
+    from wukong_tpu_torch.obs import export
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    q = Parser(ss).parse(QUERIES["lubm_q2"])
+    planner.generate_plan(q)
+    q.result.blind = True
+    with tempfile.TemporaryDirectory() as d, AnnotatedCollectives():
+        t0 = time.perf_counter()
+        with export.device_trace(d):
+            dist.execute(q, from_proxy=False)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        split = chain_split(export.last_capture)
+    check(split["k1_calls"] > 0 and split["ranges"] > 0,
+          f"dist trace: no K1 kernel or no exchange range ({split})")
+    probing = sum(s.kind in DIST_PROBING for s in dist._last_plan.steps)
+    split.update(host_ms=host_ms, k1_us_per_shard_step=(
+        split["k1_us"] / max(probing * DIST_SHARDS, 1)))
+    out["trace"] = split
+    dev = split["device_us"] or 1.0
+    log(f"  dist q2 trace: {dev:,.1f} us on the card over a "
+        f"{split['span_us']:,.1f} us span ({host_ms:,.1f} ms on the host): "
+        f"exchange {split['exchange_us'] / dev:.1%}, all-gather "
+        f"{split['allgather_us'] / dev:.1%}, K1 {split['k1_us'] / dev:.1%} "
+        f"({split['k1_calls']} calls, {split['k1_us_per_shard_step']:.1f} "
+        f"us a shard and step), other {split['other_us'] / dev:.1%}; idle "
+        f"{(split['idle_share'] or 0.0):.1%} of the span")
+
+
+def dist_wcoj(proxy, expected: dict, out: dict) -> None:
+    """(f) q1 forced onto proxy.wcoj_dist() with device levels, on the
+    pool's heavy lane: the walk's rows (phase 4's)."""
+    q = proxy.parse(QUERIES["lubm_q1"])  # planned by the proxy's planner
+    q.result.blind = False
+    t0 = time.perf_counter()
+    with Knobs(None, join_device="device"):
+        proxy.wcoj_dist().try_execute(q)
+    ms = (time.perf_counter() - t0) * 1e3
+    check(q.result.status_code == 0 and np_equal(
+        sorted_table(q), expected["lubm_q1"]),
+        f"dist wcoj q1: {q.result.nrows:,} rows differ from phase 4's")
+    out["wcoj"] = {"rows": q.result.nrows, "ms": ms,
+                   "slices": (getattr(q, "join_dist", None) or {}).get(
+                       "slices", 1)}
+    log(f"  dist wcoj q1: {q.result.nrows:,} rows (as phase 4) in "
+        f"{out['wcoj']['slices']} slices, {ms:,.1f} ms")
+
+
+def dist_drill(proxy, port: int, out: dict) -> None:
+    """(g) a persistent `dist.shard_fetch` shard_down on shard 1 (the
+    collective route, so the chain fetches): the reply is well formed,
+    flagged incomplete with shard:1 dropped; the monitor's breaker line
+    and /healthz's shards probe show it; once the shard is back the
+    reply is complete again."""
+    from wukong_tpu_torch.runtime import faults
+
+    with Knobs(None, enable_dist_inplace=False):
+        faults.install(faults.FaultPlan(
+            [faults.FaultSpec("dist.shard_fetch", "shard_down", shard=1)],
+            seed=7))
+        try:
+            q = proxy.run_single_query(DIST_DRILL, device="dist")
+            breaker = proxy.monitor.breaker_report()
+            status, ms, _n, doc = scrape(port, "/healthz")
+        finally:
+            faults.clear()
+        check(q.result.status_code == 0 and not q.result.complete
+              and "shard:1" in q.result.dropped_patterns,
+              f"dist drill: status {q.result.status_code!r}, complete "
+              f"{q.result.complete}, dropped {q.result.dropped_patterns}")
+        check(any(b.startswith("Breaker[dist.shard]") for b in breaker),
+              f"dist drill: no breaker line {breaker}")
+        check(status == 200 and doc["degraded"].get("shards", {}).get(
+            "degraded") == [1], f"dist drill: /healthz {status} {doc}")
+        proxy.dist.sstore.breaker.record_success(1)
+        q2 = proxy.run_single_query(DIST_DRILL, device="dist")
+    check(q2.result.complete and q2.result.nrows >= q.result.nrows,
+          "dist drill: the reply after the shard came back is incomplete")
+    out["drill"] = {"partial_rows": q.result.nrows,
+                    "rows": q2.result.nrows,
+                    "dropped": list(q.result.dropped_patterns),
+                    "breaker": breaker, "healthz_ms": ms,
+                    "healthz": doc["degraded"]}
+    log(f"  dist drill: shard 1 down: {q.result.nrows} rows flagged "
+        f"incomplete, dropped {q.result.dropped_patterns}; {breaker[0]}; "
+        f"/healthz {doc['degraded']} in {ms:.1f} ms; back: "
+        f"{q2.result.nrows} rows, complete")
+
+
+def dist_hotspot(proxy, out: dict) -> None:
+    """(h) Emulator.run_hotspot over the sharded store: the advisor's plan
+    names the hot shard as donor, the store untouched."""
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    t0 = time.perf_counter()
+    rep = Emulator(proxy).run_hotspot(n_ops=DIST_HOTSPOT_OPS, seed=7)
+    p = rep["plan"]
+    check(p is not None and rep["plan_donor_is_hot"]
+          and rep["ranked"][0] == rep["hot"] and rep["store_untouched"],
+          f"dist hotspot: hot {rep['hot']}, ranked {rep['ranked']}, plan "
+          f"{p}, untouched {rep['store_untouched']}")
+    out["hotspot"] = {"hot": rep["hot"], "ranked": rep["ranked"],
+                      "separation": rep["separation"], "plan": p,
+                      "seconds": time.perf_counter() - t0}
+    log(f"  dist hotspot: shard {rep['hot']} hot, ranked {rep['ranked']}, "
+        f"plan donor {p['donor_shard']} -> host {p['recipient_host']}, "
+        f"{p['predicted_move_bytes']:,} bytes ({p['bytes_source']}), "
+        f"imbalance {p['imbalance_before']} -> {p['imbalance_after']}; "
+        f"store untouched ({out['hotspot']['seconds']:.1f} s)")
+
+
+def serve_dist(triples, attrs, ss, stats, expected: dict, results: dict,
+               entry: dict, port: int, k1_launches, card: str) -> None:
+    """Phase 15: the JAX bench's --dist at full width, LUBM-<scale> over
+    DIST_SHARDS shard slots on the card (parts (a)-(h))."""
+    from wukong_tpu_torch.parallel import DistEngine, make_mesh
+    from wukong_tpu_torch.planner.optimizer import Planner
+    from wukong_tpu_torch.runtime.proxy import Proxy
+    from wukong_tpu_torch.store.gstore import build_all_partitions
+
+    out = results["dist"] = {"shards": DIST_SHARDS, "card": card}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    stores = build_all_partitions(triples, DIST_SHARDS, attr_triples=attrs)
+    out["partition_s"] = time.perf_counter() - t0
+    log(f"  {len(triples):,} triples into {DIST_SHARDS} partitions in "
+        f"{out['partition_s']:.1f} s")
+    planner = Planner(stats)
+    dist = DistEngine(stores, ss, make_mesh(DIST_SHARDS))
+    # the proxy serves -d dist only: its host partition is shard 0, and
+    # every row check holds against the single-card phases' rows
+    with Knobs(None, enable_tpu=False):
+        proxy = Proxy(stores[0], ss, device="cuda", planner=planner,
+                      dist_engine=dist)
+    try:
+        for part, fn in (("(a) L1-L7", lambda: dist_bench(
+                              dist, planner, ss, expected, out)),
+                         ("(b) routes", lambda: dist_routes(
+                             dist, planner, ss, expected, out)),
+                         ("(c) extended", lambda: dist_extended(
+                             proxy, results, out)),
+                         ("(d) q2 chain", lambda: dist_k1_chain(
+                             dist, planner, ss, k1_launches, out)),
+                         ("(e) trace", lambda: dist_trace(
+                             dist, planner, ss, out)),
+                         ("(f) wcoj", lambda: dist_wcoj(
+                             proxy, expected, out)),
+                         ("(g) drill", lambda: dist_drill(proxy, port, out)),
+                         ("(h) hotspot", lambda: dist_hotspot(proxy, out))):
+            entry["name"] = part
+            if part == "(f) wcoj":
+                proxy.engine_pool()  # the slices ride its heavy lane
+            t0 = time.perf_counter()
+            fn()
+            out.setdefault("part_s", {})[part] = time.perf_counter() - t0
+    finally:
+        stop_pool(proxy)
+    out["staged_bytes"] = dist.sstore.bytes_used
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 seconds by part {out['part_s']}; {out['seconds']:.1f} "
+        f"s in all; {out['staged_bytes']:,} B staged; {card}")
+
+
+def phase15(args, world: tuple, expected: dict, results: dict, entry: dict,
+            port: int, errs: dict, mem_base: int, kernel_fns: dict,
+            capture_all) -> list:
+    """Phase 15 with its kernel captures (K1 by part, the level probe by
+    call site and part) and its drop check; returns its kernels-line
+    rows."""
+    import torch
+
+    from wukong_tpu_torch.join import kernels as JK
+
+    triples, attrs, ss, stats = world
+    kind, card = results["kind"], results["card"]
+    log(f"dist: LUBM-{args.scale} over {DIST_SHARDS} shard slots on {kind}: "
+        f"L1-L7, both routes, -d dist, the q2 chain's K1 launches and "
+        f"trace, WCOJ over the shards, the shard-down drill, the hot spot; "
+        f"{card}")
+    t0 = time.perf_counter()
+    fns = dict(kernel_fns, level_probe=(JK.level_probe, JK.level_probe_plain,
+                                        None))
+    for fn, _plain, _b in fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: ", " + entry["name"],
+                           lambda a: ", " + entry["name"])
+    lpc = lp_captures(entry)
+    try:
+        serve_dist(triples, attrs, ss, stats, expected, results, entry, port,
+                   lambda: captures["probe_kernel"].wrapped.launches, card)
+    finally:
+        restore_all(list(captures.values()) + lpc)
+    torch.cuda.synchronize()
+    dl = {name: fn.launches for name, (fn, _p, _b) in fns.items()}
+    log(f"dist: kernel launches {dl}; K1 by part "
+        f"{captures['probe_kernel'].launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(dl["probe_kernel"] > 0, "probe_kernel never launched in phase 15")
+    check(dl["level_probe"] > 0,
+          "level_probe never launched by phase 15's distributed WCOJ")
+    results["dist"]["launches"] = {n: dict(c.launches)
+                                   for n, c in captures.items()}
+    results["dist"]["level_probe_launches"] = dl["level_probe"]
+    rows = captured_rows(captures, "15 distributed", kernel_fns, errs)
+    rows += lp_rows(lpc, "15 distributed", errs)
+    del captures, lpc, world, triples, attrs
+    drop_check(mem_base, results, "phase 15's distributed engine")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=640,
@@ -6036,7 +6515,8 @@ def main(argv=None) -> int:
     native.reset_counts()
 
     # ---- 3. store -------------------------------------------------------
-    g, ss, triples = build_world(args.scale, args.seed, results)
+    g, ss, triples, attrs = build_world(args.scale, args.seed, results,
+                                        with_attrs=True)
     ntriples = len(triples)
     proxy = Proxy(g, ss, device="cuda", budget_bytes=60 << 30)
     t0 = time.perf_counter()
@@ -6333,8 +6813,14 @@ def main(argv=None) -> int:
     del captures
 
     # ---- the drop of phase 3's proxy --------------------------------------
-    del proxy, triples, g, vseg
+    stats = proxy.planner.stats  # phase 7's, of the world as synthesized
+    del proxy, g, vseg
     drop_check(mem_base, results)
+
+    # ---- 15. the distributed engine, 8 shard slots on the card -----------
+    rows += phase15(args, (triples, attrs, ss, stats), phase4, results,
+                    entry, port, errs, mem_base, kernel_fns, capture_all)
+    del triples, attrs, stats
 
     # ---- 6. cross-check (after phases 7 and 8, on phase 3's store) ------
     gx, ssx, tx = build_world(args.cross_scale, args.seed)

@@ -652,7 +652,8 @@ def test_unported_declarations_go_stale(tmp_path):
             "    knob_a: int = 1\n", "    knob_a: int = 1\n"
             "    enable_pallas: bool = True\n"),
         "pkg/m.py": ('from x import get_registry\n'
-                     'M = get_registry().gauge("wukong_breaker_open", "h")\n'),
+                     'M = get_registry().gauge("wukong_migration_phase", '
+                     '"h")\n'),
         "pkg/obs/reuse.py": REUSE_OK.replace("('insert', 'restore')",
                                              "('insert', 'cutover')"),
         "pkg/store/dynamic.py": ("def f():\n"
@@ -661,39 +662,40 @@ def test_unported_declarations_go_stale(tmp_path):
         "pkg/vector/__init__.py": "VECTOR_METRICS = {}\n",
         "pkg/vector/knn.py": ("declare_leaf('vector.stage')\n"
                               "_l = make_lock('vector.stage')\n"),
-        "README.md": ("`knob_a` `knob_b` `enable_pallas` wukong_breaker_open"
-                      "\n"),
+        "README.md": ("`knob_a` `knob_b` `enable_pallas` "
+                      "wukong_migration_phase\n"),
     })
     pkg = str(tmp_path / "pkg")
     msgs = "\n".join(v.message for v in run_analysis(
         pkg, plugins=["config-readme", "metrics-readme", "cache-coherence",
                       "vector-coherence"]))
     assert "'enable_pallas' is ported but still declared" in msgs
-    assert "'wukong_breaker_open' is registered but still declared" in msgs
+    assert "'wukong_migration_phase' is registered but still declared" \
+        in msgs
     assert "pending invalidation cause 'cutover'" in msgs
     assert "'vector.stage' is declared a lockdep leaf but listed" in msgs
 
 
 def test_pending_plan_artifact_waived_then_stale(tmp_path):
-    """A placement module with neither the MigrationPlan nor its registry
-    is waived while PENDING_ARTIFACTS declares the artifact pending (the
-    JAX gate flags it); once the sharded store's module exists the entry
-    is stale; a registry that is present is checked as the JAX gate
-    checks it."""
+    """The MigrationPlan is ported, so nothing waives its registry any
+    more: a placement module with neither the MigrationPlan nor its
+    registry is flagged as the JAX gate flags it, with or without the
+    sharded store's module, and a registry that is present is checked as
+    the JAX gate checks it."""
     bare = {"pkg/obs/heat.py": "PLACEMENT_INPUTS = {}\n",
             "pkg/obs/placement.py": ("declare_leaf('placement.x')\n"
                                      "class Advisor:\n"
                                      "    def __init__(self):\n"
                                      "        self.lock = "
                                      "make_lock('placement.x')\n")}
-    pkg = write_tree(tmp_path / "a", bare) + "/pkg"
-    assert run_analysis(pkg, plugins=["placement-telemetry"]) == []
-    assert any("no literal MIGRATION_PLAN_FIELDS" in v.message
-               for v in jax_run(pkg, plugins=["placement-telemetry"]))
-    pkg = write_tree(tmp_path / "b", {
-        **bare, "pkg/parallel/sharded_store.py": "X = 1\n"}) + "/pkg"
-    [v] = run_analysis(pkg, plugins=["placement-telemetry"])
-    assert "PENDING_ARTIFACTS is stale" in v.message
+    for sub, files in (("a", bare), ("b", {
+            **bare, "pkg/parallel/sharded_store.py": "X = 1\n"})):
+        pkg = write_tree(tmp_path / sub, files) + "/pkg"
+        got = run_analysis(pkg, plugins=["placement-telemetry"])
+        assert any("no literal MIGRATION_PLAN_FIELDS" in v.message
+                   for v in got)
+        assert _norm(got) == _norm(jax_run(pkg,
+                                           plugins=["placement-telemetry"]))
     stale_registry = {**bare, "pkg/obs/placement.py": (
         "MIGRATION_PLAN_FIELDS = ('donor',)\n" + bare["pkg/obs/placement.py"])}
     pkg = write_tree(tmp_path / "c", stale_registry) + "/pkg"
@@ -781,10 +783,8 @@ def _declared_by_port(v) -> str | None:
         return "DEVICE_DISPATCH_ALLOWLIST"
     if v.gate == "vector-coherence" and quoted[0] in vectorgate.NON_LEAF_LOCKS:
         return "NON_LEAF_LOCKS"
-    if v.gate == "placement-telemetry" and v.message.startswith(
-            f"no literal {placegate.PLAN_REGISTRY_NAME} tuple") \
-            and placegate.PLAN_CLASS_NAME in placegate.PENDING_ARTIFACTS:
-        return "PENDING_ARTIFACTS"
+    if v.gate == "transport-contract" and quoted[0] in drift.PENDING_WIRE_OPS:
+        return "PENDING_WIRE_OPS"
     return None
 
 
@@ -804,5 +804,24 @@ def test_every_jax_finding_on_the_port_is_declared():
     assert set(drift.UNPORTED_METRICS) == by["UNPORTED_METRICS"]
     assert set(cachegate.PENDING_CAUSES) == by["PENDING_CAUSES"]
     assert set(vectorgate.NON_LEAF_LOCKS) == by["NON_LEAF_LOCKS"]
-    assert "PENDING_ARTIFACTS" in by
-    assert set(placegate.PENDING_ARTIFACTS) == {placegate.PLAN_CLASS_NAME}
+    assert set(drift.PENDING_WIRE_OPS) == by["PENDING_WIRE_OPS"]
+    # the distributed engine's knobs and metrics, the advisor's planning
+    # half and its MigrationPlan are ported: the JAX gates find them in
+    # the port's tree, and nothing declares them pending any more
+    for knob in ("num_workers", "replication_factor", "enable_dist_inplace",
+                 "dist_inplace_rows", "join_dist_parts", "transport_mode",
+                 "transport_timeout_ms", "transport_connect_timeout_ms",
+                 "transport_max_frame_mb", "placement_interval_s",
+                 "placement_imbalance_x"):
+        assert knob not in drift.UNPORTED_KNOBS
+        assert knob not in by.get("UNPORTED_KNOBS", ())
+    for metric in ("wukong_breaker_open", "wukong_shard_fetch_degraded_total",
+                   "wukong_placement_imbalance",
+                   "wukong_placement_plan_bytes",
+                   "wukong_join_dist_dispatch_total",
+                   "wukong_join_dist_slices_total",
+                   "wukong_join_dist_fallback_total"):
+        assert metric not in drift.UNPORTED_METRICS
+        assert metric not in by.get("UNPORTED_METRICS", ())
+    assert not hasattr(placegate, "PENDING_ARTIFACTS")
+    assert not any(v.gate == "placement-telemetry" for v in found)

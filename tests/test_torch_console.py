@@ -131,7 +131,8 @@ def test_sparql_verbs(con, dataset, capfd):
         con.run_command(f"sparql -f {q5} -N -d {dev}")
         assert _rows_logged(capfd.readouterr().err) == [rows]
     con.run_command(f"sparql -f {q5} -d dist")
-    assert "distributed engine is not ported" in capfd.readouterr().err
+    assert "no distributed engine: start with --dist" in \
+        capfd.readouterr().err
     con.run_command(f"sparql -f {q5} -b {root / 'batch'}")
     assert "exclusive" in capfd.readouterr().err
     con.run_command(f"sparql -f {root / 'missing'}")
@@ -238,7 +239,7 @@ def test_load_gsck_checkpoint_recover_verbs(dataset, capfd, tmp_path):
            for s in ("port", "jax")]
     assert got[0] == got[1] and got[0][0] != "0"
     assert _rows_logged(logs["port"]) == _rows_logged(logs["jax"])
-    assert "the distributed engine" in logs["port"]  # recover -d: --dist
+    assert "needs shard healing" in logs["port"]  # recover -d
     recovered = [re.search(r"recovered: checkpoint=\S+ replayed=(.*) epoch",
                            logs[s + " recovered"]).group(1)
                  for s in ("port", "jax")]

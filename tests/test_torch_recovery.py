@@ -192,8 +192,14 @@ def test_checkpoint_fault_writes_nothing(world, dirs):
         faults.install(None)
     with pytest.raises(WukongError, match="checkpoint_dir"):
         recovery.RecoveryManager([], ckpt_dir="").checkpoint()
-    with pytest.raises(WukongError, match="the distributed engine"):
-        recovery.RecoveryManager([], sstore=object())
+    # a sharded store is taken: its replicas join the mutation fan-out
+    class _SStore:
+        def replica_stores(self):
+            return ["replica"]
+
+    assert recovery.RecoveryManager(
+        ["primary"], sstore=_SStore())._mutation_targets() == \
+        ["primary", "replica"]
 
 
 def test_periodic_checkpointer(world, dirs, monkeypatch):

@@ -84,12 +84,12 @@ TSDB_READS = ("rate", "rate_by_label", "series", "quantile", "latest")
 
 #: declared invalidation causes whose producer is not ported yet -> the
 #: ROADMAP item that ports it (exempt from the call-site rules until then)
-PENDING_CAUSES = {"cutover": "ROADMAP §A 7, runtime/migration.py"}
+PENDING_CAUSES = {"cutover": "ROADMAP §A 7b, runtime/migration.py"}
 
 #: (package-relative file, top-level function) pairs allowed to call
 #: ``insert_triples(`` without a maybe_note_invalidation in scope. The JAX
 #: list's shard heal, migration catch-up and worker-process replays come
-#: with their modules (ROADMAP §A 7).
+#: with their modules (ROADMAP §A 7b).
 CACHE_ALLOWLIST = {
     # the per-partition mutation primitive itself: it bumps g.version;
     # the invalidation note fires at the batch/epoch commit level

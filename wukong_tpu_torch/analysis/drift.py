@@ -41,30 +41,16 @@ from wukong_tpu_torch.analysis.framework import (
 #: README knob-table knobs the port's GlobalConfig does not have -> the
 #: ROADMAP item that ports it, or why the port has no counterpart
 UNPORTED_KNOBS = {
-    "num_workers": "ROADMAP §A 7: the port serves one partition until the "
-                   "distributed engine",
-    "replication_factor": "ROADMAP §A 7: replicas come with the sharded "
-                          "store",
-    "enable_dist_inplace": "ROADMAP §A 7: parallel/inplace.py",
-    "dist_inplace_rows": "ROADMAP §A 7: parallel/inplace.py",
-    "exchange_capacity": "ROADMAP §A 7: the distributed chain's all-to-all "
-                         "row budget",
-    "join_dist_parts": "ROADMAP §A 7: join/dist.py",
-    "migration_enable": "ROADMAP §A 7: runtime/migration.py",
-    "migration_rotate_reads": "ROADMAP §A 7: runtime/migration.py",
-    "transport_mode": "ROADMAP §A 7: runtime/transport.py",
-    "transport_timeout_ms": "ROADMAP §A 7: runtime/transport.py",
-    "transport_connect_timeout_ms": "ROADMAP §A 7: runtime/transport.py",
-    "transport_max_frame_mb": "ROADMAP §A 7: runtime/transport.py",
-    "placement_interval_s": "ROADMAP §A 7: the advisor's planning loop, "
-                            "which scores the sharded store's topology",
-    "placement_imbalance_x": "ROADMAP §A 7: the advisor's MigrationPlan "
-                             "threshold, with the sharded store",
-    "proc_workers": "ROADMAP §A 7: runtime/procs.py",
-    "proc_heartbeat_ms": "ROADMAP §A 7: runtime/procs.py",
-    "proc_heartbeat_misses": "ROADMAP §A 7: runtime/procs.py",
-    "proc_restart_backoff_ms": "ROADMAP §A 7: runtime/procs.py",
-    "proc_restart_backoff_max_ms": "ROADMAP §A 7: runtime/procs.py",
+    "exchange_capacity": "no counterpart: declared and read nowhere in the "
+                         "JAX package; each exchange step sizes its own "
+                         "per-destination capacity class",
+    "migration_enable": "ROADMAP §A 7b: runtime/migration.py",
+    "migration_rotate_reads": "ROADMAP §A 7b: runtime/migration.py",
+    "proc_workers": "ROADMAP §A 7b: runtime/procs.py",
+    "proc_heartbeat_ms": "ROADMAP §A 7b: runtime/procs.py",
+    "proc_heartbeat_misses": "ROADMAP §A 7b: runtime/procs.py",
+    "proc_restart_backoff_ms": "ROADMAP §A 7b: runtime/procs.py",
+    "proc_restart_backoff_max_ms": "ROADMAP §A 7b: runtime/procs.py",
     "enable_fp_probe": "ROADMAP §B 2: the fingerprint probe is not ported",
     "enable_pallas": "no counterpart: the port has no Pallas kernels; on the "
                      "card every kernel of the path is the hand-written CUDA "
@@ -100,22 +86,19 @@ UNPORTED_KNOBS = {
 #: README metrics-table names no port code registers -> the ROADMAP item
 #: that ports the code registering it
 UNPORTED_METRICS = {
-    "wukong_breaker_open": "ROADMAP §A 7: the circuit-breaker registry of "
-                           "retry_call's breaker argument",
-    "wukong_shard_fetch_degraded_total": "ROADMAP §A 7: "
-                                         "parallel/sharded_store.py",
-    "wukong_placement_imbalance": "ROADMAP §A 7: the advisor's planning "
-                                  "sweep, with the sharded store",
-    "wukong_placement_plan_bytes": "ROADMAP §A 7: the advisor's "
-                                   "MigrationPlan, with the sharded store",
-    "wukong_migrations_total": "ROADMAP §A 7: runtime/migration.py",
-    "wukong_migration_bytes_total": "ROADMAP §A 7: runtime/migration.py",
-    "wukong_migration_duration_us": "ROADMAP §A 7: runtime/migration.py",
-    "wukong_migration_aborts_total": "ROADMAP §A 7: runtime/migration.py",
-    "wukong_migration_phase": "ROADMAP §A 7: runtime/migration.py",
-    "wukong_join_dist_dispatch_total": "ROADMAP §A 7: join/dist.py",
-    "wukong_join_dist_slices_total": "ROADMAP §A 7: join/dist.py",
-    "wukong_join_dist_fallback_total": "ROADMAP §A 7: join/dist.py",
+    "wukong_migrations_total": "ROADMAP §A 7b: runtime/migration.py",
+    "wukong_migration_bytes_total": "ROADMAP §A 7b: runtime/migration.py",
+    "wukong_migration_duration_us": "ROADMAP §A 7b: runtime/migration.py",
+    "wukong_migration_aborts_total": "ROADMAP §A 7b: runtime/migration.py",
+    "wukong_migration_phase": "ROADMAP §A 7b: runtime/migration.py",
+}
+
+#: wire ops of runtime/transport.py's registry whose only callers are not
+#: ported yet -> the ROADMAP item that ports them (the JAX package's
+#: transport-contract gate finds no call site naming them in the port)
+PENDING_WIRE_OPS = {
+    "ping": "ROADMAP §A 7b: runtime/procs.py, the supervisor's heartbeat",
+    "digest": "ROADMAP §A 7b: runtime/procs.py, the rejoin digest check",
 }
 
 FAULTS_MODULE = "runtime/faults.py"

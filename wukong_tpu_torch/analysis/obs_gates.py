@@ -66,7 +66,7 @@ DISPATCH_ATTRS = frozenset({
 # (package-relative file, top-level function) pairs allowed to call
 # ``insert_triples(`` without the WAL append hook. The JAX list's shard
 # rebuild, migration catch-up and worker-process replays come with their
-# modules (ROADMAP §A 7).
+# modules (ROADMAP §A 7b).
 WAL_ALLOWLIST = {
     # the per-partition mutation primitive itself (hooked at batch level)
     ("store/dynamic.py", "insert_triples"),

@@ -9,10 +9,7 @@ pattern applied to the placement plane:
 - ``MIGRATION_PLAN_FIELDS`` (a literal tuple in ``obs/placement.py``)
   must exist and match the ``MigrationPlan`` dataclass's annotated fields
   EXACTLY — the control plane's consumption schema is a registry, not an
-  implementation detail that drifts. The port's one rule of its own:
-  while ``PENDING_ARTIFACTS`` declares the artifact pending and the
-  placement module defines neither it nor its registry, nothing is
-  checked; once the pending entry's module exists, the entry is stale.
+  implementation detail that drifts.
 - every metric the advisor reads through the tsdb trend windows (a
   ``wukong_*`` string literal passed to a tsdb query call — ``rate`` /
   ``rate_by_label`` / ``series`` / ``quantile`` / ``latest``) must be
@@ -49,12 +46,6 @@ PLAN_REGISTRY_NAME = "MIGRATION_PLAN_FIELDS"
 PLAN_CLASS_NAME = "MigrationPlan"
 #: tsdb query methods whose metric-name argument is a placement READ
 TSDB_READS = ("rate", "rate_by_label", "series", "quantile", "latest")
-#: the port's plan artifacts still to come -> the module whose arrival
-#: brings them. The MigrationPlan is the planning sweep's output, and that
-#: sweep scores the sharded store's live topology (ROADMAP §A 7): until
-#: the store's module exists, a placement module with neither the class
-#: nor its registry is not a violation; once it exists, the entry is stale
-PENDING_ARTIFACTS = {PLAN_CLASS_NAME: "parallel/sharded_store.py"}
 
 
 def _literal_tuple(sf, name: str):
@@ -120,20 +111,8 @@ class PlacementTelemetryGate(AnalysisPlugin):
     def _check_plan_registry(self, ctx: RepoContext,
                              sf) -> list[Violation]:
         """MIGRATION_PLAN_FIELDS literal == MigrationPlan dataclass
-        fields, exactly (set equality both ways); waived while the
-        artifact is declared pending and absent."""
+        fields, exactly (set equality both ways)."""
         reg, line = _literal_tuple(sf, PLAN_REGISTRY_NAME)
-        pending = PENDING_ARTIFACTS.get(PLAN_CLASS_NAME)
-        if pending is not None and pending in ctx.paths():
-            return [Violation(
-                self.name, sf.rel, line or 1,
-                f"{PLAN_CLASS_NAME} is declared pending until {pending!r}, "
-                "which exists: the entry in analysis/placegate.py::"
-                "PENDING_ARTIFACTS is stale (port the artifact)")]
-        if reg is None and pending is not None and not any(
-                isinstance(n, ast.ClassDef) and n.name == PLAN_CLASS_NAME
-                for n in ast.walk(sf.tree or ast.Module(body=[]))):
-            return []
         if reg is None:
             return [Violation(
                 self.name, sf.rel, line or 1,

@@ -23,6 +23,9 @@ from dataclasses import dataclass, fields
 class GlobalConfig:
     # ---- immutable after boot (config.hpp:42-110) ----
     num_engines: int = 4  # host engine threads of the engine pool
+    # graph partitions: one shard slot each of the distributed engine's
+    # mesh (the console's -w); 1 serves one partition
+    num_workers: int = 1
     # the device engine is built (the name is the JAX package's; here the
     # card is an H100)
     enable_tpu: bool = True
@@ -38,6 +41,35 @@ class GlobalConfig:
     enable_corun: bool = False
     # blind mode: replies carry the row count, not the table
     silent: bool = True
+    # owner-routed in-place execution for small-table distributed chains
+    # (reference need_fork_join, sparql.hpp:802-814, and proxy owner
+    # routing, proxy.hpp:201-219): a chain whose live table stays under
+    # dist_inplace_rows rows runs host-side with per-row owner-routed reads
+    # and no exchange; growing past it aborts back to the collective chain
+    enable_dist_inplace: bool = True
+    dist_inplace_rows: int = 16384
+    # distributed generic join: the most slices a cyclic query over a
+    # sharded store fans out to on the heavy lane, bounded by the shard
+    # count and the pool's live engines; 1 runs one slice
+    join_dist_parts: int = 4
+
+    # ---- fault tolerance (parallel/sharded_store.py) ----
+    # hosts holding each logical shard's data; 1 = no replication (a
+    # failed shard fetch substitutes an empty shard and flags the reply
+    # incomplete). The port's proxy serves 1 only until shard healing is
+    # ported. Immutable: replicas are cloned when the sharded store is built
+    replication_factor: int = 1
+    # ---- the data plane's transport (runtime/transport.py; mutable) ----
+    # "loopback" executes shard fetches in process against the local
+    # store; "socket" arms the framed TCP path to registered worker peers
+    # (a peerless shard is served locally)
+    transport_mode: str = "loopback"
+    # socket send/recv and connect timeouts: a timeout is a TransientFault
+    # for retry_call and the per-(peer, shard) breaker
+    transport_timeout_ms: int = 2000
+    transport_connect_timeout_ms: int = 1000
+    # ceiling on one wire frame, enforced on encode and decode
+    transport_max_frame_mb: int = 64
     # host engine work stealing: 0 pair, 1 ring (engine.hpp:186-207)
     stealing_pattern: int = 0
     # stage every segment of a chain before its first step runs
@@ -270,10 +302,16 @@ class GlobalConfig:
     enable_heat: bool = True
     # per-shard latency / arrival samples kept for the heat CDFs
     heat_window: int = 512
-    # observe-only placement advisor: the trend window its sweep (/plan
-    # and the `plan` verb) reads the per-shard fetch rates over; its
-    # planning knobs come with the sharded store (ROADMAP §A 7)
+    # observe-only placement advisor: read the heat plane's
+    # PLACEMENT_INPUTS through the tsdb trend window (placement_window_s
+    # seconds), score the max/mean host load-rate imbalance of an attached
+    # sharded store, and emit a MigrationPlan when it reaches
+    # placement_imbalance_x (never touching the store).
+    # placement_interval_s > 0 runs the advisory loop in the background;
+    # 0 advises on demand only (/plan, the `plan` verb)
+    placement_interval_s: int = 0
     placement_window_s: int = 300
+    placement_imbalance_x: float = 2.0
     # the scrape endpoint (GET /metrics, /top, /plan, /healthz, ...): 0 =
     # off; loopback unless metrics_host widens it (the endpoint has no
     # auth)
@@ -355,7 +393,8 @@ class GlobalConfig:
     # DRR credits a round per unit of tenant weight
     admission_drr_quantum: int = 1
 
-    _IMMUTABLE = {"num_engines", "enable_tpu", "tpu_mem_cache_gb"}
+    _IMMUTABLE = {"num_workers", "num_engines", "enable_tpu",
+                  "tpu_mem_cache_gb", "replication_factor"}
 
     def _names(self) -> set:
         return {f.name for f in fields(self) if f.init}
@@ -425,9 +464,12 @@ class GlobalConfig:
 Global = GlobalConfig()
 
 
-def load_config(path: str) -> GlobalConfig:
-    """Boot-time load of a config file (config.hpp:203-218)."""
+def load_config(path: str, num_workers: int | None = None) -> GlobalConfig:
+    """Boot-time load of a config file and the launcher's worker count
+    (config.hpp:203-218)."""
     Global.load_file(path)
+    if num_workers is not None:
+        Global.num_workers = num_workers
     return Global
 
 

@@ -18,12 +18,13 @@ Layout:
   JAX package's fused ``jit_level_probe``), with its plain PyTorch version.
 - ``wcoj.py``    — the executor: per-(predicate, direction) sorted edge
   tables cached per store version, walked level at a time.
+- ``dist.py``    — the distributed join over a sharded store's partitions:
+  the first eliminated variable hash-partitioned into slices, each a
+  ``WCOJExecutor`` run on the pool's heavy lane.
 
 The planner selects the strategy per query (``Planner.choose_strategy``,
 ``join_strategy`` knob: ``auto``/``walk``/``wcoj``); every outcome is a
-member of :data:`JOIN_STRATEGIES`. The JAX package's distributed join
-(``join/dist.py``) waits for the sharded store (ROADMAP §A, "``parallel/``,
-the distributed engine").
+member of :data:`JOIN_STRATEGIES`.
 """
 
 from __future__ import annotations

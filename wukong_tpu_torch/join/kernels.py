@@ -23,8 +23,8 @@ PyTorch. The stream plane's epoch frontier (``seed_masks``,
 ``seed_extract``, ``unique_rows_padded``) is a dozen stock torch ops on the
 card, batched over terms as one [T, N] computation; the NumPy twins
 (``seed_masks_host``, ``seed_extract_host``) are its parity oracles. The
-distributed join's ``concat_rows_padded`` waits for the distributed engine
-(ROADMAP §A, "``parallel/``, the distributed engine").
+distributed join's slice settlement (``concat_rows_padded``, the JAX
+``jit_concat_rows``) is stock torch ops too.
 """
 
 from __future__ import annotations
@@ -559,3 +559,19 @@ def seed_extract(s, p, o, tp, ts, to, eq, ca, cb):
     m = seed_masks(s, p, o, tp, ts, to, eq)
     cols = torch.stack([s, p, o])
     return _unique_rows_t(cols[ca.long()], cols[cb.long()], m)
+
+
+def concat_rows_padded(stacked: torch.Tensor, counts: torch.Tensor):
+    """Slice settlement of the distributed join: concatenate S padded row
+    tables ``stacked [S, cap, w]`` (each slice's first ``counts[i]`` rows
+    live) into one padded table in slice order — the host
+    ``np.concatenate`` over the live prefixes, row for row. Returns
+    ``(rows [S*cap, w], valid, total)``."""
+    S, cap = int(stacked.shape[0]), int(stacked.shape[1])
+    cum = torch.cumsum(counts.long(), 0)
+    total = cum[S - 1]
+    pos = torch.arange(S * cap, device=stacked.device)
+    slc = torch.searchsorted(cum, pos, right=True).clamp(0, S - 1)
+    prev = torch.where(slc > 0, cum[(slc - 1).clamp(0, S - 1)], 0)
+    local = (pos - prev).clamp(0, cap - 1)
+    return stacked[slc, local], pos < total, total

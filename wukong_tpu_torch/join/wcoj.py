@@ -295,8 +295,8 @@ class WCOJExecutor:
                        else JoinTableCache(gstore, self.device))
         # ``part`` = (S, k): keep only level-0 candidates whose hash lands
         # in partition k of S — the distributed generic join's split of the
-        # first eliminated variable (the JAX join/dist.py's; the port has no
-        # distributed join yet, so its proxy passes None)
+        # first eliminated variable (join/dist.py's slices; None runs the
+        # whole join)
         self.part = part
 
     # ------------------------------------------------------------------

@@ -12,9 +12,11 @@ pipeline
 
 ``build_partition`` (store/gstore.py) builds the partition from them;
 ``load_dataset`` does both for every worker. An ``hdfs://`` directory is
-staged locally first by loader/hdfs.py. Presharding
-(``preshard_dataset``, ``load_host_partitions``) waits for the distributed
-engine (ROADMAP §A, "``parallel/``, the distributed engine").
+staged locally first by loader/hdfs.py. For a cluster the reference's
+RDMA shuffle (read_partial_exchange, base_loader.hpp:165-219) moves
+offline: ``preshard_dataset`` re-buckets a dataset into one file per host,
+and ``load_host_partitions`` builds a host's shard range from its file
+alone.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import os
 
 import numpy as np
 
-from wukong_tpu_torch.store.gstore import build_partition
+from wukong_tpu_torch.store.gstore import build_partition, check_vid_range
 from wukong_tpu_torch.utils.logger import log_info
 from wukong_tpu_torch.utils.timer import StopWatch
 
@@ -76,6 +78,62 @@ def load_attr_triples(dataset_dir: str):
     vdtype = np.float64 if any(x in (2, 3) for x in t) else np.int64
     return (np.asarray(s, dtype=np.int64), np.asarray(a, dtype=np.int64),
             np.asarray(t, dtype=np.int64), np.asarray(v, dtype=vdtype))
+
+
+def preshard_dataset(src_dir: str, out_dir: str, num_hosts: int,
+                     shards_per_host: int) -> dict:
+    """Re-bucket an id dataset into per-host files: host h's file holds every
+    triple whose subject OR object owner falls in h's shard range (the
+    both-sides placement, base_loader.hpp:172-173), so each host builds its
+    partitions from its own file. The string tables and the attribute files
+    are copied whole (attributes are placed by subject when built)."""
+    import json
+    import shutil
+
+    from wukong_tpu_torch.utils.mathutil import hash_mod
+
+    os.makedirs(out_dir, exist_ok=True)
+    triples = load_triples(src_dir)
+    total = num_hosts * shards_per_host
+    s_host = hash_mod(triples[:, 0], total) // shards_per_host
+    o_host = hash_mod(triples[:, 2], total) // shards_per_host
+    sizes = {}
+    for h in range(num_hosts):
+        rows = triples[(s_host == h) | (o_host == h)]
+        np.save(os.path.join(out_dir, f"host{h:03d}_triples.npy"), rows)
+        sizes[h] = int(len(rows))
+    for aux in ("str_index", "str_attr_index", "str_normal",
+                "str_normal_virtual"):
+        src = os.path.join(src_dir, aux)
+        if os.path.exists(src):
+            shutil.copyfile(src, os.path.join(out_dir, aux))
+    for apath in sorted(glob.glob(os.path.join(src_dir, "attr_*.nt"))):
+        shutil.copyfile(apath, os.path.join(out_dir, os.path.basename(apath)))
+    meta = {"num_hosts": num_hosts, "shards_per_host": shards_per_host,
+            "rows_per_host": sizes}
+    with open(os.path.join(out_dir, "preshard.json"), "w") as f:
+        json.dump(meta, f)
+    return meta
+
+
+def load_host_partitions(presharded_dir: str, host_id: int,
+                         versatile: bool = True) -> list:
+    """One host's bulk load from a ``preshard_dataset`` directory: its own
+    triple file plus the shared attribute files, built into its shard range.
+    The stores carry global shard ids (sid)."""
+    import json
+
+    with open(os.path.join(presharded_dir, "preshard.json")) as f:
+        meta = json.load(f)
+    sph = meta["shards_per_host"]
+    total = meta["num_hosts"] * sph
+    rows = np.load(os.path.join(presharded_dir,
+                                f"host{host_id:03d}_triples.npy"))
+    attrs = load_attr_triples(presharded_dir)
+    check_vid_range(rows)
+    return [build_partition(rows, host_id * sph + k, total, attrs, versatile,
+                            check_ids=False)
+            for k in range(sph)]
 
 
 def load_dataset(dataset_dir: str, num_workers: int,

@@ -12,11 +12,12 @@ aggregates them into per-shard load CDFs and a top-K hot-shard report
   (rendered by obs/profile.py ``render_top``),
 - ``Monitor.heat_report()`` lines in the rolling throughput report.
 
-The port's producer is the vector plane: each k-NN scan (vector/knn.py
-``scan_topk`` and ``sliced_topk``) charges its store's shard, kind
-``vector``, with the rows it scanned, once a scan. The JAX package's other
-producer, the sharded store's host fetches (``maybe_charge``), comes with
-``parallel/sharded_store.py`` (ROADMAP §A 7). ``PLACEMENT_INPUTS`` declares
+Two producers: each k-NN scan (vector/knn.py ``scan_topk`` and
+``sliced_topk``) charges its store's shard, kind ``vector``, with the rows
+it scanned, once a scan; the sharded store's host fetches
+(parallel/sharded_store.py) charge every fetch outcome through
+``maybe_charge`` (kinds ``primary``, ``failover``, ``rotation``,
+``degraded``). ``PLACEMENT_INPUTS`` declares
 which report fields back placement decisions and which registered metric
 carries each; the ``heat-telemetry`` analysis gate keeps that map honest.
 """

@@ -49,13 +49,21 @@ def register_health_source(name: str, fn) -> None:
 
 def health_report() -> dict:
     """The /healthz body: liveness (the process answered) split from
-    readiness (nothing degraded). Built-in probe: dead pool engines;
-    registered sources add subsystem views. The JAX probe of open circuit
-    breakers and the proxy's sharded-store source come with the breaker
-    registry and the sharded store (ROADMAP §A 7)."""
+    readiness (nothing degraded). Built-in probes: open circuit breakers
+    (the ``wukong_breaker_open`` pull gauge, read point-wise — a
+    load-balancer poll must not pay a full registry snapshot) and dead
+    pool engines; registered sources add subsystem views (the proxy's
+    degraded/failover shards)."""
     from wukong_tpu_torch.runtime.scheduler import dead_engine_count
 
     degraded: dict = {}
+    fam = get_registry().gauge(
+        "wukong_breaker_open", "Breaker keys not in the closed state",
+        labels=("name",))
+    fam._refresh()
+    open_b = sum(ch.value for _lv, ch in fam._series())
+    if open_b:
+        degraded["open_breakers"] = int(open_b)
     dead = dead_engine_count()
     if dead:
         degraded["dead_engines"] = int(dead)

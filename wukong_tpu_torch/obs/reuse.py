@@ -33,8 +33,8 @@ per-reply cost is a few leaf-lock updates); off, every hook is one knob
 check. ``reuse_sample_every`` samples the shadow probe (1 = every reply).
 The JAX package's ``/cache`` endpoint and ``cache-coherence`` gate wait
 for their subsystem (ROADMAP §A, "The rest of the observatory, and the
-analysis plugins"); the migration cutover's edge waits for the
-distributed engine (§A, "``parallel/``, the distributed engine").
+analysis plugins"); the migration cutover's edge waits for the migration
+actuator (§A 7b).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Interactive console / CLI (reference: core/console.hpp:99-108, 893-992).
 
-The port's copy of the JAX package's runtime/console.py on one partition:
+The port's copy of the JAX package's runtime/console.py:
 
     python -m wukong_tpu_torch.runtime.console <config> <dataset_dir> \\
-        [-c "<command>"] [--device cuda|cpu]
+        [-c "<command>"] [--device cuda|cpu] [--dist [-w N]]
 
 Verbs: help, quit, config, logger, sparql (``-t <tenant>`` serves as a
 tenant), sparql-emu, load (``load -d <dir> [-c]``: online inserts), gsck,
@@ -15,11 +15,12 @@ events (the event journal), cache (the serving plane and the reuse
 observatory) and device (the device-cost observatory). One-shot mode with
 -c, else a REPL. The dataset may be an ``hdfs://`` directory, staged
 locally first. The engines run on the card unless ``--device cpu`` is
-given; ``--bind`` binds the engine threads to cores. The JAX console's
-other verbs (top, plan, metrics; migrate and ``recover -d <shard>``),
-``--dist`` and the persistent compile cache wait for their slices (ROADMAP
-§A, "The rest of the observatory, and the analysis plugins" and
-"``parallel/``, the distributed engine").
+given; ``--bind`` binds the engine threads to cores. ``--dist``
+partitions the dataset into ``-w`` shards (default ``num_workers``, or 8
+when it is 1) on one device and serves them through the distributed engine
+(``sparql ... -d dist``, ``analyze ... -d dist``). The JAX console's
+``migrate`` verb and ``recover -d <shard>`` drill wait for the migration
+actuator and shard healing (ROADMAP §A 7b).
 """
 
 from __future__ import annotations
@@ -183,12 +184,15 @@ class Console:
         """The observatory knobs are runtime-mutable both ways: the
         sampler's thread checks its knob every tick (on to off), but a
         flip from off to on after boot needs the idempotent starter
-        re-invoked. The JAX console restarts the placement advisor's loop
-        here too; the loop comes with the sharded store it advises on
-        (ROADMAP §A 7)."""
+        re-invoked; so does the placement advisor's loop, over the
+        distributed engine's sharded store (the JAX console's migration
+        actuator, tried first there, is not ported)."""
+        from wukong_tpu_torch.obs.placement import maybe_start_advisor
         from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
 
         maybe_start_tsdb()
+        dist = getattr(self.proxy, "dist", None)
+        maybe_start_advisor(dist.sstore if dist is not None else None)
 
     def _sparql(self, rest) -> None:
         ap = argparse.ArgumentParser(prog="sparql")
@@ -208,9 +212,6 @@ class Console:
         if (ns.f is None) == (ns.b is None):
             log_error("single mode (-f) and batch mode (-b) are exclusive "
                       "— pass exactly one")
-            return
-        if ns.d == "dist":
-            log_error("-d dist: the distributed engine is not ported yet")
             return
         if ns.b is not None:
             if self._in_batch:
@@ -349,7 +350,7 @@ class Console:
         ap = argparse.ArgumentParser(prog=prog)
         ap.add_argument("-f", default=None, help="query file")
         ap.add_argument("-q", default=None, help="inline query text")
-        ap.add_argument("-d", default=None, choices=["cpu", "gpu"])
+        ap.add_argument("-d", default=None, choices=["cpu", "gpu", "dist"])
         ap.add_argument("-p", default=None, help="user plan file (EXPLAIN)")
         ap.add_argument("-j", action="store_true",
                         help="print the structured JSON report")
@@ -490,15 +491,14 @@ class Console:
 
     def _recover(self, rest) -> None:
         """recover: boot-style checkpoint+WAL restore. The JAX console's
-        ``recover -d <shard>`` drill needs the distributed engine."""
+        ``recover -d <shard>`` drill needs shard healing."""
         ap = argparse.ArgumentParser(prog="recover")
         ap.add_argument("-d", "--drill", type=int, default=None,
                         metavar="shard")
         ns = ap.parse_args(rest)
         if ns.drill is not None:
-            log_error("recover -d: the kill-and-recover drill needs --dist, "
-                      "which is not ported yet (ROADMAP §A, \"parallel/, "
-                      "the distributed engine\")")
+            log_error("recover -d: the kill-and-recover drill needs shard "
+                      "healing, which is not ported yet (ROADMAP §A 7b)")
             return
         stats = self.proxy.recover()
         log_info(f"recovered: checkpoint={stats['checkpoint']} "
@@ -530,8 +530,16 @@ def main(argv=None):
     ap.add_argument("-b", "--bind", default=None, metavar="core.bind",
                     help="enable thread->core binding from a core.bind file "
                          "(reference: wukong -b, bind.hpp)")
+    ap.add_argument("-w", "--workers", type=int, default=None,
+                    help="graph partitions (default: num_workers, or 8 "
+                         "shard slots with --dist)")
+    ap.add_argument("--dist", action="store_true",
+                    help="partition into -w shards on the device and serve "
+                         "them through the distributed engine")
     args = ap.parse_args(argv)
     load_config(args.config)
+    if args.workers is not None:
+        Global.num_workers = args.workers
     if args.bind is not None:
         # after load_config: the binding sanity check reads Global.num_engines
         from wukong_tpu_torch.runtime.bind import get_binder
@@ -550,7 +558,18 @@ def main(argv=None):
     triples = load_triples(args.dataset)
     attrs = load_attr_triples(args.dataset)
     g = build_partition(triples, 0, 1, attr_triples=attrs)
-    proxy = Proxy(g, ss, device=args.device)  # raises here without a card
+    dist = None
+    if args.dist:
+        from wukong_tpu_torch.parallel.dist_engine import DistEngine
+        from wukong_tpu_torch.parallel.mesh import make_mesh
+        from wukong_tpu_torch.store.gstore import build_all_partitions
+
+        n = args.workers or (Global.num_workers
+                             if Global.num_workers > 1 else 8)
+        dist = DistEngine(build_all_partitions(triples, n, attrs), ss,
+                          make_mesh(n, device=args.device))
+    # raises here without a card
+    proxy = Proxy(g, ss, device=args.device, dist_engine=dist)
     if args.device == "cuda":
         # build every kernel library the build cache lacks before the first
         # query (the JAX console's persistent XLA cache set-up)

@@ -40,8 +40,11 @@ graph texts and a knn()-seeded hybrid template over Zipf-popular anchors.
 ``Emulator.run_readmostly`` is the Zipfian read-mostly drill of the serving
 caches: observe-only (the shadow cache's predicted hit rate by write rate),
 or with the result cache and views on (every measured reply held against
-an uncached one). The JAX emulator's other scenario runners (drills, hot
-spots, rebalancing) wait for the subsystems they drive. ``run_serving``
+an uncached one). ``Emulator.run_hotspot`` drives Zipf-skewed shard fetches
+through a sharded store's fetch path and runs the placement advisor over
+the heat it produced. The JAX emulator's other scenario runners (the
+shard-kill drills and rebalancing) wait for shard healing and the
+migration actuator (ROADMAP §A 7b). ``run_serving``
 and ``run_graphrag`` write the registry's snapshot every
 ``metrics_snapshot_s`` seconds while they run (obs/httpd.py
 ``MetricsSnapshotter``).
@@ -82,6 +85,30 @@ from wukong_tpu_torch.utils.timer import get_usec
 # as the JAX emulator degrades on CAPACITY_EXCEEDED. Nothing else is caught:
 # a kernel that fails to build or launch, or the card running out of
 # memory, fails the run.
+
+
+def _probe_read(g):
+    """A real host-side partition read with a measurable payload: the
+    partition's largest index list (what an index-origin staging fetches),
+    or an empty array."""
+    best = max(((k, v) for k, v in g.index.items() if len(v)),
+               key=lambda kv: len(kv[1]), default=None)
+    return (np.asarray(best[1]) if best is not None
+            else np.empty(0, np.int64))
+
+
+def _zipf_drive(sstore, hot: int, n_ops: int, zipf_a: float, rng,
+                what: str) -> None:
+    """Drive ``n_ops`` probe fetches whose shard choice follows a
+    Zipf(``zipf_a``) law rotated onto ``hot`` (rank-0 mass lands on the hot
+    shard, the tail spreads over the cold ones), through the sharded
+    store's resilience fetch path."""
+    D = sstore.D
+    w = 1.0 / np.power(np.arange(1, D + 1, dtype=np.float64), zipf_a)
+    w /= w.sum()
+    order = [(hot + j) % D for j in range(D)]
+    for r in rng.choice(D, size=int(n_ops), p=w):
+        sstore._fetch_shard(order[int(r)], _probe_read, what)
 
 
 def _replies_identical(qa, qb) -> bool:
@@ -1027,6 +1054,80 @@ class Emulator:
         eng = self.proxy._engine_for(None)
         eng.execute(q)
         return q
+
+    # ------------------------------------------------------------------
+    # hot-spot heat scenario (the placement advisor's acceptance drill)
+    # ------------------------------------------------------------------
+    def run_hotspot(self, n_ops: int = 1500, zipf_a: float = 1.6,
+                    seed: int = 0, sstore=None) -> dict:
+        """Skewed-workload heat scenario: drive ``n_ops`` host-side shard
+        fetches whose shard choice follows a Zipf(``zipf_a``) law rotated
+        onto a seeded hot shard, through the sharded store's resilience
+        fetch path (so every access charges the heat plane the way live
+        stagings do). The heat report must rank the hot shard first, and
+        the per-shard load-rate CDFs must separate hot from cold. Then the
+        observe-only PlacementAdvisor runs over the tsdb trend window just
+        produced: its MigrationPlan must name the hot shard as donor, and
+        the store must be untouched (identity, version and content digest
+        of every shard, before and after). Returns {hot, ranked,
+        separation, report, plan, plan_donor_is_hot, store_untouched};
+        ``separation`` is the hot shard's p50 access rate over the hottest
+        cold shard's."""
+        from wukong_tpu_torch.obs.heat import get_heat
+        from wukong_tpu_torch.obs.placement import get_advisor
+        from wukong_tpu_torch.obs.tsdb import get_tsdb
+        from wukong_tpu_torch.store.persist import gstore_digest
+
+        if sstore is None:
+            dist = getattr(self.proxy, "dist", None)
+            sstore = dist.sstore if dist is not None else None
+        if sstore is None:
+            raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
+                              "the hot-spot scenario needs a sharded store "
+                              "(--dist)")
+        heat = get_heat()
+        heat.reset()  # the scenario's ranking starts from a clean slate
+        tsdb = get_tsdb()
+        tsdb.reset()  # the advisor's trend window starts clean too
+        tsdb.sample_once()  # trend-window start marker
+        rng = np.random.default_rng(seed)
+        hot = int(rng.integers(0, sstore.D))
+        _zipf_drive(sstore, hot, n_ops, zipf_a, rng, "hotspot")
+        tsdb.sample_once()  # trend-window end marker
+        D = sstore.D
+        report = self.monitor.heat_report(k=D)
+        ranked = [r["shard"] for r in report["ranked"]]
+        hot_rate = report["shards"][hot]["load_rate_cdf"].get(0.5, 0.0)
+        cold_rates = [d["load_rate_cdf"].get(0.5, 0.0)
+                      for s, d in report["shards"].items() if s != hot]
+        separation = (hot_rate / max(cold_rates)
+                      if cold_rates and max(cold_rates) > 0 else float("inf"))
+
+        def _fingerprint():
+            # identity + version + content CRC per shard: a swapped
+            # stores[] entry or a raw array write both change it
+            return [(id(g), int(getattr(g, "version", 0)), gstore_digest(g))
+                    for g in sstore.stores]
+
+        fp_before = _fingerprint()
+        advisor = get_advisor()  # the singleton: /plan + Monitor surface it
+        advisor.attach_store(sstore)
+        plan = advisor.advise_once()
+        store_untouched = _fingerprint() == fp_before
+        donor_is_hot = plan is not None and plan.donor_shard == hot
+        log_info(f"hotspot: shard {hot} drew "
+                 f"{report['shards'][hot]['share']:.0%} of {n_ops} fetches; "
+                 f"ranked={ranked[:4]}..., load-rate separation "
+                 f"{separation:.1f}x; advisor "
+                 + (f"plan donor={plan.donor_shard} (hot={donor_is_hot}, "
+                    f"~{plan.predicted_move_bytes / 2**20:.1f} MiB, "
+                    f"store untouched={store_untouched})"
+                    if plan is not None else "emitted no plan"))
+        return {"hot": hot, "ranked": ranked,
+                "separation": separation, "report": report,
+                "plan": plan.to_dict() if plan is not None else None,
+                "plan_donor_is_hot": donor_is_hot,
+                "store_untouched": bool(store_untouched)}
 
     def run_graphrag(self, graph_texts: list, hybrid_template: str,
                      anchors: list, duration_s: float = 3.0,

@@ -40,7 +40,19 @@ The port's sites (``KNOWN_FAULT_SITES``):
 - ``stream.ingest`` — one stream epoch's insert (stream/ingest.py
   ``StreamIngestor.commit_epoch``), inside the mutation lock after the
   epoch's WAL record: the commit retries it, and the dedup insert counts
-  every edge once.
+  every edge once;
+- ``dist.shard_fetch`` — one shard's host fetch in
+  parallel/sharded_store.py (``shard`` = the shard): transients retry
+  under the per-shard breaker, a persistent fault fails over to a replica
+  or substitutes an empty shard and flags the reply incomplete;
+  ``replica.fetch`` — a replica's or rotation copy's fetch (``shard`` =
+  its host);
+- ``dist.chain_dispatch`` — a distributed chain's dispatch
+  (parallel/dist_engine.py), retried with backoff under the deadline;
+- ``join.slice`` — one slice of the distributed join (join/dist.py,
+  ``shard`` = the slice): a failed slice is re-run once inline;
+- ``transport.connect`` / ``transport.send`` / ``transport.recv`` — the
+  socket transport's syscalls (runtime/transport.py), before each one.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -66,7 +78,10 @@ KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
                                "template.compile", "template.dispatch",
                                "hdfs.read", "dynamic.insert", "wal.append",
                                "checkpoint.write", "vector.upsert",
-                               "stream.ingest"})
+                               "stream.ingest", "dist.shard_fetch",
+                               "dist.chain_dispatch", "replica.fetch",
+                               "join.slice", "transport.connect",
+                               "transport.send", "transport.recv"})
 
 
 class TransientFault(Exception):

@@ -9,16 +9,20 @@ back from the observability plane: the heavy lane (``lane_lines``), the
 tenant SLOs (``slo_lines``), the admission plane (``admission_lines``),
 the event journal (``events_lines``), the device observatory
 (``device_lines``), the serving caches (``cache_lines``), the heat plane
-(``heat_report``, ``shard_load_cdfs``, ``heat_lines``); stream epochs
-land in :class:`StreamStats` (``record_stream_epoch``, ``stream_stats``),
-which the emulator's per-run monitor adopts (``share_observability``). The
-JAX package's breaker, migration and placement-plan lines come with the
-breaker registry, the migration actuator and the advisor's MigrationPlan
-(ROADMAP §A 7).
+(``heat_report``, ``shard_load_cdfs``, ``heat_lines``), the circuit
+breakers attached by name (``attach_breaker``, ``breaker_report``; the
+sharded store's per-shard breaker, exported as the ``wukong_breaker_open``
+pull gauge) and the placement advisor's last MigrationPlan
+(``placement_lines``); stream epochs land in :class:`StreamStats`
+(``record_stream_epoch``, ``stream_stats``), which the emulator's per-run
+monitor adopts with the breaker registry (``share_observability``). The
+JAX package's migration line comes with the migration actuator (ROADMAP
+§A 7b).
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import defaultdict, deque
 
 import numpy as np
@@ -34,6 +38,27 @@ from wukong_tpu_torch.utils.timer import get_usec
 _M_LATENCY = get_registry().histogram(
     "wukong_query_latency_us", "Per-query latency by class (usec)",
     labels=("qtype",))
+
+# every live Monitor with attached breakers feeds ONE registry-level pull
+# gauge (weakly referenced: a dropped monitor leaves the export instead of
+# lingering as a stale series). With several monitors exporting the same
+# breaker name, the last-iterated value wins — they share the breaker
+# object through share_observability, so the values agree.
+_BREAKER_MONITORS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def _breaker_open_series() -> dict:
+    out: dict = {}
+    for m in list(_BREAKER_MONITORS):
+        for nm, br in m._breakers.items():
+            out[(nm,)] = sum(1 for st in br.snapshot().values()
+                             if st["state"] != "closed")
+    return out
+
+
+get_registry().gauge(
+    "wukong_breaker_open", "Breaker keys not in the closed state",
+    labels=("name",)).set_function(_breaker_open_series)
 
 
 # per-epoch latency samples kept for the stream CDF (bounds memory on
@@ -77,12 +102,15 @@ class Monitor:
         self.stream = StreamStats()
         self._last_stream_epochs = 0
         self._last_stream_triples = 0
+        # circuit breakers (name -> CircuitBreaker)
+        self._breakers: dict[str, object] = {}
 
     def share_observability(self, other: "Monitor") -> None:
-        """Adopt ``other``'s stream stats by reference, keeping per-query
-        counters private (the JAX monitor also adopts its breaker
-        registry, which waits for the distributed engine)."""
+        """Adopt ``other``'s stream stats and breaker registry by
+        reference, keeping per-query counters private, so breaker and
+        stream lines reach the only rolling-report printer."""
         self.stream = other.stream
+        self._breakers = other._breakers
         # epochs committed before this monitor existed must not read as
         # rate in its first report window
         self._last_stream_epochs = other.stream.epochs
@@ -116,7 +144,11 @@ class Monitor:
                          f"{dt / (d / 1e6):,.0f} triples/s{lag_str}")
             self._last_stream_epochs = self.stream.epochs
             self._last_stream_triples = self.stream.triples
+            for line in self.breaker_report():
+                log_info(line)
             for line in self.heat_lines(k=3):
+                log_info(line)
+            for line in self.placement_lines():
                 log_info(line)
             for line in self.cache_lines():
                 log_info(line)
@@ -176,6 +208,60 @@ class Monitor:
                      f"({len(self.latencies[qtype])} samples): {line}")
 
     # -- per-shard heat (obs/heat.py) -------------------------------------
+    # -- circuit breakers --------------------------------------------------
+    def attach_breaker(self, name: str, breaker) -> None:
+        """Register a CircuitBreaker for state surfacing (the sharded
+        store's per-shard breaker). Idempotent by name. Also feeds the
+        ``wukong_breaker_open`` pull gauge: keys not in the closed state,
+        read from the breaker snapshot at export time."""
+        self._breakers[name] = breaker
+        _BREAKER_MONITORS.add(self)
+
+    def breaker_summary(self) -> dict[str, dict]:
+        """name -> {counts by state, last_trip_age_s (most recent across
+        keys, None = never)}."""
+        out = {}
+        for name, br in self._breakers.items():
+            counts = {"closed": 0, "open": 0, "half_open": 0}
+            last_trip = None
+            for st in br.snapshot().values():
+                counts[st["state"]] += 1
+                age = st["last_trip_age_s"]
+                if age is not None and (last_trip is None or age < last_trip):
+                    last_trip = age
+            out[name] = {**counts, "last_trip_age_s": last_trip}
+        return out
+
+    def breaker_report(self) -> list[str]:
+        """Rolling-report lines — only breakers with any tracked key, and
+        trip info only when something actually tripped."""
+        lines = []
+        for name, s in self.breaker_summary().items():
+            if s["closed"] + s["open"] + s["half_open"] == 0:
+                continue
+            line = (f"Breaker[{name}]: {s['closed']} closed, "
+                    f"{s['open']} open, {s['half_open']} half-open")
+            if s["last_trip_age_s"] is not None:
+                line += f" (last trip {s['last_trip_age_s']:.1f}s ago)"
+            lines.append(line)
+        return lines
+
+    def placement_lines(self) -> list[str]:
+        """Rolling-report line for the observe-only placement advisor
+        (obs/placement.py): the last MigrationPlan, or nothing while no
+        plan has been emitted (balanced clusters stay quiet)."""
+        from wukong_tpu_torch.obs.placement import get_advisor
+
+        p = get_advisor().status()["plan"]
+        if p is None:
+            return []
+        return [f"Placement[plan {p['plan_id']}: donor shard "
+                f"{p['donor_shard']} -> host {p['recipient_host']}, "
+                f"{p['predicted_move_bytes'] / 2**20:.1f} MiB "
+                f"({p['bytes_source']}), imbalance "
+                f"{p['imbalance_before']:.2f} -> "
+                f"{p['imbalance_after']:.2f}]"]
+
     def heat_report(self, k: int | None = None) -> dict:
         """The aggregated per-shard heat view: load CDFs, latency CDFs,
         and the top-K hot-shard ranking (the placement inputs).

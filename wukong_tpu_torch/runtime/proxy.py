@@ -90,9 +90,19 @@ its plan-time store version (``q._rver``). The stream verbs
 (``stream_register``, ``stream_unregister``, ``stream_poll``,
 ``stream_prune``, ``stream_feed``) drive a ``StreamContext`` over the
 partition (``stream_context``; the epoch frontier runs on the proxy's
-device), and ``recovery()`` checkpoints its registry. The JAX proxy's
-hooks into the distributed engine and its distributed join are left out
-(ROADMAP §A, "``parallel/``, the distributed engine").
+device), and ``recovery()`` checkpoints its registry.
+
+The distributed engine, as in the JAX proxy: ``dist_engine`` (a
+``parallel.DistEngine`` over the same world's partitions) serves
+``device="dist"`` (the console's ``-d dist``); a shape it refuses up
+front (UNSUPPORTED_SHAPE) runs again on the host engine. Its sharded store
+is attached to the placement advisor and to ``/healthz`` (a ``shards``
+probe, through a weakref), its per-shard breaker to the monitor; ``load
+-d``, stream epochs and restores reach every shard (and replica), and drop
+the engine's learned chain capacities. ``wcoj_dist()`` is the
+distributed join over the shards. A dist engine with
+``replication_factor`` > 1 raises: shard healing is not ported (ROADMAP
+§A 7b).
 """
 
 from __future__ import annotations
@@ -192,9 +202,18 @@ class Proxy:
     capacities, as a JAX deployment passes one ``Stats`` to both."""
 
     def __init__(self, gstore, str_server, device="cuda",
-                 budget_bytes: int | None = None, planner=None):
+                 budget_bytes: int | None = None, planner=None,
+                 dist_engine=None):
+        if dist_engine is not None and max(
+                Global.replication_factor,
+                dist_engine.sstore.replication_factor) > 1:
+            raise WukongError(
+                ErrorCode.UNSUPPORTED_SHAPE,
+                "replication_factor > 1 needs shard healing, which is not "
+                "ported (ROADMAP §A 7b)")
         self.g = gstore
         self.str_server = str_server
+        self.dist = dist_engine
         self.planner = planner  # cost-based optimizer (optional)
         self._device = device  # where the strategies' device routes run
         self.gpu = (GPUEngine(gstore, str_server, device=device,
@@ -264,6 +283,7 @@ class Proxy:
             # device-route scan runs (resolved at the first such scan)
             self.cpu.knn_device = device
         self._wcoj = None  # guarded by: _batcher_init_lock
+        self._wcoj_dist = None  # guarded by: _batcher_init_lock
         self._template = None  # guarded by: _batcher_init_lock
         self._pool = None
         self._batcher = None  # the request coalescer, started on first use
@@ -285,20 +305,46 @@ class Proxy:
             self.recovery().start()
         # the metrics scrape endpoint (metrics_port; no-op when 0) and the
         # metrics time-series sampler (enable_tsdb); both idempotent per
-        # process. The JAX proxy also attaches its sharded store to the
-        # placement advisor and registers the store's /healthz probe:
-        # those wait for the sharded store (ROADMAP §A 7)
+        # process
         from wukong_tpu_torch.obs.httpd import maybe_start_metrics_http
         from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
 
         maybe_start_metrics_http()
         maybe_start_tsdb()
+        if dist_engine is not None:
+            self._attach_sharded(dist_engine.sstore)
         # the serving plane (serve/): bind the result cache + view registry
         # to THIS proxy's partition — a re-attach (a new world in-process)
         # purges entries and drops old-world view registrations
         from wukong_tpu_torch.serve import get_serve
 
         get_serve().attach(self.g, self.str_server, device=device)
+
+    def _attach_sharded(self, sstore) -> None:
+        """Attach the sharded store to the observability plane: the
+        placement advisor (its loop starts when placement_interval_s asks;
+        the migration actuator the JAX proxy tries first is not ported),
+        the /healthz ``shards`` probe, and the monitor's breaker line."""
+        import weakref
+
+        from wukong_tpu_torch.obs.httpd import register_health_source
+        from wukong_tpu_torch.obs.placement import maybe_start_advisor
+
+        maybe_start_advisor(sstore)
+        # the probe holds the store through a weakref: the registry is
+        # process-global, and a strong capture would keep a retired
+        # world's degraded set driving readiness after its store died
+        ss_ref = weakref.ref(sstore)
+
+        def _shard_probe():
+            ss = ss_ref()
+            if ss is None or not (ss.degraded_shards or ss.failover_shards):
+                return None
+            return {"degraded": sorted(ss.degraded_shards),
+                    "failover": sorted(ss.failover_shards)}
+
+        register_health_source("shards", _shard_probe)
+        self.monitor.attach_breaker("dist.shard", sstore.breaker)
 
     def engine_pool(self):
         """The host engine pool, started on first use (N CPU engines with
@@ -401,10 +447,15 @@ class Proxy:
             self._m_template_route.labels(route=q.template_route).inc()
 
     def _engine_for(self, device: str | None):
-        """``device`` "cpu" | "gpu" | None (the GPU engine when
+        """``device`` "cpu" | "gpu" | "dist" | None (the GPU engine when
         ``Global.enable_tpu``, else the host engine)."""
         if device == "cpu":
             return self.cpu
+        if device == "dist":
+            if self.dist is None:
+                raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
+                                  "no distributed engine: start with --dist")
+            return self.dist
         if device == "gpu" or (device is None and Global.enable_tpu):
             if self.gpu is None:
                 raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
@@ -412,7 +463,8 @@ class Proxy:
             return self.gpu
         if device is not None:
             raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
-                              f"unknown engine {device!r} (cpu or gpu)")
+                              f"unknown engine {device!r} (cpu, gpu or "
+                              "dist)")
         return self.cpu
 
     # ------------------------------------------------------------------
@@ -643,7 +695,21 @@ class Proxy:
             t0 = get_usec()
             self._serve_execute(q, eng, pinned=device is not None)
             total_us += get_usec() - t0
-            if (q.result.status_code == ErrorCode.CAPACITY_EXCEEDED
+            if (q.result.status_code == ErrorCode.UNSUPPORTED_SHAPE
+                    and eng is self.dist):
+                # the distributed engine refuses some shapes up front;
+                # the host engine (the GPU engine when enable_tpu) answers
+                # them. Capacity failures keep their status: falling back
+                # would materialize the oversized table on one host
+                log_info("distributed engine rejected the plan shape; "
+                         "falling back to the host engine")
+                if trace is not None:
+                    trace.event("proxy.fallback", reason="shape", to="host")
+                q = prepare()
+                t0 = get_usec()
+                self._engine_for(None).execute(q)
+                total_us += get_usec() - t0
+            elif (q.result.status_code == ErrorCode.CAPACITY_EXCEEDED
                     and eng is self.gpu):
                 # graceful degradation: the capacity ceiling is the card's,
                 # not the query's — the host engine has no capacity
@@ -829,7 +895,12 @@ class Proxy:
         result cache."""
         if getattr(q, "join_strategy", "walk") == "wcoj" and not pinned:
             try:
-                self.wcoj().try_execute(q)
+                # a sharded store routes the distributed join (a heavy-lane
+                # fan-out over the partitions)
+                if eng is self.dist and self.dist is not None:
+                    self.wcoj_dist().try_execute(q)
+                else:
+                    self.wcoj().try_execute(q)
                 self._record_wcoj_feedback(q)
                 self._record_route_feedback(q)
                 return q
@@ -842,7 +913,7 @@ class Proxy:
                     tr.event("join.fallback", reason=reason)
                 log_info(f"wcoj degraded to the walk ({reason})")
         if getattr(q, "template_route", "host") == "device" and not pinned \
-                and q.knn is None:
+                and eng is not self.dist and q.knn is None:
             # whole-plan compiled execution: one device program serves the
             # query byte-identically, or the plan shape is refused (False)
             # and the walk below owns it; a compile/dispatch failure
@@ -871,7 +942,7 @@ class Proxy:
                 log_info(f"compiled template degraded to the walk "
                          f"({reason})")
         if Global.enable_batching and not pinned and eng is not None \
-                and q.knn is None:
+                and eng is not self.dist and q.knn is None:
             # knn queries bypass the coalescer: their scan is the batch
             pend = self.batcher().offer(q)
             if pend is not None:
@@ -1158,6 +1229,27 @@ class Proxy:
                         device=self._strategy_device())
         return self._wcoj  # unguarded: set once under the lock above and never rebound
 
+    def wcoj_dist(self):
+        """The distributed WCOJ executor over the sharded store's host
+        partitions, built at first use: it hash-partitions the first
+        eliminated variable and fans the per-partition joins out on the
+        heavy lane (join/dist.py); each slice's device levels run on the
+        proxy's device. The pool resolves lazily — slices run inline until
+        the host engine pool exists."""
+        if self._wcoj_dist is None:  # unguarded: double-checked lazy init, as wcoj()
+            with self._batcher_init_lock:
+                if self._wcoj_dist is None:
+                    from wukong_tpu_torch.join.dist import (
+                        DistributedWCOJExecutor,
+                    )
+
+                    self._wcoj_dist = DistributedWCOJExecutor(
+                        self.dist.sstore.stores, self.str_server,
+                        stats=getattr(self.planner, "stats", None),
+                        pool=lambda: self._pool,
+                        device=self._strategy_device())
+        return self._wcoj_dist  # unguarded: set once under the lock above and never rebound
+
     # ------------------------------------------------------------------
     # whole-plan compiled-template routing (engine/template_compile.py)
     # ------------------------------------------------------------------
@@ -1339,6 +1431,7 @@ class Proxy:
 
         dirname = resolve_dataset_dir(dirname)  # hdfs:// paths stage locally
         n = load_dir_into(self._insert_targets(), dirname, dedup=check_dup)
+        self._dist_check_version()
         # plan recipes are version-keyed (stale ones can never apply), but
         # an insert obsoletes every cached plan's cost basis — free them
         self._plan_cache.clear()
@@ -1392,17 +1485,36 @@ class Proxy:
         caches restage lazily via the store version bump, and cached plans
         are freed as by ``load -d``."""
         rec = self.stream_context().feed(triples, ts=ts)
+        self._dist_check_version()
         self._plan_cache.clear()  # stream commit: same contract as load -d
         return rec
 
+    def _dist_check_version(self) -> None:
+        """After a mutation: the distributed engine drops its stagings,
+        learned chain capacities and in-place memos when any shard's
+        version moved (the JAX proxy re-specializes its compiled chains
+        here)."""
+        if self.dist is not None:
+            self.dist.check_version()
+
     def _insert_targets(self) -> list:
-        """Every store online inserts must reach: the host partition (the
-        JAX proxy adds its distributed shards and their replicas)."""
-        return [self.g]
+        """Every store online inserts must reach: the host partition first,
+        then the distributed shards (the `load -d` fan-out), then any
+        shard replicas — a mirror that missed a write would serve stale
+        data on failover."""
+        targets = [self.g]
+        if self.dist is not None:
+            targets += [g for g in self.dist.sstore.stores if g is not self.g]
+            targets += self.dist.sstore.replica_stores()
+        return targets
 
     def _checkpoint_targets(self) -> list:
-        """The checkpointed partitions."""
-        return [self.g]
+        """The checkpointed primaries (no replicas: they are re-cloned
+        from the restored primaries, not persisted twice)."""
+        targets = [self.g]
+        if self.dist is not None:
+            targets += [g for g in self.dist.sstore.stores if g is not self.g]
+        return targets
 
     def recovery(self):
         """Lazily-assembled RecoveryManager over this proxy's store and
@@ -1417,6 +1529,7 @@ class Proxy:
                     self._recovery = RecoveryManager(
                         self._checkpoint_targets,
                         stream=self.stream_context(),
+                        sstore=getattr(self.dist, "sstore", None),
                         on_change=self._on_store_change)
         return self._recovery  # unguarded: write-once reference, non-None past init
 
@@ -1424,6 +1537,7 @@ class Proxy:
         """Restore invalidation: exactly the dynamic-insert contract —
         cached plans must re-derive (the device caches follow the store
         version, which a restore bumps)."""
+        self._dist_check_version()
         self._plan_cache.clear()
 
     def checkpoint(self) -> str:

@@ -28,11 +28,12 @@ counter (``stream.pkl``, CRC-checked in the manifest), and the WAL's
 ``epoch`` records replay through the context, re-evaluating the standing
 queries. A restore purges the result cache and the shadow cache
 (``notify_mutation`` / ``maybe_note_invalidation``, cause ``restore``).
-Shard healing (the heal watcher, ``heal_once``, rebuilds from a replica or
-a checkpoint, which ride the pool's ``rebuild`` lane as
-:class:`RebuildJob`) waits for the distributed engine (ROADMAP §A,
-"``parallel/``, the distributed engine"); until then ``sstore`` must be
-None.
+With a sharded store (``sstore``, parallel/sharded_store.py), the
+checkpoint holds every shard, WAL replay reaches the shards' replicas too,
+and a restore re-clones the replicas from the restored primaries. Shard
+healing (the heal watcher, ``heal_once``, rebuilds from a replica or a
+checkpoint on the pool's ``rebuild`` lane) is not ported yet (ROADMAP §A
+7b).
 """
 
 from __future__ import annotations
@@ -108,19 +109,15 @@ class RecoveryManager:
     returning the current ones); ``stream`` is the StreamContext whose
     registry and epoch ride in each bundle (None: none is written);
     ``on_change`` runs after any restore so the owner can drop derived
-    caches (plan cache, compiled programs). The JAX manager's ``sstore``
-    and ``pool`` (the sharded store and the rebuild lane's pool) must be
-    None here.
+    caches (plan cache, learned chain capacities); ``sstore`` is the
+    sharded store whose replicas mirror the primaries (its heal watcher
+    is not ported).
     """
 
     def __init__(self, stores, stream=None, sstore=None,
                  ckpt_dir: str | None = None, on_change=None):
-        if sstore is not None:
-            raise WukongError(
-                ErrorCode.UNSUPPORTED_SHAPE,
-                "sharded stores are not ported (ROADMAP §A, \"parallel/, "
-                "the distributed engine\"): sstore must be None")
         self.stream = stream
+        self.sstore = sstore
         self._stores_src = stores
         # an explicit ckpt_dir pins; otherwise the runtime-mutable knob is
         # read at use time (the console can set it after the proxy booted)
@@ -139,6 +136,14 @@ class RecoveryManager:
     def ckpt_dir(self) -> str:
         return (self._ckpt_dir_override if self._ckpt_dir_override is not None
                 else Global.checkpoint_dir)
+
+    def _mutation_targets(self) -> list:
+        """The full insert fan-out: primaries plus every live replica —
+        WAL replay must mirror writes exactly like the live path does."""
+        targets = list(self.stores)
+        if self.sstore is not None:
+            targets += self.sstore.replica_stores()
+        return targets
 
     # ------------------------------------------------------------------
     # checkpoint side
@@ -176,10 +181,13 @@ class RecoveryManager:
                 parts.append({"sid": int(g.sid),
                               "num_workers": int(g.num_workers),
                               "bytes": int(nbytes)})
-                # the placement ledger's predicted-move-bytes source: each
-                # partition's measured on-disk size (one partition until
-                # the sharded store, ROADMAP §A 7)
-                get_lineage().note_checkpoint(int(g.sid), nbytes)
+                # the placement ledger's predicted-move-bytes source:
+                # each distributed shard's measured on-disk size (the host
+                # partition spans every shard — recording it under its sid
+                # would overwrite shard 0's real size)
+                if (self.sstore is None
+                        or int(g.num_workers) == self.sstore.D):
+                    get_lineage().note_checkpoint(int(g.sid), nbytes)
             man = {"format": list(MANIFEST_VERSION), "wal_seq": int(wal_seq),
                    "parts": parts, "stream": False, "epoch": 0}
             if self.stream is not None:
@@ -321,6 +329,8 @@ class RecoveryManager:
                                   path=path) if trace else None
             for g, g2 in bundle["parts"]:  # validated: cannot fail partway
                 adopt_gstore(g, g2)
+            if self.sstore is not None and self.sstore.replicas:
+                self.sstore.refresh_replicas()
             if bundle["stream"] is not None:
                 state = bundle["stream"]
                 self.stream.continuous.import_state(state["registry"])
@@ -337,7 +347,7 @@ class RecoveryManager:
             emit_event("recovery.restore", path=path,
                        parts=len(man["parts"]), wal_seq=after_seq)
         if self.stream is not None:
-            self.stream.ingestor.stores = self.stores
+            self.stream.ingestor.stores = self._mutation_targets()
         self._replay_wal(after_seq, stats, trace)
         # a restore replaces array contents wholesale: a version-keyed
         # cache purges conservatively (the restored world's versions are
@@ -396,13 +406,13 @@ class RecoveryManager:
                         apply_vector_record,
                     )
 
-                    for g in self.stores:
+                    for g in self._mutation_targets():
                         apply_vector_record(g, rec.payload)
                 else:
                     # a plain insert — or a stream epoch with no stream
                     # context to re-evaluate it: the data still must not
                     # be lost
-                    for g in self.stores:
+                    for g in self._mutation_targets():
                         insert_triples(g, rec.payload["triples"],
                                        dedup=rec.payload["dedup"],
                                        check_ids=False)

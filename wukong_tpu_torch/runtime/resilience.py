@@ -18,8 +18,9 @@ breaker trip or close is a ``breaker.trip`` / ``breaker.close`` event on the
 ambient trace and in the cluster-event journal (obs/events.py), both sent
 outside the breaker's lock.
 - :func:`retry_call` — exponential backoff with equal jitter around a
-  transient-failure-prone call (the HDFS client, loader/hdfs.py), with a
-  ``retry`` event on the ambient trace.
+  transient-failure-prone call (the HDFS client, the sharded store's shard
+  fetches, the distributed chain's dispatch), with a ``retry`` event on the
+  ambient trace, an optional per-key circuit breaker and deadline.
 """
 
 from __future__ import annotations
@@ -256,19 +257,20 @@ _retry_rng = random.Random()  # jitter source; tests inject their own
 
 def retry_call(fn, *, site: str = "", attempts: int | None = None,
                base_ms: float | None = None, max_ms: float | None = None,
-               retry_on: tuple = (), rng: random.Random | None = None,
-               sleep=time.sleep):
+               retry_on: tuple = (), breaker: "CircuitBreaker | None" = None,
+               key=None, rng: random.Random | None = None, sleep=time.sleep,
+               deadline: "Deadline | None" = None):
     """Call ``fn()``; on an exception in ``retry_on`` back off and retry.
 
     Backoff is exponential with equal jitter: half the window fixed, half
-    uniform, so synchronized retry storms decorrelate. Non-retryable
-    exceptions (and faults.ShardDown) propagate immediately. Exhaustion
-    raises RetryExhausted carrying the last exception. The JAX function's
-    circuit-breaker and deadline arguments wait for their first caller in
-    the port, the distributed engine
-    (ROADMAP §A, "``parallel/``, the distributed engine").
+    uniform, so synchronized retry storms decorrelate. A breaker (keyed by
+    ``key``) short-circuits calls while open and records outcomes; a
+    deadline bounds the total retry time. Non-retryable exceptions (and
+    faults.ShardDown) propagate immediately. Exhaustion raises
+    RetryExhausted carrying the last exception.
     """
     from wukong_tpu_torch.runtime.faults import TransientFault
+    from wukong_tpu_torch.utils.errors import ShardUnavailable
 
     attempts = Global.retry_max_attempts if attempts is None else attempts
     base_ms = Global.retry_base_ms if base_ms is None else base_ms
@@ -278,15 +280,48 @@ def retry_call(fn, *, site: str = "", attempts: int | None = None,
     attempts = max(int(attempts), 1)
     last: BaseException | None = None
     for i in range(attempts):
+        if breaker is not None and not breaker.allow(key):
+            trace_event("breaker.open", site=site, key=str(key))
+            raise ShardUnavailable(
+                f"circuit open for {key!r} at {site}",
+                shard=key if isinstance(key, int) else None)
+        # past this point an admitted half-open trial must be settled on
+        # every exit path, or the breaker keeps its trial slot forever
+        if deadline is not None:
+            try:
+                deadline.check(site)
+            except BaseException:
+                if breaker is not None:
+                    breaker.record_abort(key)
+                raise
         try:
-            return fn()
+            out = fn()
         except retry_on as e:
             last = e
             trace_event("retry", site=site, attempt=i, error=repr(e))
             _M_RETRIES.labels(site=site or "?").inc()
+            if breaker is not None:
+                breaker.record_failure(key)
             if i == attempts - 1:
                 break
             window = min(base_ms * (2 ** i), max_ms) / 1e3
-            sleep(window / 2 + rng.random() * window / 2)
+            delay = window / 2 + rng.random() * window / 2
+            if deadline is not None:
+                rem = deadline.remaining_s()
+                if rem is not None and delay >= rem:
+                    raise QueryTimeout(
+                        f"deadline inside retry backoff at {site}") from e
+            sleep(delay)
+        except BaseException:
+            # a non-retryable failure did run and did fail: count it, so a
+            # persistent fault trips the breaker and a half-open trial is
+            # settled
+            if breaker is not None:
+                breaker.record_failure(key)
+            raise
+        else:
+            if breaker is not None:
+                breaker.record_success(key)
+            return out
     raise RetryExhausted(
         f"{attempts} attempts failed at {site}: {last!r}", last=last)

@@ -23,8 +23,7 @@ insert appended after the merge took its snapshot (ROADMAP §C). A batch's
 version edge goes to the serving plane (``notify_mutation``, inside the
 mutation lock) and to the reuse observatory (``maybe_note_invalidation``,
 which journals ``cache.invalidate``), as in the JAX package. The migration
-dual-write sinks wait for the distributed engine (ROADMAP §A,
-"``parallel/``, the distributed engine").
+dual-write sinks wait for the migration actuator (ROADMAP §A 7b).
 """
 
 from __future__ import annotations

@@ -18,6 +18,7 @@ segment for segment. Semantics, as in the reference (core/store/gstore.hpp):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -99,6 +100,11 @@ class GStore:
         return n
 
 
+def owner_of_subject(s: np.ndarray, n: int) -> np.ndarray:
+    """The partition owning each vertex id: hash(vid) % n."""
+    return hash_mod(s, n)
+
+
 def check_vid_range(triples: np.ndarray) -> None:
     """Device staging narrows ids to int32 and INT32_MAX is the device-side
     padding sentinel, so ids must lie in [0, 2^31 - 1)."""
@@ -135,14 +141,16 @@ def _pred_runs(p_sorted: np.ndarray, k_sorted: np.ndarray, v_sorted: np.ndarray)
 
 
 def build_partition(triples: np.ndarray, sid: int, num_workers: int,
-                    attr_triples=None, versatile: bool = True) -> GStore:
+                    attr_triples=None, versatile: bool = True,
+                    check_ids: bool = True) -> GStore:
     """Build worker `sid`'s GStore from the full [M,3] triple array, one
     direction at a time (slice -> sort -> segments -> free) to bound peak
     host memory. ``attr_triples`` is the column tuple (subjects, attribute
     ids, value-type tags, values) that ``loader.lubm.generate_lubm_attrs``
     returns."""
     g = GStore(sid=sid, num_workers=num_workers)
-    check_vid_range(triples)
+    if check_ids:
+        check_vid_range(triples)
     s, p, o = triples[:, 0], triples[:, 1], triples[:, 2]
 
     # pso order: (p, s, o) — each predicate run becomes one OUT segment
@@ -195,6 +203,29 @@ def build_partition(triples: np.ndarray, sid: int, num_workers: int,
     if attr_triples is not None:
         _build_attrs(g, attr_triples)
     return g
+
+
+def build_all_partitions(triples: np.ndarray, num_workers: int,
+                         attr_triples=None, versatile: bool = True
+                         ) -> list[GStore]:
+    """Every worker's partition of one triple array (the id range checked
+    once, not per partition), built on host threads (one a partition, at
+    most one a CPU). The slicing, sorting and CSR building are numpy and
+    native/ calls that release the GIL, so the partitions' builds overlap;
+    each is what build_partition alone builds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    check_vid_range(triples)
+
+    def one(i: int) -> GStore:
+        return build_partition(triples, i, num_workers, attr_triples,
+                               versatile, check_ids=False)
+
+    n = min(num_workers, os.cpu_count() or 1)
+    if n <= 1:
+        return [one(i) for i in range(num_workers)]
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        return list(ex.map(one, range(num_workers)))
 
 
 def _build_attrs(g: GStore, attr_triples) -> None:

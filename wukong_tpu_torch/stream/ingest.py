@@ -16,8 +16,7 @@ would double-append — so transients there surface to the caller.
 
 The port's copy of the JAX package's stream/ingest.py on one partition:
 the migration dual-write sinks an epoch also reaches in the JAX package
-wait for the distributed engine (ROADMAP §A, "``parallel/``, the
-distributed engine").
+wait for the migration actuator (ROADMAP §A 7b).
 """
 
 from __future__ import annotations

@@ -97,6 +97,14 @@ class CapacityExceeded(WukongError):
         super().__init__(ErrorCode.CAPACITY_EXCEEDED, detail)
 
 
+class ShardUnavailable(WukongError):
+    """A shard is down or its circuit breaker is open."""
+
+    def __init__(self, detail: str = "", shard: int | None = None):
+        self.shard = shard
+        super().__init__(ErrorCode.SHARD_UNAVAILABLE, detail)
+
+
 class RetryExhausted(WukongError):
     """A transient failure survived every retry attempt."""
 
@@ -115,6 +123,25 @@ class CheckpointCorrupt(WukongError):
         self.path = path
         super().__init__(ErrorCode.CHECKPOINT_CORRUPT,
                          f"{detail} ({path})" if path else detail)
+
+
+class FrameTooLarge(WukongError):
+    """A transport frame (sent or received) exceeds the configured
+    ``transport_max_frame_mb`` ceiling. Raised on the encode side too: the
+    sender refuses what the receiver would refuse."""
+
+    def __init__(self, detail: str = ""):
+        super().__init__(ErrorCode.FRAME_TOO_LARGE, detail)
+
+
+class TransportCorrupt(WukongError):
+    """A wire frame or message failed validation: bad magic, CRC mismatch on
+    a complete frame, an undeclared op, or a request/reply that does not
+    match its MESSAGE_REGISTRY schema. A torn trailing frame is dropped
+    instead (only the unacknowledged message)."""
+
+    def __init__(self, detail: str = ""):
+        super().__init__(ErrorCode.TRANSPORT_CORRUPT, detail)
 
 
 def assert_ec(cond: bool, code: ErrorCode, detail: str = "") -> None:

@@ -27,8 +27,8 @@ upserts. It mirrors the triple store's disciplines:
 The port's copy of the JAX package's vector/vstore.py. A batch's version
 edge goes to the serving plane (``notify_mutation``) and the reuse
 observatory (``maybe_note_invalidation``), as ``insert_batch_into``'s does;
-the migration dual-write sinks wait for the distributed engine (ROADMAP §A,
-"``parallel/``, the distributed engine").
+the migration dual-write sinks wait for the migration actuator (ROADMAP §A
+7b).
 """
 
 from __future__ import annotations
