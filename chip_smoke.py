@@ -35,7 +35,13 @@ Phases (any failure exits nonzero, and no result line is printed):
      n; integer ties, bit for bit; extreme norms and zero rows; slot lists;
      widths on both load paths; the GraphRAG slice, m around one block's
      rows, k = 32, 33 and 256, ties across block boundaries, an all-dead
-     slice) and slices merged into the single scan;
+     slice) and slices merged into the single scan; and expand_rows
+     (csrc/expand_rows.cu, expand's row plan and gathers after K1) against
+     expand_rows_plain on expand_rows_cases (a row with no edges, the light
+     flight's 1,024-row table, totals past cap_out and past 2^31, the
+     one-launch tile exactly and one row past it, one row owning every slot
+     of three tiles, neighbors past the edge array, a strided view, a wide
+     cap_out, 2^18 rows), each three times;
   3. store: synthesize LUBM-<scale> and its attributes from the seed, build
      the partition, and stage every segment the seven LUBM shapes touch on
      the card; the build and staging must take native/'s paths (and phases
@@ -226,6 +232,25 @@ Phases (any failure exits nonzero, and no result line is printed):
      window). Then phase 3's proxy is dropped, and memory_allocated must
      fall to within 64 MiB of its value before phase 3 (else what holds
      the rest is printed);
+ 15. the distributed engine (run after 14's drop): the same triples in
+     DIST_SHARDS partitions on the card, L1-L7 as the JAX bench's --dist,
+     both routes, -d dist, q2's K1 launches and trace, WCOJ over the
+     shards, the shard-down drill, the hot spot;
+ 16. live migration and shard healing (run after 15, on its world):
+     (a) Emulator.run_rebalance (MIGRATE_OPS Zipf fetches, a = 1.6, seed
+     7) executed through the migration actuator, rounds of the advisor's
+     plan until the imbalance falls under placement_imbalance_x, L1-L7
+     through -d dist with phase 4's rows after every phase; (b) a `load
+     -d` batch on the donor in round 1's dual-write window, read back
+     through the new primary on the card (both rotation turns) and on the
+     host route, the primary's digest equal to the donor copy's; (c) a
+     second shard's plan aborted after its cutover, the donor serving
+     again; (d) a DistEngine with replication 2 behind a Proxy and
+     Emulator.run_drill on shard HEAL_SHARD over L1-L7: complete through
+     the outage, rebuilt on the pool's rebuild lane, the breaker closed,
+     /healthz's shards cleared, the verify round as the baseline; (e)
+     K1 on every shard of q2's chain after the cutover and after the
+     heal. Then both phases' engines are dropped, with the check of 14;
  12. data in and durability (run last, each world built from the seed,
      served and dropped in turn, pinned to the walk except where a route
      is forced): (a) WatDiv-<WATDIV_SCALE> (about 10 M triples) with the
@@ -261,8 +286,8 @@ phase 7, for each kernel and mix (and the console) in phase 8, and for
 each kernel and class of its calls in phase 9, for each kernel in phase
 10, for each kernel and class of its calls in phase 11 (the level probe
 by call site and part), for each class of knn_scan's calls in phase 13,
-for each kernel phase 14 launched and for each kernel phase 12 launched,
-with
+for each kernel phase 14 launched, for each kernel and part of phases
+15 and 16, and for each kernel phase 12 launched, with
 that row's launches, input ("phase", "input"), bound and times; the last is
 {"ok": true, "device": {...}}. The script needs the repository around it
 and a CUDA GPU; it imports nothing of JAX or of the JAX package.
@@ -395,6 +420,10 @@ KERNELS = {
     # a hand kernel for the XLA k-NN scan (masked scores, then lax.top_k)
     "knn_scan": ("wukong_tpu_torch/csrc/knn_scan.cu",
                  "wukong_tpu/vector/knn.py:118"),
+    # a hand kernel for the XLA row plan and gathers that follow K1 in a
+    # known_to_unknown step
+    "expand_rows": ("wukong_tpu_torch/csrc/expand_rows.cu",
+                    "wukong_tpu/engine/tpu_kernels.py:311"),
 }
 
 
@@ -679,6 +708,87 @@ def _lp_csr(rng, nkeys: int, maxdeg: int, idmax: int, keymax: int,
     np.cumsum(degs, out=offsets[1:])
     depth = int(max(int(degs.max()) if nkeys else 1, 1)).bit_length() + 1
     return keys, offsets, edges.astype(np.int64), depth
+
+
+def expand_rows_cases(seed: int = 0) -> list:
+    """expand_rows' adversarial inputs, (label, table, start, deg, edges,
+    cap_out) as CPU int32 tensors: a lone row with no edges, the light
+    flight's 1,024-row table with a few live rows, totals past cap_out, the
+    one-launch tile exactly and one row past it, several tiles with one row
+    owning every slot, totals past 2^31 (saturated), neighbor indices past
+    the edge array's end (clamped), a strided column view, a wide cap_out
+    over a small table, and a table of 2^18 rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def case(label, C, W, deg, cap_out, E, start=None, table=None):
+        deg = np.asarray(deg, dtype=np.int64)
+        if start is None:
+            start = rng.integers(0, max(E - int(deg.max(initial=0)), 1), C)
+        if table is None:
+            table = rng.integers(-5, 1 << 30, (W, C))
+        return (label, torch.from_numpy(np.asarray(table, dtype=np.int32)),
+                torch.from_numpy(np.asarray(start, dtype=np.int32)),
+                torch.from_numpy(deg.astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 1 << 30, E)
+                                 .astype(np.int32)), cap_out)
+
+    def sparse(C, live, hi):
+        d = np.zeros(C, dtype=np.int64)
+        d[:live] = rng.integers(0, hi, live)
+        return d
+
+    out = [case("one row, no edges", 1, 1, [0], 1024, 16),
+           case("flight: 1,024 rows, 37 live", 1024, 2, sparse(1024, 37, 4),
+                1024, 5000),
+           case("total past cap_out", 1024, 2, sparse(1024, 900, 7), 1024,
+                8000),
+           case("one tile exactly", 4096, 3, rng.integers(0, 6, 4096),
+                16384, 30000),
+           case("one row past the tile", 4097, 1, rng.integers(0, 3, 4097),
+                1 << 13, 9000)]
+    d = np.zeros(3 * 4096 + 17, dtype=np.int64)
+    d[5000] = 60_000
+    out.append(case("three tiles, one row owns every slot", len(d), 2, d,
+                    1 << 16, 70_000))
+    out.append(case("total past 2^31", 4, 2, [1 << 30, 1 << 30, 1 << 30, 5],
+                    1024, 64, start=[0, 3, 60, 1]))
+    out.append(case("neighbors past the edge array", 16, 1,
+                    rng.integers(5, 12, 16), 1024, 20,
+                    start=rng.integers(10, 20, 16)))
+    wide = rng.integers(0, 1 << 20, (2, 3000))
+    lbl, _t, st, dg, ed, cap = case("strided view", 1500, 2,
+                                    sparse(1500, 1400, 4), 4096, 6000)
+    out.append((lbl, torch.from_numpy(wide.astype(np.int32))[:, ::2], st, dg,
+                ed, cap))
+    out.append(case("wide cap_out", 1024, 1, sparse(1024, 1024, 3), 1 << 20,
+                    4000))
+    out.append(case("2^18 rows", 1 << 18, 2, rng.integers(0, 4, 1 << 18),
+                    1 << 20, 1 << 20))
+    return out
+
+
+def expand_rows_work(args) -> tuple:
+    """(bytes, operations, what) expand_rows needs: deg read over all C
+    rows, the W values and the start of each row that owns a slot below
+    cap_out, the edge of each filled slot, the W+1 output rows written over
+    cap_out and the two counts; per row a scan add, per filled slot its
+    index arithmetic and per slot a compare."""
+    import torch
+
+    table, start, deg, _edges, cap_out = args
+    W, C = table.shape
+    cum = torch.cumsum(deg.long(), 0)
+    total = int(cum[-1])
+    filled = min(total, cap_out)
+    owners = int(((deg > 0) & (cum - deg < cap_out)).sum())
+    nbytes = C * 4 + owners * (4 * W + 4) + filled * 4 \
+        + (W + 1) * cap_out * 4 + 8
+    return (nbytes, C + filled * 4 + cap_out,
+            {"W": W, "C": C, "cap_out": cap_out, "total": total,
+             "owner_rows": owners})
 
 
 def level_probe_cases(scale: int = 1, seed: int = 0) -> list:
@@ -1043,6 +1153,39 @@ def kernel_cases(errs: dict) -> None:
                   f"bound {loose}: bits differ from bound {mult}'s")
             check(S.stream_emit_m.launches > before,
                   f"bound {loose}: K3 was not launched")
+    expand_rows_checks(errs)
+
+
+def on_card(x, dev):
+    """A CPU tensor's copy on ``dev`` with the same strides (a view's base
+    is copied whole and viewed again)."""
+    import torch
+
+    if x.is_contiguous():
+        return x.to(dev)
+    return torch.as_strided(x._base.to(dev), x.shape, x.stride(),
+                            x.storage_offset())
+
+
+def expand_rows_checks(errs: dict, reps: int = 3) -> None:
+    """expand_rows on every case of expand_rows_cases: each run the same
+    bits as its plain version on the CPU copy, launch counted."""
+    import torch
+
+    from wukong_tpu_torch.engine import tpu_kernels as K
+
+    dev = torch.device("cuda")
+    for label, *args in expand_rows_cases():
+        want = K.expand_rows_plain(*args)
+        card = [on_card(a, dev) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        for _ in range(reps):
+            before = K.expand_rows.launches
+            err = max_abs_diff(K.expand_rows(*card), want)
+            errs["expand_rows"] = max(errs["expand_rows"], err)
+            check(err == 0, f"expand_rows != plain on {label} ({err})")
+            check(K.expand_rows.launches == before + 1,
+                  f"expand_rows on {label}: launch not counted")
 
 
 def hold_repeated(errs: dict, name: str, fn, plain, args, what: str,
@@ -2198,6 +2341,49 @@ def stop_pool(proxy) -> None:
         proxy._pool = None
 
 
+def console_drill(root: str, data: str) -> dict:
+    """console.main on a --dist -w DIST_SHARDS boot with replication 2
+    running `recover -d 1`: the drill's report (the reply complete through
+    the outage, healed, the verify round as the baseline); the booted
+    proxy's heal watcher is stopped after."""
+    from wukong_tpu_torch.runtime import console
+    from wukong_tpu_torch.runtime import emulator as emu_mod
+
+    cfg = os.path.join(root, "config_rf2")
+    with open(cfg, "w") as f:
+        f.write("global_enable_planner true\nglobal_replication_factor 2\n")
+    drills = []
+    orig = emu_mod.Emulator.run_drill
+
+    def recorded(self, *a, **kw):
+        rep = orig(self, *a, **kw)
+        drills.append((self.proxy, rep))
+        return rep
+
+    emu_mod.Emulator.run_drill = recorded
+    t0 = time.perf_counter()
+    try:
+        with Knobs(None, replication_factor=1):  # restored after the boot
+            rc = console.main([cfg, data, "--dist", "-w", str(DIST_SHARDS),
+                               "-c", "recover -d 1"])
+    finally:
+        emu_mod.Emulator.run_drill = orig
+        for proxy, _rep in drills:
+            proxy.recovery().stop()
+    sec = time.perf_counter() - t0
+    check(rc == 0 and len(drills) == 1, f"console recover -d 1: rc {rc}, "
+          f"{len(drills)} drills")
+    rep = drills[0][1]
+    check(rep["replication_factor"] == 2 and rep["outage"]["complete"]
+          and rep["outage"]["failovers"] > 0 and rep["healthy"]
+          and rep["recovered"] == {"complete": True, "nrows_match": True},
+          f"console recover -d 1: {rep}")
+    log(f"  console --dist -w {DIST_SHARDS} with replication 2: recover -d 1 "
+        f"complete through the outage ({rep['outage']['failovers']} "
+        f"failovers), healed, verify as the baseline ({sec:.1f} s)")
+    return {"report": rep, "seconds": sec}
+
+
 def console_phase(scale: int, seed: int, cross_rows: dict,
                   results: dict, port: int) -> None:
     """Phase 8's console at LUBM-<scale>: the port's write_dataset writes
@@ -2245,6 +2431,7 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
         with open(dbatch, "w") as f:
             for name in QUERIES:
                 f.write(f"sparql -f {os.path.join(root, name)} -d dist -N\n")
+            f.write("migrate -s\n")  # phase 16: the actuator's status
         proxy_mod.Proxy.run_single_query = recorded
         before = lock_holds()
         stop_tsdb()
@@ -2273,18 +2460,27 @@ def console_phase(scale: int, seed: int, cross_rows: dict,
         proxy_mod.Proxy.run_single_query = dist_recorded
         try:
             t0 = time.perf_counter()
-            drc = console.main([cfg, data, "--dist", "-w", str(DIST_SHARDS),
-                                "-c", f"sparql -b {dbatch}"])
+            with LogCapture() as dcap:
+                drc = console.main([cfg, data, "--dist", "-w",
+                                    str(DIST_SHARDS), "-c",
+                                    f"sparql -b {dbatch}"])
             dist_s = time.perf_counter() - t0
         finally:
             proxy_mod.Proxy.run_single_query = orig
+        # phase 16's console: a boot with replication 2 runs the drill
+        drill = console_drill(root, data)
+    status = [ln for ln in dcap.buf.getvalue().splitlines()
+              if "migration actuator: {" in ln]
+    check(len(status) == 1 and "'in_flight': False" in status[0],
+          f"console --dist: migrate -s logged {status}")
     check(drc == 0 and len(dist_got) == len(QUERIES) and all(
         q.result.status_code == 0 and rows_multiset(q) == cross_rows[name]
         for name, q in zip(QUERIES, dist_got)),
         f"console --dist -w {DIST_SHARDS}: rc {drc}, rows differ from "
         "phase 6's")
     out["dist"] = {"seconds": dist_s, "rows": {
-        name: q.result.nrows for name, q in zip(QUERIES, dist_got)}}
+        name: q.result.nrows for name, q in zip(QUERIES, dist_got)},
+        "migrate_status": status[0], "drill": drill}
     log(f"  console --dist -w {DIST_SHARDS}: the seven shapes through "
         f"-d dist, rows as phase 6's ({dist_s:.1f} s with the partitions "
         f"and statistics)")
@@ -2533,6 +2729,7 @@ def kernel_launches() -> dict:
     from wukong_tpu_torch.vector import knn as KN
 
     return {"probe_kernel": K.probe_kernel.launches,
+            "expand_rows": K.expand_rows.launches,
             "stream_emit": S.stream_emit.launches,
             "stream_emit_m": S.stream_emit_m.launches,
             "level_probe": JK.level_probe.launches,
@@ -2544,7 +2741,8 @@ def observatory_after_hybrid(port: int, own: ScanCount, snap_path: str,
     """Phase 13's observatory checks: /top.json's shard 0 holds one vector
     fetch per scan and the rows the scans read, as the smoke counted them;
     /device.json's trend shows dispatches; /plan.json (a fresh sweep)
-    renders the advisor's no-store status; the snapshot file parses."""
+    renders the advisor's no-store status and the idle migration
+    actuator's; the snapshot file parses."""
     _s, _ms, _n, top = scrape(port, "/top.json")
     shard = top["shards"]["shards"].get("0")
     check(shard is not None, "/top.json: no heat charged to shard 0")
@@ -2558,9 +2756,11 @@ def observatory_after_hybrid(port: int, own: ScanCount, snap_path: str,
     check(trend.get("dispatches_per_s", 0) > 0,
           f"/device.json: no dispatches in the trend window ({trend})")
     _s, _ms, _n, plan = scrape(port, "/plan.json?sweep=1")
-    check(plan["status"]["decision"] == "no_store"
-          and plan["migration"] is None,
-          f"/plan.json: {plan['status']}, not the no-store status")
+    mig = plan["migration"]
+    check(plan["status"]["decision"] == "no_store" and mig is not None
+          and mig["in_flight"] is False and mig["job"] is None,
+          f"/plan.json: {plan['status']}, migration {mig}: not the no-store "
+          f"status with an idle actuator")
     check(os.path.isfile(snap_path), "no metrics snapshot was written")
     with open(snap_path) as f:
         snapshot = json.load(f)
@@ -2612,16 +2812,17 @@ def idle_burst(port: int, out: dict) -> None:
 
 def analysis_gates(out: dict) -> None:
     """``python -m wukong_tpu_torch.analysis --json`` over the port's tree:
-    every gate clean."""
+    every gate clean, migration-safety among them."""
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "wukong_tpu_torch.analysis", "--json"],
         capture_output=True, text=True, timeout=300,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     doc = json.loads(proc.stdout) if proc.stdout.strip() else {}
-    check(proc.returncode == 0 and doc.get("count") == 0,
-          f"wukong-analyze: rc {proc.returncode}, "
-          f"{doc.get('violations', proc.stderr)[:4]}")
+    check(proc.returncode == 0 and doc.get("count") == 0
+          and "migration-safety" in doc.get("gates", ()),
+          f"wukong-analyze: rc {proc.returncode}, gates "
+          f"{doc.get('gates')}, {doc.get('violations', proc.stderr)[:4]}")
     out.update(gates=len(doc["gates"]), count=doc["count"],
                seconds=time.perf_counter() - t0)
     log(f"  gates: python -m wukong_tpu_torch.analysis --json: "
@@ -6334,9 +6535,10 @@ def dist_hotspot(proxy, out: dict) -> None:
 
 
 def serve_dist(triples, attrs, ss, stats, expected: dict, results: dict,
-               entry: dict, port: int, k1_launches, card: str) -> None:
+               entry: dict, port: int, k1_launches, card: str) -> dict:
     """Phase 15: the JAX bench's --dist at full width, LUBM-<scale> over
-    DIST_SHARDS shard slots on the card (parts (a)-(h))."""
+    DIST_SHARDS shard slots on the card (parts (a)-(h)). Returns the world
+    phase 16 runs on: the engine, its proxy, the planner, the strings."""
     from wukong_tpu_torch.parallel import DistEngine, make_mesh
     from wukong_tpu_torch.planner.optimizer import Planner
     from wukong_tpu_torch.runtime.proxy import Proxy
@@ -6383,14 +6585,15 @@ def serve_dist(triples, attrs, ss, stats, expected: dict, results: dict,
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 15 seconds by part {out['part_s']}; {out['seconds']:.1f} "
         f"s in all; {out['staged_bytes']:,} B staged; {card}")
+    return {"dist": dist, "proxy": proxy, "planner": planner, "ss": ss}
 
 
 def phase15(args, world: tuple, expected: dict, results: dict, entry: dict,
             port: int, errs: dict, mem_base: int, kernel_fns: dict,
             capture_all) -> list:
     """Phase 15 with its kernel captures (K1 by part, the level probe by
-    call site and part) and its drop check; returns its kernels-line
-    rows."""
+    call site and part), then phase 16 on the same world, and the drop
+    check of both; returns their kernels-line rows."""
     import torch
 
     from wukong_tpu_torch.join import kernels as JK
@@ -6410,8 +6613,10 @@ def phase15(args, world: tuple, expected: dict, results: dict, entry: dict,
                            lambda a: ", " + entry["name"])
     lpc = lp_captures(entry)
     try:
-        serve_dist(triples, attrs, ss, stats, expected, results, entry, port,
-                   lambda: captures["probe_kernel"].wrapped.launches, card)
+        world15 = serve_dist(triples, attrs, ss, stats, expected, results,
+                             entry, port,
+                             lambda: captures["probe_kernel"].wrapped.launches,
+                             card)
     finally:
         restore_all(list(captures.values()) + lpc)
     torch.cuda.synchronize()
@@ -6428,7 +6633,439 @@ def phase15(args, world: tuple, expected: dict, results: dict, entry: dict,
     rows = captured_rows(captures, "15 distributed", kernel_fns, errs)
     rows += lp_rows(lpc, "15 distributed", errs)
     del captures, lpc, world, triples, attrs
-    drop_check(mem_base, results, "phase 15's distributed engine")
+    # ---- 16. live migration and shard healing, on phase 15's world -------
+    rows += phase16(args, world15, expected, results, entry, port, errs,
+                    kernel_fns, capture_all)
+    del world15
+    drop_check(mem_base, results, "phases 15-16's distributed engines")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 16: live shard migration and shard healing, on phase 15's world
+# ---------------------------------------------------------------------------
+
+MIGRATE_OPS = 600  # phase 15's hot spot (the JAX bench's 1,500 cut for time)
+# the actuator's plans, run by hand until balanced: at 8 slots and a = 1.6
+# one move with read rotation leaves 2.2-2.4x the mean load on a host
+MIGRATE_ROUNDS = 3
+DUAL_WRITE_EDGES = 64  # the load -d batch of (b), on the donor shard
+HEAL_SHARD, HEAL_ROUNDS = 1, 3
+HEADS = PREFIX + "SELECT ?X ?Y WHERE { ?X ub:headOf ?Y . }"
+HEAD_OF = "<http://swat.cse.lehigh.edu/onto/univ-bench.owl#headOf>"
+
+
+def rss_bytes() -> int:
+    """This process's resident set, from /proc/self/status (0 where the
+    file is absent)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def serve_l17(proxy, expected: dict, out: dict, tag: str) -> float:
+    """L1-L7 through the proxy's `-d dist` route with their tables, each
+    complete and equal to phase 4's single-card rows; returns the
+    seconds (a round after a swap restages every shard's segments)."""
+    t0 = time.perf_counter()
+    for name, text in QUERIES.items():
+        q = proxy.run_single_query(text, device="dist", blind=False)
+        check(q.result.status_code == 0 and q.result.complete and np_equal(
+            sorted_table(q), expected[name]),
+            f"{tag}: dist {name}: {q.result.nrows:,} rows, status "
+            f"{q.result.status_code!r}, complete {q.result.complete}; "
+            f"phase 4 {expected[name].shape[0]:,}")
+    sec = time.perf_counter() - t0
+    out.setdefault("l17_s", {})[tag] = sec
+    log(f"  {tag}: L1-L7 through -d dist, phase 4's rows ({sec:.1f} s, "
+        f"{proxy.dist.sstore.bytes_used:,} B staged)")
+    return sec
+
+
+def dist_rows(dist, planner, ss, text: str, inplace: bool):
+    """One reply of ``text`` on the distributed engine with its table, on
+    the in-place (host) route or the collective chain (the card)."""
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    with Knobs(None, enable_dist_inplace=inplace,
+               dist_inplace_rows=1 << 20):
+        q = Parser(ss).parse(text)
+        planner.generate_plan(q)
+        q.result.blind = False
+        dist.execute(q)
+    check(q.result.status_code == 0 and q.result.complete,
+          f"dist {text!r}: status {q.result.status_code!r}")
+    return q, (dist.last_chain_stats or {}).get("mode", "collective")
+
+
+def k1_chain_after(dist, planner, ss, k1_launches, out: dict,
+                   tag: str) -> None:
+    """(e) one collective q2 chain on restaged segments: K1 launches on
+    every shard for every probing step, at least D a step."""
+    from wukong_tpu_torch.sparql.parser import Parser
+
+    q = Parser(ss).parse(QUERIES["lubm_q2"])
+    planner.generate_plan(q)
+    q.result.blind = True
+    before = k1_launches()
+    t0 = time.perf_counter()
+    dist.execute(q, from_proxy=False)
+    ms = (time.perf_counter() - t0) * 1e3
+    n = k1_launches() - before
+    probing = sum(s.kind in DIST_PROBING for s in dist._last_plan.steps)
+    check(n >= DIST_SHARDS * probing and probing > 0
+          and q.result.nrows == out["q2_rows"],
+          f"{tag}: q2 {q.result.nrows:,} rows (before the move "
+          f"{out['q2_rows']:,}), {n} K1 launches for {probing} probing "
+          f"steps of {DIST_SHARDS} shards")
+    out.setdefault("k1", {})[tag] = {"launches": n, "probing_steps": probing,
+                                     "ms": ms}
+    log(f"  (e) {tag}: q2's chain launched K1 {n} times for {probing} "
+        f"probing steps on {DIST_SHARDS} shards ({ms:,.1f} ms)")
+
+
+def dual_write_batch(proxy, dist, donor: int, ss, out: dict) -> None:
+    """(b) one `load -d` batch in the migration's dual-write window:
+    DUAL_WRITE_EDGES seeded ``headOf`` edges from vertices the donor shard
+    owns to Department0 (no L1-L7 shape reads headOf)."""
+    import numpy as np
+
+    from wukong_tpu_torch.runtime.emulator import _probe_read
+    from wukong_tpu_torch.utils.mathutil import hash_mod
+
+    cand = np.unique(np.asarray(_probe_read(dist.sstore.stores[donor]),
+                                dtype=np.int64))
+    cand = cand[hash_mod(cand, DIST_SHARDS) == donor]
+    subj = np.random.default_rng(7).choice(cand, DUAL_WRITE_EDGES,
+                                           replace=False)
+    head = ss.str2id(HEAD_OF)
+    tri = np.stack([subj, np.full_like(subj, head),
+                    np.full_like(subj, ss.str2id(DEPT0))], 1)
+    with tempfile.TemporaryDirectory() as d:
+        write_ids(d, tri)
+        t0 = time.perf_counter()
+        n = proxy.dynamic_load_data(d, True)
+        sec = time.perf_counter() - t0
+    check(n == DUAL_WRITE_EDGES, f"(b): load -d added {n} edges, not "
+          f"{DUAL_WRITE_EDGES}")
+    out["dual_write"] = {"donor": donor, "edges": n, "load_s": sec,
+                         "subjects": [int(v) for v in subj]}
+    log(f"  (b) load -d in the dual-write window: {n} headOf edges from "
+        f"shard {donor}'s vertices to Department0 ({sec:.2f} s)")
+
+
+def dual_write_readback(dist, planner, ss, job, before: dict,
+                        out: dict) -> None:
+    """(b) after the cutover: the donor's batch reads back through the new
+    primary. The index-origin headOf scan on the card (two restages: the
+    rotation's two turns) and the const start on the host route (the
+    in-place walk) each hold the batch's rows; the new primary's content
+    equals the demoted donor copy's."""
+    from wukong_tpu_torch.store.persist import gstore_digest
+
+    sstore, donor = dist.sstore, job.plan.donor_shard
+    k = DUAL_WRITE_EDGES
+    want = {(s, ss.str2id(DEPT0)) for s in out["dual_write"]["subjects"]}
+    turns = []
+    for _turn in range(2):
+        sstore.invalidate_stagings()
+        q, mode = dist_rows(dist, planner, ss, HEADS, inplace=False)
+        got = set(map(tuple, sorted_table(q).tolist()))
+        check(q.result.nrows == before["heads"] + k and want <= got,
+              f"(b): headOf scan {q.result.nrows:,} rows after the cutover "
+              f"({mode}), {before['heads']:,} + {k} before")
+        turns.append(q.result.nrows)
+    host, hmode = dist_rows(dist, planner, ss, DIST_DRILL, inplace=True)
+    card, cmode = dist_rows(dist, planner, ss, DIST_DRILL, inplace=False)
+    check(hmode == "inplace" and cmode != "inplace"
+          and host.result.nrows == card.result.nrows
+          == before["drill"] + k and np_equal(sorted_table(host),
+                                              sorted_table(card)),
+          f"(b): headOf Department0 host route {host.result.nrows} rows "
+          f"({hmode}), card {card.result.nrows} ({cmode}), "
+          f"{before['drill']} + {k} before")
+    rot = [g for _h, g in sstore.rotation.get(donor, ())]
+    t0 = time.perf_counter()
+    same = bool(rot) and gstore_digest(sstore.stores[donor]) == \
+        gstore_digest(rot[-1])
+    check(same, "(b): the new primary's digest differs from the donor "
+          "copy's after the dual-written batch")
+    out["dual_write"].update(heads_rows=turns, drill_rows=host.result.nrows,
+                             digest_s=time.perf_counter() - t0)
+    log(f"  (b) read back through shard {donor}'s new primary: headOf scan "
+        f"{turns} rows on the card's two turns, headOf Department0 "
+        f"{host.result.nrows} rows on the host route and the card; the "
+        f"primary's digest equals the donor copy's")
+
+
+def migrate_rebalance(w: dict, expected: dict, entry: dict, k1_launches,
+                      out: dict) -> None:
+    """(a) Emulator.run_rebalance over the 8 slots, rounds of the
+    advisor's plan until balanced, L1-L7 after every phase; (b) the dual
+    write of round 1; (e) K1 after round 1's cutover."""
+    from wukong_tpu_torch.runtime.emulator import Emulator
+
+    dist, proxy, planner, ss = w["dist"], w["proxy"], w["planner"], w["ss"]
+    before = {"heads": dist_rows(dist, planner, ss, HEADS,
+                                 inplace=False)[0].result.nrows,
+              "drill": dist_rows(dist, planner, ss, DIST_DRILL,
+                                 inplace=True)[0].result.nrows}
+    q2, _m = dist_rows(dist, planner, ss, QUERIES["lubm_q2"], inplace=False)
+    out["q2_rows"] = q2.result.nrows
+    emu = Emulator(proxy)
+    out["rounds"] = []
+    for r in range(MIGRATE_ROUNDS):
+        def hook(phase, job, r=r):
+            entry["name"] = "(a) rebalance"
+            if r == 0 and phase == "catchup":
+                entry["name"] = "(b) dual write"
+                dual_write_batch(proxy, dist, job.plan.donor_shard, ss, out)
+            serve_l17(proxy, expected, out, f"(a) round {r + 1}, after {phase}")
+            if r == 0 and phase == "cutover":
+                entry["name"] = "(b) dual write"
+                dual_write_readback(dist, planner, ss, job, before, out)
+                entry["name"] = "(e) after cutover"
+                k1_chain_after(dist, planner, ss, k1_launches, out,
+                               "after cutover")
+            entry["name"] = "(a) rebalance"
+
+        t0 = time.perf_counter()
+        rep = emu.run_rebalance(n_ops=MIGRATE_OPS, zipf_a=1.6, seed=7,
+                                phase_hook=hook)
+        job = rep["job"]
+        row = {"hot": rep["hot"], "donor": rep["plan"]["donor_shard"],
+               "recipient": rep["plan"]["recipient_host"],
+               "bytes_moved": job["bytes_moved"],
+               "cutover_pause_us": job["cutover_pause_us"],
+               "imbalance_before": rep["imbalance_before"],
+               "imbalance_after": rep["imbalance_after"],
+               "rebalanced": rep["rebalanced"],
+               "decision_after": rep["decision_after"],
+               "queries_identical": rep["queries_identical"],
+               "placement": dict(dist.sstore.placement),
+               "seconds": time.perf_counter() - t0}
+        out["rounds"].append(row)
+        log(f"  (a) round {r + 1}: shard {row['donor']} -> host "
+            f"{row['recipient']}, {row['bytes_moved']:,} B moved, cutover "
+            f"pause {row['cutover_pause_us']} us, imbalance "
+            f"{row['imbalance_before']:.3f} -> {row['imbalance_after']:.3f} "
+            f"({row['decision_after']}), probes identical "
+            f"{row['queries_identical']} ({row['seconds']:.1f} s)")
+        check(rep["executed"] and rep["queries_identical"]
+              and rep["plan_donor_is_hot"] and job["phase"] == "done",
+              f"(a) round {r + 1}: {row}, probes {rep['probes']}")
+        if rep["rebalanced"]:
+            break
+    check(rep["rebalanced"] and rep["decision_after"] == "balanced",
+          f"(a): not balanced after {len(out['rounds'])} moves: "
+          f"{out['rounds']}")
+
+
+def migrate_abort(w: dict, expected: dict, out: dict) -> None:
+    """(c) a second shard's plan aborted (the operator's `migrate -abort`)
+    after its cutover is published: the donor serves again, L1-L7 with
+    phase 4's rows on both sides of the swap back."""
+    from wukong_tpu_torch.obs.events import get_journal
+    from wukong_tpu_torch.obs.placement import MigrationPlan
+    from wukong_tpu_torch.runtime.migration import get_migrator
+    from wukong_tpu_torch.utils.errors import WukongError
+
+    dist, proxy = w["dist"], w["proxy"]
+    sstore = dist.sstore
+    donor = (out["rounds"][-1]["hot"] + 1) % DIST_SHARDS
+    recipient = (donor + DIST_SHARDS // 2) % DIST_SHARDS
+    donor_store, host0 = sstore.stores[donor], sstore.host_of(donor)
+    plan = MigrationPlan(
+        plan_id="mp-smoke-abort", t_us=0, donor_shard=donor,
+        recipient_host=recipient,
+        predicted_move_bytes=int(donor_store.memory_bytes()),
+        bytes_source="estimate", donor_rate_per_s=0.0, mean_rate_per_s=0.0,
+        imbalance_before=0.0, imbalance_after=0.0, window_s=0.0, inputs={},
+        reason="the smoke's aborted cutover")
+    mig = get_migrator()
+    mig.attach(sstore=sstore, owner=proxy)
+    seen = {}
+
+    def hook(phase, job):
+        if phase == "cutover":
+            seen["published"] = sstore.stores[donor] is job.recipient
+            serve_l17(proxy, expected, out, "(c) after the cutover")
+            seen["aborted"] = mig.abort(cause="operator") is not None
+
+    try:
+        mig.run_plan(plan, phase_hook=hook)
+        raised = None
+    except WukongError as e:
+        raised = str(e)
+    evs = get_journal().last(kind="shard.migrate.abort", shard=donor)
+    check(raised is not None and "aborted" in raised
+          and seen == {"published": True, "aborted": True}
+          and sstore.stores[donor] is donor_store
+          and sstore.host_of(donor) == host0 and bool(evs)
+          and evs[-1].attrs.get("swapped_back") is True,
+          f"(c): raised {raised!r}, {seen}, donor back "
+          f"{sstore.stores[donor] is donor_store}, host "
+          f"{sstore.host_of(donor)}, events {evs[-1:]}")
+    serve_l17(proxy, expected, out, "(c) after the abort")
+    out["abort"] = {"donor": donor, "recipient": recipient,
+                    "at_phase": evs[-1].attrs.get("at_phase")}
+    log(f"  (c) shard {donor} -> host {recipient} aborted after its cutover: "
+        f"the donor serves again, swapped back")
+
+
+def heal_drill(w: dict, expected: dict, entry: dict, port: int,
+               k1_launches, out: dict) -> None:
+    """(d) the kill-and-heal drill: a DistEngine over the same partitions
+    with replication 2 behind a Proxy (its heal watcher and engine pool
+    on), Emulator.run_drill on shard HEAL_SHARD over L1-L7; (e) K1 after
+    the heal."""
+    from wukong_tpu_torch.parallel import DistEngine, make_mesh
+    from wukong_tpu_torch.runtime import recovery
+    from wukong_tpu_torch.runtime.emulator import Emulator
+    from wukong_tpu_torch.runtime.proxy import Proxy
+
+    dist, planner, ss = w["dist"], w["planner"], w["ss"]
+    dist.sstore.invalidate_stagings()  # phase 15's engine serves no more
+    stores = list(dist.sstore.stores)
+    rss0 = rss_bytes()
+    t0 = time.perf_counter()
+    with Knobs(None, replication_factor=2, enable_tpu=False):
+        dist2 = DistEngine(stores, ss, make_mesh(DIST_SHARDS))
+        proxy2 = Proxy(stores[0], ss, device="cuda", planner=planner,
+                       dist_engine=dist2)
+    rss1 = rss_bytes()
+    out["replicas"] = {"rss_before": rss0, "rss_after": rss1,
+                       "build_s": time.perf_counter() - t0}
+    log(f"  (d) replication 2: {DIST_SHARDS} replica copies (structural "
+        f"clones: the CSR arrays are shared) in "
+        f"{out['replicas']['build_s']:.1f} s; host RSS {rss0 / 2**30:.2f} -> "
+        f"{rss1 / 2**30:.2f} GiB")
+    lane = []
+    orig_run = recovery.RebuildJob.run
+
+    def counted(job, engine):
+        lane.append(job.label)
+        return orig_run(job, engine)
+
+    recovery.RebuildJob.run = counted
+    try:
+        check(bool(proxy2.recovery()._threads),
+              "(d): the proxy with replicas started no heal watcher")
+        proxy2.engine_pool()  # the rebuild lane
+        entry["name"] = "(d) drill"
+        t0 = time.perf_counter()
+        rep = Emulator(proxy2).run_drill(
+            shard=HEAL_SHARD, texts=list(QUERIES.values()),
+            rounds=HEAL_ROUNDS)
+        drill_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 5
+        while f"shard-{HEAL_SHARD}" not in lane \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        status, ms, _n, doc = scrape(port, "/healthz")
+        sst = dist2.sstore
+        out["drill"] = {"report": rep, "seconds": drill_s,
+                        "rebuild_lane_jobs": len(lane),
+                        "breaker": sst.breaker.state(HEAL_SHARD),
+                        "healthz": doc["degraded"] if doc else None}
+        check(rep["outage"]["complete"] and rep["outage"]["nrows_match"]
+              and rep["outage"]["failovers"] > 0 and rep["healthy"]
+              and rep["recovered"] == {"complete": True,
+                                       "nrows_match": True},
+              f"(d): drill report {rep}")
+        check(f"shard-{HEAL_SHARD}" in lane,
+              f"(d): no rebuild of shard {HEAL_SHARD} on the rebuild lane "
+              f"({lane})")
+        check(sst.breaker.state(HEAL_SHARD) == "closed"
+              and HEAL_SHARD not in sst.failover_shards,
+              f"(d): breaker {sst.breaker.state(HEAL_SHARD)}, failover "
+              f"{sorted(sst.failover_shards)}")
+        check(status == 200 and "shards" not in doc["degraded"],
+              f"(d): /healthz {status} {doc}")
+        log(f"  (d) drill on shard {HEAL_SHARD}: outage "
+            f"{rep['outage']['rounds']} rounds complete, "
+            f"{rep['outage']['failovers']} failovers; {len(lane)} rebuilds "
+            f"on the rebuild lane; healed, breaker closed, /healthz "
+            f"{doc['degraded']}; verify round as the baseline "
+            f"{rep['baseline']['nrows']} ({drill_s:.1f} s)")
+        serve_l17(proxy2, expected, out, "(d) after the heal")
+        entry["name"] = "(e) after heal"
+        k1_chain_after(dist2, planner, ss, k1_launches, out, "after heal")
+    finally:
+        recovery.RebuildJob.run = orig_run
+        proxy2.recovery().stop()
+        stop_pool(proxy2)
+
+
+def serve_migrate_heal(w: dict, expected: dict, results: dict, entry: dict,
+                       port: int, k1_launches, card: str) -> None:
+    """Phase 16 (parts (a)-(e)) on phase 15's world, migration armed."""
+    from wukong_tpu_torch.runtime.migration import get_migrator
+
+    out = results["migrate"] = {"card": card}
+    t_phase = time.perf_counter()
+    try:
+        with Knobs(None, migration_enable=True):
+            for part, fn in (("(a) rebalance", lambda: migrate_rebalance(
+                                 w, expected, entry, k1_launches, out)),
+                             ("(c) abort", lambda: migrate_abort(
+                                 w, expected, out)),
+                             ("(d) drill", lambda: heal_drill(
+                                 w, expected, entry, port, k1_launches,
+                                 out))):
+                entry["name"] = part
+                t0 = time.perf_counter()
+                fn()
+                out.setdefault("part_s", {})[part] = time.perf_counter() - t0
+    finally:
+        get_migrator().reset()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 seconds by part {out['part_s']}; {out['seconds']:.1f} "
+        f"s in all; {card}")
+
+
+def phase16(args, world15: dict, expected: dict, results: dict, entry: dict,
+            port: int, errs: dict, kernel_fns: dict, capture_all) -> list:
+    """Phase 16 with its kernel captures (K1 by part); returns its
+    kernels-line rows."""
+    import torch
+
+    kind, card = results["kind"], results["card"]
+    log(f"migrate and heal: LUBM-{args.scale} over {DIST_SHARDS} shard slots "
+        f"on {kind} (phase 15's world): the rebalance through the migration "
+        f"actuator with L1-L7 after every phase, a load -d batch in the "
+        f"dual-write window, an aborted cutover, the kill-and-heal drill "
+        f"with replication 2; {card}")
+    t0 = time.perf_counter()
+    for fn, _plain, _b in kernel_fns.values():
+        fn.launches = 0
+    captures = capture_all(lambda a: ", " + entry["name"],
+                           lambda a: ", " + entry["name"])
+    try:
+        serve_migrate_heal(world15, expected, results, entry, port,
+                           lambda: captures["probe_kernel"].wrapped.launches,
+                           card)
+    finally:
+        restore_all(captures.values())
+    torch.cuda.synchronize()
+    ml = {name: fn.launches for name, (fn, _p, _b) in kernel_fns.items()}
+    k1 = captures["probe_kernel"].launches
+    log(f"migrate and heal: kernel launches {ml}; K1 by part {k1} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(sum(k1.values()) == ml["probe_kernel"] > 0,
+          "K1 never launched in phase 16, or its launches by part do not "
+          "add up to its count")
+    for tag in ("(e) after cutover", "(e) after heal"):
+        check(k1.get(", " + tag, 0) > 0, f"K1 never launched {tag}")
+    results["migrate"]["launches"] = {n: dict(c.launches)
+                                      for n, c in captures.items()}
+    rows = captured_rows(captures, "16 migrate and heal", kernel_fns, errs)
+    del captures
     return rows
 
 
@@ -6530,8 +7167,11 @@ def main(argv=None) -> int:
 
     # ---- 4. serve (the main path) ----------------------------------------
     def capture_all(probe_class=lambda a: "", emit_class=lambda a: ""):
+        # expand_rows: one class a phase (a row each), its largest output
         return {"probe_kernel": Capture(K, "probe_kernel", probe_size,
                                         probe_class),
+                "expand_rows": Capture(K, "expand_rows",
+                                       lambda a: (a[0].shape[0] + 1) * a[4]),
                 "stream_emit": Capture(S, "stream_emit",
                                        lambda a: a[0].shape[0], emit_class),
                 "stream_emit_m": Capture(S, "stream_emit_m",
@@ -6541,6 +7181,8 @@ def main(argv=None) -> int:
     captures = capture_all()
     kernel_fns = {"probe_kernel": (captures["probe_kernel"].orig, K.probe_plain,
                                    probe_work),
+                  "expand_rows": (captures["expand_rows"].orig,
+                                  K.expand_rows_plain, expand_rows_work),
                   "stream_emit": (captures["stream_emit"].orig,
                                   S.stream_emit_plain, emit_work),
                   "stream_emit_m": (captures["stream_emit_m"].orig,
@@ -6683,6 +7325,8 @@ def main(argv=None) -> int:
     check(sum(captures["probe_kernel"].launches.values())
           == kernel_fns["probe_kernel"][0].launches,
           "K1's launches by class do not add up to its count")
+    check(sum(captures["expand_rows"].launches.values()) > 0,
+          "expand_rows never launched in phase 9")
     for name in ("stream_emit", "stream_emit_m"):
         if not sum(captures[name].launches.values()):
             log(f"live: {name} not launched in phase 9 (its chains probe; "
@@ -6712,6 +7356,8 @@ def main(argv=None) -> int:
           == kernel_fns["probe_kernel"][0].launches > 0,
           "K1 never launched in phase 10, or its launches by part do not "
           "add up to its count")
+    check(sum(captures["expand_rows"].launches.values()) > 0,
+          "expand_rows never launched in phase 10")
     for name in ("stream_emit", "stream_emit_m"):
         if not sum(captures[name].launches.values()):
             log(f"tenants: {name} not launched in phase 10 (its chains "

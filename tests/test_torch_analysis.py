@@ -643,10 +643,18 @@ def test_fault_sites_count_only_port_tests(tmp_path):
     assert any("never exercised" in m and "'a.site'" in m for m in port)
 
 
-def test_unported_declarations_go_stale(tmp_path):
+def test_unported_declarations_go_stale(tmp_path, monkeypatch):
     """An UNPORTED_KNOBS knob the config now has, an UNPORTED_METRICS name
     now registered, a PENDING_CAUSES cause with a call site and a
-    NON_LEAF_LOCKS lock declared a leaf are each a violation."""
+    NON_LEAF_LOCKS lock declared a leaf are each a violation. The
+    migration actuator emptied UNPORTED_METRICS and PENDING_CAUSES, so the
+    case declares its own entries there."""
+    from wukong_tpu_torch.analysis import cachegate, drift
+
+    monkeypatch.setitem(drift.UNPORTED_METRICS, "wukong_migration_phase",
+                        "a pending producer")
+    monkeypatch.setitem(cachegate.PENDING_CAUSES, "cutover",
+                        "a pending producer")
     write_tree(tmp_path, {
         "pkg/config.py": CONFIG_SRC.replace(
             "    knob_a: int = 1\n", "    knob_a: int = 1\n"
@@ -704,15 +712,63 @@ def test_pending_plan_artifact_waived_then_stale(tmp_path):
     assert run_analysis(pkg, plugins=["placement-telemetry"])
 
 
+MIGRATION_MUTANTS = {
+    # a phase transition that no longer journals
+    "unjournaled retire": ("runtime/migration.py",
+                           'emit_event("shard.migrate.retire"',
+                           'emit_event("shard.migrate.retired"'),
+    # the cutover swap with its lock (and the annotation naming it) gone
+    "unguarded cutover": ("parallel/sharded_store.py",
+                          "        # guarded by: _migration_lock — the swap, "
+                          "placement update, and\n"
+                          "        # rotation demotion are one atomic "
+                          "publication to the read path\n"
+                          "        i = int(i)\n"
+                          "        with self._migration_lock:\n"
+                          "            old = self.stores[i]",
+                          "        i = int(i)\n"
+                          "        if True:\n"
+                          "            old = self.stores[i]"),
+    # the actuator's state lock no longer a declared leaf
+    "undeclared leaf": ("runtime/migration.py",
+                        'declare_leaf("migration.state")',
+                        'print("migration.state")'),
+}
+
+
+@pytest.mark.parametrize("mutant", sorted(MIGRATION_MUTANTS))
+def test_migration_gate_catches_mutants_of_the_port(tmp_path, mutant):
+    """The port's actuator and sharded store, each broken one way: the
+    port's migration-safety gate flags the break exactly as the JAX gate
+    does, and the unbroken files are clean under both."""
+    rel, old, new = MIGRATION_MUTANTS[mutant]
+    files = {}
+    for name in ("runtime/migration.py", "parallel/sharded_store.py"):
+        with open(os.path.join(PORT, name), encoding="utf-8") as f:
+            files[name] = f.read()
+    clean = write_tree(tmp_path / "clean", files)
+    assert run_analysis(clean, plugins=["migration-safety"]) == []
+    assert jax_run(clean, plugins=["migration-safety"]) == []
+    assert old in files[rel]
+    files[rel] = files[rel].replace(old, new, 1)
+    bad = write_tree(tmp_path / "bad", files)
+    got = run_analysis(bad, plugins=["migration-safety"])
+    assert len(got) == 1 and got[0].path == rel
+    assert _norm(got) == _norm(jax_run(bad, plugins=["migration-safety"]))
+
+
 # ---------------------------------------------------------------------------
 # the registry, the port's tree, the CLI
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_sixteen_gates():
-    expected = set(jax_plugin_names()) - {"migration-safety",
-                                          "transport-contract"}
+    """The JAX registry less transport-contract (it waits for the
+    worker-process pool): the sixteen gates of the first port of the
+    gates plus migration-safety, seventeen in all."""
+    expected = set(jax_plugin_names()) - {"transport-contract"}
     assert plugin_names() == sorted(expected)
-    assert len(plugin_names()) == 16
+    assert "migration-safety" in plugin_names()
+    assert len(plugin_names()) == 17
 
 
 def test_port_tree_is_clean():
@@ -801,8 +857,8 @@ def test_every_jax_finding_on_the_port_is_declared():
         by.setdefault(_declared_by_port(v), set()).update(
             __import__("re").findall(r"'([^']+)'", v.message)[:1])
     assert set(drift.UNPORTED_KNOBS) == by["UNPORTED_KNOBS"]
-    assert set(drift.UNPORTED_METRICS) == by["UNPORTED_METRICS"]
-    assert set(cachegate.PENDING_CAUSES) == by["PENDING_CAUSES"]
+    assert set(drift.UNPORTED_METRICS) == by.get("UNPORTED_METRICS", set())
+    assert set(cachegate.PENDING_CAUSES) == by.get("PENDING_CAUSES", set())
     assert set(vectorgate.NON_LEAF_LOCKS) == by["NON_LEAF_LOCKS"]
     assert set(drift.PENDING_WIRE_OPS) == by["PENDING_WIRE_OPS"]
     # the distributed engine's knobs and metrics, the advisor's planning
@@ -812,7 +868,8 @@ def test_every_jax_finding_on_the_port_is_declared():
                  "dist_inplace_rows", "join_dist_parts", "transport_mode",
                  "transport_timeout_ms", "transport_connect_timeout_ms",
                  "transport_max_frame_mb", "placement_interval_s",
-                 "placement_imbalance_x"):
+                 "placement_imbalance_x", "migration_enable",
+                 "migration_rotate_reads"):
         assert knob not in drift.UNPORTED_KNOBS
         assert knob not in by.get("UNPORTED_KNOBS", ())
     for metric in ("wukong_breaker_open", "wukong_shard_fetch_degraded_total",
@@ -820,8 +877,17 @@ def test_every_jax_finding_on_the_port_is_declared():
                    "wukong_placement_plan_bytes",
                    "wukong_join_dist_dispatch_total",
                    "wukong_join_dist_slices_total",
-                   "wukong_join_dist_fallback_total"):
+                   "wukong_join_dist_fallback_total",
+                   "wukong_migrations_total", "wukong_migration_bytes_total",
+                   "wukong_migration_duration_us",
+                   "wukong_migration_aborts_total",
+                   "wukong_migration_phase"):
         assert metric not in drift.UNPORTED_METRICS
         assert metric not in by.get("UNPORTED_METRICS", ())
     assert not hasattr(placegate, "PENDING_ARTIFACTS")
     assert not any(v.gate == "placement-telemetry" for v in found)
+    # the migration actuator is ported: the cutover cause has its call
+    # sites, and the JAX migration-safety gate finds nothing in the port
+    assert cachegate.PENDING_CAUSES == {} and drift.UNPORTED_METRICS == {}
+    assert not any(v.gate in ("migration-safety", "cache-coherence")
+                   for v in found)

@@ -96,10 +96,12 @@ def test_help_quit_and_unknown_verbs(con, capfd):
     out = capfd.readouterr().out
     for verb in ("sparql -f", "sparql -b", "sparql-emu", "config", "logger",
                  "load-stat", "store-stat", "load -d", "gsck", "checkpoint",
-                 "recover"):
+                 "recover", "migrate"):
         assert verb in out
-    assert con.run_command("migrate") is True  # a verb still to port
-    assert "unknown command: migrate (try 'help')" in capfd.readouterr().err
+    # every verb of the JAX console is ported: a verb neither console has
+    assert con.run_command("frobnicate") is True
+    assert "unknown command: frobnicate (try 'help')" in \
+        capfd.readouterr().err
     assert con.run_command("") is True and con.run_command("quit") is False
     assert con.run_command('sparql -f "unterminated') is True
     assert "bad command" in capfd.readouterr().err
@@ -239,7 +241,10 @@ def test_load_gsck_checkpoint_recover_verbs(dataset, capfd, tmp_path):
            for s in ("port", "jax")]
     assert got[0] == got[1] and got[0][0] != "0"
     assert _rows_logged(logs["port"]) == _rows_logged(logs["jax"])
-    assert "needs shard healing" in logs["port"]  # recover -d
+    # recover -d without --dist: the drill refuses as the JAX one does
+    for side in ("port", "jax"):
+        assert "kill-and-recover drill needs the distributed engine" \
+            in logs[side]
     recovered = [re.search(r"recovered: checkpoint=\S+ replayed=(.*) epoch",
                            logs[s + " recovered"]).group(1)
                  for s in ("port", "jax")]

@@ -68,3 +68,16 @@ def test_threads_probe_a_freshly_staged_keys_index():
             want = JK.level_probe_plain(valid, cand, None,
                                         [table + (anchors, depth)])
             assert torch.equal(got[t], want)
+
+
+def test_expand_rows_matches_its_plain_version():
+    """expand_rows on every case of chip_smoke.expand_rows_cases (one
+    launch up to a tile of rows, three past it; a strided table view kept
+    strided on the card) equals expand_rows_plain on the CPU copy, three
+    runs each."""
+    dev = _card()
+    errs = {"expand_rows": 0}
+    chip_smoke.expand_rows_checks(errs)
+    assert errs["expand_rows"] == 0
+    assert chip_smoke.on_card(chip_smoke.expand_rows_cases()[8][1],
+                              dev).stride() == (3000, 2)

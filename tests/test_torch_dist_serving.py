@@ -3,8 +3,10 @@ against the JAX package where it has a counterpart:
 
 - a ``Proxy`` over a ``DistEngine``: ``device="dist"`` answers the host
   engine's rows; a shape the distributed engine refuses (UNSUPPORTED_SHAPE)
-  runs again on the host engine; replication_factor > 1 is refused (shard
-  healing is not ported); ``load -d`` reaches every shard and drops the
+  runs again on the host engine; with replication_factor > 1 the proxy
+  starts the heal watcher and serves complete replies through a shard-down
+  fault (tests/test_torch_heal.py holds the heal against JAX's); ``load
+  -d`` reaches every shard and drops the
   learned chain capacities; a shard-down reply shows in ``/healthz``'s
   ``shards`` probe and the monitor's breaker line;
 - the distributed WCOJ (join/dist.py) on a 4-shard triangle world, on the
@@ -33,6 +35,7 @@ from wukong_tpu.parallel.mesh import make_mesh as jmesh
 from wukong_tpu.planner.heuristic import heuristic_plan as jplan
 from wukong_tpu.planner.stats import Stats as JStats
 from wukong_tpu.runtime import console as jconsole
+from wukong_tpu.runtime import migration as jmigration
 from wukong_tpu.runtime.emulator import Emulator as JEmulator
 from wukong_tpu.runtime.proxy import Proxy as JProxy
 from wukong_tpu.sparql import ir as jir
@@ -53,7 +56,7 @@ from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.parallel.dist_engine import DistEngine
 from wukong_tpu_torch.planner.heuristic import heuristic_plan
 from wukong_tpu_torch.planner.stats import Stats
-from wukong_tpu_torch.runtime import console, faults
+from wukong_tpu_torch.runtime import console, faults, migration
 from wukong_tpu_torch.runtime.emulator import Emulator
 from wukong_tpu_torch.runtime.faults import FaultPlan, FaultSpec
 from wukong_tpu_torch.runtime.proxy import Proxy
@@ -68,8 +71,9 @@ QUERIES = chip_smoke.QUERIES
 
 @pytest.fixture(autouse=True)
 def _hygiene(monkeypatch):
-    """Knobs restored, no leaked fault plan, the process-wide advisor and
-    heat detached after each test (a retired world must not advise)."""
+    """Knobs restored, no leaked fault plan, the process-wide advisor,
+    lineage, heat and migration actuator detached after each test (a
+    retired world must not advise)."""
     for G in (PG, JG):
         for name in ("enable_dist_inplace", "retry_base_ms", "retry_max_ms",
                      "enable_tpu", "replication_factor", "enable_planner",
@@ -82,6 +86,10 @@ def _hygiene(monkeypatch):
     for mod in (placement, jplacement):
         mod.get_advisor().reset()
         mod.get_lineage().reset()
+    for mod in (pheat, jheat):
+        mod.get_heat().reset()
+    for mig in (migration, jmigration):
+        mig.get_migrator().reset()
 
 
 @pytest.fixture(scope="module")
@@ -136,13 +144,45 @@ def test_refused_shape_falls_back_to_the_host_engine(lubm, monkeypatch,
     assert q.result.status_code == 0 and _rows(q) == _rows(want)
 
 
-def test_replication_needs_healing(lubm):
+def test_replicated_proxy_starts_the_heal_watcher(lubm):
+    """A proxy over a dist engine with replicas starts the recovery
+    manager's heal watcher, serves complete replies through a shard-down
+    fault (the replica answers), and the watcher promotes the rebuilt
+    primary once the shard is back."""
     t, ss = lubm
     PG.replication_factor = 2
     PG.enable_tpu = False
+    PG.enable_dist_inplace = False
     dist = DistEngine(build_all_partitions(t, 8), ss, device="cpu")
-    with pytest.raises(WukongError, match="7b"):
-        Proxy(build_partition(t, 0, 1), ss, device="cpu", dist_engine=dist)
+    proxy = Proxy(build_partition(t, 0, 1), ss, device="cpu",
+                  dist_engine=dist)
+    failovers = get_registry().counter(
+        "wukong_failover_total",
+        "Shard fetches served by a replica after a primary failure",
+        labels=("shard",))
+    try:
+        names = [th.name for th in proxy.recovery()._threads]
+        assert names == ["recovery-watcher"]
+        want = proxy.run_single_query(QUERIES["lubm_q1"], device="dist",
+                                      blind=False)
+        f0 = failovers.value(shard="1")
+        faults.install(FaultPlan([FaultSpec("dist.shard_fetch",
+                                            "shard_down", shard=1)], seed=7))
+        dist.sstore.invalidate_stagings()
+        q = proxy.run_single_query(QUERIES["lubm_q1"], device="dist",
+                                   blind=False)
+        assert q.result.complete is True and q.result.dropped_patterns == []
+        assert _rows(q) == _rows(want) and q.result.nrows > 0
+        # the replica answered (the watcher may already have promoted a
+        # rebuilt primary: it races this thread by design)
+        assert failovers.value(shard="1") > f0
+        faults.clear()
+        proxy.recovery().heal_once(force=True)
+        assert not proxy.recovery().sick_shards()
+        assert dist.sstore.breaker.state(1) == "closed"
+    finally:
+        proxy.recovery().stop()
+    assert proxy.recovery()._threads == []
 
 
 def test_load_reaches_every_shard_and_respecializes(lubm, tmp_path):

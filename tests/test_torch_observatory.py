@@ -211,10 +211,9 @@ def test_render_plan_equals_jax(monkeypatch):
         mod.get_lineage().note_checkpoint(0, 4096)
     text, js = placement.render_plan()
     jtext, jjs = jplacement.render_plan()
-    # the one difference in the body: the JAX body carries its idle
-    # migration actuator's status, the port has no actuator (ROADMAP §A 7b)
-    assert js.pop("migration") is None
-    assert jjs.pop("migration")["in_flight"] is False
+    # both bodies carry their idle migration actuator's status
+    assert js["migration"] == jjs["migration"]
+    assert js["migration"]["in_flight"] is False
     assert js == jjs
     assert js["status"]["decision"] == "no_store"
     assert text == jtext

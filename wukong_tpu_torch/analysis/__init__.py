@@ -6,9 +6,9 @@ Two halves share this package:
 - **Static gates** (:mod:`framework` and its plugins): a registry run by
   ``python -m wukong_tpu_torch.analysis`` (``--json`` for a machine-readable
   report, ``--gate NAME``, ``--list``) over ``wukong_tpu_torch/`` by
-  default, and by ``tests/test_torch_analysis.py``. Sixteen gates: the JAX
-  package's eighteen less ``migration-safety`` and ``transport-contract``,
-  which wait for the distributed engine's modules.
+  default, and by ``tests/test_torch_analysis.py``. Seventeen gates: the
+  JAX package's eighteen less ``transport-contract``, which waits for the
+  worker-process pool (runtime/procs.py).
 - **Runtime lockdep** (:mod:`lockdep`): ``make_lock``/``make_rlock``/
   ``make_condition`` factories behind the ``debug_locks`` knob, recording
   the per-thread lock acquisition-order graph, reporting order cycles with

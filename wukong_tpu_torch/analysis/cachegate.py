@@ -84,12 +84,12 @@ TSDB_READS = ("rate", "rate_by_label", "series", "quantile", "latest")
 
 #: declared invalidation causes whose producer is not ported yet -> the
 #: ROADMAP item that ports it (exempt from the call-site rules until then)
-PENDING_CAUSES = {"cutover": "ROADMAP §A 7b, runtime/migration.py"}
+PENDING_CAUSES: dict = {}
 
 #: (package-relative file, top-level function) pairs allowed to call
 #: ``insert_triples(`` without a maybe_note_invalidation in scope. The JAX
-#: list's shard heal, migration catch-up and worker-process replays come
-#: with their modules (ROADMAP §A 7b).
+#: list's worker-process replays come with runtime/procs.py (ROADMAP §A
+#: 7b).
 CACHE_ALLOWLIST = {
     # the per-partition mutation primitive itself: it bumps g.version;
     # the invalidation note fires at the batch/epoch commit level
@@ -99,6 +99,12 @@ CACHE_ALLOWLIST = {
     # recovery replay re-applies durable records during recover(), which
     # notes ONE conservative "restore" purge after the tail replays
     ("runtime/recovery.py", "_replay_wal"),
+    # shard heal rebuilds a copy back to its correct byte content — the
+    # serving world is unchanged once the rebuild promotes
+    ("runtime/recovery.py", "_rebuild_shard_locked"),
+    # migration catch-up replays onto the NOT-yet-serving recipient; the
+    # cutover that publishes it notes the "cutover" purge
+    ("runtime/migration.py", "_phase_catchup"),
 }
 
 

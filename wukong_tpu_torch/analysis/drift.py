@@ -44,8 +44,6 @@ UNPORTED_KNOBS = {
     "exchange_capacity": "no counterpart: declared and read nowhere in the "
                          "JAX package; each exchange step sizes its own "
                          "per-destination capacity class",
-    "migration_enable": "ROADMAP §A 7b: runtime/migration.py",
-    "migration_rotate_reads": "ROADMAP §A 7b: runtime/migration.py",
     "proc_workers": "ROADMAP §A 7b: runtime/procs.py",
     "proc_heartbeat_ms": "ROADMAP §A 7b: runtime/procs.py",
     "proc_heartbeat_misses": "ROADMAP §A 7b: runtime/procs.py",
@@ -85,13 +83,7 @@ UNPORTED_KNOBS = {
 
 #: README metrics-table names no port code registers -> the ROADMAP item
 #: that ports the code registering it
-UNPORTED_METRICS = {
-    "wukong_migrations_total": "ROADMAP §A 7b: runtime/migration.py",
-    "wukong_migration_bytes_total": "ROADMAP §A 7b: runtime/migration.py",
-    "wukong_migration_duration_us": "ROADMAP §A 7b: runtime/migration.py",
-    "wukong_migration_aborts_total": "ROADMAP §A 7b: runtime/migration.py",
-    "wukong_migration_phase": "ROADMAP §A 7b: runtime/migration.py",
-}
+UNPORTED_METRICS: dict = {}
 
 #: wire ops of runtime/transport.py's registry whose only callers are not
 #: ported yet -> the ROADMAP item that ports them (the JAX package's

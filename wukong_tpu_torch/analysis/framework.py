@@ -191,8 +191,8 @@ def plugin_names() -> list[str]:
 def _load_builtin_plugins() -> None:
     # import for the registration side effect; lazy so lockdep (runtime
     # checker, imported by hot modules) never drags the AST gates in. The
-    # JAX registry's migrategate and transportgate wait for the modules
-    # they check (ROADMAP §A 7b)
+    # JAX registry's transportgate waits for runtime/procs.py (ROADMAP §A
+    # 7b)
     from wukong_tpu_torch.analysis import (  # noqa: F401
         admitgate,
         cachegate,
@@ -200,6 +200,7 @@ def _load_builtin_plugins() -> None:
         drift,
         guarded,
         joingate,
+        migrategate,
         obs_gates,
         placegate,
         slogate,

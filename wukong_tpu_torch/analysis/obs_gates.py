@@ -64,9 +64,8 @@ DISPATCH_ATTRS = frozenset({
 })
 
 # (package-relative file, top-level function) pairs allowed to call
-# ``insert_triples(`` without the WAL append hook. The JAX list's shard
-# rebuild, migration catch-up and worker-process replays come with their
-# modules (ROADMAP §A 7b).
+# ``insert_triples(`` without the WAL append hook. The JAX list's
+# worker-process replays come with runtime/procs.py (ROADMAP §A 7b).
 WAL_ALLOWLIST = {
     # the per-partition mutation primitive itself (hooked at batch level)
     ("store/dynamic.py", "insert_triples"),
@@ -74,6 +73,12 @@ WAL_ALLOWLIST = {
     ("stream/continuous.py", "_on_epoch_windowed"),
     # recovery replay re-applies durable records under WAL suppression
     ("runtime/recovery.py", "_replay_wal"),
+    # shard rebuild replays the durable tail onto a checkpoint clone before
+    # it is promoted (the records are already logged)
+    ("runtime/recovery.py", "_rebuild_shard_locked"),
+    # migration catch-up replays the durable tail onto the not-yet-serving
+    # recipient under WAL suppression
+    ("runtime/migration.py", "_phase_catchup"),
 }
 
 

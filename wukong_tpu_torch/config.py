@@ -56,8 +56,9 @@ class GlobalConfig:
     # ---- fault tolerance (parallel/sharded_store.py) ----
     # hosts holding each logical shard's data; 1 = no replication (a
     # failed shard fetch substitutes an empty shard and flags the reply
-    # incomplete). The port's proxy serves 1 only until shard healing is
-    # ported. Immutable: replicas are cloned when the sharded store is built
+    # incomplete); k > 1 fails over to a replica and the proxy's heal
+    # watcher rebuilds the primary. Immutable: replicas are cloned when the
+    # sharded store is built
     replication_factor: int = 1
     # ---- the data plane's transport (runtime/transport.py; mutable) ----
     # "loopback" executes shard fetches in process against the local
@@ -312,6 +313,17 @@ class GlobalConfig:
     placement_interval_s: int = 0
     placement_window_s: int = 300
     placement_imbalance_x: float = 2.0
+    # ---- the live shard-migration actuator (runtime/migration.py; all
+    # mutable) ----
+    # execute the placement advisor's MigrationPlans (clone -> catch-up ->
+    # cutover -> retire). Off by default: the advisor stays observe-only
+    # and both the `migrate` verb and the executor refuse to move shards.
+    # On with placement_interval_s > 0 runs the actuator loop
+    migration_enable: bool = False
+    # on: the cutover demotes the donor copy to a read-rotation replica on
+    # its old host (reads split across donor and recipient, the plan's
+    # predicted-balance model); off retires the donor copy outright
+    migration_rotate_reads: bool = True
     # the scrape endpoint (GET /metrics, /top, /plan, /healthz, ...): 0 =
     # off; loopback unless metrics_host widens it (the endpoint has no
     # auth)

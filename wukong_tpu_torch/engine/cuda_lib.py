@@ -27,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("probe.cu", "stream_emit.cu", "level_probe.cu", "knn_scan.cu")
+SOURCES = ("probe.cu", "stream_emit.cu", "level_probe.cu", "knn_scan.cu",
+           "expand_rows.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -36,6 +37,12 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "probe.cu": {
         "wk_probe": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    },
+    "expand_rows.cu": {
+        "wk_expand_rows_tile": [],
+        "wk_expand_rows_scratch_words": [_I],
+        "wk_expand_rows": [_P, _LL, _LL, _I, _I, _P, _P, _P, _LL, _I, _P, _P,
+                           _P, _I, _P],
     },
     "stream_emit.cu": {
         "wk_stream_tile": [],
@@ -62,6 +69,7 @@ _SIGNATURES = {
 }
 # return types other than c_int
 _RESTYPES = {"wk_stream_scratch_bytes": _LL,
+             "wk_expand_rows_scratch_words": _LL,
              "wk_level_probe_glob_words": _LL,
              "wk_level_probe_index_words": _LL,
              "wk_knn_block_scratch_words": _LL,

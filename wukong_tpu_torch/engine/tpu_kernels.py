@@ -6,10 +6,12 @@ with x64 off) and every function takes a live-row count ``n`` as a 0-d
 device tensor, so a chain never reads a device value mid-query. Overflow
 totals ride along as 0-d tensors and are checked at the end-of-chain sync.
 
-The one hand-written kernel here is K1, ``probe_kernel`` (csrc/probe.cu),
-which replaces the Pallas ``pallas_probe``. On a CUDA tensor it launches the
-kernel; on a CPU tensor it runs ``_hash_find``, its plain version. Every
-other function is plain PyTorch on whatever device its inputs live on.
+The hand-written kernels here are K1, ``probe_kernel`` (csrc/probe.cu),
+which replaces the Pallas ``pallas_probe``, and ``expand_rows``
+(csrc/expand_rows.cu), expand's row plan and gathers after the probe. On a
+CUDA tensor each launches its kernel; on a CPU tensor each runs its plain
+version (``_hash_find``, ``expand_rows_plain``). Every other function is
+plain PyTorch on whatever device its inputs live on.
 
 int32 notes (the places where torch and jnp differ):
 - ``torch.cumsum`` of int32 accumulates in int64 here; totals saturate to
@@ -39,6 +41,9 @@ def as_count(n, device) -> torch.Tensor:
     """A live-row count as the 0-d int32 device tensor the kernels take
     (from a host int, a fill on the card: no copy, so no host sync)."""
     if isinstance(n, torch.Tensor):
+        if n.dtype == I32 and n.dim() == 0 and n.device == torch.device(
+                device):
+            return n  # the chain's own count: no call into PyTorch's ops
         return n.to(device=device, dtype=I32).reshape(())
     return torch.full((), int(n), dtype=I32, device=device)
 
@@ -251,16 +256,14 @@ def _cumsum(x) -> torch.Tensor:
     return torch.cumsum(x, 0, dtype=torch.int64)
 
 
-def _expand_plan(table, n, bline, bhi, col: int, cap_out: int,
-                 max_probe: int):
-    """The row plan of an expansion step, shared by expand and expand2: K1
-    probes the anchor column, each live row's id is scattered at its output
-    start and a running max fills the gaps. Returns (srcc, eidx, out_valid,
-    total): each output slot's source row, its edge index, whether it holds
-    a row, and the exact (saturated) total."""
+def _row_plan(table, start, deg, cap_out: int):
+    """The row plan of an expansion step from K1's (start, deg): each live
+    row's id is scattered at its output start and a running max fills the
+    gaps. Returns (srcc, eidx, out_valid, total): each output slot's source
+    row, its edge index, whether it holds a row, and the exact (saturated)
+    total."""
     W, C = table.shape
     rows = _arange(C, table)
-    _found, start, deg = _probe(bline, bhi, table[col], n, max_probe)
     cum = _cumsum(deg)
     total = _saturate_total(cum)
     starts_excl = cum - deg
@@ -273,19 +276,89 @@ def _expand_plan(table, n, bline, bhi, col: int, cap_out: int,
     return srcc, eidx, (j < total) & (src >= 0), total
 
 
-def expand(table, n, bline, bhi, edges, col: int, cap_out: int,
-           max_probe: int):
-    """known_to_unknown: expand each live row by its neighbor list.
+def _expand_plan(table, n, bline, bhi, col: int, cap_out: int,
+                 max_probe: int):
+    """expand2's row plan: K1 probes the anchor column, then ``_row_plan``."""
+    _found, start, deg = _probe(bline, bhi, table[col], n, max_probe)
+    return _row_plan(table, start, deg, cap_out)
 
-    table: [W, C]. Returns (out [W+1, cap_out], out_n, total) — total may
-    exceed cap_out; the host checks it at the end-of-chain sync and retries
-    at an exact capacity class (rows are never silently dropped)."""
-    srcc, eidx, out_valid, total = _expand_plan(
-        table, n, bline, bhi, col, cap_out, max_probe)
+
+def expand_rows_plain(table, start, deg, edges, cap_out: int):
+    """expand_rows' plain version: the row plan, the edge gather and the
+    select in PyTorch (the JAX expand after its probe, op for op)."""
+    srcc, eidx, out_valid, total = _row_plan(table, start, deg, cap_out)
     val = edges[eidx.clamp(0, edges.shape[0] - 1)]
     out = torch.cat([table[:, srcc], val[None, :]], 0)
     out = torch.where(out_valid[None, :], out, 0)
     return out, torch.clamp(total, max=cap_out), total
+
+
+_wk_expand_rows = None  # the bound C entry point, set at the first launch
+
+
+def expand_rows(table, start, deg, edges, cap_out: int):
+    """(out [W+1, cap_out], out_n, total) of a known_to_unknown step from
+    K1's per-row (start, deg): each row's values repeated over its output
+    slots beside its neighbors, zeros past the total, and the step's row
+    count and saturated total as 0-d int32 tensors.
+
+    A hand kernel for the XLA computation that follows the probe in
+    wukong_tpu/engine/tpu_kernels.py:expand. CUDA tensors launch
+    csrc/expand_rows.cu (one launch up to its tile of rows, three past it);
+    CPU tensors run ``expand_rows_plain``. Bound: bytes (see the source
+    note)."""
+    global _wk_expand_rows
+    if table.device.type == "cpu":
+        return expand_rows_plain(table, start, deg, edges, cap_out)
+    W, C = table.shape
+    for name, t in (("table", table), ("start", start), ("deg", deg),
+                    ("edges", edges)):
+        if not t.is_cuda or t.dtype != I32:
+            raise ValueError(f"expand_rows: {name} must be a CUDA int32 "
+                             f"tensor, got {t.dtype} on {t.device}")
+    if (start.dim() != 1 or deg.dim() != 1 or start.shape[0] != C
+            or deg.shape[0] != C or start.stride(0) != 1
+            or deg.stride(0) != 1 or edges.dim() != 1
+            or not edges.is_contiguous() or C == 0 or cap_out <= 0):
+        raise ValueError(f"expand_rows: expected start/deg [{C}] and "
+                         f"contiguous edges, C > 0 and cap_out > 0; got "
+                         f"{tuple(start.shape)}, {tuple(deg.shape)}, "
+                         f"{tuple(edges.shape)}, cap_out {cap_out}")
+    if _wk_expand_rows is None:
+        _wk_expand_rows = cuda_lib.library("expand_rows.cu")
+    lib = _wk_expand_rows
+    dev = table.device
+    out = torch.empty((W + 1, cap_out), dtype=I32, device=dev)
+    counts = torch.empty(2, dtype=I32, device=dev)
+    words = lib.wk_expand_rows_scratch_words(C)
+    scratch = (torch.empty(words, dtype=torch.int64, device=dev)
+               if words else None)
+    rc = lib.wk_expand_rows(
+        table.data_ptr(), table.stride(0), table.stride(1), W, C,
+        start.data_ptr(), deg.data_ptr(), edges.data_ptr(), edges.shape[0],
+        cap_out, out.data_ptr(), counts.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
+        table.get_device(), cuda_lib.stream_ptr(table))
+    if rc:
+        cuda_lib.check(lib, rc, "expand_rows")
+    cuda_lib.count_launch(expand_rows)
+    out_n, total = counts.unbind(0)
+    return out, out_n, total
+
+
+expand_rows.launches = 0
+
+
+def expand(table, n, bline, bhi, edges, col: int, cap_out: int,
+           max_probe: int):
+    """known_to_unknown: expand each live row by its neighbor list: K1
+    probes the anchor column, then ``expand_rows``.
+
+    table: [W, C]. Returns (out [W+1, cap_out], out_n, total) — total may
+    exceed cap_out; the host checks it at the end-of-chain sync and retries
+    at an exact capacity class (rows are never silently dropped)."""
+    _found, start, deg = _probe(bline, bhi, table[col], n, max_probe)
+    return expand_rows(table, start, deg, edges, cap_out)
 
 
 def expand2(table, n, bline, bhi, edges_pid, edges_val, col: int,

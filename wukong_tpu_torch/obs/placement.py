@@ -26,7 +26,9 @@ Surfaced as ``GET /plan`` + ``/plan.json``, the ``plan`` console verb, a
 Monitor ``Placement[...]`` rolling-report line, and the
 ``wukong_placement_*`` metrics. An optional advisory loop runs at
 ``placement_interval_s`` (0 = advise on demand only, the default). The
-migration actuator that executes plans is not ported yet (ROADMAP §A 7b).
+migration actuator (runtime/migration.py) executes plans; ``render_plan``
+carries its in-flight state, and the lineage observes each move at its
+cutover.
 """
 
 from __future__ import annotations
@@ -550,10 +552,11 @@ def render_plan(advise: bool = True) -> tuple[str, dict]:
         except Exception as e:
             log_warn(f"placement advise failed: {e!r}")
     st = _advisor.status()
-    # the JAX surface adds the migration actuator's in-flight state here;
-    # the port has no actuator until runtime/migration.py (ROADMAP §A 7b),
-    # so "migration" is None
-    mig = None
+    # the actuator's in-flight state rides the same surface (lazy import:
+    # runtime/migration.py imports this module at its top level)
+    from wukong_tpu_torch.runtime.migration import get_migrator
+
+    mig = get_migrator().status()
     js = {"status": st, "lineage": get_lineage().report(),
           "inputs": dict(PLACEMENT_INPUTS), "migration": mig}
     lines = ["wukong-plan  (placement advisor"

@@ -31,10 +31,8 @@ registered metric behind it. Surfaced as the ``cache`` console verb
 is gated on ``enable_reuse`` (default on, as in the JAX package: the
 per-reply cost is a few leaf-lock updates); off, every hook is one knob
 check. ``reuse_sample_every`` samples the shadow probe (1 = every reply).
-The JAX package's ``/cache`` endpoint and ``cache-coherence`` gate wait
-for their subsystem (ROADMAP §A, "The rest of the observatory, and the
-analysis plugins"); the migration cutover's edge waits for the migration
-actuator (§A 7b).
+A migration cutover (runtime/migration.py) notes the ``cutover`` edge, a
+conservative full purge.
 """
 
 from __future__ import annotations

@@ -18,9 +18,9 @@ locally first. The engines run on the card unless ``--device cpu`` is
 given; ``--bind`` binds the engine threads to cores. ``--dist``
 partitions the dataset into ``-w`` shards (default ``num_workers``, or 8
 when it is 1) on one device and serves them through the distributed engine
-(``sparql ... -d dist``, ``analyze ... -d dist``). The JAX console's
-``migrate`` verb and ``recover -d <shard>`` drill wait for the migration
-actuator and shard healing (ROADMAP §A 7b).
+(``sparql ... -d dist``, ``analyze ... -d dist``); there ``migrate``
+drives the shard-migration actuator (runtime/migration.py) and ``recover
+-d <shard>`` runs the kill-and-heal drill (``Emulator.run_drill``).
 """
 
 from __future__ import annotations
@@ -82,10 +82,18 @@ plan [-j] [-n]               observe-only placement advisor: run one
                              sweep and print its decision + shard
                              lineage (-n skips the fresh sweep; also
                              GET /plan)
+migrate [-j] | migrate -abort | migrate -s
+                             live shard migration: sweep the advisor and
+                             execute its MigrationPlan (clone/catch-up/
+                             cutover/retire; migration_enable must be
+                             on). -abort rolls the in-flight migration
+                             back to the donor; -s prints actuator status
 metrics [-j]                 dump the metrics registry (Prometheus text, -j JSON)
 checkpoint                   write one atomic checkpoint to checkpoint_dir;
                              truncates covered WAL
-recover                      restore newest checkpoint + replay the WAL tail
+recover [-d <shard>]         restore newest checkpoint + replay the WAL tail;
+                             -d runs the kill-and-recover drill against one
+                             shard instead (requires --dist)
 """
 
 
@@ -153,6 +161,8 @@ class Console:
                 self._device(rest)
             elif cmd == "plan":
                 self._plan_verb(rest)
+            elif cmd == "migrate":
+                self._migrate(rest)
             elif cmd == "metrics":
                 self._metrics(rest)
             elif cmd == "checkpoint":
@@ -182,17 +192,21 @@ class Console:
 
     def _apply_observatory_knobs(self) -> None:
         """The observatory knobs are runtime-mutable both ways: the
-        sampler's thread checks its knob every tick (on to off), but a
-        flip from off to on after boot needs the idempotent starter
-        re-invoked; so does the placement advisor's loop, over the
-        distributed engine's sharded store (the JAX console's migration
-        actuator, tried first there, is not ported)."""
+        sampler/advisor/actuator threads check their knob every tick (on
+        to off), but a flip from off to on after boot needs the idempotent
+        starters re-invoked — without this, `config -s enable_tsdb true`
+        (or `migration_enable true`) would never act until a restart. Over
+        the distributed engine's sharded store the migration actuator is
+        tried first, then the observe-only advisor (one sweeper)."""
         from wukong_tpu_torch.obs.placement import maybe_start_advisor
         from wukong_tpu_torch.obs.tsdb import maybe_start_tsdb
+        from wukong_tpu_torch.runtime.migration import maybe_start_migration
 
         maybe_start_tsdb()
         dist = getattr(self.proxy, "dist", None)
-        maybe_start_advisor(dist.sstore if dist is not None else None)
+        sstore = dist.sstore if dist is not None else None
+        if maybe_start_migration(sstore, owner=self.proxy) is None:
+            maybe_start_advisor(sstore)
 
     def _sparql(self, rest) -> None:
         ap = argparse.ArgumentParser(prog="sparql")
@@ -489,20 +503,69 @@ class Console:
         self._print_report(ns.j, *render_events(ns.k, shard=ns.s,
                                                 kind=ns.K))
 
+    def _migrate(self, rest) -> None:
+        """migrate: one actuator round — sweep the advisor, execute the
+        MigrationPlan it emits (migration_enable must be on). -abort
+        rolls the in-flight migration back; -s prints status only."""
+        from wukong_tpu_torch.obs.placement import get_advisor
+        from wukong_tpu_torch.runtime.migration import get_migrator
+
+        ap = argparse.ArgumentParser(prog="migrate", prefix_chars="-")
+        ap.add_argument("-abort", dest="abort", action="store_true",
+                        help="abort the in-flight migration")
+        ap.add_argument("-s", dest="status", action="store_true",
+                        help="actuator status only (no sweep)")
+        ap.add_argument("-j", action="store_true", help="JSON output")
+        ns = ap.parse_args(rest)
+        mig = get_migrator()
+        dist = getattr(self.proxy, "dist", None)
+        if dist is not None:
+            mig.attach(sstore=dist.sstore, owner=self.proxy)
+            get_advisor().attach_store(dist.sstore)
+        if ns.abort:
+            job = mig.abort(cause="operator")
+            log_info(f"migration {job.plan.plan_id} aborted"
+                     if job is not None else "no migration in flight")
+            return
+        if ns.status:
+            if ns.j:
+                print(json.dumps(mig.status(), indent=1, sort_keys=True,
+                                 default=str))
+            else:
+                log_info(f"migration actuator: {mig.status()}")
+            return
+        plan = get_advisor().advise_once()
+        if plan is None:
+            log_info("no MigrationPlan to execute (advisor: "
+                     f"{get_advisor().status()['decision']})")
+            return
+        job = mig.run_plan(plan)
+        if ns.j:
+            print(json.dumps(job.to_dict(), indent=1, sort_keys=True,
+                             default=str))
+        else:
+            log_info(f"migration {job.plan.plan_id} {job.phase}: shard "
+                     f"{job.plan.donor_shard} -> host "
+                     f"{job.plan.recipient_host} "
+                     f"({job.bytes_moved:,} bytes)")
+
     def _recover(self, rest) -> None:
-        """recover: boot-style checkpoint+WAL restore. The JAX console's
-        ``recover -d <shard>`` drill needs shard healing."""
+        """recover: boot-style checkpoint+WAL restore. recover -d <shard>:
+        the kill-and-recover drill — force that primary down, prove
+        failover keeps results complete, heal, verify."""
         ap = argparse.ArgumentParser(prog="recover")
         ap.add_argument("-d", "--drill", type=int, default=None,
                         metavar="shard")
         ns = ap.parse_args(rest)
-        if ns.drill is not None:
-            log_error("recover -d: the kill-and-recover drill needs shard "
-                      "healing, which is not ported yet (ROADMAP §A 7b)")
+        if ns.drill is None:
+            stats = self.proxy.recover()
+            log_info(f"recovered: checkpoint={stats['checkpoint']} "
+                     f"replayed={stats['replayed']} epoch={stats['epoch']}")
             return
-        stats = self.proxy.recover()
-        log_info(f"recovered: checkpoint={stats['checkpoint']} "
-                 f"replayed={stats['replayed']} epoch={stats['epoch']}")
+        from wukong_tpu_torch.runtime.emulator import Emulator
+
+        report = Emulator(self.proxy).run_drill(shard=ns.drill)
+        log_info(f"drill report: {report}")
 
     # ------------------------------------------------------------------
     def repl(self) -> None:

@@ -42,9 +42,11 @@ caches: observe-only (the shadow cache's predicted hit rate by write rate),
 or with the result cache and views on (every measured reply held against
 an uncached one). ``Emulator.run_hotspot`` drives Zipf-skewed shard fetches
 through a sharded store's fetch path and runs the placement advisor over
-the heat it produced. The JAX emulator's other scenario runners (the
-shard-kill drills and rebalancing) wait for shard healing and the
-migration actuator (ROADMAP §A 7b). ``run_serving``
+the heat it produced; ``Emulator.run_rebalance`` then executes the plan
+through the migration actuator and re-scores the imbalance, and
+``Emulator.run_drill`` kills one shard's primary, serves through its
+replica and heals it. The JAX emulator's process drill waits for the
+worker-process pool (ROADMAP §A 7b). ``run_serving``
 and ``run_graphrag`` write the registry's snapshot every
 ``metrics_snapshot_s`` seconds while they run (obs/httpd.py
 ``MetricsSnapshotter``).
@@ -1128,6 +1130,217 @@ class Emulator:
                 "plan": plan.to_dict() if plan is not None else None,
                 "plan_donor_is_hot": donor_is_hot,
                 "store_untouched": bool(store_untouched)}
+
+    def run_rebalance(self, n_ops: int = 1500, zipf_a: float = 1.6,
+                      seed: int = 0, sstore=None, phase_hook=None) -> dict:
+        """The hot-spot drill flipped from observe-only to EXECUTED (the
+        JAX ``bench.py --rebalance``): run :meth:`run_hotspot` to produce
+        the Zipfian skew and the advisor's ``MigrationPlan``, then drive
+        the plan through the live
+        shard-migration actuator (``runtime/migration.py`` —
+        ``migration_enable`` must be on or the executor refuses, the
+        observe-only posture). After every completed phase the migrating
+        shard is probed through the normal resilience fetch path and the
+        payload compared byte-for-byte against a pre-migration oracle —
+        a migration that serves one torn byte fails the drill. Then the
+        SAME skewed workload replays against the post-move placement and
+        the advisor re-scores host imbalance: the drill passes when the
+        post-move max/mean host load-rate ratio drops below
+        ``placement_imbalance_x``. ``phase_hook(phase, job)``, where given,
+        runs after each phase's probe (the port's addition: a caller serves
+        its own queries there). Returns the hotspot report plus
+        {executed, job, probes, queries_identical, imbalance_before,
+        imbalance_after, rebalanced, decision_after, rebalance_gain}.
+        """
+        from wukong_tpu_torch.obs.heat import get_heat
+        from wukong_tpu_torch.obs.placement import MigrationPlan, get_advisor
+        from wukong_tpu_torch.obs.tsdb import get_tsdb
+        from wukong_tpu_torch.runtime.migration import get_migrator
+
+        if sstore is None:
+            dist = getattr(self.proxy, "dist", None)
+            sstore = dist.sstore if dist is not None else None
+        rep = self.run_hotspot(n_ops=n_ops, zipf_a=zipf_a, seed=seed,
+                               sstore=sstore)
+        if rep["plan"] is None:
+            raise WukongError(
+                ErrorCode.UNSUPPORTED_SHAPE,
+                "the rebalance drill needs a MigrationPlan but the "
+                "advisor emitted none — raise the skew or lower "
+                "placement_imbalance_x")
+        plan = MigrationPlan(**rep["plan"])
+        donor = plan.donor_shard
+        # the byte-identical oracle: the probe payload BEFORE any phase
+        # runs (the migration only ever reads the donor, so this stays
+        # the ground truth for every copy that serves the shard)
+        oracle, ok = sstore._fetch_shard(donor, _probe_read, "rebalance")
+        if not ok:
+            raise WukongError(ErrorCode.SHARD_UNAVAILABLE,
+                              f"donor shard {donor} unreadable before "
+                              "the drill even started")
+        probes: dict[str, bool] = {}
+
+        def probe(tag: str) -> None:
+            out, complete = sstore._fetch_shard(donor, _probe_read,
+                                                "rebalance")
+            probes[tag] = bool(complete) and bool(
+                np.array_equal(np.asarray(out), np.asarray(oracle)))
+
+        mig = get_migrator()
+        mig.attach(sstore=sstore, owner=self.proxy)
+        def after_phase(ph: str, job) -> None:
+            probe(ph)
+            if phase_hook is not None:
+                phase_hook(ph, job)
+
+        job = mig.run_plan(plan, phase_hook=after_phase)
+        probe("post")  # one more after the state machine fully settles
+        # replay the SAME skew against the post-move placement and let
+        # the advisor re-score host imbalance over a fresh trend window
+        heat = get_heat()
+        heat.reset()
+        tsdb = get_tsdb()
+        tsdb.reset()
+        tsdb.sample_once()
+        _zipf_drive(sstore, rep["hot"], n_ops, zipf_a,
+                    np.random.default_rng(seed), "rebalance")
+        tsdb.sample_once()
+        advisor = get_advisor()
+        advisor.attach_store(sstore)
+        advisor.advise_once()
+        st = advisor.status()
+        imb_after = float(st["imbalance"])
+        threshold = max(float(Global.placement_imbalance_x), 1.0)
+        identical = bool(probes) and all(probes.values())
+        gain = (plan.imbalance_before / imb_after
+                if imb_after > 0 else float("inf"))
+        log_info(
+            f"rebalance: shard {donor} -> host {plan.recipient_host} "
+            f"({job.bytes_moved / 2**20:.1f} MiB, cutover pause "
+            f"{job.cutover_pause_us}us); imbalance "
+            f"{plan.imbalance_before:.2f} -> {imb_after:.2f} "
+            f"(threshold {threshold:g}, decision {st['decision']}); "
+            f"probes identical={identical} {probes}")
+        # store_untouched was run_hotspot's pre-execution observe-only
+        # proof; the whole point of THIS drill is that the store moved
+        return {**rep, "store_untouched": False,
+                "executed": True, "job": job.to_dict(),
+                "probes": dict(probes), "queries_identical": identical,
+                "imbalance_before": float(plan.imbalance_before),
+                "imbalance_after": imb_after,
+                "rebalanced": imb_after < threshold,
+                "decision_after": st["decision"],
+                "rebalance_gain": gain}
+
+    # ------------------------------------------------------------------
+    # kill-and-recover drill (fault-tolerance fire drill)
+    # ------------------------------------------------------------------
+    def run_drill(self, shard: int = 1, texts: list | None = None,
+                  rounds: int = 3) -> dict:
+        """Force one primary shard down mid-run and prove the recovery
+        story end to end: with replication, distributed results stay
+        ``complete=True`` via replica failover during the outage; after
+        the "host is replaced" (fault cleared) the recovery manager
+        rebuilds + promotes the primary and the verify round must match
+        the baseline. Returns the drill report (console ``recover -d``).
+        """
+        from wukong_tpu_torch.obs.metrics import get_registry
+        from wukong_tpu_torch.runtime import faults
+        from wukong_tpu_torch.runtime.faults import FaultPlan, FaultSpec
+
+        proxy = self.proxy
+        if proxy.dist is None:
+            raise WukongError(ErrorCode.UNSUPPORTED_SHAPE,
+                              "the kill-and-recover drill needs the "
+                              "distributed engine (--dist)")
+        sstore = proxy.dist.sstore
+        m_failover = get_registry().counter(
+            "wukong_failover_total",
+            "Shard fetches served by a replica after a primary failure",
+            labels=("shard",))
+
+        def run_round() -> dict:
+            complete = True
+            nrows = []
+            for t in (texts or [None]):
+                q = self._drill_query(t)
+                proxy._serve_execute(q, proxy.dist, pinned=True)
+                complete &= bool(q.result.complete)
+                nrows.append(int(q.result.nrows))
+            return {"complete": complete, "nrows": nrows}
+
+        report = {"shard": int(shard),
+                  "replication_factor": sstore.replication_factor}
+        report["baseline"] = run_round()
+        f0 = m_failover.value(shard=str(shard))
+        # save any operator-installed chaos plan: the drill must not end a
+        # soak run's fault schedule as a side effect
+        prev_plan = faults.active()
+        faults.install(FaultPlan([FaultSpec("dist.shard_fetch",
+                                            "shard_down", shard=shard)]))
+        # the dead host's staged device data dies with it — force restaging
+        # so the outage actually exercises the fetch/failover path
+        sstore.invalidate_stagings()
+        try:
+            outage = [run_round() for _ in range(max(rounds, 1))]
+        finally:
+            faults.install(prev_plan)  # the dead host is replaced
+        report["outage"] = {
+            "rounds": len(outage),
+            "complete": all(r["complete"] for r in outage),
+            "nrows_match": all(r["nrows"] == report["baseline"]["nrows"]
+                               for r in outage),
+            "failovers": int(m_failover.value(shard=str(shard)) - f0),
+        }
+        # the recovery watcher may have healed in the background already
+        # (it races this explicit sweep by design); "healthy" is the
+        # invariant, the healed list just says who did the work
+        report["healed"] = proxy.recovery().heal_once(force=True)
+        report["healthy"] = not proxy.recovery().sick_shards()
+        verify = run_round()
+        report["recovered"] = {
+            "complete": verify["complete"],
+            "nrows_match": verify["nrows"] == report["baseline"]["nrows"],
+        }
+        log_info(f"drill shard={shard}: outage complete="
+                 f"{report['outage']['complete']} "
+                 f"(failovers={report['outage']['failovers']}), healthy="
+                 f"{report['healthy']}, recovered match="
+                 f"{report['recovered']['nrows_match']}")
+        return report
+
+    def _drill_query(self, text: str | None):
+        """A drill probe: the given SPARQL text, or a synthesized one-hop
+        scan over the most populous predicate index (works on any dataset
+        without a query file)."""
+        if text is not None:
+            q = Parser(self.proxy.str_server).parse(text)
+        else:
+            from wukong_tpu_torch.sparql.ir import (
+                Pattern,
+                PatternGroup,
+                SPARQLQuery,
+            )
+            from wukong_tpu_torch.types import IN, OUT
+
+            g = self.proxy.g
+            pid = max(
+                (k[0] for k, v in g.index.items()
+                 if k[1] == IN and k[0] not in g.type_ids and len(v)),
+                key=lambda p: len(g.index[(p, IN)]), default=None)
+            if pid is None:
+                raise WukongError(ErrorCode.UNKNOWN_PATTERN,
+                                  "no predicate index to drill against")
+            q = SPARQLQuery()
+            q.pattern_group = PatternGroup(
+                patterns=[Pattern(subject=-1, predicate=int(pid),
+                                  direction=OUT, object=-2)])
+            q.result.nvars = 2
+            q.result.required_vars = [-1, -2]
+        q.result.blind = True
+        q.deadline = Deadline.from_config()
+        self._plan(q)
+        return q
 
     def run_graphrag(self, graph_texts: list, hybrid_template: str,
                      anchors: list, duration_s: float = 3.0,

@@ -53,6 +53,11 @@ The port's sites (``KNOWN_FAULT_SITES``):
   ``shard`` = the slice): a failed slice is re-run once inline;
 - ``transport.connect`` / ``transport.send`` / ``transport.recv`` — the
   socket transport's syscalls (runtime/transport.py), before each one.
+- ``migration.clone`` / ``migration.catchup`` / ``migration.cutover`` —
+  the shard-migration actuator's phase entries (runtime/migration.py),
+  each before its phase touches any shared state: an injected failure
+  aborts the migration back to the donor (content digest unchanged) or
+  leaves a resumable crash for ``resume()`` to roll forward.
 
 A plan may name sites of the JAX package the port does not have yet; they
 never fire. When no plan is installed every hook is a cheap no-op. Each
@@ -81,7 +86,9 @@ KNOWN_FAULT_SITES = frozenset({"pool.execute", "proxy.serve",
                                "stream.ingest", "dist.shard_fetch",
                                "dist.chain_dispatch", "replica.fetch",
                                "join.slice", "transport.connect",
-                               "transport.send", "transport.recv"})
+                               "transport.send", "transport.recv",
+                               "migration.clone", "migration.catchup",
+                               "migration.cutover"})
 
 
 class TransientFault(Exception):

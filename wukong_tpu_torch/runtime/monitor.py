@@ -15,9 +15,8 @@ sharded store's per-shard breaker, exported as the ``wukong_breaker_open``
 pull gauge) and the placement advisor's last MigrationPlan
 (``placement_lines``); stream epochs land in :class:`StreamStats`
 (``record_stream_epoch``, ``stream_stats``), which the emulator's per-run
-monitor adopts with the breaker registry (``share_observability``). The
-JAX package's migration line comes with the migration actuator (ROADMAP
-§A 7b).
+monitor adopts with the breaker registry (``share_observability``); and the
+migration actuator's in-flight move (``migration_lines``).
 """
 
 from __future__ import annotations
@@ -150,6 +149,8 @@ class Monitor:
                 log_info(line)
             for line in self.placement_lines():
                 log_info(line)
+            for line in self.migration_lines():
+                log_info(line)
             for line in self.cache_lines():
                 log_info(line)
             self._last_print = now
@@ -261,6 +262,21 @@ class Monitor:
                 f"({p['bytes_source']}), imbalance "
                 f"{p['imbalance_before']:.2f} -> "
                 f"{p['imbalance_after']:.2f}]"]
+
+    def migration_lines(self) -> list[str]:
+        """Rolling-report line for the shard-migration actuator
+        (runtime/migration.py): the in-flight migration's phase and
+        progress — quiet while nothing is moving."""
+        from wukong_tpu_torch.runtime.migration import get_migrator
+
+        st = get_migrator().status()
+        if not st["in_flight"]:
+            return []
+        j = st["job"]
+        return [f"Migration[{j['plan_id']}: shard {j['donor_shard']} -> "
+                f"host {j['recipient_host']}, {j['phase']}, "
+                f"{j['bytes_moved'] / 2**20:.1f} MiB moved, "
+                f"{j['replayed']} WAL records caught up]"]
 
     def heat_report(self, k: int | None = None) -> dict:
         """The aggregated per-shard heat view: load CDFs, latency CDFs,

@@ -96,13 +96,14 @@ The distributed engine, as in the JAX proxy: ``dist_engine`` (a
 ``parallel.DistEngine`` over the same world's partitions) serves
 ``device="dist"`` (the console's ``-d dist``); a shape it refuses up
 front (UNSUPPORTED_SHAPE) runs again on the host engine. Its sharded store
-is attached to the placement advisor and to ``/healthz`` (a ``shards``
-probe, through a weakref), its per-shard breaker to the monitor; ``load
--d``, stream epochs and restores reach every shard (and replica), and drop
-the engine's learned chain capacities. ``wcoj_dist()`` is the
-distributed join over the shards. A dist engine with
-``replication_factor`` > 1 raises: shard healing is not ported (ROADMAP
-§A 7b).
+is attached to the migration actuator (runtime/migration.py), the placement
+advisor and ``/healthz`` (a ``shards`` probe, through a weakref), its
+per-shard breaker to the monitor; ``load -d``, stream epochs and restores
+reach every shard (and replica), and drop the engine's learned chain
+capacities. With ``replication_factor`` > 1 the recovery manager's heal
+watcher starts with the proxy: a primary served by its replica is rebuilt
+and promoted on the engine pool's ``rebuild`` lane. ``wcoj_dist()`` is the
+distributed join over the shards.
 """
 
 from __future__ import annotations
@@ -204,13 +205,6 @@ class Proxy:
     def __init__(self, gstore, str_server, device="cuda",
                  budget_bytes: int | None = None, planner=None,
                  dist_engine=None):
-        if dist_engine is not None and max(
-                Global.replication_factor,
-                dist_engine.sstore.replication_factor) > 1:
-            raise WukongError(
-                ErrorCode.UNSUPPORTED_SHAPE,
-                "replication_factor > 1 needs shard healing, which is not "
-                "ported (ROADMAP §A 7b)")
         self.g = gstore
         self.str_server = str_server
         self.dist = dist_engine
@@ -301,7 +295,12 @@ class Proxy:
         self._reject_slots: dict = {}  # guarded by: _reject_lock
         self._reject_lock = make_lock("proxy.reject_pace")
         self._stream = None  # the StreamContext, built on first use
-        if Global.checkpoint_interval_s > 0 and Global.checkpoint_dir:
+        # the recovery manager (checkpoint/restore + shard healing) starts
+        # its threads only when the knobs ask for them: the periodic
+        # checkpointer, and the heal watcher over a dist engine's replicas
+        if (Global.checkpoint_interval_s > 0 and Global.checkpoint_dir) or (
+                dist_engine is not None
+                and dist_engine.sstore.replication_factor > 1):
             self.recovery().start()
         # the metrics scrape endpoint (metrics_port; no-op when 0) and the
         # metrics time-series sampler (enable_tsdb); both idempotent per
@@ -321,16 +320,21 @@ class Proxy:
         get_serve().attach(self.g, self.str_server, device=device)
 
     def _attach_sharded(self, sstore) -> None:
-        """Attach the sharded store to the observability plane: the
-        placement advisor (its loop starts when placement_interval_s asks;
-        the migration actuator the JAX proxy tries first is not ported),
-        the /healthz ``shards`` probe, and the monitor's breaker line."""
+        """Attach the sharded store to the control and observability
+        planes: the migration actuator (attached either way, so the
+        ``migrate`` verb works on demand; when its loop runs —
+        migration_enable and placement_interval_s — it sweeps the advisor
+        itself, so the observe-only loop is skipped: one sweeper, not
+        two), else the placement advisor, the /healthz ``shards`` probe,
+        and the monitor's breaker line."""
         import weakref
 
         from wukong_tpu_torch.obs.httpd import register_health_source
         from wukong_tpu_torch.obs.placement import maybe_start_advisor
+        from wukong_tpu_torch.runtime.migration import maybe_start_migration
 
-        maybe_start_advisor(sstore)
+        if maybe_start_migration(sstore, owner=self) is None:
+            maybe_start_advisor(sstore)
         # the probe holds the store through a weakref: the registry is
         # process-global, and a strong capture would keep a retired
         # world's degraded set driving readiness after its store died
@@ -1517,8 +1521,9 @@ class Proxy:
         return targets
 
     def recovery(self):
-        """Lazily-assembled RecoveryManager over this proxy's store and
-        stream context."""
+        """Lazily-assembled RecoveryManager over this proxy's stores,
+        stream context, sharded store and engine pool (whose rebuild lane
+        heals shards in the background)."""
         if self._recovery is None:  # unguarded: double-checked fast path — an atomic reference read; construction is serialized below
             with self._recovery_init_lock:
                 if self._recovery is None:
@@ -1530,13 +1535,15 @@ class Proxy:
                         self._checkpoint_targets,
                         stream=self.stream_context(),
                         sstore=getattr(self.dist, "sstore", None),
+                        pool=lambda: self._pool,
                         on_change=self._on_store_change)
         return self._recovery  # unguarded: write-once reference, non-None past init
 
     def _on_store_change(self) -> None:
-        """Restore invalidation: exactly the dynamic-insert contract —
-        cached plans must re-derive (the device caches follow the store
-        version, which a restore bumps)."""
+        """Restore, rebuild and cutover invalidation: exactly the
+        dynamic-insert contract — cached plans must re-derive (the device
+        caches follow the store version, which a restore bumps; a rebuild
+        or a cutover drops the sharded store's stagings itself)."""
         self._dist_check_version()
         self._plan_cache.clear()
 

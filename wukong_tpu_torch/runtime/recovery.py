@@ -1,4 +1,4 @@
-"""Recovery manager: crash-consistent checkpoint/restore of one partition.
+"""Recovery manager: crash-consistent checkpoint/restore + shard healing.
 
 - :meth:`RecoveryManager.checkpoint` — write one atomic checkpoint bundle:
   every partition (base + materialized dynamic deltas, versioned +
@@ -10,30 +10,35 @@
   the WAL tail through the normal mutation path (suppressed re-logging) to
   a byte-identical store. A torn WAL tail (the unacknowledged batch) is
   dropped — exactly the acknowledged-write contract.
-- :meth:`start` / :meth:`stop` — the periodic checkpointer
+- :meth:`RecoveryManager.heal_once` / :meth:`start` — runtime healing: the
+  watcher observes ``failover_shards`` / ``degraded_shards`` / tripped
+  breakers on the sharded store and rebuilds the failed primary (from its
+  replica, else from checkpoint + WAL), then promotes it and closes the
+  breaker. Rebuilds ride the engine pool's ``rebuild`` lane when a pool is
+  running, so healing soaks idle capacity instead of displacing
+  interactive queries. :meth:`start` also runs the periodic checkpointer
   (``checkpoint_interval_s``).
 
-Consistency note: checkpoint serialization holds the WAL *mutation lock*
-(store/wal.py), so every batch commit is either fully inside the bundle
-(seq <= the manifest's ``wal_seq``) or fully after it (replayed on
-restore) — never half-captured. Writes pause for the checkpoint window;
-reads are unaffected.
+Consistency note: checkpoint serialization and shard rebuilds hold the WAL
+*mutation lock* (store/wal.py), so every batch commit is either fully
+inside the bundle (seq <= the manifest's ``wal_seq``) or fully after it
+(replayed on restore) — never half-captured — and a batch never lands only
+in a primary that a rebuild is about to replace. Writes pause for the
+window; reads are unaffected.
 
-The port's copy of the JAX package's runtime/recovery.py for one host
-partition: the same bundle layout and manifest (a checkpoint or WAL
-directory written by either package recovers in the other), the same
-``checkpoint.write`` fault site, events and metrics. With a stream context
-(stream/), a bundle also holds the standing-query registry and the epoch
-counter (``stream.pkl``, CRC-checked in the manifest), and the WAL's
-``epoch`` records replay through the context, re-evaluating the standing
-queries. A restore purges the result cache and the shadow cache
-(``notify_mutation`` / ``maybe_note_invalidation``, cause ``restore``).
-With a sharded store (``sstore``, parallel/sharded_store.py), the
-checkpoint holds every shard, WAL replay reaches the shards' replicas too,
-and a restore re-clones the replicas from the restored primaries. Shard
-healing (the heal watcher, ``heal_once``, rebuilds from a replica or a
-checkpoint on the pool's ``rebuild`` lane) is not ported yet (ROADMAP §A
-7b).
+The port's copy of the JAX package's runtime/recovery.py: the same bundle
+layout and manifest (a checkpoint or WAL directory written by either
+package recovers in the other), the same ``checkpoint.write`` fault site,
+events and metrics. With a stream context (stream/), a bundle also holds
+the standing-query registry and the epoch counter (``stream.pkl``,
+CRC-checked in the manifest), and the WAL's ``epoch`` records replay
+through the context, re-evaluating the standing queries. A restore purges
+the result cache and the shadow cache (``notify_mutation`` /
+``maybe_note_invalidation``, cause ``restore``). With a sharded store
+(``sstore``, parallel/sharded_store.py), the checkpoint holds every shard,
+WAL replay reaches the shards' replicas too, and a restore re-clones the
+replicas from the restored primaries. A promoted shard drops every staging
+of the sharded store, so the next query restages from the healed primary.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ from wukong_tpu_torch.utils.errors import (
 from wukong_tpu_torch.utils.logger import log_error, log_info, log_warn
 
 MANIFEST_VERSION = (1, 0)
+HEAL_BACKOFF_S = 2.0  # min spacing between rebuild attempts per shard
 # checkpoints retained on disk. The WAL is truncated behind the OLDEST
 # retained bundle, not the newest — recover() falls back to an older
 # bundle when the newest is corrupt, and that fallback is only sound if
@@ -108,21 +114,35 @@ class RecoveryManager:
     ``stores`` are the checkpointed partitions (or a zero-arg callable
     returning the current ones); ``stream`` is the StreamContext whose
     registry and epoch ride in each bundle (None: none is written);
-    ``on_change`` runs after any restore so the owner can drop derived
-    caches (plan cache, learned chain capacities); ``sstore`` is the
-    sharded store whose replicas mirror the primaries (its heal watcher
-    is not ported).
+    ``sstore`` is the sharded store watched for failed shards, whose
+    replicas mirror the primaries; ``pool`` is a zero-arg callable
+    returning the engine pool (or None) for background rebuilds;
+    ``on_change`` runs after any restore or rebuild so the owner can drop
+    derived caches (plan cache, learned chain capacities, stream insert
+    targets).
     """
 
     def __init__(self, stores, stream=None, sstore=None,
-                 ckpt_dir: str | None = None, on_change=None):
+                 ckpt_dir: str | None = None, pool=None, on_change=None):
         self.stream = stream
         self.sstore = sstore
         self._stores_src = stores
         # an explicit ckpt_dir pins; otherwise the runtime-mutable knob is
         # read at use time (the console can set it after the proxy booted)
         self._ckpt_dir_override = ckpt_dir
+        self.pool = pool or (lambda: None)
         self.on_change = on_change
+        # heal bookkeeping is shared between the background watcher, the
+        # console/drill thread, and the pool engine running a RebuildJob —
+        # the claim (inflight check + backoff check + attempt stamp) must
+        # be one atomic step or two sweeps double-queue a shard's rebuild
+        self._heal_lock = make_lock("recovery.heal")
+        self._heal_attempts: dict[int, float] = {}  # guarded by: _heal_lock
+        # shards with a rebuild queued/running on the pool's rebuild lane:
+        # the lane drains only when every other lane is empty, so without
+        # this the watcher would enqueue a duplicate job per sweep while
+        # one waits out a busy pool
+        self._heal_inflight: set[int] = set()  # guarded by: _heal_lock
         self._lock = make_lock("recovery.ckpt")
         self._stop = threading.Event()
         self._threads: list[threading.Thread] = []  # lock-free: start()/stop() are operator-thread only
@@ -427,13 +447,140 @@ class RecoveryManager:
                        **stats["replayed"])
 
     # ------------------------------------------------------------------
-    # the periodic checkpointer
+    # runtime healing
     # ------------------------------------------------------------------
-    def start(self) -> None:
-        """Launch the periodic checkpointer when checkpoint_interval_s asks
-        for one. Idempotent; the thread is a daemon."""
+    def sick_shards(self) -> list[int]:
+        if self.sstore is None:
+            return []
+        ss = self.sstore
+        sick = set(ss.failover_shards) | set(ss.degraded_shards)
+        sick |= {k for k in ss.breaker.tripped_keys() if isinstance(k, int)}
+        return sorted(sick)
+
+    def heal_once(self, background: bool = False,
+                  force: bool = False) -> list[int]:
+        """One healing sweep: rebuild + promote every sick shard (rate
+        limited per shard by HEAL_BACKOFF_S unless ``force`` — the
+        explicit console/drill path must not be skipped just because the
+        background watcher attempted recently). With ``background`` and a
+        running pool, rebuilds ride the pool's rebuild lane; otherwise
+        they run inline. Returns the shards healed (inline mode)."""
+        healed = []
+        now = time.monotonic()
+        for i in self.sick_shards():
+            pool = self.pool() if background else None
+            with self._heal_lock:
+                # the whole claim is one atomic step: inflight check,
+                # backoff check, attempt stamp, and (background mode) the
+                # inflight mark — a concurrent sweep sees either nothing
+                # or a fully-claimed shard, never a half-claim
+                if i in self._heal_inflight:
+                    continue  # one queued/running rebuild per shard, ever
+                if not force and now - self._heal_attempts.get(
+                        i, -1e18) < HEAL_BACKOFF_S:
+                    continue
+                self._heal_attempts[i] = now
+                if pool is not None:
+                    self._heal_inflight.add(i)
+            if pool is not None:
+                def _job(i=i):
+                    try:
+                        self._rebuild_shard(i)
+                    finally:
+                        with self._heal_lock:
+                            self._heal_inflight.discard(i)
+
+                job = RebuildJob(_job, label=f"shard-{i}")
+                if pool.submit(job, lane="rebuild") == -1 and job.done.is_set():
+                    # dead pool settled it via fail_all without running
+                    with self._heal_lock:
+                        self._heal_inflight.discard(i)
+            elif self._rebuild_shard(i):
+                healed.append(i)
+        return healed
+
+    def _rebuild_shard(self, i: int) -> bool:
+        """Rebuild shard ``i``'s primary from its replica, else from the
+        newest checkpoint + WAL tail; promote on success. Runs under the
+        WAL mutation lock: a batch committing mid-rebuild would otherwise
+        land only in the OLD store objects (or tear the replica clone),
+        and the promoted primary would silently miss it."""
+        from wukong_tpu_torch.store.wal import mutation_lock
+
+        with mutation_lock():
+            return self._rebuild_shard_locked(i)
+
+    def _rebuild_shard_locked(self, i: int) -> bool:
+        from wukong_tpu_torch.store.dynamic import insert_triples
+
+        ss = self.sstore
+        if ss is None:
+            return False
+        if ss.rebuild_shard(i, source="replica"):
+            log_info(f"shard {i} rebuilt from replica and promoted")
+            emit_event("shard.heal", shard=int(i), source="replica")
+            self._after_rebuild()
+            return True
+        found = self.newest_checkpoint()
+        if found is None:
+            log_warn(f"shard {i} has no replica and no checkpoint — "
+                     "cannot rebuild")
+            return False
+        path, man = found
+        idx = next((j for j, p in enumerate(man["parts"])
+                    if p["sid"] == i and p["num_workers"] == ss.D), None)
+        if idx is None:
+            log_warn(f"shard {i}: no matching partition in {path}")
+            return False
+        try:
+            g_new = load_gstore(checkpoint_part_path(path, idx))
+        except WukongError as e:
+            log_error(f"shard {i}: checkpoint partition unreadable: {e}")
+            return False
+        wal = active_wal()
+        if wal is not None:
+            # direct per-partition inserts: no WAL hook fires here, so no
+            # suppress() — holding the process-wide suppression on this
+            # background thread would let concurrent LIVE commits skip
+            # their WAL appends (acknowledged-but-unlogged writes)
+            from wukong_tpu_torch.vector.vstore import apply_vector_record
+
+            for rec in wal.replay(after_seq=int(man["wal_seq"])):
+                if rec.kind == "vector":
+                    apply_vector_record(g_new, rec.payload)
+                else:
+                    insert_triples(g_new, rec.payload["triples"],
+                                   dedup=rec.payload["dedup"],
+                                   check_ids=False)
+        ss.rebuild_shard(i, store=g_new, source="checkpoint")
+        log_info(f"shard {i} rebuilt from {path} + WAL tail and promoted")
+        emit_event("shard.heal", shard=int(i), source="checkpoint")
+        self._after_rebuild()
+        return True
+
+    def _after_rebuild(self) -> None:
+        # a promoted primary is a NEW object: rebind the stream context's
+        # insert fan-out and let the owner drop derived caches
+        if self.stream is not None:
+            self.stream.ingestor.stores = self._mutation_targets()
+        if self.on_change is not None:
+            self.on_change()
+
+    # ------------------------------------------------------------------
+    # background threads
+    # ------------------------------------------------------------------
+    def start(self, watch_interval_s: float = 0.5) -> None:
+        """Launch the heal watcher (when a sharded store is attached) and
+        the periodic checkpointer (when checkpoint_interval_s asks for
+        one). Idempotent; both threads are daemons."""
         if self._threads:
             return
+        if self.sstore is not None:
+            t = threading.Thread(target=self._watch_loop,
+                                 args=(watch_interval_s,), daemon=True,
+                                 name="recovery-watcher")
+            t.start()
+            self._threads.append(t)
         if Global.checkpoint_interval_s > 0 and self.ckpt_dir:
             t = threading.Thread(target=self._checkpoint_loop, daemon=True,
                                  name="recovery-checkpointer")
@@ -446,6 +593,14 @@ class RecoveryManager:
             t.join(timeout=5)
         self._threads = []
         self._stop = threading.Event()
+
+    def _watch_loop(self, interval_s: float) -> None:
+        while not self._stop.wait(interval_s):
+            try:
+                if self.sick_shards():
+                    self.heal_once(background=True)
+            except Exception as e:  # the watcher must never die silently
+                log_error(f"recovery watcher: {e!r}")
 
     def _checkpoint_loop(self) -> None:
         while not self._stop.wait(max(Global.checkpoint_interval_s, 1)):

@@ -233,6 +233,12 @@ class CircuitBreaker:
     def tripped(self, key) -> bool:
         return self.state(key) != "closed"
 
+    def tripped_keys(self) -> list:
+        """Every key whose breaker is open or half-open (the heal
+        watcher's sick-shard signal)."""
+        with self._lock:
+            return [k for k, slot in self._st.items() if slot[1] is not None]
+
     def snapshot(self) -> dict:
         """Per key: state, consecutive failures, and the age of the most
         recent trip (None = never tripped)."""

@@ -45,8 +45,8 @@ delta query carrying ``owner_tenant`` rides the fair sub-lane at its
 owner's weight instead. Stream-lane completions are reserved for
 ``wait()`` and never returned by ``poll()``, so an open-loop ``poll()``
 consumer (the emulator) can share the pool with the stream context. The
-rebuild lane's producer, shard healing, is not ported yet (ROADMAP §A
-7b).
+rebuild lane's producer is shard healing (runtime/recovery.py
+``heal_once``).
 """
 
 from __future__ import annotations

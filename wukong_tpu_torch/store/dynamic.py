@@ -22,8 +22,9 @@ in ``_mat``: without it a serving thread's merge could clear a batch that an
 insert appended after the merge took its snapshot (ROADMAP §C). A batch's
 version edge goes to the serving plane (``notify_mutation``, inside the
 mutation lock) and to the reuse observatory (``maybe_note_invalidation``,
-which journals ``cache.invalidate``), as in the JAX package. The migration
-dual-write sinks wait for the migration actuator (ROADMAP §A 7b).
+which journals ``cache.invalidate``), as in the JAX package. An in-flight
+shard migration's recipient is a dual-write sink (``enroll_migration_sink``,
+runtime/migration.py): every committed batch reaches it too.
 """
 
 from __future__ import annotations
@@ -293,6 +294,33 @@ def load_dir_into(stores: list[GStore], dirname: str, dedup: bool = True) -> int
     return insert_batch_into(stores, triples, dedup)
 
 
+# ---------------------------------------------------------------------------
+# migration dual-write sinks (runtime/migration.py)
+# ---------------------------------------------------------------------------
+# In-flight shard-migration recipients that must observe every committed
+# mutation between catch-up and cutover. Enroll/deroll run under the WAL
+# mutation lock (the migration executor's catch-up/cutover critical
+# sections), and every consulting write path — insert_batch_into below,
+# StreamIngestor.commit_epoch, upsert_batch_into — reads the dict INSIDE the
+# same lock, so an enrolled recipient can never miss, or double-observe, a
+# committed batch.
+_MIGRATION_SINKS: dict = {}  # guarded by: mutation_lock()
+
+
+def enroll_migration_sink(key, store) -> None:  # caller holds: mutation_lock()
+    _MIGRATION_SINKS[key] = store
+
+
+def deroll_migration_sink(key) -> None:  # caller holds: mutation_lock()
+    _MIGRATION_SINKS.pop(key, None)
+
+
+def migration_sinks() -> list:  # caller holds: mutation_lock()
+    """The current dual-write targets (empty list when no migration is in
+    flight — the common case pays one dict check per batch)."""
+    return list(_MIGRATION_SINKS.values())
+
+
 def insert_batch_into(stores: list[GStore], triples: np.ndarray,
                       dedup: bool = True) -> int:
     """One durable batch insert into every partition: the WAL append hook
@@ -309,6 +337,12 @@ def insert_batch_into(stores: list[GStore], triples: np.ndarray,
         total = 0
         for g in stores:
             total += insert_triples(g, triples, dedup, check_ids=False)
+        # dual-write: an in-flight migration's recipient mirrors the batch
+        # (each sink hashes out its own shard's rows). Excluded from the
+        # returned total: the sink is a transient mirror of a store already
+        # counted
+        for g in migration_sinks():
+            insert_triples(g, triples, dedup, check_ids=False)
         # the serving plane's edge: INSIDE the mutation lock, so view
         # maintenance re-keys surviving cache entries atomically with the
         # version bump. One knob check when the result cache is off.

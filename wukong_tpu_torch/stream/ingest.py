@@ -14,9 +14,9 @@ replays safely); the store-level insert exposes its own ``dynamic.insert``
 site (store/dynamic.py). Non-dedup ingest does NOT retry — a replayed batch
 would double-append — so transients there surface to the caller.
 
-The port's copy of the JAX package's stream/ingest.py on one partition:
-the migration dual-write sinks an epoch also reaches in the JAX package
-wait for the migration actuator (ROADMAP §A 7b).
+The port's copy of the JAX package's stream/ingest.py: an epoch committed
+during a shard migration's dual-write window also reaches the recipient
+(store/dynamic.py ``migration_sinks``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import numpy as np
 from wukong_tpu_torch.obs.metrics import get_registry
 from wukong_tpu_torch.obs.recorder import get_recorder
 from wukong_tpu_torch.obs.trace import activate, maybe_start_trace
-from wukong_tpu_torch.store.dynamic import insert_triples
+from wukong_tpu_torch.store.dynamic import insert_triples, migration_sinks
 from wukong_tpu_torch.utils.errors import ErrorCode, WukongError
 from wukong_tpu_torch.utils.timer import get_usec
 
@@ -227,6 +227,14 @@ class StreamIngestor:
             for g in self.stores:
                 inserted[0] += insert_triples(g, triples, dedup=self.dedup,
                                               check_ids=False)
+            # migration_sinks() read under the mutation lock this commit
+            # holds: an epoch committed during a shard migration's
+            # dual-write window reaches the recipient too (no epoch
+            # lost). Excluded from the inserted count — the sink is a
+            # transient mirror of a store already counted
+            for g in migration_sinks():
+                insert_triples(g, triples, dedup=self.dedup,
+                               check_ids=False)
             return inserted[0]
 
         with mutation_lock(), activate(trace):

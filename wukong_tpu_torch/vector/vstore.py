@@ -26,9 +26,9 @@ upserts. It mirrors the triple store's disciplines:
 
 The port's copy of the JAX package's vector/vstore.py. A batch's version
 edge goes to the serving plane (``notify_mutation``) and the reuse
-observatory (``maybe_note_invalidation``), as ``insert_batch_into``'s does;
-the migration dual-write sinks wait for the migration actuator (ROADMAP §A
-7b).
+observatory (``maybe_note_invalidation``), as ``insert_batch_into``'s does,
+and an in-flight shard migration's recipient mirrors the batch through its
+dual-write sink (store/dynamic.py ``migration_sinks``).
 """
 
 from __future__ import annotations
@@ -321,12 +321,14 @@ def upsert_batch_into(stores: list, vids, vecs=None, dedup: bool = True,
     BEFORE the WAL append, so an injected failure leaves the WAL and
     every vstore untouched (the batch was never acknowledged); the WAL
     append fires before any store mutates, so an acknowledged batch is
-    always replayable. The serving plane's invalidation edge lands INSIDE
+    always replayable. In-flight migrations see the batch through their
+    dual-write sinks. The serving plane's invalidation edge lands INSIDE
     the mutation lock (the insert-batch contract); the observatory's
     outside it."""
     from wukong_tpu_torch.obs.reuse import maybe_note_invalidation
     from wukong_tpu_torch.runtime import faults
     from wukong_tpu_torch.serve import notify_mutation
+    from wukong_tpu_torch.store.dynamic import migration_sinks
     from wukong_tpu_torch.store.wal import maybe_wal_append, mutation_lock
 
     vids = np.asarray(vids, dtype=np.int64).ravel()
@@ -354,6 +356,11 @@ def upsert_batch_into(stores: list, vids, vecs=None, dedup: bool = True,
         total = 0
         for g in stores:
             total += _apply_to_store(g, vids, vecs_arr, tombstone, dim)
+        # dual-write: an in-flight migration's recipient mirrors the
+        # batch (excluded from the total — the sink is a transient
+        # mirror of a store already counted)
+        for g in migration_sinks():
+            _apply_to_store(g, vids, vecs_arr, tombstone, dim)
         if stores:
             notify_mutation("vector",
                             version=getattr(stores[0], "version", 0))
